@@ -1,0 +1,262 @@
+"""ResNet V1 for the model zoo (counterpart of
+mxnet_tpu/gluon/model_zoo/vision/resnet.py).
+
+``layout="NHWC"`` builds the channels-last variant: the public API still
+takes NCHW batches (one boundary transpose) and weights stay OIHW, while
+every conv, BatchNorm and pool runs channels-last. ``fuse=True`` (NHWC
+only) routes each residual block's BN->ReLU->3x3-conv link through the
+hand-written kernel of ``kernels/conv_fused.py``: the BatchNorm's running
+statistics are folded into a per-channel scale and bias, and the kernel
+applies them with the ReLU while loading its input. ``fuse="auto"`` does
+so only where the 3x3 conv is at least 512 channels wide, the JAX
+package's policy.
+
+V2 (pre-activation) networks are not ported yet.
+"""
+from __future__ import annotations
+
+from ... import nn
+from ...block import HybridBlock
+from ....base import MXNetError
+
+__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "get_resnet",
+           "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
+           "resnet152_v1"]
+
+
+def _bn_axis(layout):
+    return -1 if layout == "NHWC" else 1
+
+
+def _conv3x3(channels, stride, in_channels, layout="NCHW"):
+    return nn.Conv2D(channels, kernel_size=3, strides=stride, padding=1,
+                     use_bias=False, in_channels=in_channels, layout=layout)
+
+
+# -- fused BN->ReLU->conv3x3 link (fuse=True, NHWC only) ---------------------
+# A private OpDef kept out of the global registry, invoked through the F
+# namespace's dispatch point like any op. The training-mode BN fold (batch
+# statistics) arrives with the training slice.
+_FUSED_CONV_OP = None
+
+
+def _fused_conv_opdef():
+    global _FUSED_CONV_OP
+    if _FUSED_CONV_OP is None:
+        from ....ops.registry import OpDef
+        from ....kernels.conv_fused import fused_scale_relu_conv3x3
+
+        def _fused_conv(x, s, b, w, relu=True):
+            w_hwio = w.permute(2, 3, 1, 0)           # OIHW -> HWIO
+            return fused_scale_relu_conv3x3(x.contiguous(), s, b, w_hwio,
+                                            relu=relu)
+
+        _FUSED_CONV_OP = OpDef("_fused_scale_relu_conv3x3", _fused_conv)
+    return _FUSED_CONV_OP
+
+
+def _fused_producer_conv(bn, conv, y, F):
+    """y -> conv3x3(relu(bn(y))) with the normalize/ReLU chain applied by
+    the fused kernel; ``bn`` uses its running statistics."""
+    from .... import autograd
+    from ....ndarray.register import invoke
+
+    if autograd.is_training() and not bn._use_global_stats:
+        raise NotImplementedError(
+            "fused ResNet blocks in training mode are not ported yet; run "
+            "under autograd.predict_mode() or build with fuse=False")
+    if bn.gamma._data is None:
+        bn._infer_param_shapes(y)
+    gamma, beta = bn.gamma.data(), bn.beta.data()
+    if not bn._scale:
+        # BatchNorm's fix_gamma (= not scale) replaces gamma with ones
+        gamma = F.ones_like(gamma)
+    rm = F.cast(bn.running_mean.data(), "float32")
+    rv = F.cast(bn.running_var.data(), "float32")
+    s = F.cast(gamma, "float32") * F.rsqrt(rv + bn._eps)
+    b = F.cast(beta, "float32") - rm * s
+    return invoke(_fused_conv_opdef(), (y, s, b, conv.weight.data()),
+                  {"relu": True})
+
+
+class BasicBlockV1(HybridBlock):
+    """Two 3x3 convs, post-activation residual unit. ``fuse=True`` routes
+    the BN->ReLU->second-conv link through the fused kernel."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", fuse=False, **kwargs):
+        super().__init__(**kwargs)
+        self._fuse = fuse
+        ax = _bn_axis(layout)
+        self.body = nn.HybridSequential(prefix="")
+        self.body.add(_conv3x3(channels, stride, in_channels, layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        self.body.add(nn.Activation("relu"))
+        self.body.add(_conv3x3(channels, 1, channels, layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        if downsample:
+            self.downsample = nn.HybridSequential(prefix="")
+            self.downsample.add(nn.Conv2D(channels, kernel_size=1,
+                                          strides=stride, use_bias=False,
+                                          in_channels=in_channels,
+                                          layout=layout))
+            self.downsample.add(nn.BatchNorm(axis=ax))
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        if self._fuse:
+            y = self.body[0](x)
+            y = _fused_producer_conv(self.body[1], self.body[3], y, F)
+            x = self.body[4](y)
+        else:
+            x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(x + residual, act_type="relu")
+
+
+class BottleneckV1(HybridBlock):
+    """1x1 -> 3x3 -> 1x1 bottleneck, post-activation. The stride sits on
+    the first 1x1, so the 3x3 is stride 1 -- the fused kernel's domain."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", fuse=False, **kwargs):
+        super().__init__(**kwargs)
+        self._fuse = fuse
+        ax = _bn_axis(layout)
+        self.body = nn.HybridSequential(prefix="")
+        self.body.add(nn.Conv2D(channels // 4, kernel_size=1, strides=stride,
+                                use_bias=False, layout=layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        self.body.add(nn.Activation("relu"))
+        self.body.add(_conv3x3(channels // 4, 1, channels // 4, layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        self.body.add(nn.Activation("relu"))
+        self.body.add(nn.Conv2D(channels, kernel_size=1, strides=1,
+                                use_bias=False, layout=layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        if downsample:
+            self.downsample = nn.HybridSequential(prefix="")
+            self.downsample.add(nn.Conv2D(channels, kernel_size=1,
+                                          strides=stride, use_bias=False,
+                                          in_channels=in_channels,
+                                          layout=layout))
+            self.downsample.add(nn.BatchNorm(axis=ax))
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        if self._fuse:
+            y = self.body[0](x)                       # 1x1 (stride)
+            y = _fused_producer_conv(self.body[1], self.body[3], y, F)
+            for i in (4, 5, 6, 7):                    # bn, relu, 1x1, bn
+                y = self.body[i](y)
+            x = y
+        else:
+            x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(x + residual, act_type="relu")
+
+
+class ResNetV1(HybridBlock):
+    """Post-activation ResNet. ``layout="NHWC"`` runs channels-last behind
+    an NCHW public input; ``fuse`` is True, False or "auto"."""
+
+    def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
+                 layout="NCHW", fuse=False, **kwargs):
+        super().__init__(**kwargs)
+        assert len(layers) == len(channels) - 1
+        if fuse and layout != "NHWC":
+            raise ValueError("fuse=True requires layout='NHWC' (the fused "
+                             "conv kernel is channels-last)")
+        self._layout = layout
+        ax = _bn_axis(layout)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0, layout))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False, layout=layout))
+                self.features.add(nn.BatchNorm(axis=ax))
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(self._make_layer(
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    in_channels=channels[i], layout=layout, fuse=fuse))
+            self.features.add(nn.GlobalAvgPool2D(layout=layout))
+            self.output = nn.Dense(classes, in_units=channels[-1])
+
+    def _make_layer(self, block, layers, channels, stride, stage_index,
+                    in_channels=0, layout="NCHW", fuse=False):
+        # fuse="auto": the fused kernel only where the 3x3 is >= 512 wide
+        # (channels//4 in bottlenecks, channels in basic blocks)
+        width3x3 = channels // 4 if block is BottleneckV1 else channels
+        block_fuse = bool(fuse) if fuse != "auto" else width3x3 >= 512
+        layer = nn.HybridSequential(prefix="stage%d_" % stage_index)
+        with layer.name_scope():
+            layer.add(block(channels, stride, channels != in_channels,
+                            in_channels=in_channels, layout=layout,
+                            fuse=block_fuse, prefix=""))
+            for _ in range(layers - 1):
+                layer.add(block(channels, 1, False, in_channels=channels,
+                                layout=layout, fuse=block_fuse, prefix=""))
+        return layer
+
+    def hybrid_forward(self, F, x):
+        if self._layout == "NHWC":
+            x = F.transpose(x, axes=(0, 2, 3, 1))
+        x = self.features(x)
+        return self.output(x)
+
+
+# num_layers -> (block type, per-stage depths, channels)
+resnet_spec = {
+    18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
+    34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
+    50: ("bottle_neck", [3, 4, 6, 3], [64, 256, 512, 1024, 2048]),
+    101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
+    152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
+}
+_BLOCKS = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+
+
+def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
+               **kwargs):
+    """Build a ResNet V1 (random weights; no pretrained downloads)."""
+    if pretrained:
+        raise MXNetError("pretrained weights are not available offline; "
+                         "load weights with convert.load_numpy_params")
+    if version != 1:
+        raise NotImplementedError("ResNet V2 is not ported yet")
+    if num_layers not in resnet_spec:
+        raise ValueError("invalid resnet depth %d; options: %s"
+                         % (num_layers, sorted(resnet_spec)))
+    block_type, layers, channels = resnet_spec[num_layers]
+    return ResNetV1(_BLOCKS[block_type], layers, channels, **kwargs)
+
+
+def resnet18_v1(**kwargs):
+    return get_resnet(1, 18, **kwargs)
+
+
+def resnet34_v1(**kwargs):
+    return get_resnet(1, 34, **kwargs)
+
+
+def resnet50_v1(**kwargs):
+    return get_resnet(1, 50, **kwargs)
+
+
+def resnet101_v1(**kwargs):
+    return get_resnet(1, 101, **kwargs)
+
+
+def resnet152_v1(**kwargs):
+    return get_resnet(1, 152, **kwargs)

@@ -1,0 +1,241 @@
+"""Parameter and ParameterDict (counterpart of mxnet_tpu/gluon/parameter.py).
+
+A ``Parameter`` keeps the MXNet surface (name, shape, dtype, init,
+deferred shape inference) over one tensor. Once assigned to a Block it
+stores that tensor in the block's own torch registries: a trainable
+parameter as an ``nn.Parameter`` in ``_parameters``, an auxiliary state
+such as BatchNorm's running statistics (``differentiable=False``) as a
+buffer in ``_buffers``. ``state_dict()``, ``named_parameters()`` and
+``Module.to`` therefore see them under the structural names
+("features.5.0.body.3.weight") that ``_collect_params_with_prefix`` uses.
+"""
+from __future__ import annotations
+
+import numpy as _np
+import torch
+
+from .. import initializer as _initializer
+from ..base import MXNetError, canonical_dtype
+from ..context import as_device, current_context
+
+__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
+
+
+class DeferredInitializationError(MXNetError):
+    """The parameter's shape is not known until the first forward."""
+
+
+def _first(ctx):
+    if isinstance(ctx, (list, tuple)):
+        return ctx[0] if ctx else None
+    return ctx
+
+
+class Parameter:
+    def __init__(self, name, grad_req="write", shape=None, dtype="float32",
+                 init=None, allow_deferred_init=False, differentiable=True):
+        self.name = name
+        self._differentiable = differentiable
+        self._grad_req = grad_req if differentiable else "null"
+        if isinstance(shape, int):
+            shape = (shape,)
+        self.shape = tuple(shape) if shape is not None else None
+        self.dtype = canonical_dtype(dtype)
+        self.init = init
+        self.allow_deferred_init = allow_deferred_init
+        self._own = None            # the tensor while no Block owns it
+        self._owner = None          # (block, attribute name)
+        self._deferred_init = None  # (init, device, default_init)
+
+    # -- storage ------------------------------------------------------------
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    def _registry(self):
+        mod = self._owner[0]
+        return mod._parameters if self._differentiable else mod._buffers
+
+    @property
+    def _data(self):
+        if self._owner is None:
+            return self._own
+        return self._registry().get(self._owner[1])
+
+    def _store(self, t):
+        t = t.detach()
+        if self._differentiable:
+            t = torch.nn.Parameter(t, requires_grad=self._grad_req != "null")
+        if self._owner is None:
+            self._own = t
+        else:
+            self._registry()[self._owner[1]] = t
+        self.shape = tuple(t.shape)
+
+    def _attach(self, block, attr):
+        """Make ``block.<attr>`` this parameter's home in torch's
+        registries."""
+        t = self._data
+        self._owner = (block, attr)
+        if t is not None:
+            self._store(t)
+
+    # -- init ---------------------------------------------------------------
+    def _shape_known(self):
+        return self.shape is not None and all(s > 0 for s in self.shape)
+
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False):
+        if self._data is not None and not force_reinit:
+            return
+        device = as_device(_first(ctx))
+        default_init = default_init or _initializer.Uniform()
+        if not self._shape_known():
+            if self.allow_deferred_init:
+                self._deferred_init = (init, device, default_init)
+                return
+            raise ValueError(
+                "Cannot initialize Parameter '%s' because it has invalid "
+                "shape %s and deferred init is not allowed."
+                % (self.name, self.shape))
+        self._finish_init(init, device, default_init)
+
+    def _finish_init(self, init, device, default_init):
+        specific = init if init is not None else self.init
+        chosen = _initializer.get(specific if specific is not None
+                                  else default_init)
+        self._store(_initializer.fill(chosen, self.name, self.shape,
+                                      self.dtype, device,
+                                      specific=specific is not None))
+        self._deferred_init = None
+
+    def _finish_deferred_init(self, shape):
+        if self._deferred_init is None:
+            raise DeferredInitializationError(
+                "Parameter '%s' has not been initialized" % self.name)
+        self.shape = tuple(shape)
+        init, device, default_init = self._deferred_init
+        self._finish_init(init, device, default_init)
+
+    # -- access -------------------------------------------------------------
+    def data(self, ctx=None):
+        t = self._data
+        if t is None:
+            if self._deferred_init is not None:
+                raise DeferredInitializationError(
+                    "Parameter '%s' deferred; run a forward pass or set "
+                    "shape first" % self.name)
+            raise MXNetError("Parameter '%s' has not been initialized. "
+                             "Call initialize()" % self.name)
+        return t
+
+    def set_data(self, data):
+        """Write ``data`` (a tensor or numpy array) into the parameter,
+        cast to its dtype, on its device (for a parameter that has none
+        yet: the device its initialize() chose, else the current
+        context's). Raises on a shape that disagrees with a known dim."""
+        if isinstance(data, _np.ndarray):
+            data = torch.from_numpy(_np.ascontiguousarray(data))
+        if self.shape is not None and (
+                len(self.shape) != data.dim()
+                or any(s > 0 and s != d
+                       for s, d in zip(self.shape, data.shape))):
+            raise ValueError(
+                "Parameter %r: cannot set data of shape %s on declared "
+                "shape %s" % (self.name, tuple(data.shape), self.shape))
+        cur = self._data
+        if cur is not None and tuple(cur.shape) == tuple(data.shape):
+            with torch.no_grad():
+                cur.copy_(data)
+            return
+        if cur is not None:
+            device = cur.device
+        elif self._deferred_init is not None:
+            device = self._deferred_init[1]
+        else:
+            device = current_context().device
+        self._store(data.to(device=device, dtype=self.dtype))
+        self._deferred_init = None
+
+    def cast(self, dtype):
+        self.dtype = canonical_dtype(dtype)
+        if self._data is not None:
+            self._store(self._data.to(self.dtype))
+
+    def __repr__(self):
+        return "Parameter %s (shape=%s, dtype=%s)" % (
+            self.name, self.shape, str(self.dtype).replace("torch.", ""))
+
+
+class ParameterDict:
+    """Name -> Parameter, with a prefix (MXNet's ParameterDict)."""
+
+    def __init__(self, prefix="", shared=None):
+        self._prefix = prefix
+        self._params = {}
+        self._shared = shared
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    def __iter__(self):
+        return iter(self._params)
+
+    def __len__(self):
+        return len(self._params)
+
+    def items(self):
+        return self._params.items()
+
+    def keys(self):
+        return self._params.keys()
+
+    def values(self):
+        return self._params.values()
+
+    def __contains__(self, name):
+        return name in self._params
+
+    def __getitem__(self, name):
+        return self._params[name]
+
+    def get(self, name, **kwargs):
+        """Create-or-retrieve ``prefix + name``."""
+        full = self._prefix + name
+        param = self._get_impl(full)
+        if param is None:
+            param = Parameter(full, **kwargs)
+            self._params[full] = param
+        elif kwargs.get("shape") is not None and not param._shape_known():
+            shape = kwargs["shape"]
+            param.shape = (shape,) if isinstance(shape, int) \
+                else tuple(shape)
+        return param
+
+    def _get_impl(self, full):
+        if full in self._params:
+            return self._params[full]
+        if self._shared is not None and full in self._shared:
+            self._params[full] = self._shared[full]
+            return self._params[full]
+        return None
+
+    def update(self, other):
+        for k, v in other.items():
+            if k in self._params and self._params[k] is not v:
+                raise ValueError("duplicate parameter name %r" % k)
+            self._params[k] = v
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        """Initialize every parameter on ``ctx`` (default: the current
+        context, ``gpu(0)`` unless a ``with ctx:`` says otherwise; raises
+        with no CUDA device)."""
+        device = as_device(_first(ctx))
+        for p in self._params.values():
+            p.initialize(init=None, ctx=device, default_init=init,
+                         force_reinit=force_reinit)
+
+    def __repr__(self):
+        return "ParameterDict(%s)" % ", ".join(self._params)

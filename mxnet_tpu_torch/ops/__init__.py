@@ -1,0 +1,4 @@
+"""Registered ops of the port; importing this package fills the
+registry."""
+from . import registry  # noqa: F401
+from . import nn, tensor, elemwise  # noqa: F401

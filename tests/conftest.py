@@ -66,3 +66,6 @@ def pytest_configure(config):
         "steps, subprocess clusters, full registry sweeps, JPEG "
         "pipelines); always run by default — `-m 'not slow'` is the "
         "quick lane")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the PyTorch port's kernels); "
+        "skips inside the test where none is present")
