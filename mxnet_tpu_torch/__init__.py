@@ -7,19 +7,24 @@ CUDA device is present. Kernels of the JAX package written in Pallas for
 the TPU are hand-written CUDA kernels here (``kernels/``, ``csrc/``),
 built with nvcc at first use.
 
-The ported slice is ResNet V1 inference: contexts, the op namespace,
-Gluon blocks and layers, the model-zoo ResNets with the fused
-BN->ReLU->conv3x3 kernel, and weight loading (``convert``).
+The ported slices are ResNet V1 inference and its training step: contexts,
+the op namespace, autograd recording, Gluon blocks, layers and losses, the
+model-zoo ResNets (with the fused BN->ReLU->conv3x3 kernel for serving and
+the fused training-mode BatchNorm kernels), the SGD optimizer and
+``gluon.Trainer``, the matmul precision policy, and weight loading
+(``convert``).
 """
 from . import base
 from .base import MXNetError
 from . import context
 from .context import Context, cpu, gpu, current_context
 from . import random
+from . import precision
 from . import autograd
 from . import initializer
 from . import ndarray
 from . import kernels
+from . import optimizer
 from . import gluon
 from . import convert
 
@@ -27,6 +32,6 @@ nd = ndarray
 init = initializer
 
 __all__ = ["base", "MXNetError", "context", "Context", "cpu", "gpu",
-           "current_context", "random", "autograd",
-           "initializer", "init", "ndarray", "nd", "kernels", "gluon",
-           "convert"]
+           "current_context", "random", "precision", "autograd",
+           "initializer", "init", "ndarray", "nd", "kernels", "optimizer",
+           "gluon", "convert"]

@@ -1,13 +1,31 @@
-"""Train/predict mode and recording state (counterpart of
-mxnet_tpu/autograd.py). Recording and backward arrive with training;
-here ``is_recording()`` is always False and blocks run under
-``torch.no_grad``."""
+"""Recording, train/predict mode and gradients on torch autograd (counterpart
+of mxnet_tpu/autograd.py).
+
+``record()`` turns recording on (and torch's grad mode with it) and, by
+default, training mode; blocks called outside recording run under
+``torch.no_grad``. The graph is torch's own; this module keeps MXNet's
+gradient conventions on top of it:
+
+- ``grad_req``. A tracked leaf (a Parameter's tensor, or a tensor given to
+  ``mark_variables``) carries its request. ``"write"`` overwrites the
+  gradient at each backward (torch accumulates into ``.grad``, so a hook
+  on the leaf drops the old gradient just before the new one lands),
+  ``"add"`` accumulates, ``"null"`` takes no gradient. Each backward marks
+  the leaf's gradient fresh (``_fresh_grad``), which ``Trainer`` reads.
+- A non-scalar head. ``backward`` seeds ones for a head given no gradient,
+  as MXNet does, and a block's output under recording is a ``Head`` whose
+  ``.backward()`` does the same.
+"""
 from __future__ import annotations
 
 import threading
+import weakref
 
-__all__ = ["is_training", "set_training", "is_recording", "pause",
-           "train_mode", "predict_mode"]
+import torch
+
+__all__ = ["is_training", "set_training", "is_recording", "set_recording",
+           "record", "pause", "train_mode", "predict_mode",
+           "mark_variables", "backward", "grad", "Head"]
 
 
 class _State(threading.local):
@@ -17,6 +35,9 @@ class _State(threading.local):
 
 
 _STATE = _State()
+# Calls of grad() in progress. Process-wide, not per thread: torch runs the
+# backward of CUDA tensors, and so the leaf hooks, on its own device threads.
+_IN_GRAD = [0]
 
 
 def is_recording():
@@ -27,6 +48,12 @@ def is_training():
     return _STATE.training
 
 
+def set_recording(is_record):
+    prev = _STATE.recording
+    _STATE.recording = bool(is_record)
+    return prev
+
+
 def set_training(train_mode):
     prev = _STATE.training
     _STATE.training = bool(train_mode)
@@ -35,27 +62,36 @@ def set_training(train_mode):
 
 class _RecordingStateScope:
     """Scope guard flipping (recording, training); ``None`` leaves a flag
-    as it is."""
+    as it is. Flipping recording flips torch's grad mode with it."""
 
     def __init__(self, is_record, train_mode):
         self._enter = (is_record, train_mode)
         self._prev = None
 
     def __enter__(self):
-        self._prev = (_STATE.recording, _STATE.training)
+        self._prev = (_STATE.recording, _STATE.training,
+                      torch.is_grad_enabled())
         is_record, train_mode = self._enter
         if is_record is not None:
             _STATE.recording = bool(is_record)
+            torch.set_grad_enabled(bool(is_record))
         if train_mode is not None:
             _STATE.training = bool(train_mode)
         return self
 
     def __exit__(self, *exc):
-        _STATE.recording, _STATE.training = self._prev
+        _STATE.recording, _STATE.training, grad_mode = self._prev
+        torch.set_grad_enabled(grad_mode)
         return False
 
 
+def record(train_mode=True):
+    """Record operations for differentiation (training mode by default)."""
+    return _RecordingStateScope(True, train_mode)
+
+
 def pause(train_mode=False):
+    """Stop recording inside a ``record()`` scope."""
     return _RecordingStateScope(False, train_mode)
 
 
@@ -65,3 +101,100 @@ def train_mode():
 
 def predict_mode():
     return _RecordingStateScope(None, False)
+
+
+# -- gradient requests on leaves ----------------------------------------------
+
+def _on_leaf_grad(ref):
+    def hook(g):
+        t = ref()
+        if t is not None and not _IN_GRAD[0]:
+            if getattr(t, "_grad_req", "write") == "write":
+                t.grad = None            # the new gradient replaces the old
+            t._fresh_grad = True
+        return g
+    return hook
+
+
+def track(tensor, grad_req):
+    """Give leaf ``tensor`` MXNet's gradient request ``grad_req``
+    ("write", "add" or "null"): sets ``requires_grad`` and, once per
+    tensor, the hook that applies the request at each backward."""
+    if grad_req not in ("write", "add", "null"):
+        raise ValueError("grad_req must be 'write', 'add' or 'null', got %r"
+                         % (grad_req,))
+    tensor._grad_req = grad_req
+    tensor.requires_grad_(grad_req != "null")
+    if grad_req != "null" and not getattr(tensor, "_grad_tracked", False):
+        tensor.register_hook(_on_leaf_grad(weakref.ref(tensor)))
+        tensor._grad_tracked = True
+    return tensor
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Mark leaf tensors as variables: each gets ``gradients[i]`` as its
+    gradient buffer and the request ``grad_reqs[i]``."""
+    if isinstance(variables, torch.Tensor):
+        variables, gradients = [variables], [gradients]
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, gradient, req in zip(variables, gradients, grad_reqs):
+        track(var, req)
+        var.grad = gradient if req != "null" else None
+
+
+def _seeds(heads, head_grads):
+    if isinstance(heads, torch.Tensor):
+        heads = [heads]
+        if head_grads is not None and not isinstance(head_grads,
+                                                     (list, tuple)):
+            head_grads = [head_grads]
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    if len(heads) != len(head_grads):
+        raise ValueError("heads and head_grads must have the same length")
+    seeds = [torch.ones_like(h) if g is None else g
+             for h, g in zip(heads, head_grads)]
+    return heads, seeds
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Gradients of ``heads`` into the ``.grad`` of every tracked leaf they
+    reach, honouring each leaf's grad_req. A head without a head gradient
+    is seeded with ones, whatever its shape."""
+    heads, seeds = _seeds(heads, head_grads)
+    torch.autograd.backward(heads, seeds, retain_graph=retain_graph)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """Gradients of ``heads`` with respect to ``variables``, returned
+    instead of written into ``.grad`` (zeros for a variable the heads do
+    not reach)."""
+    single = isinstance(variables, torch.Tensor)
+    if single:
+        variables = [variables]
+    heads, seeds = _seeds(heads, head_grads)
+    _IN_GRAD[0] += 1         # the leaves' .grad stay as they are
+    try:
+        out = torch.autograd.grad(heads, variables, seeds,
+                                  retain_graph=retain_graph,
+                                  create_graph=create_graph,
+                                  allow_unused=True)
+    finally:
+        _IN_GRAD[0] -= 1
+    out = [torch.zeros_like(v) if g is None else g
+           for g, v in zip(out, variables)]
+    return out[0] if single else out
+
+
+class Head(torch.Tensor):
+    """A block's output under recording: a plain tensor whose
+    ``backward()`` takes MXNet's arguments and seeds ones for a non-scalar
+    head. Operations on it give plain tensors."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        backward([self], None if out_grad is None else [out_grad],
+                 retain_graph=retain_graph)

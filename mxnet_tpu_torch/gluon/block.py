@@ -9,8 +9,9 @@ are also the keys of ``state_dict()``. ``hybrid_forward(F, x, **params)``
 receives ``F``, the module of plain op functions (``mxnet_tpu_torch.nd``),
 and the parameters' tensors.
 
-Blocks run eagerly. Autograd recording is not ported yet, so a block call
-runs under ``torch.no_grad()``.
+Blocks run eagerly. Outside ``autograd.record()`` a block call runs under
+``torch.no_grad()``; under recording its tensor output is an
+``autograd.Head``, whose ``backward()`` seeds ones like MXNet's.
 """
 from __future__ import annotations
 
@@ -159,10 +160,16 @@ class Block(torch.nn.Module):
         Capturing the forward in a CUDA graph is later work."""
 
     def __call__(self, *args, **kwargs):
-        if torch.is_grad_enabled() and not autograd.is_recording():
-            with torch.no_grad():
-                return super().__call__(*args, **kwargs)
-        return super().__call__(*args, **kwargs)
+        if not autograd.is_recording():
+            if torch.is_grad_enabled():
+                with torch.no_grad():
+                    return super().__call__(*args, **kwargs)
+            return super().__call__(*args, **kwargs)
+        out = super().__call__(*args, **kwargs)
+        if isinstance(out, torch.Tensor) and out.requires_grad \
+                and not isinstance(out, autograd.Head):
+            out = out.as_subclass(autograd.Head)
+        return out
 
 
 class HybridBlock(Block):
@@ -199,6 +206,7 @@ class HybridBlock(Block):
 
 
 def report_aux_update(param, new_data):
-    """Publish a running-statistic update: eagerly, written in place."""
+    """Publish a running-statistic update: written in place, outside the
+    graph (also under recording)."""
     with torch.no_grad():
         param.data().copy_(new_data)

@@ -35,8 +35,9 @@ def _conv3x3(channels, stride, in_channels, layout="NCHW"):
 
 # -- fused BN->ReLU->conv3x3 link (fuse=True, NHWC only) ---------------------
 # A private OpDef kept out of the global registry, invoked through the F
-# namespace's dispatch point like any op. The training-mode BN fold (batch
-# statistics) arrives with the training slice.
+# namespace's dispatch point like any op. Training a fused net (the
+# training-mode BN fold with batch statistics, and the kernel's backward)
+# arrives with the conv_fused backward kernels; fuse=False trains.
 _FUSED_CONV_OP = None
 
 

@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import math
 
-from ..block import HybridBlock
+from ... import autograd
+from ..block import HybridBlock, report_aux_update
 
 __all__ = ["HybridSequential", "Dense", "BatchNorm", "Activation",
            "Flatten"]
@@ -68,7 +69,10 @@ class Dense(HybridBlock):
 
 
 class BatchNorm(HybridBlock):
-    """Batch normalization; the running statistics are buffers."""
+    """Batch normalization; the running statistics are buffers. In training
+    mode (and not ``use_global_stats``) it normalizes with the batch
+    statistics and moves the running ones to ``m*running + (1-m)*batch``
+    in the running statistics' dtype, outside the graph."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -104,10 +108,16 @@ class BatchNorm(HybridBlock):
                 self.running_mean: (c,), self.running_var: (c,)}
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
-        out, _, _ = F.BatchNorm(
+        out, mean, var = F.BatchNorm(
             x, gamma, beta, running_mean, running_var, eps=self._eps,
             momentum=self._momentum, fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis)
+        if autograd.is_training() and not self._use_global_stats:
+            m = self._momentum
+            for param, run, stat in ((self.running_mean, running_mean, mean),
+                                     (self.running_var, running_var, var)):
+                report_aux_update(param, m * run + (1 - m)
+                                  * stat.detach().to(run.dtype))
         return out
 
 

@@ -8,12 +8,18 @@ such as BatchNorm's running statistics (``differentiable=False``) as a
 buffer in ``_buffers``. ``state_dict()``, ``named_parameters()`` and
 ``Module.to`` therefore see them under the structural names
 ("features.5.0.body.3.weight") that ``_collect_params_with_prefix`` uses.
+
+Gradients are torch's ``.grad`` with MXNet's conventions
+(``autograd.track``): ``grad_req`` "write" overwrites at each backward,
+"add" accumulates, "null" takes none, and each backward marks the tensor's
+gradient fresh (``data()._fresh_grad``) for ``Trainer``.
 """
 from __future__ import annotations
 
 import numpy as _np
 import torch
 
+from .. import autograd
 from .. import initializer as _initializer
 from ..base import MXNetError, canonical_dtype
 from ..context import as_device, current_context
@@ -33,10 +39,13 @@ def _first(ctx):
 
 class Parameter:
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
-                 init=None, allow_deferred_init=False, differentiable=True):
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True):
         self.name = name
         self._differentiable = differentiable
         self._grad_req = grad_req if differentiable else "null"
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         if isinstance(shape, int):
             shape = (shape,)
         self.shape = tuple(shape) if shape is not None else None
@@ -52,6 +61,14 @@ class Parameter:
     def grad_req(self):
         return self._grad_req
 
+    @grad_req.setter
+    def grad_req(self, req):
+        if not self._differentiable:
+            req = "null"
+        self._grad_req = req
+        if self._data is not None:
+            autograd.track(self._data, req)
+
     def _registry(self):
         mod = self._owner[0]
         return mod._parameters if self._differentiable else mod._buffers
@@ -65,7 +82,7 @@ class Parameter:
     def _store(self, t):
         t = t.detach()
         if self._differentiable:
-            t = torch.nn.Parameter(t, requires_grad=self._grad_req != "null")
+            t = autograd.track(torch.nn.Parameter(t), self._grad_req)
         if self._owner is None:
             self._own = t
         else:
@@ -129,6 +146,22 @@ class Parameter:
                              "Call initialize()" % self.name)
         return t
 
+    def grad(self, ctx=None):
+        """The gradient buffer (zeros until the first backward). Raises for
+        grad_req "null"."""
+        t = self.data()
+        if self._grad_req == "null":
+            raise MXNetError("Parameter '%s' has no gradient (grad_req=null)"
+                             % self.name)
+        if t.grad is None:
+            t.grad = torch.zeros_like(t)
+        return t.grad
+
+    def zero_grad(self):
+        t = self._data
+        if t is not None and t.grad is not None:
+            t.grad.zero_()
+
     def set_data(self, data):
         """Write ``data`` (a tensor or numpy array) into the parameter,
         cast to its dtype, on its device (for a parameter that has none
@@ -154,7 +187,9 @@ class Parameter:
             device = self._deferred_init[1]
         else:
             device = current_context().device
-        self._store(data.to(device=device, dtype=self.dtype))
+        # a copy: the parameter is updated in place and must not alias the
+        # caller's array
+        self._store(data.to(device=device, dtype=self.dtype, copy=True))
         self._deferred_init = None
 
     def cast(self, dtype):
@@ -236,6 +271,10 @@ class ParameterDict:
         for p in self._params.values():
             p.initialize(init=None, ctx=device, default_init=init,
                          force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for p in self._params.values():
+            p.zero_grad()
 
     def __repr__(self):
         return "ParameterDict(%s)" % ", ".join(self._params)

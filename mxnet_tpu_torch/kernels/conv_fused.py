@@ -80,8 +80,18 @@ def fused_scale_relu_conv3x3(x, s, b, w, relu=True):
     A CPU tensor runs ``fused_conv_reference``. A CUDA tensor launches the
     kernel on the current stream, or raises: non-contiguous ``x``, an
     unsupported dtype, mismatched shapes or a failed launch are errors.
+
+    The op has no backward yet, on either device: with grad mode on and an
+    operand that requires grad it raises, rather than return a result
+    that silently drops every gradient upstream of it.
     """
     _check(x, s, b, w)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, s, b, w)):
+        raise MXNetError("fused_scale_relu_conv3x3 has no backward yet: "
+                         "run it under torch.no_grad() or outside "
+                         "autograd.record(), or build the network with "
+                         "fuse=False to train")
     if x.device.type == "cpu":
         return fused_conv_reference(x, s, b, w, relu)
     if x.device.type != "cuda":

@@ -6,7 +6,7 @@ import torch
 
 from .registry import register
 
-__all__ = ["rsqrt", "elemwise_add"]
+__all__ = ["rsqrt", "elemwise_add", "broadcast_mul"]
 
 
 @register("rsqrt")
@@ -17,3 +17,8 @@ def rsqrt(x):
 @register("elemwise_add")
 def elemwise_add(lhs, rhs):
     return lhs + rhs
+
+
+@register("broadcast_mul")
+def broadcast_mul(lhs, rhs):
+    return lhs * rhs

@@ -1,6 +1,6 @@
 """Neural-network ops on torch tensors (counterpart of mxnet_tpu/ops/nn.py):
-FullyConnected, Convolution, Pooling, Activation, softmax and BatchNorm
-with running statistics.
+FullyConnected, Convolution, Pooling, Activation, softmax, log_softmax and
+BatchNorm (batch statistics in training, running statistics otherwise).
 
 Layouts follow the JAX package: NCHW by default, the channels-last layouts
 (NWC/NHWC/NDHWC) where ``layout=`` says so, and OIHW weights in every
@@ -13,11 +13,12 @@ import torch
 import torch.nn.functional as tF
 
 from ..base import canonical_dtype
-from ..kernels.batchnorm_fused import exact_mul
+from ..kernels import batchnorm_fused as _bnf
+from ..kernels.batchnorm_fused import exact_mul, exact_sq, tree_fold_rows
 from .registry import register
 
 __all__ = ["fully_connected", "convolution", "pooling", "activation",
-           "softmax", "batch_norm"]
+           "softmax", "log_softmax", "batch_moments", "batch_norm"]
 
 
 def _pair(v, n=2):
@@ -147,12 +148,20 @@ def softmax(x, axis=-1, temperature=None, dtype=None):
     return out.to(canonical_dtype(dtype)) if dtype else out
 
 
+@register("log_softmax")
+def log_softmax(x, axis=-1, temperature=None, dtype=None):
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    out = torch.log_softmax(x, dim=axis)
+    return out.to(canonical_dtype(dtype)) if dtype else out
+
+
 def bn_inv_std(var32, eps):
     """``1/sqrt(var + eps)`` in f32 as two IEEE ops (sqrt, then divide):
     the same bits on the CPU and the card. XLA:CPU rewrites the JAX
     package's ``1.0 / jnp.sqrt`` into its own ``rsqrt``, which can differ
     by an ulp."""
-    return 1.0 / torch.sqrt(var32 + torch.tensor(eps, dtype=torch.float32))
+    return _bnf.inv_std(var32, eps)
 
 
 def bn_apply(x, mean32, inv32, g, beta, cax):
@@ -167,20 +176,53 @@ def bn_apply(x, mean32, inv32, g, beta, cax):
     return out.to(x.dtype)
 
 
+def batch_moments(x, axes, axis=None, fp32_out=False):
+    """Batch mean and variance over ``axes`` (all but the channel axis):
+    the framework's one definition of BatchNorm statistics. Both
+    accumulate in f32 through the deterministic tree (``tree_fold_rows``,
+    squares by ``exact_sq``). Half-precision inputs take the single-pass
+    E[x^2] - E[x]^2 (clamped at 0; its cancellation is far below the
+    input's rounding), f32 inputs the two-pass E[(x - mean)^2]. Returns
+    the statistics in x.dtype, or in f32 with ``fp32_out=True``."""
+    keep = (axis % x.dim()) if axis is not None else [
+        i for i in range(x.dim()) if i not in axes][0]
+    c = x.shape[keep]
+    x2 = torch.movedim(x.float(), keep, -1).reshape(-1, c)
+    n = x2.shape[0]
+    mean32 = _bnf.div_count(tree_fold_rows(x2)[0], n)
+    if x.dtype.itemsize <= 2:
+        var32 = _bnf.max0(_bnf.div_count(tree_fold_rows(exact_sq(x2))[0], n)
+                           - exact_sq(mean32))
+    else:
+        var32 = _bnf.div_count(tree_fold_rows(exact_sq(x2 - mean32))[0], n)
+    if fp32_out:
+        return mean32, var32
+    return mean32.to(x.dtype), var32.to(x.dtype)
+
+
 @register("BatchNorm", aliases=("batch_norm",))
 def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-3,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
                output_mean_var=False, axis=1, cudnn_off=False,
                min_calib_range=None, max_calib_range=None, _training=True):
-    """Returns (out, mean, var). Normalizes with the running statistics
-    (inference, or ``use_global_stats``); the batch-statistics branch of
-    training mode arrives with the training slice and raises here."""
+    """Returns (out, mean, var). In training mode (and not
+    ``use_global_stats``) it normalizes with the batch statistics and
+    returns them in x.dtype; the running-statistic update belongs to the
+    caller (the gluon layer). A channels-last input (channel axis last)
+    goes through ``kernels.batchnorm_fused.fused_batch_norm`` on every
+    device, as the JAX package routes it to its kernel; channels-first
+    takes ``batch_moments`` and the normalize chain in plain torch.
+    Otherwise it normalizes with the running statistics."""
     cax = axis % x.dim()
     g = torch.ones_like(gamma) if fix_gamma else gamma
     if _training and not use_global_stats:
-        raise NotImplementedError(
-            "BatchNorm with batch statistics (training mode) is not ported "
-            "yet; run the block under autograd.predict_mode()")
+        if x.dim() >= 2 and cax == x.dim() - 1:
+            out, mean32, var32 = _bnf.fused_batch_norm(x, g, beta, eps=eps)
+            return out, mean32.to(x.dtype), var32.to(x.dtype)
+        axes = tuple(i for i in range(x.dim()) if i != cax)
+        mean32, var32 = batch_moments(x, axes, axis, fp32_out=True)
+        return (bn_apply(x, mean32, bn_inv_std(var32, eps), g, beta, cax),
+                mean32.to(x.dtype), var32.to(x.dtype))
     mean32 = moving_mean.to(torch.float32)
     var32 = moving_var.to(torch.float32)
     return (bn_apply(x, mean32, bn_inv_std(var32, eps), g, beta, cax),

@@ -7,7 +7,7 @@ import torch
 from ..base import canonical_dtype
 from .registry import register
 
-__all__ = ["reshape", "flatten", "transpose", "cast", "ones_like"]
+__all__ = ["reshape", "flatten", "transpose", "cast", "ones_like", "pick"]
 
 
 def _infer_reshape(shape, target):
@@ -49,3 +49,32 @@ def cast(x, dtype="float32"):
 def ones_like(x):
     return torch.ones_like(x)
 
+
+@register("pick")
+def pick(x, index, axis=-1, keepdims=False, mode="clip"):
+    """x's entries at ``index`` along ``axis`` (indices clipped into range,
+    MXNet's default mode)."""
+    ax = axis % x.dim()
+    idx = torch.clamp(index.to(torch.int64), 0, x.shape[ax] - 1)
+    out = torch.gather(x, ax, idx.unsqueeze(ax))
+    return out if keepdims else out.squeeze(ax)
+
+
+def _reduce(fn):
+    def _fn(x, axis=None, keepdims=False, exclude=False):
+        if axis is None:
+            axes = tuple(range(x.dim()))
+        else:
+            axes = {a % x.dim() for a in
+                    (axis if isinstance(axis, (tuple, list)) else (axis,))}
+            if exclude:
+                axes = set(range(x.dim())) - axes
+            axes = tuple(sorted(axes))
+        if not axes:        # nothing to reduce (torch reads () as "all")
+            return x
+        return fn(x, dim=axes, keepdim=keepdims)
+    return _fn
+
+
+register("sum", aliases=("sum_axis",))(_reduce(torch.sum))
+register("mean")(_reduce(torch.mean))

@@ -14,6 +14,7 @@ import torch
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import convert
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tres
+from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
 from mxnet_tpu_torch.kernels import conv_fused as CF
 
 # bf16: one bf16 rounding step of the output magnitude; f32: summation
@@ -89,3 +90,88 @@ def test_fused_resnet_forward_launches_kernel_per_block():
     ref = nets[1](x)
     assert (out - ref).abs().max().item() <= \
         1e-4 * ref.abs().max().item()
+
+
+def _same_bits(a, b):
+    """Bit equality of two float tensors, any NaN matching any NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    nan = torch.isnan(a.float())
+    if not torch.equal(nan, torch.isnan(b.float())):
+        return False
+    ia = a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32)
+    ib = b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32)
+    return bool(torch.equal(ia[~nan], ib[~nan]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "relu"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(2, 7, 9, 64), (3, 5, 5, 129)])
+def test_batchnorm_kernels_match_plain(shape, dtype, act):
+    """The four training-BatchNorm kernels against their plain versions:
+    out, mean and var bit for bit; dx, dgamma, dbeta within 2e-4 of the
+    largest reference magnitude."""
+    _need_card()
+    rs = np.random.RandomState(0)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rs.randn(*shape).astype("float32") * 2 + 1) \
+        .cuda().to(dt)
+    c = shape[-1]
+    g = torch.from_numpy((rs.rand(c) + 0.5).astype("float32")).cuda()
+    b = torch.from_numpy((rs.randn(c) * 0.1).astype("float32")).cuda()
+    dy = torch.from_numpy(rs.randn(*shape).astype("float32")).cuda().to(dt)
+    counts = (BNF.LAUNCHES_STATS, BNF.LAUNCHES_APPLY,
+              BNF.LAUNCHES_BWD_REDUCE, BNF.LAUNCHES_BWD_DX)
+    xr, gr, br = (t.clone().requires_grad_() for t in (x, g, b))
+    out, mean, var = BNF.fused_batch_norm(xr, gr, br, act=act)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert (BNF.LAUNCHES_STATS, BNF.LAUNCHES_APPLY, BNF.LAUNCHES_BWD_REDUCE,
+            BNF.LAUNCHES_BWD_DX) == tuple(n + 1 for n in counts)
+    ref, rmean, rvar = BNF.batchnorm_reference(x, g, b, act=act)
+    assert _same_bits(out, ref)
+    assert _same_bits(mean, rmean) and _same_bits(var, rvar)
+    grads = BNF.batchnorm_backward_reference(x, g, b, rmean, rvar, dy,
+                                             act=act)
+    for got, want in zip((xr.grad, gr.grad, br.grad), grads):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-4 * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_narrow_resnet_trains_on_the_card():
+    """Two f32 steps of a narrow NHWC ResNet on the card match the port on
+    the CPU (TF32 off), and every BatchNorm ran its kernels."""
+    _need_card()
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    x = torch.rand(4, 3, 16, 16)
+    y = torch.randint(0, 10, (4,)).float()
+    nets, losses = [], []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = tres.ResNetV1(tres.BottleneckV1, [1, 1, 1, 1],
+                            [16, 32, 64, 128, 256], classes=10,
+                            thumbnail=True, layout="NHWC", fuse=False)
+        net.initialize(ctx=ctx)
+        net(x.to(ctx.device))
+        nets.append(net)
+    arrays = convert.random_numpy_params(convert.param_shapes(nets[0]))
+    before = BNF.LAUNCHES_STATS
+    for net, ctx in zip(nets, (mx.gpu(0), mx.cpu())):
+        convert.load_numpy_params(net, arrays)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.01, "momentum": 0.9})
+        for _ in range(2):
+            with autograd.record():
+                loss = SoftmaxCrossEntropyLoss()(net(x.to(ctx.device)),
+                                                 y.to(ctx.device))
+            loss.backward()
+            trainer.step(4)
+        losses.append(loss.detach().cpu())
+    assert BNF.LAUNCHES_STATS == before + 2 * 16     # 16 BNs, 2 steps
+    assert torch.allclose(losses[0], losses[1], rtol=1e-5)
+    for (k, p), q in zip(nets[0]._collect_params_with_prefix().items(),
+                         nets[1]._collect_params_with_prefix().values()):
+        w, wr = p.data().detach().cpu(), q.data().detach()
+        assert (w - wr).abs().max() <= 1e-5 * wr.abs().max(), k

@@ -205,9 +205,16 @@ def test_unported_pooling_raises():
 
 
 def test_batch_norm_training_mode_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tnn.batch_norm(torch.zeros(2, 3), torch.ones(3), torch.zeros(3),
-                       torch.zeros(3), torch.ones(3), _training=True)
+    """Training mode is ported now: it normalizes with the batch
+    statistics and returns them, leaving the running ones alone."""
+    x = torch.from_numpy(_rand(6, 3, scale=2.0) + 5.0)
+    rm, rv = torch.zeros(3), torch.ones(3)
+    out, mean, var = tnn.batch_norm(x, torch.ones(3), torch.zeros(3), rm, rv,
+                                    axis=1, eps=1e-5, _training=True)
+    assert torch.allclose(mean, x.mean(0), atol=1e-5)
+    assert torch.allclose(var, x.var(0, unbiased=False), atol=1e-4)
+    assert torch.allclose(out.mean(0), torch.zeros(3), atol=1e-5)
+    assert torch.equal(rm, torch.zeros(3)) and torch.equal(rv, torch.ones(3))
 
 
 def test_exact_mul_bitwise():
@@ -267,11 +274,13 @@ def test_namespace_dispatch_supplies_training_flag():
     """F.BatchNorm gets _training from autograd like the JAX wrappers."""
     args = [torch.zeros(2, 3), torch.ones(3), torch.zeros(3),
             torch.zeros(3), torch.ones(3)]
-    out, _, _ = F.BatchNorm(*args, eps=1e-5)      # predict mode: OK
+    out, mean, _ = F.BatchNorm(*args, eps=1e-5)   # predict mode
     assert tuple(out.shape) == (2, 3)
+    assert mean is args[3]                  # the running statistics
+    args[0] = torch.arange(6.0).reshape(2, 3)
     with mx.autograd.train_mode():
-        with pytest.raises(NotImplementedError):
-            F.BatchNorm(*args, eps=1e-5)
+        _, mean, _ = F.BatchNorm(*args, eps=1e-5)
+    assert torch.equal(mean, torch.tensor([1.5, 2.5, 3.5]))  # the batch's
     for name in ("Convolution", "Pooling", "FullyConnected", "Activation",
                  "softmax", "BatchNorm", "transpose", "cast", "ones_like",
                  "flatten", "rsqrt", "elemwise_add"):
