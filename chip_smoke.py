@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase (needs one GPU)
     python3 chip_smoke.py --phases env,kernel
     python3 chip_smoke.py --phases env,kernel,train
+    python3 chip_smoke.py --phases env,kernel,train_fused
 
 Phases, each printing JSON lines:
 
@@ -18,6 +19,13 @@ Phases, each printing JSON lines:
               channel of zeros, a variance that clamps to 0, an inf); bf16
               and f32, relu on and off. BatchNorm forward outputs must be
               equal bit for bit, backward within 2e-4 of max |reference|.
+              The conv_fused backward pair (d-input with its finalize
+              launch, d-weight with its reduce launch) at the four fused
+              shapes of ResNet-50 training at batch 128 and the edge
+              shapes, bf16 and f32, relu on and off (BWD_RTOL). The packed
+              SGD apply over ResNet-50's 161 trainable shapes, bf16 and
+              f32, against its plain version and the per-parameter
+              step_fn chain, bit for bit.
 3. serve   -- the serving path: resnet50_v1(layout="NHWC", fuse=True) in
               bf16 answers 4 requests of 32 images (top-5 classes each).
               Launch counters are zeroed just before and read just after;
@@ -33,17 +41,28 @@ Phases, each printing JSON lines:
               finalize launch twice per BatchNorm), conv_fused never; the
               loss must be finite and fall. Then one f32 step at batch 4,
               TF32 off, against the port on the CPU.
-5. time    -- CUDA-event times per kernel and shape (kernel, plain version,
+5. train_fused -- the fused training path: resnet50_v1(layout="NHWC",
+              fuse=True), hybridized, in bf16, batch 128, through
+              gluon.train_step with MXTPU_FUSED_APPLY=1 (SGD lr 0.01,
+              momentum 0.9), 5 steps on one batch. Counters are zeroed
+              just before: the conv_fused forward, d-input and d-weight
+              kernels must launch 16 times per step, each BatchNorm kernel
+              37 times (74 finalize launches), the packed apply once per
+              bucket; every step "fused"; the loss finite and falling.
+              Then one f32 step at batch 4, TF32 off, against the port on
+              the CPU, and two bf16 steps with MXTPU_FUSED_APPLY=0 against
+              two with =1 from the same weights: equal bit for bit.
+6. time    -- CUDA-event times per kernel and shape (kernel, plain version,
               PyTorch library yardstick) beside the card's bound;
-              whole-forward images/sec at batch 32 and 256 and the
-              training step's images/sec at batch 128, in bf16, with the
+              whole-forward images/sec at batch 32 and 256 and both
+              training steps' images/sec at batch 128, in bf16, with the
               device's busy time and idle share from the profiler.
 
 The run ends with the nvidia-smi name/power line, then the
 {"kernels": [...]} line (per kernel: launches on its path, max abs error at
 the ResNet-50 shapes in bf16 and its tolerance, and the times, bound,
 plain and library times of one forward (conv_fused) or one training step
-(the BatchNorm kernels)), then {"ok": true, "device": {...}} as the last
+(the other kernels)), then {"ok": true, "device": {...}} as the last
 line. Any failure exits non-zero before them.
 Weights and data are drawn from fixed seeds; nothing is downloaded.
 """
@@ -51,13 +70,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-PHASES = ("env", "kernel", "serve", "train", "time")
+PHASES = ("env", "kernel", "serve", "train", "train_fused", "time")
 
 # ResNet-50's fused 3x3 links at batch 32: (N, H, W, Ci, Co) and how many
 # of the 16 launches per forward run at that shape.
@@ -106,9 +126,33 @@ BN_REPLACES = {"stats": 208, "apply": 219, "bwd_reduce": 230, "bwd_dx": 250}
 BN_OPS = {"stats": 9, "apply": 11, "bwd_reduce": 5, "bwd_dx": 6}
 # Training-step checks, f32 with TF32 off, card against the port on the CPU
 # (relative to the largest magnitude of the compared tensor). The gradient
-# and weight bounds widen to twice the spread between two f32 runs on the
-# card (phase_train says why).
+# and weight bounds widen to twice the spread between two other correct f32
+# runs (_f32_card_vs_cpu says which, and why).
 TRAIN_RTOL = {"loss": 1e-5, "grad": 1e-3, "param": 1e-5}
+
+# ResNet-50's 16 fused links in training at batch 128 (the serving shapes
+# at batch 128), and the 37 BatchNorms that a fuse=True net keeps.
+RN50_TRAIN_SHAPES = [((128,) + shape[1:], n) for shape, n in RN50_SHAPES]
+FUSED_PER_STEP = sum(n for _, n in RN50_SHAPES)                 # 16
+BN_FUSED_NET_PER_STEP = BN_PER_STEP - FUSED_PER_STEP            # 37
+# The conv_fused backward pair against its plain version, relative to max
+# |reference|: bf16 outputs one bf16 rounding step, as the forward; f32 dx
+# differs by summation order only; f32 dw, ds and db are sums over up to
+# 401408 pixels.
+BWD_RTOL = {"bfloat16": {"dx": 1.6e-2, "ds": 1.6e-2, "db": 1.6e-2,
+                         "dw": 1.6e-2},
+            "float32": {"dx": 1e-4, "ds": 1e-3, "db": 1e-3, "dw": 1e-3}}
+# The two backward kernels: their outputs, the names of their launches in
+# the profiler (kernel and second pass) and the line of the TPU kernel body
+# in mxnet_tpu/pallas_kernels/conv_fused.py.
+CONV_BWD = {"bwd_dx": (("dx", "ds", "db"), ("conv_bwd_dx_",
+                                            "conv_bwd_finalize"), 135),
+            "bwd_dw": (("dw",), ("conv_bwd_dw_", "conv_dw_reduce"), 185)}
+# The training steps: SGD as bench.py's bench_resnet sets it.
+SGD = {"learning_rate": 0.01, "momentum": 0.9}
+# f32 operations per element of the packed SGD step (rescale, wd*w, +g,
+# *lr, momentum*m, -, +w): far below the bytes it moves.
+APPLY_OPS = 7
 
 # Dense peaks from NVIDIA's data sheets: (bf16 tensor FLOP/s, f32 FLOP/s
 # on the CUDA cores, memory bytes/s), matched on the name nvidia-smi gives.
@@ -324,6 +368,8 @@ def phase_kernel(torch, state):
         raise AssertionError("conv_fused disagrees with its plain version: "
                              "%s" % failures)
     phase_kernel_bn(torch, state)
+    phase_kernel_conv_bwd(torch, state)
+    phase_kernel_apply(torch, state)
 
 
 def phase_kernel_bn(torch, state):
@@ -382,6 +428,191 @@ def phase_kernel_bn(torch, state):
                              "version: %s" % failures[:20])
 
 
+def conv_bwd_case(torch, shape, dtype, seed):
+    """(x, s, b, w, dy) for the conv_fused backward at ``shape``."""
+    x, s, b, w = make_case(torch, shape, dtype, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn(shape[:3] + (shape[4],), generator=gen,
+                     device="cuda").to(dtype)
+    return x, s, b, w, dy
+
+
+def phase_kernel_conv_bwd(torch, state):
+    """The d-input and d-weight kernels (rows 2 and 3) against the plain
+    backward, each output within BWD_RTOL of its max |reference|."""
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+    cases = [(shape, relu, True) for shape, _ in RN50_TRAIN_SHAPES
+             for relu in (True, False)]
+    cases += [(shape, relu, False) for shape, _ in EDGE_SHAPES
+              for relu in (True, False)]
+    worst = {k: [0.0, 0.0] for k in CONV_BWD}      # abs, relative (bf16)
+    edge = {}
+    failures = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for i, (shape, relu, main) in enumerate(cases):
+            x, s, b, w, dy = conv_bwd_case(torch, shape, dtype, 700 + i)
+            got = dict(zip(("dx", "ds", "db", "dw"),
+                           CF.fused_conv_backward(x, s, b, w, dy, relu)))
+            ref = dict(zip(("dx", "ds", "db", "dw"),
+                           CF.fused_conv_backward_reference(x, s, b, w, dy,
+                                                            relu)))
+            torch.cuda.synchronize()
+            res = {}
+            for name, r in ref.items():
+                g = got[name]
+                err = max_abs_err(torch, g, r)
+                scale = r.float().abs().max().item()
+                ok = g.shape == r.shape and g.dtype == r.dtype \
+                    and bool(torch.isfinite(g.float()).all().item()) \
+                    and err <= BWD_RTOL[dname][name] * max(scale, 1e-30)
+                res[name] = {"ok": ok, "max_abs_err": err,
+                             "ref_max_abs": scale,
+                             "tolerance": BWD_RTOL[dname][name] * scale}
+                if not ok:
+                    failures.append((dname, shape, relu, name, err, scale))
+            for k, (outs, _, _) in CONV_BWD.items():
+                for name in outs:
+                    rel = res[name]["max_abs_err"] / max(
+                        res[name]["ref_max_abs"], 1e-30)
+                    if main and dtype == torch.bfloat16:
+                        worst[k][0] = max(worst[k][0],
+                                          res[name]["max_abs_err"])
+                        worst[k][1] = max(worst[k][1], rel)
+                    if not main:
+                        e = edge.setdefault("%s,%s" % (dname, name),
+                                            [True, 0.0])
+                        e[0] = e[0] and res[name]["ok"]
+                        e[1] = max(e[1], rel)
+            if main:
+                emit({"phase": "kernel", "kernel": "conv_fused_backward",
+                      "dtype": dname, "shape": list(shape), "relu": relu,
+                      "results": res})
+            del x, s, b, w, dy, got, ref
+    emit({"phase": "kernel", "kernel": "conv_fused_backward",
+          "edge_shapes": [list(sh) for sh, _ in EDGE_SHAPES],
+          "relu": [True, False],
+          "results": {k: {"ok": v[0], "max_rel_err": v[1]}
+                      for k, v in edge.items()},
+          "tolerance_rel": BWD_RTOL})
+    state["conv_bwd_err"] = worst
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("conv_fused backward disagrees with its plain "
+                             "version: %s" % failures[:20])
+
+
+def _train_shapes(mx, state):
+    """The shapes of ResNet-50's trainable parameters in the order the
+    fused train step packs them, from the probe net of ``_arrays``."""
+    _arrays(mx, state)
+    return state["train_shapes"]
+
+
+def apply_case(torch, shapes, dtype, momentum, seed):
+    """Weights, gradients, momenta (None without momentum), and a
+    different lr and wd per parameter, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ws = [torch.randn(sh, generator=gen, device="cuda").to(dtype)
+          for sh in shapes]
+    gs = [(torch.randn(sh, generator=gen, device="cuda") * 30).to(dtype)
+          for sh in shapes]
+    ms = [torch.randn(sh, generator=gen, device="cuda").to(dtype)
+          if momentum else None for sh in shapes]
+    lrs = [0.01 * (1 + (i % 3)) for i in range(len(shapes))]
+    wds = [1e-4 * (i % 2) for i in range(len(shapes))]
+    return ws, gs, ms, lrs, wds
+
+
+def _packed_segments(torch, OA, ws, gs, ms, lrs, wds):
+    """Each bucket of the plan as one flat segment: (bucket, w, g, m,
+    per-element lr, per-element wd), the operands of the plain version."""
+    segs = []
+    for bucket in OA.bucketize(ws):
+        n = [ws[i].numel() for i in bucket]
+        cat = (lambda ts: torch.cat([ts[i].reshape(-1) for i in bucket]))
+        vec = (lambda vs: torch.cat([torch.full((k,), float(vs[i]),
+                                                device="cuda")
+                                     for i, k in zip(bucket, n)]))
+        segs.append((bucket, cat(ws), cat(gs),
+                     None if ms[bucket[0]] is None else cat(ms), vec(lrs),
+                     vec(wds)))
+    return segs
+
+
+def apply_plain(torch, OA, opt, segs, rescale):
+    """The plain packed apply over prepared segments: [(new_w, new_m)]."""
+    return [OA.packed_apply_reference(opt, w, g, m, lv, wv, rescale)
+            for _, w, g, m, lv, wv in segs]
+
+
+def phase_kernel_apply(torch, state):
+    """The packed SGD kernel (row 8) over ResNet-50's trainable shapes,
+    bf16 and f32, momentum 0.9 without clip and momentum 0 with: bit for
+    bit against its plain version (step_fn over each packed bucket) and
+    against the per-parameter step_fn chain."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+    shapes = _train_shapes(mx, state)
+    rescale = 1.0 / 128
+    failures = []
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for momentum, clip in ((0.9, None), (0.0, 0.05)):
+            opt = topt.SGD(momentum=momentum, learning_rate=0.01, wd=1e-4,
+                           clip_gradient=clip)
+            ws, gs, ms, lrs, wds = apply_case(torch, shapes, dtype, momentum,
+                                              seed=800)
+            chain = [opt.step_fn(w, g, m, lr, wd, rescale)
+                     for w, g, m, lr, wd in zip(ws, gs, ms, lrs, wds)]
+            segs = _packed_segments(torch, OA, ws, gs, ms, lrs, wds)
+            plain = apply_plain(torch, OA, opt, segs, rescale)
+            nw = [w.clone() for w in ws]
+            nm = [None if m is None else m.clone() for m in ms]
+            before = OA.LAUNCHES
+            OA.packed_apply(opt, nw, gs, nm, lrs, wds, rescale)
+            torch.cuda.synchronize()
+            launches = OA.LAUNCHES - before
+            vs_chain = vs_plain = True
+            for (bucket, *_), (pw, pm) in zip(segs, plain):
+                off = 0
+                for i in bucket:
+                    n = ws[i].numel()
+                    worst = max([worst, max_abs_err(torch, nw[i],
+                                                    chain[i][0])]
+                                + ([max_abs_err(torch, nm[i], chain[i][1])]
+                                   if momentum else []))
+                    vs_chain = vs_chain and same_bits(torch, nw[i],
+                                                      chain[i][0])
+                    vs_plain = vs_plain and same_bits(
+                        torch, nw[i].reshape(-1), pw[off:off + n])
+                    if momentum:
+                        vs_chain = vs_chain and same_bits(torch, nm[i],
+                                                          chain[i][1])
+                        vs_plain = vs_plain and same_bits(
+                            torch, nm[i].reshape(-1), pm[off:off + n])
+                    off += n
+            ok = vs_chain and vs_plain and launches == len(segs)
+            emit({"phase": "kernel", "kernel": "optimizer_apply",
+                  "dtype": dname, "momentum": momentum, "clip": clip,
+                  "tensors": len(shapes),
+                  "elements": sum(w.numel() for w in ws),
+                  "buckets": len(segs), "launches": launches,
+                  "bitwise_vs_plain": vs_plain,
+                  "bitwise_vs_per_param_chain": vs_chain, "ok": ok})
+            if not ok:
+                failures.append((dname, momentum, clip, vs_plain, vs_chain,
+                                 launches, len(segs)))
+            del ws, gs, ms, chain, segs, plain, nw, nm
+    state["apply_err"] = worst
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("optimizer_apply disagrees with its plain "
+                             "version: %s" % failures)
+
+
 def _build_net(mx, arrays, fuse, dtype, ctx):
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     import torch
@@ -396,7 +627,9 @@ def _build_net(mx, arrays, fuse, dtype, ctx):
 
 def _arrays(mx, state):
     """ResNet-50's weights and running statistics from numpy seed 0, keyed
-    by structural name (the same keys with fuse True and False)."""
+    by structural name (the same keys with fuse True and False). Also
+    records the trainable parameters' shapes in the order the fused train
+    step packs them (the block's, by structural name)."""
     if "arrays" not in state:
         import torch
         from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
@@ -405,6 +638,9 @@ def _arrays(mx, state):
         probe(torch.zeros(1, 3, 224, 224))
         state["arrays"] = mx.convert.random_numpy_params(
             mx.convert.param_shapes(probe), seed=0)
+        state["train_shapes"] = [tuple(p.shape)
+                                 for p in probe._all_params_list()
+                                 if p.grad_req != "null"]
     return state["arrays"]
 
 
@@ -486,11 +722,29 @@ def _bn_counts(BNF):
             "finalize": BNF.LAUNCHES_FINALIZE, "copies": BNF.COPIES}
 
 
-def _zero_counts(BNF, CF):
+def _conv_counts(CF):
+    return {"fwd": CF.LAUNCHES, "bwd_dx": CF.LAUNCHES_BWD_DX,
+            "bwd_dw": CF.LAUNCHES_BWD_DW, "finalize": CF.LAUNCHES_FINALIZE,
+            "reduce": CF.LAUNCHES_REDUCE, "copies": CF.COPIES}
+
+
+def _zero_counts(BNF, CF, OA=None):
     BNF.LAUNCHES_STATS = BNF.LAUNCHES_APPLY = 0
     BNF.LAUNCHES_BWD_REDUCE = BNF.LAUNCHES_BWD_DX = 0
     BNF.LAUNCHES_FINALIZE = BNF.COPIES = 0
-    CF.LAUNCHES = 0
+    CF.LAUNCHES = CF.LAUNCHES_BWD_DX = CF.LAUNCHES_BWD_DW = 0
+    CF.LAUNCHES_FINALIZE = CF.LAUNCHES_REDUCE = CF.COPIES = 0
+    if OA is not None:
+        OA.LAUNCHES = 0
+
+
+def _batch(state):
+    """The training batch: 128 images and labels from numpy seed 1."""
+    if "batch" not in state:
+        rs = np.random.RandomState(1)
+        state["batch"] = (rs.rand(128, 3, 224, 224).astype("float32"),
+                          rs.randint(0, 1000, (128,)).astype("float32"))
+    return state["batch"]
 
 
 def _train_step(mx, net, trainer, loss_fn, x, y):
@@ -508,15 +762,12 @@ def phase_train(torch, state):
     from mxnet_tpu_torch.kernels import conv_fused as CF
 
     arrays = _arrays(mx, state)
-    rs = np.random.RandomState(1)
-    x_np = rs.rand(128, 3, 224, 224).astype("float32")
-    y_np = rs.randint(0, 1000, (128,)).astype("float32")
+    x_np, y_np = _batch(state)
     loss_fn = SoftmaxCrossEntropyLoss()
-    sgd = {"learning_rate": 0.01, "momentum": 0.9}
 
     # -- the main path: bf16, batch 128, 5 steps on one batch -------------
     net = _build_net(mx, arrays, False, "bfloat16", mx.gpu(0))
-    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(sgd))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD))
     x = torch.from_numpy(x_np).to("cuda", torch.bfloat16)
     y = torch.from_numpy(y_np).cuda()
     torch.cuda.synchronize()
@@ -537,7 +788,7 @@ def phase_train(torch, state):
     ok_loss = all(np.isfinite(losses)) and losses[-1] < losses[0]
     state.setdefault("launches", {}).update(
         {k: counts[k] for k in BN_KERNELS})
-    state["train"] = {"net": net, "trainer": trainer, "x": x, "y": y}
+    state["train"] = lambda: _train_step(mx, net, trainer, loss_fn, x, y)
     emit({"phase": "train", "dtype": "bfloat16", "batch": 128, "steps": 5,
           "losses": losses, "launches": counts, "launches_wanted": want,
           "conv_fused_launches": conv,
@@ -550,52 +801,89 @@ def phase_train(torch, state):
         raise AssertionError("training loss not finite and falling: %s"
                              % losses)
 
-    # -- f32, TF32 off: one step at batch 4, the card against the CPU -----
-    # The gradients of this deep net at batch 4 are ill-conditioned: any two
-    # correct f32 implementations differ by several percent in some layers.
-    # So the card is also run with cuDNN off (PyTorch's own convolutions),
-    # and the card-vs-CPU gap of the gradients and updated weights must stay
-    # within twice that card-vs-card spread (and never needs to beat the
-    # stated bounds of TRAIN_RTOL).
+    _f32_card_vs_cpu(torch, mx, arrays, x_np[:4], y_np[:4], loss_fn, False)
+
+
+def _f32_card_vs_cpu(torch, mx, arrays, x_np, y_np, loss_fn, fuse):
+    """One f32 training step (TF32 off) from the seed weights, the card
+    against the port on the CPU; ``fuse=True`` runs the fused net through
+    gluon.train_step with MXTPU_FUSED_APPLY=1.
+
+    The gradients of this deep net at batch 4 are ill-conditioned: any two
+    correct f32 implementations differ by several percent in some layers.
+    So the card-vs-CPU gap of the gradients and updated weights must stay
+    within twice the spread between two other correct f32 runs (and never
+    needs to beat the stated bounds of TRAIN_RTOL). The two runs of a
+    spread launch the same kernels, or none, so a wrong kernel cannot
+    widen its own bound:
+
+      fuse=False: the card with cuDNN on against the card with cuDNN off
+        (PyTorch's own convolutions);
+      fuse=True: the larger of that same spread of the unfused net, and
+        the CPU's fused net against the CPU's unfused one (the fold's f32
+        form against the BatchNorm's, both plain). With the fused net the
+        3x3 convolutions run the conv_fused kernels whether cuDNN is on
+        or off, so its own cuDNN spread moves only the 7x7 stem."""
+    phase = "train_fused" if fuse else "train"
+    variants = [("card", mx.gpu(0), True, fuse), ("cpu", mx.cpu(), True, fuse)]
+    witnesses = []
+    if fuse:
+        variants += [("cpu_unfused", mx.cpu(), True, False),
+                     ("card_unfused", mx.gpu(0), True, False)]
+        witnesses.append(("cpu", "cpu_unfused"))
+    unfused = "card_unfused" if fuse else "card"
+    variants.append((unfused + "_native_conv", mx.gpu(0), False, False))
+    witnesses.append((unfused, unfused + "_native_conv"))
     runs = {}
     with mx.precision.matmul_precision("float32"):
-        for name, ctx, cudnn in (("card", mx.gpu(0), True),
-                                 ("card_native_conv", mx.gpu(0), False),
-                                 ("cpu", mx.cpu(), True)):
+        for name, ctx, cudnn, f in variants:
             prev = torch.backends.cudnn.enabled
             torch.backends.cudnn.enabled = cudnn
             try:
-                runs[name] = _f32_step(torch, mx, arrays, ctx, x_np[:4],
-                                       y_np[:4], loss_fn, sgd)
+                runs[name] = _one_step(torch, mx, arrays, ctx, x_np, y_np,
+                                       loss_fn, f, "float32")
             finally:
                 torch.backends.cudnn.enabled = prev
     gap = {w: _max_rel(runs["card"], runs["cpu"], w) for w in TRAIN_RTOL}
-    spread = {w: _max_rel(runs["card"], runs["card_native_conv"], w)
-              for w in TRAIN_RTOL}
+    spreads = {"%s_vs_%s_max_rel" % (a, b): {
+        w: _max_rel(runs[a], runs[b], w) for w in TRAIN_RTOL}
+        for a, b in witnesses}
     bound = {"loss": TRAIN_RTOL["loss"]}
     for w in ("grad", "param"):
-        bound[w] = max(TRAIN_RTOL[w], 2.0 * spread[w][0])
+        bound[w] = max([TRAIN_RTOL[w]]
+                       + [2.0 * s[w][0] for s in spreads.values()])
     ok = all(gap[w][0] <= bound[w] for w in TRAIN_RTOL)
-    emit({"phase": "train", "dtype": "float32", "batch": 4,
-          "card_vs_cpu_max_rel": gap,
-          "card_vs_card_native_conv_max_rel": spread,
-          "bound_rel": bound, "stated_rel": TRAIN_RTOL,
-          "loss": runs["card"]["loss"].tolist(), "ok": ok})
+    emit(dict({"phase": phase, "dtype": "float32", "batch": len(x_np),
+               "card_vs_cpu_max_rel": gap}, **spreads,
+              bound_rel=bound, stated_rel=TRAIN_RTOL,
+              loss=runs["card"]["loss"].tolist(), ok=ok))
     if not ok:
-        raise AssertionError("f32 training step, card vs CPU: %s over %s"
-                             % (gap, bound))
+        raise AssertionError("f32 training step (fuse=%s), card vs CPU: %s "
+                             "over %s" % (fuse, gap, bound))
 
 
-def _f32_step(torch, mx, arrays, ctx, x_np, y_np, loss_fn, sgd):
-    """One f32 training step from the seed weights on ``ctx``: the
-    per-sample loss, every gradient, and every parameter and running
-    statistic after the update, on the host."""
-    net = _build_net(mx, arrays, False, "float32", ctx)
-    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(sgd))
+def _one_step(torch, mx, arrays, ctx, x_np, y_np, loss_fn, fuse, dtype,
+              steps=1):
+    """``steps`` training steps from the seed weights on ``ctx``: the
+    last per-sample loss, every gradient, and every parameter and running
+    statistic after the update, on the host. ``fuse=False`` runs the eager
+    record/backward/Trainer.step; ``fuse=True`` the hybridized fused net
+    through gluon.train_step."""
+    net = _build_net(mx, arrays, fuse, dtype, ctx)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD))
     dev = ctx.device
-    loss = _train_step(mx, net, trainer, loss_fn,
-                       torch.from_numpy(x_np).to(dev),
-                       torch.from_numpy(y_np).to(dev))
+    x = torch.from_numpy(x_np).to(dev, getattr(torch, dtype))
+    y = torch.from_numpy(y_np).to(dev)
+    if fuse:
+        net.hybridize()
+        step = mx.gluon.train_step(net, loss_fn, trainer)
+    for _ in range(steps):
+        if fuse:
+            loss = step(x, y)
+            if step.last_mode != "fused":
+                raise AssertionError("train_step ran %r" % step.last_mode)
+        else:
+            loss = _train_step(mx, net, trainer, loss_fn, x, y)
     params = net._collect_params_with_prefix()
     return {"loss": loss.detach().cpu(),
             "grad": {k: p.grad().cpu() for k, p in params.items()
@@ -613,6 +901,135 @@ def _max_rel(a, b, what):
         rel = (u - v).abs().max().item() / max(v.abs().max().item(), 1e-30)
         worst = max(worst, (rel, key), key=lambda t: t[0])
     return worst
+
+
+def _set_fused_apply(value):
+    """Set MXTPU_FUSED_APPLY; returns the previous value (None if unset)."""
+    prev = os.environ.get("MXTPU_FUSED_APPLY")
+    if value is None:
+        os.environ.pop("MXTPU_FUSED_APPLY", None)
+    else:
+        os.environ["MXTPU_FUSED_APPLY"] = value
+    return prev
+
+
+def phase_train_fused(torch, state):
+    prev = _set_fused_apply("1")
+    try:
+        _train_fused(torch, state)
+    finally:
+        _set_fused_apply(prev)
+
+
+def _train_fused(torch, state):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+
+    arrays = _arrays(mx, state)
+    x_np, y_np = _batch(state)
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    # -- the main path: fuse=True, bf16, batch 128, 5 fused steps ----------
+    net = _build_net(mx, arrays, True, "bfloat16", mx.gpu(0))
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD))
+    step = mx.gluon.train_step(net, loss_fn, trainer)
+    # the trainable weights in the order the step packs them
+    all_params, train_pos, _ = step._param_split()
+    trainable = [all_params[pos].data() for pos in train_pos]
+    buckets = len(OA.bucketize(trainable))
+    x = torch.from_numpy(x_np).to("cuda", torch.bfloat16)
+    y = torch.from_numpy(y_np).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(BNF, CF, OA)
+    losses, modes = [], []
+    t0 = time.perf_counter()
+    for _ in range(5):
+        loss = step(x, y)
+        modes.append(step.last_mode)
+        losses.append(loss.float().mean().item())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    conv = _conv_counts(CF)
+    bn = _bn_counts(BNF)
+    apply_n = OA.LAUNCHES
+    want_conv = {k: 5 * FUSED_PER_STEP
+                 for k in ("fwd", "bwd_dx", "bwd_dw", "finalize", "reduce")}
+    want_bn = {k: 5 * BN_FUSED_NET_PER_STEP for k in BN_KERNELS}
+    want_bn["finalize"] = 2 * 5 * BN_FUSED_NET_PER_STEP
+    ok_counts = all(conv[k] == n for k, n in want_conv.items()) \
+        and all(bn[k] == n for k, n in want_bn.items()) \
+        and apply_n == 5 * buckets
+    ok_mode = all(m == "fused" for m in modes)
+    ok_loss = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    state.setdefault("launches", {}).update(
+        {"conv_fused." + k: conv[k] for k in CONV_BWD})
+    state["launches"]["optimizer_apply"] = apply_n
+
+    def fused_step():
+        prev = _set_fused_apply("1")
+        try:
+            step(x, y)
+        finally:
+            _set_fused_apply(prev)
+    state["train_fused"] = fused_step
+    state["apply_buckets"] = buckets
+    emit({"phase": "train_fused", "dtype": "bfloat16", "batch": 128,
+          "steps": 5, "losses": losses, "last_modes": modes,
+          "trainable_tensors": len(trainable),
+          "trainable_elements": sum(w.numel() for w in trainable),
+          "buckets": buckets,
+          "launches": {"conv_fused": conv, "batchnorm_fused": bn,
+                       "optimizer_apply": apply_n},
+          "launches_wanted": {"conv_fused": want_conv,
+                              "batchnorm_fused": want_bn,
+                              "optimizer_apply": 5 * buckets},
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "wall_s": wall, "ok": ok_counts and ok_mode and ok_loss})
+    if not ok_counts:
+        raise AssertionError("fused training launches conv %s, bn %s, apply "
+                             "%d; want %s, %s, %d" % (conv, bn, apply_n,
+                                                      want_conv, want_bn,
+                                                      5 * buckets))
+    if not ok_mode:
+        raise AssertionError("train_step modes %s, want fused" % modes)
+    if not ok_loss:
+        raise AssertionError("fused training loss not finite and falling: "
+                             "%s" % losses)
+
+    # -- f32, TF32 off: one step at batch 4, the card against the CPU -----
+    _f32_card_vs_cpu(torch, mx, arrays, x_np[:4], y_np[:4], loss_fn, True)
+
+    # -- MXTPU_FUSED_APPLY=0 against =1: two bf16 steps, same weights -----
+    # cuDNN's deterministic algorithms, so that the two runs' gradients
+    # (and so any difference of the update phases) are reproducible
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs = {}
+    try:
+        for mode in ("0", "1"):
+            _set_fused_apply(mode)
+            runs[mode] = _one_step(torch, mx, arrays, mx.gpu(0), x_np[:16],
+                                   y_np[:16], loss_fn, True, "bfloat16",
+                                   steps=2)
+    finally:
+        _set_fused_apply("1")
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    same = {w: all(same_bits(torch, runs["0"][w][k], runs["1"][w][k])
+                   for k in runs["1"][w]) for w in ("grad", "param")}
+    ok = same["param"]
+    emit({"phase": "train_fused", "dtype": "bfloat16", "batch": 16,
+          "steps": 2, "fused_apply_0_vs_1_bitwise": same, "ok": ok})
+    if not ok:
+        raise AssertionError("MXTPU_FUSED_APPLY=0 and =1 updated the "
+                             "weights differently: %s" % same)
 
 
 def phase_time(torch, state):
@@ -679,21 +1096,24 @@ def phase_time(torch, state):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             busy_ms, by_kernel, ops = profile_busy_ms(
-                torch, lambda: net(x), 3, top=10 if batch == 32 else None,
-                match="conv_fused")
+                torch, lambda: net(x), 3, top=10 if batch == 32 else None)
             rates["fuse=%s,b%d" % (fuse, batch)] = {
                 "images_per_sec": batch * iters / wall,
                 "wall_ms_per_forward": wall / iters * 1e3,
                 "device_busy_ms_per_forward": busy_ms,
                 "device_idle_share": None if busy_ms is None
                 else max(0.0, 1.0 - busy_ms / (wall / iters * 1e3)),
-                "conv_fused_ms_per_forward": by_kernel}
+                "conv_fused_ms_per_forward": None if by_kernel is None
+                else by_kernel["conv_fused"]}
             if ops:
                 emit({"phase": "time", "where_the_time_goes":
-                      "fuse=%s,b%d" % (fuse, batch), "top_ops": ops})
+                      "fuse=%s,b%d" % (fuse, batch),
+                      "top_ops": ops["top_ops"]})
         del net
     emit({"phase": "time", "resnet50_v1_nhwc_bf16": rates})
     phase_time_bn(torch, state)
+    phase_time_conv_bwd(torch, state)
+    phase_time_apply(torch, state)
     phase_time_train(torch, state)
 
 
@@ -777,41 +1197,194 @@ def phase_time_bn(torch, state):
     torch.cuda.empty_cache()
 
 
-def phase_time_train(torch, state):
-    """The training step at batch 128 in bf16: images/sec from wall time,
-    device busy time and idle share, and the top host ops by device
-    time."""
+def conv_bwd_bound(shape, kernel, dtype_bytes, card):
+    """Least time (s) for one launch of a conv_fused backward kernel, and
+    which side bounds it: 2*N*H*W*9*Ci*Co operations over the peak for the
+    dtype; bytes over the memory rate: the d-input kernel reads x, dy, W,
+    s, b and writes dx, ds, db; the d-weight kernel reads x, dy, s, b and
+    writes dW."""
+    N, H, W, Ci, Co = shape
+    _, (bf16_peak, f32_peak, bw) = card
+    ops = 2.0 * N * H * W * 9 * Ci * Co
+    px = N * H * W
+    if kernel == "bwd_dx":
+        nbytes = dtype_bytes * (px * (2 * Ci + Co) + 9 * Ci * Co) + 16 * Ci
+    else:
+        nbytes = dtype_bytes * (px * (Ci + Co) + 9 * Ci * Co) + 8 * Ci
+    t_ops = ops / (bf16_peak if dtype_bytes == 2 else f32_peak)
+    t_bytes = nbytes / bw
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def phase_time_conv_bwd(torch, state):
+    """Rows 2 and 3 at the four fused shapes of training at batch 128
+    (bf16, relu): each kernel with its second pass (profiler, by name), the
+    whole backward call, the plain halves, and the library yardstick
+    ``aten.convolution_backward`` for the input and the weight gradient
+    apart (the convolution only: no mask, no scale, no ds/db)."""
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+
+    card = state["card"]
+    lib = torch.ops.aten.convolution_backward
+    plain = {"bwd_dx": CF.backward_input_reference,
+             "bwd_dw": CF.backward_weight_reference}
+    totals = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                  "bound_ms": 0.0, "bound_ops_ms": 0.0} for k in CONV_BWD}
+    call_total = 0.0
+    for i, (shape, count) in enumerate(RN50_TRAIN_SHAPES):
+        x, s, b, w, dy = conv_bwd_case(torch, shape, torch.bfloat16,
+                                       seed=900 + i)
+        x_cf = x.permute(0, 3, 1, 2)                       # channels-last
+        dy_cf = dy.permute(0, 3, 1, 2)
+        w_cl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        libs = {k: (lambda mask=mask: lib(dy_cf, x_cf, w_cl, None, [1, 1],
+                                          [1, 1], [1, 1], False, [0, 0], 1,
+                                          mask))
+                for k, mask in (("bwd_dx", [True, False, False]),
+                                ("bwd_dw", [False, True, False]))}
+        call = (lambda: CF.fused_conv_backward(x, s, b, w, dy))
+        k_ms = kernel_ms(torch, call, 10,
+                         {k: names for k, (_, names, _) in CONV_BWD.items()})
+        c_ms = device_ms(torch, call, iters=20)
+        call_total += count * c_ms
+        row = {}
+        for k in CONV_BWD:
+            t_bound, by = conv_bwd_bound(shape, k, 2, card)
+            row[k] = {"ms": k_ms[k],
+                      "plain_ms": device_ms(torch, lambda k=k: plain[k](
+                          x, s, b, w, dy), iters=5, warmup=1),
+                      "library_ms": device_ms(torch, libs[k], iters=20),
+                      "bound_ms": t_bound * 1e3, "bound_by": by}
+            row[k]["roofline_share"] = row[k]["bound_ms"] / row[k]["ms"]
+            for f in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                totals[k][f] += count * row[k][f]
+            if by == "operations":
+                totals[k]["bound_ops_ms"] += count * row[k]["bound_ms"]
+        emit({"phase": "time", "kernel": "conv_fused_backward",
+              "dtype": "bfloat16", "shape": list(shape),
+              "launches_per_step": count, "kernels": row,
+              "whole_backward_call_ms": c_ms})
+        del x, s, b, w, dy, x_cf, dy_cf, w_cl
+    for k in CONV_BWD:
+        t = totals[k]
+        t["bound_by"] = "operations" \
+            if t.pop("bound_ops_ms") >= t["bound_ms"] / 2 else "bytes"
+    state["conv_bwd_timing"] = totals
+    emit({"phase": "time", "kernel": "conv_fused_backward",
+          "per_step_bf16_b128": totals,
+          "whole_backward_calls_ms_per_step": call_total})
+    torch.cuda.empty_cache()
+
+
+def phase_time_apply(torch, state):
+    """Row 8 over ResNet-50's trainable parameters in bf16 with momentum,
+    as the fused step runs it (lr 0.01, wd 0): the kernel launches of one
+    update phase (profiler, by name), the whole packed_apply call (with
+    its segment-table uploads), the plain version over the packed
+    segments, the concatenate-and-split copies that a packing
+    implementation would add around it (this kernel has none), and the
+    per-parameter update phase that MXTPU_FUSED_APPLY=0 runs."""
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
 
-    t = state.get("train")
-    if t is None:
-        return
-    loss_fn = SoftmaxCrossEntropyLoss()
+    card = state["card"]
+    shapes = _train_shapes(mx, state)
+    opt = topt.SGD(**SGD)
+    ws, gs, ms, _, _ = apply_case(torch, shapes, torch.bfloat16, 0.9,
+                                  seed=950)
+    lrs = [SGD["learning_rate"]] * len(ws)
+    wds = [0.0] * len(ws)
+    rescale = 1.0 / 128
+    segs = _packed_segments(torch, OA, ws, gs, ms, lrs, wds)
 
-    def step():
-        _train_step(mx, t["net"], t["trainer"], loss_fn, t["x"], t["y"])
+    def run():
+        OA.packed_apply(opt, ws, gs, ms, lrs, wds, rescale)
 
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    iters = 5
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        step()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / iters
-    busy_ms, bn_ms, ops = profile_busy_ms(torch, step, 2, top=12,
-                                          match="bn_")
-    emit({"phase": "time", "train_step_resnet50_v1_nhwc_bf16_b128": {
-        "images_per_sec": 128 / wall, "wall_ms_per_step": wall * 1e3,
-        "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": None if busy_ms is None
-        else max(0.0, 1.0 - busy_ms / (wall * 1e3)),
-        "batchnorm_kernels_ms_per_step": bn_ms}})
-    if ops:
-        emit({"phase": "time", "where_the_time_goes": "train_step,b128",
-              "top_ops": ops})
+    def pack_unpack():
+        for bucket, *_ in segs:
+            for ts in (ws, gs, ms):
+                torch.cat([ts[i].reshape(-1) for i in bucket])
+        for (bucket, w, _, m, _, _) in segs:
+            off = 0
+            for i in bucket:
+                n = ws[i].numel()
+                ws[i].view(-1).copy_(w[off:off + n])
+                ms[i].view(-1).copy_(m[off:off + n])
+                off += n
+
+    def per_param():
+        with torch.no_grad():
+            for w, g, m, lr, wd in zip(ws, gs, ms, lrs, wds):
+                nw, nm = opt.step_fn_multi_precision(w, g, m, lr, wd,
+                                                     rescale)
+                w.copy_(nw)
+                m.copy_(nm)
+
+    n = sum(w.numel() for w in ws)
+    _, (_, f32_peak, bw) = card
+    t_bytes = (2 * 5 * n + 8 * len(ws)) / bw
+    t_ops = APPLY_OPS * n / f32_peak
+    # device times from the profiler (kernels and copies summed), since
+    # these calls make tens to thousands of launches and an event pair
+    # would also count the host's gaps between them; host times beside
+    res = {"ms": kernel_ms(torch, run, 10, {"k": ("sgd_apply",)})["k"],
+           "call_ms": device_busy_ms(torch, run, 10),
+           "call_host_ms": host_ms(torch, run, 10),
+           "plain_ms": device_busy_ms(torch, lambda: apply_plain(
+               torch, OA, opt, segs, rescale), 5),
+           "pack_unpack_copies_ms": device_busy_ms(torch, pack_unpack, 5),
+           "per_param_update_phase_ms": device_busy_ms(torch, per_param, 5),
+           "per_param_update_phase_host_ms": host_ms(torch, per_param, 5),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": None,
+           "library_note": "no single PyTorch call computes MXNet's SGD "
+                           "step (rescale, clip, wd, momentum as one op)",
+           "tensors": len(ws), "elements": n, "buckets": len(segs)}
+    res["roofline_share"] = res["bound_ms"] / res["ms"]
+    state["apply_timing"] = res
+    emit({"phase": "time", "kernel": "optimizer_apply", "dtype": "bfloat16",
+          "per_step": res})
+    del ws, gs, ms, segs
+    torch.cuda.empty_cache()
+
+
+def phase_time_train(torch, state):
+    """Both training steps at batch 128 in bf16 (the eager fuse=False step
+    of phase train and the fused step of phase train_fused): images/sec
+    from wall time, device busy time and idle share, device ms by kernel
+    family, and the top host ops by device time."""
+    for key, label in (("train", "train_step_resnet50_v1_nhwc_bf16_b128"),
+                       ("train_fused",
+                        "fused_train_step_resnet50_v1_nhwc_bf16_b128")):
+        step = state.get(key)
+        if step is None:
+            continue
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        iters = 5
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters
+        busy_ms, by_kernel, tops = profile_busy_ms(
+            torch, step, 2, top=12,
+            match=("bn_", "conv_fused_", "conv_bwd_dx_", "conv_bwd_finalize",
+                   "conv_bwd_dw_", "conv_dw_reduce", "sgd_apply"))
+        emit({"phase": "time", label: {
+            "images_per_sec": 128 / wall, "wall_ms_per_step": wall * 1e3,
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": None if busy_ms is None
+            else max(0.0, 1.0 - busy_ms / (wall * 1e3)),
+            "kernel_ms_per_step_by_name": by_kernel}})
+        if tops:
+            emit(dict({"phase": "time",
+                       "where_the_time_goes": key + ",b128"}, **tops))
 
 
 def _self_device_us(ev):
@@ -819,34 +1392,154 @@ def _self_device_us(ev):
     return getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
 
 
-def profile_busy_ms(torch, fn, iters, top=None, match="conv_fused"):
-    """From torch.profiler: device time per call of fn() summed over its
-    kernels, the part spent in kernels whose name contains `match`, and
-    (with `top`) the host ops whose kernels took the most device time.
-    (None, None, []) where the profiler saw no device time."""
+def _profile(torch, fn, iters):
+    """torch.profiler over `iters` calls of fn(): ({device kernel or copy
+    name: device us}, [(device us of its kernels, host op name)])."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = fused = 0.0
-    by_op = []
+    kernels, by_op = {}, []
     for ev in prof.key_averages():
         us = _self_device_us(ev)
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             if us > 0:                  # a host op, by its kernels' time
                 by_op.append((us, ev.key))
             continue
-        total += us
-        if match in ev.key:
-            fused += us
+        kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+    return kernels, by_op
+
+
+def kernel_ms(torch, fn, iters, groups):
+    """Device ms per call of fn() in the kernels of each group ({label:
+    name substrings}), from the profiler. Fails where it saw none."""
+    kernels, _ = _profile(torch, fn, iters)
+    out = {}
+    for label, names in groups.items():
+        us = sum(v for k, v in kernels.items() if any(n in k for n in names))
+        if us <= 0:
+            raise AssertionError("the profiler saw no %s kernel (%s)"
+                                 % (label, sorted(kernels)[:20]))
+        out[label] = us / iters / 1e3
+    return out
+
+
+def device_busy_ms(torch, fn, iters):
+    """Device time per call of fn(), summed over its kernels and copies
+    (profiler): unlike device_ms, no host gap between launches counts."""
+    kernels, _ = _profile(torch, fn, iters)
+    return sum(kernels.values()) / iters / 1e3
+
+
+def host_ms(torch, fn, iters):
+    """Wall time per call of fn() on the host clock, ending in a
+    synchronize: what the caller waits for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def profile_busy_ms(torch, fn, iters, top=None, match=("conv_fused",)):
+    """From torch.profiler: device time per call of fn() summed over its
+    kernels, the part spent in kernels whose name contains each string of
+    `match` ({string: ms}), and (with `top`) {"top_ops": the host ops whose
+    kernels took the most device time, "top_kernels": the kernels that
+    took the most}. (None, None, {}) where the profiler saw no device
+    time."""
+    kernels, by_op = _profile(torch, fn, iters)
+    total = sum(kernels.values())
+    fused = {m: sum(us for k, us in kernels.items() if m in k) / iters / 1e3
+             for m in match}
     if total <= 0:
-        return None, None, []
-    ops = [{"op": key[:60], "ms_per_call": us / iters / 1e3,
-            "share": us / total} for us, key in sorted(by_op)[::-1][:top]] \
-        if top else []
-    return total / iters / 1e3, fused / iters / 1e3, ops
+        return None, None, {}
+    tops = {}
+    if top:
+        by_kernel = [(us, key) for key, us in kernels.items()]
+        for name, rows in (("top_ops", by_op), ("top_kernels", by_kernel)):
+            tops[name] = [{"op": key[:60], "ms_per_call": us / iters / 1e3,
+                           "share": us / total}
+                          for us, key in sorted(rows)[::-1][:top]]
+    return total / iters / 1e3, fused, tops
+
+
+def kernel_summary(state):
+    """The {"kernels": [...]} entries: each kernel's launches on its path,
+    its error against its plain version and its times beside its bound,
+    from the state the phases filled."""
+    t = state["timing"]
+    kernels = [{
+        "name": "conv_fused", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/conv_fused.cu",
+        "replaces": "mxnet_tpu/pallas_kernels/conv_fused.py:121",
+        "launches": state["launches"]["conv_fused"],
+        "max_abs_err": state["kernel_err"]["bfloat16"],
+        "tolerance": RTOL["bfloat16"],
+        "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "per": "one ResNet-50 forward at batch 32, bf16 (16 launches)",
+    }]
+    for k in BN_KERNELS:
+        b = state["bn_timing"][k]
+        kernels.append({
+            "name": "batchnorm_fused." + k, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/batchnorm_fused.cu",
+            "replaces": "mxnet_tpu/pallas_kernels/batchnorm_fused.py:%d"
+            % BN_REPLACES[k],
+            "launches": state["launches"][k],
+            "max_abs_err": state["bn_err"][k],
+            "tolerance": 0.0 if k in ("stats", "apply") else BN_BWD_RTOL,
+            "ms": b["ms"], "kernel_ms": b["ms"],
+            "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": b["library_ms"],
+            "per": "one ResNet-50 training step at batch 128, bf16 "
+                   "(%d launches%s)" % (BN_PER_STEP, "" if k in (
+                       "apply", "bwd_dx") else " and %d finalize "
+                       "launches" % BN_PER_STEP),
+        })
+    for k, (_, _, body_line) in CONV_BWD.items():
+        c = state["conv_bwd_timing"][k]
+        kernels.append({
+            "name": "conv_fused." + k, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/conv_fused.cu",
+            "replaces": "mxnet_tpu/pallas_kernels/conv_fused.py:%d"
+            % body_line,
+            "launches": state["launches"]["conv_fused." + k],
+            "max_abs_err": state["conv_bwd_err"][k][0],
+            "max_rel_err": state["conv_bwd_err"][k][1],
+            "tolerance": BWD_RTOL["bfloat16"]["dx"],
+            "ms": c["ms"], "kernel_ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "per": "one fused ResNet-50 training step at batch 128, "
+                   "bf16 (%d launches and %d %s launches)"
+                   % (FUSED_PER_STEP, FUSED_PER_STEP,
+                      "finalize" if k == "bwd_dx" else "reduce"),
+        })
+    a = state["apply_timing"]
+    kernels.append({
+        "name": "optimizer_apply", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/optimizer_apply.cu",
+        "replaces": "mxnet_tpu/pallas_kernels/optimizer_apply.py:80",
+        "launches": state["launches"]["optimizer_apply"],
+        "max_abs_err": state["apply_err"], "tolerance": 0.0,
+        "ms": a["ms"], "kernel_ms": a["ms"], "plain_ms": a["plain_ms"],
+        "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+        "library_ms": None, "library_note": a["library_note"],
+        "per_param_update_phase_ms": a["per_param_update_phase_ms"],
+        "per_param_update_phase_host_ms":
+            a["per_param_update_phase_host_ms"],
+        "per": "one update phase of the fused ResNet-50 step, bf16 SGD "
+               "momentum 0.9 (%d launches, one per bucket)"
+               % state["apply_buckets"],
+    })
+    return kernels
 
 
 def main(argv=None):
@@ -877,39 +1570,8 @@ def main(argv=None):
             globals()["phase_" + p](torch, state)
 
     print(line, flush=True)
-    if all(p in phases for p in ("kernel", "serve", "train", "time")):
-        t = state["timing"]
-        kernels = [{
-            "name": "conv_fused", "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/conv_fused.cu",
-            "replaces": "mxnet_tpu/pallas_kernels/conv_fused.py:121",
-            "launches": state["launches"]["conv_fused"],
-            "max_abs_err": state["kernel_err"]["bfloat16"],
-            "tolerance": RTOL["bfloat16"],
-            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "per": "one ResNet-50 forward at batch 32, bf16 (16 launches)",
-        }]
-        for k in BN_KERNELS:
-            b = state["bn_timing"][k]
-            kernels.append({
-                "name": "batchnorm_fused." + k, "route": "cuda",
-                "source": "mxnet_tpu_torch/csrc/batchnorm_fused.cu",
-                "replaces": "mxnet_tpu/pallas_kernels/batchnorm_fused.py:%d"
-                % BN_REPLACES[k],
-                "launches": state["launches"][k],
-                "max_abs_err": state["bn_err"][k],
-                "tolerance": 0.0 if k in ("stats", "apply") else BN_BWD_RTOL,
-                "ms": b["ms"], "kernel_ms": b["ms"],
-                "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
-                "bound_by": b["bound_by"], "library_ms": b["library_ms"],
-                "per": "one ResNet-50 training step at batch 128, bf16 "
-                       "(%d launches%s)" % (BN_PER_STEP, "" if k in (
-                           "apply", "bwd_dx") else " and %d finalize "
-                           "launches" % BN_PER_STEP),
-            })
-        emit({"kernels": kernels})
+    if all(p in phases for p in PHASES):
+        emit({"kernels": kernel_summary(state)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

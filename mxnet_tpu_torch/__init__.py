@@ -10,9 +10,10 @@ built with nvcc at first use.
 The ported slices are ResNet V1 inference and its training step: contexts,
 the op namespace, autograd recording, Gluon blocks, layers and losses, the
 model-zoo ResNets (with the fused BN->ReLU->conv3x3 kernel for serving and
-the fused training-mode BatchNorm kernels), the SGD optimizer and
-``gluon.Trainer``, the matmul precision policy, and weight loading
-(``convert``).
+the fused training-mode BatchNorm kernels, and fused training through the
+conv_fused backward kernels), the SGD optimizer, ``gluon.Trainer`` and the
+fused train step ``gluon.train_step`` (with the packed optimizer-apply
+kernel), the matmul precision policy, and weight loading (``convert``).
 """
 from . import base
 from .base import MXNetError
@@ -24,6 +25,7 @@ from . import autograd
 from . import initializer
 from . import ndarray
 from . import kernels
+from . import parallel
 from . import optimizer
 from . import gluon
 from . import convert
@@ -33,5 +35,6 @@ init = initializer
 
 __all__ = ["base", "MXNetError", "context", "Context", "cpu", "gpu",
            "current_context", "random", "precision", "autograd",
-           "initializer", "init", "ndarray", "nd", "kernels", "optimizer",
+           "initializer", "init", "ndarray", "nd", "kernels", "parallel",
+           "optimizer",
            "gluon", "convert"]

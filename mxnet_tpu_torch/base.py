@@ -6,7 +6,8 @@ import os as _os
 
 import torch
 
-__all__ = ["getenv", "MXNetError", "canonical_dtype"]
+__all__ = ["getenv", "MXNetError", "canonical_dtype", "is_low_precision",
+           "weak_scalar"]
 
 
 def getenv(name, default=None):
@@ -43,3 +44,20 @@ def canonical_dtype(dtype):
         raise MXNetError("unsupported dtype %r" % (dtype,))
     return _DTYPES[name]
 
+
+def is_low_precision(dtype):
+    """float16 or bfloat16."""
+    return dtype in (torch.float16, torch.bfloat16)
+
+
+def weak_scalar(v, dtype):
+    """A scalar operand of an op on a ``dtype`` tensor, rounded as JAX's
+    weak typing rounds it: for a half-precision tensor a Python float
+    becomes a float32 value and then a ``dtype`` value before the op
+    (PyTorch would keep it at float32 op precision); a tensor scalar or
+    vector is cast to ``dtype``. Other dtypes leave ``v`` as it is."""
+    if not is_low_precision(dtype):
+        return v
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype)
+    return float(torch.tensor(float(v), dtype=torch.float32).to(dtype))

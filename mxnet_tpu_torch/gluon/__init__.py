@@ -6,3 +6,5 @@ from . import nn  # noqa: F401
 from . import loss  # noqa: F401
 from .trainer import Trainer  # noqa: F401
 from . import model_zoo  # noqa: F401
+from . import fused_step  # noqa: F401
+from .fused_step import train_step  # noqa: F401

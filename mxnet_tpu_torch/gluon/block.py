@@ -3,7 +3,7 @@ mxnet_tpu/gluon/block.py).
 
 Blocks keep the MXNet surface: name prefixes and ``name_scope``,
 ``initialize``, ``collect_params``, ``_collect_params_with_prefix``,
-``hybridize`` and ``cast``. Children are torch submodules, so the
+``hybridize`` (a flag) and ``cast``. Children are torch submodules, so the
 structural names of ``_collect_params_with_prefix`` ("features.0.weight")
 are also the keys of ``state_dict()``. ``hybrid_forward(F, x, **params)``
 receives ``F``, the module of plain op functions (``mxnet_tpu_torch.nd``),
@@ -55,6 +55,7 @@ class Block(torch.nn.Module):
             self._prefix = _gen_prefix(self._alias())
         self._params = ParameterDict(self._prefix, shared=params)
         self._reg_params = {}
+        self._active = False
 
     def _alias(self):
         return type(self).__name__.lower()
@@ -156,8 +157,23 @@ class Block(torch.nn.Module):
             p.cast(dtype)
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for API parity and ignored: blocks run eagerly.
-        Capturing the forward in a CUDA graph is later work."""
+        """Mark this block and its children hybridized (``_active``), which
+        ``gluon.train_step`` requires to run fused, as in the JAX package.
+        The forward still runs eagerly; capturing it in a CUDA graph is
+        later work."""
+        self._active = bool(active)
+        for _, child in self._child_blocks():
+            child.hybridize(active, **kwargs)
+
+    def _all_params_list(self):
+        """Every parameter of the block tree once, in structural-name
+        order."""
+        seen, out = set(), []
+        for _, p in sorted(self._collect_params_with_prefix().items()):
+            if id(p) not in seen:
+                seen.add(id(p))
+                out.append(p)
+        return out
 
     def __call__(self, *args, **kwargs):
         if not autograd.is_recording():

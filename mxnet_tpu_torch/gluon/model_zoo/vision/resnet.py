@@ -34,50 +34,72 @@ def _conv3x3(channels, stride, in_channels, layout="NCHW"):
 
 
 # -- fused BN->ReLU->conv3x3 link (fuse=True, NHWC only) ---------------------
-# A private OpDef kept out of the global registry, invoked through the F
-# namespace's dispatch point like any op. Training a fused net (the
-# training-mode BN fold with batch statistics, and the kernel's backward)
-# arrives with the conv_fused backward kernels; fuse=False trains.
+# Two private OpDefs kept out of the global registry, invoked through the F
+# namespace's dispatch point like any op: the BatchNorm fold and the fused
+# convolution (differentiable: its backward is the conv_fused backward
+# kernels).
+_BN_FOLD_OP = None
 _FUSED_CONV_OP = None
 
 
-def _fused_conv_opdef():
-    global _FUSED_CONV_OP
+def _fused_opdefs():
+    global _BN_FOLD_OP, _FUSED_CONV_OP
     if _FUSED_CONV_OP is None:
+        import torch
         from ....ops.registry import OpDef
+        from ....ops.nn import batch_moments
         from ....kernels.conv_fused import fused_scale_relu_conv3x3
+
+        def _bn_fold(y, gamma, beta, eps=1e-5):
+            # batch_moments, the BatchNorm op's statistics, returned in y's
+            # dtype (so rounded to bf16 for a bf16 net) before the fold
+            mean, var = batch_moments(y, (0, 1, 2), axis=3)
+            s = gamma.float() * torch.rsqrt(var.float() + eps)
+            b = beta.float() - mean.float() * s
+            return s, b, mean, var
 
         def _fused_conv(x, s, b, w, relu=True):
             w_hwio = w.permute(2, 3, 1, 0)           # OIHW -> HWIO
             return fused_scale_relu_conv3x3(x.contiguous(), s, b, w_hwio,
                                             relu=relu)
 
+        _BN_FOLD_OP = OpDef("_fused_bn_fold", _bn_fold)
         _FUSED_CONV_OP = OpDef("_fused_scale_relu_conv3x3", _fused_conv)
-    return _FUSED_CONV_OP
+    return _BN_FOLD_OP, _FUSED_CONV_OP
 
 
 def _fused_producer_conv(bn, conv, y, F):
     """y -> conv3x3(relu(bn(y))) with the normalize/ReLU chain applied by
-    the fused kernel; ``bn`` uses its running statistics."""
+    the fused kernel. In training mode ``bn`` folds the batch statistics
+    and moves its running statistics as the BatchNorm layer does;
+    otherwise it folds its running statistics."""
     from .... import autograd
+    from ...block import report_aux_update
+    from ....base import weak_scalar
     from ....ndarray.register import invoke
 
-    if autograd.is_training() and not bn._use_global_stats:
-        raise NotImplementedError(
-            "fused ResNet blocks in training mode are not ported yet; run "
-            "under autograd.predict_mode() or build with fuse=False")
+    fold_op, conv_op = _fused_opdefs()
     if bn.gamma._data is None:
         bn._infer_param_shapes(y)
     gamma, beta = bn.gamma.data(), bn.beta.data()
     if not bn._scale:
         # BatchNorm's fix_gamma (= not scale) replaces gamma with ones
         gamma = F.ones_like(gamma)
-    rm = F.cast(bn.running_mean.data(), "float32")
-    rv = F.cast(bn.running_var.data(), "float32")
-    s = F.cast(gamma, "float32") * F.rsqrt(rv + bn._eps)
-    b = F.cast(beta, "float32") - rm * s
-    return invoke(_fused_conv_opdef(), (y, s, b, conv.weight.data()),
-                  {"relu": True})
+    if autograd.is_training() and not bn._use_global_stats:
+        s, b, mean, var = invoke(fold_op, (y, gamma, beta),
+                                 {"eps": bn._eps})
+        m = bn._momentum
+        for param, stat in ((bn.running_mean, mean), (bn.running_var, var)):
+            run = param.data()
+            report_aux_update(param, weak_scalar(m, run.dtype) * run
+                              + weak_scalar(1 - m, run.dtype)
+                              * stat.detach().to(run.dtype))
+    else:
+        rm = F.cast(bn.running_mean.data(), "float32")
+        rv = F.cast(bn.running_var.data(), "float32")
+        s = F.cast(gamma, "float32") * F.rsqrt(rv + bn._eps)
+        b = F.cast(beta, "float32") - rm * s
+    return invoke(conv_op, (y, s, b, conv.weight.data()), {"relu": True})
 
 
 class BasicBlockV1(HybridBlock):

@@ -5,6 +5,7 @@ from __future__ import annotations
 import math
 
 from ... import autograd
+from ...base import weak_scalar
 from ..block import HybridBlock, report_aux_update
 
 __all__ = ["HybridSequential", "Dense", "BatchNorm", "Activation",
@@ -116,7 +117,8 @@ class BatchNorm(HybridBlock):
             m = self._momentum
             for param, run, stat in ((self.running_mean, running_mean, mean),
                                      (self.running_var, running_var, var)):
-                report_aux_update(param, m * run + (1 - m)
+                report_aux_update(param, weak_scalar(m, run.dtype) * run
+                                  + weak_scalar(1 - m, run.dtype)
                                   * stat.detach().to(run.dtype))
         return out
 

@@ -34,11 +34,13 @@ class Trainer:
                 "trains on one device; kvstore None, 'device' or 'local' "
                 "only" % (kvstore, update_on_kvstore, compression_params))
         self._params = []
-        for param in params:
+        self._param2idx = {}
+        for i, param in enumerate(params):
             if not isinstance(param, Parameter):
                 raise ValueError(
                     "First argument must be a list or dict of Parameters, "
                     "got list of %s." % (type(param)))
+            self._param2idx[param.name] = i
             self._params.append(param)
         optimizer_params = optimizer_params if optimizer_params else {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
@@ -72,6 +74,19 @@ class Trainer:
         """One parameter update: rescale by 1/batch_size, reduce, apply."""
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
+
+    def fuse_step(self, loss_fn, block=None, mesh=None, bucket_bytes=None,
+                  rules=None):
+        """A ``gluon.fused_step.FusedTrainStep`` running ``loss_fn``
+        forward, the backward and this trainer's optimizer update as one
+        step (see ``gluon.train_step``). ``loss_fn(*batch)`` returns the
+        per-sample loss, usually a closure over the net; ``block`` names
+        the net so that the step can check it. ``mesh``, ``rules`` and a
+        ``bucket_bytes`` other than the default arrive with the multi-GPU
+        slice."""
+        from .fused_step import FusedTrainStep
+        return FusedTrainStep(self, loss_fn, block=block, mesh=mesh,
+                              bucket_bytes=bucket_bytes, rules=rules)
 
     def allreduce_grads(self):
         """The reduce half of ``step``, for a caller that updates with

@@ -1,12 +1,16 @@
-"""Fused scale-bias-ReLU + 3x3 convolution: the Hopper kernel and its plain
-PyTorch version (counterpart of mxnet_tpu/pallas_kernels/conv_fused.py).
+"""Fused scale-bias-ReLU + 3x3 convolution: the Hopper kernels and their
+plain PyTorch versions (counterpart of mxnet_tpu/pallas_kernels/conv_fused.py).
 
     y = conv3x3(relu(x * s + b), W)        # stride 1, SAME padding, NHWC
 
-``fused_scale_relu_conv3x3`` launches the hand-written CUDA kernel in
-``csrc/conv_fused.cu`` for a CUDA tensor and runs ``fused_conv_reference``
-for a CPU tensor; there is no other route. The kernel's design note is in
-its source.
+``fused_scale_relu_conv3x3`` is differentiable: a ``torch.autograd.Function``
+whose forward is the forward kernel and whose backward is the d-input
+kernel (dx, with the ds/db partials and a finalize launch that folds them)
+and the d-weight kernel (dW partials and a reduce launch), all in
+``csrc/conv_fused.cu``. A CPU tensor runs ``fused_conv_reference`` forward
+and ``fused_conv_backward_reference`` backward; a CUDA tensor launches the
+kernels or raises. There is no other route. The kernels' design note is in
+their source.
 
 Layouts are the JAX package's: x (N, H, W, Ci) NHWC, s and b (Ci,) float32
 (the folded BatchNorm scale and bias), w (3, 3, Ci, Co) HWIO.
@@ -21,10 +25,27 @@ import torch.nn.functional as tF
 from ..base import MXNetError
 
 __all__ = ["fused_scale_relu_conv3x3", "fused_conv_reference",
-           "compute_dtype", "LAUNCHES"]
+           "fused_conv_backward_reference", "backward_input_reference",
+           "backward_weight_reference", "fused_conv_backward",
+           "compute_dtype", "LAUNCHES", "LAUNCHES_BWD_DX", "LAUNCHES_BWD_DW",
+           "LAUNCHES_FINALIZE", "LAUNCHES_REDUCE", "COPIES"]
 
-# Kernel launches made by fused_scale_relu_conv3x3 in this process.
+# Kernel launches in this process: LAUNCHES counts the forward kernel,
+# LAUNCHES_BWD_DX and LAUNCHES_BWD_DW the two backward kernels,
+# LAUNCHES_FINALIZE the launch that folds the d-input kernel's ds/db
+# partials and LAUNCHES_REDUCE the one that adds the d-weight partials.
+# COPIES counts dy tensors that had to be made contiguous for the backward.
 LAUNCHES = 0
+LAUNCHES_BWD_DX = 0
+LAUNCHES_BWD_DW = 0
+LAUNCHES_FINALIZE = 0
+LAUNCHES_REDUCE = 0
+COPIES = 0
+
+# The kernels' output tile (virtual rows x columns; csrc/conv_fused.cu).
+_TH, _TW = 16, 8
+# Blocks the d-weight kernel aims for: two waves of the H100's 132 SMs.
+_DW_BLOCKS = 264
 
 
 def compute_dtype(dtype):
@@ -39,17 +60,68 @@ def compute_dtype(dtype):
     return torch.bfloat16 if dtype.itemsize <= 2 else torch.float32
 
 
+def _pre(x, s, b):
+    """x*s + b in the compute dtype, each op rounded there (``_act``)."""
+    cdt = compute_dtype(x.dtype)
+    return x.to(cdt) * s.to(cdt) + b.to(cdt)
+
+
 def fused_conv_reference(x, s, b, w, relu=True):
     """Plain PyTorch semantics of the fused op: the activation in the
     compute dtype, the convolution in float32 on the upcast operands, the
     result cast to ``x.dtype``. On a CUDA tensor the caller decides TF32
     (``torch.backends.cudnn.allow_tf32``)."""
     cdt = compute_dtype(x.dtype)
-    pre = x.to(cdt) * s.to(cdt) + b.to(cdt)
+    pre = _pre(x, s, b)
     z = torch.clamp_min(pre, 0) if relu else pre
     out = tF.conv2d(z.float().permute(0, 3, 1, 2),
                     w.to(cdt).float().permute(3, 2, 0, 1), padding=1)
     return out.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def fused_conv_backward_reference(x, s, b, w, dy, relu=True):
+    """Plain PyTorch backward of the fused op, the semantics of the JAX
+    package's ``_pallas_backward``. Returns ``(dx, ds, db, dw)``:
+
+        dz   = conv3x3(dy, W flipped in space, transposed)   # f32
+        dpre = dz * (pre > 0) if relu else dz,  pre = x*s + b (compute dtype)
+        dx   = dpre * s                                       # x.dtype
+        ds   = sum(dpre * x),  db = sum(dpre)                 # s/b dtype
+        dw   = sum over pixels of patches(relu(pre))^T dy     # f32 -> w.dtype
+
+    The mask compares ``pre`` in f32 after rounding it in the compute
+    dtype; ``ds`` multiplies by ``x`` (upcast), not by ``pre``; padding is
+    zero in activated space. The two halves are
+    ``backward_input_reference`` (the d-input kernel's function) and
+    ``backward_weight_reference`` (the d-weight kernel's)."""
+    dx, ds, db = backward_input_reference(x, s, b, w, dy, relu)
+    return dx, ds, db, backward_weight_reference(x, s, b, w, dy, relu)
+
+
+def backward_input_reference(x, s, b, w, dy, relu=True):
+    """``(dx, ds, db)`` of ``fused_conv_backward_reference``."""
+    cdt = compute_dtype(x.dtype)
+    pre = _pre(x, s, b)
+    dyc = dy.to(cdt).float().permute(0, 3, 1, 2)
+    wf = torch.flip(w.to(cdt).float(), (0, 1)).permute(2, 3, 0, 1)
+    dz = tF.conv2d(dyc, wf, padding=1).permute(0, 2, 3, 1)
+    dpre = dz * (pre.float() > 0) if relu else dz
+    dx = (dpre * s.float()).to(x.dtype)
+    ds = (dpre * x.float()).sum(dim=(0, 1, 2)).to(s.dtype)
+    db = dpre.sum(dim=(0, 1, 2)).to(b.dtype)
+    return dx, ds, db
+
+
+def backward_weight_reference(x, s, b, w, dy, relu=True):
+    """``dw`` of ``fused_conv_backward_reference``."""
+    cdt = compute_dtype(x.dtype)
+    pre = _pre(x, s, b)
+    z = torch.clamp_min(pre, 0) if relu else pre
+    dyc = dy.to(cdt).float().permute(0, 3, 1, 2)
+    ci, co = w.shape[2], w.shape[3]
+    dw = torch.nn.grad.conv2d_weight(
+        z.float().permute(0, 3, 1, 2), (co, ci, 3, 3), dyc, padding=1)
+    return dw.permute(2, 3, 1, 0).to(w.dtype)
 
 
 def _check(x, s, b, w):
@@ -71,42 +143,118 @@ def _check(x, s, b, w):
             raise TypeError("fused_scale_relu_conv3x3: floating operands "
                             "required, got %s" % t.dtype)
     compute_dtype(x.dtype)
+    if x.device.type not in ("cpu", "cuda"):
+        raise MXNetError("fused_scale_relu_conv3x3: no kernel for device %s"
+                         % x.device)
+
+
+class _FusedConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s, b, w, relu):
+        ctx.relu = relu
+        ctx.save_for_backward(x, s, b, w)
+        if x.device.type == "cpu":
+            return fused_conv_reference(x, s, b, w, relu)
+        return _launch(x, s, b, w, relu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, s, b, w = ctx.saved_tensors
+        dx, ds, db, dw = fused_conv_backward(x, s, b, w, dy, ctx.relu)
+        return dx, ds, db, dw, None
 
 
 def fused_scale_relu_conv3x3(x, s, b, w, relu=True):
     """conv3x3(relu(x*s + b), w) with the normalize/ReLU chain applied on
     the kernel's operand load. ``relu=False`` gives conv3x3(x*s + b, w).
+    Differentiable in x, s, b and w.
 
-    A CPU tensor runs ``fused_conv_reference``. A CUDA tensor launches the
-    kernel on the current stream, or raises: non-contiguous ``x``, an
-    unsupported dtype, mismatched shapes or a failed launch are errors.
-
-    The op has no backward yet, on either device: with grad mode on and an
-    operand that requires grad it raises, rather than return a result
-    that silently drops every gradient upstream of it.
+    A CPU tensor runs ``fused_conv_reference`` (and the plain backward). A
+    CUDA tensor launches the kernels on the current stream, or raises:
+    non-contiguous ``x``, an unsupported dtype, mismatched shapes or a
+    failed launch are errors.
     """
     _check(x, s, b, w)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x, s, b, w)):
-        raise MXNetError("fused_scale_relu_conv3x3 has no backward yet: "
-                         "run it under torch.no_grad() or outside "
-                         "autograd.record(), or build the network with "
-                         "fuse=False to train")
-    if x.device.type == "cpu":
-        return fused_conv_reference(x, s, b, w, relu)
-    if x.device.type != "cuda":
-        raise MXNetError("fused_scale_relu_conv3x3: no kernel for device %s"
-                         % x.device)
-    if not x.is_contiguous():
+    if x.device.type == "cuda" and not x.is_contiguous():
         raise ValueError("fused_scale_relu_conv3x3: x must be contiguous "
                          "NHWC")
-    return _launch(x, s, b, w, bool(relu))
+    return _FusedConv.apply(x, s, b, w, bool(relu))
+
+
+def fused_conv_backward(x, s, b, w, dy, relu=True):
+    """``(dx, ds, db, dw)`` of the fused op for the output gradient
+    ``dy``. A CPU tensor runs ``fused_conv_backward_reference``; a CUDA
+    tensor launches the d-input kernel and its finalize launch, then the
+    d-weight kernel and its reduce launch, or raises. A non-contiguous
+    ``dy`` is copied first (counted in ``COPIES``)."""
+    global COPIES
+    _check(x, s, b, w)
+    if tuple(dy.shape) != tuple(x.shape[:3]) + (w.shape[-1],) \
+            or dy.device != x.device:
+        raise ValueError("fused_conv_backward: dy %s on %s, want %s on %s"
+                         % (tuple(dy.shape), dy.device,
+                            tuple(x.shape[:3]) + (w.shape[-1],), x.device))
+    if x.device.type == "cpu":
+        return fused_conv_backward_reference(x, s, b, w, dy, relu)
+    if not x.is_contiguous():
+        raise ValueError("fused_conv_backward: x must be contiguous NHWC")
+    if not dy.is_contiguous():
+        dy = dy.contiguous()
+        COPIES += 1
+    return _launch_backward(x, s, b, w, dy, bool(relu))
+
+
+# -- launch plumbing ----------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGS = {
+    "conv_fused_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    "conv_fused_bwd_dx": [_P] * 7 + [_I] * 6 + [_P],
+    "conv_fused_bwd_dw": [_P] * 5 + [_I] * 8 + [_P],
+    "conv_fused_bwd_finalize": [_P, _I, _I, _P, _P, _P],
+    "conv_fused_dw_reduce": [_P, _I, ctypes.c_longlong, _P, _P],
+}
+
+
+def _fn(name, dtype=None):
+    from . import _build
+    sym = name if dtype is None else "%s_%s" % (
+        name, "bf16" if dtype == torch.bfloat16 else "f32")
+    fn = getattr(_build.load("conv_fused"), sym)
+    if fn.argtypes is None:
+        fn.argtypes = _SIGS[name]
+        fn.restype = _I
+    return fn
+
+
+def _call(what, shape, fn, *args):
+    err = fn(*args)
+    if err != 0:
+        raise MXNetError("conv_fused %s launch failed: cudaError %d "
+                         "(N, H, W, Ci, Co = %s)" % (what, err, shape))
+
+
+def tiles(N, H, W):
+    """Output tiles of the kernels' grid over the virtual tall image (one
+    zero separator row between images): the d-input kernel writes one
+    ds/db partial per tile."""
+    return -(-(N * (H + 1) - 1) // _TH) * -(-W // _TW)
+
+
+def dw_split(N, H, W, Ci, Co, dtype):
+    """(nsplit, tiles per split) of the d-weight kernel: enough K-splits
+    that splits x channel blocks fill about two waves of the card."""
+    t = tiles(N, H, W)
+    ck = 32 if dtype == torch.bfloat16 else 16
+    per_split = -(-Ci // ck) * -(-Co // 64)
+    nsplit = max(1, min(t, -(-_DW_BLOCKS // per_split)))
+    tps = -(-t // nsplit)
+    return -(-t // tps), tps
 
 
 def _launch(x, s, b, w, relu):
     global LAUNCHES
-    from . import _build
-
     N, H, W_, Ci = x.shape
     Co = w.shape[-1]
     cdt = compute_dtype(x.dtype)
@@ -119,20 +267,60 @@ def _launch(x, s, b, w, relu):
         return out.to(x.dtype)
     if Ci == 0:
         return out.zero_().to(x.dtype)
-    lib = _build.load("conv_fused")
-    fn = lib.conv_fused_fwd_bf16 if cdt == torch.bfloat16 \
-        else lib.conv_fused_fwd_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(xc.data_ptr(), s2.data_ptr(), b2.data_ptr(), w2.data_ptr(),
-                 out.data_ptr(), N, H, W_, Ci, Co, int(relu), stream)
-    if err != 0:
-        raise MXNetError("conv_fused kernel launch failed: cudaError %d "
-                         "(N=%d H=%d W=%d Ci=%d Co=%d %s)"
-                         % (err, N, H, W_, Ci, Co, cdt))
+        _call("forward", (N, H, W_, Ci, Co), _fn("conv_fused_fwd", cdt),
+              xc.data_ptr(), s2.data_ptr(), b2.data_ptr(), w2.data_ptr(),
+              out.data_ptr(), N, H, W_, Ci, Co, int(relu),
+              torch.cuda.current_stream(x.device).cuda_stream)
     LAUNCHES += 1
     return out if out.dtype == x.dtype else out.to(x.dtype)
+
+
+def _launch_backward(x, s, b, w, dy, relu):
+    global LAUNCHES_BWD_DX, LAUNCHES_BWD_DW, LAUNCHES_FINALIZE, \
+        LAUNCHES_REDUCE
+    N, H, W_, Ci = x.shape
+    Co = w.shape[-1]
+    cdt = compute_dtype(x.dtype)
+    dev = x.device
+    if x.numel() == 0 or Co == 0:
+        z = torch.zeros(Ci, dtype=torch.float32, device=dev)
+        return (torch.zeros_like(x), z.to(s.dtype), z.to(b.dtype),
+                torch.zeros_like(w))
+    shape = (N, H, W_, Ci, Co)
+    xc = x if x.dtype == cdt else x.to(cdt)
+    dyc = dy if dy.dtype == cdt else dy.to(cdt)
+    s2 = s.to(torch.float32).contiguous()
+    b2 = b.to(torch.float32).contiguous()
+    # W flipped in space and transposed to (9*Co, Ci), as _pallas_backward
+    wt = torch.flip(w, (0, 1)).permute(0, 1, 3, 2).reshape(9 * Co, Ci) \
+        .to(cdt).contiguous()
+    T = tiles(N, H, W_)
+    nsplit, tps = dw_split(N, H, W_, Ci, Co, cdt)
+    dx = torch.empty((N, H, W_, Ci), dtype=cdt, device=dev)
+    part = torch.empty((2, T, Ci), dtype=torch.float32, device=dev)
+    ds = torch.empty(Ci, dtype=torch.float32, device=dev)
+    db = torch.empty_like(ds)
+    dw_part = torch.empty((nsplit, 9 * Ci, Co), dtype=torch.float32,
+                          device=dev)
+    dw = torch.empty((9 * Ci, Co), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _call("d-input", shape, _fn("conv_fused_bwd_dx", cdt),
+              dyc.data_ptr(), wt.data_ptr(), xc.data_ptr(), s2.data_ptr(),
+              b2.data_ptr(), dx.data_ptr(), part.data_ptr(), N, H, W_, Ci,
+              Co, int(relu), stream)
+        LAUNCHES_BWD_DX += 1
+        _call("finalize", shape, _fn("conv_fused_bwd_finalize"),
+              part.data_ptr(), T, Ci, ds.data_ptr(), db.data_ptr(), stream)
+        LAUNCHES_FINALIZE += 1
+        _call("d-weight", shape, _fn("conv_fused_bwd_dw", cdt),
+              xc.data_ptr(), s2.data_ptr(), b2.data_ptr(), dyc.data_ptr(),
+              dw_part.data_ptr(), N, H, W_, Ci, Co, int(relu), nsplit, tps,
+              stream)
+        LAUNCHES_BWD_DW += 1
+        _call("d-weight reduce", shape, _fn("conv_fused_dw_reduce"),
+              dw_part.data_ptr(), nsplit, 9 * Ci * Co, dw.data_ptr(), stream)
+        LAUNCHES_REDUCE += 1
+    return (dx if dx.dtype == x.dtype else dx.to(x.dtype), ds.to(s.dtype),
+            db.to(b.dtype), dw.reshape(3, 3, Ci, Co).to(w.dtype))

@@ -4,11 +4,21 @@
 ``update(index, weight, grad, state)`` writes the new weight and state in
 place, under ``torch.no_grad``, as elementwise PyTorch ops (the JAX package
 runs the same chain in an XLA jit; no TPU kernel). ``step_fn`` is the pure
-form of the same update, returning ``(new_weight, new_state)``.
+form of the same update, returning ``(new_weight, new_state)``; the fused
+train step (``gluon/fused_step.py``) calls it per parameter, and the packed
+multi-tensor apply (``kernels/optimizer_apply.py``) runs its math over whole
+buckets of parameters in one kernel launch.
+
+Scalars follow the JAX package's weak typing: for a float16 or bfloat16
+weight, ``lr``, ``wd``, ``rescale``, the momentum and the clip bound are
+rounded to the weight's dtype before each op (``base.weak_scalar``), so
+every op of the chain rounds exactly where the reference's does.
 """
 from __future__ import annotations
 
 import torch
+
+from ..base import is_low_precision, weak_scalar
 
 __all__ = ["Optimizer", "SGD", "Updater", "create", "register",
            "get_updater"]
@@ -17,16 +27,19 @@ __all__ = ["Optimizer", "SGD", "Updater", "create", "register",
 class Optimizer:
     """Base optimizer: learning rate, weight decay, gradient rescaling and
     clipping, per-parameter lr/wd multipliers (``param_dict[index]``'s
-    ``lr_mult``/``wd_mult``) and the per-index update counts."""
+    ``lr_mult``/``wd_mult``), the per-index update counts, and
+    ``multi_precision`` (a float32 master copy of each half-precision
+    weight, stepped in float32)."""
 
     opt_registry = {}
 
     def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=0.01, param_dict=None):
+                 learning_rate=0.01, param_dict=None, multi_precision=False):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
+        self.multi_precision = multi_precision
         self.num_update = 0
         self._index_update_count = {}
         self.param_dict = param_dict if param_dict else {}
@@ -47,8 +60,28 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    def create_state_multi_precision(self, index, weight):
+        """With ``multi_precision`` and a half-precision weight: ``(master,
+        state)``, the float32 master copy and the state created for it.
+        Otherwise ``create_state``."""
+        if self.multi_precision and is_low_precision(weight.dtype):
+            master = weight.detach().to(torch.float32, copy=True)
+            return (master, self.create_state(index, master))
+        return self.create_state(index, weight)
+
     def update(self, index, weight, grad, state):
         raise NotImplementedError()
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """``update``, on the float32 master copy where the state holds
+        one; the weight then takes the master's value in its own dtype."""
+        if self.multi_precision and is_low_precision(weight.dtype):
+            master, base = state
+            self.update(index, master, grad.to(torch.float32), base)
+            with torch.no_grad():
+                weight.copy_(master)
+        else:
+            self.update(index, weight, grad, state)
 
     def set_learning_rate(self, lr):
         self.lr = lr
@@ -70,18 +103,44 @@ class Optimizer:
         p = self.param_dict.get(index)
         return self.wd * (p.wd_mult if p is not None else 1.0)
 
+    def _get_wds(self, indices):
+        return [self._get_wd(i) for i in indices]
+
     # -- pure step form -------------------------------------------------------
     def step_fn(self, weight, grad, state, lr, wd, rescale):
         """Pure update: ``(new_weight, new_state)``, the same arithmetic
-        as ``update()``."""
+        as ``update()``. ``lr``, ``wd`` and ``rescale`` are Python floats,
+        or tensors (one value per element in the packed apply's plain
+        version)."""
         raise NotImplementedError(
             "%s does not define the pure step_fn form" % type(self).__name__)
 
+    def step_fn_multi_precision(self, weight, grad, state, lr, wd, rescale):
+        """Pure counterpart of ``update_multi_precision``: where the state
+        is ``(master, base)``, step the float32 master and return it cast
+        to the weight's dtype, with the new ``(master, base)``."""
+        if self.multi_precision and is_low_precision(weight.dtype):
+            master, base = state
+            new_master, new_base = self.step_fn(
+                master, grad.to(torch.float32), base, lr, wd, rescale)
+            return new_master.to(weight.dtype), (new_master, new_base)
+        return self.step_fn(weight, grad, state, lr, wd, rescale)
+
+    def fused_step_supported(self):
+        """Whether this optimizer defines the pure ``step_fn`` form, which
+        the fused train step needs."""
+        return type(self).step_fn is not Optimizer.step_fn
+
     def fused_apply_supported(self):
-        """Whether ``step_fn`` is elementwise, the property a packed
-        multi-tensor apply needs. A flag only: the packed apply kernel is
-        not ported."""
+        """Whether the packed multi-tensor apply
+        (``kernels/optimizer_apply.py``, ``MXTPU_FUSED_APPLY``) has a CUDA
+        kernel for this optimizer's ``step_fn``. The base says no."""
         return False
+
+    def step_lr(self, index):
+        """The learning rate ``step_fn`` receives for one weight this step
+        (call after ``_update_count``)."""
+        return self._get_lr(index)
 
     def _preprocess_grad(self, grad, rescale, clip):
         g = grad * rescale
@@ -101,6 +160,9 @@ class SGD(Optimizer):
         g = clip(rescale * grad)
         momentum 0:  w = w - lr * (g + wd * w)
         otherwise:   m = momentum * m - lr * (g + wd * w);  w = w + m
+
+    Every op rounds to the weight's dtype, with its scalars rounded there
+    first (the module docstring).
     """
 
     def __init__(self, momentum=0.0, **kwargs):
@@ -113,10 +175,14 @@ class SGD(Optimizer):
         return torch.zeros_like(weight)
 
     def step_fn(self, weight, grad, state, lr, wd, rescale):
-        g = self._preprocess_grad(grad, rescale, self.clip_gradient)
+        dt = weight.dtype
+        lr, wd, rescale = (weak_scalar(v, dt) for v in (lr, wd, rescale))
+        clip = self.clip_gradient
+        g = self._preprocess_grad(
+            grad, rescale, None if clip is None else weak_scalar(clip, dt))
         if self.momentum == 0.0:
             return weight - lr * (g + wd * weight), state
-        m2 = self.momentum * state - lr * (g + wd * weight)
+        m2 = weak_scalar(self.momentum, dt) * state - lr * (g + wd * weight)
         return weight + m2, m2
 
     def fused_apply_supported(self):
@@ -140,13 +206,21 @@ class Updater:
         self.optimizer = optimizer
         self.states = {}
 
+    def ensure_state(self, index, weight):
+        """The state of ``index``, created on first use. The eager update
+        and the fused train step both take it from here, so they share one
+        state store."""
+        if index not in self.states:
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
+        return self.states[index]
+
     def __call__(self, index, grad, weight):
         if not isinstance(index, (list, tuple)):
             index, grad, weight = [index], [grad], [weight]
         for i, g, w in zip(index, grad, weight):
-            if i not in self.states:
-                self.states[i] = self.optimizer.create_state(i, w)
-            self.optimizer.update(i, w, g, self.states[i])
+            self.optimizer.update_multi_precision(
+                i, w, g, self.ensure_state(i, w))
 
 
 def get_updater(optimizer):

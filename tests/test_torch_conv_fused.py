@@ -1,13 +1,15 @@
 """The port's fused BN->ReLU->conv3x3 (mxnet_tpu_torch/kernels/conv_fused.py)
 held against the JAX package's (mxnet_tpu/pallas_kernels/conv_fused.py).
 
-On the CPU the JAX side runs its Pallas kernel in interpret mode and its
-jnp reference; the port runs its plain PyTorch version, which is what its
-wrapper takes for a CPU tensor. The CUDA kernel itself runs only on the
-card: tests/test_torch_cuda.py holds it against the plain version there
+On the CPU the JAX side runs its Pallas kernels in interpret mode and its
+jnp reference (forward, and ``jax.vjp`` of it for the backward); the port
+runs its plain PyTorch versions, which are what its wrappers take for a CPU
+tensor. The CUDA kernels themselves run only on the card:
+tests/test_torch_cuda.py holds them against the plain versions there
 (``python3 chip_smoke.py`` does the same at the ResNet-50 shapes).
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -116,3 +118,105 @@ def test_wrapper_raises_on_what_it_does_not_take(case):
         err = MXNetError
     with pytest.raises(err):
         CF.fused_scale_relu_conv3x3(x, s, b, w)
+
+
+# -- the backward -------------------------------------------------------------
+
+def _dy(N, H, W, Co, seed=7):
+    return np.random.RandomState(seed).randn(N, H, W, Co).astype("float32")
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_reference_matches_jax(shape, relu):
+    """dx, ds, db, dw of the plain backward against the JAX package's
+    ``_pallas_backward`` in interpret mode and against ``jax.vjp`` of its
+    ``fused_conv_reference``, f32, at the JAX suite's bound
+    (tests/test_conv_fused.py: atol 2e-3, rtol 1e-3). The measured gap is
+    about 2e-5 at outputs up to ~50: summation order only."""
+    x, s, b, w = _mats(*shape)
+    dy = _dy(*shape[:3], shape[4])
+    got = CF.fused_conv_backward_reference(*_t(x, s, b, w, dy), relu=relu)
+    jx = [jnp.asarray(a) for a in (x, s, b, w)]
+    pallas = JCF._pallas_backward(*jx, relu, True, jnp.asarray(dy))
+    _, vjp = jax.vjp(lambda *a: JCF.fused_conv_reference(*a, relu=relu),
+                     *jx)
+    ref = vjp(jnp.asarray(dy))
+    for g, p, r in zip(got, pallas, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(p), atol=2e-3,
+                                   rtol=1e-3)
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-3,
+                                   rtol=1e-3)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_autograd_matches_torch_autograd_of_reference(shape, relu):
+    """The autograd Function's CPU gradients against torch autograd through
+    the differentiable plain forward (f32; the same ops in another order,
+    so within 1e-5 of the largest gradient)."""
+    x, s, b, w = _mats(*shape)
+    dy = torch.from_numpy(_dy(*shape[:3], shape[4]))
+    grads = []
+    for fn in (CF.fused_scale_relu_conv3x3, CF.fused_conv_reference):
+        leaves = [t.requires_grad_() for t in _t(x, s, b, w)]
+        fn(*leaves, relu=relu).backward(dy)
+        grads.append([t.grad for t in leaves])
+    for g, r in zip(*grads):
+        assert (g - r).abs().max() <= 1e-5 * r.abs().max()
+
+
+@pytest.mark.parametrize("bias", [1.0, -1.0])
+def test_backward_padding_is_zero_after_activation(bias):
+    """With x = 0 every interior tap sees relu(b) and the halo sees 0, so
+    with dy = 1 each weight tap counts the output pixels whose shifted
+    input lies inside the image, and dx counts the taps that reach each
+    input pixel. With b < 0 the ReLU kills everything."""
+    x = torch.zeros(1, 3, 3, 1)
+    s, b = torch.ones(1), torch.full((1,), bias)
+    w, dy = torch.ones(3, 3, 1, 1), torch.ones(1, 3, 3, 1)
+    dx, ds, db, dw = CF.fused_conv_backward(x, s, b, w, dy)
+    count = torch.tensor([[4.0, 6.0, 4.0], [6.0, 9.0, 6.0],
+                          [4.0, 6.0, 4.0]])
+    on = 1.0 if bias > 0 else 0.0
+    assert torch.equal(dw[:, :, 0, 0], count * on)
+    assert torch.equal(dx[0, :, :, 0], count * on)
+    assert torch.equal(db, torch.tensor([49.0 * on]))
+    assert torch.equal(ds, torch.zeros(1))
+
+
+def test_cpu_backward_takes_plain_version():
+    x, s, b, w = _t(*_mats(2, 5, 6, 8, 16))
+    dy = torch.from_numpy(_dy(2, 5, 6, 16))
+    before = (CF.LAUNCHES_BWD_DX, CF.LAUNCHES_BWD_DW, CF.LAUNCHES_FINALIZE,
+              CF.LAUNCHES_REDUCE, CF.COPIES)
+    got = CF.fused_conv_backward(x, s, b, w, dy)
+    want = CF.fused_conv_backward_reference(x, s, b, w, dy)
+    assert (CF.LAUNCHES_BWD_DX, CF.LAUNCHES_BWD_DW, CF.LAUNCHES_FINALIZE,
+            CF.LAUNCHES_REDUCE, CF.COPIES) == before
+    assert all(torch.equal(g, r) for g, r in zip(got, want))
+
+
+def test_backward_dtypes_follow_the_operands():
+    """dx in x's dtype, ds/db in s/b's, dw in w's (the JAX backward's
+    casts), with the mask and the convolutions in the compute dtype."""
+    x, s, b, w = _t(*_mats(2, 4, 4, 8, 8))
+    dy = torch.from_numpy(_dy(2, 4, 4, 8))
+    dx, ds, db, dw = CF.fused_conv_backward(
+        x.bfloat16(), s, b.double(), w.half(), dy.bfloat16())
+    assert (dx.dtype, ds.dtype, db.dtype, dw.dtype) == (
+        torch.bfloat16, torch.float32, torch.float64, torch.float16)
+    with pytest.raises(ValueError):
+        CF.fused_conv_backward(x, s, b, w, dy[:, :3])
+
+
+def test_dw_split_covers_every_tile():
+    """The d-weight kernel's K-split: splits x tiles per split cover every
+    pixel tile, and the split fills about two waves of 132 SMs where the
+    tiles allow."""
+    for N, H, W, C in ((128, 56, 56, 64), (128, 28, 28, 128),
+                       (128, 14, 14, 256), (128, 7, 7, 512), (1, 1, 1, 8)):
+        for dt in (torch.bfloat16, torch.float32):
+            t = CF.tiles(N, H, W)
+            nsplit, tps = CF.dw_split(N, H, W, C, C, dt)
+            assert (nsplit - 1) * tps < t <= nsplit * tps

@@ -175,3 +175,155 @@ def test_narrow_resnet_trains_on_the_card():
                          nets[1]._collect_params_with_prefix().values()):
         w, wr = p.data().detach().cpu(), q.data().detach()
         assert (w - wr).abs().max() <= 1e-5 * wr.abs().max(), k
+
+
+# -- the conv_fused backward pair and the packed optimizer apply --------------
+
+# Backward tolerances relative to max |reference|: bf16 outputs one bf16
+# rounding step, as the forward; f32 dx summation order only; f32 dw, ds and
+# db are sums over every pixel of the batch.
+BWD_RTOL = {"bfloat16": {"dx": 1.6e-2, "ds": 1.6e-2, "db": 1.6e-2,
+                         "dw": 1.6e-2},
+            "float32": {"dx": 1e-4, "ds": 1e-3, "db": 1e-3, "dw": 1e-3}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(3, 8, 8, 16, 24), (2, 9, 13, 3, 5),
+                                   (4, 15, 17, 40, 129)])
+def test_conv_fused_backward_kernels_match_plain(shape, dtype, relu):
+    """The d-input and d-weight kernels (with their finalize and reduce
+    launches) against the plain backward, one launch each."""
+    _need_card()
+    x, s, b, w = _mats(*shape)
+    dt = getattr(torch, dtype)
+    x, w = x.to(dt), w.to(dt)
+    dy = torch.randn(shape[:3] + (shape[4],), device="cuda").to(dt)
+    before = (CF.LAUNCHES_BWD_DX, CF.LAUNCHES_BWD_DW, CF.LAUNCHES_FINALIZE,
+              CF.LAUNCHES_REDUCE)
+    got = CF.fused_conv_backward(x, s, b, w, dy, relu=relu)
+    want = CF.fused_conv_backward_reference(x, s, b, w, dy, relu=relu)
+    torch.cuda.synchronize()
+    assert (CF.LAUNCHES_BWD_DX, CF.LAUNCHES_BWD_DW, CF.LAUNCHES_FINALIZE,
+            CF.LAUNCHES_REDUCE) == tuple(n + 1 for n in before)
+    for name, g, r in zip(("dx", "ds", "db", "dw"), got, want):
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= BWD_RTOL[dtype][name] * r.float().abs().max().item(), \
+            (name, err)
+
+
+@pytest.mark.cuda
+def test_conv_fused_autograd_on_the_card():
+    """Gradients through the autograd Function on the card match the CPU's
+    plain backward (f32, TF32 off); a non-contiguous dy is copied and
+    counted."""
+    _need_card()
+    x, s, b, w = _mats(2, 6, 7, 16, 24)
+    dy = torch.randn(2, 7, 6, 24, device="cuda").transpose(1, 2)
+    leaves = [t.clone().requires_grad_() for t in (x, s, b, w)]
+    copies = CF.COPIES
+    CF.fused_scale_relu_conv3x3(*leaves).backward(dy)
+    torch.cuda.synchronize()
+    assert CF.COPIES == copies + 1
+    want = CF.fused_conv_backward_reference(
+        *(t.cpu() for t in (x, s, b, w, dy)))
+    for t, r in zip(leaves, want):
+        err = (t.grad.cpu() - r).abs().max().item()
+        assert err <= 1e-3 * r.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [None, 0.05])
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_optimizer_apply_kernel_bitwise(momentum, clip):
+    """The packed SGD kernel against the per-parameter step_fn chain on the
+    card, bit for bit: mixed shapes and dtypes (two bf16 buckets around an
+    f32 one), a different lr and wd per parameter, sizes that are not whole
+    16-byte vectors, and a 1 KiB bucket cap that splits them further."""
+    _need_card()
+    import os
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+    opt = topt.SGD(momentum=momentum, learning_rate=0.05, wd=1e-4,
+                   clip_gradient=clip)
+    rs = np.random.RandomState(0)
+    spec = [((64, 32), "bfloat16"), ((33,), "bfloat16"), ((7, 3), "float32"),
+            ((300,), "float32"), ((5,), "bfloat16"), ((9, 9, 3), "bfloat16")]
+    ws = [torch.from_numpy(rs.randn(*sh).astype("float32")).cuda()
+          .to(getattr(torch, d)) for sh, d in spec]
+    gs = [torch.from_numpy(rs.randn(*w.shape).astype("float32") * 3).cuda()
+          .to(w.dtype) for w in ws]
+    sts = [None if momentum == 0 else torch.from_numpy(
+        rs.randn(*w.shape).astype("float32")).cuda().to(w.dtype) for w in ws]
+    lrs = [0.05 + 0.01 * i for i in range(len(ws))]
+    wds = [1e-4 * i for i in range(len(ws))]
+    want = [opt.step_fn(w, g, st, lr, wd, 1.0 / 32)
+            for w, g, st, lr, wd in zip(ws, gs, sts, lrs, wds)]
+    saved = os.environ.get("MXTPU_ELASTIC_BUCKET_MB")
+    os.environ["MXTPU_ELASTIC_BUCKET_MB"] = str(1.0 / 1024)
+    try:
+        before = OA.LAUNCHES
+        nw = [w.clone() for w in ws]
+        ns = [None if st is None else st.clone() for st in sts]
+        OA.packed_apply(opt, nw, gs, ns, lrs, wds, 1.0 / 32)
+        torch.cuda.synchronize()
+        assert OA.LAUNCHES - before == len(OA.bucketize(ws)) > 3
+    finally:
+        if saved is None:
+            del os.environ["MXTPU_ELASTIC_BUCKET_MB"]
+        else:
+            os.environ["MXTPU_ELASTIC_BUCKET_MB"] = saved
+    for (w2, m2), w, m in zip(want, nw, ns):
+        assert _same_bits(w, w2)
+        if momentum:
+            assert _same_bits(m, m2)
+
+
+@pytest.mark.cuda
+def test_narrow_fused_resnet_trains_through_train_step_on_the_card(
+        monkeypatch):
+    """Two f32 steps of a narrow fuse=True ResNet through gluon.train_step
+    with MXTPU_FUSED_APPLY=1 on the card match the port on the CPU (TF32
+    off), with every fused link on its three kernels and one packed-apply
+    launch per bucket per step."""
+    _need_card()
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+    monkeypatch.setenv("MXTPU_FUSED_APPLY", "1")
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.rand(4, 3, 16, 16).astype("float32"))
+    y = torch.from_numpy(rs.randint(0, 10, (4,)).astype("float32"))
+    nets, losses = [], []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = tres.ResNetV1(tres.BottleneckV1, [1, 1, 1, 1],
+                            [16, 32, 64, 128, 256], classes=10,
+                            thumbnail=True, layout="NHWC", fuse=True)
+        net.initialize(ctx=ctx)
+        net(x.to(ctx.device))
+        net.hybridize()
+        nets.append(net)
+    arrays = convert.random_numpy_params(convert.param_shapes(nets[0]))
+    counts = (CF.LAUNCHES, CF.LAUNCHES_BWD_DX, CF.LAUNCHES_BWD_DW,
+              OA.LAUNCHES)
+    for net, ctx in zip(nets, (mx.gpu(0), mx.cpu())):
+        convert.load_numpy_params(net, arrays)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.01, "momentum": 0.9})
+        step = mx.gluon.train_step(net, SoftmaxCrossEntropyLoss(), trainer)
+        for _ in range(2):
+            loss = step(x.to(ctx.device), y.to(ctx.device))
+            assert step.last_mode == "fused"
+        losses.append(loss.cpu())
+    torch.cuda.synchronize()
+    train = [p.data() for p in trainer._params if p.grad_req != "null"]
+    buckets = len(OA.bucketize(train))
+    assert (CF.LAUNCHES, CF.LAUNCHES_BWD_DX, CF.LAUNCHES_BWD_DW,
+            OA.LAUNCHES) == (counts[0] + 8, counts[1] + 8, counts[2] + 8,
+                             counts[3] + 2 * buckets)
+    assert torch.allclose(losses[0], losses[1], rtol=1e-5)
+    for (k, p), q in zip(nets[0]._collect_params_with_prefix().items(),
+                         nets[1]._collect_params_with_prefix().values()):
+        w, wr = p.data().detach().cpu(), q.data().detach()
+        assert (w - wr).abs().max() <= 1e-5 * wr.abs().max(), k

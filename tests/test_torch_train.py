@@ -130,6 +130,99 @@ def test_sgd_update_matches_jax(momentum, wd, clip):
     assert new_w.shape == (6, 5) and to.fused_apply_supported()
 
 
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("clip", [None, 0.05])
+def test_sgd_update_bf16_matches_jax_bitwise(momentum, clip):
+    """Three bf16 updates equal the JAX package's SGD.update bit for bit.
+    JAX's weak typing rounds lr, wd, rescale, the momentum and the clip
+    bound to bf16 before each op; the port rounds them the same way
+    (PyTorch alone would keep them at f32 op precision, and 1355 of 4096
+    momentum values came out different)."""
+    kw = dict(learning_rate=0.01, momentum=momentum, wd=1e-4,
+              clip_gradient=clip, rescale_grad=1.0 / 128)
+    jo, to = jopt.create("sgd", **kw), topt.create("sgd", **kw)
+    rs = np.random.RandomState(5)
+    w0 = rs.randn(4096).astype("float32")
+    jw = mxj.nd.array(w0).astype("bfloat16")
+    tw = torch.from_numpy(w0).bfloat16()
+    js, ts = jo.create_state(0, jw), to.create_state(0, tw)
+    for _ in range(3):
+        g = (rs.randn(4096) * 30).astype("float32")
+        jo.update(0, jw, mxj.nd.array(g).astype("bfloat16"), js)
+        to.update(0, tw, torch.from_numpy(g).bfloat16(), ts)
+        assert np.array_equal(tw.view(torch.int16).numpy(),
+                              np.asarray(jw._data).view(np.int16))
+        if momentum:
+            assert np.array_equal(ts.view(torch.int16).numpy(),
+                                  np.asarray(js._data).view(np.int16))
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_sgd_multi_precision_matches_jax_bitwise(momentum):
+    """multi_precision=True: a bf16 weight steps on its f32 master copy and
+    takes the master's value rounded to bf16. Over three updates against
+    the JAX package's update_multi_precision the bf16 weight is equal bit
+    for bit and the f32 master and momentum within the f32 update's bound
+    (test_sgd_update_matches_jax: XLA may contract the f32 chain into
+    FMAs); the pure step_fn_multi_precision equals the in-place update bit
+    for bit."""
+    kw = dict(learning_rate=0.01, momentum=momentum, wd=1e-4,
+              rescale_grad=1.0 / 128, multi_precision=True)
+    jo, to = jopt.create("sgd", **kw), topt.create("sgd", **kw)
+    rs = np.random.RandomState(8)
+    w0 = rs.randn(2048).astype("float32")
+    jw = mxj.nd.array(w0).astype("bfloat16")
+    tw = torch.from_numpy(w0).bfloat16()
+    js = jo.create_state_multi_precision(0, jw)
+    ts = to.create_state_multi_precision(0, tw)
+    pw, ps = tw.clone(), to.create_state_multi_precision(0, tw)
+    for _ in range(3):
+        g = (rs.randn(2048) * 30).astype("float32")
+        tg = torch.from_numpy(g).bfloat16()
+        jo.update_multi_precision(0, jw, mxj.nd.array(g).astype("bfloat16"),
+                                  js)
+        to.update_multi_precision(0, tw, tg, ts)
+        pw, ps = to.step_fn_multi_precision(pw, tg, ps, 0.01, 1e-4, 1.0 / 128)
+        assert np.array_equal(tw.view(torch.int16).numpy(),
+                              np.asarray(jw._data).view(np.int16))
+        assert torch.equal(pw, tw)
+        for t, p, j in zip((ts[0], ts[1]), (ps[0], ps[1]), (js[0], js[1])):
+            if j is None:
+                assert t is None and p is None
+                continue
+            np.testing.assert_allclose(t.numpy(), np.asarray(j._data),
+                                       rtol=1e-6, atol=1e-7)
+            assert torch.equal(p, t)
+
+
+def test_batchnorm_running_statistics_bf16_match_jax():
+    """A bf16 BatchNorm moves its running statistics with the momentum
+    rounded as JAX's weak typing rounds it: bit for bit with the JAX
+    layer (single-pass statistics on both sides)."""
+    x = (np.random.RandomState(6).randn(8, 5, 5, 16) * 2 + 1) \
+        .astype("float32")
+    rs = np.random.RandomState(7)
+    stats = {"running_mean": rs.randn(16).astype("float32"),
+             "running_var": (rs.rand(16) + 0.5).astype("float32")}
+    jbn = mxj.gluon.nn.BatchNorm(axis=-1, in_channels=16)
+    jbn.initialize()
+    tbn = mx.gluon.nn.BatchNorm(axis=-1, in_channels=16)
+    tbn.initialize(ctx=mx.cpu())
+    for bn, setp in ((jbn, mxj.nd.array), (tbn, torch.from_numpy)):
+        for k, v in stats.items():
+            getattr(bn, k).set_data(setp(v))
+        bn.cast("bfloat16")
+    with mxj.autograd.record():
+        jbn(mxj.nd.array(x).astype("bfloat16"))
+    with autograd.record():
+        tbn(torch.from_numpy(x).bfloat16())
+    for k in stats:
+        got = getattr(tbn, k).data().detach()
+        want = np.asarray(getattr(jbn, k).data()._data)
+        assert np.array_equal(got.view(torch.int16).numpy(),
+                              want.view(np.int16)), k
+
+
 # -- gradient conventions -----------------------------------------------------
 
 def _dense(grad_req="write"):
@@ -254,22 +347,31 @@ def test_precision_policy_sets_both_tf32_switches():
 
 
 def test_recording_a_fused_net_raises():
-    """The fused conv kernel has no backward yet, so recording through a
-    fuse=True net raises on the CPU too, in predict mode as in training;
-    serving outside recording still runs."""
+    """Recording through a fuse=True net no longer raises: it trains, now
+    that the fused conv has a backward, in training mode (batch
+    statistics folded into the kernel's scale and bias, running statistics
+    moved) and in predict mode (running statistics folded; gradients still
+    reach every weight, gamma and beta through the fused link's backward);
+    serving outside recording runs the same kernel route."""
     layers, channels = NARROW
     net = tres.ResNetV1(tres.BottleneckV1, layers, channels, classes=10,
                         thumbnail=True, layout="NHWC", fuse=True)
     net.initialize(ctx=mx.cpu())
     x = torch.rand(2, 3, 16, 16)
+    y = torch.tensor([1.0, 7.0])
     net(x)
-    for train_mode in (False, True):
-        with pytest.raises((mx.MXNetError, NotImplementedError)):
-            with autograd.record(train_mode=train_mode):
-                net(x)
-    with autograd.record(train_mode=False):
-        with pytest.raises(mx.MXNetError):
-            net(x)
+    params = net._collect_params_with_prefix()
+    rm = params["features.1.0.body.1.running_mean"]
+    for train_mode in (True, False):
+        before = rm.data().clone()
+        net.collect_params().zero_grad()
+        with autograd.record(train_mode=train_mode):
+            loss = tloss.SoftmaxCrossEntropyLoss()(net(x), y)
+        loss.backward()
+        for k in ("features.1.0.body.3.weight", "features.1.0.body.1.gamma",
+                  "features.1.0.body.1.beta", "features.1.0.body.0.weight"):
+            assert params[k].grad().abs().sum() > 0, (train_mode, k)
+        assert torch.equal(rm.data(), before) is not train_mode
     with autograd.predict_mode():
         assert net(x).shape == (2, 10)
 
@@ -354,3 +456,123 @@ def test_loaded_weights_do_not_alias_the_arrays():
     w = fresh._collect_params_with_prefix()["features.0.weight"].data()
     assert not np.array_equal(w.detach().numpy(),
                               arrays["features.0.weight"])
+
+
+def _narrow_pair(fuse, arrays=None):
+    """The JAX and the port's narrow NHWC ResNet, with the same weights
+    (from numpy seed 3 unless given)."""
+    layers, channels = NARROW
+    jnet = jres.ResNetV1(jres.BottleneckV1, layers, channels, classes=10,
+                         thumbnail=True, layout="NHWC", fuse=fuse)
+    jnet.initialize()
+    jnet(mxj.nd.array(np.zeros((1, 3, 32, 32), "float32")))
+    jp = jnet._collect_params_with_prefix()
+    if arrays is None:
+        arrays = convert.random_numpy_params(
+            {k: p.shape for k, p in jp.items()}, seed=3)
+    for k, p in jp.items():
+        p.set_data(mxj.nd.array(arrays[k]))
+    net = tres.ResNetV1(tres.BottleneckV1, layers, channels, classes=10,
+                        thumbnail=True, layout="NHWC", fuse=fuse)
+    net.initialize(ctx=mx.cpu())
+    convert.load_numpy_params(net, arrays)
+    return jnet, net, arrays
+
+
+def _state(net, jax_side=False):
+    out = {}
+    for k, p in net._collect_params_with_prefix().items():
+        if jax_side:
+            out[k] = (p.data().asnumpy(), None if p.grad_req == "null"
+                      else p.grad().asnumpy())
+        else:
+            out[k] = (p.data().detach().numpy().copy(),
+                      None if p.grad_req == "null"
+                      else p.grad().numpy().copy())
+    return out
+
+
+def _within(got, want, what):
+    """The bounds of test_narrow_resnet_trains_like_jax: gradients within
+    1e-4 and parameters/running statistics within 1e-5 of the largest
+    magnitude."""
+    for k, (w, g) in got.items():
+        wr, gr = want[k]
+        assert np.abs(w - wr).max() <= 1e-5 * np.abs(wr).max(), (what, k)
+        if gr is not None:
+            assert np.abs(g - gr).max() <= 1e-4 * np.abs(gr).max(), (what, k)
+
+
+def test_narrow_fused_resnet_trains_like_jax(monkeypatch):
+    """fuse=True on both sides, two steps through gluon.train_step with
+    MXTPU_FUSED_APPLY=1 (the port fused from the first step, the JAX step
+    warming eagerly then compiled), f32, batch 4 of 32x32, SGD lr 0.01
+    momentum 0.9. The bounds of test_narrow_resnet_trains_like_jax: loss
+    within 1e-5 relative, gradients within 1e-4 and parameters and running
+    statistics within 1e-5 of the largest magnitude. The port's fuse=True
+    run also matches its own fuse=False run (eager Trainer) within them."""
+    monkeypatch.setenv("MXTPU_FUSED_BN", "interpret")
+    monkeypatch.setenv("MXTPU_FUSED_APPLY", "1")
+    x = np.random.RandomState(1).rand(4, 3, 32, 32).astype("float32")
+    y = _labels(4, 10, seed=2)
+    opt = {"learning_rate": 0.01, "momentum": 0.9}
+    jnet, net, arrays = _narrow_pair(True)
+    _, plain, _ = _narrow_pair(False, arrays)
+    jnet.hybridize()
+    net.hybridize()
+    jstep = mxj.gluon.train_step(
+        jnet, jloss.SoftmaxCrossEntropyLoss(),
+        mxj.gluon.Trainer(jnet.collect_params(), "sgd", dict(opt)))
+    step = mx.gluon.train_step(
+        net, tloss.SoftmaxCrossEntropyLoss(),
+        mx.gluon.Trainer(net.collect_params(), "sgd", dict(opt)))
+    ptrainer = mx.gluon.Trainer(plain.collect_params(), "sgd", dict(opt))
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    for _ in range(2):
+        ref = jstep(mxj.nd.array(x), mxj.nd.array(y)).asnumpy()
+        loss = step(xt, yt)
+        assert step.last_mode == "fused"
+        with autograd.record():
+            ploss = tloss.SoftmaxCrossEntropyLoss()(plain(xt), yt)
+        ploss.backward()
+        ptrainer.step(4)
+        np.testing.assert_allclose(loss.numpy(), ref, rtol=1e-5)
+        np.testing.assert_allclose(ploss.detach().numpy(), ref, rtol=1e-5)
+        got = _state(net)
+        _within(got, _state(jnet, jax_side=True), "jax")
+        _within(got, _state(plain), "fuse=False")
+    assert jstep.last_mode == "compile"
+
+
+def test_bn_fold_gradient_matches_jax():
+    """The training-mode fold of the fused link (batch_moments recorded on
+    the tape, exact_sq's split point detached, rsqrt) against jax.grad
+    through the JAX package's _fused_bn_fold: s, b and the statistics
+    within 1e-6, the gradients of a weighted sum of s and b within 1e-5 of
+    their largest magnitude, f32."""
+    import jax
+    rs = np.random.RandomState(4)
+    y = (rs.randn(3, 5, 4, 12) * 2 + 0.5).astype("float32")
+    g = (rs.rand(12) + 0.5).astype("float32")
+    bt = (rs.randn(12) * 0.1).astype("float32")
+    a, c = rs.randn(2, 12).astype("float32")
+    jfold = jres._fused_opdefs()[0].fn
+    tfold = tres._fused_opdefs()[0].fn
+
+    def jloss_fn(y_, g_, b_):
+        s, b, _, _ = jfold(y_, g_, b_, eps=1e-5)
+        return jnp.sum(s * a + b * c)
+
+    jouts = jfold(jnp.asarray(y), jnp.asarray(g), jnp.asarray(bt), eps=1e-5)
+    jgrads = jax.grad(jloss_fn, argnums=(0, 1, 2))(
+        jnp.asarray(y), jnp.asarray(g), jnp.asarray(bt))
+    leaves = [torch.from_numpy(v).requires_grad_() for v in (y, g, bt)]
+    touts = tfold(*leaves, eps=1e-5)
+    (touts[0] * torch.from_numpy(a) + touts[1] * torch.from_numpy(c)) \
+        .sum().backward()
+    for o, r in zip(touts, jouts):
+        np.testing.assert_allclose(o.detach().numpy(), np.asarray(r),
+                                   rtol=1e-6, atol=1e-6)
+    for t, r in zip(leaves, jgrads):
+        r = np.asarray(r)
+        assert np.abs(t.grad.numpy() - r).max() <= 1e-5 * np.abs(r).max()
