@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases env,kernel
     python3 chip_smoke.py --phases env,kernel,train
     python3 chip_smoke.py --phases env,kernel,train_fused
+    python3 chip_smoke.py --phases env,kernel,train_lm
 
 Phases, each printing JSON lines:
 
@@ -25,7 +26,12 @@ Phases, each printing JSON lines:
               shapes, bf16 and f32, relu on and off (BWD_RTOL). The packed
               SGD apply over ResNet-50's 161 trainable shapes, bf16 and
               f32, against its plain version and the per-parameter
-              step_fn chain, bit for bit.
+              step_fn chain, bit for bit. The flash-attention forward, dQ
+              and dK/dV kernels at the transformer LM's attention (H 32,
+              S 2048, D 128, causal, bf16; batch cut to 1 so that the
+              plain version's scores fit) and at edge shapes (non-causal,
+              Sq != Sk, S = 100 and 257, D = 64, B*H = 1) in bf16 and f32
+              (FLASH_RTOL); a second launch must give the same bits.
 3. serve   -- the serving path: resnet50_v1(layout="NHWC", fuse=True) in
               bf16 answers 4 requests of 32 images (top-5 classes each).
               Launch counters are zeroed just before and read just after;
@@ -52,17 +58,32 @@ Phases, each printing JSON lines:
               Then one f32 step at batch 4, TF32 off, against the port on
               the CPU, and two bf16 steps with MXTPU_FUSED_APPLY=0 against
               two with =1 from the same weights: equal bit for bit.
-6. time    -- CUDA-event times per kernel and shape (kernel, plain version,
+6. train_lm -- the transformer LM of bench.py's bench_transformer at its
+              full width (dim 4096, 5 layers, 32 heads of 128, FFN 16384,
+              vocab 32000, bf16, chunked CE over 8 chunks, full per-layer
+              recompute; 1.6B parameters, random weights from seed 0):
+              parallel.transformer.make_train_step, 5 SGD-momentum steps
+              on one batch of 12 x 2048 tokens from numpy seed 0. Counters
+              are zeroed just before: 10 forward, 5 dQ and 5 dK/dV flash
+              launches per step; the loss finite and falling; the peak
+              memory printed. Then one f32 step of a narrow LM (dim 512,
+              2 layers, S 256), TF32 off, the card against the port on
+              the CPU (LM_NARROW_RTOL), with the CPU in f64 beside both.
+7. time    -- CUDA-event times per kernel and shape (kernel, plain version,
               PyTorch library yardstick) beside the card's bound;
               whole-forward images/sec at batch 32 and 256 and both
               training steps' images/sec at batch 128, in bf16, with the
-              device's busy time and idle share from the profiler.
+              device's busy time and idle share from the profiler; the
+              flash kernels at the LM's attention (batch 12) beside
+              scaled_dot_product_attention; the LM step's tokens/sec,
+              device busy time, idle share, model TFLOP/s and mfu.
 
 The run ends with the nvidia-smi name/power line, then the
 {"kernels": [...]} line (per kernel: launches on its path, max abs error at
 the ResNet-50 shapes in bf16 and its tolerance, and the times, bound,
 plain and library times of one forward (conv_fused) or one training step
-(the other kernels)), then {"ok": true, "device": {...}} as the last
+(the other kernels; the LM step for flash attention)), then {"ok": true,
+"device": {...}} as the last
 line. Any failure exits non-zero before them.
 Weights and data are drawn from fixed seeds; nothing is downloaded.
 """
@@ -77,7 +98,8 @@ import time
 
 import numpy as np
 
-PHASES = ("env", "kernel", "serve", "train", "train_fused", "time")
+PHASES = ("env", "kernel", "serve", "train", "train_fused", "train_lm",
+          "time")
 
 # ResNet-50's fused 3x3 links at batch 32: (N, H, W, Ci, Co) and how many
 # of the 16 launches per forward run at that shape.
@@ -153,6 +175,50 @@ SGD = {"learning_rate": 0.01, "momentum": 0.9}
 # f32 operations per element of the packed SGD step (rescale, wd*w, +g,
 # *lr, momentum*m, -, +w): far below the bytes it moves.
 APPLY_OPS = 7
+
+# The transformer LM of bench.py's bench_transformer at its on-chip
+# defaults (bench.py:87-96,155-165): 1.6B parameters, bf16, batch 12 of
+# 2048 tokens, chunked CE over 8 chunks, full per-layer recompute.
+LM_CFG = dict(vocab_size=32000, dim=4096, n_layers=5, n_heads=32,
+              ffn_hidden=16384, max_seq_len=2048, dtype="bfloat16",
+              attn_mode="local", loss_chunks=8, remat=True, remat_save=())
+LM_BATCH, LM_SEQ = 12, 2048
+# The smoke run's SGD-momentum learning rate: large enough that 5 steps on
+# one batch move the bf16 weights (at the JAX default 1e-3 most updates
+# stay below one bf16 step of the weight, and the loss barely moves).
+LM_LR = 0.1
+# Flash kernels per LM step: the forward twice per layer (once more in the
+# layer's recompute), the backward pair once per layer.
+FLASH_PER_STEP = {"fwd": 2 * LM_CFG["n_layers"], "dq": LM_CFG["n_layers"],
+                  "dkv": LM_CFG["n_layers"]}
+# Line of each TPU kernel body in mxnet_tpu/pallas_kernels/flash_attention.py.
+FLASH_REPLACES = {"fwd": 105, "dq": 249, "dkv": 280}
+FLASH_OUTS = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+# Flash kernels against their plain versions, relative to max |reference|:
+# bf16 outputs one bf16 rounding step (as conv_fused); lse is f32 from f32
+# scores that differ by summation order only; f32 o/lse 1e-5 and gradients
+# 1e-4, the JAX suite's own bounds (tests/test_pallas.py:30,47).
+FLASH_RTOL = {"bfloat16": {"o": 1.6e-2, "lse": 1e-5, "dq": 1.6e-2,
+                           "dk": 1.6e-2, "dv": 1.6e-2},
+              "float32": {"o": 1e-5, "lse": 1e-5, "dq": 1e-4, "dk": 1e-4,
+                          "dv": 1e-4}}
+# (B, H, Sq, Sk, D, causal): the LM's attention with the batch cut from 12
+# to 1, so that the plain version's [B, H, S, S] f32 scores fit; and the
+# edge shapes: non-causal, Sq != Sk, ragged tiles (S = 100, 257), D = 64,
+# B*H = 1; each in bf16 and f32.
+FLASH_MAIN = (1, 32, 2048, 2048, 128, True)
+FLASH_EDGE = [(2, 4, 256, 256, 128, False), (2, 2, 128, 384, 64, False),
+              (2, 3, 100, 100, 128, True), (1, 2, 257, 257, 64, True),
+              (1, 1, 384, 384, 128, True), (1, 2, 100, 257, 128, False)]
+# The narrow f32 LM of the card-vs-CPU step (TF32 off), and its bounds
+# relative to each tensor's max: both sides keep f32 products (the card's
+# f32 flash kernels run on the CUDA cores, cuBLAS without TF32), so they
+# differ by summation order through two layers. Gradients are read as the
+# first step's momentum (m = 0.9*0 + g).
+LM_NARROW = dict(vocab_size=1024, dim=512, n_layers=2, n_heads=4,
+                 ffn_hidden=1376, dtype="float32", loss_chunks=2)
+LM_NARROW_BATCH, LM_NARROW_SEQ = 2, 256
+LM_NARROW_RTOL = {"loss": 1e-5, "grad": 1e-4, "param": 1e-5}
 
 # Dense peaks from NVIDIA's data sheets: (bf16 tensor FLOP/s, f32 FLOP/s
 # on the CUDA cores, memory bytes/s), matched on the name nvidia-smi gives.
@@ -370,6 +436,7 @@ def phase_kernel(torch, state):
     phase_kernel_bn(torch, state)
     phase_kernel_conv_bwd(torch, state)
     phase_kernel_apply(torch, state)
+    phase_kernel_flash(torch, state)
 
 
 def phase_kernel_bn(torch, state):
@@ -611,6 +678,99 @@ def phase_kernel_apply(torch, state):
     if failures:
         raise AssertionError("optimizer_apply disagrees with its plain "
                              "version: %s" % failures)
+
+
+def flash_case(torch, case, dtype, seed):
+    """(q, k, v, dO) [B, H, S, D] on the card for ``case``."""
+    B, H, Sq, Sk, D, _ = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(B, H, n, D, generator=gen, device="cuda")
+                 .to(dtype) for n in (Sq, Sk, Sk, Sq))
+
+
+def flash_check(torch, case, dtype, seed):
+    """Rows 9-11 against their plain versions on the same inputs (the
+    backward pair takes the plain forward's o and lse). Returns ({output:
+    {ok, max_abs_err, ref_max_abs}}, the kernels' outputs, the inputs)."""
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    q, k, v, do = flash_case(torch, case, dtype, seed)
+    causal, scale = case[5], case[4] ** -0.5
+    o, lse = FA._flash_forward(q, k, v, causal, scale)
+    ro, rlse = FA.flash_forward_reference(q, k, v, causal, scale)
+    grads = FA._flash_backward(q, k, v, ro, rlse, do, causal, scale)
+    rgrads = FA.flash_backward_reference(q, k, v, ro, rlse, do, causal,
+                                         scale)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    res = {}
+    for name, a, b in [("o", o, ro), ("lse", lse, rlse)] + list(
+            zip(("dq", "dk", "dv"), grads, rgrads)):
+        err = max_abs_err(torch, a, b)
+        scale_ref = b.float().abs().max().item()
+        ok = a.shape == b.shape and a.dtype == b.dtype \
+            and bool(torch.isfinite(a.float()).all().item()) \
+            and err <= FLASH_RTOL[dname][name] * max(scale_ref, 1e-30)
+        res[name] = {"ok": ok, "max_abs_err": err, "ref_max_abs": scale_ref}
+    return res, (o, lse) + tuple(grads), (q, k, v, do, ro, rlse)
+
+
+def phase_kernel_flash(torch, state):
+    """The flash-attention forward, dQ and dK/dV kernels (rows 9-11)
+    against their plain versions: at the LM's attention (batch cut to 1)
+    in bf16, and at the edge shapes in bf16 and f32 (FLASH_RTOL); then a
+    second launch at the LM shape must give the same bits."""
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    failures = []
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        cases = ([FLASH_MAIN] if dtype == torch.bfloat16 else []) \
+            + FLASH_EDGE
+        edge = {}
+        for i, case in enumerate(cases):
+            res, outs, ins = flash_check(torch, case, dtype, seed=1100 + i)
+            main = case == FLASH_MAIN
+            for name, r in res.items():
+                if not r["ok"]:
+                    failures.append((dname, case, name, r["max_abs_err"],
+                                     r["ref_max_abs"]))
+                if not main:
+                    e = edge.setdefault(name, [True, 0.0])
+                    e[0] = e[0] and r["ok"]
+                    e[1] = max(e[1], r["max_abs_err"]
+                               / max(r["ref_max_abs"], 1e-30))
+            if main:
+                emit({"phase": "kernel", "kernel": "flash_attention",
+                      "dtype": dname, "shape_bhsd": list(case[:5]),
+                      "causal": case[5], "batch_cut_from": LM_BATCH,
+                      "results": res})
+                worst = {k: max(res[n]["max_abs_err"] for n in outs_k)
+                         for k, outs_k in FLASH_OUTS.items()}
+                # a second launch on the same inputs: the same bits
+                q, k, v, do, ro, rlse = ins
+                causal, scale = case[5], case[4] ** -0.5
+                again = FA._flash_forward(q, k, v, causal, scale) \
+                    + FA._flash_backward(q, k, v, ro, rlse, do, causal,
+                                         scale)
+                torch.cuda.synchronize()
+                same = all(same_bits(torch, a, b)
+                           for a, b in zip(outs, again))
+                emit({"phase": "kernel", "kernel": "flash_attention",
+                      "second_launch_same_bits": same})
+                if not same:
+                    failures.append((dname, case, "second launch bits"))
+                del again
+            del res, outs, ins
+        emit({"phase": "kernel", "kernel": "flash_attention", "dtype": dname,
+              "edge_shapes_bhsd_causal": FLASH_EDGE,
+              "results": {k: {"ok": v[0], "max_rel_err": v[1]}
+                          for k, v in edge.items()},
+              "tolerance_rel": FLASH_RTOL[dname]})
+    state["flash_err"] = worst
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("flash_attention disagrees with its plain "
+                             "version: %s" % failures[:20])
 
 
 def _build_net(mx, arrays, fuse, dtype, ctx):
@@ -1032,6 +1192,110 @@ def _train_fused(torch, state):
                              "weights differently: %s" % same)
 
 
+def _lm_batch(torch, vocab, batch, seq, seed, device):
+    """Tokens and targets [batch, seq] from numpy ``seed``, as bench.py
+    draws them."""
+    rs = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rs.randint(0, vocab, (batch, seq)))
+                 .to(device) for _ in range(2))
+
+
+def phase_train_lm(torch, state):
+    """The transformer LM's training step at bench_transformer's width:
+    5 SGD-momentum steps of make_train_step on one batch, counters zeroed
+    just before; then the narrow f32 step, card against CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    from mxnet_tpu_torch.parallel import transformer as T
+
+    cfg = T.TransformerConfig(**LM_CFG)
+    gpu = mx.gpu(0)
+    init_fn, step_fn = T.make_train_step(cfg, learning_rate=LM_LR, ctx=gpu)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = init_fn(0)
+    tok, tgt = _lm_batch(torch, cfg.vocab_size, LM_BATCH, LM_SEQ, 0,
+                         gpu.device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = T.n_params(lm[0])
+    for k in FA.LAUNCHES:
+        FA.LAUNCHES[k] = 0
+    FA.COPIES = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(5):
+        lm, loss = step_fn(lm, tok, tgt)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(FA.LAUNCHES)
+    want = {k: 5 * v for k, v in FLASH_PER_STEP.items()}
+    ok_counts = counts == want
+    ok_loss = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    state.setdefault("launches", {}).update(
+        {"flash_attention." + k: counts[k] for k in counts})
+    state["train_lm"] = lambda: step_fn(lm, tok, tgt)
+    state["lm_params"] = n
+    emit({"phase": "train_lm", "dtype": "bfloat16", "config": LM_CFG,
+          "batch": LM_BATCH, "seq": LM_SEQ, "learning_rate": LM_LR,
+          "params": n, "steps": 5, "losses": losses, "launches": counts,
+          "launches_wanted": want, "do_copies": FA.COPIES,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "init_s": init_s, "wall_s": wall, "ok": ok_counts and ok_loss})
+    if not ok_counts:
+        raise AssertionError("LM training launches %s, want %s"
+                             % (counts, want))
+    if not ok_loss:
+        raise AssertionError("LM training loss not finite and falling: %s"
+                             % losses)
+    _lm_f32_card_vs_cpu(torch, mx, T)
+
+
+def _lm_f32_card_vs_cpu(torch, mx, T):
+    """One f32 step of the narrow LM (S = 256: the flash branch) with TF32
+    off, on the card against the port on the CPU, from the same weights;
+    the CPU in f64 beside both, to tell rounding from a fault."""
+    runs = {}
+    weights = None
+    with mx.precision.matmul_precision("float32"):
+        for name, ctx, dtype in (("cpu", mx.cpu(), "float32"),
+                                 ("card", mx.gpu(0), "float32"),
+                                 ("cpu_f64", mx.cpu(), "float64")):
+            cfg = T.TransformerConfig(**dict(LM_NARROW, dtype=dtype))
+            init_fn, step_fn = T.make_train_step(cfg, learning_rate=LM_LR,
+                                                 ctx=ctx)
+            params, mom = init_fn(0)
+            if weights is None:
+                weights = [p.detach().clone() for p in params.parameters()]
+            with torch.no_grad():
+                for p, w in zip(params.parameters(), weights):
+                    p.copy_(w)
+            tok, tgt = _lm_batch(torch, cfg.vocab_size, LM_NARROW_BATCH,
+                                 LM_NARROW_SEQ, 2, ctx.device)
+            _, loss = step_fn((params, mom), tok, tgt)
+            runs[name] = {
+                "loss": loss.detach().double().cpu(),
+                "grad": {k: m.detach().double().cpu()
+                         for k, m in mom.items()},
+                "param": {k: p.detach().double().cpu()
+                          for k, p in params.named_parameters()}}
+    gap = {w: _max_rel(runs["card"], runs["cpu"], w) for w in LM_NARROW_RTOL}
+    vs64 = {"%s_vs_cpu_f64_max_rel" % a: {
+        w: _max_rel(runs[a], runs["cpu_f64"], w) for w in LM_NARROW_RTOL}
+        for a in ("card", "cpu")}
+    ok = all(gap[w][0] <= LM_NARROW_RTOL[w] for w in LM_NARROW_RTOL)
+    emit(dict({"phase": "train_lm", "dtype": "float32",
+               "config": LM_NARROW, "batch": LM_NARROW_BATCH,
+               "seq": LM_NARROW_SEQ, "card_vs_cpu_max_rel": gap}, **vs64,
+              bound_rel=LM_NARROW_RTOL, loss=float(runs["card"]["loss"]),
+              ok=ok))
+    if not ok:
+        raise AssertionError("f32 LM step, card vs CPU: %s over %s"
+                             % (gap, LM_NARROW_RTOL))
+
+
 def phase_time(torch, state):
     import mxnet_tpu_torch as mx
     import torch.nn.functional as tF
@@ -1115,6 +1379,8 @@ def phase_time(torch, state):
     phase_time_conv_bwd(torch, state)
     phase_time_apply(torch, state)
     phase_time_train(torch, state)
+    phase_time_flash(torch, state)
+    phase_time_lm(torch, state)
 
 
 def phase_time_bn(torch, state):
@@ -1387,6 +1653,131 @@ def phase_time_train(torch, state):
                        "where_the_time_goes": key + ",b128"}, **tops))
 
 
+def flash_bound(kernel, card):
+    """Least time (s) of one launch of a flash kernel at the LM's attention
+    (B 12, H 32, S 2048, D 128, causal, bf16), and which side bounds it.
+    Operations: one causal S x S x D product is B*H*S^2*D (half of
+    2*B*H*S^2*D); the forward does 2 (QK^T, PV), dQ 3 (QK^T, dO V^T, dS K),
+    dK/dV 4 (and P^T dO, dS^T Q). Bytes: each [B, H, S, D] input read once
+    and output written once (forward: q, k, v in, o out; dQ: q, k, v, dO
+    in, dQ out; dK/dV: q, k, v, dO in, dK, dV out), plus the f32 row
+    vectors (lse; lse and delta)."""
+    _, (bf16_peak, _, bw) = card
+    B, H, S, D = LM_BATCH, LM_CFG["n_heads"], LM_SEQ, 128
+    product = float(B * H * S * S * D)
+    ops = {"fwd": 2, "dq": 3, "dkv": 4}[kernel] * product
+    tensors = {"fwd": 4, "dq": 5, "dkv": 6}[kernel]
+    rows = {"fwd": 1, "dq": 2, "dkv": 2}[kernel]
+    nbytes = 2.0 * tensors * B * H * S * D + 4.0 * rows * B * H * S
+    t_ops, t_bytes = ops / bf16_peak, nbytes / bw
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def phase_time_flash(torch, state):
+    """Rows 9-11 at the LM's attention, bf16, causal: each kernel's device
+    time per launch (CUDA events for the forward; the profiler, by name,
+    for the two backward kernels, whose call also computes delta), the
+    plain versions over the same batch (in slices of 2, so that their
+    scores fit), and the library yardstick scaled_dot_product_attention
+    (causal) forward and backward, timed here and never called by the
+    port."""
+    import torch.nn.functional as tF
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+
+    card = state["card"]
+    case = (LM_BATCH,) + FLASH_MAIN[1:]
+    q, k, v, do = flash_case(torch, case, torch.bfloat16, seed=1200)
+    scale = 128 ** -0.5
+    o, lse = FA._flash_forward(q, k, v, True, scale)
+    per = {"fwd": device_ms(torch, lambda: FA._flash_forward(
+        q, k, v, True, scale), iters=20)}
+    per.update(kernel_ms(torch, lambda: FA._flash_backward(
+        q, k, v, o, lse, do, True, scale), 10,
+        {"dq": ("flash_dq",), "dkv": ("flash_dkv",)}))
+    bwd_call = device_ms(torch, lambda: FA._flash_backward(
+        q, k, v, o, lse, do, True, scale), iters=10)
+
+    def sliced(fn):
+        def run():
+            for i in range(0, LM_BATCH, 2):
+                fn(i, i + 2)
+        return run
+
+    plain = {
+        "fwd": sliced(lambda a, b: FA.flash_forward_reference(
+            q[a:b], k[a:b], v[a:b], True, scale)),
+        "dq": sliced(lambda a, b: FA.backward_dq_reference(
+            q[a:b], k[a:b], v[a:b], o[a:b], lse[a * 32:b * 32], do[a:b],
+            True, scale)),
+        "dkv": sliced(lambda a, b: FA.backward_dkv_reference(
+            q[a:b], k[a:b], v[a:b], o[a:b], lse[a * 32:b * 32], do[a:b],
+            True, scale))}
+    plain_ms = {n: device_ms(torch, fn, iters=2, warmup=1)
+                for n, fn in plain.items()}
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_fwd = device_ms(torch, lambda: tF.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=20)
+    out = tF.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), iters=10)
+    res = {}
+    for n in ("fwd", "dq", "dkv"):
+        t_bound, by = flash_bound(n, card)
+        res[n] = {"ms": per[n], "plain_ms": plain_ms[n],
+                  "library_ms": lib_fwd if n == "fwd" else lib_bwd,
+                  "bound_ms": t_bound * 1e3, "bound_by": by,
+                  "roofline_share": t_bound * 1e3 / per[n],
+                  "launches_per_step": FLASH_PER_STEP[n]}
+    state["flash_timing"] = res
+    emit({"phase": "time", "kernel": "flash_attention", "dtype": "bfloat16",
+          "shape_bhsd": list(case[:5]), "causal": True, "per_launch": res,
+          "backward_call_ms": bwd_call,
+          "library": "F.scaled_dot_product_attention(is_causal=True): "
+                     "forward for row 9; its backward (dq, dk and dv "
+                     "together) for rows 10 and 11"})
+    del q, k, v, do, o, lse, qg, kg, vg, out
+    torch.cuda.empty_cache()
+
+
+def phase_time_lm(torch, state):
+    """The LM training step (phase train_lm) at batch 12: tokens/sec and
+    wall ms from the host clock over 3 steps ending in a synchronize,
+    device busy ms and idle share from the profiler over one step, the
+    flash kernels' device ms per step, and model TFLOP/s = 6 * params *
+    tokens / step time (bench.py's formula) with its share of the card's
+    bf16 peak (``mfu``)."""
+    step = state.get("train_lm")
+    if step is None:
+        return
+    step()
+    torch.cuda.synchronize()
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters
+    busy_ms, by_kernel, tops = profile_busy_ms(
+        torch, step, 1, top=12,
+        match=("flash_fwd", "flash_dq", "flash_dkv"))
+    tokens = LM_BATCH * LM_SEQ
+    tflops = 6.0 * state["lm_params"] * tokens / wall / 1e12
+    peak = state["card"][1][0]
+    res = {"tokens_per_sec": tokens / wall, "wall_ms_per_step": wall * 1e3,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": None if busy_ms is None
+           else max(0.0, 1.0 - busy_ms / (wall * 1e3)),
+           "model_tflops_per_sec": tflops, "mfu": tflops * 1e12 / peak,
+           "peak_bf16_tflops": peak / 1e12, "params": state["lm_params"],
+           "flash_kernel_ms_per_step_by_name": by_kernel}
+    state["lm_timing"] = res
+    emit({"phase": "time", "lm_train_step_bf16_b12_s2048": res})
+    if tops:
+        emit(dict({"phase": "time", "where_the_time_goes": "train_lm"},
+                  **tops))
+
+
 def _self_device_us(ev):
     us = getattr(ev, "self_device_time_total", None)
     return getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
@@ -1521,6 +1912,23 @@ def kernel_summary(state):
                    "bf16 (%d launches and %d %s launches)"
                    % (FUSED_PER_STEP, FUSED_PER_STEP,
                       "finalize" if k == "bwd_dx" else "reduce"),
+        })
+    for k in ("fwd", "dq", "dkv"):
+        f = state["flash_timing"][k]
+        n = FLASH_PER_STEP[k]
+        kernels.append({
+            "name": "flash_attention." + k, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "mxnet_tpu/pallas_kernels/flash_attention.py:%d"
+            % FLASH_REPLACES[k],
+            "launches": state["launches"]["flash_attention." + k],
+            "max_abs_err": state["flash_err"][k],
+            "tolerance": FLASH_RTOL["bfloat16"]["o"],
+            "ms": n * f["ms"], "kernel_ms": n * f["ms"],
+            "plain_ms": n * f["plain_ms"], "bound_ms": n * f["bound_ms"],
+            "bound_by": f["bound_by"], "library_ms": n * f["library_ms"],
+            "per": "one transformer-LM training step, bf16, batch 12 x "
+                   "2048, H 32, D 128, causal (%d launches)" % n,
         })
     a = state["apply_timing"]
     kernels.append({

@@ -7,13 +7,16 @@ CUDA device is present. Kernels of the JAX package written in Pallas for
 the TPU are hand-written CUDA kernels here (``kernels/``, ``csrc/``),
 built with nvcc at first use.
 
-The ported slices are ResNet V1 inference and its training step: contexts,
-the op namespace, autograd recording, Gluon blocks, layers and losses, the
-model-zoo ResNets (with the fused BN->ReLU->conv3x3 kernel for serving and
+The ported slices are ResNet V1 inference and its training step, and the
+transformer LM's training step: contexts, the op namespace, autograd
+recording, Gluon blocks, layers and losses, the model-zoo ResNets (with the fused BN->ReLU->conv3x3 kernel for serving and
 the fused training-mode BatchNorm kernels, and fused training through the
 conv_fused backward kernels), the SGD optimizer, ``gluon.Trainer`` and the
 fused train step ``gluon.train_step`` (with the packed optimizer-apply
-kernel), the matmul precision policy, and weight loading (``convert``).
+kernel), the matmul precision policy, weight loading (``convert``), and
+the decoder-only transformer LM of ``parallel.transformer`` (RoPE, RMSNorm,
+SwiGLU, chunked cross-entropy, per-layer recompute, SGD-momentum step) on
+the flash-attention kernels (``kernels/flash_attention.py``).
 """
 from . import base
 from .base import MXNetError

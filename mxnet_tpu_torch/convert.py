@@ -6,6 +6,11 @@ structural names of ``_collect_params_with_prefix()``
 package's blocks produce for the same architecture, so a dict read off a
 JAX network loads here unchanged. ``random_numpy_params`` draws such a
 dict from a seed for tests and smoke runs.
+
+``transformer_params_from_numpy(tree, cfg)`` takes the JAX package's
+transformer parameter tree (``init_params``' structure, layer weights
+stacked on a leading [L] axis) as numpy arrays and builds the port's
+``TransformerParams``.
 """
 from __future__ import annotations
 
@@ -13,7 +18,8 @@ import math
 
 import numpy as np
 
-__all__ = ["load_numpy_params", "param_shapes", "random_numpy_params"]
+__all__ = ["load_numpy_params", "param_shapes", "random_numpy_params",
+           "transformer_params_from_numpy"]
 
 
 def param_shapes(net):
@@ -77,3 +83,50 @@ def random_numpy_params(shapes, seed=0):
             a = rs.randn(*shape) * 0.1
         out[key] = a.astype(np.float32)
     return out
+
+
+def transformer_params_from_numpy(tree, cfg, ctx=None):
+    """The port's ``TransformerParams`` (``parallel.transformer``) from the
+    JAX package's parameter tree as numpy arrays: ``{"embed": [V, D],
+    "layers": {"wq": [L, D, H, Dh], ...}, "ln_f": [D], "w_out": [D, V]}``,
+    cast to ``cfg.dtype`` on ``ctx``. Raises KeyError on a missing or extra
+    key and ValueError on a shape that disagrees with ``cfg``; nothing is
+    built then."""
+    import torch
+    from .base import canonical_dtype
+    from .context import as_device
+    from .parallel import transformer as T
+
+    T._check_supported(cfg)
+    top = {"embed": (cfg.vocab_size, cfg.dim), "ln_f": (cfg.dim,),
+           "w_out": (cfg.dim, cfg.vocab_size)}
+    layer = {k: (cfg.n_layers,) + s for k, s in T._layer_shapes(cfg).items()}
+    missing = sorted((set(top) | {"layers"}) - set(tree))
+    extra = sorted(set(tree) - set(top) - {"layers"})
+    if not missing:
+        missing += ["layers." + k for k in sorted(set(layer)
+                                                  - set(tree["layers"]))]
+        extra += ["layers." + k for k in sorted(set(tree["layers"])
+                                                - set(layer))]
+    if missing or extra:
+        raise KeyError("transformer_params_from_numpy: missing keys %s, "
+                       "extra keys %s" % (missing, extra))
+    arrays = {k: np.asarray(tree[k]) for k in top}
+    arrays.update({"layers." + k: np.asarray(tree["layers"][k])
+                   for k in layer})
+    want = dict(top, **{"layers." + k: s for k, s in layer.items()})
+    for key, shape in want.items():
+        if tuple(arrays[key].shape) != tuple(shape):
+            raise ValueError("transformer_params_from_numpy: %s has shape "
+                             "%s, the config wants %s"
+                             % (key, arrays[key].shape, shape))
+    dev = as_device(ctx)
+    dt = canonical_dtype(cfg.dtype)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, dt)
+
+    layers = [{k: t(arrays["layers." + k][i]) for k in layer}
+              for i in range(cfg.n_layers)]
+    return T.TransformerParams(t(arrays["embed"]), layers, t(arrays["ln_f"]),
+                               t(arrays["w_out"]))

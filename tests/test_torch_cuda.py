@@ -16,6 +16,8 @@ from mxnet_tpu_torch import convert
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tres
 from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
 from mxnet_tpu_torch.kernels import conv_fused as CF
+from mxnet_tpu_torch.kernels import flash_attention as FA
+from mxnet_tpu_torch.parallel import transformer as T
 
 # bf16: one bf16 rounding step of the output magnitude; f32: summation
 # order only (TF32 off in the plain version's convolution).
@@ -327,3 +329,94 @@ def test_narrow_fused_resnet_trains_through_train_step_on_the_card(
                          nets[1]._collect_params_with_prefix().values()):
         w, wr = p.data().detach().cpu(), q.data().detach()
         assert (w - wr).abs().max() <= 1e-5 * wr.abs().max(), k
+
+
+# Flash attention against its plain versions, relative to max |reference|:
+# bf16 outputs one bf16 rounding step; f32 o and lse 1e-5, dq/dk/dv 1e-4
+# (the JAX suite's own bounds; both sides keep f32 products).
+FLASH_RTOL = {"bfloat16": {"o": 1.6e-2, "lse": 1e-5, "grad": 1.6e-2},
+              "float32": {"o": 1e-5, "lse": 1e-5, "grad": 1e-4}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", [(2, 3, 257, 257, 128, True),
+                                  (1, 2, 100, 300, 64, False)])
+def test_flash_kernels_match_plain(case, dtype):
+    """Forward, dQ and dK/dV against flash_forward_reference and
+    flash_backward_reference: a ragged causal shape at head dim 128 and a
+    ragged cross-attention shape at 64. One launch each."""
+    _need_card()
+    B, H, Sq, Sk, D, causal = case
+    rs = np.random.RandomState(0)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(rs.randn(B, H, s, D).astype("float32"))
+                   .cuda().to(dt) for s in (Sq, Sk, Sk, Sq))
+    scale = D ** -0.5
+    before = dict(FA.LAUNCHES)
+    o, lse = FA._flash_forward(q, k, v, causal, scale)
+    ro, rlse = FA.flash_forward_reference(q, k, v, causal, scale)
+    got = FA._flash_backward(q, k, v, ro, rlse, do, causal, scale)
+    want = FA.flash_backward_reference(q, k, v, ro, rlse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert {n: FA.LAUNCHES[n] - before[n] for n in before} == \
+        {"fwd": 1, "dq": 1, "dkv": 1}
+    tol = FLASH_RTOL[dtype]
+    for name, a, b in [("o", o, ro), ("lse", lse, rlse)] + [
+            ("grad", g, w) for g, w in zip(got, want)]:
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a.float()).all())
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol[name] * b.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_raise_on_unsupported_inputs():
+    _need_card()
+    q = torch.randn(1, 2, 128, 96, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, q, q)
+    q = torch.randn(1, 2, 128, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        FA.flash_attention(q, q, q)
+    q = torch.randn(1, 2, 64, 128, device="cuda",
+                    dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_tiny_lm_steps_on_the_card_match_the_cpu():
+    """Two f32 SGD-momentum steps of a narrow LM (S = 128: the flash branch)
+    on the card, TF32 off, against the port on the CPU: losses within 1e-5
+    relative, weights within 1e-5 of each tensor's max; 2 forward (with
+    recompute), 1 dQ and 1 dK/dV launch per layer per step."""
+    _need_card()
+    cfg = T.TransformerConfig(vocab_size=128, dim=256, n_layers=2,
+                              n_heads=2, ffn_hidden=256, dtype="float32",
+                              loss_chunks=2)
+    rs = np.random.RandomState(0)
+    tok = rs.randint(0, 128, (2, 128))
+    tgt = rs.randint(0, 128, (2, 128))
+    with mx.precision.matmul_precision("float32"):
+        steps, states = {}, {}
+        for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+            init_fn, steps[name] = T.make_train_step(cfg, learning_rate=0.1,
+                                                     ctx=ctx)
+            states[name] = init_fn(0)
+        # the same weights on both sides: the CPU's, copied to the card
+        with torch.no_grad():
+            for a, b in zip(states["card"][0].parameters(),
+                            states["cpu"][0].parameters()):
+                a.copy_(b)
+        before = dict(FA.LAUNCHES)
+        losses = {name: [float(steps[name](states[name], tok, tgt)[1])
+                         for _ in range(2)] for name in steps}
+    torch.cuda.synchronize()
+    assert {n: FA.LAUNCHES[n] - before[n] for n in before} == \
+        {"fwd": 8, "dq": 4, "dkv": 4}
+    np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-5)
+    for a, b in zip(states["card"][0].parameters(),
+                    states["cpu"][0].parameters()):
+        a, b = a.detach().cpu(), b.detach()
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()

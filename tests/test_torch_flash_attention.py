@@ -1,0 +1,243 @@
+"""The port's flash attention (mxnet_tpu_torch/kernels/flash_attention.py)
+held against the JAX package's (mxnet_tpu/pallas_kernels/flash_attention.py).
+
+On the CPU the JAX side runs its Pallas kernels in interpret mode
+(``_pallas_forward``, ``_pallas_backward``) and its jnp reference; the port
+runs its plain versions, which are what its wrappers take for a CPU tensor.
+The CUDA kernels run only on the card: tests/test_torch_cuda.py holds them
+against the plain versions there (``python3 chip_smoke.py`` does the same
+at the transformer LM's shape).
+"""
+import importlib
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch.kernels import flash_attention as FA
+
+JFA = importlib.import_module("mxnet_tpu.pallas_kernels.flash_attention")
+
+# f32: the JAX suite's own bounds (tests/test_pallas.py: forward 1e-5,
+# gradients 1e-4 against the dense reference); both sides keep f32
+# products and differ only by summation order.
+F32_ATOL = {"fwd": 1e-5, "bwd": 1e-4}
+# bf16 outputs: one bf16 rounding step (2^-7 relative) of the output's
+# magnitude, for a last-bit difference of two f32 accumulation orders.
+BF16_RTOL = 2.0 ** -7
+
+# (B, H, Sq, Sk, D, causal): causal and not, Sq != Sk, D 64 and 128,
+# B*H <= 8, S <= 256, so that interpret mode stays quick
+CASES = [(2, 2, 128, 128, 64, True), (1, 2, 128, 128, 128, False),
+         (2, 1, 64, 128, 64, False), (1, 1, 256, 256, 64, True)]
+
+
+def _qkv(B, H, Sq, Sk, D, seed=0):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(B, H, Sq, D).astype("float32"),
+            rs.randn(B, H, Sk, D).astype("float32"),
+            rs.randn(B, H, Sk, D).astype("float32"),
+            rs.randn(B, H, Sq, D).astype("float32"))
+
+
+def _t(a, dtype):
+    return torch.from_numpy(a).to(dtype)
+
+
+def _j(a, dtype):
+    return jnp.asarray(a).astype(dtype)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _close_bf16(got, want):
+    got, want = _np(got), _np(want)
+    err = np.abs(got - want).max()
+    assert err <= BF16_RTOL * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_forward_matches_pallas_interpret_f32(case):
+    B, H, Sq, Sk, D, causal = case
+    q, k, v, _ = _qkv(B, H, Sq, Sk, D)
+    scale = D ** -0.5
+    o, lse = FA.flash_forward_reference(_t(q, torch.float32),
+                                        _t(k, torch.float32),
+                                        _t(v, torch.float32), causal, scale)
+    jo, jl = JFA._pallas_forward(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal, scale, 64, 128,
+                                 True)
+    assert tuple(lse.shape) == (B * H, Sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo),
+                               atol=F32_ATOL["fwd"])
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl)[:, :, 0],
+                               atol=F32_ATOL["fwd"])
+
+
+@pytest.mark.parametrize("case", CASES[:2])
+def test_forward_matches_pallas_interpret_bf16(case):
+    B, H, Sq, Sk, D, causal = case
+    q, k, v, _ = _qkv(B, H, Sq, Sk, D, seed=1)
+    scale = D ** -0.5
+    o, lse = FA.flash_forward_reference(*(_t(a, torch.bfloat16)
+                                          for a in (q, k, v)), causal, scale)
+    jo, jl = JFA._pallas_forward(*(_j(a, jnp.bfloat16) for a in (q, k, v)),
+                                 causal, scale, 64, 128, True)
+    assert o.dtype == torch.bfloat16
+    _close_bf16(o, jo)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl)[:, :, 0],
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_backward_matches_pallas_interpret_f32(case):
+    B, H, Sq, Sk, D, causal = case
+    q, k, v, do = _qkv(B, H, Sq, Sk, D, seed=2)
+    scale = D ** -0.5
+    tq, tk, tv, tdo = (_t(a, torch.float32) for a in (q, k, v, do))
+    o, lse = FA.flash_forward_reference(tq, tk, tv, causal, scale)
+    got = FA.flash_backward_reference(tq, tk, tv, o, lse, tdo, causal, scale)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    jo, jl = JFA._pallas_forward(jq, jk, jv, causal, scale, 64, 128, True)
+    want = JFA._pallas_backward(jq, jk, jv, jo, jl[:, :, 0], jdo, causal,
+                                scale, 64, 128, True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   atol=F32_ATOL["bwd"])
+
+
+@pytest.mark.parametrize("case", CASES[:3])
+def test_backward_matches_jax_vjp_of_reference_f32(case):
+    B, H, Sq, Sk, D, causal = case
+    q, k, v, do = _qkv(B, H, Sq, Sk, D, seed=3)
+    tq, tk, tv, tdo = (_t(a, torch.float32) for a in (q, k, v, do))
+    o, lse = FA._flash_forward(tq, tk, tv, causal, D ** -0.5)
+    got = FA._flash_backward(tq, tk, tv, o, lse, tdo, causal, D ** -0.5)
+    _, vjp = jax.vjp(lambda a, b, c: JFA.attention_reference(
+        a, b, c, causal=causal), *(jnp.asarray(a) for a in (q, k, v)))
+    for g, w in zip(got, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   atol=F32_ATOL["bwd"])
+
+
+def test_backward_matches_pallas_interpret_bf16():
+    B, H, Sq, Sk, D, causal = CASES[0]
+    q, k, v, do = _qkv(B, H, Sq, Sk, D, seed=4)
+    scale = D ** -0.5
+    tq, tk, tv, tdo = (_t(a, torch.bfloat16) for a in (q, k, v, do))
+    o, lse = FA.flash_forward_reference(tq, tk, tv, causal, scale)
+    got = FA.flash_backward_reference(tq, tk, tv, o, lse, tdo, causal, scale)
+    jq, jk, jv, jdo = (_j(a, jnp.bfloat16) for a in (q, k, v, do))
+    jo, jl = JFA._pallas_forward(jq, jk, jv, causal, scale, 64, 128, True)
+    want = JFA._pallas_backward(jq, jk, jv, jo, jl[:, :, 0], jdo, causal,
+                                scale, 64, 128, True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        _close_bf16(g, w)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_reference_matches_jax(causal):
+    q, k, v, _ = _qkv(2, 2, 64, 64, 64, seed=5)
+    for dt, jdt in ((torch.float32, jnp.float32),
+                    (torch.bfloat16, jnp.bfloat16)):
+        got = FA.attention_reference(*(_t(a, dt) for a in (q, k, v)),
+                                     causal=causal)
+        want = JFA.attention_reference(*(_j(a, jdt) for a in (q, k, v)),
+                                       causal=causal)
+        assert got.dtype == dt
+        if dt == torch.bfloat16:
+            _close_bf16(got, want)
+        else:
+            np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_autograd_function_matches_autograd_of_reference(causal):
+    """flash_attention's gradient (the Function's plain backward) against
+    torch.autograd through attention_reference, f32."""
+    q, k, v, do = _qkv(1, 2, 128, 128, 64, seed=6)
+    ins = [_t(a, torch.float32).requires_grad_() for a in (q, k, v)]
+    ref = [_t(a, torch.float32).requires_grad_() for a in (q, k, v)]
+    tdo = _t(do, torch.float32)
+    FA.flash_attention(*ins, causal=causal).backward(tdo)
+    FA.attention_reference(*ref, causal=causal).backward(tdo)
+    for a, b in zip(ins, ref):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(),
+                                   atol=F32_ATOL["bwd"])
+
+
+def test_flash_attention_matches_jax_public_call():
+    """The public entry, causal and cross-attention, against the JAX
+    package's flash_attention in interpret mode (f32)."""
+    for (B, H, Sq, Sk, D, causal) in (CASES[0], CASES[2]):
+        q, k, v, _ = _qkv(B, H, Sq, Sk, D, seed=7)
+        got = FA.flash_attention(*(_t(a, torch.float32) for a in (q, k, v)),
+                                 causal=causal, block_q=64, block_k=64)
+        want = JFA.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                   causal=causal, block_q=64, block_k=64,
+                                   interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=F32_ATOL["fwd"])
+
+
+def test_causal_unequal_lengths_raise_like_jax():
+    q, k, v, _ = _qkv(1, 1, 64, 128, 64)
+    with pytest.raises(ValueError, match="equal q/kv lengths"):
+        FA.flash_attention(*(_t(a, torch.float32) for a in (q, k, v)),
+                           causal=True)
+    with pytest.raises(ValueError, match="equal q/kv lengths"):
+        JFA.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                            causal=True, interpret=True)
+
+
+def test_wrapper_rejects_bad_inputs():
+    q, k, v, _ = _qkv(1, 2, 16, 16, 64)
+    tq, tk, tv = (_t(a, torch.float32) for a in (q, k, v))
+    with pytest.raises(ValueError):
+        FA.flash_attention(tq, tk[:, :1], tv[:, :1])
+    with pytest.raises(ValueError):
+        FA.flash_attention(tq, tk.bfloat16(), tv)
+    with pytest.raises(ValueError):
+        FA.flash_attention(tq[0], tk[0], tv[0])
+    with pytest.raises(MXNetError):
+        FA._flash_forward(tq.to("meta"), tk.to("meta"), tv.to("meta"),
+                          False, 0.125)
+
+
+def test_strided_views_give_the_same_result():
+    """[B, S, H, D] tensors seen as [B, H, S, D] (the transformer's layout)
+    give what contiguous ones give, forward and backward."""
+    q, k, v, do = _qkv(2, 2, 128, 128, 64, seed=8)
+    cont = [_t(a, torch.float32).requires_grad_() for a in (q, k, v)]
+    strd = [_t(a, torch.float32).transpose(1, 2).contiguous()
+            .requires_grad_() for a in (q, k, v)]
+    o1 = FA.flash_attention(*cont, causal=True)
+    o2 = FA.flash_attention(*(t.transpose(1, 2) for t in strd), causal=True)
+    o1.backward(_t(do, torch.float32))
+    o2.backward(_t(do, torch.float32))
+    np.testing.assert_array_equal(o1.detach().numpy(), o2.detach().numpy())
+    for a, b in zip(cont, strd):
+        np.testing.assert_array_equal(a.grad.numpy(),
+                                      b.grad.transpose(1, 2).numpy())
+
+
+def test_backward_halves_equal_the_whole():
+    """backward_dq_reference and backward_dkv_reference (the dQ and the
+    dK/dV kernel's plain functions) give flash_backward_reference's bits."""
+    q, k, v, do = _qkv(1, 2, 64, 128, 64, seed=9)
+    for dt in (torch.float32, torch.bfloat16):
+        tq, tk, tv, tdo = (_t(a, dt) for a in (q, k, v, do))
+        o, lse = FA.flash_forward_reference(tq, tk, tv, False, 0.125)
+        dq, dk, dv = FA.flash_backward_reference(tq, tk, tv, o, lse, tdo)
+        assert torch.equal(dq, FA.backward_dq_reference(tq, tk, tv, o, lse,
+                                                        tdo))
+        hk, hv = FA.backward_dkv_reference(tq, tk, tv, o, lse, tdo)
+        assert torch.equal(dk, hk) and torch.equal(dv, hv)
