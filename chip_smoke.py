@@ -29,9 +29,12 @@ Phases, each printing JSON lines:
               step_fn chain, bit for bit. The flash-attention forward, dQ
               and dK/dV kernels at the transformer LM's attention (H 32,
               S 2048, D 128, causal, bf16; batch cut to 1 so that the
-              plain version's scores fit) and at edge shapes (non-causal,
-              Sq != Sk, S = 100 and 257, D = 64, B*H = 1) in bf16 and f32
-              (FLASH_RTOL); a second launch must give the same bits.
+              plain version's scores fit), contiguous and as the
+              transposed [B, S, H, D] views the LM passes, and at edge
+              shapes (non-causal, Sq != Sk, S = 100 and 257, D = 64,
+              B*H = 1) in bf16 and f32 (FLASH_RTOL; bf16 outputs also row
+              by row, FLASH_ROWWISE); a second launch must give the same
+              bits.
 3. serve   -- the serving path: resnet50_v1(layout="NHWC", fuse=True) in
               bf16 answers 4 requests of 32 images (top-5 classes each).
               Launch counters are zeroed just before and read just after;
@@ -207,6 +210,20 @@ FLASH_RTOL = {"bfloat16": {"o": 1.6e-2, "lse": 1e-5, "dq": 1.6e-2,
 # edge shapes: non-causal, Sq != Sk, ragged tiles (S = 100, 257), D = 64,
 # B*H = 1; each in bf16 and f32.
 FLASH_MAIN = (1, 32, 2048, 2048, 128, True)
+# The bf16 outputs are also held row by row: each row of o and dq (a query
+# row) and of dk and dv (a key row) within FLASH_RTOL of that row's own max
+# |reference|, so that late causal rows, whose values lie far below the
+# tensor's max, are held to their own bf16 step. A row whose max is below
+# FLASH_ROW_FLOOR of the tensor's max is measured against that floor: such
+# a row is the f32 residue of a cancellation (causal query row 0 of dq,
+# where P = 1 and dP - delta is zero but for summation order), and two
+# summation orders leave different residues.
+FLASH_ROW_FLOOR = 2.0 ** -12
+FLASH_ROWWISE = ("o", "dq", "dk", "dv")
+# Layouts the flash kernels are checked in at FLASH_MAIN: "bhsd" contiguous
+# [B, H, S, D], and "bshd", [B, S, H, D] buffers seen transposed to
+# [B, H, S, D], as the LM's attention passes its projections.
+FLASH_LAYOUTS = ("bhsd", "bshd")
 FLASH_EDGE = [(2, 4, 256, 256, 128, False), (2, 2, 128, 384, 64, False),
               (2, 3, 100, 100, 128, True), (1, 2, 257, 257, 64, True),
               (1, 1, 384, 384, 128, True), (1, 2, 100, 257, 128, False)]
@@ -428,7 +445,9 @@ def phase_kernel(torch, state):
             if not ok:
                 failures.append((dname, shape, relu, err, scale))
             if main:
-                worst[dname] = max(worst.get(dname, 0.0), err)
+                w = worst.setdefault(dname, [0.0, 0.0])
+                w[0] = max(w[0], err)
+                w[1] = max(w[1], err / max(scale, 1e-30))
     state["kernel_err"] = worst
     if failures:
         raise AssertionError("conv_fused disagrees with its plain version: "
@@ -444,7 +463,7 @@ def phase_kernel_bn(torch, state):
     cases = [(int(np.prod(shape[:3])), shape[-1], True)
              for shape, _ in BN_SHAPES]
     cases += [(r, c, False) for r in BN_EDGE_R for c in BN_EDGE_C]
-    worst = {k: 0.0 for k in BN_KERNELS}
+    worst = {k: [0.0, 0.0] for k in BN_KERNELS}     # abs, relative (bf16)
     summary = {}
     failures = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -462,11 +481,13 @@ def phase_kernel_bn(torch, state):
                                           "ref_max_abs": v[2],
                                           "bitwise_share": v[3]}
                                       for k, v in res.items()}})
-                for k, (ok, err, _, eq) in res.items():
+                for k, (ok, err, ref, eq) in res.items():
                     if not ok:
                         failures.append((dname, act, R, C, k, err))
                     if main and dtype == torch.bfloat16:
-                        worst[k] = max(worst[k], err)
+                        worst[k][0] = max(worst[k][0], err)
+                        worst[k][1] = max(worst[k][1],
+                                          err / max(ref, 1e-30))
                     if not main:
                         edge[k][0] = edge[k][0] and ok
                         edge[k][1] = max(edge[k][1], err)
@@ -680,20 +701,44 @@ def phase_kernel_apply(torch, state):
                              "version: %s" % failures)
 
 
-def flash_case(torch, case, dtype, seed):
-    """(q, k, v, dO) [B, H, S, D] on the card for ``case``."""
+def flash_case(torch, case, dtype, seed, layout="bhsd"):
+    """(q, k, v, dO) [B, H, S, D] on the card for ``case``; with layout
+    "bshd" the same values held in [B, S, H, D] buffers and seen
+    transposed."""
     B, H, Sq, Sk, D, _ = case
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return tuple(torch.randn(B, H, n, D, generator=gen, device="cuda")
-                 .to(dtype) for n in (Sq, Sk, Sk, Sq))
+    ts = tuple(torch.randn(B, H, n, D, generator=gen, device="cuda")
+               .to(dtype) for n in (Sq, Sk, Sk, Sq))
+    if layout == "bshd":
+        ts = tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in ts)
+    return ts
 
 
-def flash_check(torch, case, dtype, seed):
+def row_rel_err(torch, a, b):
+    """(the largest over rows of a row's max |a - b| over its max |b|, rows
+    below FLASH_ROW_FLOOR of the tensor's max taken at that floor; the
+    error's RMS over the reference's RMS). A row is the last dim."""
+    a = a.float().reshape(-1, a.shape[-1])
+    b = b.float().reshape(-1, b.shape[-1])
+    d = a - b
+    ref = b.abs().amax(dim=1)
+    floor = max(FLASH_ROW_FLOOR * ref.max().item(), 1e-30)
+    row = (d.abs().amax(dim=1) / ref.clamp(min=floor)).max().item()
+    rms = (d.square().mean().sqrt()
+           / b.square().mean().sqrt().clamp(min=1e-30)).item()
+    return row, rms
+
+
+def flash_check(torch, case, dtype, seed, layout="bhsd"):
     """Rows 9-11 against their plain versions on the same inputs (the
-    backward pair takes the plain forward's o and lse). Returns ({output:
-    {ok, max_abs_err, ref_max_abs}}, the kernels' outputs, the inputs)."""
+    backward pair takes the plain forward's o and lse). bf16 outputs are
+    held as a whole and row by row (FLASH_ROWWISE); every output must be
+    laid out as the input it belongs to (o and dq as q, dk as k, dv as v).
+    Returns ({output: {ok, max_abs_err, ref_max_abs[, max_row_rel_err,
+    rms_rel_err]}}, the kernels' outputs, the inputs)."""
     from mxnet_tpu_torch.kernels import flash_attention as FA
-    q, k, v, do = flash_case(torch, case, dtype, seed)
+    q, k, v, do = flash_case(torch, case, dtype, seed, layout)
     causal, scale = case[5], case[4] ** -0.5
     o, lse = FA._flash_forward(q, k, v, causal, scale)
     ro, rlse = FA.flash_forward_reference(q, k, v, causal, scale)
@@ -702,6 +747,8 @@ def flash_check(torch, case, dtype, seed):
                                          scale)
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
+    tol = FLASH_RTOL[dname]
+    like = {"o": q, "dq": q, "dk": k, "dv": v}
     res = {}
     for name, a, b in [("o", o, ro), ("lse", lse, rlse)] + list(
             zip(("dq", "dk", "dv"), grads, rgrads)):
@@ -709,61 +756,89 @@ def flash_check(torch, case, dtype, seed):
         scale_ref = b.float().abs().max().item()
         ok = a.shape == b.shape and a.dtype == b.dtype \
             and bool(torch.isfinite(a.float()).all().item()) \
-            and err <= FLASH_RTOL[dname][name] * max(scale_ref, 1e-30)
-        res[name] = {"ok": ok, "max_abs_err": err, "ref_max_abs": scale_ref}
+            and err <= tol[name] * max(scale_ref, 1e-30) \
+            and (name == "lse" or a.stride() == like[name].stride())
+        r = {"ok": ok, "max_abs_err": err, "ref_max_abs": scale_ref}
+        if dtype == torch.bfloat16 and name in FLASH_ROWWISE:
+            r["max_row_rel_err"], r["rms_rel_err"] = row_rel_err(torch, a, b)
+            r["ok"] = ok and r["max_row_rel_err"] <= tol[name]
+        res[name] = r
     return res, (o, lse) + tuple(grads), (q, k, v, do, ro, rlse)
 
 
 def phase_kernel_flash(torch, state):
     """The flash-attention forward, dQ and dK/dV kernels (rows 9-11)
     against their plain versions: at the LM's attention (batch cut to 1)
-    in bf16, and at the edge shapes in bf16 and f32 (FLASH_RTOL); then a
-    second launch at the LM shape must give the same bits."""
+    in bf16, contiguous and as the transposed [B, S, H, D] views the LM
+    passes, and at the edge shapes in bf16 and f32 (FLASH_RTOL; bf16 also
+    row by row); at the LM shape a second launch must give the same
+    bits."""
     from mxnet_tpu_torch.kernels import flash_attention as FA
     failures = []
-    worst = {}
+    worst = {k: [0.0, 0.0] for k in FLASH_OUTS}    # abs, row-relative
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        cases = ([FLASH_MAIN] if dtype == torch.bfloat16 else []) \
-            + FLASH_EDGE
+        cases = [(FLASH_MAIN, lay) for lay in FLASH_LAYOUTS] \
+            if dtype == torch.bfloat16 else []
+        cases += [(case, "bhsd") for case in FLASH_EDGE]
         edge = {}
-        for i, case in enumerate(cases):
-            res, outs, ins = flash_check(torch, case, dtype, seed=1100 + i)
+        contiguous = None
+        for i, (case, layout) in enumerate(cases):
             main = case == FLASH_MAIN
+            # both layouts of the LM shape hold the same values
+            seed = 1100 if main else 1100 + i
+            res, outs, ins = flash_check(torch, case, dtype, seed, layout)
             for name, r in res.items():
                 if not r["ok"]:
-                    failures.append((dname, case, name, r["max_abs_err"],
-                                     r["ref_max_abs"]))
+                    failures.append((dname, case, layout, name,
+                                     r["max_abs_err"], r["ref_max_abs"],
+                                     r.get("max_row_rel_err")))
                 if not main:
-                    e = edge.setdefault(name, [True, 0.0])
+                    e = edge.setdefault(name, [True, 0.0, 0.0])
                     e[0] = e[0] and r["ok"]
                     e[1] = max(e[1], r["max_abs_err"]
                                / max(r["ref_max_abs"], 1e-30))
-            if main:
-                emit({"phase": "kernel", "kernel": "flash_attention",
-                      "dtype": dname, "shape_bhsd": list(case[:5]),
-                      "causal": case[5], "batch_cut_from": LM_BATCH,
-                      "results": res})
-                worst = {k: max(res[n]["max_abs_err"] for n in outs_k)
-                         for k, outs_k in FLASH_OUTS.items()}
-                # a second launch on the same inputs: the same bits
-                q, k, v, do, ro, rlse = ins
-                causal, scale = case[5], case[4] ** -0.5
-                again = FA._flash_forward(q, k, v, causal, scale) \
-                    + FA._flash_backward(q, k, v, ro, rlse, do, causal,
-                                         scale)
-                torch.cuda.synchronize()
-                same = all(same_bits(torch, a, b)
-                           for a, b in zip(outs, again))
-                emit({"phase": "kernel", "kernel": "flash_attention",
-                      "second_launch_same_bits": same})
-                if not same:
-                    failures.append((dname, case, "second launch bits"))
-                del again
-            del res, outs, ins
+                    e[2] = max(e[2], r.get("max_row_rel_err", 0.0))
+            if not main:
+                del res, outs, ins
+                continue
+            for k, outs_k in FLASH_OUTS.items():
+                for n in outs_k:
+                    worst[k][0] = max(worst[k][0], res[n]["max_abs_err"])
+                    worst[k][1] = max(worst[k][1],
+                                      res[n].get("max_row_rel_err", 0.0))
+            # a second launch on the same inputs: the same bits
+            q, k, v, do, ro, rlse = ins
+            causal, scale = case[5], case[4] ** -0.5
+            again = FA._flash_forward(q, k, v, causal, scale) \
+                + FA._flash_backward(q, k, v, ro, rlse, do, causal, scale)
+            torch.cuda.synchronize()
+            same = all(same_bits(torch, a, b) for a, b in zip(outs, again))
+            line = {"phase": "kernel", "kernel": "flash_attention",
+                    "dtype": dname, "layout": layout,
+                    "shape_bhsd": list(case[:5]), "causal": case[5],
+                    "batch_cut_from": LM_BATCH,
+                    "strides_q_k_o_dq_dk": [list(t.stride()) for t in (
+                        q, k, outs[0], outs[2], outs[3])],
+                    "results": res, "second_launch_same_bits": same,
+                    "tolerance_rel": FLASH_RTOL[dname],
+                    "row_floor": FLASH_ROW_FLOOR}
+            if contiguous is None:
+                contiguous = outs
+            else:
+                # a reading, not a check: delta = rowsum(dO * O) is torch's
+                # reduction, whose order may follow the layout
+                line["same_bits_as_contiguous"] = [
+                    same_bits(torch, a, b) for a, b in zip(outs, contiguous)]
+            emit(line)
+            if not same:
+                failures.append((dname, case, layout, "second launch bits"))
+            del again, res, outs, ins
+        del contiguous
         emit({"phase": "kernel", "kernel": "flash_attention", "dtype": dname,
               "edge_shapes_bhsd_causal": FLASH_EDGE,
-              "results": {k: {"ok": v[0], "max_rel_err": v[1]}
+              "results": {k: {"ok": v[0], "max_rel_err": v[1],
+                              "max_row_rel_err": v[2]}
                           for k, v in edge.items()},
               "tolerance_rel": FLASH_RTOL[dname]})
     state["flash_err"] = worst
@@ -1869,8 +1944,9 @@ def kernel_summary(state):
         "source": "mxnet_tpu_torch/csrc/conv_fused.cu",
         "replaces": "mxnet_tpu/pallas_kernels/conv_fused.py:121",
         "launches": state["launches"]["conv_fused"],
-        "max_abs_err": state["kernel_err"]["bfloat16"],
-        "tolerance": RTOL["bfloat16"],
+        "max_abs_err": state["kernel_err"]["bfloat16"][0],
+        "max_rel_err": state["kernel_err"]["bfloat16"][1],
+        "tolerance_rel": RTOL["bfloat16"],
         "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
@@ -1884,8 +1960,9 @@ def kernel_summary(state):
             "replaces": "mxnet_tpu/pallas_kernels/batchnorm_fused.py:%d"
             % BN_REPLACES[k],
             "launches": state["launches"][k],
-            "max_abs_err": state["bn_err"][k],
-            "tolerance": 0.0 if k in ("stats", "apply") else BN_BWD_RTOL,
+            "max_abs_err": state["bn_err"][k][0],
+            "max_rel_err": state["bn_err"][k][1],
+            "tolerance_rel": 0.0 if k in ("stats", "apply") else BN_BWD_RTOL,
             "ms": b["ms"], "kernel_ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": b["library_ms"],
@@ -1904,7 +1981,7 @@ def kernel_summary(state):
             "launches": state["launches"]["conv_fused." + k],
             "max_abs_err": state["conv_bwd_err"][k][0],
             "max_rel_err": state["conv_bwd_err"][k][1],
-            "tolerance": BWD_RTOL["bfloat16"]["dx"],
+            "tolerance_rel": BWD_RTOL["bfloat16"]["dx"],
             "ms": c["ms"], "kernel_ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
@@ -1922,21 +1999,33 @@ def kernel_summary(state):
             "replaces": "mxnet_tpu/pallas_kernels/flash_attention.py:%d"
             % FLASH_REPLACES[k],
             "launches": state["launches"]["flash_attention." + k],
-            "max_abs_err": state["flash_err"][k],
-            "tolerance": FLASH_RTOL["bfloat16"]["o"],
+            "max_abs_err": state["flash_err"][k][0],
+            "max_rel_err": state["flash_err"][k][1],
+            "rel_err_per": "row: a query row of o and dq, a key row of dk "
+                           "and dv, against the row's max |reference|",
+            "tolerance_rel": FLASH_RTOL["bfloat16"]["o"],
             "ms": n * f["ms"], "kernel_ms": n * f["ms"],
             "plain_ms": n * f["plain_ms"], "bound_ms": n * f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": n * f["library_ms"],
             "per": "one transformer-LM training step, bf16, batch 12 x "
                    "2048, H 32, D 128, causal (%d launches)" % n,
         })
+        if k != "fwd":
+            # one SDPA backward computes dq, dk and dv: its time belongs to
+            # the pair, not to each row
+            kernels[-1]["library_covers"] = ["flash_attention.dq",
+                                             "flash_attention.dkv"]
+        if k == "dkv":
+            kernels[-1]["library_shared_with"] = "flash_attention.dq"
     a = state["apply_timing"]
     kernels.append({
         "name": "optimizer_apply", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/optimizer_apply.cu",
         "replaces": "mxnet_tpu/pallas_kernels/optimizer_apply.py:80",
         "launches": state["launches"]["optimizer_apply"],
-        "max_abs_err": state["apply_err"], "tolerance": 0.0,
+        # the phase failed unless the apply matched bit for bit
+        "max_abs_err": state["apply_err"], "max_rel_err": 0.0,
+        "tolerance_rel": 0.0,
         "ms": a["ms"], "kernel_ms": a["ms"], "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
         "library_ms": None, "library_note": a["library_note"],

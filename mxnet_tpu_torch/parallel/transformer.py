@@ -30,7 +30,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..base import MXNetError, canonical_dtype, getenv, weak_scalar
+from ..base import MXNetError, canonical_dtype, weak_scalar
 from ..context import as_device
 from ..kernels.flash_attention import (_f32_matmul, attention_reference,
                                        flash_attention)
@@ -69,7 +69,8 @@ class TransformerConfig:
     # chunks, each recomputed in the backward, so the [B, S, vocab] f32
     # logits never exist at once
     loss_chunks: int = 1
-    # the single-reduction chunked CE of a batch-sharded mesh (None = auto)
+    # the single-reduction chunked CE of a batch-sharded mesh (None = auto;
+    # True is not ported yet and raises)
     ce_local_accum: Optional[bool] = None
 
     @property
@@ -97,6 +98,10 @@ def _check_supported(cfg):
         raise NotImplementedError(
             "selective recompute (remat_save=%r) is not ported yet; only "
             "full per-layer recompute (remat_save=())" % (cfg.remat_save,))
+    if cfg.ce_local_accum:
+        raise NotImplementedError(
+            "the single-reduction chunked CE (ce_local_accum=True) waits for "
+            "the multi-GPU slice; one device runs the plain chunked CE")
 
 
 class LayerParams(nn.Module):
@@ -236,23 +241,6 @@ def _proj(x, w):
     return out.reshape(tuple(x.shape[:-1]) + tuple(w.shape[1:]))
 
 
-class _Silu(torch.autograd.Function):
-    """silu(x) = x * logistic(x) with the JAX package's roundings: logistic
-    as 1 / (1 + exp(-x)), each op rounded to x's dtype (XLA's expansion),
-    and the backward of JAX's rule, g*s + (g*x) * (s * (1 - s))."""
-
-    @staticmethod
-    def forward(ctx, x):
-        s = torch.reciprocal(1 + torch.exp(-x))
-        ctx.save_for_backward(x, s)
-        return x * s
-
-    @staticmethod
-    def backward(ctx, g):
-        x, s = ctx.saved_tensors
-        return g * s + (g * x) * (s * (1 - s))
-
-
 def _layer_body(cfg, mesh, positions, x, lp):
     """One transformer layer. x: [B, S, D]; lp: this layer's params."""
     h = _rms_norm(x, lp["ln1"])
@@ -263,7 +251,7 @@ def _layer_body(cfg, mesh, positions, x, lp):
     x = x + _proj(o.reshape(o.shape[0], o.shape[1], -1),
                   lp["wo"].reshape(-1, cfg.dim))
     h = _rms_norm(x, lp["ln2"])
-    g = _Silu.apply(_proj(h, lp["w_gate"]))
+    g = torch.nn.functional.silu(_proj(h, lp["w_gate"]))
     u = _proj(h, lp["w_up"])
     return x + _proj(g * u, lp["w_down"])
 
@@ -347,25 +335,15 @@ def _mesh_sizes(mesh):
 
 def ce_local_accum_active(cfg, mesh, batch, seq):
     """Whether this (cfg, mesh, batch shape) runs the single-reduction
-    chunked CE, the JAX package's rule: ``cfg.ce_local_accum=None`` selects
-    it whenever the mesh shards the batch (dp*sp > 1) and the shapes
-    divide, ``True`` forces it, ``False`` pins the plain path;
-    ``MXTPU_CE_LOCAL_ACCUM`` ('auto' / '1' / '0') overrides. With no mesh or
-    one device it is off unless forced."""
-    if cfg.loss_chunks <= 1 or mesh is None:
-        return False
-    env = str(getenv("MXTPU_CE_LOCAL_ACCUM", "auto")).lower()
-    if env in ("0", "off", "false") or cfg.ce_local_accum is False:
-        return False
-    forced = cfg.ce_local_accum is True or env in ("1", "on", "true")
-    sizes = _mesh_sizes(mesh)
-    dp, sp = sizes.get("dp", 1), sizes.get("sp", 1)
-    if not forced and dp * sp <= 1:
-        return False
-    divisible = (int(batch) % max(dp, 1) == 0
-                 and int(seq) % max(sp, 1) == 0
-                 and (int(seq) // max(sp, 1)) % cfg.loss_chunks == 0)
-    return divisible or cfg.ce_local_accum is True
+    chunked CE. The JAX package selects it only when the mesh shards the
+    batch (dp*sp > 1) or ``cfg.ce_local_accum`` forces it; on one device,
+    the only mesh ported, it is off. ``ce_local_accum=True`` raises
+    NotImplementedError (``_check_supported``) until the multi-GPU slice
+    ports it."""
+    del batch, seq
+    _check_supported(cfg)
+    _mesh_sizes(mesh)
+    return False
 
 
 def loss_fn(params, tokens, targets, cfg, mesh=None, aux_weight=0.01):
@@ -377,11 +355,6 @@ def loss_fn(params, tokens, targets, cfg, mesh=None, aux_weight=0.01):
                 "loss_chunks=%d does not divide seq_len=%d; pick a divisor "
                 "or set loss_chunks=1" % (cfg.loss_chunks, tokens.shape[1]))
         x, _ = _hidden(params, tokens, cfg, mesh)
-        if ce_local_accum_active(cfg, mesh, tokens.shape[0],
-                                 tokens.shape[1]):
-            raise NotImplementedError(
-                "the single-reduction chunked CE (ce_local_accum) waits for "
-                "the multi-GPU slice")
         return _chunked_ce(x, params["w_out"], targets, cfg.loss_chunks)
     logits = apply(params, tokens, cfg, mesh)
     logp = torch.log_softmax(logits.float(), dim=-1)

@@ -252,6 +252,9 @@ def test_init_params_structure_matches_jax():
 
 
 def test_ce_local_accum_matches_jax_single_device(monkeypatch):
+    """Off on one device, as in JAX; the port reads no environment
+    variable, so JAX's ``MXTPU_CE_LOCAL_ACCUM`` settings that keep it off
+    agree with the port."""
     mesh = create_mesh(devices=jax.devices()[:1], dp=1)
     for env in ("auto", "0"):
         monkeypatch.setenv("MXTPU_CE_LOCAL_ACCUM", env)
@@ -285,11 +288,15 @@ def test_multi_device_mesh_and_forced_local_ce_raise(monkeypatch):
         T.make_train_step(tc, mesh=[mx.cpu(), mx.cpu()], ctx=mx.cpu())
     with pytest.raises(NotImplementedError):
         T.make_train_step(tc, mesh="dp=2", ctx=mx.cpu())
-    _, tc, _, tp, tok, tgt = _setup("s16", loss_chunks=2,
-                                    ce_local_accum=True)
-    with pytest.raises(NotImplementedError):
-        T.loss_fn(tp, torch.from_numpy(tok).long(),
-                  torch.from_numpy(tgt).long(), tc, mesh=[mx.cpu()])
+    _, tc, _, tp, tok, tgt = _setup("s16", loss_chunks=2)
+    forced = T.TransformerConfig(**dict(CFGS["s16"][0], loss_chunks=2,
+                                        ce_local_accum=True))
+    for mesh in (None, [mx.cpu()]):
+        with pytest.raises(NotImplementedError):
+            T.loss_fn(tp, torch.from_numpy(tok).long(),
+                      torch.from_numpy(tgt).long(), forced, mesh=mesh)
+        with pytest.raises(NotImplementedError):
+            T.ce_local_accum_active(forced, mesh, 2, 16)
     with pytest.raises(ValueError, match="loss_chunks"):
         T.loss_fn(tp, torch.from_numpy(tok[:, :15]).long(),
                   torch.from_numpy(tgt[:, :15]).long(), tc)
