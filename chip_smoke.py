@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases env,kernel,train
     python3 chip_smoke.py --phases env,kernel,train_fused
     python3 chip_smoke.py --phases env,kernel,train_lm
+    python3 chip_smoke.py --phases env,kernel,serve_int8
 
 Phases, each printing JSON lines:
 
@@ -34,7 +35,12 @@ Phases, each printing JSON lines:
               shapes (non-causal, Sq != Sk, S = 100 and 257, D = 64,
               B*H = 1) in bf16 and f32 (FLASH_RTOL; bf16 outputs also row
               by row, FLASH_ROWWISE); a second launch must give the same
-              bits.
+              bits. The int8 matmul (int32 and scaled forms) at every
+              product shape int8 ResNet-50 v1 gives it at batch 32 (read
+              off the network), at edge shapes (M, K or N of 1, odd sizes,
+              K = 147, N = 1000), with w N-contiguous, x row-strided and
+              transposed (refused), and at int8 extremes: bit for bit,
+              and the same bits on a second launch.
 3. serve   -- the serving path: resnet50_v1(layout="NHWC", fuse=True) in
               bf16 answers 4 requests of 32 images (top-5 classes each).
               Launch counters are zeroed just before and read just after;
@@ -42,6 +48,22 @@ Phases, each printing JSON lines:
               are checked against the same weights run with fuse=False (no
               kernel), then once more in f32 with TF32 off, and against the
               port on the CPU for two images.
+3b. serve_int8 -- int8 inference: resnet50_v1() (NCHW, f32) through
+              contrib.quantization.quantize_net, naive calibration on 2
+              batches of 32 (numpy seed 2), answers 4 requests of 32 and
+              one batch of 256 (numpy seed 0). Counters are zeroed just
+              before: the scaled int8 kernel must launch 54 times per
+              forward, the int32 one never. Logits within 0.05 of the same
+              network's f32 logits (TF32 off), relative to their max. Then
+              two images against the port on the CPU under one carried
+              int8 state (convert.quantized_state): the stem's codes and
+              int32 sums bit for bit, the logits within INT8_CARD_CPU_RTOL;
+              calibrated thresholds card vs CPU within
+              INT8_THRESHOLD_RTOL. Then the nd.contrib op family
+              (quantized_conv at each distinct convolution, and
+              quantized_fully_connected 2048 -> 1000) at batch 32 against
+              the CPU port on two images, bit for bit, one int32 kernel
+              launch per call.
 4. train   -- the training path: resnet50_v1(layout="NHWC", fuse=False) in
               bf16, batch 128, SoftmaxCrossEntropyLoss, autograd.record(),
               loss.backward(), gluon.Trainer SGD (lr 0.01, momentum 0.9),
@@ -79,15 +101,22 @@ Phases, each printing JSON lines:
               device's busy time and idle share from the profiler; the
               flash kernels at the LM's attention (batch 12) beside
               scaled_dot_product_attention; the LM step's tokens/sec,
-              device busy time, idle share, model TFLOP/s and mfu.
+              device busy time, idle share, model TFLOP/s and mfu; the
+              int8 matmul at every int8 ResNet-50 product shape beside
+              torch._int_mm (cuBLASLt) and its bound; the int8 forward's
+              images/sec at batch 32 and 256, device busy ms, idle share
+              and device ms split into kernels, im2col, quantize passes
+              and float layers, beside the f32 forward (TF32 off and
+              on).
 
 The run ends with the nvidia-smi name/power line, then the
 {"kernels": [...]} line (per kernel: launches on its path, max abs error at
 the ResNet-50 shapes in bf16 and its tolerance, and the times, bound,
-plain and library times of one forward (conv_fused) or one training step
-(the other kernels; the LM step for flash attention)), then {"ok": true,
-"device": {...}} as the last
-line. Any failure exits non-zero before them.
+plain and library times of one forward (conv_fused; the int8 forward at
+batch 32 for the scaled int8 matmul) or one training step (the other
+kernels; the LM step for flash attention), or one pass of the nd.contrib
+op family (the int32 int8 matmul)), then {"ok": true, "device": {...}} as
+the last line. Any failure exits non-zero before them.
 Weights and data are drawn from fixed seeds; nothing is downloaded.
 """
 from __future__ import annotations
@@ -101,8 +130,8 @@ import time
 
 import numpy as np
 
-PHASES = ("env", "kernel", "serve", "train", "train_fused", "train_lm",
-          "time")
+PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_fused",
+          "train_lm", "time")
 
 # ResNet-50's fused 3x3 links at batch 32: (N, H, W, Ci, Co) and how many
 # of the 16 launches per forward run at that shape.
@@ -236,6 +265,43 @@ LM_NARROW = dict(vocab_size=1024, dim=512, n_layers=2, n_heads=4,
                  ffn_hidden=1376, dtype="float32", loss_chunks=2)
 LM_NARROW_BATCH, LM_NARROW_SEQ = 2, 256
 LM_NARROW_RTOL = {"loss": 1e-5, "grad": 1e-4, "param": 1e-5}
+
+# Int8 inference (phase serve_int8): resnet50_v1() NCHW, float32, with the
+# weights of numpy seed 0, through contrib.quantization.quantize_net (naive
+# calibration on 2 batches of 32 from numpy seed 2): its 53 convolutions and
+# the classifier become int8 layers, one launch of the scaled int8 kernel
+# each per forward. Line of each TPU kernel body in
+# mxnet_tpu/pallas_kernels/quantized_matmul.py.
+QMM_REPLACES = {"mm": 79, "mm_scaled": 95}
+INT8_LAYERS = 54
+INT8_BATCH = 32
+INT8_CALIB = 2
+# int8 logits against the same network's float32 logits (TF32 off),
+# relative to max |reference|: the JAX suite's own bound for quantize_net
+# (tests/test_contrib.py:115,127).
+INT8_LOGIT_RTOL = 0.05
+# The card against the port on the CPU under one carried int8 state (two
+# images), relative to max |CPU logit|. The int8 products are exact on both;
+# only where a float activation between the int8 layers differs in its last
+# bits (BatchNorm's rsqrt, reduction order) can a value on a rounding
+# boundary take the neighbouring code. Quantization itself moves every code
+# by up to half a step and the logits by ~0.02 of their max (bound 0.05); a
+# +-1 flip of a few codes among each layer's 1e5-1e6 moves them far less.
+# The bound is a tenth of the quantization bound.
+INT8_CARD_CPU_RTOL = 5e-3
+# Calibrated thresholds (each layer's max |input|), card against CPU,
+# relative: the float32 forward's own card-vs-CPU bound (LOGIT_RTOL).
+INT8_THRESHOLD_RTOL = 1e-4
+# Edge shapes (M, K, N) of the int8 kernel: M, K or N of 1; odd sizes; K =
+# 147 (the stem's K before im2col pads it: the byte path); N = 1000; K not
+# a multiple of the 64-byte tile.
+QMM_EDGE = [(1, 64, 64), (64, 1, 64), (64, 64, 1), (1, 1, 1), (37, 33, 29),
+            (129, 147, 1000), (33, 147, 64), (255, 2047, 17), (5, 16, 1000),
+            (1000, 160, 3)]
+# Dense int8 tensor-core operations/s from NVIDIA's data sheets (twice the
+# bf16 rate), keyed like PEAKS.
+INT8_PEAKS = {"H100 PCIe": 1513e12, "H100 NVL": 1671e12, "H200": 1979e12,
+              "H100": 1979e12}
 
 # Dense peaks from NVIDIA's data sheets: (bf16 tensor FLOP/s, f32 FLOP/s
 # on the CUDA cores, memory bytes/s), matched on the name nvidia-smi gives.
@@ -456,6 +522,7 @@ def phase_kernel(torch, state):
     phase_kernel_conv_bwd(torch, state)
     phase_kernel_apply(torch, state)
     phase_kernel_flash(torch, state)
+    phase_kernel_qmm(torch, state)
 
 
 def phase_kernel_bn(torch, state):
@@ -948,6 +1015,444 @@ def phase_serve(torch, state):
           "tolerance": LOGIT_RTOL["float32"] * scale32, "ok": ok32})
     if not (ok16 and ok32):
         raise AssertionError("serving logits out of tolerance")
+
+
+# -- int8 inference: the quantized_matmul kernels, quantize_net, the
+#    nd.contrib op family ------------------------------------------------
+
+def qmm_bound(M, K, N, scaled, card):
+    """Least time (s) of one int8 product, and which side bounds it: x
+    (M*K) and w (K*N) int8 read once and the (M, N) int32 or f32 output
+    written once (the f32 scales read too), over the memory rate; 2*M*N*K
+    operations over the int8 peak."""
+    nbytes = M * K + K * N + 4.0 * M * N + (4.0 * N if scaled else 0.0)
+    t_ops = 2.0 * M * N * K / INT8_PEAKS[card[0]]
+    t_bytes = nbytes / card[1][2]
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _build_nchw(mx, arrays, ctx):
+    """resnet50_v1() (NCHW, float32) on ``ctx`` with the numpy weights."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    import torch
+    net = resnet50_v1()
+    net.initialize(ctx=ctx)
+    net(torch.zeros(1, 3, 224, 224, device=ctx.device))
+    mx.convert.load_numpy_params(net, arrays)
+    return net
+
+
+def _int8_net(mx, state, ctx, calib=None):
+    """int8 ResNet-50 v1 on ``ctx``: quantize_net over the float network,
+    naive calibration on ``calib`` (numpy batches), or with calib None
+    every threshold 1.0 (a carried state is loaded after)."""
+    from mxnet_tpu_torch.contrib import quantization as Q
+    net = _build_nchw(mx, _arrays(mx, state), ctx)
+    Q.quantize_net(net, calib_data=calib,
+                   calib_mode="none" if calib is None else "naive")
+    return net
+
+
+def _qmm_counts(QM):
+    return {"mm": QM.LAUNCHES_MM, "mm_scaled": QM.LAUNCHES_MM_SCALED,
+            "copies": QM.COPIES}
+
+
+def _zero_qmm(QM):
+    QM.LAUNCHES_MM = QM.LAUNCHES_MM_SCALED = QM.COPIES = 0
+
+
+def _record_products(QM, fn):
+    """fn() with every quantized_matmul call on the card recorded as (M, K,
+    N, scaled); returns (fn's result, the calls)."""
+    calls = []
+    orig = QM.quantized_matmul
+
+    def recording(x, w, scales=None):
+        if x.is_cuda:
+            calls.append((int(x.shape[0]), int(x.shape[1]),
+                          int(w.shape[1]), scales is not None))
+        return orig(x, w, scales)
+    QM.quantized_matmul = recording
+    try:
+        return fn(), calls
+    finally:
+        QM.quantized_matmul = orig
+
+
+def _layer_inputs(net, fn):
+    """fn() with the input of every int8 layer of ``net`` recorded in call
+    order as (layer, tensor); returns (fn's result, the list)."""
+    from mxnet_tpu_torch.contrib import quantization as Q
+    layers = list(Q.quantized_layers(net).values())
+    seen = []
+    for layer in layers:
+        def wrapped(x, _layer=layer, _orig=layer.quantize_input):
+            seen.append((_layer, x))
+            return _orig(x)
+        layer.quantize_input = wrapped
+    try:
+        return fn(), seen
+    finally:
+        for layer in layers:
+            del layer.quantize_input
+
+
+def _int8_shapes(torch, mx, state):
+    """[((M, K, N), count)] of the int8 products of int8 ResNet-50 v1 at
+    batch 32, read off one forward of the network on the card."""
+    if "int8_shapes" not in state:
+        from mxnet_tpu_torch.kernels import quantized_matmul as QM
+        net = _int8_net(mx, state, mx.gpu(0))
+        x = torch.rand(INT8_BATCH, 3, 224, 224, device="cuda")
+        _, calls = _record_products(QM, lambda: net(x))
+        torch.cuda.synchronize()
+        if len(calls) != INT8_LAYERS or not all(c[3] for c in calls):
+            raise AssertionError("int8 ResNet-50 made %d products (%d "
+                                 "scaled), want %d scaled"
+                                 % (len(calls), sum(c[3] for c in calls),
+                                    INT8_LAYERS))
+        distinct = {}
+        for c in calls:
+            distinct[c[:3]] = distinct.get(c[:3], 0) + 1
+        state["int8_shapes"] = sorted(distinct.items())
+        del net, x
+        torch.cuda.empty_cache()
+    return state["int8_shapes"]
+
+
+def qmm_case(torch, M, K, N, seed, lo=-127):
+    """x (M, K) int8, w (K, N) int8 laid out K-contiguous (the transpose of
+    an (N, K) weight, as the int8 layers hold it), scales (N,) f32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def ints(shape, low):
+        return torch.randint(low, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int32).to(torch.int8)
+    x = ints((M, K), lo)
+    w = ints((N, K), -127).t()
+    s = torch.rand(N, generator=gen, device="cuda") * 1e-3 + 1e-6
+    return x, w, s
+
+
+def _int_err(a, b):
+    return (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+
+
+def qmm_check(torch, x, w, s):
+    """Both forms of the kernel against the plain version, and a second
+    launch: {"mm"|"mm_scaled": (equal bit for bit, second launch same
+    bits, max abs err)}."""
+    from mxnet_tpu_torch.kernels import quantized_matmul as QM
+    res = {}
+    for name, sc in (("mm", None), ("mm_scaled", s)):
+        out = QM.quantized_matmul(x, w, sc)
+        ref = QM.quantized_matmul_reference(x, w, sc)
+        again = QM.quantized_matmul(x, w, sc)
+        torch.cuda.synchronize()
+        res[name] = (same_bits(torch, out, ref), same_bits(torch, out, again),
+                     _int_err(out, ref))
+    return res
+
+
+def phase_kernel_qmm(torch, state):
+    """Rows 12 and 13 (quantized_matmul: the int32 and the scaled form)
+    against the plain version on the card, bit for bit: at every distinct
+    (M, K, N) of int8 ResNet-50 v1 at batch 32 (read off the network), at
+    QMM_EDGE, with w given N-contiguous (the wrapper copies it once), x as
+    a row-strided view (taken in place) and transposed (refused), and at
+    int8 extremes; each launched twice for the same bits."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import quantized_matmul as QM
+
+    shapes = _int8_shapes(torch, mx, state)
+    cases = [("resnet50_b32", shape, 300 + i, -127)
+             for i, (shape, _) in enumerate(shapes)]
+    cases += [("edge", shape, 400 + i, -128)
+              for i, shape in enumerate(QMM_EDGE)]
+    worst = {"mm": 0.0, "mm_scaled": 0.0}
+    failures = []
+
+    def record(kind, shape, res, **extra):
+        ok = all(r[0] and r[1] for r in res.values())
+        emit(dict({"phase": "kernel", "kernel": "quantized_matmul",
+                   "case": kind, "shape_mkn": list(shape),
+                   "bitwise": {k: v[0] for k, v in res.items()},
+                   "second_launch_same_bits": {k: v[1]
+                                               for k, v in res.items()},
+                   "max_abs_err": {k: v[2] for k, v in res.items()},
+                   "ok": ok}, **extra))
+        for k, v in res.items():
+            worst[k] = max(worst[k], v[2])
+        if not ok:
+            failures.append((kind, shape))
+
+    for kind, (M, K, N), seed, lo in cases:
+        x, w, s = qmm_case(torch, M, K, N, seed, lo)
+        record(kind, (M, K, N), qmm_check(torch, x, w, s))
+    x, w, s = qmm_case(torch, 300, 96, 200, 500, -128)
+    copies = QM.COPIES
+    record("w_n_contiguous", (300, 96, 200),
+           qmm_check(torch, x, w.contiguous(), s),
+           copies=QM.COPIES - copies)
+    if QM.COPIES - copies != 4:          # 2 launches of each form
+        failures.append(("w_n_contiguous copies", QM.COPIES - copies))
+    wide = torch.zeros(300, 112, dtype=torch.int8, device="cuda")
+    wide[:, :96] = x
+    record("x_row_strided_view", (300, 96, 200),
+           qmm_check(torch, wide[:, :96], w, s), x_strides=[112, 1])
+    try:
+        QM.quantized_matmul(x.t().contiguous().t(), w)
+        failures.append(("x with K strided", "not refused"))
+    except ValueError as e:
+        emit({"phase": "kernel", "kernel": "quantized_matmul",
+              "case": "x_k_strided", "refused": str(e)[:100]})
+    for i, (fx, fw) in enumerate(((-128, -128), (127, -128), (127, 127),
+                                  (-128, 127))):
+        xe = torch.full((200, 4608), fx, dtype=torch.int8, device="cuda")
+        we = torch.full((72, 4608), fw, dtype=torch.int8, device="cuda").t()
+        record("extreme_%d_%d" % (fx, fw), (200, 4608, 72),
+               qmm_check(torch, xe, we, s[:72]), acc=4608 * fx * fw)
+    state["qmm_err"] = worst
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("quantized_matmul disagrees with its plain "
+                             "version: %s" % failures)
+
+
+def _division_check(torch):
+    """The quantize passes divide by a tensor on the card: PyTorch's CUDA
+    division by a Python (or CPU) scalar multiplies by its reciprocal, which
+    can differ from the CPU's true division in the last bit and so move a
+    value across an int8 rounding boundary. 4M values / 4 scales: the card
+    against the CPU, by a Python scalar and by a device tensor."""
+    from mxnet_tpu_torch.ops.quantized import quantize_codes
+    x = torch.randn(4_000_000, generator=torch.Generator().manual_seed(0)) * 3
+    res = {"by_python_scalar": [0, 0], "by_device_tensor": [0, 0]}
+    for sv in (0.0123456789, 1 / 127.0, 0.3, 2.0 / 127.0):
+        host = x / torch.tensor(sv)
+        codes = quantize_codes(x, sv)
+        for key, card in (("by_python_scalar", x.cuda() / sv),
+                          ("by_device_tensor", x.cuda() / torch.full(
+                              (), sv, device="cuda"))):
+            res[key][0] += int((card.cpu() != host).sum().item())
+            res[key][1] += int((torch.clamp(torch.round(card), -127, 127)
+                                .to(torch.int8).cpu() != codes).sum().item())
+        card_codes = quantize_codes(x.cuda(), sv).cpu()
+        res.setdefault("quantize_codes_flips", 0)
+        res["quantize_codes_flips"] += int((card_codes != codes).sum().item())
+    ok = res["by_device_tensor"] == [0, 0] and res["quantize_codes_flips"] == 0
+    emit({"phase": "serve_int8", "check": "division by a scale, card vs CPU "
+          "(4 scales x 4M values): [quotients differing, int8 codes "
+          "differing]", **res, "ok": ok})
+    if not ok:
+        raise AssertionError("division by a device tensor differs from the "
+                             "CPU's: %s" % res)
+
+
+def phase_serve_int8(torch, state):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import quantization as Q
+    from mxnet_tpu_torch.kernels import quantized_matmul as QM
+
+    _division_check(torch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = mx.gpu(0)
+    arrays = _arrays(mx, state)
+    rs = np.random.RandomState(2)
+    calib = [rs.rand(INT8_BATCH, 3, 224, 224).astype("float32")
+             for _ in range(INT8_CALIB)]
+    rs = np.random.RandomState(0)
+    requests = [rs.rand(INT8_BATCH, 3, 224, 224).astype("float32")
+                for _ in range(4)] + [rs.rand(256, 3, 224, 224)
+                                      .astype("float32")]
+    float_net = _build_nchw(mx, arrays, gpu)
+    net = _build_nchw(mx, arrays, gpu)
+    t0 = time.perf_counter()
+    Q.quantize_net(net, calib_data=calib, calib_mode="naive")
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    n_layers = len(Q.quantized_layers(net))
+    if n_layers != INT8_LAYERS:
+        raise AssertionError("quantize_net made %d int8 layers, want %d"
+                             % (n_layers, INT8_LAYERS))
+
+    # -- the main path: 4 requests of 32, then one batch of 256 ------------
+    torch.cuda.synchronize()
+    _zero_qmm(QM)
+    logits = []
+    for i, req in enumerate(requests):
+        if i == len(requests) - 1:
+            torch.cuda.reset_peak_memory_stats()
+        logits.append(net(torch.from_numpy(req).cuda()))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = _qmm_counts(QM)
+    state.setdefault("launches", {})["quantized_matmul.mm_scaled"] = \
+        counts["mm_scaled"]
+    want = INT8_LAYERS * len(requests)
+    for req, out in zip(requests[:4], logits):
+        emit({"phase": "serve_int8", "request_top5":
+              torch.topk(out, 5).indices.tolist()})
+    worst_rel, top1, n_img = 0.0, 0, 0
+    for req, out in zip(requests, logits):
+        if tuple(out.shape) != (req.shape[0], 1000) or \
+                not bool(torch.isfinite(out).all().item()):
+            raise AssertionError("bad int8 logits %s" % (tuple(out.shape),))
+        ref = float_net(torch.from_numpy(req).cuda())
+        err = (out - ref).abs().max().item()
+        worst_rel = max(worst_rel, err / ref.abs().max().item())
+        top1 += int((out.argmax(1) == ref.argmax(1)).sum().item())
+        n_img += req.shape[0]
+    ok_main = counts == {"mm": 0, "mm_scaled": want, "copies": 0} \
+        and worst_rel <= INT8_LOGIT_RTOL
+    emit({"phase": "serve_int8", "dtype": "int8 layers, float32 between",
+          "requests": [int(r.shape[0]) for r in requests],
+          "int8_layers": n_layers, "calibration_s": calib_s,
+          "launches": counts, "launches_wanted": {"mm": 0, "mm_scaled": want},
+          "max_rel_diff_vs_float32": worst_rel,
+          "tolerance_rel": INT8_LOGIT_RTOL, "top1_agree_with_float32":
+              top1 / float(n_img),
+          "peak_memory_b256_bytes": peak, "ok": ok_main})
+    del logits
+    if not ok_main:
+        raise AssertionError("int8 serving: launches %s (want %d scaled, 0 "
+                             "int32) or logits %.4g of max from float32"
+                             % (counts, want, worst_rel))
+    state["int8"] = {"net": net, "float_net": float_net}
+    _int8_card_vs_cpu(torch, mx, state, net, requests[0][:2], calib[0][:2])
+    _int8_op_family(torch, mx, state, net, requests[0])
+    torch.cuda.empty_cache()
+
+
+def _int8_card_vs_cpu(torch, mx, state, net, x2, calib2):
+    """The card against the port on the CPU for two images under one
+    carried state: the stem's codes and int32 sums bit for bit, every
+    layer's codes counted, the logits within INT8_CARD_CPU_RTOL; then both
+    calibrated on the same two images: int8 weights and weight scales bit
+    for bit, thresholds within INT8_THRESHOLD_RTOL."""
+    from mxnet_tpu_torch.kernels import quantized_matmul as QM
+    cpu_net = _int8_net(mx, state, mx.cpu())
+    mx.convert.load_quantized_state(cpu_net, mx.convert.quantized_state(net))
+    out_card, seen_card = _layer_inputs(
+        net, lambda: net(torch.from_numpy(x2).cuda()))
+    out_cpu, seen_cpu = _layer_inputs(
+        cpu_net, lambda: cpu_net(torch.from_numpy(x2)))
+    flips, layers_flipped = 0, 0
+    for (lc, xc), (lp, xp) in zip(seen_card, seen_cpu):
+        n = int((lc.quantize_input(xc).cpu() != lp.quantize_input(xp))
+                .sum().item())
+        flips += n
+        layers_flipped += int(n > 0)
+    (stem_c, x_c), (stem_p, x_p) = seen_card[0], seen_cpu[0]
+    codes_c, codes_p = stem_c.quantize_input(x_c), stem_p.quantize_input(x_p)
+    acc_c = QM.quantized_matmul(stem_c.columns(codes_c)[0], stem_c._wmat)
+    acc_p = QM.quantized_matmul(stem_p.columns(codes_p)[0], stem_p._wmat)
+    stem_ok = bool(torch.equal(codes_c.cpu(), codes_p)) \
+        and bool(torch.equal(acc_c.cpu(), acc_p))
+    err = (out_card.cpu() - out_cpu).abs().max().item()
+    scale = out_cpu.abs().max().item()
+    ok_fwd = stem_ok and len(seen_card) == len(seen_cpu) == INT8_LAYERS \
+        and err <= INT8_CARD_CPU_RTOL * scale
+
+    card = _int8_net(mx, state, mx.gpu(0), calib=[calib2])
+    host = _int8_net(mx, state, mx.cpu(), calib=[calib2])
+    sc, sp = mx.convert.quantized_state(card), mx.convert.quantized_state(host)
+    weights_ok = sorted(sc) == sorted(sp) and all(
+        np.array_equal(sc[p]["wq"], sp[p]["wq"])
+        and np.array_equal(sc[p]["w_scale"].view(np.int32),
+                           sp[p]["w_scale"].view(np.int32)) for p in sc)
+    thr_rel = max(abs(sc[p]["act_scale"] - sp[p]["act_scale"])
+                  / sp[p]["act_scale"] for p in sc)
+    ok_cal = weights_ok and thr_rel <= INT8_THRESHOLD_RTOL
+    emit({"phase": "serve_int8", "check": "card vs the port on the CPU, "
+          "two images, one carried state",
+          "stem_codes_and_int32_sums_bitwise": stem_ok,
+          "code_flips": flips, "layers_with_flips": layers_flipped,
+          "logits_max_abs_diff": err, "logit_max_abs": scale,
+          "tolerance": INT8_CARD_CPU_RTOL * scale,
+          "int8_weights_and_scales_bitwise": weights_ok,
+          "threshold_max_rel_diff": thr_rel,
+          "threshold_tolerance_rel": INT8_THRESHOLD_RTOL,
+          "ok": ok_fwd and ok_cal})
+    if not (ok_fwd and ok_cal):
+        raise AssertionError("int8 card vs CPU out of bounds")
+
+
+def _int8_op_family(torch, mx, state, net, req):
+    """nd.contrib.quantized_conv at each distinct convolution of the int8
+    network at batch 32 (1x1 stride 1 straight to the kernel, the others
+    through im2col) and quantized_fully_connected at 2048 -> 1000, on the
+    card, each against the port on the CPU on the batch's first two
+    images: int32 payloads and ranges bit for bit; exactly one int32
+    kernel launch per call and no scaled one."""
+    from mxnet_tpu_torch.contrib import quantization as Q
+    from mxnet_tpu_torch.kernels import quantized_matmul as QM
+
+    _, seen = _layer_inputs(net, lambda: net(torch.from_numpy(req).cuda()))
+    convs = []
+    for layer, x in seen:
+        if isinstance(layer, Q._QuantizedConv2D):
+            cfg = (tuple(x.shape[1:]), tuple(layer._wq.shape),
+                   tuple(layer._strides), tuple(layer._padding))
+            if cfg not in convs:
+                convs.append(cfg)
+    del seen
+    gen = torch.Generator(device="cuda").manual_seed(700)
+
+    def ints(shape):
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int32).to(torch.int8)
+
+    def compare(card, host):
+        return all(same_bits(torch, c[:2].cpu() if i == 0 else c.cpu(), h)
+                   for i, (c, h) in enumerate(zip(card, host)))
+
+    torch.cuda.synchronize()
+    _zero_qmm(QM)
+
+    def run():
+        results = []
+        for (ci, h, w), wshape, stride, pad in convs:
+            data, weight = ints((INT8_BATCH, ci, h, w)), ints(wshape)
+            kw = dict(kernel=wshape[2:], stride=stride, pad=pad,
+                      num_filter=wshape[0], no_bias=True)
+            card = mx.nd.contrib.quantized_conv(
+                data, weight, None, -1.0, 1.0, -0.5, 0.5, None, None, **kw)
+            host = mx.nd.contrib.quantized_conv(
+                data[:2].cpu(), weight.cpu(), None, -1.0, 1.0, -0.5, 0.5,
+                None, None, **kw)
+            results.append((("conv", ci, h, w) + wshape + stride + pad,
+                            compare(card, host)))
+        data, weight, bias = ints((INT8_BATCH, 2048)), ints((1000, 2048)), \
+            ints((1000,))
+        args = (-1.0, 1.0, -0.5, 0.5, -0.1, 0.1)
+        card = mx.nd.contrib.quantized_fully_connected(
+            data, weight, bias, *args, num_hidden=1000)
+        host = mx.nd.contrib.quantized_fully_connected(
+            data[:2].cpu(), weight.cpu(), bias.cpu(), *args, num_hidden=1000)
+        results.append((("fc", 2048, 1000), compare(card, host)))
+        return results
+
+    results, calls = _record_products(QM, run)
+    torch.cuda.synchronize()
+    counts = _qmm_counts(QM)
+    state["launches"]["quantized_matmul.mm"] = counts["mm"]
+    state["int8_op_shapes"] = [c[:3] for c in calls]
+    bad = [cfg for cfg, ok in results if not ok]
+    ok = not bad and counts["mm"] == len(results) \
+        and counts["mm_scaled"] == 0 and not any(c[3] for c in calls)
+    emit({"phase": "serve_int8", "check": "nd.contrib op family at "
+          "ResNet-50's shapes, card vs CPU", "calls": len(results),
+          "launches": counts, "product_shapes_mkn": [list(c[:3])
+                                                     for c in calls],
+          "bitwise": not bad, "mismatched": bad, "ok": ok})
+    if not ok:
+        raise AssertionError("nd.contrib quantized ops: %s, launches %s"
+                             % (bad, counts))
 
 
 def _bn_counts(BNF):
@@ -1456,6 +1961,7 @@ def phase_time(torch, state):
     phase_time_train(torch, state)
     phase_time_flash(torch, state)
     phase_time_lm(torch, state)
+    phase_time_int8(torch, state)
 
 
 def phase_time_bn(torch, state):
@@ -1853,6 +2359,147 @@ def phase_time_lm(torch, state):
                   **tops))
 
 
+def _int8_split(torch, net, x):
+    """Device ms of one int8 forward's own stages, each timed alone with
+    CUDA events on the inputs its layers saw: the quantize passes (divide,
+    round, clip, cast), the im2col, and the kernel; summed over the 54
+    layers."""
+    _, seen = _layer_inputs(net, lambda: net(x))
+    split = {"quantize_ms": 0.0, "im2col_ms": 0.0, "kernel_ms": 0.0}
+    for layer, xin in seen:
+        split["quantize_ms"] += device_ms(
+            torch, lambda: layer.quantize_input(xin), iters=5, warmup=1)
+        xq = layer.quantize_input(xin)
+        split["im2col_ms"] += device_ms(
+            torch, lambda: layer.columns(xq), iters=5, warmup=1)
+        cols = layer.columns(xq)[0]
+        split["kernel_ms"] += device_ms(
+            torch, lambda: layer.product(cols), iters=5, warmup=1)
+        del xq, cols
+    return split
+
+
+def phase_time_int8(torch, state):
+    """Rows 12 and 13 at every distinct product shape of int8 ResNet-50 v1
+    at batch 32 (CUDA events): the kernel, its plain version and the
+    library yardstick torch._int_mm (cuBLASLt; for row 13 followed by a
+    multiply by the scales, two calls), timed here and never called by the
+    port, beside the bound. Then the int8 forward at batch 32 and 256:
+    images/sec (host clock), device busy ms and idle share (profiler), and
+    device ms split into the kernels, the im2col, the quantize passes and
+    the float layers (the rest); beside it the same network's float32
+    forward, with TF32 off and on."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import quantized_matmul as QM
+
+    card = state["card"]
+    shapes = _int8_shapes(torch, mx, state)
+    counts = dict(shapes)
+    for shape in state["int8_op_shapes"]:
+        counts.setdefault(shape, 0)
+    per = {}
+    for i, ((M, K, N), count) in enumerate(sorted(counts.items())):
+        x, w, s = qmm_case(torch, M, K, N, 800 + i)
+        row = {"mm": device_ms(torch, lambda: QM.quantized_matmul(x, w),
+                               iters=20),
+               "mm_scaled": device_ms(torch, lambda: QM.quantized_matmul(
+                   x, w, s), iters=20),
+               "plain_mm": device_ms(torch, lambda: QM
+                                     .quantized_matmul_reference(x, w),
+                                     iters=3, warmup=1),
+               "plain_mm_scaled": device_ms(torch, lambda: QM
+                                            .quantized_matmul_reference(
+                                                x, w, s), iters=3, warmup=1)}
+        try:
+            row["library_mm"] = device_ms(torch, lambda: torch._int_mm(x, w),
+                                          iters=20)
+            row["library_mm_scaled"] = device_ms(
+                torch, lambda: torch._int_mm(x, w) * s, iters=20)
+            row["library_refused"] = None
+        except RuntimeError as e:
+            row["library_mm"] = row["library_mm_scaled"] = None
+            row["library_refused"] = str(e).splitlines()[0][:160]
+        for name, scaled in (("mm", False), ("mm_scaled", True)):
+            t_bound, by = qmm_bound(M, K, N, scaled, card)
+            row["bound_" + name] = t_bound * 1e3
+            row["bound_by_" + name] = by
+            row["roofline_share_" + name] = t_bound * 1e3 / row[name]
+        per[(M, K, N)] = row
+        emit({"phase": "time", "kernel": "quantized_matmul",
+              "shape_mkn": [M, K, N], "launches_per_int8_forward_b32": count,
+              **row})
+        del x, w, s
+    torch.cuda.empty_cache()
+
+    def totals(calls, name):
+        lib = [per[c]["library_" + name] for c in calls]
+        bound = sum(per[c]["bound_" + name] for c in calls)
+        ops_bound = sum(per[c]["bound_" + name] for c in calls
+                        if per[c]["bound_by_" + name] == "operations")
+        return {"ms": sum(per[c][name] for c in calls),
+                "plain_ms": sum(per[c]["plain_" + name] for c in calls),
+                "bound_ms": bound,
+                "bound_by": "operations" if ops_bound >= bound / 2
+                else "bytes",
+                "library_ms": None if None in lib else sum(lib),
+                "library_refused": sorted({per[c]["library_refused"]
+                                           for c in calls} - {None})}
+
+    forward = [c for c, n in shapes for _ in range(n)]
+    state["qmm_timing"] = {"mm": totals(state["int8_op_shapes"], "mm"),
+                           "mm_scaled": totals(forward, "mm_scaled")}
+    emit({"phase": "time", "kernel": "quantized_matmul",
+          "per_int8_forward_b32_mm_scaled": state["qmm_timing"]["mm_scaled"],
+          "per_op_family_pass_mm": state["qmm_timing"]["mm"]})
+
+    # whole forward: int8, float32 (TF32 off), float32 (TF32 on)
+    nets = state["int8"]
+    rates = {}
+    for label, model, tf32 in (("int8", nets["net"], False),
+                               ("float32", nets["float_net"], False),
+                               ("float32_tf32", nets["float_net"], True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        for batch, iters in ((32, 20), (256, 5)):
+            x = torch.rand(batch, 3, 224, 224, device="cuda")
+            for _ in range(3):
+                model(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                model(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / iters * 1e3
+            busy_ms, by_kernel, ops = profile_busy_ms(
+                torch, lambda: model(x), 3,
+                top=10 if batch == 32 else None, match=("qmm_kernel",))
+            res = {"images_per_sec": batch / wall * 1e3,
+                   "wall_ms_per_forward": wall,
+                   "device_busy_ms_per_forward": busy_ms,
+                   "device_idle_share": None if busy_ms is None
+                   else max(0.0, 1.0 - busy_ms / wall)}
+            if label == "int8":
+                split = _int8_split(torch, model, x)
+                split["profiler_kernel_ms"] = None if by_kernel is None \
+                    else by_kernel["qmm_kernel"]
+                if busy_ms is not None:
+                    split["float_layers_ms"] = busy_ms - (
+                        split["quantize_ms"] + split["im2col_ms"]
+                        + split["kernel_ms"])
+                res["device_ms_split"] = split
+            rates["%s,b%d" % (label, batch)] = res
+            if ops:
+                emit({"phase": "time", "where_the_time_goes":
+                      "resnet50_v1_nchw_%s,b%d" % (label, batch),
+                      "top_ops": ops["top_ops"]})
+            del x
+            torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state["int8_timing"] = rates
+    emit({"phase": "time", "resnet50_v1_nchw_int8_vs_float32": rates})
+
+
 def _self_device_us(ev):
     us = getattr(ev, "self_device_time_total", None)
     return getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
@@ -2017,6 +2664,33 @@ def kernel_summary(state):
                                              "flash_attention.dkv"]
         if k == "dkv":
             kernels[-1]["library_shared_with"] = "flash_attention.dq"
+    for k in ("mm", "mm_scaled"):
+        q = state["qmm_timing"][k]
+        n = state["launches"]["quantized_matmul." + k]
+        kernels.append({
+            "name": "quantized_matmul." + k, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/quantized_matmul.cu",
+            "replaces": "mxnet_tpu/pallas_kernels/quantized_matmul.py:%d"
+            % QMM_REPLACES[k],
+            "launches": n,
+            # the kernel phase failed unless every output matched bit for bit
+            "max_abs_err": state["qmm_err"][k], "max_rel_err": 0.0,
+            "tolerance_rel": 0.0,
+            "ms": q["ms"], "kernel_ms": q["ms"], "plain_ms": q["plain_ms"],
+            "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],
+            "library_ms": q["library_ms"],
+            "library_note": "torch._int_mm (cuBLASLt)" + (
+                " then a multiply by the scales: two calls"
+                if k == "mm_scaled" else "")
+            + ("; refused: %s" % q["library_refused"]
+               if q["library_refused"] else ""),
+            "per": "one int8 ResNet-50 v1 forward at batch 32 (%d launches; "
+                   "phase serve_int8 made %d forwards)"
+                   % (INT8_LAYERS, n // INT8_LAYERS) if k == "mm_scaled"
+            else "one pass of the nd.contrib quantized_conv and "
+                 "quantized_fully_connected ops over int8 ResNet-50's "
+                 "distinct layers at batch 32 (%d launches)" % n,
+        })
     a = state["apply_timing"]
     kernels.append({
         "name": "optimizer_apply", "route": "cuda",

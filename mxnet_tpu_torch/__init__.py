@@ -7,8 +7,8 @@ CUDA device is present. Kernels of the JAX package written in Pallas for
 the TPU are hand-written CUDA kernels here (``kernels/``, ``csrc/``),
 built with nvcc at first use.
 
-The ported slices are ResNet V1 inference and its training step, and the
-transformer LM's training step: contexts, the op namespace, autograd
+The ported slices are ResNet V1 inference and its training step, the
+transformer LM's training step, and int8 inference: contexts, the op namespace, autograd
 recording, Gluon blocks, layers and losses, the model-zoo ResNets (with the fused BN->ReLU->conv3x3 kernel for serving and
 the fused training-mode BatchNorm kernels, and fused training through the
 conv_fused backward kernels), the SGD optimizer, ``gluon.Trainer`` and the
@@ -16,7 +16,11 @@ fused train step ``gluon.train_step`` (with the packed optimizer-apply
 kernel), the matmul precision policy, weight loading (``convert``), and
 the decoder-only transformer LM of ``parallel.transformer`` (RoPE, RMSNorm,
 SwiGLU, chunked cross-entropy, per-layer recompute, SGD-momentum step) on
-the flash-attention kernels (``kernels/flash_attention.py``).
+the flash-attention kernels (``kernels/flash_attention.py``), and int8
+quantization: ``contrib.quantization`` (calibration and ``quantize_net``)
+and the quantized operator family (``ops/quantized.py``, exposed as
+``nd.contrib.quantized_conv`` and the rest), on the int8 matmul kernel
+(``kernels/quantized_matmul.py``).
 """
 from . import base
 from .base import MXNetError
@@ -32,6 +36,8 @@ from . import parallel
 from . import optimizer
 from . import gluon
 from . import convert
+from . import contrib
+from .ndarray import contrib as _nd_contrib  # noqa: F401  (nd.contrib)
 
 nd = ndarray
 init = initializer
@@ -39,5 +45,4 @@ init = initializer
 __all__ = ["base", "MXNetError", "context", "Context", "cpu", "gpu",
            "current_context", "random", "precision", "autograd",
            "initializer", "init", "ndarray", "nd", "kernels", "parallel",
-           "optimizer",
-           "gluon", "convert"]
+           "optimizer", "gluon", "convert", "contrib"]

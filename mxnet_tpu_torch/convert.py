@@ -7,6 +7,13 @@ package's blocks produce for the same architecture, so a dict read off a
 JAX network loads here unchanged. ``random_numpy_params`` draws such a
 dict from a seed for tests and smoke runs.
 
+``quantized_state(qnet)`` reads the int8 state of a network
+``contrib.quantization.quantize_net`` converted, and
+``load_quantized_state(qnet, state)`` writes such a state (for example one
+read off the JAX package's quantized layers) into one: the int8 weights and
+calibrated thresholds, so that two int8 networks compute with the same
+codes.
+
 ``transformer_params_from_numpy(tree, cfg)`` takes the JAX package's
 transformer parameter tree (``init_params``' structure, layer weights
 stacked on a leading [L] axis) as numpy arrays and builds the port's
@@ -19,7 +26,10 @@ import math
 import numpy as np
 
 __all__ = ["load_numpy_params", "param_shapes", "random_numpy_params",
+           "quantized_state", "load_quantized_state",
            "transformer_params_from_numpy"]
+
+_QSTATE_KEYS = ("wq", "w_scale", "act_scale", "bias")
 
 
 def param_shapes(net):
@@ -83,6 +93,63 @@ def random_numpy_params(shapes, seed=0):
             a = rs.randn(*shape) * 0.1
         out[key] = a.astype(np.float32)
     return out
+
+
+def quantized_state(qnet):
+    """``{path: {"wq", "w_scale", "act_scale", "bias"}}`` of every int8
+    layer of ``qnet`` as numpy: the int8 weight in the float weight's
+    layout, the float32 per-channel weight scale, the activation scale
+    (threshold / 127, a Python float) and the float bias (None without
+    one)."""
+    from .contrib.quantization import quantized_layers
+
+    def host(t):
+        return None if t is None else t.detach().cpu().numpy()
+
+    return {path: {"wq": host(q._wq), "w_scale": host(q._w_scale),
+                   "act_scale": float(q._act_scale), "bias": host(q._bias)}
+            for path, q in quantized_layers(qnet).items()}
+
+
+def load_quantized_state(qnet, state):
+    """Write ``state`` (as ``quantized_state`` returns it) into ``qnet``'s
+    int8 layers, on the device each layer lives on. Raises KeyError on a
+    missing or extra path or entry, and ValueError on a shape or a bias
+    that disagrees with the layer; nothing is written then."""
+    import torch
+    from .contrib.quantization import quantized_layers
+
+    layers = quantized_layers(qnet)
+    missing = sorted(set(layers) - set(state))
+    extra = sorted(set(state) - set(layers))
+    if missing or extra:
+        raise KeyError("load_quantized_state: missing paths %s, extra paths "
+                       "%s" % (missing, extra))
+    for path, q in layers.items():
+        entry = state[path]
+        if sorted(entry) != sorted(_QSTATE_KEYS):
+            raise KeyError("load_quantized_state: %s has entries %s, want %s"
+                           % (path, sorted(entry), sorted(_QSTATE_KEYS)))
+        want = {"wq": tuple(q._wq.shape), "w_scale": tuple(q._w_scale.shape),
+                "bias": None if q._bias is None else tuple(q._bias.shape)}
+        for key, shape in want.items():
+            got = entry[key]
+            got = None if got is None else tuple(np.shape(got))
+            if got != shape:
+                raise ValueError("load_quantized_state: %s.%s has shape %s, "
+                                 "the layer wants %s" % (path, key, got,
+                                                         shape))
+    for path, q in layers.items():
+        entry = state[path]
+        dev = q._wq.device
+
+        def t(a, dtype):
+            return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+
+        q._set_state(t(entry["wq"], np.int8), t(entry["w_scale"], np.float32),
+                     float(entry["act_scale"]),
+                     None if entry["bias"] is None
+                     else t(entry["bias"], np.float32))
 
 
 def transformer_params_from_numpy(tree, cfg, ctx=None):

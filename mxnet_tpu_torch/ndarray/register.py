@@ -15,7 +15,7 @@ from .. import autograd
 from .. import ops as _ops  # noqa: F401  (fills the registry)
 from ..ops import registry as _registry
 
-__all__ = ["invoke", "populate"]
+__all__ = ["invoke", "populate", "make_op"]
 
 _TAKES_TRAINING = {}
 
@@ -35,10 +35,12 @@ def invoke(opdef, args, kwargs):
     return opdef.fn(*args, **kwargs)
 
 
-def _make(opdef):
+def make_op(opdef, name=None):
+    """A plain function that runs ``opdef`` (named ``name``, default the
+    op's own)."""
     def op(*args, **kwargs):
         return invoke(opdef, args, kwargs)
-    op.__name__ = opdef.name
+    op.__name__ = name or opdef.name
     op.__doc__ = opdef.fn.__doc__
     return op
 
@@ -46,4 +48,4 @@ def _make(opdef):
 def populate(namespace):
     """Bind every registered op (and alias) into ``namespace``."""
     for name in _registry.list_ops():
-        namespace[name] = _make(_registry.get_op(name))
+        namespace[name] = make_op(_registry.get_op(name))

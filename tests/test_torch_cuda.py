@@ -17,6 +17,8 @@ from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tres
 from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
 from mxnet_tpu_torch.kernels import conv_fused as CF
 from mxnet_tpu_torch.kernels import flash_attention as FA
+from mxnet_tpu_torch.kernels import quantized_matmul as QM
+from mxnet_tpu_torch.contrib import quantization as Q
 from mxnet_tpu_torch.parallel import transformer as T
 
 # bf16: one bf16 rounding step of the output magnitude; f32: summation
@@ -458,3 +460,86 @@ def test_tiny_lm_steps_on_the_card_match_the_cpu():
                     states["cpu"][0].parameters()):
         a, b = a.detach().cpu(), b.detach()
         assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+def _qmm_operands(M, K, N, seed):
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.randint(-128, 128, (M, K)).astype(np.int8))
+    w = torch.from_numpy(rs.randint(-127, 128, (N, K)).astype(np.int8))
+    s = torch.from_numpy((rs.rand(N) * 1e-3 + 1e-6).astype(np.float32))
+    return x.cuda(), w.cuda().t(), s.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(100352, 576, 64), (32, 2048, 1000),
+                                   (37, 147, 29), (1, 33, 1000)])
+def test_quantized_matmul_kernel_bitwise(shape):
+    """Both forms of the int8 kernel (int32 and scaled) against the plain
+    version at two int8 ResNet-50 shapes and two edge shapes (odd K: the
+    byte path), bit for bit; one launch per call."""
+    _need_card()
+    x, w, s = _qmm_operands(*shape, seed=sum(shape))
+    before = (QM.LAUNCHES_MM, QM.LAUNCHES_MM_SCALED)
+    out = QM.quantized_matmul(x, w)
+    out_s = QM.quantized_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert (QM.LAUNCHES_MM, QM.LAUNCHES_MM_SCALED) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert torch.equal(out, QM.quantized_matmul_reference(x, w))
+    assert _same_bits(out_s, QM.quantized_matmul_reference(x, w, s))
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_layouts_and_errors_on_the_card():
+    _need_card()
+    x, w, s = _qmm_operands(40, 96, 24, seed=1)
+    copies = QM.COPIES
+    out = QM.quantized_matmul(x, w.contiguous(), s)     # N-contiguous w
+    assert QM.COPIES == copies + 1
+    assert _same_bits(out, QM.quantized_matmul_reference(x, w, s))
+    with pytest.raises(ValueError):
+        QM.quantized_matmul(x.t().contiguous().t(), w)  # K-strided x
+    with pytest.raises(TypeError):
+        QM.quantized_matmul(x.to(torch.int32), w)
+    with pytest.raises(ValueError):
+        QM.quantized_matmul(x, w.cpu())
+
+
+@pytest.mark.cuda
+def test_narrow_int8_resnet_on_the_card_matches_the_cpu():
+    """A narrow NCHW ResNet quantized on the card, its int8 state carried to
+    the same network on the CPU: one scaled launch per int8 layer, the
+    stem's codes equal, the logits within 1e-3 of their max (a code that
+    an ulp of a float activation moves across a rounding boundary is the
+    only difference)."""
+    _need_card()
+    torch.backends.cudnn.allow_tf32 = False
+    nets = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = tres.ResNetV1(tres.BottleneckV1, [1, 1, 1, 1],
+                            [16, 32, 64, 128, 256], classes=10)
+        net.initialize(ctx=ctx)
+        net(torch.zeros(1, 3, 32, 32, device=ctx.device))
+        nets.append(net)
+    arrays = convert.random_numpy_params(convert.param_shapes(nets[1]),
+                                         seed=3)
+    for net in nets:
+        convert.load_numpy_params(net, arrays)
+    rs = np.random.RandomState(2)
+    calib = [rs.rand(4, 3, 32, 32).astype("float32") for _ in range(2)]
+    Q.quantize_net(nets[0], calib_data=calib)
+    Q.quantize_net(nets[1], calib_mode="none")
+    convert.load_quantized_state(nets[1], convert.quantized_state(nets[0]))
+    x = rs.rand(2, 3, 32, 32).astype("float32")
+    before = (QM.LAUNCHES_MM, QM.LAUNCHES_MM_SCALED)
+    out = nets[0](torch.from_numpy(x).cuda())
+    torch.cuda.synchronize()
+    assert (QM.LAUNCHES_MM, QM.LAUNCHES_MM_SCALED) == (before[0],
+                                                       before[1] + 18)
+    ref = nets[1](torch.from_numpy(x))
+    stems = [n.features[0] for n in nets]
+    codes = [st.quantize_input(torch.from_numpy(x).to(dev))
+             for st, dev in zip(stems, ("cuda", "cpu"))]
+    assert torch.equal(codes[0].cpu(), codes[1])
+    assert (out.cpu() - ref).abs().max() <= 1e-3 * ref.abs().max()
+
