@@ -54,7 +54,11 @@ Phases, each printing JSON lines:
               one batch of 256 (numpy seed 0). Counters are zeroed just
               before: the scaled int8 kernel must launch 54 times per
               forward, the int32 one never. Logits within 0.05 of the same
-              network's f32 logits (TF32 off), relative to their max. Then
+              network's f32 logits (TF32 off), relative to their max. Every
+              product shape the kernel was given on that path (batch 256's
+              too, M up to 3,211,264) is checked against the plain version
+              bit for bit, with a second launch, unless phase kernel
+              already checked it. Then
               two images against the port on the CPU under one carried
               int8 state (convert.quantized_state): the stem's codes and
               int32 sums bit for bit, the logits within INT8_CARD_CPU_RTOL;
@@ -1156,6 +1160,25 @@ def qmm_check(torch, x, w, s):
     return res
 
 
+def _qmm_record(state, phase, kind, shape, res, failures, **extra):
+    """Emit one kernel-check line of qmm_check's result, raise the worst
+    errors in state["qmm_err"], mark the shape checked, and add it to
+    ``failures`` if it failed."""
+    ok = all(r[0] and r[1] for r in res.values())
+    emit(dict({"phase": phase, "kernel": "quantized_matmul",
+               "case": kind, "shape_mkn": list(shape),
+               "bitwise": {k: v[0] for k, v in res.items()},
+               "second_launch_same_bits": {k: v[1] for k, v in res.items()},
+               "max_abs_err": {k: v[2] for k, v in res.items()},
+               "ok": ok}, **extra))
+    worst = state.setdefault("qmm_err", {"mm": 0.0, "mm_scaled": 0.0})
+    for k, v in res.items():
+        worst[k] = max(worst[k], v[2])
+    state.setdefault("qmm_checked", set()).add(tuple(shape))
+    if not ok:
+        failures.append((kind, shape))
+
+
 def phase_kernel_qmm(torch, state):
     """Rows 12 and 13 (quantized_matmul: the int32 and the scaled form)
     against the plain version on the card, bit for bit: at every distinct
@@ -1171,22 +1194,10 @@ def phase_kernel_qmm(torch, state):
              for i, (shape, _) in enumerate(shapes)]
     cases += [("edge", shape, 400 + i, -128)
               for i, shape in enumerate(QMM_EDGE)]
-    worst = {"mm": 0.0, "mm_scaled": 0.0}
     failures = []
 
     def record(kind, shape, res, **extra):
-        ok = all(r[0] and r[1] for r in res.values())
-        emit(dict({"phase": "kernel", "kernel": "quantized_matmul",
-                   "case": kind, "shape_mkn": list(shape),
-                   "bitwise": {k: v[0] for k, v in res.items()},
-                   "second_launch_same_bits": {k: v[1]
-                                               for k, v in res.items()},
-                   "max_abs_err": {k: v[2] for k, v in res.items()},
-                   "ok": ok}, **extra))
-        for k, v in res.items():
-            worst[k] = max(worst[k], v[2])
-        if not ok:
-            failures.append((kind, shape))
+        _qmm_record(state, "kernel", kind, shape, res, failures, **extra)
 
     for kind, (M, K, N), seed, lo in cases:
         x, w, s = qmm_case(torch, M, K, N, seed, lo)
@@ -1214,11 +1225,36 @@ def phase_kernel_qmm(torch, state):
         we = torch.full((72, 4608), fw, dtype=torch.int8, device="cuda").t()
         record("extreme_%d_%d" % (fx, fw), (200, 4608, 72),
                qmm_check(torch, xe, we, s[:72]), acc=4608 * fx * fw)
-    state["qmm_err"] = worst
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("quantized_matmul disagrees with its plain "
                              "version: %s" % failures)
+
+
+def _qmm_path_shapes(torch, state, calls):
+    """Rows 12 and 13 against the plain version, bit for bit and with a
+    second launch, at every distinct (M, K, N) of ``calls`` (the products
+    the main path gave the kernel) that no earlier check covered: batch
+    256's products are 8x taller than batch 32's (M up to 3,211,264 at the
+    stem), which exercises the large-grid indexing. The float64 plain
+    version of the largest needs about 6 GB."""
+    distinct = sorted({c[:3] for c in calls})
+    todo = [s for s in distinct if s not in state.get("qmm_checked", ())]
+    failures = []
+    for i, (M, K, N) in enumerate(todo):
+        x, w, s = qmm_case(torch, M, K, N, 600 + i)
+        _qmm_record(state, "serve_int8", "main_path", (M, K, N),
+                    qmm_check(torch, x, w, s), failures)
+        del x, w, s
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_int8", "check": "quantized_matmul at every product "
+          "shape of the main path, against the plain version",
+          "distinct_shapes": len(distinct), "checked_here": len(todo),
+          "largest_mkn": list(max(distinct)) if distinct else None,
+          "failed": failures, "ok": not failures})
+    if failures:
+        raise AssertionError("quantized_matmul disagrees with its plain "
+                             "version on the main path: %s" % failures)
 
 
 def _division_check(torch):
@@ -1281,13 +1317,17 @@ def phase_serve_int8(torch, state):
                              % (n_layers, INT8_LAYERS))
 
     # -- the main path: 4 requests of 32, then one batch of 256 ------------
+    def serve():
+        out = []
+        for i, req in enumerate(requests):
+            if i == len(requests) - 1:
+                torch.cuda.reset_peak_memory_stats()
+            out.append(net(torch.from_numpy(req).cuda()))
+        return out
+
     torch.cuda.synchronize()
     _zero_qmm(QM)
-    logits = []
-    for i, req in enumerate(requests):
-        if i == len(requests) - 1:
-            torch.cuda.reset_peak_memory_stats()
-        logits.append(net(torch.from_numpy(req).cuda()))
+    logits, calls = _record_products(QM, serve)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     counts = _qmm_counts(QM)
@@ -1308,11 +1348,12 @@ def phase_serve_int8(torch, state):
         top1 += int((out.argmax(1) == ref.argmax(1)).sum().item())
         n_img += req.shape[0]
     ok_main = counts == {"mm": 0, "mm_scaled": want, "copies": 0} \
-        and worst_rel <= INT8_LOGIT_RTOL
+        and len(calls) == want and worst_rel <= INT8_LOGIT_RTOL
     emit({"phase": "serve_int8", "dtype": "int8 layers, float32 between",
           "requests": [int(r.shape[0]) for r in requests],
           "int8_layers": n_layers, "calibration_s": calib_s,
           "launches": counts, "launches_wanted": {"mm": 0, "mm_scaled": want},
+          "products_recorded": len(calls),
           "max_rel_diff_vs_float32": worst_rel,
           "tolerance_rel": INT8_LOGIT_RTOL, "top1_agree_with_float32":
               top1 / float(n_img),
@@ -1322,6 +1363,7 @@ def phase_serve_int8(torch, state):
         raise AssertionError("int8 serving: launches %s (want %d scaled, 0 "
                              "int32) or logits %.4g of max from float32"
                              % (counts, want, worst_rel))
+    _qmm_path_shapes(torch, state, calls)
     state["int8"] = {"net": net, "float_net": float_net}
     _int8_card_vs_cpu(torch, mx, state, net, requests[0][:2], calib[0][:2])
     _int8_op_family(torch, mx, state, net, requests[0])

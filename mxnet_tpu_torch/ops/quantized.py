@@ -10,11 +10,11 @@ float32 first, as JAX's weak typing does).
 Products: ``quantized_fully_connected`` and ``quantized_conv`` accumulate
 int8 x int8 in int32 through ``_int8_dot``, which is the hand-written
 kernel (``kernels/quantized_matmul.py``) on a CUDA tensor and its plain
-version on a CPU tensor. A 1x1 stride-1 convolution is one product over
-the flattened pixels, as in the JAX package; every other convolution goes
-through an int8 im2col first (``im2col``), where the JAX package used
-XLA's int32 convolution: PyTorch has no integer convolution on CUDA, and
-the integer sum is exact either way. On the card no code path computes an
+version on a CPU tensor. Every convolution goes through an int8 im2col
+first (``im2col``); for a 1x1 stride-1 convolution that is the flattened
+pixels, one product as in the JAX package. For the others the JAX package
+used XLA's int32 convolution: PyTorch has no integer convolution on CUDA,
+and the integer sum is exact either way. On the card no code path computes an
 int8 product without the kernel; payloads of another integer type raise
 there (the CPU sums them in int64 and wraps to int32, as XLA's int32 dot
 does).
@@ -303,12 +303,14 @@ def weight_matrix(w, align=1):
     """The (Kp, O) product operand of an OIHW weight for ``im2col``'s
     columns: row ``(di * kw + dj) * C + c`` holds w[:, c, di, dj], zero rows
     pad K to Kp. Laid out K-contiguous (a transposed (O, Kp) tensor), as
-    the int8 kernel reads it."""
+    the int8 kernel reads it; a view of a contiguous 1x1 weight needing
+    no padding."""
     o, c, kh, kw = w.shape
     k = kh * kw * c
     kp = -(-k // align) * align
-    m = w.new_zeros((o, kp))
-    m[:, :k] = w.permute(0, 2, 3, 1).reshape(o, k)
+    m = w.permute(0, 2, 3, 1).reshape(o, k)
+    if kp != k:
+        m = torch.cat([m, m.new_zeros((o, kp - k))], dim=1)
     return m.t()
 
 
@@ -317,32 +319,21 @@ def quantized_conv(data, weight, bias, min_data, max_data, min_weight,
                    max_weight, min_bias, max_bias, kernel=(1, 1),
                    stride=(1, 1), pad=(0, 0), dilate=(1, 1), num_filter=1,
                    num_group=1, no_bias=False, layout="NCHW"):
-    """int8 conv -> int32, NCHW (ref: quantized_conv.cc). A 1x1 stride-1
-    convolution is one product over the flattened pixels (JAX's
-    form); any other goes through ``im2col`` and one product per group.
-    Each product is one launch of the int8 kernel on the card."""
-    sh, sw = int(stride[0]), int(stride[1])
-    ph, pw = int(pad[0]), int(pad[1])
-    n, ci, h, w_sp = data.shape
-    o = weight.shape[0]
+    """int8 conv -> int32, NCHW (ref: quantized_conv.cc): ``im2col`` and
+    one product per group, one launch of the int8 kernel each on the card.
+    A 1x1 stride-1 convolution's columns are the flattened pixels (JAX's
+    form)."""
+    ci, o = data.shape[1], weight.shape[0]
     groups = int(num_group)
-    is_1x1 = (tuple(weight.shape[2:]) == (1, 1) and (sh, sw) == (1, 1)
-              and (ph, pw) == (0, 0) and groups == 1
-              and data.dtype == torch.int8 and weight.dtype == torch.int8)
-    if is_1x1:
-        x2 = data.permute(0, 2, 3, 1).reshape(-1, ci)
-        wt = weight.reshape(o, ci).t()                 # (Ci, Co)
-        acc = _int8_dot(x2, wt).reshape(n, h, w_sp, o)
-    else:
-        cg, og = ci // groups, o // groups
-        parts = []
-        for g in range(groups):
-            cols, (n, ho, wo) = im2col(
-                data[:, g * cg:(g + 1) * cg], weight.shape[2:], stride, pad,
-                dilate, ALIGN)
-            parts.append(_int_dot(cols, weight_matrix(
-                weight[g * og:(g + 1) * og], ALIGN)).reshape(n, ho, wo, og))
-        acc = parts[0] if groups == 1 else torch.cat(parts, dim=3)
+    cg, og = ci // groups, o // groups
+    parts = []
+    for g in range(groups):
+        cols, (n, ho, wo) = im2col(
+            data[:, g * cg:(g + 1) * cg], weight.shape[2:], stride, pad,
+            dilate, ALIGN)
+        parts.append(_int_dot(cols, weight_matrix(
+            weight[g * og:(g + 1) * og], ALIGN)).reshape(n, ho, wo, og))
+    acc = parts[0] if groups == 1 else torch.cat(parts, dim=3)
     acc = acc.permute(0, 3, 1, 2).contiguous()
     out_scale = _scale(min_data, max_data, acc.device) \
         * _scale(min_weight, max_weight, acc.device)
