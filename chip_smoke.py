@@ -4,7 +4,9 @@
     python3 chip_smoke.py                  # every phase (needs one GPU)
     python3 chip_smoke.py --phases env,kernel
     python3 chip_smoke.py --phases env,kernel,train
+    python3 chip_smoke.py --phases env,kernel,train_kv
     python3 chip_smoke.py --phases env,kernel,train_fused
+    python3 chip_smoke.py --phases env,kernel,train_adam
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
 
@@ -40,7 +42,16 @@ Phases, each printing JSON lines:
               off the network), at edge shapes (M, K or N of 1, odd sizes,
               K = 147, N = 1000), with w N-contiguous, x row-strided and
               transposed (refused), and at int8 extremes: bit for bit,
-              and the same bits on a second launch.
+              and the same bits on a second launch. The 2-bit quantize and
+              dequantize kernels at every compressed ResNet-50 parameter
+              size and at edge sizes (CODEC_EDGE_N), bf16 and f32,
+              thresholds 0.5 and 0.3, with exactly +-threshold, +-0.0,
+              +-inf and NaN among the values: words, residuals and decoded
+              values bit for bit, the same bits on a second launch. The
+              packed Adam apply over ResNet-50's trainable shapes, bf16 and
+              f32, with weight decay, with and without clip, at update
+              counts 1 and 10: bit for bit against its plain version and
+              the per-parameter step_fn chain.
 3. serve   -- the serving path: resnet50_v1(layout="NHWC", fuse=True) in
               bf16 answers 4 requests of 32 images (top-5 classes each).
               Launch counters are zeroed just before and read just after;
@@ -76,6 +87,21 @@ Phases, each printing JSON lines:
               finalize launch twice per BatchNorm), conv_fused never; the
               loss must be finite and fall. Then one f32 step at batch 4,
               TF32 off, against the port on the CPU.
+4b. train_kv -- phase train's step with a user-made kvstore attached:
+              mx.kv.create("local") with 2-bit compression (threshold 0.5)
+              given to gluon.Trainer, 5 steps. Every gradient is pushed
+              (compressed when it has at least 4096 elements: 54 of the
+              161 trainable parameters, 25,502,912 elements) and pulled
+              back into param.grad(). Counters are zeroed just before:
+              exactly 54 quantize and 54 dequantize launches per step, 53
+              per BatchNorm kernel, no conv_fused; the loss finite and
+              falling. Then one more step with the pushes recorded: every
+              compressed key's pulled gradient and residual equal the plain
+              codec on the card on the same pushed gradient and residual,
+              every other key's pulled gradient the pushed one, bit for
+              bit. Then 2 steps (batch 16) with update_on_kvstore=True
+              against 2 with False, fresh stores, same start: the weights
+              equal bit for bit.
 5. train_fused -- the fused training path: resnet50_v1(layout="NHWC",
               fuse=True), hybridized, in bf16, batch 128, through
               gluon.train_step with MXTPU_FUSED_APPLY=1 (SGD lr 0.01,
@@ -87,6 +113,14 @@ Phases, each printing JSON lines:
               Then one f32 step at batch 4, TF32 off, against the port on
               the CPU, and two bf16 steps with MXTPU_FUSED_APPLY=0 against
               two with =1 from the same weights: equal bit for bit.
+5b. train_adam -- phase train_fused's step with Adam (lr 1e-3, wd 1e-4)
+              in place of SGD: 5 steps, counters zeroed just before: one
+              packed Adam launch per bucket per step, the conv_fused and
+              BatchNorm counts of train_fused, every step "fused", the loss
+              finite and falling. Then MXTPU_FUSED_APPLY 0 against 1 over
+              two bf16 steps (equal bit for bit), and one eager f32
+              Trainer.step with Adam, the card against the CPU (the bounds
+              of train's f32 check).
 6. train_lm -- the transformer LM of bench.py's bench_transformer at its
               full width (dim 4096, 5 layers, 32 heads of 128, FFN 16384,
               vocab 32000, bf16, chunked CE over 8 chunks, full per-layer
@@ -111,7 +145,12 @@ Phases, each printing JSON lines:
               images/sec at batch 32 and 256, device busy ms, idle share
               and device ms split into kernels, im2col, quantize passes
               and float layers, beside the f32 forward (TF32 off and
-              on).
+              on); the 2-bit codec kernels over one train_kv step's 54
+              compressed gradients and the packed Adam kernel over one
+              update phase, beside their bounds and plain versions (and
+              torch._fused_adam_ for Adam); train_kv's and train_adam's
+              images/sec, device busy time and idle share beside train's
+              and train_fused's.
 
 The run ends with the nvidia-smi name/power line, then the
 {"kernels": [...]} line (per kernel: launches on its path, max abs error at
@@ -134,8 +173,8 @@ import time
 
 import numpy as np
 
-PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_fused",
-          "train_lm", "time")
+PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
+          "train_fused", "train_adam", "train_lm", "time")
 
 # ResNet-50's fused 3x3 links at batch 32: (N, H, W, Ci, Co) and how many
 # of the 16 launches per forward run at that shape.
@@ -211,6 +250,33 @@ SGD = {"learning_rate": 0.01, "momentum": 0.9}
 # f32 operations per element of the packed SGD step (rescale, wd*w, +g,
 # *lr, momentum*m, -, +w): far below the bytes it moves.
 APPLY_OPS = 7
+# Adam in the fused step (phase train_adam): the JAX default learning rate
+# with weight decay. f32 operations per element of its packed step
+# (rescale, wd*w, +, b1*m, (1-b1)*g, +, (1-b2)*g, *g, b2*v, +, sqrt, +eps,
+# lr*m, /, -): far below the 14 bytes (bf16) it moves.
+ADAM = {"learning_rate": 1e-3, "wd": 1e-4}
+ADAM_OPS = 15
+
+# The compressed kvstore (phase train_kv): 2-bit compression at the
+# reference's default threshold. A pushed gradient is compressed when it
+# has at least size_lower_bound elements (MXNET_KVSTORE_SIZE_LOWER_BOUND,
+# 4096): in ResNet-50 v1 the 53 convolution weights (the smallest, 64 x 64
+# x 1 x 1, sits at the bound) and the classifier's weight, 25,502,912
+# elements of the 161 trainable parameters; the 106 BatchNorm gammas and
+# betas and the classifier's bias pass uncompressed.
+KV_COMPRESSION = {"type": "2bit", "threshold": 0.5}
+KV_BOUND = 4096
+KV_TRAINABLE = 161
+KV_COMPRESSED = 54
+KV_COMPRESSED_ELEMENTS = 25502912
+# The codec kernels (rows 14-15) are checked at every compressed
+# ResNet-50 size and at these edge sizes (within and around one 16-value
+# word and the size bound, and a large odd size), at both thresholds, bit
+# for bit. Line of each TPU kernel body in
+# mxnet_tpu/pallas_kernels/compression.py.
+CODEC_EDGE_N = (1, 15, 16, 17, 4095, 4096, 4097, 100003)
+CODEC_THRESHOLDS = (0.5, 0.3)
+CODEC_REPLACES = {"quantize": 70, "dequantize": 82}
 
 # The transformer LM of bench.py's bench_transformer at its on-chip
 # defaults (bench.py:87-96,155-165): 1.6B parameters, bf16, batch 12 of
@@ -527,6 +593,8 @@ def phase_kernel(torch, state):
     phase_kernel_apply(torch, state)
     phase_kernel_flash(torch, state)
     phase_kernel_qmm(torch, state)
+    phase_kernel_codec(torch, state)
+    phase_kernel_adam(torch, state)
 
 
 def phase_kernel_bn(torch, state):
@@ -684,8 +752,10 @@ def apply_case(torch, shapes, dtype, momentum, seed):
 
 
 def _packed_segments(torch, OA, ws, gs, ms, lrs, wds):
-    """Each bucket of the plan as one flat segment: (bucket, w, g, m,
-    per-element lr, per-element wd), the operands of the plain version."""
+    """Each bucket of the plan as one flat segment: (bucket, w, g, state,
+    per-element lr, per-element wd), the operands of the plain version. A
+    state is None, one tensor (SGD's momentum) or a tuple (Adam's m, v)
+    per parameter; the segment's has the same structure."""
     segs = []
     for bucket in OA.bucketize(ws):
         n = [ws[i].numel() for i in bucket]
@@ -693,9 +763,13 @@ def _packed_segments(torch, OA, ws, gs, ms, lrs, wds):
         vec = (lambda vs: torch.cat([torch.full((k,), float(vs[i]),
                                                 device="cuda")
                                      for i, k in zip(bucket, n)]))
-        segs.append((bucket, cat(ws), cat(gs),
-                     None if ms[bucket[0]] is None else cat(ms), vec(lrs),
-                     vec(wds)))
+        st = ms[bucket[0]]
+        if isinstance(st, tuple):
+            st = tuple(torch.cat([ms[i][k].reshape(-1) for i in bucket])
+                       for k in range(len(st)))
+        elif st is not None:
+            st = cat(ms)
+        segs.append((bucket, cat(ws), cat(gs), st, vec(lrs), vec(wds)))
     return segs
 
 
@@ -770,6 +844,151 @@ def phase_kernel_apply(torch, state):
     if failures:
         raise AssertionError("optimizer_apply disagrees with its plain "
                              "version: %s" % failures)
+
+
+def _kv_sizes(mx, state):
+    """Element counts of ResNet-50's trainable parameters that the
+    compressed kvstore compresses (the JAX rule: size >= the bound), in
+    the fused step's packing order."""
+    return [int(np.prod(sh)) for sh in _train_shapes(mx, state)
+            if int(np.prod(sh)) >= KV_BOUND]
+
+
+def codec_case(torch, n, dtype, thr, seed):
+    """A gradient and a residual of n values on the card, the first ones
+    at the codec's edges: r exactly +-thr (in the dtype), +-0.0 (-0.0 +
+    -0.0 keeps its sign), +-inf, NaN."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(n, generator=gen, device="cuda") * (thr * 1.5)
+    r = torch.randn(n, generator=gen, device="cuda") * (thr * 0.5)
+    sp = torch.tensor([thr, -thr, 0.0, -0.0, float("inf"), -float("inf"),
+                       float("nan")], device="cuda")[:n]
+    k = sp.numel()
+    g[:k] = sp
+    r[:k] = torch.where(torch.isfinite(sp), torch.zeros_like(sp), r[:k])
+    if n > 3:
+        r[3] = -0.0
+    return g.to(dtype), r.to(dtype)
+
+
+def phase_kernel_codec(torch, state):
+    """Rows 14-15, the 2-bit quantize and dequantize kernels, against their
+    plain versions on the card: every compressed ResNet-50 parameter size
+    and CODEC_EDGE_N, bf16 and f32, both thresholds; words, residuals and
+    decoded values bit for bit, and the same bits on a second launch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import compression as C
+    sizes = sorted(set(_kv_sizes(mx, state)) | set(CODEC_EDGE_N))
+    failures = []
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for thr in CODEC_THRESHOLDS:
+            bad = []
+            for i, n in enumerate(sizes):
+                g, r = codec_case(torch, n, dtype, thr, seed=1400 + i)
+                w1, r1 = C.quantize_2bit(g, r, thr)
+                w2, r2 = C.quantize_2bit(g, r, thr)
+                d1 = C.dequantize_2bit(w1, n, thr)
+                d2 = C.dequantize_2bit(w1, n, thr)
+                rw, rr = C.quantize_2bit_reference(g, r, thr)
+                rd = C.dequantize_2bit_reference(rw, n, thr)
+                torch.cuda.synchronize()
+                ok = torch.equal(w1, rw) and torch.equal(w2, rw) \
+                    and same_bits(torch, r1, rr) and same_bits(torch, r2, rr) \
+                    and same_bits(torch, d1, rd) and same_bits(torch, d2, rd)
+                worst = max(worst, max_abs_err(torch, r1, rr),
+                            max_abs_err(torch, d1, rd))
+                if not ok:
+                    bad.append(n)
+            emit({"phase": "kernel", "kernel": "compression",
+                  "dtype": dname, "threshold": thr, "sizes": sizes,
+                  "bitwise_words_residuals_values": not bad,
+                  "same_bits_relaunched": not bad, "failed_sizes": bad,
+                  "ok": not bad})
+            failures += [(dname, thr, n) for n in bad]
+    state["codec_err"] = worst
+    if failures:
+        raise AssertionError("the 2-bit codec kernels disagree with their "
+                             "plain versions: %s" % failures[:20])
+
+
+def adam_case(torch, shapes, dtype, seed):
+    """Weights, gradients and Adam states (m, v >= 0) on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ws = [torch.randn(sh, generator=gen, device="cuda").to(dtype)
+          for sh in shapes]
+    gs = [(torch.randn(sh, generator=gen, device="cuda") * 30).to(dtype)
+          for sh in shapes]
+    sts = [((torch.randn(sh, generator=gen, device="cuda") * 0.1).to(dtype),
+            (torch.rand(sh, generator=gen, device="cuda") * 0.01).to(dtype))
+           for sh in shapes]
+    return ws, gs, sts
+
+
+def phase_kernel_adam(torch, state):
+    """Row 8's Adam body: the packed Adam kernel over ResNet-50's trainable
+    shapes in the fused step's buckets, bf16 and f32, weight decay with
+    and without clip, at update counts 1 and 10 (step_lr's bias-corrected
+    rate per parameter): bit for bit against its plain version (step_fn
+    over each packed bucket) and the per-parameter step_fn chain."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+    shapes = _train_shapes(mx, state)
+    rescale = 1.0 / 128
+    failures = []
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for clip in (None, 0.05):
+            for steps in (1, 10):
+                opt = topt.Adam(clip_gradient=clip, **ADAM)
+                ws, gs, sts = adam_case(torch, shapes, dtype, seed=820)
+                for i in range(len(ws)):
+                    opt._index_update_count[i] = steps
+                lrs = [opt.step_lr(i) for i in range(len(ws))]
+                wds = [ADAM["wd"] * (i % 2) for i in range(len(ws))]
+                chain = [opt.step_fn(w, g, st, lr, wd, rescale)
+                         for w, g, st, lr, wd in zip(ws, gs, sts, lrs, wds)]
+                segs = _packed_segments(torch, OA, ws, gs, sts, lrs, wds)
+                plain = apply_plain(torch, OA, opt, segs, rescale)
+                nw = [w.clone() for w in ws]
+                ns = [tuple(t.clone() for t in st) for st in sts]
+                before = OA.LAUNCHES
+                OA.packed_apply(opt, nw, gs, ns, lrs, wds, rescale)
+                torch.cuda.synchronize()
+                launches = OA.LAUNCHES - before
+                vs_chain = vs_plain = True
+                for (bucket, *_), (pw, (pm, pv)) in zip(segs, plain):
+                    off = 0
+                    for i in bucket:
+                        n = ws[i].numel()
+                        got = (nw[i], ns[i][0], ns[i][1])
+                        want = (chain[i][0],) + tuple(chain[i][1])
+                        for a, b, flat in zip(got, want, (pw, pm, pv)):
+                            worst = max(worst, max_abs_err(torch, a, b))
+                            vs_chain = vs_chain and same_bits(torch, a, b)
+                            vs_plain = vs_plain and same_bits(
+                                torch, a.reshape(-1), flat[off:off + n])
+                        off += n
+                ok = vs_chain and vs_plain and launches == len(segs)
+                emit({"phase": "kernel", "kernel": "optimizer_apply.adam",
+                      "dtype": dname, "clip": clip, "update_count": steps,
+                      "tensors": len(shapes),
+                      "elements": sum(w.numel() for w in ws),
+                      "buckets": len(segs), "launches": launches,
+                      "bitwise_vs_plain": vs_plain,
+                      "bitwise_vs_per_param_chain": vs_chain, "ok": ok})
+                if not ok:
+                    failures.append((dname, clip, steps, vs_plain,
+                                     vs_chain, launches, len(segs)))
+                del ws, gs, sts, chain, segs, plain, nw, ns
+    state["adam_err"] = worst
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("the packed Adam apply disagrees with its "
+                             "plain version: %s" % failures)
 
 
 def flash_case(torch, case, dtype, seed, layout="bhsd"):
@@ -1586,10 +1805,186 @@ def phase_train(torch, state):
     _f32_card_vs_cpu(torch, mx, arrays, x_np[:4], y_np[:4], loss_fn, False)
 
 
-def _f32_card_vs_cpu(torch, mx, arrays, x_np, y_np, loss_fn, fuse):
-    """One f32 training step (TF32 off) from the seed weights, the card
-    against the port on the CPU; ``fuse=True`` runs the fused net through
-    gluon.train_step with MXTPU_FUSED_APPLY=1.
+def _zero_codec(C):
+    C.LAUNCHES_QUANTIZE = C.LAUNCHES_DEQUANTIZE = 0
+
+
+def _compressed_kv(mx):
+    """A local kvstore with 2-bit compression, as a user makes one."""
+    kv = mx.kv.create("local")
+    kv.set_gradient_compression(dict(KV_COMPRESSION))
+    return kv
+
+
+def phase_train_kv(torch, state):
+    """Path E0: phase train's eager step with a compressed kvstore attached
+    (every gradient pushed, compressed where it has at least the bound's
+    elements, pulled back into param.grad(), then the SGD update)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import compression as C
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+
+    arrays = _arrays(mx, state)
+    x_np, y_np = _batch(state)
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    # -- the main path: bf16, batch 128, 5 steps on one batch -------------
+    net = _build_net(mx, arrays, False, "bfloat16", mx.gpu(0))
+    kv = _compressed_kv(mx)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD),
+                               kvstore=kv)
+    bound_n = kv._compression_params["size_lower_bound"]
+    trainable = [p for p in trainer._params if p.grad_req != "null"]
+    compressed = [p for p in trainable if p.data().numel() >= bound_n]
+    elements = sum(p.data().numel() for p in compressed)
+    derived = (len(trainable), len(compressed), elements)
+    if derived != (KV_TRAINABLE, KV_COMPRESSED, KV_COMPRESSED_ELEMENTS):
+        raise AssertionError("compressed parameters (trainable, compressed, "
+                             "elements) %s, want %s" % (derived, (
+                                 KV_TRAINABLE, KV_COMPRESSED,
+                                 KV_COMPRESSED_ELEMENTS)))
+    x = torch.from_numpy(x_np).to("cuda", torch.bfloat16)
+    y = torch.from_numpy(y_np).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(BNF, CF)
+    _zero_codec(C)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(5):
+        loss = _train_step(mx, net, trainer, loss_fn, x, y)
+        losses.append(loss.detach().float().mean().item())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _bn_counts(BNF)
+    conv = CF.LAUNCHES
+    codec = {"quantize": C.LAUNCHES_QUANTIZE,
+             "dequantize": C.LAUNCHES_DEQUANTIZE}
+    want = {k: 5 * BN_PER_STEP for k in BN_KERNELS}
+    want["finalize"] = 2 * 5 * BN_PER_STEP
+    want_codec = {k: 5 * len(compressed) for k in codec}
+    ok_counts = all(counts[k] == n for k, n in want.items()) \
+        and conv == 0 and codec == want_codec
+    ok_loss = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    state.setdefault("launches", {}).update(
+        {"compression." + k: n for k, n in codec.items()})
+    state["train_kv"] = lambda: _train_step(mx, net, trainer, loss_fn, x, y)
+    emit({"phase": "train_kv", "dtype": "bfloat16", "batch": 128,
+          "steps": 5, "compression": KV_COMPRESSION,
+          "size_lower_bound": bound_n, "trainable_params": len(trainable),
+          "compressed_params": len(compressed),
+          "compressed_elements": elements, "losses": losses,
+          "launches": dict(counts, **codec), "conv_fused_launches": conv,
+          "launches_wanted": dict(want, **want_codec),
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "wall_s": wall, "ok": ok_counts and ok_loss})
+    if not ok_counts:
+        raise AssertionError("compressed training launches %s %s (conv_fused "
+                             "%d), want %s %s" % (counts, codec, conv, want,
+                                                  want_codec))
+    if not ok_loss:
+        raise AssertionError("compressed training loss not finite and "
+                             "falling: %s" % losses)
+
+    _kv_pulled_check(torch, mx, net, trainer, loss_fn, x, y, bound_n)
+    _kv_update_on_kvstore_check(torch, mx, arrays, x_np[:16], y_np[:16],
+                                loss_fn)
+
+
+def _kv_pulled_check(torch, mx, net, trainer, loss_fn, x, y, bound_n):
+    """One more step with the pushes recorded: every compressed key's pulled
+    gradient and new residual equal the plain codec run on the card on the
+    same pushed gradient and residual, bit for bit; every other key's
+    pulled gradient equals the pushed one."""
+    from mxnet_tpu_torch.kernels import compression as C
+    kv = trainer._kvstore
+    thr = kv._compression_params["threshold"]
+    pushed = {}
+    push = kv.push
+
+    def recording_push(key, value, priority=0):
+        res = kv._compression_residuals.get(key)
+        pushed[key] = (value.detach().clone(),
+                       None if res is None else res.clone())
+        return push(key, value, priority)
+    kv.push = recording_push
+    try:
+        _train_step(mx, net, trainer, loss_fn, x, y)
+    finally:
+        del kv.push
+    torch.cuda.synchronize()
+    bad, n_comp, n_plain = [], 0, 0
+    for p in trainer._params:
+        if p.grad_req == "null":
+            continue
+        idx = trainer._param2idx[p.name]
+        g, res = pushed[idx]
+        if g.numel() >= bound_n:
+            n_comp += 1
+            flat = g.reshape(-1)
+            rw, rr = C.quantize_2bit_reference(
+                flat, torch.zeros_like(flat) if res is None else res, thr)
+            want = C.dequantize_2bit_reference(rw, flat.numel(), thr) \
+                .reshape(g.shape).to(g.dtype)
+            ok = same_bits(torch, p.grad(), want) and same_bits(
+                torch, kv._compression_residuals[idx], rr)
+        else:
+            n_plain += 1
+            ok = same_bits(torch, p.grad(), g)
+        if not ok:
+            bad.append(p.name)
+    emit({"phase": "train_kv", "check": "pulled gradients against the "
+          "plain codec on the card", "compressed_keys": n_comp,
+          "uncompressed_keys": n_plain, "bitwise": not bad,
+          "failed": bad[:10], "ok": not bad})
+    if bad:
+        raise AssertionError("pulled gradients differ from the plain codec: "
+                             "%s" % bad[:10])
+
+
+def _kv_update_on_kvstore_check(torch, mx, arrays, x_np, y_np, loss_fn):
+    """Two compressed bf16 steps with update_on_kvstore=True (the store's
+    pickled copy of SGD updates the stored weights, the pull writes them)
+    against two with False, from the same start: every weight bit for bit
+    (cuDNN's deterministic algorithms, so that the gradients repeat)."""
+    prev = _deterministic_cudnn(torch)
+    weights = {}
+    try:
+        for on in (False, True):
+            net = _build_net(mx, arrays, False, "bfloat16", mx.gpu(0))
+            trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                       dict(SGD), kvstore=_compressed_kv(mx),
+                                       update_on_kvstore=on)
+            x = torch.from_numpy(x_np).to("cuda", torch.bfloat16)
+            y = torch.from_numpy(y_np).cuda()
+            for _ in range(2):
+                _train_step(mx, net, trainer, loss_fn, x, y)
+            if trainer._update_on_kvstore is not on:
+                raise AssertionError("update_on_kvstore=%s not attached" % on)
+            weights[on] = {k: p.data().detach().clone() for k, p in
+                           net._collect_params_with_prefix().items()}
+            del net, trainer
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    same = all(same_bits(torch, weights[True][k], weights[False][k])
+               for k in weights[False])
+    emit({"phase": "train_kv", "dtype": "bfloat16", "batch": len(x_np),
+          "steps": 2, "update_on_kvstore_true_vs_false_bitwise": same,
+          "ok": same})
+    if not same:
+        raise AssertionError("update_on_kvstore=True and False trained "
+                             "different weights")
+
+
+def _f32_card_vs_cpu(torch, mx, arrays, x_np, y_np, loss_fn, fuse,
+                     opt=("sgd", SGD), phase=None):
+    """One f32 training step (TF32 off) from the seed weights with the
+    optimizer ``opt`` (name, parameters), the card against the port on the
+    CPU; ``fuse=True`` runs the fused net through gluon.train_step with
+    MXTPU_FUSED_APPLY=1.
 
     The gradients of this deep net at batch 4 are ill-conditioned: any two
     correct f32 implementations differ by several percent in some layers.
@@ -1606,7 +2001,7 @@ def _f32_card_vs_cpu(torch, mx, arrays, x_np, y_np, loss_fn, fuse):
         form against the BatchNorm's, both plain). With the fused net the
         3x3 convolutions run the conv_fused kernels whether cuDNN is on
         or off, so its own cuDNN spread moves only the 7x7 stem."""
-    phase = "train_fused" if fuse else "train"
+    phase = phase or ("train_fused" if fuse else "train")
     variants = [("card", mx.gpu(0), True, fuse), ("cpu", mx.cpu(), True, fuse)]
     witnesses = []
     if fuse:
@@ -1623,7 +2018,7 @@ def _f32_card_vs_cpu(torch, mx, arrays, x_np, y_np, loss_fn, fuse):
             torch.backends.cudnn.enabled = cudnn
             try:
                 runs[name] = _one_step(torch, mx, arrays, ctx, x_np, y_np,
-                                       loss_fn, f, "float32")
+                                       loss_fn, f, "float32", opt=opt)
             finally:
                 torch.backends.cudnn.enabled = prev
     gap = {w: _max_rel(runs["card"], runs["cpu"], w) for w in TRAIN_RTOL}
@@ -1636,7 +2031,7 @@ def _f32_card_vs_cpu(torch, mx, arrays, x_np, y_np, loss_fn, fuse):
                        + [2.0 * s[w][0] for s in spreads.values()])
     ok = all(gap[w][0] <= bound[w] for w in TRAIN_RTOL)
     emit(dict({"phase": phase, "dtype": "float32", "batch": len(x_np),
-               "card_vs_cpu_max_rel": gap}, **spreads,
+               "optimizer": opt[0], "card_vs_cpu_max_rel": gap}, **spreads,
               bound_rel=bound, stated_rel=TRAIN_RTOL,
               loss=runs["card"]["loss"].tolist(), ok=ok))
     if not ok:
@@ -1645,14 +2040,16 @@ def _f32_card_vs_cpu(torch, mx, arrays, x_np, y_np, loss_fn, fuse):
 
 
 def _one_step(torch, mx, arrays, ctx, x_np, y_np, loss_fn, fuse, dtype,
-              steps=1):
-    """``steps`` training steps from the seed weights on ``ctx``: the
-    last per-sample loss, every gradient, and every parameter and running
-    statistic after the update, on the host. ``fuse=False`` runs the eager
-    record/backward/Trainer.step; ``fuse=True`` the hybridized fused net
-    through gluon.train_step."""
+              steps=1, opt=("sgd", SGD), **trainer_kw):
+    """``steps`` training steps from the seed weights on ``ctx`` with the
+    optimizer ``opt`` (name, parameters): the last per-sample loss, every
+    gradient, and every parameter and running statistic after the update,
+    on the host. ``fuse=False`` runs the eager record/backward/
+    Trainer.step (``trainer_kw`` to the Trainer: a kvstore); ``fuse=True``
+    the hybridized fused net through gluon.train_step."""
     net = _build_net(mx, arrays, fuse, dtype, ctx)
-    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD))
+    trainer = mx.gluon.Trainer(net.collect_params(), opt[0], dict(opt[1]),
+                               **trainer_kw)
     dev = ctx.device
     x = torch.from_numpy(x_np).to(dev, getattr(torch, dtype))
     y = torch.from_numpy(y_np).to(dev)
@@ -1787,19 +2184,33 @@ def _train_fused(torch, state):
     _f32_card_vs_cpu(torch, mx, arrays, x_np[:4], y_np[:4], loss_fn, True)
 
     # -- MXTPU_FUSED_APPLY=0 against =1: two bf16 steps, same weights -----
-    # cuDNN's deterministic algorithms, so that the two runs' gradients
-    # (and so any difference of the update phases) are reproducible
+    _fused_apply_0_vs_1(torch, mx, arrays, x_np, y_np, loss_fn, ("sgd", SGD),
+                        "train_fused")
+
+
+def _deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms on (benchmark off), so that two runs'
+    gradients are reproducible; returns the previous flags."""
     prev = (torch.backends.cudnn.deterministic,
             torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+    return prev
+
+
+def _fused_apply_0_vs_1(torch, mx, arrays, x_np, y_np, loss_fn, opt, phase):
+    """Two bf16 fused steps at batch 16 with MXTPU_FUSED_APPLY=0 against two
+    with =1, from the same weights: the updated weights equal bit for bit
+    (cuDNN's deterministic algorithms, so that any difference is the update
+    phase's)."""
+    prev = _deterministic_cudnn(torch)
     runs = {}
     try:
         for mode in ("0", "1"):
             _set_fused_apply(mode)
             runs[mode] = _one_step(torch, mx, arrays, mx.gpu(0), x_np[:16],
                                    y_np[:16], loss_fn, True, "bfloat16",
-                                   steps=2)
+                                   steps=2, opt=opt)
     finally:
         _set_fused_apply("1")
         (torch.backends.cudnn.deterministic,
@@ -1807,11 +2218,105 @@ def _train_fused(torch, state):
     same = {w: all(same_bits(torch, runs["0"][w][k], runs["1"][w][k])
                    for k in runs["1"][w]) for w in ("grad", "param")}
     ok = same["param"]
-    emit({"phase": "train_fused", "dtype": "bfloat16", "batch": 16,
-          "steps": 2, "fused_apply_0_vs_1_bitwise": same, "ok": ok})
+    emit({"phase": phase, "dtype": "bfloat16", "batch": 16, "steps": 2,
+          "optimizer": opt[0], "fused_apply_0_vs_1_bitwise": same, "ok": ok})
     if not ok:
         raise AssertionError("MXTPU_FUSED_APPLY=0 and =1 updated the "
-                             "weights differently: %s" % same)
+                             "weights differently (%s): %s" % (opt[0], same))
+
+
+def phase_train_adam(torch, state):
+    prev = _set_fused_apply("1")
+    try:
+        _train_adam(torch, state)
+    finally:
+        _set_fused_apply(prev)
+
+
+def _train_adam(torch, state):
+    """Path Adam: phase train_fused's fused step with Adam (ADAM) in place
+    of SGD, MXTPU_FUSED_APPLY=1: one packed Adam launch per bucket."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+
+    arrays = _arrays(mx, state)
+    x_np, y_np = _batch(state)
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    # -- the main path: fuse=True, bf16, batch 128, 5 fused Adam steps -----
+    net = _build_net(mx, arrays, True, "bfloat16", mx.gpu(0))
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", dict(ADAM))
+    step = mx.gluon.train_step(net, loss_fn, trainer)
+    all_params, train_pos, _ = step._param_split()
+    trainable = [all_params[pos].data() for pos in train_pos]
+    buckets = len(OA.bucketize(trainable))
+    x = torch.from_numpy(x_np).to("cuda", torch.bfloat16)
+    y = torch.from_numpy(y_np).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(BNF, CF, OA)
+    losses, modes = [], []
+    t0 = time.perf_counter()
+    for _ in range(5):
+        loss = step(x, y)
+        modes.append(step.last_mode)
+        losses.append(loss.float().mean().item())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    conv = _conv_counts(CF)
+    bn = _bn_counts(BNF)
+    apply_n = OA.LAUNCHES
+    want_conv = {k: 5 * FUSED_PER_STEP
+                 for k in ("fwd", "bwd_dx", "bwd_dw", "finalize", "reduce")}
+    want_bn = {k: 5 * BN_FUSED_NET_PER_STEP for k in BN_KERNELS}
+    want_bn["finalize"] = 2 * 5 * BN_FUSED_NET_PER_STEP
+    ok_counts = all(conv[k] == n for k, n in want_conv.items()) \
+        and all(bn[k] == n for k, n in want_bn.items()) \
+        and apply_n == 5 * buckets
+    ok_mode = all(m == "fused" for m in modes)
+    ok_loss = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    state.setdefault("launches", {})["optimizer_apply.adam"] = apply_n
+
+    def adam_step():
+        prev = _set_fused_apply("1")
+        try:
+            step(x, y)
+        finally:
+            _set_fused_apply(prev)
+    state["train_adam"] = adam_step
+    state["adam_buckets"] = buckets
+    emit({"phase": "train_adam", "dtype": "bfloat16", "batch": 128,
+          "steps": 5, "optimizer": ADAM, "losses": losses,
+          "last_modes": modes, "trainable_tensors": len(trainable),
+          "trainable_elements": sum(w.numel() for w in trainable),
+          "buckets": buckets,
+          "launches": {"conv_fused": conv, "batchnorm_fused": bn,
+                       "optimizer_apply.adam": apply_n},
+          "launches_wanted": {"conv_fused": want_conv,
+                              "batchnorm_fused": want_bn,
+                              "optimizer_apply.adam": 5 * buckets},
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "wall_s": wall, "ok": ok_counts and ok_mode and ok_loss})
+    if not ok_counts:
+        raise AssertionError("fused Adam training launches conv %s, bn %s, "
+                             "apply %d; want %s, %s, %d"
+                             % (conv, bn, apply_n, want_conv, want_bn,
+                                5 * buckets))
+    if not ok_mode:
+        raise AssertionError("train_step modes %s, want fused" % modes)
+    if not ok_loss:
+        raise AssertionError("fused Adam training loss not finite and "
+                             "falling: %s" % losses)
+
+    _fused_apply_0_vs_1(torch, mx, arrays, x_np, y_np, loss_fn,
+                        ("adam", ADAM), "train_adam")
+    # -- the eager Trainer.step with Adam, f32: the card against the CPU ---
+    _f32_card_vs_cpu(torch, mx, arrays, x_np[:4], y_np[:4], loss_fn, False,
+                     opt=("adam", ADAM), phase="train_adam")
 
 
 def _lm_batch(torch, vocab, batch, seq, seed, device):
@@ -2000,6 +2505,8 @@ def phase_time(torch, state):
     phase_time_bn(torch, state)
     phase_time_conv_bwd(torch, state)
     phase_time_apply(torch, state)
+    phase_time_codec(torch, state)
+    phase_time_adam(torch, state)
     phase_time_train(torch, state)
     phase_time_flash(torch, state)
     phase_time_lm(torch, state)
@@ -2241,14 +2748,133 @@ def phase_time_apply(torch, state):
     torch.cuda.empty_cache()
 
 
+def phase_time_codec(torch, state):
+    """Rows 14-15 over one train_kv step's pushes: the 54 compressed
+    ResNet-50 gradients in bf16 (threshold 0.5) through quantize_2bit, and
+    their words through dequantize_2bit: the kernels' device time by name
+    (profiler), the plain versions' device time, and the bound (bytes: row
+    14 reads the gradient and the residual and writes the residual and
+    1/8 of a word per value, 6.125 bytes in bf16; row 15 reads 1/8 word and
+    writes 4 bytes). No single PyTorch call packs 2-bit codes."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import compression as C
+
+    _, (_, f32_peak, bw) = state["card"]
+    sizes = _kv_sizes(mx, state)
+    thr = KV_COMPRESSION["threshold"]
+    gen = torch.Generator(device="cuda").manual_seed(1500)
+    gs = [(torch.randn(n, generator=gen, device="cuda") * 0.4)
+          .to(torch.bfloat16) for n in sizes]
+    rs = [(torch.randn(n, generator=gen, device="cuda") * 0.1)
+          .to(torch.bfloat16) for n in sizes]
+    words = [C.quantize_2bit(g, r, thr)[0] for g, r in zip(gs, rs)]
+    n = sum(sizes)
+    nw = sum(w.numel() for w in words)
+    res = {}
+    for row, fn, plain, nbytes, name in (
+            ("quantize", lambda: [C.quantize_2bit(g, r, thr)
+                                  for g, r in zip(gs, rs)],
+             lambda: [C.quantize_2bit_reference(g, r, thr)
+                      for g, r in zip(gs, rs)],
+             3 * 2 * n + 4 * nw, "codec_quantize_kernel"),
+            ("dequantize", lambda: [C.dequantize_2bit(w, k, thr)
+                                    for w, k in zip(words, sizes)],
+             lambda: [C.dequantize_2bit_reference(w, k, thr)
+                      for w, k in zip(words, sizes)],
+             4 * nw + 4 * n, "codec_dequantize_kernel")):
+        t_bytes = nbytes / bw
+        t_ops = 6 * n / f32_peak
+        r = {"ms": kernel_ms(torch, fn, 10, {"k": (name,)})["k"],
+             "call_ms": device_busy_ms(torch, fn, 10),
+             "call_host_ms": host_ms(torch, fn, 10),
+             "plain_ms": device_busy_ms(torch, plain, 3),
+             "bound_ms": max(t_bytes, t_ops) * 1e3,
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "library_ms": None,
+             "library_note": "none: no single PyTorch call packs or "
+                             "unpacks 2-bit codes",
+             "launches_per_step": len(sizes), "elements": n, "bytes": nbytes}
+        r["roofline_share"] = r["bound_ms"] / r["ms"]
+        res[row] = r
+    state["codec_timing"] = res
+    emit({"phase": "time", "kernel": "compression", "dtype": "bfloat16",
+          "per_step": res})
+    del gs, rs, words
+    torch.cuda.empty_cache()
+
+
+def phase_time_adam(torch, state):
+    """Row 8's Adam body over ResNet-50's trainable parameters in bf16 as
+    train_adam runs it (update count 1): the kernel launches of one update
+    phase (profiler, by name), the whole packed_apply call, the plain
+    version over the packed segments, and as a yardstick
+    torch._fused_adam_ over the same tensors (grad_scale = 1/rescale, eps /
+    sqrt(1 - beta2^t): MXNet's update up to rounding, not bit-equal).
+    Bound: bytes (w, g, m, v read, w, m, v written, 14 bytes per value in
+    bf16)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+
+    _, (_, f32_peak, bw) = state["card"]
+    shapes = _train_shapes(mx, state)
+    opt = topt.Adam(**ADAM)
+    ws, gs, sts = adam_case(torch, shapes, torch.bfloat16, seed=960)
+    for i in range(len(ws)):
+        opt._index_update_count[i] = 1
+    lrs = [opt.step_lr(i) for i in range(len(ws))]
+    wds = [ADAM["wd"]] * len(ws)
+    rescale = 1.0 / 128
+    segs = _packed_segments(torch, OA, ws, gs, sts, lrs, wds)
+    ms, vs = [st[0] for st in sts], [st[1] for st in sts]
+    steps = [torch.ones((), device="cuda") for _ in ws]
+    scale = torch.full((), 1.0 / rescale, device="cuda")
+    eps = opt.epsilon / (1.0 - opt.beta2) ** 0.5
+
+    def run():
+        OA.packed_apply(opt, ws, gs, sts, lrs, wds, rescale)
+
+    def library():
+        torch._fused_adam_(ws, gs, ms, vs, [], steps, lr=ADAM["learning_rate"],
+                           beta1=opt.beta1, beta2=opt.beta2,
+                           weight_decay=ADAM["wd"], eps=eps, amsgrad=False,
+                           maximize=False, grad_scale=scale, found_inf=None)
+
+    n = sum(w.numel() for w in ws)
+    t_bytes = (2 * 7 * n + 8 * 6 * len(ws)) / bw
+    t_ops = ADAM_OPS * n / f32_peak
+    res = {"ms": kernel_ms(torch, run, 10, {"k": ("adam_apply",)})["k"],
+           "call_ms": device_busy_ms(torch, run, 10),
+           "call_host_ms": host_ms(torch, run, 10),
+           "plain_ms": device_busy_ms(torch, lambda: apply_plain(
+               torch, OA, opt, segs, rescale), 3),
+           "library_ms": device_busy_ms(torch, library, 10),
+           "library_note": "torch._fused_adam_ (grad_scale 1/rescale, eps / "
+                           "sqrt(1 - beta2^t)): the same update up to "
+                           "rounding, not bit-equal",
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "tensors": len(ws), "elements": n, "buckets": len(segs)}
+    res["roofline_share"] = res["bound_ms"] / res["ms"]
+    state["adam_timing"] = res
+    emit({"phase": "time", "kernel": "optimizer_apply.adam",
+          "dtype": "bfloat16", "per_step": res})
+    del ws, gs, sts, segs, ms, vs
+    torch.cuda.empty_cache()
+
+
 def phase_time_train(torch, state):
     """Both training steps at batch 128 in bf16 (the eager fuse=False step
     of phase train and the fused step of phase train_fused): images/sec
     from wall time, device busy time and idle share, device ms by kernel
     family, and the top host ops by device time."""
     for key, label in (("train", "train_step_resnet50_v1_nhwc_bf16_b128"),
+                       ("train_kv", "compressed_kvstore_train_step_resnet50_"
+                                    "v1_nhwc_bf16_b128"),
                        ("train_fused",
-                        "fused_train_step_resnet50_v1_nhwc_bf16_b128")):
+                        "fused_train_step_resnet50_v1_nhwc_bf16_b128"),
+                       ("train_adam",
+                        "fused_adam_train_step_resnet50_v1_nhwc_bf16_b128")):
         step = state.get(key)
         if step is None:
             continue
@@ -2264,7 +2890,9 @@ def phase_time_train(torch, state):
         busy_ms, by_kernel, tops = profile_busy_ms(
             torch, step, 2, top=12,
             match=("bn_", "conv_fused_", "conv_bwd_dx_", "conv_bwd_finalize",
-                   "conv_bwd_dw_", "conv_dw_reduce", "sgd_apply"))
+                   "conv_bwd_dw_", "conv_dw_reduce", "sgd_apply",
+                   "adam_apply", "codec_quantize_kernel",
+                   "codec_dequantize_kernel"))
         emit({"phase": "time", label: {
             "images_per_sec": 128 / wall, "wall_ms_per_step": wall * 1e3,
             "device_busy_ms_per_step": busy_ms,
@@ -2752,6 +3380,39 @@ def kernel_summary(state):
                "momentum 0.9 (%d launches, one per bucket)"
                % state["apply_buckets"],
     })
+    a = state["adam_timing"]
+    kernels.append({
+        "name": "optimizer_apply.adam", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/optimizer_apply.cu",
+        "replaces": "mxnet_tpu/pallas_kernels/optimizer_apply.py:80",
+        "launches": state["launches"]["optimizer_apply.adam"],
+        # the phase failed unless the apply matched bit for bit
+        "max_abs_err": state["adam_err"], "max_rel_err": 0.0,
+        "tolerance_rel": 0.0,
+        "ms": a["ms"], "kernel_ms": a["ms"], "plain_ms": a["plain_ms"],
+        "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+        "library_ms": a["library_ms"], "library_note": a["library_note"],
+        "per": "one update phase of the fused ResNet-50 step, bf16 Adam "
+               "(%d launches, one per bucket)" % state["adam_buckets"],
+    })
+    for k in ("quantize", "dequantize"):
+        c = state["codec_timing"][k]
+        kernels.append({
+            "name": "compression.%s_2bit" % k, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/compression.cu",
+            "replaces": "mxnet_tpu/pallas_kernels/compression.py:%d"
+            % CODEC_REPLACES[k],
+            "launches": state["launches"]["compression." + k],
+            # the kernel phase failed unless every output matched bit for bit
+            "max_abs_err": state["codec_err"], "max_rel_err": 0.0,
+            "tolerance_rel": 0.0,
+            "ms": c["ms"], "kernel_ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": None, "library_note": c["library_note"],
+            "per": "one compressed-kvstore ResNet-50 step, bf16 (%d "
+                   "launches: the compressed gradients)"
+                   % c["launches_per_step"],
+        })
     return kernels
 
 

@@ -8,19 +8,24 @@ the TPU are hand-written CUDA kernels here (``kernels/``, ``csrc/``),
 built with nvcc at first use.
 
 The ported slices are ResNet V1 inference and its training step, the
-transformer LM's training step, and int8 inference: contexts, the op namespace, autograd
-recording, Gluon blocks, layers and losses, the model-zoo ResNets (with the fused BN->ReLU->conv3x3 kernel for serving and
-the fused training-mode BatchNorm kernels, and fused training through the
-conv_fused backward kernels), the SGD optimizer, ``gluon.Trainer`` and the
-fused train step ``gluon.train_step`` (with the packed optimizer-apply
-kernel), the matmul precision policy, weight loading (``convert``), and
-the decoder-only transformer LM of ``parallel.transformer`` (RoPE, RMSNorm,
-SwiGLU, chunked cross-entropy, per-layer recompute, SGD-momentum step) on
-the flash-attention kernels (``kernels/flash_attention.py``), and int8
-quantization: ``contrib.quantization`` (calibration and ``quantize_net``)
-and the quantized operator family (``ops/quantized.py``, exposed as
-``nd.contrib.quantized_conv`` and the rest), on the int8 matmul kernel
-(``kernels/quantized_matmul.py``).
+transformer LM's training step, int8 inference, and the in-process
+kvstore with 2-bit gradient compression: contexts, the op namespace,
+autograd recording, Gluon blocks, layers and losses, the model-zoo
+ResNets (with the fused BN->ReLU->conv3x3 kernel for serving and the
+fused training-mode BatchNorm kernels, and fused training through the
+conv_fused backward kernels), the SGD and Adam optimizers,
+``gluon.Trainer`` and the fused train step ``gluon.train_step`` (with
+the packed optimizer-apply kernel, SGD and Adam), ``kvstore``
+(``mx.kv.create``: push, pull and update on kvstore in one process, with
+2-bit compression on the codec kernels of ``kernels/compression.py``),
+the matmul precision policy, weight loading (``convert``), and the
+decoder-only transformer LM of ``parallel.transformer`` (RoPE, RMSNorm,
+SwiGLU, chunked cross-entropy, per-layer recompute, SGD-momentum step)
+on the flash-attention kernels (``kernels/flash_attention.py``), and
+int8 quantization: ``contrib.quantization`` (calibration and
+``quantize_net``) and the quantized operator family
+(``ops/quantized.py``, exposed as ``nd.contrib.quantized_conv`` and the
+rest), on the int8 matmul kernel (``kernels/quantized_matmul.py``).
 """
 from . import base
 from .base import MXNetError
@@ -34,6 +39,7 @@ from . import ndarray
 from . import kernels
 from . import parallel
 from . import optimizer
+from . import kvstore
 from . import gluon
 from . import convert
 from . import contrib
@@ -41,8 +47,9 @@ from .ndarray import contrib as _nd_contrib  # noqa: F401  (nd.contrib)
 
 nd = ndarray
 init = initializer
+kv = kvstore
 
 __all__ = ["base", "MXNetError", "context", "Context", "cpu", "gpu",
            "current_context", "random", "precision", "autograd",
            "initializer", "init", "ndarray", "nd", "kernels", "parallel",
-           "optimizer", "gluon", "convert", "contrib"]
+           "optimizer", "kvstore", "kv", "gluon", "convert", "contrib"]

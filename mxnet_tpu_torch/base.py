@@ -1,13 +1,15 @@
 """Base helpers of the PyTorch port: the env-read choke point, the error
-type, and the dtype table (counterpart of mxnet_tpu/base.py)."""
+type, the dtype table and crash-consistent file writes (counterpart of
+mxnet_tpu/base.py)."""
 from __future__ import annotations
 
+import contextlib as _contextlib
 import os as _os
 
 import torch
 
 __all__ = ["getenv", "MXNetError", "canonical_dtype", "is_low_precision",
-           "weak_scalar"]
+           "weak_scalar", "atomic_write"]
 
 
 def getenv(name, default=None):
@@ -61,3 +63,21 @@ def weak_scalar(v, dtype):
     if isinstance(v, torch.Tensor):
         return v.to(dtype)
     return float(torch.tensor(float(v), dtype=torch.float32).to(dtype))
+
+
+@_contextlib.contextmanager
+def atomic_write(fname, mode="wb"):
+    """Yields a file open on a sibling temp path and renames it onto
+    ``fname`` only once the body completed, so an interrupted save never
+    leaves a half-written file where the previous one was."""
+    tmp = "%s.tmp.%d" % (fname, _os.getpid())
+    try:
+        with open(tmp, mode) as f:
+            yield f
+        _os.replace(tmp, fname)
+    except BaseException:
+        try:
+            _os.remove(tmp)
+        except OSError:
+            pass
+        raise

@@ -34,8 +34,9 @@ from ..context import current_context
 from ..gluon import nn as _nn
 from ..gluon.block import HybridBlock
 from ..kernels import quantized_matmul as QM
-from ..ops.quantized import (ALIGN, _div, _f32, im2col, quantize_codes,
-                             weight_matrix)
+from ..base import weak_scalar
+from ..ops.quantized import (ALIGN, _div, _f32, _operand, _promote, im2col,
+                             quantize_codes, weight_matrix)
 
 __all__ = ["quantize_net", "calib_graph", "CalibrationCollector",
            "quantize", "dequantize", "requantize", "quantized_layers",
@@ -51,22 +52,27 @@ def _tensor(v):
 
 def quantize(data, min_range, max_range, out_type="int8"):
     """Symmetric int8 quantization of float data at a given range
-    (ref: quantize.cc): ``clip(round(x * (127 / max(amax, 1e-8))))``.
-    Returns (q, -amax, amax)."""
+    (ref: quantize.cc): ``clip(round(x * (127 / max(amax, 1e-8))))``, with
+    the range and the scale in ``x``'s dtype, as the JAX package computes
+    them. Returns (q, -amax, amax)."""
     x = _tensor(data)
-    amax = torch.maximum(_f32(min_range, x.device).to(x.dtype).abs(),
-                         _f32(max_range, x.device).to(x.dtype).abs())
-    scale = _div(_f32(127.0, x.device), torch.clamp_min(amax, 1e-8))
+    dt = x.dtype
+    amax = torch.maximum(_f32(min_range, x.device).to(dt).abs(),
+                         _f32(max_range, x.device).to(dt).abs())
+    scale = _div(_f32(127.0, x.device).to(dt),
+                 torch.clamp_min(amax, weak_scalar(1e-8, dt)))
     q = torch.clamp(torch.round(x * scale), -127, 127).to(torch.int8)
     return q, -amax, amax
 
 
 def dequantize(data, min_range, max_range, out_type="float32"):
-    """ref: dequantize.cc: ``q * (amax / 127)``."""
+    """ref: dequantize.cc: ``q * (amax / 127)``, ``amax / 127`` in the
+    range's type."""
     q = _tensor(data)
-    amax = torch.maximum(_f32(min_range, q.device).abs(),
-                         _f32(max_range, q.device).abs())
-    return q.to(torch.float32) * _div(amax, 127.0)
+    (lo, hi), _ = _promote(_operand(min_range, q.device),
+                           _operand(max_range, q.device))
+    amax = torch.maximum(lo.abs(), hi.abs())
+    return q.to(torch.float32) * _div(amax, 127.0).to(torch.float32)
 
 
 def requantize(data, min_range, max_range, out_min, out_max):
@@ -198,10 +204,10 @@ class CalibrationCollector:
 
 def _quantize_weight(w):
     """Per-output-channel symmetric int8: ``w_scale = max(max |w| over the
-    channel, 1e-8) / 127``, codes ``clip(round(w / w_scale), -127, 127)``
-    (round half to even). Returns (wq, w_scale)."""
+    channel, 1e-8) / 127`` in ``w``'s dtype, codes ``clip(round(w /
+    w_scale), -127, 127)`` (round half to even). Returns (wq, w_scale)."""
     amax = w.abs().reshape(w.shape[0], -1).amax(dim=1)
-    w_scale = _div(torch.clamp_min(amax, 1e-8), 127.0)
+    w_scale = _div(torch.clamp_min(amax, weak_scalar(1e-8, w.dtype)), 127.0)
     return quantize_codes(w, w_scale.reshape((-1,) + (1,) * (w.dim() - 1))), \
         w_scale
 
@@ -216,9 +222,11 @@ class _QuantizedLayer(HybridBlock):
 
     def __init__(self, layer, act_threshold):
         super().__init__(prefix=layer.prefix)
-        wq, w_scale = _quantize_weight(layer.weight.data())
-        bias = layer.bias.data() if "bias" in layer._reg_params else None
-        self._set_state(wq, w_scale, float(act_threshold) / 127.0, bias)
+        # the int8 state keeps no autograd history back to the float weight
+        with torch.no_grad():
+            wq, w_scale = _quantize_weight(layer.weight.data())
+            bias = layer.bias.data() if "bias" in layer._reg_params else None
+            self._set_state(wq, w_scale, float(act_threshold) / 127.0, bias)
         self.act = getattr(layer, "act", None)
 
     def _set_state(self, wq, w_scale, act_scale, bias):
@@ -229,13 +237,17 @@ class _QuantizedLayer(HybridBlock):
         # torch would register on this block)
         self._bias = None if bias is None else bias.detach()
         self._act_scale_t = _f32(self._act_scale, wq.device)
-        self._scales = (self._act_scale_t * w_scale).to(torch.float32)
+        # JAX's act_scale * w_scale: the Python scale is weak, so the
+        # product is in w_scale's dtype
+        self._scales = (weak_scalar(self._act_scale, w_scale.dtype)
+                        * w_scale).to(torch.float32)
         self._wmat = self._weight_matrix(wq)
 
     def quantize_input(self, x):
         """The int8 codes of the layer's input: ``clip(round(x /
-        act_scale), -127, 127)``."""
-        return quantize_codes(x, self._act_scale_t)
+        act_scale), -127, 127)``, the Python scale weak (a bf16 input
+        divides by the scale rounded to bf16, in bf16)."""
+        return quantize_codes(x, self._act_scale_t, weak=True)
 
     def product(self, cols):
         """The dequantized product of (M, K) int8 columns with the weight:

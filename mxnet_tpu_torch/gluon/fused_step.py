@@ -28,9 +28,10 @@ A step the fused path cannot honour runs the eager triple instead, never a
 crash, counted in ``stats()["fallbacks"]`` and named in ``last_mode``
 (``"fallback:<reason>"``): the kill switch (``MXNET_GLUON_FUSED_STEP=0`` or
 ``set_fused_step(False)``: ``disabled``), an active ``autograd.record()``
-scope (``recording-scope``), an optimizer without the pure ``step_fn``
-form (``optimizer:<Name>``), a block that was not hybridized
-(``non-hybridized``), a parameter with ``grad_req="add"``
+scope (``recording-scope``), a trainer with a kvstore attached, whose
+push and pull the step would bypass (``kvstore``), an optimizer without
+the pure ``step_fn`` form (``optimizer:<Name>``), a block that was not
+hybridized (``non-hybridized``), a parameter with ``grad_req="add"``
 (``grad-req-add``), no trainable parameter (``no-trainable-params``) and a
 parameter whose shape is not known yet (``deferred-init``: the eager step's
 forward finishes it, later steps fuse).
@@ -107,6 +108,21 @@ def _adopt_state(state, new):
         _adopt_state(s, n)
 
 
+def _state_kind(w, st):
+    """The structure of a packable state (None, one tensor, or a tuple of
+    tensors, each like the weight ``w``), or None for one that is not."""
+    def like(t):
+        return isinstance(t, torch.Tensor) and t.shape == w.shape \
+            and t.dtype == w.dtype
+    if st is None:
+        return "none"
+    if like(st):
+        return "tensor"
+    if isinstance(st, tuple) and st and all(like(t) for t in st):
+        return "tuple%d" % len(st)
+    return None
+
+
 class FusedTrainStep:
     """One training step: forward, backward of the summed loss, and one
     update phase (see the module docstring). Built by
@@ -170,6 +186,11 @@ class FusedTrainStep:
         if autograd.is_recording():
             return "recording-scope"
         tr = self._trainer
+        # the eager step()'s prologue, so that the check sees the attached
+        # kvstore (both calls are idempotent)
+        tr._prepare()
+        if tr._kvstore is not None:
+            return "kvstore"
         if not tr._optimizer.fused_step_supported():
             return "optimizer:" + type(tr._optimizer).__name__
         if self._block is not None and \
@@ -264,7 +285,8 @@ class FusedTrainStep:
         apply is off or the optimizer has no packed form
         (``Optimizer.fused_apply_supported``). The selector returns the
         positions whose update goes through ``packed_apply``: those whose
-        state is None or one tensor shaped and typed like the weight (a
+        state is None, one tensor or a tuple of tensors, each shaped and
+        typed like the weight (SGD's momentum, Adam's ``(m, v)``; a
         multi-precision ``(master, state)`` pair stays per parameter), of
         one state structure."""
         if not (optimizer_apply.enabled() and opt.fused_apply_supported()):
@@ -273,14 +295,10 @@ class FusedTrainStep:
         def select(ws, states):
             idx, kind = [], None
             for k, (w, st) in enumerate(zip(ws, states)):
-                if st is not None and not (
-                        isinstance(st, torch.Tensor) and st.shape == w.shape
-                        and st.dtype == w.dtype):
+                this = _state_kind(w, st)
+                if this is None or kind not in (None, this):
                     continue
-                if kind is None:
-                    kind = st is None
-                elif kind != (st is None):
-                    continue
+                kind = this
                 idx.append(k)
             return idx
         return select

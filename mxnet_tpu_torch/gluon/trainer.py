@@ -2,19 +2,27 @@
 mxnet_tpu/gluon/trainer.py), on one device.
 
 ``step(batch_size)`` sets ``rescale_grad = 1/batch_size``, reduces the
-gradients (nothing to reduce on one device) and updates every parameter
-whose gradient is fresh. A parameter whose gradient no backward has
-written since the last step raises, unless ``ignore_stale_grad``.
-Multi-device kvstores arrive with the multi-GPU slice.
+gradients and updates every parameter whose gradient is fresh. A parameter
+whose gradient no backward has written since the last step raises, unless
+``ignore_stale_grad``.
+
+The reduction goes through a kvstore only when the caller gives one, a
+``KVStore`` object (``mx.kv.create(...)``): then every gradient is pushed
+and pulled back into ``param.grad()`` (through the store's 2-bit
+compression, where it is set), or with ``update_on_kvstore=True`` the
+store's copy of the optimizer updates its weights and the pull writes them
+into the parameters. A kvstore string ``None``, "local", "device" or
+"nccl" attaches no store and ignores ``compression_params`` and
+``update_on_kvstore``, as the JAX package does: one device holds every
+gradient whole. The ``dist*`` strings arrive with the multi-GPU slice.
 """
 from __future__ import annotations
 
 from .. import optimizer as opt
+from ..base import atomic_write
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
-
-_LOCAL_KVSTORES = (None, "device", "local")
 
 
 class Trainer:
@@ -27,12 +35,10 @@ class Trainer:
             raise ValueError(
                 "First argument must be a list or dict of Parameters, "
                 "got %s." % (type(params)))
-        if kvstore not in _LOCAL_KVSTORES or update_on_kvstore \
-                or compression_params:
+        if isinstance(kvstore, str) and kvstore.startswith("dist"):
             raise NotImplementedError(
-                "kvstore %r (update_on_kvstore=%r, compression %r): the port "
-                "trains on one device; kvstore None, 'device' or 'local' "
-                "only" % (kvstore, update_on_kvstore, compression_params))
+                "kvstore %r: the multi-process kvstores arrive with the "
+                "multi-GPU slice (Slice E)" % kvstore)
         self._params = []
         self._param2idx = {}
         for i, param in enumerate(params):
@@ -45,6 +51,9 @@ class Trainer:
         optimizer_params = optimizer_params if optimizer_params else {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
+        self._kvstore_params = {"kvstore": kvstore,
+                                "update_on_kvstore": update_on_kvstore}
+        self._reset_kvstore()
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = {i: param for i, param in enumerate(self._params)}
@@ -59,6 +68,61 @@ class Trainer:
                                          **optimizer_params)
         self._updater = opt.get_updater(self._optimizer)
 
+    # -- kvstore -------------------------------------------------------------
+    def _reset_kvstore(self):
+        self._kv_initialized = False
+        self._kvstore = None
+        self._update_on_kvstore = None
+        self._params_to_init = list(self._params)
+
+    def _init_kvstore(self):
+        """Attach the caller's KVStore object, if any (ref: trainer.py:169);
+        a string attaches none (the module docstring)."""
+        kvstore = self._kvstore_params["kvstore"]
+        update_on_kvstore = self._kvstore_params["update_on_kvstore"]
+        kv = None
+        if kvstore is not None and not isinstance(kvstore, str):
+            kv = kvstore
+            if update_on_kvstore is None:
+                update_on_kvstore = False
+            if update_on_kvstore:
+                kv.set_optimizer(self._optimizer)
+        else:
+            update_on_kvstore = False
+        self._kvstore = kv
+        self._update_on_kvstore = bool(update_on_kvstore)
+        self._kv_initialized = True
+
+    def _init_params(self):
+        """Initialize the store's key of every parameter that has its data
+        (its index in this trainer)."""
+        for param in self._params_to_init:
+            if param._deferred_init is not None:
+                continue
+            if self._kvstore is not None and param._data is not None:
+                self._kvstore.init(self._param2idx[param.name], param.data())
+        self._params_to_init = [p for p in self._params_to_init
+                                if p._deferred_init is not None]
+
+    def _check_and_rescale_grad(self, scale):
+        """Set the optimizer's gradient scale, before a kvstore pickles the
+        optimizer (ref: trainer.py _check_and_rescale_grad)."""
+        if self._update_on_kvstore and self._kv_initialized and \
+                self._optimizer.rescale_grad != scale:
+            raise UserWarning(
+                "Possible change in the `batch_size` from previous "
+                "`step` detected. Optimizer gradient normalizing factor "
+                "will not change w.r.t new batch_size when "
+                "update_on_kvstore=True and when distributed kvstore is "
+                "used.")
+        self._optimizer.rescale_grad = scale
+
+    def _prepare(self):
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._params_to_init:
+            self._init_params()
+
     @property
     def learning_rate(self):
         return self._optimizer.lr
@@ -71,8 +135,11 @@ class Trainer:
         self._optimizer.set_learning_rate(lr)
 
     def step(self, batch_size, ignore_stale_grad=False):
-        """One parameter update: rescale by 1/batch_size, reduce, apply."""
-        self._optimizer.rescale_grad = self._scale / batch_size
+        """One parameter update: rescale by 1/batch_size, reduce, apply
+        (ref: trainer.py:305)."""
+        self._check_and_rescale_grad(self._scale / batch_size)
+        self._prepare()
+        self._allreduce_grads()
         self._update(ignore_stale_grad)
 
     def fuse_step(self, loss_fn, block=None, mesh=None, bucket_bytes=None,
@@ -90,13 +157,39 @@ class Trainer:
 
     def allreduce_grads(self):
         """The reduce half of ``step``, for a caller that updates with
-        ``update()``. One device holds every gradient whole, so there is
-        nothing to reduce; the multi-device reduction arrives with the
-        multi-GPU slice."""
+        ``update()``: the push and pull through an attached kvstore;
+        without one there is nothing to reduce (ref: trainer.py:334)."""
+        self._prepare()
+        assert not (self._kvstore and self._update_on_kvstore), \
+            "allreduce_grads() when parameters are updated on kvstore " \
+            "is not supported. Try setting `update_on_kvstore` to False " \
+            "when creating trainer."
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        if self._kvstore is None:
+            return
+        for i, param in enumerate(self._params):
+            if param.grad_req == "null":
+                continue
+            idx = self._param2idx[param.name]
+            if self._update_on_kvstore:
+                self._kvstore.pushpull(idx, param.grad(), out=param.data(),
+                                       priority=-i)
+            else:
+                self._kvstore.push(idx, param.grad(), priority=-i)
+                self._kvstore.pull(idx, param.grad(), priority=-i,
+                                   ignore_sparse=False)
 
     def update(self, batch_size, ignore_stale_grad=False):
-        """The update half of ``step``, for gradients already reduced."""
-        self._optimizer.rescale_grad = self._scale / batch_size
+        """The update half of ``step``, for gradients already reduced
+        (ref: trainer.py:365)."""
+        self._prepare()
+        assert not (self._kvstore and self._update_on_kvstore), \
+            "update() when parameters are updated on kvstore is not " \
+            "supported. Try setting `update_on_kvstore` to False when " \
+            "creating trainer."
+        self._check_and_rescale_grad(self._scale / batch_size)
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
@@ -116,6 +209,10 @@ class Trainer:
                         "suppress this warning" % (
                             param.name, param.data().device))
                 continue    # a stale gradient is not applied again
+            if self._kvstore and self._update_on_kvstore:
+                # the store's pushpull applied this update already
+                param.data()._fresh_grad = False
+                continue
             updates.append((i, param.grad(), param.data()))
         if updates:
             i, g, w = zip(*updates)
@@ -124,3 +221,32 @@ class Trainer:
             # leaves them fresh for a retried step
             for data in w:
                 data._fresh_grad = False
+
+    # -- optimizer state -----------------------------------------------------
+    def save_states(self, fname):
+        """Save the optimizer and its states (ref: trainer.py:436); with
+        update on kvstore, the store's."""
+        assert self._optimizer is not None
+        self._prepare()
+        if self._update_on_kvstore:
+            assert not self._params_to_init, \
+                "Cannot save trainer states when some parameters are not " \
+                "yet initialized in kvstore."
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+        else:
+            with atomic_write(fname) as fout:
+                fout.write(self._updater.get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        """Load what ``save_states`` saved (ref: trainer.py:465); the
+        optimizer loaded takes this trainer's parameters again."""
+        self._prepare()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            self._optimizer = self._kvstore._updater.optimizer
+        else:
+            with open(fname, "rb") as f:
+                self._updater.set_states(f.read())
+            self._optimizer = self._updater.optimizer
+        self._optimizer.param_dict = {i: param for i, param
+                                      in enumerate(self._params)}

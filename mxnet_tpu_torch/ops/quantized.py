@@ -28,10 +28,12 @@ The graph pass that swaps float layers for int8 ones lives in
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, weak_scalar
 from ..kernels import quantized_matmul as _qmm
 from .registry import register
 
@@ -51,17 +53,53 @@ def _f32(v, device):
     return torch.as_tensor(np.asarray(v, dtype=np.float32), device=device)
 
 
+def _operand(v, device):
+    """A range or scale operand as JAX types it: ``(tensor, weak)``. A
+    tensor keeps its dtype and a numpy value its own (float64 becomes
+    float32, JAX's default), both strong; a Python number is a weak
+    float32."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device), False
+    if isinstance(v, (int, float)):
+        return _f32(v, device), True
+    t = torch.as_tensor(np.asarray(v), device=device)
+    return (t.to(torch.float32) if t.dtype == torch.float64 else t), False
+
+
+def _promote(*ops):
+    """JAX's type promotion of ``(tensor, weak)`` operands: the strong types
+    promote together and the weak ones take the result; with none strong
+    the result stays weak float32. Returns ``([tensors], weak)``."""
+    strong = [t.dtype for t, weak in ops if not weak]
+    if not strong:
+        return [t for t, _ in ops], True
+    dt = functools.reduce(torch.promote_types, strong)
+    return [t.to(dt) for t, _ in ops], False
+
+
 def _div(a, b):
-    """a / b with a true IEEE division on every device: ``b`` (a Python
-    number or a tensor) becomes a tensor on ``a``'s device first."""
-    if not isinstance(b, torch.Tensor) or b.device != a.device:
-        b = _f32(b, a.device)
-    return a / b
+    """a / b as a true IEEE division on every device, in JAX's type: a
+    Python number ``b`` is weak and rounds to ``a``'s float type first
+    (``base.weak_scalar``); a tensor ``b`` promotes with ``a`` (a bf16
+    tensor over a float32 one divides in float32). ``b`` becomes a tensor
+    on ``a``'s device: PyTorch's CUDA division by a Python or CPU scalar
+    multiplies by its reciprocal."""
+    if isinstance(b, torch.Tensor):
+        dt = torch.promote_types(a.dtype, b.dtype)
+        return a.to(dt) / b.to(device=a.device, dtype=dt)
+    return a / torch.tensor(weak_scalar(float(b), a.dtype), dtype=a.dtype,
+                            device=a.device)
 
 
-def quantize_codes(f, s):
-    """int8 codes ``clip(round(f / s), -127, 127)``: true division, round
-    half to even, clip before the cast (the JAX package's expression)."""
+def quantize_codes(f, s, weak=False):
+    """int8 codes ``clip(round(f / s), -127, 127)``: true division in JAX's
+    type, round half to even, clip before the cast (the JAX package's
+    expression). ``s`` is a Python number (weak), or a tensor that is
+    strong (an f32 scale takes bf16 data to f32, with no bf16 rounding
+    before ``round``) or, with ``weak``, computed from Python numbers only
+    (it rounds to ``f``'s type first, as a Python scale would)."""
+    if weak and isinstance(s, torch.Tensor):
+        s = s.to(f.dtype)
     return torch.clamp(torch.round(_div(f, s)), -127, 127).to(torch.int8)
 
 
@@ -88,17 +126,36 @@ def _int_dot(x2, wt):
 
 
 def _scale(mn, mx, device=None):
-    """max(|mn|, |mx|, 1e-12) / 127 in float32, on ``device`` (default:
-    the range's own, else the CPU)."""
+    """``max(|mn|, |mx|, 1e-12) / 127`` in JAX's type, on ``device``
+    (default: the range's own, else the CPU): ``(scale, weak)``, weak when
+    both ends are Python numbers (``_promote``)."""
     if device is None:
         device = next((v.device for v in (mn, mx)
                        if isinstance(v, torch.Tensor)), torch.device("cpu"))
-    a = torch.maximum(_f32(mn, device).abs(), _f32(mx, device).abs())
-    return _div(torch.clamp_min(a, 1e-12), 127.0)
+    (a, b), weak = _promote(_operand(mn, device), _operand(mx, device))
+    m = torch.clamp_min(torch.maximum(a.abs(), b.abs()),
+                        weak_scalar(1e-12, a.dtype))
+    return _div(m, 127.0), weak
+
+
+def _calib_range(lo, hi, device):
+    """A calibrated range as JAX holds it (``jnp.asarray(float(lo))``: weak
+    float32 scalars): ``(lo, hi, _scale(lo, hi))``."""
+    lo, hi = float(lo), float(hi)
+    return _f32(lo, device), _f32(hi, device), _scale(lo, hi, device)
+
+
+def _out_scale(data_range, weight_range, device):
+    """The int32 product's scale ``_scale(data) * _scale(weight)``, in
+    JAX's promoted type."""
+    (sd, sw), _ = _promote(_scale(*data_range, device),
+                           _scale(*weight_range, device))
+    return sd * sw
 
 
 def _deq(q, mn, mx):
-    return q.to(torch.float32) * _scale(mn, mx, q.device)
+    return q.to(torch.float32) * _scale(mn, mx, q.device)[0].to(
+        torch.float32)
 
 
 def _int32_range(sc):
@@ -111,9 +168,9 @@ def quantize_v1(data, min_range, max_range, out_type="int8"):
     """Three-in, three-out quantize with explicit range inputs
     (ref: quantization/quantize.cc)."""
     dev = data.device
-    s = _scale(min_range, max_range, dev)
-    return (quantize_codes(data, s), torch.min(_f32(min_range, dev)),
-            torch.max(_f32(max_range, dev)))
+    return (quantize_codes(data, *_scale(min_range, max_range, dev)),
+            torch.min(_operand(min_range, dev)[0]),
+            torch.max(_operand(max_range, dev)[0]))
 
 
 @register("_contrib_quantize_v2", aliases=("quantize_v2",))
@@ -122,11 +179,12 @@ def quantize_v2(data, out_type="int8", min_calib_range=None,
     """Quantize float -> int8; the range from calibration parameters or
     from the data (ref: quantization/quantize_v2.cc)."""
     if min_calib_range is not None and max_calib_range is not None:
-        mn = _f32(float(min_calib_range), data.device)
-        mx = _f32(float(max_calib_range), data.device)
+        mn, mx, s = _calib_range(min_calib_range, max_calib_range,
+                                 data.device)
     else:
         mn, mx = torch.min(data), torch.max(data)
-    return quantize_codes(data, _scale(mn, mx, data.device)), mn, mx
+        s = _scale(mn, mx, data.device)
+    return quantize_codes(data, *s), mn, mx
 
 
 @register("_contrib_requantize", aliases=("requantize",))
@@ -136,15 +194,16 @@ def requantize(data, min_range, max_range, min_calib_range=None,
     payload carries scale in_range / 2^31; the output is int8 at the
     calibrated (or max-abs) range."""
     dev = data.device
-    a = torch.maximum(_f32(min_range, dev).abs(), _f32(max_range, dev).abs())
-    in_s = _div(torch.clamp_min(a, 1e-12), 2.0 ** 31)
-    f = data.to(torch.float32) * in_s
+    (a, b), _ = _promote(_operand(min_range, dev), _operand(max_range, dev))
+    a = torch.clamp_min(torch.maximum(a.abs(), b.abs()),
+                        weak_scalar(1e-12, a.dtype))
+    f = data.to(torch.float32) * _div(a, 2.0 ** 31).to(torch.float32)
     if min_calib_range is not None and max_calib_range is not None:
-        mn = _f32(float(min_calib_range), dev)
-        mx = _f32(float(max_calib_range), dev)
+        mn, mx, s = _calib_range(min_calib_range, max_calib_range, dev)
     else:
         mn, mx = torch.min(f), torch.max(f)
-    return quantize_codes(f, _scale(mn, mx, dev)), mn, mx
+        s = _scale(mn, mx, dev)
+    return quantize_codes(f, *s), mn, mx
 
 
 @register("_contrib_calibrate_entropy", aliases=("calibrate_entropy",))
@@ -236,7 +295,7 @@ def quantized_elemwise_add(lhs, rhs, lhs_min, lhs_max, rhs_min, rhs_max):
 
 
 def _bias_int32(bias, min_bias, max_bias, out_scale):
-    sb = _scale(min_bias, max_bias, bias.device)
+    sb = _scale(min_bias, max_bias, bias.device)[0]
     return torch.round(_div(bias.to(torch.float32) * sb,
                             out_scale)).to(torch.int32)
 
@@ -252,8 +311,8 @@ def quantized_fully_connected(data, weight, bias, min_data, max_data,
     lead = x.shape[:-1]
     acc = _int_dot(x.reshape(-1, x.shape[-1]), weight.t()) \
         .reshape(*lead, weight.shape[0])
-    out_scale = _scale(min_data, max_data, acc.device) \
-        * _scale(min_weight, max_weight, acc.device)
+    out_scale = _out_scale((min_data, max_data), (min_weight, max_weight),
+                           acc.device)
     if bias is not None and not no_bias:
         acc = acc + _bias_int32(bias, min_bias, max_bias, out_scale)
     mn, mx = _int32_range(out_scale)
@@ -335,8 +394,8 @@ def quantized_conv(data, weight, bias, min_data, max_data, min_weight,
             weight[g * og:(g + 1) * og], ALIGN)).reshape(n, ho, wo, og))
     acc = parts[0] if groups == 1 else torch.cat(parts, dim=3)
     acc = acc.permute(0, 3, 1, 2).contiguous()
-    out_scale = _scale(min_data, max_data, acc.device) \
-        * _scale(min_weight, max_weight, acc.device)
+    out_scale = _out_scale((min_data, max_data), (min_weight, max_weight),
+                           acc.device)
     if bias is not None and not no_bias:
         acc = acc + _bias_int32(bias, min_bias, max_bias, out_scale) \
             .reshape(1, -1, 1, 1)
@@ -373,8 +432,9 @@ def quantized_batch_norm(data, gamma, beta, moving_mean, moving_var,
     f = (f - moving_mean.reshape(1, -1, 1, 1)) \
         * (gamma * inv).reshape(1, -1, 1, 1) + beta.reshape(1, -1, 1, 1)
     if min_calib_range is not None:
-        mn = _f32(float(min_calib_range), data.device)
-        mx = _f32(float(max_calib_range), data.device)
+        mn, mx, s = _calib_range(min_calib_range, max_calib_range,
+                                 data.device)
     else:
         mn, mx = torch.min(f), torch.max(f)
-    return quantize_codes(f, _scale(mn, mx)), mn, mx
+        s = _scale(mn, mx)
+    return quantize_codes(f, *s), mn, mx

@@ -543,3 +543,132 @@ def test_narrow_int8_resnet_on_the_card_matches_the_cpu():
     assert torch.equal(codes[0].cpu(), codes[1])
     assert (out.cpu() - ref).abs().max() <= 1e-3 * ref.abs().max()
 
+
+
+# -- 2-bit compression (rows 14-15) and the packed Adam apply (row 8) ---------
+
+def _codec_case(n, dtype, thr, seed):
+    """Gradient and residual on the card, the first values at the codec's
+    edges (exactly +-thr, +-0.0, +-inf, NaN)."""
+    rs = np.random.RandomState(seed)
+    g = (rs.randn(n) * thr * 1.5).astype("float32")
+    r = (rs.randn(n) * thr * 0.5).astype("float32")
+    sp = np.asarray([thr, -thr, 0.0, -0.0, np.inf, -np.inf, np.nan],
+                    "float32")[:n]
+    g[:len(sp)] = sp
+    r[:len(sp)] = np.where(np.isfinite(sp), 0.0, r[:len(sp)])
+    r[3:4] = -0.0
+    dt = getattr(torch, dtype)
+    return (torch.from_numpy(g).cuda().to(dt),
+            torch.from_numpy(r).cuda().to(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.5, 0.3])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4095, 4096, 4097, 100003])
+def test_compression_kernels_bitwise(n, dtype, thr):
+    """quantize_2bit and dequantize_2bit against their plain versions on
+    the card, bit for bit (words, residuals, decoded values), one launch
+    each, and the same bits on a second launch."""
+    _need_card()
+    from mxnet_tpu_torch.kernels import compression as C
+    g, r = _codec_case(n, dtype, thr, seed=n % 991)
+    before = (C.LAUNCHES_QUANTIZE, C.LAUNCHES_DEQUANTIZE)
+    words, res = C.quantize_2bit(g, r, thr)
+    deq = C.dequantize_2bit(words, n, thr)
+    words2, res2 = C.quantize_2bit(g, r, thr)
+    torch.cuda.synchronize()
+    assert (C.LAUNCHES_QUANTIZE, C.LAUNCHES_DEQUANTIZE) == (
+        before[0] + 2, before[1] + 1)
+    rw, rres = C.quantize_2bit_reference(g, r, thr)
+    assert torch.equal(words, rw) and torch.equal(words2, rw)
+    assert _same_bits(res, rres) and _same_bits(res2, rres)
+    assert _same_bits(deq, C.dequantize_2bit_reference(rw, n, thr))
+    # an unaligned view takes the scalar path, same bits
+    if n > 17:
+        wv, rv = C.quantize_2bit(g[1:], r[1:], thr)
+        rwv, rrv = C.quantize_2bit_reference(g[1:], r[1:], thr)
+        assert torch.equal(wv, rwv) and _same_bits(rv, rrv)
+
+
+@pytest.mark.cuda
+def test_compression_kernels_raise_on_unsupported_inputs():
+    _need_card()
+    from mxnet_tpu_torch.kernels import compression as C
+    g = torch.zeros(64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        C.quantize_2bit(g, g.clone())
+    g = torch.zeros(64, 2, device="cuda")[:, 0]
+    with pytest.raises(ValueError):
+        C.quantize_2bit(g, g.clone())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [None, 0.05])
+@pytest.mark.parametrize("steps", [1, 10])
+def test_optimizer_apply_adam_kernel_bitwise(steps, clip):
+    """The packed Adam kernel against the per-parameter step_fn chain on the
+    card, bit for bit, at update counts 1 and 10 (step_lr's bias-corrected
+    rate), mixed dtypes and ragged sizes."""
+    _need_card()
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+    opt = topt.Adam(learning_rate=1e-3, wd=1e-4, clip_gradient=clip)
+    rs = np.random.RandomState(1)
+    spec = [((64, 32), "bfloat16"), ((33,), "bfloat16"), ((7, 3), "float32"),
+            ((300,), "float32"), ((5,), "bfloat16")]
+    ws = [torch.from_numpy(rs.randn(*sh).astype("float32")).cuda()
+          .to(getattr(torch, d)) for sh, d in spec]
+    gs = [torch.from_numpy(rs.randn(*w.shape).astype("float32")).cuda()
+          .to(w.dtype) for w in ws]
+    sts = [tuple(torch.from_numpy(a).cuda().to(w.dtype) for a in (
+        rs.randn(*w.shape).astype("float32") * 0.1,
+        rs.rand(*w.shape).astype("float32") * 0.01)) for w in ws]
+    for i in range(len(ws)):
+        opt._index_update_count[i] = steps
+    lrs = [opt.step_lr(i) for i in range(len(ws))]
+    wds = [1e-4] * len(ws)
+    want = [opt.step_fn(w, g, st, lr, wd, 1.0 / 32)
+            for w, g, st, lr, wd in zip(ws, gs, sts, lrs, wds)]
+    before = OA.LAUNCHES
+    nw = [w.clone() for w in ws]
+    ns = [tuple(t.clone() for t in st) for st in sts]
+    OA.packed_apply(opt, nw, gs, ns, lrs, wds, 1.0 / 32)
+    torch.cuda.synchronize()
+    assert OA.LAUNCHES - before == len(OA.bucketize(ws))
+    for (w2, (m2, v2)), w, (m, v) in zip(want, nw, ns):
+        assert _same_bits(w, w2) and _same_bits(m, m2) and _same_bits(v, v2)
+
+
+@pytest.mark.cuda
+def test_compressed_push_pull_on_the_card():
+    """A compressed bf16 push and pull on the card equals the same on the
+    CPU bit for bit, with one quantize and one dequantize launch per push
+    of a key at or above the bound and none below it."""
+    _need_card()
+    from mxnet_tpu_torch.kernels import compression as C
+    shapes = {0: (64, 64), 1: (100,), 2: (3, 3, 64, 64)}
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        kv = mx.kv.create("local")
+        kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+        for k, sh in shapes.items():
+            kv.init(k, torch.zeros(sh, dtype=torch.bfloat16, device=dev))
+        before = (C.LAUNCHES_QUANTIZE, C.LAUNCHES_DEQUANTIZE)
+        got = []
+        for step in range(3):
+            for k, sh in shapes.items():
+                g = np.random.RandomState(10 * step + k).randn(*sh) * 0.4
+                kv.push(k, torch.from_numpy(g.astype("float32")).to(
+                    dev, torch.bfloat16))
+                out = torch.empty(sh, dtype=torch.bfloat16, device=dev)
+                kv.pull(k, out=out)
+                got.append(out.cpu())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (C.LAUNCHES_QUANTIZE - before[0],
+                    C.LAUNCHES_DEQUANTIZE - before[1]) == (6, 6)
+        outs[dev] = got
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert _same_bits(a, b)

@@ -14,6 +14,10 @@ the port) the int8 forwards compute the same codes, and since every float
 step between the int8 layers is the same IEEE operation in both packages
 on this network, the logits are equal bit for bit.
 
+A bf16 two-Dense network and bf16 ``quantize`` follow JAX's type promotion
+(weight scales and input codes in bf16) and are equal bit for bit, logits
+included; the int8 state keeps no autograd history.
+
 A full ResNet-50 takes over half a minute per JAX quantize_net on the CPU,
 so these tests use a narrow one (one bottleneck per stage, widths 16-256,
 the 7x7 stem, 32x32 images); chip_smoke.py runs the full width on the
@@ -21,6 +25,7 @@ card.
 """
 import functools
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -321,3 +326,94 @@ def test_converter_errors():
     assert tnet[0]._act_scale == 0.5
     assert float(tnet[0]._scales[0]) == float(
         np.float32(0.5) * state["0"]["w_scale"][0])
+
+
+# -- bf16: JAX's type promotion in the quantize steps -----------------------
+
+def _f32_bits(a):
+    """float32 bits of a bf16 (or float32) array of either package."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy().view(np.int32)
+    return np.asarray(a).astype(np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("rng", [(-3.0, 3.0), (-1.0, 2.5), (-0.75, 0.5)])
+def test_quantize_bf16_matches_jax(rng):
+    """``127 / amax`` and the product in bf16, as the JAX package computes
+    them for bf16 data."""
+    x = (np.random.RandomState(4).randn(64, 256) * 1.5).astype(np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    q, mn, mx_ = tq.quantize(xt, *rng)
+    jq_, jmn, jmx = jq.quantize(mxj.nd.array(xt.float().numpy())
+                                .astype("bfloat16"), *rng)
+    np.testing.assert_array_equal(q.numpy(), jq_.asnumpy())
+    assert mx_.dtype == torch.bfloat16 and str(jmx.dtype) == "bfloat16"
+    np.testing.assert_array_equal(_f32_bits(mx_), _f32_bits(jmx.asnumpy()))
+
+
+def _dense_pair(dtype):
+    """The same two-Dense network (32 -> 64 relu -> 10) in both packages,
+    weights from numpy seed 5, cast to ``dtype``."""
+    jnet = jnn.HybridSequential()
+    jnet.add(jnn.Dense(64, in_units=32, activation="relu"),
+             jnn.Dense(10, in_units=64))
+    jnet.initialize()
+    tnet = tnn.HybridSequential()
+    tnet.add(tnn.Dense(64, in_units=32, activation="relu"),
+             tnn.Dense(10, in_units=64))
+    tnet.initialize(ctx=mx.cpu())
+    jparams = jnet._collect_params_with_prefix()
+    arrays = convert.random_numpy_params(
+        {k: p.shape for k, p in jparams.items()}, seed=5)
+    for k, p in jparams.items():
+        p.set_data(mxj.nd.array(arrays[k]))
+    convert.load_numpy_params(tnet, arrays)
+    jnet.cast(dtype)
+    tnet.cast(dtype)
+    return jnet, tnet
+
+
+def test_bf16_dense_quantize_net_matches_jax():
+    """A bf16 network: int8 weights, bf16 weight scales, thresholds and
+    the int8 logits equal to JAX's bit for bit (weight scales and input
+    codes in bf16 with the Python activation scale rounded to bf16; the
+    epilogue scales the bf16 product ``act_scale * w_scale``)."""
+    jnet, tnet = _dense_pair("bfloat16")
+    rs = np.random.RandomState(6)
+    calib = [torch.from_numpy(rs.randn(8, 32).astype(np.float32))
+             .to(torch.bfloat16) for _ in range(2)]
+    x = torch.from_numpy(np.random.RandomState(8).randn(16, 32)
+                         .astype(np.float32) * 2).to(torch.bfloat16)
+    jx = [mxj.nd.array(b.float().numpy()).astype("bfloat16") for b in calib]
+    jq.quantize_net(jnet, calib_data=jx, calib_mode="naive")
+    tq.quantize_net(tnet, calib_data=calib, calib_mode="naive")
+    for i in range(2):
+        jl, tl = jnet[i], tnet[i]
+        assert isinstance(tl, tq._QuantizedDense)
+        np.testing.assert_array_equal(tl._wq.numpy(), np.asarray(jl._wq))
+        assert tl._w_scale.dtype == torch.bfloat16
+        np.testing.assert_array_equal(_f32_bits(tl._w_scale),
+                                      _f32_bits(jl._w_scale))
+        assert tl._act_scale == jl._act_scale
+    codes = jnp.clip(jnp.round(jnp.asarray(x.float().numpy())
+                               .astype(jnp.bfloat16) / jnet[0]._act_scale),
+                     -127, 127).astype(jnp.int8)
+    np.testing.assert_array_equal(tnet[0].quantize_input(x).numpy(),
+                                  np.asarray(codes))
+    out = tnet(x)
+    ref = jnet(mxj.nd.array(x.float().numpy()).astype("bfloat16"))
+    assert str(ref.dtype) == str(out.dtype).replace("torch.", "")
+    np.testing.assert_array_equal(_f32_bits(out), _f32_bits(ref.asnumpy()))
+
+
+def test_quantize_net_state_has_no_autograd_history():
+    """The int8 state is computed under no_grad: no tensor of it requires
+    grad or keeps a graph back to the float weights."""
+    _, tnet = _dense_pair("float32")
+    calib = [torch.from_numpy(np.random.RandomState(9).randn(4, 32)
+                              .astype(np.float32))]
+    tq.quantize_net(tnet, calib_data=calib, calib_mode="naive")
+    for layer in (tnet[0], tnet[1]):
+        for name in ("_wq", "_w_scale", "_scales", "_wmat"):
+            t = getattr(layer, name)
+            assert not t.requires_grad and t.grad_fn is None, name

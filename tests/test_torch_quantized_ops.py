@@ -8,7 +8,10 @@ convolution run its Pallas kernel in interpret mode; its other
 convolutions run XLA's int32 convolution, where the port runs an int8
 im2col and its int8 product. Integer sums are exact and every float step is
 the same IEEE operation in both, so payloads and ranges must be equal bit
-for bit.
+for bit. bf16 data takes JAX's type promotion at each quantize step (an f32
+range promotes it to f32, a Python range rounds to bf16, a bf16 range
+keeps the step in bf16), so bf16 codes and ranges are equal bit for bit
+too.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -238,3 +241,91 @@ def test_nd_contrib_names():
     out = mx.nd.contrib.quantized_act(q, -1.0, 1.0)
     assert bool((out[0] >= 0).all())
     assert mx.nd.contrib.quantize is mx.contrib.quantization.quantize
+
+
+# -- bf16 data: JAX's type promotion at each quantize step ------------------
+
+def _bf16_pair(a):
+    """The same bf16 values for both packages (numpy float32 rounded once)."""
+    t = torch.from_numpy(a).to(torch.bfloat16)
+    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16), t
+
+
+def _typed(v):
+    """(dtype name, float32 bits) of a JAX or torch output."""
+    if isinstance(v, torch.Tensor):
+        return str(v.dtype).replace("torch.", ""), _bits(
+            v.detach().float().numpy() if v.is_floating_point()
+            else v.numpy())
+    v = jnp.asarray(v)
+    return str(v.dtype), _bits(np.asarray(v.astype(jnp.float32)
+                                          if jnp.issubdtype(v.dtype,
+                                                            jnp.floating)
+                                          else v))
+
+
+def _assert_same_typed(ref, out):
+    assert len(ref) == len(out)
+    for r, o in zip(ref, out):
+        (rd, rb), (od, ob) = _typed(r), _typed(o)
+        assert od == rd, (od, rd)
+        assert ob.shape == rb.shape
+        np.testing.assert_array_equal(ob, rb)
+
+
+_BF16_RANGES = {
+    "f32_vector": lambda a, b: (np.asarray([a], np.float32),
+                                np.asarray([b], np.float32)),
+    "f32_scalar": lambda a, b: (np.asarray(a, np.float32),
+                                np.asarray(b, np.float32)),
+    "python": lambda a, b: (a, b),
+    "bf16_vector": lambda a, b: tuple(_bf16_pair(np.asarray([v], np.float32))
+                                      for v in (a, b)),
+}
+
+
+def _pair_arg(v, side):
+    return v[side] if isinstance(v, tuple) else v
+
+
+@pytest.mark.parametrize("kind", sorted(_BF16_RANGES))
+@pytest.mark.parametrize("ranges", [(-2.5, 3.0), (-0.3, 0.7)])
+def test_quantize_v1_bf16(kind, ranges):
+    """bf16 data: an f32 range promotes the division to f32, a Python one
+    rounds to bf16 and a bf16 one keeps it in bf16, as JAX types them."""
+    xj, xt = _bf16_pair(_f32((64, 256), 30, 1.5))
+    mn, mx_ = _BF16_RANGES[kind](*ranges)
+    ref = jreg.get_op("_contrib_quantize").fn(
+        xj, *[_to_jax(_pair_arg(v, 0)) for v in (mn, mx_)])
+    out = treg.get_op("_contrib_quantize").fn(
+        xt, *[_to_torch(_pair_arg(v, 1)) for v in (mn, mx_)])
+    _assert_same_typed(ref, out)
+
+
+@pytest.mark.parametrize("calib", [None, (-1.75, 2.25), (-0.3, 0.3)])
+def test_quantize_v2_bf16(calib):
+    """Without calibration the range is the data's own bf16 min and max;
+    with it, the calibrated range is a weak float32 scalar."""
+    xj, xt = _bf16_pair(_f32((64, 256), 31, 1.2))
+    kw = {} if calib is None else {"min_calib_range": calib[0],
+                                   "max_calib_range": calib[1]}
+    ref = jreg.get_op("_contrib_quantize_v2").fn(xj, **kw)
+    out = treg.get_op("_contrib_quantize_v2").fn(xt, **kw)
+    _assert_same_typed(ref, out)
+
+
+@pytest.mark.parametrize("calib", [None, (-0.02, 0.03)])
+@pytest.mark.parametrize("kind", ["python", "bf16_vector"])
+def test_requantize_bf16_ranges(kind, calib):
+    acc = np.random.RandomState(32).randint(-2 ** 24, 2 ** 24, (64, 64)) \
+        .astype(np.int32)
+    mn, mx_ = _BF16_RANGES[kind](-4.0, 3.0)
+    kw = {} if calib is None else {"min_calib_range": calib[0],
+                                   "max_calib_range": calib[1]}
+    ref = jreg.get_op("_contrib_requantize").fn(
+        jnp.asarray(acc), *[_to_jax(_pair_arg(v, 0)) for v in (mn, mx_)],
+        **kw)
+    out = treg.get_op("_contrib_requantize").fn(
+        torch.from_numpy(acc), *[_to_torch(_pair_arg(v, 1))
+                                 for v in (mn, mx_)], **kw)
+    _assert_same_typed(ref, out)
