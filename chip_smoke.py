@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases env,kernel,train_adam
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
+    python3 chip_smoke.py --phases env,kernel_conv_bwd,time_conv_bwd
 
 Phases, each printing JSON lines:
 
@@ -26,7 +27,10 @@ Phases, each printing JSON lines:
               The conv_fused backward pair (d-input with its finalize
               launch, d-weight with its reduce launch) at the four fused
               shapes of ResNet-50 training at batch 128 and the edge
-              shapes, bf16 and f32, relu on and off (BWD_RTOL). The packed
+              shapes, bf16 and f32, relu on and off (BWD_RTOL); dW also
+              with the same bits on a second launch, and planned for a
+              card of DW_FEW_SMS SMs so that each persistent block walks
+              several work items. The packed
               SGD apply over ResNet-50's 161 trainable shapes, bf16 and
               f32, against its plain version and the per-parameter
               step_fn chain, bit for bit. The flash-attention forward, dQ
@@ -152,6 +156,10 @@ Phases, each printing JSON lines:
               images/sec, device busy time and idle share beside train's
               and train_fused's.
 
+--phases may also name kernel_conv_bwd and time_conv_bwd, the conv_fused
+backward pair's part of phases kernel and time, to run them alone after
+env (the default run does not name them: phases kernel and time run them).
+
 The run ends with the nvidia-smi name/power line, then the
 {"kernels": [...]} line (per kernel: launches on its path, max abs error at
 the ResNet-50 shapes in bf16 and its tolerance, and the times, bound,
@@ -175,6 +183,9 @@ import numpy as np
 
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_lm", "time")
+# Parts of "kernel" and "time" that --phases can name alone (after env):
+# the conv_fused backward pair's checks and its timing.
+SUB_PHASES = ("kernel_conv_bwd", "time_conv_bwd")
 
 # ResNet-50's fused 3x3 links at batch 32: (N, H, W, Ci, Co) and how many
 # of the 16 launches per forward run at that shape.
@@ -239,6 +250,12 @@ BN_FUSED_NET_PER_STEP = BN_PER_STEP - FUSED_PER_STEP            # 37
 BWD_RTOL = {"bfloat16": {"dx": 1.6e-2, "ds": 1.6e-2, "db": 1.6e-2,
                          "dw": 1.6e-2},
             "float32": {"dx": 1e-4, "ds": 1e-3, "db": 1e-3, "dw": 1e-3}}
+# The bf16 d-weight kernel planned for a card of DW_FEW_SMS SMs, so that
+# each persistent block walks several work items (on 132 SMs every
+# training shape plans one item per block).
+DW_FEW_SMS = 5
+DW_FEW_SMS_CASES = [((8, 28, 28, 128, 128), True),
+                    ((4, 15, 17, 40, 129), False)]
 # The two backward kernels: their outputs, the names of their launches in
 # the profiler (kernel and second pass) and the line of the TPU kernel body
 # in mxnet_tpu/pallas_kernels/conv_fused.py.
@@ -545,7 +562,8 @@ def phase_env(torch, state):
     ptxas = {}
     for name in _build.SOURCES:
         lines = [ln.strip() for ln in _build.build_log(name).splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln
+                 or "entry function" in ln]
         ptxas[name] = lines
     emit({"phase": "env", "smi": state["smi"],
           "device": torch.cuda.get_device_name(0),
@@ -666,8 +684,12 @@ def conv_bwd_case(torch, shape, dtype, seed):
 
 def phase_kernel_conv_bwd(torch, state):
     """The d-input and d-weight kernels (rows 2 and 3) against the plain
-    backward, each output within BWD_RTOL of its max |reference|."""
+    backward, each output within BWD_RTOL of its max |reference|, and dW
+    with the same bits on a second launch. TF32 off for the references
+    (also when run alone as --phases kernel_conv_bwd)."""
     from mxnet_tpu_torch.kernels import conv_fused as CF
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cases = [(shape, relu, True) for shape, _ in RN50_TRAIN_SHAPES
              for relu in (True, False)]
     cases += [(shape, relu, False) for shape, _ in EDGE_SHAPES
@@ -681,10 +703,15 @@ def phase_kernel_conv_bwd(torch, state):
             x, s, b, w, dy = conv_bwd_case(torch, shape, dtype, 700 + i)
             got = dict(zip(("dx", "ds", "db", "dw"),
                            CF.fused_conv_backward(x, s, b, w, dy, relu)))
+            again = CF.fused_conv_backward(x, s, b, w, dy, relu)[3]
             ref = dict(zip(("dx", "ds", "db", "dw"),
                            CF.fused_conv_backward_reference(x, s, b, w, dy,
                                                             relu)))
             torch.cuda.synchronize()
+            relaunch = same_bits(torch, got["dw"], again)
+            if not relaunch:
+                failures.append((dname, shape, relu, "dw relaunched", None,
+                                 None))
             res = {}
             for name, r in ref.items():
                 g = got[name]
@@ -698,6 +725,7 @@ def phase_kernel_conv_bwd(torch, state):
                              "tolerance": BWD_RTOL[dname][name] * scale}
                 if not ok:
                     failures.append((dname, shape, relu, name, err, scale))
+            res["dw"]["same_bits_relaunched"] = relaunch
             for k, (outs, _, _) in CONV_BWD.items():
                 for name in outs:
                     rel = res[name]["max_abs_err"] / max(
@@ -709,13 +737,15 @@ def phase_kernel_conv_bwd(torch, state):
                     if not main:
                         e = edge.setdefault("%s,%s" % (dname, name),
                                             [True, 0.0])
-                        e[0] = e[0] and res[name]["ok"]
+                        e[0] = e[0] and res[name]["ok"] and (
+                            name != "dw" or relaunch)
                         e[1] = max(e[1], rel)
             if main:
                 emit({"phase": "kernel", "kernel": "conv_fused_backward",
                       "dtype": dname, "shape": list(shape), "relu": relu,
                       "results": res})
-            del x, s, b, w, dy, got, ref
+            del x, s, b, w, dy, got, again, ref
+    failures += _dw_several_items(torch, CF)
     emit({"phase": "kernel", "kernel": "conv_fused_backward",
           "edge_shapes": [list(sh) for sh, _ in EDGE_SHAPES],
           "relu": [True, False],
@@ -727,6 +757,40 @@ def phase_kernel_conv_bwd(torch, state):
     if failures:
         raise AssertionError("conv_fused backward disagrees with its plain "
                              "version: %s" % failures[:20])
+
+
+def _dw_several_items(torch, CF):
+    """The bf16 d-weight kernel with fewer blocks than work items (the plan
+    for a card of DW_FEW_SMS SMs), so that each persistent block walks
+    several items: dW within BWD_RTOL and the same bits relaunched."""
+    failures = []
+    sm_count = CF._sm_count
+    CF._sm_count = lambda dev: DW_FEW_SMS
+    try:
+        for i, (shape, relu) in enumerate(DW_FEW_SMS_CASES):
+            x, s, b, w, dy = conv_bwd_case(torch, shape, torch.bfloat16,
+                                           780 + i)
+            plan = CF.dw_plan(*shape, torch.bfloat16, DW_FEW_SMS)
+            got = CF.fused_conv_backward(x, s, b, w, dy, relu)[3]
+            again = CF.fused_conv_backward(x, s, b, w, dy, relu)[3]
+            ref = CF.backward_weight_reference(x, s, b, w, dy, relu)
+            torch.cuda.synchronize()
+            err = max_abs_err(torch, got, ref)
+            scale = ref.float().abs().max().item()
+            relaunch = same_bits(torch, got, again)
+            ok = err <= BWD_RTOL["bfloat16"]["dw"] * max(scale, 1e-30) \
+                and relaunch
+            emit({"phase": "kernel", "kernel": "conv_fused_backward",
+                  "dtype": "bfloat16", "shape": list(shape), "relu": relu,
+                  "dw_plan": plan._asdict(), "max_abs_err": err,
+                  "ref_max_abs": scale, "same_bits_relaunched": relaunch,
+                  "ok": ok})
+            if not ok:
+                failures.append(("bfloat16", shape, relu, "dw, %d SMs"
+                                 % DW_FEW_SMS, err, scale))
+    finally:
+        CF._sm_count = sm_count
+    return failures
 
 
 def _train_shapes(mx, state):
@@ -2641,8 +2705,10 @@ def phase_time_conv_bwd(torch, state):
                 for k, mask in (("bwd_dx", [True, False, False]),
                                 ("bwd_dw", [False, True, False]))}
         call = (lambda: CF.fused_conv_backward(x, s, b, w, dy))
-        k_ms = kernel_ms(torch, call, 10,
-                         {k: names for k, (_, names, _) in CONV_BWD.items()})
+        groups = {k: names for k, (_, names, _) in CONV_BWD.items()}
+        groups.update({"dw_kernel": CONV_BWD["bwd_dw"][1][:1],
+                       "dw_reduce": CONV_BWD["bwd_dw"][1][1:]})
+        k_ms = kernel_ms(torch, call, 10, groups)
         c_ms = device_ms(torch, call, iters=20)
         call_total += count * c_ms
         row = {}
@@ -2661,6 +2727,10 @@ def phase_time_conv_bwd(torch, state):
         emit({"phase": "time", "kernel": "conv_fused_backward",
               "dtype": "bfloat16", "shape": list(shape),
               "launches_per_step": count, "kernels": row,
+              "dw_kernel_ms": k_ms["dw_kernel"],
+              "dw_reduce_ms": k_ms["dw_reduce"],
+              "dw_plan": CF.dw_plan(*shape, torch.bfloat16,
+                                    CF._sm_count(x.device))._asdict(),
               "whole_backward_call_ms": c_ms})
         del x, s, b, w, dy, x_cf, dy_cf, w_cl
     for k in CONV_BWD:
@@ -3421,7 +3491,7 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES) - set(SUB_PHASES)
     if unknown:
         ap.error("unknown phases %s" % sorted(unknown))
 
@@ -3439,7 +3509,7 @@ def main(argv=None):
 
     line = smi()
     state = {"smi": line, "card": peaks(line.split(",")[0])}
-    for p in PHASES:
+    for p in PHASES + SUB_PHASES:
         if p in phases:
             globals()["phase_" + p](torch, state)
 

@@ -15,12 +15,14 @@
 //
 // What bounds them on an H100: each launch does 2*N*H*W*9*Ci*Co operations
 // against one read of x (and dy) and W and one write of the result; in bf16
-// the two bounds are about equal at ResNet-50's shapes. The design keeps the
-// bytes at that floor (each block reads its input tile plus a one-pixel halo
-// once per channel chunk; all nine taps then read it from shared memory) and
-// feeds the tensor cores with mma.sync (m16n8k16, bf16 in, f32 accumulate).
-// It is the simple form: no TMA, no wgmma, no pipelining of the loads
-// against the math; those come later.
+// the two bounds are about equal at ResNet-50's shapes. The forward and
+// d-input kernels keep the bytes at that floor (each block reads its input
+// tile plus a one-pixel halo once per channel chunk; all nine taps then read
+// it from shared memory) and feed the tensor cores with mma.sync (m16n8k16,
+// bf16 in, f32 accumulate). They are the simple form: no TMA, no wgmma, no
+// pipelining of the loads against the math. The bf16 d-weight kernel is
+// built for Hopper: a warp-specialised, persistent block with a ring of
+// tiles feeding wgmma (below).
 //
 // Forward, implicit GEMM: rows are output pixels, columns output channels,
 // and the reduction runs over (tap, input channel) with the weight matrix
@@ -41,9 +43,19 @@
 // shifted neighbourhood, built on the halo load with the forward's rule;
 // operand B is the dy rows. K runs to 401408 at 56x56 while M x N is only
 // 576 x 64, so K is split over a fixed partition of the pixel tiles: each
-// block sums its share into f32 partials and a reduce launch adds the
+// split sums its share into f32 partials and a reduce launch adds the
 // partials in a fixed order. No float atomics anywhere, so every run gives
-// the same bits.
+// the same bits. In bf16 one block per SM walks work items of 64 input x 64
+// output channels x all nine taps (planned by dw_plan in
+// kernels/conv_fused.py). A producer warpgroup loads each tile's halo and
+// dy rows with TMA into a 4-stage shared-memory ring; three consumer
+// warpgroups, one per kernel column, activate the halo in place and run
+// wgmma m64n64k16 with A -- the halo, transposed and shifted by the tap --
+// taken from registers by ldmatrix (a descriptor cannot describe a window
+// that moves by a pixel per tap; the three taps of a column share each
+// halo row's fragment) and B, the dy rows, read once per warpgroup from the
+// 128-byte-swizzled stage. The stages are the only traffic between the
+// warpgroups, through mbarriers. What bounds it on an H100 is in PERF.md.
 //
 // The batch is walked as one tall "virtual" image: image n occupies virtual
 // rows n*(H+1) .. n*(H+1)+H-1 and virtual row n*(H+1)+H is a zero separator
@@ -63,6 +75,7 @@
 // TF32), so their results differ from a float32 reference only by
 // summation order.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -76,7 +89,7 @@ constexpr int BN = 64;                 // output channels per block
 constexpr int HALO_W = TW + 2;
 constexpr int HALO_P = (TH + 2) * HALO_W;  // 180 halo pixels
 constexpr int THREADS = 256;
-constexpr int DW_THREADS = 288;        // d-weight: one warp per tap
+constexpr int DW_THREADS = 288;        // f32 d-weight: one warp per tap
 constexpr unsigned FULL = 0xffffffffu;
 
 // bf16 kernels: 32 input channels per chunk; rows padded so that ldmatrix
@@ -85,7 +98,6 @@ constexpr int CK16 = 32;
 constexpr int LDH16 = CK16 + 8;
 constexpr int LDB16 = BN + 8;
 constexpr int SMEM16 = (HALO_P * LDH16 + 9 * CK16 * LDB16) * 2;
-constexpr int SMEM_DW16 = (HALO_P * LDH16 + TP * LDB16) * 2;
 
 // f32 kernels: 16 input channels per chunk.
 constexpr int CK32 = 16;
@@ -250,32 +262,6 @@ __device__ void fill_w16(__nv_bfloat16* Bs, const __nv_bfloat16* w,
       }
     }
     *reinterpret_cast<uint4*>(Bs + kr * LDB16 + v * 8) = val;
-  }
-}
-
-// dy rows of the tile's output pixels: Ds[m][0 .. BN) = dy[pixel m,
-// co0 ..], zero where pixel m is not stored or the channel is past Co.
-__device__ void fill_dy16(__nv_bfloat16* Ds, const __nv_bfloat16* dy,
-                          const Geom& g, int r0, int c0, int co0) {
-  constexpr int VPR = BN / 8;
-  for (int idx = threadIdx.x; idx < TP * VPR; idx += blockDim.x) {
-    int m = idx / VPR;
-    int v = idx - m * VPR;
-    int co = co0 + v * 8;
-    long long off = out_offset(g, r0, c0, m);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (off >= 0) {
-      if (g.wvec && co + 8 <= g.Co) {
-        val = __ldg(reinterpret_cast<const uint4*>(dy + off + co));
-      } else {
-        __align__(16) __nv_bfloat16 o[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          o[j] = (co + j < g.Co) ? dy[off + co + j] : __float2bfloat16_rn(0.f);
-        val = *reinterpret_cast<const uint4*>(o);
-      }
-    }
-    *reinterpret_cast<uint4*>(Ds + m * LDB16 + v * 8) = val;
   }
 }
 
@@ -584,89 +570,529 @@ conv_bwd_dx_bf16_kernel(const __nv_bfloat16* __restrict__ dy,
   }
 }
 
-// d-weight, bf16. Block (ks, ci chunk, co block) sums tiles
-// [ks*tps, ks*tps + tps) of the virtual image into part[ks] (9*Ci x Co,
-// f32). Warp `tap` owns the (CK16 x BN) slice of its tap: A is the
-// transposed halo (channels x pixels shifted by the tap), B the dy rows.
-__global__ void __launch_bounds__(DW_THREADS)
-conv_bwd_dw_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+// ---------------------------------------------------------------------------
+// d-weight, bf16: persistent, warp-specialised, TMA + wgmma
+// ---------------------------------------------------------------------------
+
+// A work item is (K-split ks, ci chunk, co block): 64 input channels x 64
+// output channels x all nine taps, summed over pixel tiles [ks*tps,
+// min(T, ks*tps + tps)) into part[ks]. Items are numbered ks-major (item =
+// (ks * ci_chunks + cc) * co_blocks + cb), so the blocks in flight share
+// pixel tiles and find them in L2; block i takes items i, i + gridDim.x, ...
+//
+// The block is four warpgroups. In warpgroup 3, the producer, 26 lanes each
+// issue one TMA box of a tile into the next free stage of a DWB_STAGES-deep
+// ring: a halo row (10 pixels x 64 channels) or two dy rows of the tile (16
+// pixels x 64 channels), at coordinates (channel, column, row, image) of
+// the NHWC tensor, so that the zero fill of a box outside the tensor
+// supplies the padding, the separator rows and the channels past C. The
+// first warp also writes the stage's tables (which halo rows lie in an
+// image; the item's s and b rounded to bf16). Warpgroup kx (0..2) is a
+// consumer that owns the three taps (0..2, kx): an m64n64 accumulator per
+// tap, rows = input channels, columns = output channels. The 384 consumer
+// threads activate each tile's halo in place (act16's roundings, padding
+// left at zero as fill_halo16 leaves it) while the tile before it runs on
+// the tensor cores, meet at a named barrier, and run the tile's wgmma
+// k-steps. Stage handshakes are mbarriers: full (the boxes' bytes and the
+// producer's arrival) and empty (the consumer threads, after their last
+// read). setmaxnreg moves registers from the producer to the consumers.
+//
+// Shared memory of a stage: the dy tile, 128 pixel rows of 128 bytes (one
+// box per two tile rows), then 18 halo rows of 16 pixel slots (10 used),
+// each 128-byte pixel row in the 128-byte swizzle the boxes are written
+// in: 16-byte chunk c of pixel slot k sits at chunk c ^ (k % 8). A box in
+// that swizzle must start on 1024 bytes, hence the 16-slot halo rows.
+constexpr int DWB_CK = 64;                         // input channels per item
+constexpr int DWB_DY_BYTES = TP * BN * 2;          // 8 boxes of 2048 bytes
+constexpr int DWB_HROW = 16;                       // pixel slots per halo row
+constexpr int DWB_HALO_BYTES = (TH + 2) * DWB_HROW * DWB_CK * 2;
+constexpr int DWB_STAGE = DWB_DY_BYTES + DWB_HALO_BYTES;   // 53248
+constexpr int DWB_STAGES = 4;
+// Boxes: a halo row (10 pixels), or a pair of dy rows (16 pixels; a pair
+// of halo rows in one box would land 10 slots apart, not DWB_HROW).
+constexpr int DWB_DY_BOX_ROWS = 2;
+constexpr int DWB_HALO_BOXES = TH + 2;
+constexpr int DWB_DY_BOXES = TH / DWB_DY_BOX_ROWS;
+constexpr int DWB_BOXES = DWB_HALO_BOXES + DWB_DY_BOXES;   // 26
+constexpr int DWB_TX = TH * TW * BN * 2 + (TH + 2) * HALO_W * DWB_CK * 2;
+constexpr int DWB_CONSUMERS = 3;
+constexpr int DWB_THREADS = 128 * (DWB_CONSUMERS + 1);
+// registers per thread after setmaxnreg: the consumers hold three m64n64
+// f32 accumulators (96) and six halo-row halves of A fragments (12)
+constexpr int DWB_PRODUCER_REGS = 40;
+constexpr int DWB_CONSUMER_REGS = 152;
+static_assert(DWB_PRODUCER_REGS * 128 +
+                  DWB_CONSUMER_REGS * 128 * DWB_CONSUMERS <= 65536,
+              "register file");
+// the ring, plus slack to align it to the 1024-byte swizzle atom
+constexpr int SMEM_DWB = DWB_STAGES * DWB_STAGE + 1024;
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared.b64 st, [%0];\n}\n" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned tx) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(tx)
+      : "memory");
+}
+
+// Waits for the completion of the barrier's phase of parity `parity`. A
+// wait that never ends is a fault in the kernel: trap rather than hang.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  for (unsigned spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 26)) __trap();
+  }
+}
+
+// One TMA box of a 4-D (channel, column, row, image) tensor map into shared
+// memory, completing on `bar`. Coordinates may lie outside the tensor:
+// those elements are written as zeros.
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
+                                          int c, int w, int h, int n,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h), "r"(n),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// Shared-memory descriptor of a K x 64 bf16 operand stored N-major (one
+// 128-byte row per k) in the 128-byte swizzle, from a 1024-byte aligned
+// base. Groups of 8 rows are 1024 bytes apart; both offset fields say so
+// (the leading one is not read at N = 64).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (64ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d += A (64 x 16, registers, the mma.m16n8k16 A fragment of each warp's 16
+// rows) * B (16 x 64, shared memory, N-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// act16 on a pair of bf16 (low half first): x*s and +b each rounded to
+// bf16 (bf16 operands: the f32 product and sum of act16 are exact before
+// that rounding, so the bits are act16's), then the ReLU. max.NaN keeps a
+// NaN as act16 does; it maps -0 to +0, which adds nothing to any sum.
+__device__ __forceinline__ uint32_t act_pair(uint32_t w, uint32_t s2,
+                                             uint32_t b2, int relu) {
+  uint32_t v;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(v) : "r"(w), "r"(s2));
+  asm("add.rn.bf16x2 %0, %0, %1;\n" : "+r"(v) : "r"(b2));
+  if (relu) asm("max.NaN.bf16x2 %0, %0, %1;\n" : "+r"(v) : "r"(0u));
+  return v;
+}
+
+// Virtual row vr (0 <= vr < 2^24) -> image n, and the row h within it (h ==
+// H on a separator): a float estimate of vr / (H+1), corrected by one.
+__device__ __forceinline__ int dwb_image(int vr, int h1, float inv_h1,
+                                         int& h) {
+  int n = __float2int_rz(__fmul_rn(static_cast<float>(vr) + 0.5f, inv_h1));
+  h = vr - n * h1;
+  if (h < 0) {
+    --n;
+    h += h1;
+  } else if (h >= h1) {
+    ++n;
+    h -= h1;
+  }
+  return n;
+}
+
+// The work items of one block, in order, and a position in them.
+struct DwbCursor {
+  int item, tile, t_end, ci0, co0;
+};
+
+struct DwbWalk {
+  int n_items, per_split, co_blocks, tps, n_tiles;
+
+  __device__ __forceinline__ void begin(DwbCursor& c, int item) const {
+    c.item = item;
+    if (item >= n_items) return;
+    const int ks = item / per_split;
+    const int rem = item - ks * per_split;
+    const int cc = rem / co_blocks;
+    c.ci0 = cc * DWB_CK;
+    c.co0 = (rem - cc * co_blocks) * BN;
+    c.tile = ks * tps;
+    c.t_end = min(n_tiles, c.tile + tps);
+  }
+  __device__ __forceinline__ void next(DwbCursor& c) const {
+    if (++c.tile == c.t_end) begin(c, c.item + gridDim.x);
+  }
+  __device__ __forceinline__ bool valid(const DwbCursor& c) const {
+    return c.item < n_items;
+  }
+};
+
+// The (image, row) coordinates of a box whose first virtual row is vr.
+// Rows that lie in no image -- before the first, a separator, after the
+// last -- fall outside the tensor and read as zeros: a separator starts a
+// box as row -1 of the next image, and a box that runs past an image's
+// last row reads row H, outside, which is the separator.
+__device__ __forceinline__ void dwb_box_rows(int vr, const Geom& g,
+                                             float inv_h1, int& n, int& h) {
+  if (vr < 0) {
+    n = 0;
+    h = vr;
+  } else if (vr >= g.V) {
+    n = g.N;
+    h = 0;
+  } else {
+    n = dwb_image(vr, g.H + 1, inv_h1, h);
+    if (h == g.H) {
+      ++n;
+      h = -1;
+    }
+  }
+}
+
+// Lane `box` (0 .. DWB_BOXES-1) of the producer issues one box of the tile
+// at (r0, c0): halo row `box` (virtual row r0 - 1 + box) or dy box
+// `box - DWB_HALO_BOXES` (tile rows 2k and 2k+1).
+__device__ __forceinline__ void dwb_issue(unsigned char* stage,
+                                          uint64_t* full,
+                                          const CUtensorMap* tmx,
+                                          const CUtensorMap* tmdy,
+                                          const Geom& g, float inv_h1,
+                                          int r0, int c0, int ci0, int co0,
+                                          int box) {
+  int n, h;
+  if (box < DWB_HALO_BOXES) {
+    dwb_box_rows(r0 - 1 + box, g, inv_h1, n, h);
+    tma_load4(stage + DWB_DY_BYTES + box * DWB_HROW * DWB_CK * 2, tmx, ci0,
+              c0 - 1, h, n, full);
+  } else {
+    const int row = (box - DWB_HALO_BOXES) * DWB_DY_BOX_ROWS;
+    dwb_box_rows(r0 + row, g, inv_h1, n, h);
+    tma_load4(stage + row * TW * BN * 2, tmdy, co0, c0, h, n, full);
+  }
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t a) {
+  uint4 r;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "r"(a));
+  return r;
+}
+
+__device__ __forceinline__ void sts128(uint32_t a, uint4 r) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(r.x), "r"(r.y), "r"(r.z), "r"(r.w)
+               : "memory");
+}
+
+// Consumer thread ct (0 .. 383) activates, in place, chunk ct % 8
+// (channels ci0 + 8 (ct % 8) ..) of halo pixel p = ct / 8 + 48j (row p /
+// 10, column p % 10) if it lies in an image; otherwise it stays zero. The
+// stage's sb holds the item's s and b as bf16 pairs.
+constexpr int DWB_ACT_J = (HALO_P * 8 + 383) / 384;   // 4 chunks per thread
+
+__device__ __forceinline__ void dwb_activate(uint32_t halo,
+                                             const uint8_t* rowok,
+                                             const uint32_t (*sb)[32],
+                                             const Geom& g, int c0, int ct,
+                                             int j) {
+  const int v = ct & 7;
+  const int p = (ct >> 3) + 48 * j;
+  const int hr = p / HALO_W;
+  const int hc = p - hr * HALO_W;
+  const unsigned c = static_cast<unsigned>(c0 - 1 + hc);
+  if (p >= HALO_P || !rowok[hr] || c >= static_cast<unsigned>(g.W)) return;
+  const uint32_t addr =
+      halo + (hr * DWB_HROW + hc) * DWB_CK * 2 + ((v ^ (hc & 7)) << 4);
+  const uint4 x = lds128(addr);
+  const uint4 s2 = reinterpret_cast<const uint4*>(sb[0])[v];
+  const uint4 b2 = reinterpret_cast<const uint4*>(sb[1])[v];
+  sts128(addr, make_uint4(act_pair(x.x, s2.x, b2.x, g.relu),
+                          act_pair(x.y, s2.y, b2.y, g.relu),
+                          act_pair(x.z, s2.z, b2.z, g.relu),
+                          act_pair(x.w, s2.w, b2.w, g.relu)));
+}
+
+// The A fragment of tap (ky, kx) for k-step st covers 16 channels (the
+// warp's) x the 16 pixels of tile rows 2st and 2st+1 shifted by the tap:
+// halo rows R = 2st + ky and R+1 at columns kx .. kx+7. Its registers are
+// two halves, one per halo row ({a0, a1} row R, {a2, a3} row R+1), and
+// the three taps of a column kx share them: (0, kx) takes rows 2st, 2st+1,
+// (1, kx) rows 2st+1, 2st+2, (2, kx) rows 2st+2, 2st+3. So a consumer
+// warpgroup owns a column of taps and loads each halo row's half once:
+// dwb_load_rows brings rows R and R+1 (one ldmatrix.x4; the lane's row is
+// halo row R + (q>>1), column r + kx).
+__device__ __forceinline__ void dwb_load_rows(uint32_t (&lo)[2],
+                                              uint32_t (&hi)[2],
+                                              const unsigned char* halo,
+                                              int R, int kx, int warp, int q,
+                                              int r) {
+  const int slot = r + kx;
+  uint32_t f[4];
+  ldsm_x4_trans(f, halo + ((R + (q >> 1)) * DWB_HROW + slot) * DWB_CK * 2 +
+                       (((warp * 2 + (q & 1)) ^ (slot & 7)) * 16));
+  lo[0] = f[0];
+  lo[1] = f[1];
+  hi[0] = f[2];
+  hi[1] = f[3];
+}
+
+__global__ void __launch_bounds__(DWB_THREADS, 1)
+conv_bwd_dw_bf16_kernel(const __grid_constant__ CUtensorMap tmx,
+                        const __grid_constant__ CUtensorMap tmdy,
                         const float* __restrict__ s,
                         const float* __restrict__ b,
-                        const __nv_bfloat16* __restrict__ dy,
                         float* __restrict__ part, Geom g, int tps,
-                        int n_tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ds = Hs + HALO_P * LDH16;
+                        int n_tiles, int nsplit) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[DWB_STAGES], empty[DWB_STAGES];
+  __shared__ uint8_t rowok[DWB_STAGES][TH + 2];
+  __shared__ __align__(16) uint32_t sb[DWB_STAGES][2][32];
+  // the swizzle works on shared-memory address bits: align the ring there
+  unsigned char* ring = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) &
+                                    1023u);
 
-  const int ks = blockIdx.x;
-  const int ci0 = blockIdx.y * CK16;
-  const int co0 = blockIdx.z * BN;
-  const int lane = threadIdx.x & 31;
-  const int tap = threadIdx.x >> 5;
-  const int ky = tap / 3, kx = tap % 3;
-  const int q = lane >> 3;
-  const int r = lane & 7;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int t_end = min(n_tiles, (ks + 1) * tps);
-  for (int tile = ks * tps; tile < t_end; ++tile) {
-    const int rt = tile / g.col_tiles;
-    const int r0 = rt * TH;
-    const int c0 = (tile - rt * g.col_tiles) * TW;
-    fill_halo16(Hs, x, s, b, g, r0, c0, ci0);
-    fill_dy16(Ds, dy, g, r0, c0, co0);
-    __syncthreads();
-#pragma unroll 2
-    for (int st = 0; st < TP / 16; ++st) {
-      // A (16 channels x 16 pixels) from the halo rows of pixels
-      // st*16 + (q>>1)*8 + r, i.e. tile row 2*st + (q>>1), column r
-      const int hp = (2 * st + (q >> 1) + ky) * HALO_W + r + kx;
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4_trans(a[i], Hs + hp * LDH16 + i * 16 + (q & 1) * 8);
-      uint32_t bf[4][4];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        ldsm_x4_trans(bf[jj], Ds + (st * 16 + (q & 1) * 8 + r) * LDB16 +
-                                  jj * 16 + (q >> 1) * 8);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          mma_bf16(acc[i][jj * 2], a[i], bf[jj][0], bf[jj][1]);
-          mma_bf16(acc[i][jj * 2 + 1], a[i], bf[jj][2], bf[jj][3]);
-        }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < DWB_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], DWB_CONSUMERS * 128);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const int gq = lane >> 2;
-  const int t = lane & 3;
-  float* dst = part + static_cast<long long>(ks) * 9 * g.Ci * g.Co;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int ci = ci0 + i * 16 + half * 8 + gq;
-      if (ci >= g.Ci) continue;
-      float* row = dst + (static_cast<long long>(tap) * g.Ci + ci) * g.Co;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
+  DwbWalk walk;
+  walk.co_blocks = (g.Co + BN - 1) / BN;
+  walk.per_split = (g.Ci + DWB_CK - 1) / DWB_CK * walk.co_blocks;
+  walk.n_items = nsplit * walk.per_split;
+  walk.tps = tps;
+  walk.n_tiles = n_tiles;
+
+  if (threadIdx.x >= DWB_CONSUMERS * 128) {
+    // ---- producer warpgroup: its first warp writes the stage tables, and
+    // lanes 0 .. DWB_BOXES-1 issue the boxes
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        DWB_PRODUCER_REGS));
+    const int pt = threadIdx.x - DWB_CONSUMERS * 128;
+    if (pt >= 32 && pt >= DWB_BOXES) return;
+    const float inv_h1 = 1.f / static_cast<float>(g.H + 1);
+    DwbCursor in;
+    walk.begin(in, blockIdx.x);
+    for (int n = 0; walk.valid(in); walk.next(in), ++n) {
+      const int stg = n % DWB_STAGES;
+      mbar_wait(&empty[stg], ((n / DWB_STAGES) & 1) ^ 1);
+      const int rt = in.tile / g.col_tiles;
+      const int r0 = rt * TH;
+      const int c0 = (in.tile - rt * g.col_tiles) * TW;
+      if (pt < 32) {
+        // the first warp also writes the stage's tables: rowok (in
+        // dwb_issue) and the item's s, b as bf16 pairs; the arrival below
+        // publishes them with the boxes' bytes
+        float sv[2], bv[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int co = co0 + j * 8 + 2 * t + e;
-          if (co < g.Co) row[co] = acc[i][j][half * 2 + e];
+          const int ci = in.ci0 + 2 * pt + e;
+          sv[e] = ci < g.Ci ? __ldg(s + ci) : 0.f;
+          bv[e] = ci < g.Ci ? __ldg(b + ci) : 0.f;
+        }
+        const __nv_bfloat162 sp = __floats2bfloat162_rn(sv[0], sv[1]);
+        const __nv_bfloat162 bp = __floats2bfloat162_rn(bv[0], bv[1]);
+        sb[stg][0][pt] = *reinterpret_cast<const uint32_t*>(&sp);
+        sb[stg][1][pt] = *reinterpret_cast<const uint32_t*>(&bp);
+        if (pt < TH + 2) {
+          int n, h;
+          dwb_box_rows(r0 - 1 + pt, g, inv_h1, n, h);
+          rowok[stg][pt] = h >= 0 && n < g.N;
+        }
+        __syncwarp();
+        if (pt == 0) mbar_expect_tx(&full[stg], DWB_TX);
+      }
+      if (pt < DWB_BOXES)
+        dwb_issue(ring + stg * DWB_STAGE, &full[stg], &tmx, &tmdy, g,
+                  inv_h1, r0, c0, in.ci0, in.co0, pt);
+    }
+  } else {
+    // ---- consumer warpgroup kx: taps (0..2, kx)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        DWB_CONSUMER_REGS));
+    const int kx = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3;   // input channels warp*16 ..
+    const int lane = threadIdx.x & 31;
+    const int q = lane >> 3;
+    const int r = lane & 7;
+    const int gq = lane >> 2;
+    const int t = lane & 3;
+    const bool pair_ok = (g.Co % 2) == 0;
+    float acc[3][8][4];
+    int it = 0;
+    DwbCursor c;
+    for (walk.begin(c, blockIdx.x); walk.valid(c);) {
+      const int item = c.item;
+      const int ks = c.tile / tps;
+      const int ci0 = c.ci0;
+      const int co0 = c.co0;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[k][j][e] = 0.f;
+
+      for (; walk.valid(c) && c.item == item; walk.next(c), ++it) {
+        const int stg = it % DWB_STAGES;
+        const unsigned char* dyt = ring + stg * DWB_STAGE;
+        const unsigned char* halo = dyt + DWB_DY_BYTES;
+        if (it == 0) {
+          // the block's first tile; every later one is activated while
+          // the tile before it runs on the tensor cores
+          mbar_wait(&full[stg], 0);
+          __syncwarp();
+          const int rt = c.tile / g.col_tiles;
+#pragma unroll
+          for (int j = 0; j < DWB_ACT_J; ++j)
+            dwb_activate(smem_addr(halo), rowok[stg], sb[stg], g,
+                         (c.tile - rt * g.col_tiles) * TW, threadIdx.x, j);
+        }
+        // every consumer's share of this tile activated before any A
+        // fragment is read
+        asm volatile("bar.sync 1, %0;\n" ::"n"(DWB_CONSUMERS * 128)
+                     : "memory");
+        DwbCursor nx = c;
+        walk.next(nx);
+        const int nstg = (it + 1) % DWB_STAGES;
+        const uint32_t nhalo =
+            smem_addr(ring + nstg * DWB_STAGE + DWB_DY_BYTES);
+        int nc0 = 0;
+        if (walk.valid(nx)) {
+          const int rt = nx.tile / g.col_tiles;
+          nc0 = (nx.tile - rt * g.col_tiles) * TW;
+        }
+        // the halves of halo rows, in six slots (row % 6): a k-step reads
+        // rows 2st .. 2st+3 while rows 2st+4 and 2st+5 load into the slots
+        // of the previous step's rows
+        uint32_t hf[6][2];
+        dwb_load_rows(hf[0], hf[1], halo, 0, kx, warp, q, r);
+        dwb_load_rows(hf[2], hf[3], halo, 2, kx, warp, q, r);
+#pragma unroll
+        for (int st = 0; st < TP / 16; ++st) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) reg_fence(acc[k][j][e]);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          const uint64_t desc = sw128_desc(dyt + st * 16 * BN * 2);
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky) {
+            const int R = 2 * st + ky;
+            const uint32_t a[4] = {hf[R % 6][0], hf[R % 6][1],
+                                   hf[(R + 1) % 6][0], hf[(R + 1) % 6][1]};
+            wgmma_rs(acc[ky], a, desc);
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          // a quarter of the next tile's activation under each of the
+          // first four k-steps
+          if (st < DWB_ACT_J && walk.valid(nx)) {
+            if (st == 0) {
+              mbar_wait(&full[nstg], ((it + 1) / DWB_STAGES) & 1);
+              __syncwarp();
+            }
+            dwb_activate(nhalo, rowok[nstg], sb[nstg], g, nc0, threadIdx.x,
+                         st);
+          }
+          if (st + 1 < TP / 16) {
+            // the previous step's group has read rows 2st-2 and 2st-1
+            asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+            dwb_load_rows(hf[(2 * st + 4) % 6], hf[(2 * st + 5) % 6], halo,
+                          2 * st + 4, kx, warp, q, r);
+          }
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) reg_fence(acc[k][j][e]);
+        // the activation's generic-proxy writes come before the next boxes'
+        // async-proxy writes into this stage
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(&empty[stg]);
+      }
+
+      // accumulator [ky][n8 block j][e]: input channel ci0 + warp*16 + gq
+      // (+8 for e >= 2), output channel co0 + j*8 + 2t (+1 for odd e)
+      float* dst = part + static_cast<long long>(ks) * 9 * g.Ci * g.Co;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int ci = ci0 + warp * 16 + half * 8 + gq;
+          if (ci >= g.Ci) continue;
+          float* row =
+              dst + (static_cast<long long>(ky * 3 + kx) * g.Ci + ci) * g.Co;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int co = co0 + j * 8 + 2 * t;
+            const float v0 = acc[ky][j][half * 2];
+            const float v1 = acc[ky][j][half * 2 + 1];
+            if (pair_ok && co + 1 < g.Co) {
+              *reinterpret_cast<float2*>(row + co) = make_float2(v0, v1);
+            } else {
+              if (co < g.Co) row[co] = v0;
+              if (co + 1 < g.Co) row[co + 1] = v1;
+            }
+          }
         }
     }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -980,10 +1406,6 @@ template <typename T>
 using DxFn = void (*)(const T*, const T*, const T*, const float*,
                       const float*, T*, float*, Geom);
 template <typename T>
-using DwFn = void (*)(const T*, const float*, const float*, const T*, float*,
-                      Geom, int, int);
-
-template <typename T>
 int launch_fwd(FwdFn<T> kernel, int smem, int vec_elems, const void* x,
                const float* s, const float* b, const void* w, void* out,
                int N, int H, int W, int Ci, int Co, int relu, void* stream) {
@@ -1021,26 +1443,104 @@ int launch_dx(DxFn<T> kernel, int smem, int vec_elems, const void* dy,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dw(DwFn<T> kernel, int smem, int vec_elems, int ck, const void* x,
-              const float* s, const float* b, const void* dy, float* part,
-              int N, int H, int W, int Ci, int Co, int relu, int nsplit,
-              int tps, void* stream) {
-  Geom g = make_geom(N, H, W, Ci, Co, relu, 1, x, dy, vec_elems);
-  int err = set_smem(kernel, smem);
+int launch_dw_f32(const void* x, const float* s, const float* b,
+                  const void* dy, float* part, int N, int H, int W, int Ci,
+                  int Co, int relu, int nsplit, int tps, void* stream) {
+  Geom g = make_geom(N, H, W, Ci, Co, relu, 1, x, dy, 4);
+  int err = set_smem(conv_bwd_dw_f32_kernel, SMEM_DW32);
   if (err != 0) return err;
   const long long n_tiles = tiles_of(g);
   if (n_tiles > 0x7fffffffLL || nsplit <= 0 || tps <= 0 ||
       static_cast<long long>(nsplit) * tps < n_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int ci_tiles = (Ci + ck - 1) / ck;
+  const int ci_tiles = (Ci + CK32 - 1) / CK32;
   const int co_tiles = (Co + BN - 1) / BN;
   if (ci_tiles > 65535 || co_tiles > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   dim3 grid(nsplit, ci_tiles, co_tiles);
-  kernel<<<grid, DW_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), s, b, static_cast<const T*>(dy), part, g, tps,
-      static_cast<int>(n_tiles));
+  conv_bwd_dw_f32_kernel<<<grid, DW_THREADS, SMEM_DW32,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), s, b, static_cast<const float*>(dy), part,
+      g, tps, static_cast<int>(n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// does not link the driver.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The tensor map of a contiguous bf16 NHWC tensor as (channel, column, row,
+// image), with boxes of 64 channels x box_w columns x box_h rows, written in
+// the 128-byte swizzle; elements outside the tensor read as zero.
+int encode_nhwc(CUtensorMap* map, const void* base, int N, int H, int W,
+                int C, int box_w, int box_h) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C),
+                              static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,
+                                 static_cast<cuuint64_t>(W) * C * 2,
+                                 static_cast<cuuint64_t>(H) * W * C * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(DWB_CK),
+                             static_cast<cuuint32_t>(box_w),
+                             static_cast<cuuint32_t>(box_h), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_dw_bf16(const void* x, const float* s, const float* b,
+                   const void* dy, float* part, int N, int H, int W, int Ci,
+                   int Co, int relu, int nsplit, int tps, int grid,
+                   void* stream) {
+  // the boxes' rows: channel counts a multiple of 8, 16-byte aligned bases
+  if (Ci % 8 != 0 || Co % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(dy) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geom g = make_geom(N, H, W, Ci, Co, relu, 1, x, dy, 8);
+  int err = set_smem(conv_bwd_dw_bf16_kernel, SMEM_DWB);
+  if (err != 0) return err;
+  const long long n_tiles = tiles_of(g);
+  const long long items = static_cast<long long>(nsplit) *
+                          ((Ci + DWB_CK - 1) / DWB_CK) * ((Co + BN - 1) / BN);
+  // every split must hold at least one tile: each writes its whole partial
+  if (n_tiles > 0x7fffffffLL || nsplit <= 0 || tps <= 0 ||
+      static_cast<long long>(nsplit) * tps < n_tiles ||
+      static_cast<long long>(nsplit - 1) * tps >= n_tiles || grid <= 0 ||
+      grid > items)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // dwb_image's float estimate is exact below 2^24 virtual rows
+  if (items > 0x7fffffffLL || g.V >= (1 << 24))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap tmx, tmdy;
+  err = encode_nhwc(&tmx, x, N, H, W, Ci, HALO_W, 1);
+  if (err != 0) return err;
+  err = encode_nhwc(&tmdy, dy, N, H, W, Co, TW, DWB_DY_BOX_ROWS);
+  if (err != 0) return err;
+  conv_bwd_dw_bf16_kernel<<<grid, DWB_THREADS, SMEM_DWB,
+                            static_cast<cudaStream_t>(stream)>>>(
+      tmx, tmdy, s, b, part, g, tps, static_cast<int>(n_tiles), nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1098,23 +1598,24 @@ int conv_fused_bwd_finalize(const float* part, int T, int C, float* ds,
 }
 
 // d-weight: part (nsplit, 9*Ci, Co) float32; split k sums pixel tiles
-// [k*tps, (k+1)*tps) of the T above (nsplit*tps >= T).
+// [k*tps, (k+1)*tps) of the T above ((nsplit-1)*tps < T <= nsplit*tps).
+// bf16: Ci and Co multiples of 8 and x, dy 16-byte aligned; `grid`
+// persistent blocks (at most one per SM) walk the nsplit x ceil(Ci/64) x
+// ceil(Co/64) work items.
 int conv_fused_bwd_dw_bf16(const void* x, const float* s, const float* b,
                            const void* dy, float* part, int N, int H, int W,
                            int Ci, int Co, int relu, int nsplit, int tps,
-                           void* stream) {
-  return launch_dw<__nv_bfloat16>(conv_bwd_dw_bf16_kernel, SMEM_DW16, 8, CK16,
-                                  x, s, b, dy, part, N, H, W, Ci, Co, relu,
-                                  nsplit, tps, stream);
+                           int grid, void* stream) {
+  return launch_dw_bf16(x, s, b, dy, part, N, H, W, Ci, Co, relu, nsplit,
+                        tps, grid, stream);
 }
 
 int conv_fused_bwd_dw_f32(const void* x, const float* s, const float* b,
                           const void* dy, float* part, int N, int H, int W,
                           int Ci, int Co, int relu, int nsplit, int tps,
                           void* stream) {
-  return launch_dw<float>(conv_bwd_dw_f32_kernel, SMEM_DW32, 4, CK32, x, s, b,
-                          dy, part, N, H, W, Ci, Co, relu, nsplit, tps,
-                          stream);
+  return launch_dw_f32(x, s, b, dy, part, N, H, W, Ci, Co, relu, nsplit, tps,
+                       stream);
 }
 
 // out (n,) float32 = the sum of the nsplit (n,) partials, in split order.

@@ -17,7 +17,9 @@ Layouts are the JAX package's: x (N, H, W, Ci) NHWC, s and b (Ci,) float32
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as tF
@@ -44,8 +46,18 @@ COPIES = 0
 
 # The kernels' output tile (virtual rows x columns; csrc/conv_fused.cu).
 _TH, _TW = 16, 8
-# Blocks the d-weight kernel aims for: two waves of the H100's 132 SMs.
-_DW_BLOCKS = 264
+# d-weight work items: input channels per item (bf16 and f32 kernels) and
+# output channels per item.
+_DW_CK = {torch.bfloat16: 64, torch.float32: 16}
+_DW_BN = 64
+# The bf16 planner's cost model, estimates that only weigh one against the
+# other: device us for one pixel tile of one item (128 pixels x 64 x 64 x
+# 9 taps, about 9.4 MFLOP), and the rate at which the f32 partials are
+# written and read back by the reduce (bytes per us).
+_DW_TILE_US = 2.0
+_DW_PART_BYTES_PER_US = 2.5e6
+
+DwPlan = collections.namedtuple("DwPlan", "nsplit tps items grid")
 
 
 def compute_dtype(dtype):
@@ -211,7 +223,8 @@ _I = ctypes.c_int
 _SIGS = {
     "conv_fused_fwd": [_P] * 5 + [_I] * 6 + [_P],
     "conv_fused_bwd_dx": [_P] * 7 + [_I] * 6 + [_P],
-    "conv_fused_bwd_dw": [_P] * 5 + [_I] * 8 + [_P],
+    "conv_fused_bwd_dw_f32": [_P] * 5 + [_I] * 8 + [_P],
+    "conv_fused_bwd_dw_bf16": [_P] * 5 + [_I] * 9 + [_P],
     "conv_fused_bwd_finalize": [_P, _I, _I, _P, _P, _P],
     "conv_fused_dw_reduce": [_P, _I, ctypes.c_longlong, _P, _P],
 }
@@ -223,7 +236,7 @@ def _fn(name, dtype=None):
         name, "bf16" if dtype == torch.bfloat16 else "f32")
     fn = getattr(_build.load("conv_fused"), sym)
     if fn.argtypes is None:
-        fn.argtypes = _SIGS[name]
+        fn.argtypes = _SIGS.get(sym, _SIGS.get(name))
         fn.restype = _I
     return fn
 
@@ -242,15 +255,44 @@ def tiles(N, H, W):
     return -(-(N * (H + 1) - 1) // _TH) * -(-W // _TW)
 
 
-def dw_split(N, H, W, Ci, Co, dtype):
-    """(nsplit, tiles per split) of the d-weight kernel: enough K-splits
-    that splits x channel blocks fill about two waves of the card."""
+@functools.lru_cache(maxsize=256)
+def dw_plan(N, H, W, Ci, Co, dtype, n_sm):
+    """The d-weight kernel's work partition on a card of ``n_sm`` SMs: a
+    ``DwPlan(nsplit, tps, items, grid)``. The pixel tiles are cut into
+    ``nsplit`` K-splits of ``tps`` tiles (every split non-empty); an item is
+    (split, input-channel chunk, output-channel block), numbered
+    split-major, and ``grid`` blocks take items ``i, i + grid, ...``.
+
+    bf16: one persistent block per SM. ``nsplit`` minimises the cost
+    model's time: the most tiles any block walks (rounds of ``grid`` items
+    times ``tps``) plus the partials' round trip through the reduce, so the
+    item count lands on a whole multiple of the SM count, or close to it.
+    f32: one block per item, about two waves of the card."""
     t = tiles(N, H, W)
-    ck = 32 if dtype == torch.bfloat16 else 16
-    per_split = -(-Ci // ck) * -(-Co // 64)
-    nsplit = max(1, min(t, -(-_DW_BLOCKS // per_split)))
-    tps = -(-t // nsplit)
-    return -(-t // tps), tps
+    per_split = -(-Ci // _DW_CK[dtype]) * -(-Co // _DW_BN)
+
+    def split(ns):
+        tps = -(-t // ns)
+        return -(-t // tps), tps
+
+    if dtype != torch.bfloat16:
+        nsplit, tps = split(max(1, min(t, -(-2 * n_sm // per_split))))
+        items = nsplit * per_split
+        return DwPlan(nsplit, tps, items, items)
+    best = None
+    for ns in range(1, min(t, max(1, 8 * n_sm // per_split)) + 1):
+        nsplit, tps = split(ns)
+        items = nsplit * per_split
+        rounds = -(-items // min(items, n_sm))
+        cost = rounds * tps * _DW_TILE_US \
+            + nsplit * 9 * Ci * Co * 8 / _DW_PART_BYTES_PER_US
+        if best is None or cost < best[0]:
+            best = (cost, DwPlan(nsplit, tps, items, min(items, n_sm)))
+    return best[1]
+
+
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _launch(x, s, b, w, relu):
@@ -277,8 +319,7 @@ def _launch(x, s, b, w, relu):
 
 
 def _launch_backward(x, s, b, w, dy, relu):
-    global LAUNCHES_BWD_DX, LAUNCHES_BWD_DW, LAUNCHES_FINALIZE, \
-        LAUNCHES_REDUCE
+    global LAUNCHES_BWD_DX, LAUNCHES_FINALIZE
     N, H, W_, Ci = x.shape
     Co = w.shape[-1]
     cdt = compute_dtype(x.dtype)
@@ -296,14 +337,10 @@ def _launch_backward(x, s, b, w, dy, relu):
     wt = torch.flip(w, (0, 1)).permute(0, 1, 3, 2).reshape(9 * Co, Ci) \
         .to(cdt).contiguous()
     T = tiles(N, H, W_)
-    nsplit, tps = dw_split(N, H, W_, Ci, Co, cdt)
     dx = torch.empty((N, H, W_, Ci), dtype=cdt, device=dev)
     part = torch.empty((2, T, Ci), dtype=torch.float32, device=dev)
     ds = torch.empty(Ci, dtype=torch.float32, device=dev)
     db = torch.empty_like(ds)
-    dw_part = torch.empty((nsplit, 9 * Ci, Co), dtype=torch.float32,
-                          device=dev)
-    dw = torch.empty((9 * Ci, Co), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _call("d-input", shape, _fn("conv_fused_bwd_dx", cdt),
@@ -314,13 +351,41 @@ def _launch_backward(x, s, b, w, dy, relu):
         _call("finalize", shape, _fn("conv_fused_bwd_finalize"),
               part.data_ptr(), T, Ci, ds.data_ptr(), db.data_ptr(), stream)
         LAUNCHES_FINALIZE += 1
-        _call("d-weight", shape, _fn("conv_fused_bwd_dw", cdt),
-              xc.data_ptr(), s2.data_ptr(), b2.data_ptr(), dyc.data_ptr(),
-              dw_part.data_ptr(), N, H, W_, Ci, Co, int(relu), nsplit, tps,
-              stream)
-        LAUNCHES_BWD_DW += 1
-        _call("d-weight reduce", shape, _fn("conv_fused_dw_reduce"),
-              dw_part.data_ptr(), nsplit, 9 * Ci * Co, dw.data_ptr(), stream)
-        LAUNCHES_REDUCE += 1
+        dw = _launch_dw(xc, s2, b2, dyc, relu, stream)
     return (dx if dx.dtype == x.dtype else dx.to(x.dtype), ds.to(s.dtype),
-            db.to(b.dtype), dw.reshape(3, 3, Ci, Co).to(w.dtype))
+            db.to(b.dtype), dw.to(w.dtype))
+
+
+def _launch_dw(x, s, b, dy, relu, stream):
+    """The d-weight kernel and its reduce: dW (3, 3, Ci, Co) float32. The
+    bf16 kernel reads x and dy in boxes of 16-byte rows: where Ci or Co is
+    not a multiple of 8, or a base is not 16-byte aligned, the operands are
+    first copied into zero-padded ones (s and b pad with zeros, so the
+    extra channels activate to 0) and the result is cut back."""
+    global LAUNCHES_BWD_DW, LAUNCHES_REDUCE
+    N, H, W, Ci = x.shape
+    Co = dy.shape[-1]
+    cdt = x.dtype
+    if cdt == torch.bfloat16:
+        ci8, co8 = -(-Ci // 8) * 8, -(-Co // 8) * 8
+        if (ci8, co8) != (Ci, Co) or x.data_ptr() % 16 or dy.data_ptr() % 16:
+            x, dy = tF.pad(x, (0, ci8 - Ci)), tF.pad(dy, (0, co8 - Co))
+            s, b = tF.pad(s, (0, ci8 - Ci)), tF.pad(b, (0, ci8 - Ci))
+    cip, cop = x.shape[-1], dy.shape[-1]
+    plan = dw_plan(N, H, W, cip, cop, cdt, _sm_count(x.device))
+    part = torch.empty((plan.nsplit, 9 * cip, cop), dtype=torch.float32,
+                       device=x.device)
+    dw = torch.empty((3, 3, cip, cop), dtype=torch.float32, device=x.device)
+    args = [x.data_ptr(), s.data_ptr(), b.data_ptr(), dy.data_ptr(),
+            part.data_ptr(), N, H, W, cip, cop, int(relu), plan.nsplit,
+            plan.tps]
+    if cdt == torch.bfloat16:
+        args.append(plan.grid)
+    shape = (N, H, W, Ci, Co)
+    _call("d-weight", shape, _fn("conv_fused_bwd_dw", cdt), *args, stream)
+    LAUNCHES_BWD_DW += 1
+    _call("d-weight reduce", shape, _fn("conv_fused_dw_reduce"),
+          part.data_ptr(), plan.nsplit, 9 * cip * cop, dw.data_ptr(), stream)
+    LAUNCHES_REDUCE += 1
+    return dw if (cip, cop) == (Ci, Co) else \
+        dw[:, :, :Ci, :Co].contiguous()

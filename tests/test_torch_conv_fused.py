@@ -8,6 +8,8 @@ tensor. The CUDA kernels themselves run only on the card:
 tests/test_torch_cuda.py holds them against the plain versions there
 (``python3 chip_smoke.py`` does the same at the ResNet-50 shapes).
 """
+import collections
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -211,12 +213,152 @@ def test_backward_dtypes_follow_the_operands():
 
 
 def test_dw_split_covers_every_tile():
-    """The d-weight kernel's K-split: splits x tiles per split cover every
-    pixel tile, and the split fills about two waves of 132 SMs where the
-    tiles allow."""
+    """The d-weight kernel's K-split (``dw_plan``): splits x tiles per
+    split cover every pixel tile with no empty split, and the bf16 items
+    fill 132 SMs, the f32 blocks about two waves, where the tiles allow."""
     for N, H, W, C in ((128, 56, 56, 64), (128, 28, 28, 128),
                        (128, 14, 14, 256), (128, 7, 7, 512), (1, 1, 1, 8)):
         for dt in (torch.bfloat16, torch.float32):
             t = CF.tiles(N, H, W)
-            nsplit, tps = CF.dw_split(N, H, W, C, C, dt)
-            assert (nsplit - 1) * tps < t <= nsplit * tps
+            plan = CF.dw_plan(N, H, W, C, C, dt, 132)
+            assert (plan.nsplit - 1) * plan.tps < t <= plan.nsplit * plan.tps
+            if t >= 264:
+                assert plan.grid >= (128 if dt == torch.bfloat16 else 264)
+
+
+# -- the d-weight kernel's work partition, modelled on the CPU ----------------
+#
+# The bf16 d-weight kernel (csrc/conv_fused.cu, conv_bwd_dw_bf16_kernel)
+# walks the items of ``dw_plan``: block i of ``grid`` takes items i, i +
+# grid, ...; item = (split ks * ci_chunks + cc) * co_blocks + cb sums the
+# pixel tiles of split ks for input channels cc*64 .. +64 and output
+# channels cb*64 .. +64, all nine taps, into part[ks]; a reduce adds the
+# partials in split order. The model below walks the same loops in plain
+# torch, on the tall virtual image (one zero separator row between images)
+# and each tile's halo shifted by the tap, so that an indexing fault shows
+# on the CPU.
+
+TRAIN_SHAPES = [(128, 56, 56, 64, 64), (128, 28, 28, 128, 128),
+                (128, 14, 14, 256, 256), (128, 7, 7, 512, 512)]
+# chip_smoke.py's EDGE_SHAPES
+EDGE_SHAPES = [(3, 8, 8, 16, 24), (2, 7, 7, 24, 40), (5, 9, 13, 24, 40),
+               (1, 1, 1, 8, 8), (3, 17, 9, 32, 72), (2, 5, 3, 3, 5),
+               (4, 15, 17, 40, 129)]
+TH, TW, CK, BN = 16, 8, 64, 64
+
+
+def _walk(shape, plan):
+    """[(block, ks, cc, cb, tile)] in the order the kernel's blocks take
+    them."""
+    N, H, W, Ci, Co = shape
+    t = CF.tiles(N, H, W)
+    ci_chunks, co_blocks = -(-Ci // CK), -(-Co // BN)
+    per_split = ci_chunks * co_blocks
+    out = []
+    for block in range(plan.grid):
+        for item in range(block, plan.nsplit * per_split, plan.grid):
+            ks, rem = divmod(item, per_split)
+            cc, cb = divmod(rem, co_blocks)
+            for tile in range(ks * plan.tps, min(t, (ks + 1) * plan.tps)):
+                out.append((block, ks, cc, cb, tile))
+    return out
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 7])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES + EDGE_SHAPES)
+def test_dw_plan_partition(shape, n_sm):
+    """Every (ci chunk, co block, pixel tile) is summed exactly once; the
+    walk is fixed (the plan is a function of the shape and the SM count);
+    and the items fit the SMs: no more blocks than SMs or items; on the
+    H100's 132 SMs the busiest block walks within 5% of an even share of the
+    tiles at the training shapes. Elsewhere the planner trades that share
+    against fewer partials for the reduce, within 30% (at 7 SMs, several
+    items per block)."""
+    N, H, W, Ci, Co = shape
+    plan = CF.dw_plan(N, H, W, Ci, Co, torch.bfloat16, n_sm)
+    assert plan == CF.dw_plan.__wrapped__(N, H, W, Ci, Co, torch.bfloat16,
+                                          n_sm)
+    t = CF.tiles(N, H, W)
+    per_split = -(-Ci // CK) * -(-Co // BN)
+    assert plan.items == plan.nsplit * per_split
+    assert (plan.nsplit - 1) * plan.tps < t <= plan.nsplit * plan.tps
+    assert plan.grid == min(plan.items, n_sm)
+    walk = _walk(shape, plan)
+    keys = [(cc, cb, tile) for _, _, cc, cb, tile in walk]
+    assert len(keys) == len(set(keys)) == per_split * t
+    assert walk == _walk(shape, plan)
+    per_block = collections.Counter(blk for blk, *_ in walk)
+    assert len(per_block) == plan.grid
+    even = t * per_split / n_sm
+    if t * per_split >= n_sm:
+        slack = 1.05 if n_sm == 132 and shape in TRAIN_SHAPES else 1.3
+        assert max(per_block.values()) <= slack * even + 1
+    else:
+        assert plan.tps == 1
+
+
+def _emulate_dw(x, s, b, dy, relu, plan):
+    """dW (3, 3, Ci, Co) f32 by the kernel's decomposition: per item, per
+    tile, per tap the halo window shifted by the tap against the tile's dy
+    rows; per-item partials; the reduce in split order. Every partial entry
+    must be written (they start as NaN)."""
+    N, H, W, Ci, Co = x.shape[0], x.shape[1], x.shape[2], x.shape[3], \
+        dy.shape[3]
+    z = x * s + b
+    z = torch.clamp_min(z, 0) if relu else z
+    V = N * (H + 1) - 1
+    cip, cop = -(-Ci // CK) * CK, -(-Co // BN) * BN
+    # virtual image: image n at rows n*(H+1) ..; separator rows stay zero;
+    # one row and column of padding before, a tile's worth after
+    zp = torch.zeros(V + 2 + TH, W + 2 + TW, cip)
+    dp = torch.zeros(V + TH, W + TW, cop)
+    for n in range(N):
+        r = n * (H + 1)
+        zp[1 + r:1 + r + H, 1:1 + W, :Ci] = z[n]
+        dp[r:r + H, :W, :Co] = dy[n]
+    col_tiles = -(-W // TW)
+    part = torch.full((plan.nsplit, 9, Ci, Co), float("nan"))
+    acc, cur = None, None
+    for _, ks, cc, cb, tile in _walk((N, H, W, Ci, Co), plan):
+        if cur != (ks, cc, cb):
+            if cur is not None:
+                _store(part, cur, acc, Ci, Co)
+            cur, acc = (ks, cc, cb), torch.zeros(9, CK, BN)
+        rt, ct = divmod(tile, col_tiles)
+        r0, c0 = rt * TH, ct * TW
+        halo = zp[r0:r0 + TH + 2, c0:c0 + TW + 2, cc * CK:(cc + 1) * CK]
+        d = dp[r0:r0 + TH, c0:c0 + TW, cb * BN:(cb + 1) * BN].reshape(-1, BN)
+        for tap in range(9):
+            ky, kx = divmod(tap, 3)
+            a = halo[ky:ky + TH, kx:kx + TW].reshape(-1, CK)
+            acc[tap] += a.T @ d
+    _store(part, cur, acc, Ci, Co)
+    assert not torch.isnan(part).any()
+    dw = torch.zeros(9, Ci, Co)
+    for ks in range(plan.nsplit):
+        dw = dw + part[ks]
+    return dw.reshape(3, 3, Ci, Co)
+
+
+def _store(part, item, acc, Ci, Co):
+    ks, cc, cb = item
+    ci = min(CK, Ci - cc * CK)
+    co = min(BN, Co - cb * BN)
+    part[ks, :, cc * CK:cc * CK + ci, cb * BN:cb * BN + co] = acc[:, :ci, :co]
+
+
+@pytest.mark.parametrize("n_sm", [132, 3])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", EDGE_SHAPES + [(4, 14, 14, 64, 128)])
+def test_dw_emulation_matches_reference(shape, relu, n_sm):
+    """The CPU model of the bf16 d-weight kernel's partition against
+    ``backward_weight_reference``, f32: the same sums in another order, so
+    within 1e-5 of max |reference| (measured: a few 1e-7). At 3 SMs the
+    blocks walk several items each."""
+    N, H, W, Ci, Co = shape
+    x, s, b, w = _t(*_mats(*shape, seed=3))
+    dy = torch.from_numpy(_dy(N, H, W, Co, seed=4))
+    plan = CF.dw_plan(N, H, W, Ci, Co, torch.bfloat16, n_sm)
+    got = _emulate_dw(x, s, b, dy, relu, plan)
+    ref = CF.backward_weight_reference(x, s, b, w, dy, relu)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
