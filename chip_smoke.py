@@ -27,10 +27,10 @@ Phases, each printing JSON lines:
               The conv_fused backward pair (d-input with its finalize
               launch, d-weight with its reduce launch) at the four fused
               shapes of ResNet-50 training at batch 128 and the edge
-              shapes, bf16 and f32, relu on and off (BWD_RTOL); dW also
-              with the same bits on a second launch, and planned for a
-              card of DW_FEW_SMS SMs so that each persistent block walks
-              several work items. The packed
+              shapes, bf16 and f32, relu on and off (BWD_RTOL), every
+              output with the same bits on a second launch; both bf16
+              kernels also planned for a card of FEW_SMS SMs so that each
+              persistent block walks several work items. The packed
               SGD apply over ResNet-50's 161 trainable shapes, bf16 and
               f32, against its plain version and the per-parameter
               step_fn chain, bit for bit. The flash-attention forward, dQ
@@ -250,18 +250,26 @@ BN_FUSED_NET_PER_STEP = BN_PER_STEP - FUSED_PER_STEP            # 37
 BWD_RTOL = {"bfloat16": {"dx": 1.6e-2, "ds": 1.6e-2, "db": 1.6e-2,
                          "dw": 1.6e-2},
             "float32": {"dx": 1e-4, "ds": 1e-3, "db": 1e-3, "dw": 1e-3}}
-# The bf16 d-weight kernel planned for a card of DW_FEW_SMS SMs, so that
-# each persistent block walks several work items (on 132 SMs every
-# training shape plans one item per block).
-DW_FEW_SMS = 5
-DW_FEW_SMS_CASES = [((8, 28, 28, 128, 128), True),
-                    ((4, 15, 17, 40, 129), False)]
+# The bf16 d-input and d-weight kernels planned for a card of FEW_SMS SMs,
+# so that each persistent block walks several work items (on 132 SMs the
+# d-weight kernel plans one item per block at every training shape, the
+# d-input kernel one at 7x7).
+FEW_SMS = 5
+FEW_SMS_CASES = [((8, 28, 28, 128, 128), True), ((8, 7, 7, 512, 512), False),
+                 ((4, 15, 17, 40, 129), False)]
 # The two backward kernels: their outputs, the names of their launches in
 # the profiler (kernel and second pass) and the line of the TPU kernel body
 # in mxnet_tpu/pallas_kernels/conv_fused.py.
+BWD_OUTS = ("dx", "ds", "db", "dw")
 CONV_BWD = {"bwd_dx": (("dx", "ds", "db"), ("conv_bwd_dx_",
                                             "conv_bwd_finalize"), 135),
             "bwd_dw": (("dw",), ("conv_bwd_dw_", "conv_dw_reduce"), 185)}
+# How each bf16 backward kernel is built (csrc/conv_fused.cu).
+CONV_BWD_DESIGN = {
+    "bwd_dx": "redesigned for Hopper: persistent blocks over dx_plan's "
+              "items, a TMA ring of dy halo rows and weight boxes, wgmma",
+    "bwd_dw": "redesigned for Hopper: persistent blocks over dw_plan's "
+              "items, a TMA ring of halo and dy rows, wgmma"}
 # The training steps: SGD as bench.py's bench_resnet sets it.
 SGD = {"learning_rate": 0.01, "momentum": 0.9}
 # f32 operations per element of the packed SGD step (rescale, wd*w, +g,
@@ -684,9 +692,10 @@ def conv_bwd_case(torch, shape, dtype, seed):
 
 def phase_kernel_conv_bwd(torch, state):
     """The d-input and d-weight kernels (rows 2 and 3) against the plain
-    backward, each output within BWD_RTOL of its max |reference|, and dW
-    with the same bits on a second launch. TF32 off for the references
-    (also when run alone as --phases kernel_conv_bwd)."""
+    backward, each output within BWD_RTOL of its max |reference|, every
+    output with the same bits on a second launch, and both bf16 kernels
+    planned for a card of FEW_SMS SMs. TF32 off for the references (also
+    when run alone as --phases kernel_conv_bwd)."""
     from mxnet_tpu_torch.kernels import conv_fused as CF
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -701,31 +710,32 @@ def phase_kernel_conv_bwd(torch, state):
         dname = str(dtype).replace("torch.", "")
         for i, (shape, relu, main) in enumerate(cases):
             x, s, b, w, dy = conv_bwd_case(torch, shape, dtype, 700 + i)
-            got = dict(zip(("dx", "ds", "db", "dw"),
+            got = dict(zip(BWD_OUTS,
                            CF.fused_conv_backward(x, s, b, w, dy, relu)))
-            again = CF.fused_conv_backward(x, s, b, w, dy, relu)[3]
-            ref = dict(zip(("dx", "ds", "db", "dw"),
+            again = dict(zip(BWD_OUTS,
+                             CF.fused_conv_backward(x, s, b, w, dy, relu)))
+            ref = dict(zip(BWD_OUTS,
                            CF.fused_conv_backward_reference(x, s, b, w, dy,
                                                             relu)))
             torch.cuda.synchronize()
-            relaunch = same_bits(torch, got["dw"], again)
-            if not relaunch:
-                failures.append((dname, shape, relu, "dw relaunched", None,
-                                 None))
             res = {}
             for name, r in ref.items():
                 g = got[name]
                 err = max_abs_err(torch, g, r)
                 scale = r.float().abs().max().item()
+                relaunch = same_bits(torch, g, again[name])
                 ok = g.shape == r.shape and g.dtype == r.dtype \
                     and bool(torch.isfinite(g.float()).all().item()) \
                     and err <= BWD_RTOL[dname][name] * max(scale, 1e-30)
                 res[name] = {"ok": ok, "max_abs_err": err,
                              "ref_max_abs": scale,
-                             "tolerance": BWD_RTOL[dname][name] * scale}
+                             "tolerance": BWD_RTOL[dname][name] * scale,
+                             "same_bits_relaunched": relaunch}
                 if not ok:
                     failures.append((dname, shape, relu, name, err, scale))
-            res["dw"]["same_bits_relaunched"] = relaunch
+                if not relaunch:
+                    failures.append((dname, shape, relu, name + " relaunched",
+                                     None, None))
             for k, (outs, _, _) in CONV_BWD.items():
                 for name in outs:
                     rel = res[name]["max_abs_err"] / max(
@@ -737,15 +747,15 @@ def phase_kernel_conv_bwd(torch, state):
                     if not main:
                         e = edge.setdefault("%s,%s" % (dname, name),
                                             [True, 0.0])
-                        e[0] = e[0] and res[name]["ok"] and (
-                            name != "dw" or relaunch)
+                        e[0] = e[0] and res[name]["ok"] \
+                            and res[name]["same_bits_relaunched"]
                         e[1] = max(e[1], rel)
             if main:
                 emit({"phase": "kernel", "kernel": "conv_fused_backward",
                       "dtype": dname, "shape": list(shape), "relu": relu,
                       "results": res})
             del x, s, b, w, dy, got, again, ref
-    failures += _dw_several_items(torch, CF)
+    failures += _several_items(torch, CF)
     emit({"phase": "kernel", "kernel": "conv_fused_backward",
           "edge_shapes": [list(sh) for sh, _ in EDGE_SHAPES],
           "relu": [True, False],
@@ -759,35 +769,44 @@ def phase_kernel_conv_bwd(torch, state):
                              "version: %s" % failures[:20])
 
 
-def _dw_several_items(torch, CF):
-    """The bf16 d-weight kernel with fewer blocks than work items (the plan
-    for a card of DW_FEW_SMS SMs), so that each persistent block walks
-    several items: dW within BWD_RTOL and the same bits relaunched."""
+def _several_items(torch, CF):
+    """The bf16 d-input and d-weight kernels with fewer blocks than work
+    items (their plans for a card of FEW_SMS SMs), so that each persistent
+    block walks several items: every output within BWD_RTOL and the same
+    bits relaunched."""
     failures = []
     sm_count = CF._sm_count
-    CF._sm_count = lambda dev: DW_FEW_SMS
+    CF._sm_count = lambda dev: FEW_SMS
     try:
-        for i, (shape, relu) in enumerate(DW_FEW_SMS_CASES):
+        for i, (shape, relu) in enumerate(FEW_SMS_CASES):
             x, s, b, w, dy = conv_bwd_case(torch, shape, torch.bfloat16,
                                            780 + i)
-            plan = CF.dw_plan(*shape, torch.bfloat16, DW_FEW_SMS)
-            got = CF.fused_conv_backward(x, s, b, w, dy, relu)[3]
-            again = CF.fused_conv_backward(x, s, b, w, dy, relu)[3]
-            ref = CF.backward_weight_reference(x, s, b, w, dy, relu)
+            p8 = [-(-c // 8) * 8 for c in shape[3:]]
+            plans = {"dx_plan": CF.dx_plan(*shape[:3], *p8, FEW_SMS),
+                     "dw_plan": CF.dw_plan(*shape[:3], *p8, torch.bfloat16,
+                                           FEW_SMS)}
+            got = CF.fused_conv_backward(x, s, b, w, dy, relu)
+            again = CF.fused_conv_backward(x, s, b, w, dy, relu)
+            ref = CF.fused_conv_backward_reference(x, s, b, w, dy, relu)
             torch.cuda.synchronize()
-            err = max_abs_err(torch, got, ref)
-            scale = ref.float().abs().max().item()
-            relaunch = same_bits(torch, got, again)
-            ok = err <= BWD_RTOL["bfloat16"]["dw"] * max(scale, 1e-30) \
-                and relaunch
+            res = {}
+            for name, g, a, r in zip(BWD_OUTS, got, again, ref):
+                err = max_abs_err(torch, g, r)
+                scale = r.float().abs().max().item()
+                relaunch = same_bits(torch, g, a)
+                ok = err <= BWD_RTOL["bfloat16"][name] * max(scale, 1e-30) \
+                    and relaunch
+                res[name] = {"ok": ok, "max_abs_err": err,
+                             "ref_max_abs": scale,
+                             "same_bits_relaunched": relaunch}
+                if not ok:
+                    failures.append(("bfloat16", shape, relu, "%s, %d SMs"
+                                     % (name, FEW_SMS), err, scale))
             emit({"phase": "kernel", "kernel": "conv_fused_backward",
                   "dtype": "bfloat16", "shape": list(shape), "relu": relu,
-                  "dw_plan": plan._asdict(), "max_abs_err": err,
-                  "ref_max_abs": scale, "same_bits_relaunched": relaunch,
-                  "ok": ok})
-            if not ok:
-                failures.append(("bfloat16", shape, relu, "dw, %d SMs"
-                                 % DW_FEW_SMS, err, scale))
+                  "sm_count": FEW_SMS,
+                  "plans": {k: v._asdict() for k, v in plans.items()},
+                  "results": res})
     finally:
         CF._sm_count = sm_count
     return failures
@@ -2706,8 +2725,10 @@ def phase_time_conv_bwd(torch, state):
                                 ("bwd_dw", [False, True, False]))}
         call = (lambda: CF.fused_conv_backward(x, s, b, w, dy))
         groups = {k: names for k, (_, names, _) in CONV_BWD.items()}
-        groups.update({"dw_kernel": CONV_BWD["bwd_dw"][1][:1],
-                       "dw_reduce": CONV_BWD["bwd_dw"][1][1:]})
+        for k, part in (("bwd_dx", "dx"), ("bwd_dw", "dw")):
+            names = CONV_BWD[k][1]
+            groups.update({part + "_kernel": names[:1],
+                           part + "_second_pass": names[1:]})
         k_ms = kernel_ms(torch, call, 10, groups)
         c_ms = device_ms(torch, call, iters=20)
         call_total += count * c_ms
@@ -2727,8 +2748,12 @@ def phase_time_conv_bwd(torch, state):
         emit({"phase": "time", "kernel": "conv_fused_backward",
               "dtype": "bfloat16", "shape": list(shape),
               "launches_per_step": count, "kernels": row,
+              "dx_kernel_ms": k_ms["dx_kernel"],
+              "dx_finalize_ms": k_ms["dx_second_pass"],
+              "dx_plan": CF.dx_plan(*shape, CF._sm_count(x.device))
+              ._asdict(),
               "dw_kernel_ms": k_ms["dw_kernel"],
-              "dw_reduce_ms": k_ms["dw_reduce"],
+              "dw_reduce_ms": k_ms["dw_second_pass"],
               "dw_plan": CF.dw_plan(*shape, torch.bfloat16,
                                     CF._sm_count(x.device))._asdict(),
               "whole_backward_call_ms": c_ms})
@@ -3376,6 +3401,7 @@ def kernel_summary(state):
                    "bf16 (%d launches and %d %s launches)"
                    % (FUSED_PER_STEP, FUSED_PER_STEP,
                       "finalize" if k == "bwd_dx" else "reduce"),
+            "design": CONV_BWD_DESIGN[k],
         })
     for k in ("fwd", "dq", "dkv"):
         f = state["flash_timing"][k]

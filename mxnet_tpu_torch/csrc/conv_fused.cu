@@ -15,14 +15,15 @@
 //
 // What bounds them on an H100: each launch does 2*N*H*W*9*Ci*Co operations
 // against one read of x (and dy) and W and one write of the result; in bf16
-// the two bounds are about equal at ResNet-50's shapes. The forward and
-// d-input kernels keep the bytes at that floor (each block reads its input
-// tile plus a one-pixel halo once per channel chunk; all nine taps then read
-// it from shared memory) and feed the tensor cores with mma.sync (m16n8k16,
-// bf16 in, f32 accumulate). They are the simple form: no TMA, no wgmma, no
-// pipelining of the loads against the math. The bf16 d-weight kernel is
-// built for Hopper: a warp-specialised, persistent block with a ring of
-// tiles feeding wgmma (below).
+// the two bounds are about equal at ResNet-50's shapes. The forward and the
+// f32 kernels keep the bytes at that floor (each block reads its input tile
+// plus a one-pixel halo once per channel chunk; all nine taps then read it
+// from shared memory) and feed the tensor cores with mma.sync (m16n8k16,
+// bf16 in, f32 accumulate) or the CUDA cores. They are the simple form: no
+// TMA, no wgmma, no pipelining of the loads against the math. The bf16
+// d-input and d-weight kernels are built for Hopper: persistent,
+// warp-specialised blocks with a ring of TMA-filled stages feeding wgmma
+// (below).
 //
 // Forward, implicit GEMM: rows are output pixels, columns output channels,
 // and the reduction runs over (tap, input channel) with the weight matrix
@@ -34,9 +35,14 @@
 // transposed to (9*Co, Ci) (the wrapper prepares them, as _pallas_backward
 // does), and the result dz has Ci channels. The epilogue recomputes
 // pre = x*s + b with the forward's roundings, masks dz with pre > 0, writes
-// dx = dpre*s, and folds dpre*x and dpre into per-block, per-channel f32
-// partials. The TPU summed those across its sequential grid; here a second
-// launch (finalize) folds the block partials in a fixed order into ds, db.
+// dx = dpre*s, and folds dpre*x and dpre into per-channel f32 partials: in
+// bf16 one row per consumer warpgroup of each persistent block, summed over
+// its work items in order; in f32 one row per block. The TPU summed those
+// across its sequential grid; here a second launch (finalize) folds the
+// rows in a fixed order into ds, db. In bf16 a block's producer warpgroup
+// loads dy halo rows and weight boxes with TMA into two rings, and two
+// consumer warpgroups, each on its own pixel tile, run wgmma on them; what
+// bounds it is in PERF.md.
 //
 // d-weight: a GEMM with M = 9*Ci (tap, input channel), N = Co and K = the
 // N*H*W output pixels. Operand A is z = relu(x*s + b) over the pixel's
@@ -353,7 +359,7 @@ __device__ void fill_dy32(float* Ds, const float* dy, const Geom& g, int r0,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 implicit GEMM core (forward and d-input): tensor cores
+// bf16 implicit GEMM core (forward): tensor cores
 // ---------------------------------------------------------------------------
 
 // Accumulates the block's 128 x 64 output tile into acc: warp (warp_m,
@@ -466,107 +472,6 @@ conv_fused_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         }
       }
     }
-  }
-}
-
-// d-input. Geometry of the GEMM: the tile operand is dy (g.Ci = the
-// convolution's Co), w is the flipped, transposed (9*Co, Ci) weight, and
-// the result has g.Co = the convolution's Ci channels, like x and dx.
-// part holds 2 x gridDim.x x g.Co floats: the block partials of ds, then
-// of db.
-__global__ void __launch_bounds__(THREADS, 2)
-conv_bwd_dx_bf16_kernel(const __nv_bfloat16* __restrict__ dy,
-                        const __nv_bfloat16* __restrict__ wt,
-                        const __nv_bfloat16* __restrict__ x,
-                        const float* __restrict__ s,
-                        const float* __restrict__ b,
-                        __nv_bfloat16* __restrict__ dx,
-                        float* __restrict__ part, Geom g) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = Hs + HALO_P * LDH16;
-
-  const int rt = blockIdx.x / g.col_tiles;
-  const int r0 = rt * TH;
-  const int c0 = (blockIdx.x - rt * g.col_tiles) * TW;
-  const int co0 = blockIdx.y * BN;
-
-  float acc[2][4][4];
-  core16(acc, dy, nullptr, nullptr, wt, g, r0, c0, co0, Hs, Bs);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warp_m = warp & 3;
-  const int warp_n = warp >> 2;
-  const int gq = lane >> 2;
-  const int t = lane & 3;
-  float ps[4][2], pb[4][2];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) ps[j][e] = pb[j][e] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = warp_m * 32 + i * 16 + half * 8 + gq;
-      const long long off = out_offset(g, r0, c0, m);
-      if (off < 0) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = co0 + warp_n * 32 + j * 8 + 2 * t + e;
-          if (c >= g.Co) continue;
-          const float dz = acc[i][j][half * 2 + e];
-          const float xv = __bfloat162float(x[off + c]);
-          const float sv = __ldg(s + c);
-          float dpre = dz;
-          if (g.relu) {
-            const float pre = act16(xv, bf16_round(sv),
-                                    bf16_round(__ldg(b + c)), 0);
-            dpre = __fmul_rn(dz, pre > 0.f ? 1.f : 0.f);
-          }
-          dx[off + c] = __float2bfloat16_rn(__fmul_rn(dpre, sv));
-          ps[j][e] = __fadd_rn(ps[j][e], __fmul_rn(dpre, xv));
-          pb[j][e] = __fadd_rn(pb[j][e], dpre);
-        }
-      }
-    }
-  }
-  // fold the 8 lanes that share a channel (lane bits 2..4); each pair of
-  // lanes adds the same two values, so all eight end with the same sum
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int d = 4; d < 32; d <<= 1) {
-        ps[j][e] = __fadd_rn(ps[j][e], __shfl_xor_sync(FULL, ps[j][e], d));
-        pb[j][e] = __fadd_rn(pb[j][e], __shfl_xor_sync(FULL, pb[j][e], d));
-      }
-  float* red = reinterpret_cast<float*>(smem);   // [4 warp_m][BN][2]
-  if (gq == 0) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int cl = warp_n * 32 + j * 8 + 2 * t + e;
-        red[(warp_m * BN + cl) * 2] = ps[j][e];
-        red[(warp_m * BN + cl) * 2 + 1] = pb[j][e];
-      }
-  }
-  __syncthreads();
-  if (threadIdx.x < BN && co0 + threadIdx.x < g.Co) {
-    float vs = 0.f, vb = 0.f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      vs = __fadd_rn(vs, red[(k * BN + threadIdx.x) * 2]);
-      vb = __fadd_rn(vb, red[(k * BN + threadIdx.x) * 2 + 1]);
-    }
-    const long long T = gridDim.x;
-    part[blockIdx.x * static_cast<long long>(g.Co) + co0 + threadIdx.x] = vs;
-    part[(T + blockIdx.x) * g.Co + co0 + threadIdx.x] = vb;
   }
 }
 
@@ -1096,6 +1001,573 @@ conv_bwd_dw_bf16_kernel(const __grid_constant__ CUtensorMap tmx,
 }
 
 // ---------------------------------------------------------------------------
+// d-input, bf16: persistent, warp-specialised, TMA + wgmma
+// ---------------------------------------------------------------------------
+
+// Replaces _bwd_dx_kernel (mxnet_tpu/pallas_kernels/conv_fused.py). The
+// GEMM: rows are the 128 output pixels of a 16 x 8 tile of the virtual
+// image, columns a block of 64*NB input channels (the ci block), and the
+// reduction runs over (64-channel chunk of dy, tap, 16 channels). A work
+// item is (tile pair, ci block), numbered ci-block-major (item = cb *
+// n_pairs + pair) so that the blocks in flight read the same weights from
+// L2; block i takes items i, i + gridDim.x, ... (dx_plan in
+// kernels/conv_fused.py), and consumer warpgroup cg (0, 1) takes tile 2 *
+// pair + cg of each. The block is just the two consumers: with 8 warps,
+// ptxas may give each thread the registers that NB = 2 needs (a producer
+// warp would cap them at 168).
+//
+// Loads are TMA, issued by the consumers themselves. A consumer's dy halo
+// for a chunk -- 18 rows of 16 pixels x 64 channels at (channel, column,
+// row, image), one box where the rows lie in one image, else a box per row
+// -- lands in one of its two stages; dy is not activated, so the zero fill
+// outside the tensor is exactly the padding, the separator rows and the
+// channels past Co. The weight ring holds pieces (chunk, tap): one box of
+// 64 dy channels x 64*NB input channels of the flipped, transposed W, whose
+// zero fill covers co past Co. Where every item needs the same nine pieces
+// (one ci block of 64, Co <= 64) they are loaded once ("resident").
+// Otherwise the last of the 8 warps done with a piece refills its slot;
+// a stage is refilled by the last of its consumer's 4 warps. Arrival is an
+// mbarrier per stage and slot (the boxes' bytes).
+//
+// Each consumer holds an m128 x n(64*NB) f32 accumulator (two m64 halves)
+// and runs wgmma m64n(64*NB)k16 with both operands in shared memory: A, the
+// tap's window of the halo -- 8 groups of 8 pixel rows, one halo row apart,
+// starting at slot kx; wgmma, like TMA, swizzles by address bits, so the
+// window needs no copy per kx -- and B, the piece. A tap's eight k-steps
+// are one wgmma group; what the group of two taps back read is freed while
+// the current one runs.
+//
+// Epilogue, in the consumer's last halo stage of the item: x of the lane's
+// pixels is loaded (16 bytes at a time) while the taps run; each warp
+// stages 16 pixels x 32 channels of its accumulator, and each lane reads
+// back 8 channels of a pixel, recomputes pre with act16's roundings, masks,
+// scales and stores 8 bf16 of dx with one 16-byte store. ds and db are
+// folded in a fixed order -- per lane, over the 8 lanes that share its
+// channels, over the 4 warps -- and summed over the block's items of a ci
+// block in item order into the consumer's own row of part (2, 2 *
+// gridDim.x, Ci); the finalize folds the rows in order. No float atomics:
+// every launch gives the same bits. What bounds it on an H100 is in
+// PERF.md.
+constexpr int DXB_CH = 64;                          // channels of a box
+constexpr int DXB_HROW = DWB_HROW * DXB_CH * 2;     // a halo row: 16 slots
+constexpr int DXB_HALO = (TH + 2) * DXB_HROW;       // one halo stage, 36864
+constexpr int DXB_HALO_W = DWB_HROW;                // pixels per halo row box
+constexpr int DXB_H_STAGES = 4;                     // two per consumer
+constexpr int DXB_BOX = DXB_CH * DXB_CH * 2;        // 64 x 64 weights, 8192
+constexpr int DXB_MAX_W_STAGES = 10;
+// two consumer warpgroups and no producer: with 8 warps, 2 per SM
+// sub-partition, ptxas may give each thread up to 255 registers
+constexpr int DXB_THREADS = 256;
+constexpr int SMEM_OPTIN = 232448;    // shared memory a block can opt into
+constexpr int DXB_STATIC = 512;       // barriers and counters, with room
+// epilogue scratch in a halo stage: per warp 16 pixels x 32 f32 channels
+// (rows 36 floats apart), then the warps' ds and db sums
+constexpr int DXB_STG_LD = 36;
+constexpr int DXB_STG = 16 * DXB_STG_LD * 4;
+static_assert(4 * DXB_STG + (8 + 3) * 2 * DXB_CH * 4 <= DXB_HALO,
+              "epilogue scratch");
+
+struct DxbWalk {
+  int kc;         // 64-channel chunks of dy: ceil(Co / 64)
+  int n_pairs;    // tile pairs: ceil(tiles / 2)
+  int n_items;    // n_pairs * ci blocks
+  int resident;   // the nine weight pieces are loaded once
+  int w_stages;   // pieces in the weight ring (9 when resident)
+};
+
+// One TMA box of a 3-D tensor map into shared memory, completing on `bar`;
+// coordinates outside the tensor read as zeros.
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          int c0, int c1, int c2,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Shared-memory descriptor of the A operand: 64 pixel rows x 16 channels,
+// K-major in the 128-byte swizzle, from a halo window -- 8 groups of 8
+// pixel rows 128 bytes apart, the groups one halo row (DXB_HROW) apart.
+// The window starts at slot kx of a swizzle atom; wgmma, like TMA, takes
+// the swizzle from the address bits, so the base-offset field stays 0.
+__device__ __forceinline__ uint64_t dxb_adesc(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(DXB_HROW >> 4) << 32) | (1ull << 62);
+}
+
+// The B operand of NB 64-channel boxes 8192 bytes apart (N-major, 128-byte
+// swizzle): the leading offset steps from one box to the next.
+__device__ __forceinline__ uint64_t dxb_bdesc(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(DXB_BOX >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// d += A (64 x 16, shared memory, K-major) * B (16 x 64*NB, shared memory,
+// N-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Pixel (tile row tr, column tc) of tile `tile` -> its index in the N*H*W
+// pixels of x and dx, or -1 where nothing is stored.
+__device__ __forceinline__ int dxb_pixel(const Geom& g, int tile, int tr,
+                                         int tc) {
+  const int rt = tile / g.col_tiles;
+  const int vr = rt * TH + tr;
+  const int c = (tile - rt * g.col_tiles) * TW + tc;
+  if (vr >= g.V || c >= g.W) return -1;
+  const int n = vr / (g.H + 1);
+  const int h = vr - n * (g.H + 1);
+  if (h >= g.H) return -1;
+  return (n * g.H + h) * g.W + c;
+}
+
+// dx of channels cl .. cl + 7 of one pixel from dz and the pixel's x (8
+// bf16). tab: the item's s (f32), then `stride` floats on, its bf16 s and
+// then bf16 b as pairs. pre = x*s + b with act16's roundings, as bf16 pair operations
+// (act_pair: the bits are act16's); dpre = dz * (pre > 0), dx = dpre * s
+// rounded to bf16, and dpre*x and dpre added to ps, pb -- no contraction.
+__device__ __forceinline__ uint4 dxb_finish(const float (&dz)[8], uint4 xr,
+                                            const float* tab, int cl,
+                                            int stride, int relu,
+                                            float (&ps)[8], float (&pb)[8]) {
+  const uint32_t xw[4] = {xr.x, xr.y, xr.z, xr.w};
+  const uint32_t* sb =
+      reinterpret_cast<const uint32_t*>(tab + stride) + cl / 2;
+  uint32_t o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t pre = act_pair(xw[k], sb[k], sb[stride / 2 + k], 0);
+    float d[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 2 * k + e;
+      const float xv = __uint_as_float(e ? xw[k] & 0xffff0000u : xw[k] << 16);
+      float dpre = dz[j];
+      if (relu) {
+        // pre > 0: sign clear, not +0, not NaN
+        const uint32_t pb16 = e ? pre >> 16 : pre & 0xffffu;
+        dpre = __fmul_rn(dz[j], pb16 - 1u < 0x7f80u ? 1.f : 0.f);
+      }
+      d[e] = __fmul_rn(dpre, tab[cl + j]);
+      ps[j] = __fadd_rn(ps[j], __fmul_rn(dpre, xv));
+      pb[j] = __fadd_rn(pb[j], dpre);
+    }
+    const __nv_bfloat162 pr = __floats2bfloat162_rn(d[0], d[1]);
+    o[k] = *reinterpret_cast<const uint32_t*>(&pr);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// A block's rings. Consumer cg owns halo stages 2cg and 2cg + 1: its h-th
+// halo of the walk -- item h / kc of the block, dy chunk h % kc -- lands in
+// stage 2cg + h % 2. The weight slots are shared by both consumers. A
+// stage or slot is free once every warp that reads it has seen its last
+// wgmma group complete: hdone and wdone count those warps, and the last
+// one refills it.
+struct DxbRing {
+  uint64_t* hfull;
+  uint64_t* wfull;
+  int* hdone;
+  int* wdone;
+  unsigned char* hring;
+  unsigned char* wring;
+  const CUtensorMap* tmrow;     // dy: boxes of one halo row
+  const CUtensorMap* tmhalo;    // dy: boxes of a whole halo
+  const CUtensorMap* tmw;
+};
+
+// Lane 0 of each warp counts the warp in; true in the warp that makes the
+// count `need` (which also sets it back to 0).
+__device__ __forceinline__ bool dxb_last(int* cnt, int need, int lane) {
+  int old = 0;
+  if (lane == 0) {
+    old = atomicAdd(cnt, 1);
+    if (old == need - 1) *cnt = 0;
+  }
+  return __shfl_sync(FULL, old, 0) == need - 1;
+}
+
+// A warp of consumer cg issues its halo h: 18 rows of 16 pixels (columns
+// c0 - 1 .. c0 + 14; the last six only fill the stage's row) x 64 dy
+// channels. Where the 18 virtual rows are rows h0 .. h0 + 17 of one image
+// -- counting its row -1 and its row H, the separators, which lie outside
+// the tensor and read as zeros -- one box brings them all; otherwise lane
+// k < 18 issues the box of row k. Nothing past the block's last item.
+__device__ __forceinline__ void dxb_issue_halo(const DxbRing& rg,
+                                               const Geom& g,
+                                               const DxbWalk& walk,
+                                               float inv_h1, int cg, int h,
+                                               int lane) {
+  const int item = blockIdx.x + (h / walk.kc) * gridDim.x;
+  if (item >= walk.n_items) return;
+  const int stg = 2 * cg + (h & 1);
+  const int tile = 2 * (item % walk.n_pairs) + cg;
+  const int rt = tile / g.col_tiles;
+  const int c = (h % walk.kc) * DXB_CH;
+  const int w0 = (tile - rt * g.col_tiles) * TW - 1;
+  unsigned char* dst = rg.hring + stg * DXB_HALO;
+  int n, hh;
+  dwb_box_rows(rt * TH - 1, g, inv_h1, n, hh);
+  if (lane == 0) mbar_expect_tx(&rg.hfull[stg], DXB_HALO);
+  if (hh + TH + 1 <= g.H || n >= g.N) {
+    if (lane == 0) tma_load4(dst, rg.tmhalo, c, w0, hh, n, &rg.hfull[stg]);
+  } else if (lane < TH + 2) {
+    dwb_box_rows(rt * TH - 1 + lane, g, inv_h1, n, hh);
+    tma_load4(dst + lane * DXB_HROW, rg.tmrow, c, w0, hh, n, &rg.hfull[stg]);
+  }
+}
+
+// One thread issues piece p of the block's walk -- item p / (9 kc) of the
+// block, dy chunk, tap -- into slot p % w_stages: one box of 64 dy
+// channels x NB blocks of 64 input channels. Nothing past the block's last
+// item.
+template <int NB>
+__device__ __forceinline__ void dxb_issue_piece(const DxbRing& rg,
+                                                const DxbWalk& walk, int p) {
+  const int per = walk.kc * 9;
+  const int item = blockIdx.x + (p / per) * gridDim.x;
+  if (item >= walk.n_items) return;
+  const int rem = p - (p / per) * per;
+  const int stg = p % walk.w_stages;
+  mbar_expect_tx(&rg.wfull[stg], NB * DXB_BOX);
+  tma_load4(rg.wring + stg * NB * DXB_BOX, rg.tmw, 0, rem / 9 * DXB_CH,
+            item / walk.n_pairs * NB, rem % 9, &rg.wfull[stg]);
+}
+
+// A warp is done with piece p (its last wgmma group that read it has
+// completed): the last of the 8 consumer warps refills the slot with piece
+// p + w_stages.
+template <int NB>
+__device__ __forceinline__ void dxb_piece_done(const DxbRing& rg,
+                                               const DxbWalk& walk, int p,
+                                               int lane) {
+  if (dxb_last(&rg.wdone[p % walk.w_stages], 8, lane) && lane == 0)
+    dxb_issue_piece<NB>(rg, walk, p + walk.w_stages);
+}
+
+// Tap step tau = chunk * 9 + tap of an item: wait for its weight piece
+// (and, on a new chunk, the chunk's halo h), issue the tap's wgmma group --
+// both m64 halves, four k-steps each -- and, while it runs, free what the
+// group of tap tau - 2 read (done since the last tap's wait): its piece, and
+// after a chunk's last tap the chunk's stage, which then takes halo h + 1.
+// Then wait until this group is the only one pending. p0: the pieces of the
+// block's earlier items.
+template <int NB>
+__device__ __forceinline__ void dxb_tap(float (&acc)[2][NB][8][4],
+                                        const DxbRing& rg, const Geom& g,
+                                        const DxbWalk& walk, float inv_h1,
+                                        int tau, int p0, int& h, int cg,
+                                        int lane) {
+  const int pi = p0 + tau;
+  const int ws = walk.resident ? tau : pi % walk.w_stages;
+  const int tap = tau % 9;
+  if (tap == 0 && tau > 0) {
+    ++h;
+    mbar_wait(&rg.hfull[2 * cg + (h & 1)], (h >> 1) & 1);
+  }
+  mbar_wait(&rg.wfull[ws], walk.resident ? 0 : (pi / walk.w_stages) & 1);
+  const unsigned char* wp = rg.wring + ws * NB * DXB_BOX;
+  const int ky = tap / 3;
+  const unsigned char* win = rg.hring + (2 * cg + (h & 1)) * DXB_HALO +
+                             ky * DXB_HROW + (tap - ky * 3) * 128;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) reg_fence(acc[i][nb][j][e]);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(reinterpret_cast<float(&)[NB * 8][4]>(acc[i]),
+               dxb_adesc(win + 8 * i * DXB_HROW + kk * 32),
+               dxb_bdesc(wp + kk * 16 * DXB_CH * 2));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  if (tau >= 2) {
+    if (!walk.resident) dxb_piece_done<NB>(rg, walk, pi - 2, lane);
+    if ((tau - 2) % 9 == 8 && dxb_last(&rg.hdone[2 * cg + ((h + 1) & 1)], 4,
+                                       lane))
+      dxb_issue_halo(rg, g, walk, inv_h1, cg, h + 1, lane);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+template <int NB>
+__global__ void __launch_bounds__(DXB_THREADS, 1)
+conv_bwd_dx_bf16_kernel(const __grid_constant__ CUtensorMap tmrow,
+                        const __grid_constant__ CUtensorMap tmhalo,
+                        const __grid_constant__ CUtensorMap tmw,
+                        const __nv_bfloat16* __restrict__ x,
+                        const float* __restrict__ s,
+                        const float* __restrict__ b,
+                        __nv_bfloat16* __restrict__ dx,
+                        float* __restrict__ part, Geom g, DxbWalk walk) {
+  constexpr int CB = NB * DXB_CH;               // input channels per item
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t hfull[DXB_H_STAGES];
+  __shared__ __align__(8) uint64_t wfull[DXB_MAX_W_STAGES];
+  __shared__ int hdone[DXB_H_STAGES], wdone[DXB_MAX_W_STAGES];
+  // the swizzle works on shared-memory address bits: align the rings there
+  unsigned char* hring = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) &
+                                     1023u);
+  unsigned char* wring = hring + DXB_H_STAGES * DXB_HALO;
+  const long long T = 2LL * gridDim.x;          // rows of part
+  const int cg = threadIdx.x >> 7;              // consumer: tile 2*pair + cg
+  const int ct = threadIdx.x & 127;
+  const int warp = ct >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;    // accumulator: row gq (and gq + 8) of the
+  const int t = lane & 3;      // warp's 16, columns 8j + 2t and +1
+  const DxbRing rg = {hfull, wfull, hdone, wdone, hring,
+                      wring, &tmrow, &tmhalo, &tmw};
+  const float inv_h1 = 1.f / static_cast<float>(g.H + 1);
+
+  if (threadIdx.x == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmrow) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmhalo) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmw) : "memory");
+    for (int i = 0; i < DXB_H_STAGES; ++i) {
+      mbar_init(&hfull[i], 1);
+      hdone[i] = 0;
+    }
+    for (int i = 0; i < walk.w_stages; ++i) {
+      mbar_init(&wfull[i], 1);
+      wdone[i] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  float* prow = part + (2LL * blockIdx.x + cg) * g.Ci;   // this consumer's
+  // row of part starts at zero: channels that none of its items reach
+  // stay so
+  for (int c = ct; c < g.Ci; c += 128) {
+    prow[c] = 0.f;
+    prow[T * g.Ci + c] = 0.f;
+  }
+  __syncthreads();
+  // the first two halos of each consumer and the first pieces
+  if (warp == 0) {
+    dxb_issue_halo(rg, g, walk, inv_h1, cg, 0, lane);
+    dxb_issue_halo(rg, g, walk, inv_h1, cg, 1, lane);
+  }
+  if (threadIdx.x == 0)
+    for (int p = 0; p < walk.w_stages; ++p) dxb_issue_piece<NB>(rg, walk, p);
+
+  const int total = walk.kc * 9;
+  const int v = lane >> 3;     // epilogue: the lane's 8 channels of each 32
+  const int rl = lane & 7;     // and its staged rows, rl and rl + 8
+  float acc[2][NB][8][4];
+  int h = 0;                   // this consumer's halo in use
+  int p0 = 0;
+  // thread ct < CB: channel run_cb + ct's ds and db over the block's items
+  // of ci block run_cb (items ascend, so a ci block is one run)
+  int run_cb = -1;
+  float run_s = 0.f, run_b = 0.f;
+  for (int item = blockIdx.x; item < walk.n_items; item += gridDim.x) {
+    const int pair = item % walk.n_pairs;
+    const int cb0 = item / walk.n_pairs * CB;
+    const int tile = 2 * pair + cg;
+    // for the epilogue, loaded while the taps run: this thread's channel
+    // of s and b, and x of the lane's pixels -- tile row 8i + 2*warp + rr,
+    // column rl -- and channels
+    const bool my_ch = ct < CB && cb0 + ct < g.Ci;
+    const float my_s = my_ch ? __ldg(s + cb0 + ct) : 0.f;
+    const float my_b = my_ch ? __ldg(b + cb0 + ct) : 0.f;
+    int px[2][2];
+    uint4 xr[NB][2][2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        px[i][rr] = dxb_pixel(g, tile, 8 * i + 2 * warp + rr, rl);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int ch = cb0 + nb * DXB_CH + hf * 32 + v * 8;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+            xr[nb][hf][i][rr] =
+                px[i][rr] >= 0 && ch < g.Ci
+                    ? __ldg(reinterpret_cast<const uint4*>(
+                          x + static_cast<long long>(px[i][rr]) * g.Ci + ch))
+                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][nb][j][e] = 0.f;
+    mbar_wait(&hfull[2 * cg + (h & 1)], (h >> 1) & 1);
+    for (int tau = 0; tau < total; ++tau)
+      dxb_tap<NB>(acc, rg, g, walk, inv_h1, tau, p0, h, cg, lane);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) reg_fence(acc[i][nb][j][e]);
+    if (!walk.resident)
+      for (int k = total > 2 ? total - 2 : 0; k < total; ++k)
+        dxb_piece_done<NB>(rg, walk, p0 + k, lane);
+    p0 += total;
+
+    // ---- epilogue, in this consumer's stage of halo h once every warp's
+    // last group that read it has completed. Scratch: per warp its staged
+    // accumulator rows, then the warps' ds and db sums, then the item's s
+    // and, as bf16 pairs, its s and b.
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cg) : "memory");
+    unsigned char* scr = hring + (2 * cg + (h & 1)) * DXB_HALO;
+    float* stg = reinterpret_cast<float*>(scr + warp * DXB_STG);
+    float* red = reinterpret_cast<float*>(scr + 4 * DXB_STG);
+    float* tab = red + 8 * CB;
+    if (ct < CB) {
+      tab[ct] = my_s;
+      __nv_bfloat16* t16 = reinterpret_cast<__nv_bfloat16*>(tab + CB);
+      t16[ct] = __float2bfloat16_rn(my_s);
+      t16[CB + ct] = __float2bfloat16_rn(my_b);
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cg) : "memory");
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int cl = nb * DXB_CH + hf * 32 + v * 8;
+        const bool chok = cb0 + cl < g.Ci;      // Ci is a multiple of 8
+        float ps[8], pb[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) ps[e] = pb[e] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const float* a = acc[i][nb][hf * 4 + jj];
+            *reinterpret_cast<float2*>(stg + gq * DXB_STG_LD + 8 * jj +
+                                       2 * t) = make_float2(a[0], a[1]);
+            *reinterpret_cast<float2*>(stg + (gq + 8) * DXB_STG_LD + 8 * jj +
+                                       2 * t) = make_float2(a[2], a[3]);
+          }
+          __syncwarp();
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            if (px[i][rr] < 0 || !chok) continue;
+            const float* src = stg + (rl + 8 * rr) * DXB_STG_LD + 8 * v;
+            const float4 lo = *reinterpret_cast<const float4*>(src);
+            const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+            const float dz[8] = {lo.x, lo.y, lo.z, lo.w,
+                                 hi.x, hi.y, hi.z, hi.w};
+            *reinterpret_cast<uint4*>(
+                dx + static_cast<long long>(px[i][rr]) * g.Ci + cb0 + cl) =
+                dxb_finish(dz, xr[nb][hf][i][rr], tab, cl, CB, g.relu, ps,
+                           pb);
+          }
+          __syncwarp();
+        }
+        // fold the 8 lanes that hold the same channels (lane bits 0..2)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+#pragma unroll
+          for (int d = 1; d < 8; d <<= 1) {
+            ps[e] = __fadd_rn(ps[e], __shfl_xor_sync(FULL, ps[e], d));
+            pb[e] = __fadd_rn(pb[e], __shfl_xor_sync(FULL, pb[e], d));
+          }
+        if (rl == 0) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            red[(warp * 2) * CB + cl + e] = ps[e];
+            red[(warp * 2 + 1) * CB + cl + e] = pb[e];
+          }
+        }
+      }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cg) : "memory");
+    if (ct < CB) {
+      if (cb0 != run_cb) {
+        if (run_cb >= 0 && run_cb + ct < g.Ci) {
+          prow[run_cb + ct] = run_s;
+          prow[T * g.Ci + run_cb + ct] = run_b;
+        }
+        run_cb = cb0;
+        run_s = run_b = 0.f;
+      }
+      float vs = 0.f, vb = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        vs = __fadd_rn(vs, red[(k * 2) * CB + ct]);
+        vb = __fadd_rn(vb, red[(k * 2 + 1) * CB + ct]);
+      }
+      run_s = __fadd_rn(run_s, vs);
+      run_b = __fadd_rn(run_b, vb);
+    }
+    // the scratch's generic-proxy accesses come before the next boxes'
+    // async-proxy writes into the stage
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cg) : "memory");
+    if (warp == 0) dxb_issue_halo(rg, g, walk, inv_h1, cg, h + 2, lane);
+    ++h;
+  }
+  if (ct < CB && run_cb >= 0 && run_cb + ct < g.Ci) {
+    prow[run_cb + ct] = run_s;
+    prow[T * g.Ci + run_cb + ct] = run_b;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: CUDA cores, full float32 FMA
 // ---------------------------------------------------------------------------
 
@@ -1172,7 +1644,11 @@ conv_fused_f32_kernel(const float* __restrict__ x, const float* __restrict__ s,
   }
 }
 
-// d-input, f32 (geometry as conv_bwd_dx_bf16_kernel).
+// d-input, f32. Geometry of the GEMM: the tile operand is dy (g.Ci = the
+// convolution's Co), w is the flipped, transposed (9*Co, Ci) weight, and
+// the result has g.Co = the convolution's Ci channels, like x and dx.
+// part holds 2 x gridDim.x x g.Co floats: the block partials of ds, then
+// of db.
 __global__ void __launch_bounds__(THREADS, 2)
 conv_bwd_dx_f32_kernel(const float* __restrict__ dy,
                        const float* __restrict__ wt,
@@ -1474,11 +1950,13 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// The tensor map of a contiguous bf16 NHWC tensor as (channel, column, row,
-// image), with boxes of 64 channels x box_w columns x box_h rows, written in
-// the 128-byte swizzle; elements outside the tensor read as zero.
-int encode_nhwc(CUtensorMap* map, const void* base, int N, int H, int W,
-                int C, int box_w, int box_h) {
+// The tensor map of a bf16 tensor of `rank` dimensions (dims[0] innermost
+// and contiguous; the others `byte_strides` apart, or packed), read in
+// boxes of box[] elements and written in the 128-byte swizzle; elements
+// outside the tensor read as zero.
+int encode_tiled(CUtensorMap* map, const void* base, int rank,
+                 const cuuint64_t* dims, const cuuint32_t* box,
+                 const cuuint64_t* byte_strides = nullptr) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -1490,23 +1968,31 @@ int encode_nhwc(CUtensorMap* map, const void* base, int N, int H, int W,
       return static_cast<int>(cudaErrorNotSupported);
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  cuuint64_t strides[4];
+  cuuint64_t stride = 2;
+  for (int i = 0; i + 1 < rank; ++i)
+    strides[i] = byte_strides ? byte_strides[i] : stride *= dims[i];
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The map of a contiguous bf16 NHWC tensor as (channel, column, row,
+// image), with boxes of 64 channels x box_w columns x box_h rows.
+int encode_nhwc(CUtensorMap* map, const void* base, int N, int H, int W,
+                int C, int box_w, int box_h) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C),
                               static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(N)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,
-                                 static_cast<cuuint64_t>(W) * C * 2,
-                                 static_cast<cuuint64_t>(H) * W * C * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(DWB_CK),
                              static_cast<cuuint32_t>(box_w),
                              static_cast<cuuint32_t>(box_h), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return encode_tiled(map, base, 4, dims, box);
 }
 
 int launch_dw_bf16(const void* x, const float* s, const float* b,
@@ -1531,7 +2017,8 @@ int launch_dw_bf16(const void* x, const float* s, const float* b,
       grid > items)
     return static_cast<int>(cudaErrorInvalidValue);
   // dwb_image's float estimate is exact below 2^24 virtual rows
-  if (items > 0x7fffffffLL || g.V >= (1 << 24))
+  if (items > 0x7fffffffLL || g.V >= (1 << 24) ||
+      static_cast<long long>(N) * H * W > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   CUtensorMap tmx, tmdy;
   err = encode_nhwc(&tmx, x, N, H, W, Ci, HALO_W, 1);
@@ -1541,6 +2028,72 @@ int launch_dw_bf16(const void* x, const float* s, const float* b,
   conv_bwd_dw_bf16_kernel<<<grid, DWB_THREADS, SMEM_DWB,
                             static_cast<cudaStream_t>(stream)>>>(
       tmx, tmdy, s, b, part, g, tps, static_cast<int>(n_tiles), nsplit);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 d-input kernel over the items of a dx_plan: `grid` blocks, ci
+// blocks of 64*nb channels, the weight pieces loaded once if `resident`.
+int launch_dx_bf16(const void* dy, const void* wt, const void* x,
+                   const float* s, const float* b, void* dx, float* part,
+                   int N, int H, int W, int Ci, int Co, int relu, int nb,
+                   int grid, int resident, void* stream) {
+  // the boxes' rows and the epilogue's 16-byte accesses: channel counts a
+  // multiple of 8, 16-byte aligned bases
+  if (Ci % 8 != 0 || Co % 8 != 0 || (nb != 1 && nb != 2) ||
+      reinterpret_cast<uintptr_t>(dy) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(wt) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(dx) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geom g = make_geom(N, H, W, Ci, Co, relu, 0, x, dy, 8);
+  const long long n_tiles = tiles_of(g);
+  const long long n_pairs = (n_tiles + 1) / 2;
+  const int n_cb = (Ci + nb * DXB_CH - 1) / (nb * DXB_CH);
+  const long long items = n_pairs * n_cb;
+  DxbWalk walk;
+  walk.kc = (Co + DXB_CH - 1) / DXB_CH;
+  // dwb_image's float estimate is exact below 2^24 virtual rows
+  if (items > 0x7fffffffLL || g.V >= (1 << 24) ||
+      static_cast<long long>(N) * H * W > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  walk.n_pairs = static_cast<int>(n_pairs);
+  walk.n_items = static_cast<int>(items);
+  walk.resident = resident;
+  // resident: one ci block of 64 channels and one dy chunk, so that every
+  // item reads the same nine pieces
+  if (grid <= 0 || grid > items ||
+      (resident && (n_cb != 1 || walk.kc != 1 || nb != 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rings = 1024 + DXB_H_STAGES * DXB_HALO;
+  walk.w_stages = resident ? 9
+                           : (SMEM_OPTIN - DXB_STATIC - rings) /
+                                 (nb * DXB_BOX);
+  if (walk.w_stages > DXB_MAX_W_STAGES) walk.w_stages = DXB_MAX_W_STAGES;
+  const int smem = rings + walk.w_stages * nb * DXB_BOX;
+  auto kernel =
+      nb == 1 ? conv_bwd_dx_bf16_kernel<1> : conv_bwd_dx_bf16_kernel<2>;
+  int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  CUtensorMap tmrow, tmhalo, tmw;
+  err = encode_nhwc(&tmrow, dy, N, H, W, Co, DXB_HALO_W, 1);
+  if (err != 0) return err;
+  err = encode_nhwc(&tmhalo, dy, N, H, W, Co, DXB_HALO_W, TH + 2);
+  if (err != 0) return err;
+  // wt (9, Co, ci64) as (ci % 64, co, ci / 64, tap): a box is a piece, nb
+  // blocks of 64 co rows x 64 input channels
+  const long long ci64 = (Ci + DXB_CH - 1) / DXB_CH * DXB_CH;
+  const cuuint64_t wdims[4] = {DXB_CH, static_cast<cuuint64_t>(Co),
+                               static_cast<cuuint64_t>(ci64 / DXB_CH), 9};
+  const cuuint64_t wstrides[3] = {static_cast<cuuint64_t>(ci64) * 2,
+                                  DXB_CH * 2,
+                                  static_cast<cuuint64_t>(Co * ci64) * 2};
+  const cuuint32_t wbox[4] = {DXB_CH, DXB_CH, static_cast<cuuint32_t>(nb),
+                              1};
+  err = encode_tiled(&tmw, wt, 4, wdims, wbox, wstrides);
+  if (err != 0) return err;
+  kernel<<<grid, DXB_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      tmrow, tmhalo, tmw, static_cast<const __nv_bfloat16*>(x), s, b,
+      static_cast<__nv_bfloat16*>(dx), part, g, walk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1568,17 +2121,22 @@ int conv_fused_fwd_f32(const void* x, const float* s, const float* b,
                            N, H, W, Ci, Co, relu, stream);
 }
 
-// d-input: wt (9*Co, Ci) is W flipped in space and transposed; dx like x;
-// part (2, T, Ci) float32 with T = ceil((N*(H+1)-1)/16) * ceil(W/8).
+// d-input: wt (9*Co, Ci) is W flipped in space and transposed; dx like x.
+// bf16: Ci and Co multiples of 8, wt's rows padded with zeros to a multiple
+// of 64 channels, (9*Co, ceil(Ci/64)*64); dy, wt, x and dx 16-byte aligned;
+// `grid`
+// persistent blocks (at most one per SM) walk the ceil(T/2) x ceil(Ci /
+// (64*nb)) items of a dx_plan; part (2, 2*grid, Ci) float32.
 int conv_fused_bwd_dx_bf16(const void* dy, const void* wt, const void* x,
                            const float* s, const float* b, void* dx,
                            float* part, int N, int H, int W, int Ci, int Co,
-                           int relu, void* stream) {
-  return launch_dx<__nv_bfloat16>(conv_bwd_dx_bf16_kernel, SMEM16, 8, dy, wt,
-                                  x, s, b, dx, part, N, H, W, Ci, Co, relu,
-                                  stream);
+                           int relu, int nb, int grid, int resident,
+                           void* stream) {
+  return launch_dx_bf16(dy, wt, x, s, b, dx, part, N, H, W, Ci, Co, relu, nb,
+                        grid, resident, stream);
 }
 
+// f32: part (2, T, Ci) with T = ceil((N*(H+1)-1)/16) * ceil(W/8).
 int conv_fused_bwd_dx_f32(const void* dy, const void* wt, const void* x,
                           const float* s, const float* b, void* dx,
                           float* part, int N, int H, int W, int Ci, int Co,

@@ -7,8 +7,10 @@ plain PyTorch versions (counterpart of mxnet_tpu/pallas_kernels/conv_fused.py).
 whose forward is the forward kernel and whose backward is the d-input
 kernel (dx, with the ds/db partials and a finalize launch that folds them)
 and the d-weight kernel (dW partials and a reduce launch), all in
-``csrc/conv_fused.cu``. A CPU tensor runs ``fused_conv_reference`` forward
-and ``fused_conv_backward_reference`` backward; a CUDA tensor launches the
+``csrc/conv_fused.cu``. In bf16 both backward kernels are persistent: one
+block per SM walks the work items of ``dx_plan`` or ``dw_plan``. A CPU
+tensor runs ``fused_conv_reference`` forward and
+``fused_conv_backward_reference`` backward; a CUDA tensor launches the
 kernels or raises. There is no other route. The kernels' design note is in
 their source.
 
@@ -29,7 +31,8 @@ from ..base import MXNetError
 __all__ = ["fused_scale_relu_conv3x3", "fused_conv_reference",
            "fused_conv_backward_reference", "backward_input_reference",
            "backward_weight_reference", "fused_conv_backward",
-           "compute_dtype", "LAUNCHES", "LAUNCHES_BWD_DX", "LAUNCHES_BWD_DW",
+           "compute_dtype", "dx_plan", "dw_plan", "LAUNCHES",
+           "LAUNCHES_BWD_DX", "LAUNCHES_BWD_DW",
            "LAUNCHES_FINALIZE", "LAUNCHES_REDUCE", "COPIES"]
 
 # Kernel launches in this process: LAUNCHES counts the forward kernel,
@@ -58,6 +61,10 @@ _DW_TILE_US = 2.0
 _DW_PART_BYTES_PER_US = 2.5e6
 
 DwPlan = collections.namedtuple("DwPlan", "nsplit tps items grid")
+# The bf16 d-input kernel's input channels per box (a ci block is one or two).
+_DX_BOX = 64
+DxPlan = collections.namedtuple("DxPlan",
+                                "nb cblocks pairs items grid resident")
 
 
 def compute_dtype(dtype):
@@ -223,6 +230,7 @@ _I = ctypes.c_int
 _SIGS = {
     "conv_fused_fwd": [_P] * 5 + [_I] * 6 + [_P],
     "conv_fused_bwd_dx": [_P] * 7 + [_I] * 6 + [_P],
+    "conv_fused_bwd_dx_bf16": [_P] * 7 + [_I] * 9 + [_P],
     "conv_fused_bwd_dw_f32": [_P] * 5 + [_I] * 8 + [_P],
     "conv_fused_bwd_dw_bf16": [_P] * 5 + [_I] * 9 + [_P],
     "conv_fused_bwd_finalize": [_P, _I, _I, _P, _P, _P],
@@ -250,9 +258,35 @@ def _call(what, shape, fn, *args):
 
 def tiles(N, H, W):
     """Output tiles of the kernels' grid over the virtual tall image (one
-    zero separator row between images): the d-input kernel writes one
-    ds/db partial per tile."""
+    zero separator row between images): the f32 d-input kernel writes one
+    ds/db partial per tile; the bf16 one takes them in pairs (``dx_plan``)."""
     return -(-(N * (H + 1) - 1) // _TH) * -(-W // _TW)
+
+
+@functools.lru_cache(maxsize=256)
+def dx_plan(N, H, W, Ci, Co, n_sm):
+    """The bf16 d-input kernel's work partition on a card of ``n_sm`` SMs,
+    for channel counts already padded to multiples of 8: a
+    ``DxPlan(nb, cblocks, pairs, items, grid, resident)``.
+
+    An item is (tile pair, ci block): the block's two consumer warpgroups
+    take tiles 2*pair and 2*pair + 1 of ``tiles(N, H, W)`` (past the last
+    tile, a tile is all padding) for ``64*nb`` input channels, every dy
+    channel and tap. Items are numbered ci-block-major (item = cb * pairs +
+    pair), so that the blocks in flight read the same weights; ``grid``
+    persistent blocks, at most one per SM, take items ``i, i + grid, ...``,
+    and each of a block's two consumers adds its items' ds/db sums to its
+    own row of the partials in that order (``2 * grid`` rows for the
+    finalize). ``nb`` is 2 where Ci exceeds 64, so that a dy halo serves 128
+    input channels. ``resident``: every item reads the same nine weight
+    pieces (one ci block of 64, Co <= 64), which the kernel then loads
+    once."""
+    nb = 1 if Ci <= _DX_BOX else 2
+    cblocks = -(-Ci // (_DX_BOX * nb))
+    pairs = -(-tiles(N, H, W) // 2)
+    items = pairs * cblocks
+    return DxPlan(nb, cblocks, pairs, items, min(items, n_sm),
+                  nb == 1 and cblocks == 1 and Co <= _DX_BOX)
 
 
 @functools.lru_cache(maxsize=256)
@@ -319,7 +353,6 @@ def _launch(x, s, b, w, relu):
 
 
 def _launch_backward(x, s, b, w, dy, relu):
-    global LAUNCHES_BWD_DX, LAUNCHES_FINALIZE
     N, H, W_, Ci = x.shape
     Co = w.shape[-1]
     cdt = compute_dtype(x.dtype)
@@ -328,32 +361,70 @@ def _launch_backward(x, s, b, w, dy, relu):
         z = torch.zeros(Ci, dtype=torch.float32, device=dev)
         return (torch.zeros_like(x), z.to(s.dtype), z.to(b.dtype),
                 torch.zeros_like(w))
-    shape = (N, H, W_, Ci, Co)
     xc = x if x.dtype == cdt else x.to(cdt)
     dyc = dy if dy.dtype == cdt else dy.to(cdt)
     s2 = s.to(torch.float32).contiguous()
     b2 = b.to(torch.float32).contiguous()
-    # W flipped in space and transposed to (9*Co, Ci), as _pallas_backward
-    wt = torch.flip(w, (0, 1)).permute(0, 1, 3, 2).reshape(9 * Co, Ci) \
-        .to(cdt).contiguous()
-    T = tiles(N, H, W_)
-    dx = torch.empty((N, H, W_, Ci), dtype=cdt, device=dev)
-    part = torch.empty((2, T, Ci), dtype=torch.float32, device=dev)
-    ds = torch.empty(Ci, dtype=torch.float32, device=dev)
-    db = torch.empty_like(ds)
+    wc = w.to(cdt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _call("d-input", shape, _fn("conv_fused_bwd_dx", cdt),
-              dyc.data_ptr(), wt.data_ptr(), xc.data_ptr(), s2.data_ptr(),
-              b2.data_ptr(), dx.data_ptr(), part.data_ptr(), N, H, W_, Ci,
-              Co, int(relu), stream)
-        LAUNCHES_BWD_DX += 1
-        _call("finalize", shape, _fn("conv_fused_bwd_finalize"),
-              part.data_ptr(), T, Ci, ds.data_ptr(), db.data_ptr(), stream)
-        LAUNCHES_FINALIZE += 1
+        dx, ds, db = _launch_dx(xc, s2, b2, wc, dyc, relu, stream)
         dw = _launch_dw(xc, s2, b2, dyc, relu, stream)
     return (dx if dx.dtype == x.dtype else dx.to(x.dtype), ds.to(s.dtype),
             db.to(b.dtype), dw.to(w.dtype))
+
+
+def _launch_dx(x, s, b, w, dy, relu, stream):
+    """The d-input kernel and its finalize: dx in the compute dtype, ds and
+    db (Ci,) float32. The weights go flipped in space and transposed to (9,
+    Co, Ci), as _pallas_backward does. The bf16 kernel reads dy and the
+    weights in boxes of 16-byte rows and x and dx 16 bytes at a time: where
+    Ci or Co is not a multiple of 8, or a base is not 16-byte aligned, the
+    operands are first copied into zero-padded ones (x, s and b pad with
+    zeros, so the extra channels' pre is 0 and their dpre 0) and the
+    results are cut back. Its weight rows are padded with zeros to a
+    multiple of 64 channels."""
+    global LAUNCHES_BWD_DX, LAUNCHES_FINALIZE
+    N, H, W, Ci = x.shape
+    Co = dy.shape[-1]
+    shape = (N, H, W, Ci, Co)
+    dev = x.device
+    if x.dtype == torch.bfloat16:
+        ci8, co8 = -(-Ci // 8) * 8, -(-Co // 8) * 8
+        if (ci8, co8) != (Ci, Co) or x.data_ptr() % 16 or dy.data_ptr() % 16:
+            x, dy = tF.pad(x, (0, ci8 - Ci)), tF.pad(dy, (0, co8 - Co))
+            s, b = tF.pad(s, (0, ci8 - Ci)), tF.pad(b, (0, ci8 - Ci))
+            w = tF.pad(w, (0, co8 - Co, 0, ci8 - Ci))
+    cip, cop = x.shape[-1], dy.shape[-1]
+    wt = torch.flip(w, (0, 1)).permute(0, 1, 3, 2)
+    if x.dtype == torch.bfloat16:
+        # the kernel reads wt's rows in blocks of 64 input channels
+        wt = tF.pad(wt, (0, -(-cip // _DX_BOX) * _DX_BOX - cip))
+    wt = wt.reshape(9 * cop, -1).contiguous()
+    dx = torch.empty((N, H, W, cip), dtype=x.dtype, device=dev)
+    ds = torch.empty(cip, dtype=torch.float32, device=dev)
+    db = torch.empty_like(ds)
+    args = [dy.data_ptr(), wt.data_ptr(), x.data_ptr(), s.data_ptr(),
+            b.data_ptr(), dx.data_ptr()]
+    if x.dtype == torch.bfloat16:
+        plan = dx_plan(N, H, W, cip, cop, _sm_count(dev))
+        rows = 2 * plan.grid
+        part = torch.empty((2, rows, cip), dtype=torch.float32, device=dev)
+        args += [part.data_ptr(), N, H, W, cip, cop, int(relu), plan.nb,
+                 plan.grid, int(plan.resident)]
+    else:
+        rows = tiles(N, H, W)
+        part = torch.empty((2, rows, cip), dtype=torch.float32, device=dev)
+        args += [part.data_ptr(), N, H, W, cip, cop, int(relu)]
+    _call("d-input", shape, _fn("conv_fused_bwd_dx", x.dtype), *args,
+          stream)
+    LAUNCHES_BWD_DX += 1
+    _call("finalize", shape, _fn("conv_fused_bwd_finalize"),
+          part.data_ptr(), rows, cip, ds.data_ptr(), db.data_ptr(), stream)
+    LAUNCHES_FINALIZE += 1
+    if cip != Ci:
+        return dx[..., :Ci].contiguous(), ds[:Ci], db[:Ci]
+    return dx, ds, db
 
 
 def _launch_dw(x, s, b, dy, relu, stream):

@@ -362,3 +362,160 @@ def test_dw_emulation_matches_reference(shape, relu, n_sm):
     got = _emulate_dw(x, s, b, dy, relu, plan)
     ref = CF.backward_weight_reference(x, s, b, w, dy, relu)
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+# -- the d-input kernel's work partition, modelled on the CPU -----------------
+#
+# The bf16 d-input kernel (csrc/conv_fused.cu, conv_bwd_dx_bf16_kernel)
+# walks the items of ``dx_plan``: block i of ``grid`` takes items i, i +
+# grid, ...; item = cb * pairs + pair gives consumer warpgroup g (0, 1) tile
+# 2*pair + g and input channels cb*64*nb .. +64*nb. Its K order is (dy
+# chunk of 64 channels, tap, channel); each chunk's halo is 18 TMA boxes of
+# the virtual image whose zero fill is the padding, and each (chunk, tap)
+# weight piece a box of the flipped, transposed W whose zero fill covers
+# the channels past Co and Ci. A consumer adds each item's ds/db sums to its
+# own row of the partials; the finalize folds the 2*grid rows in order.
+# Channel counts reach the kernel padded to multiples of 8 (the wrapper).
+
+def _pad8(c):
+    return -(-c // 8) * 8
+
+
+def _dx_walk(plan):
+    """[(block, item, pair, cb)] in the order the kernel's blocks take
+    them."""
+    out = []
+    for block in range(plan.grid):
+        for item in range(block, plan.items, plan.grid):
+            cb, pair = divmod(item, plan.pairs)
+            out.append((block, item, pair, cb))
+    return out
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 7])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES + EDGE_SHAPES)
+def test_dx_plan_partition(shape, n_sm):
+    """Every output pixel and input channel is written by exactly one item
+    (each (tile, channel) once, and the tiles partition the pixels); the
+    plan and each block's item list are fixed, so is the order in which a
+    consumer adds its items to its row of partials; no block is idle and
+    none walks more than its even share of items, rounded up."""
+    N, H, W, Ci, Co = shape
+    ci8, co8 = _pad8(Ci), _pad8(Co)
+    plan = CF.dx_plan(N, H, W, ci8, co8, n_sm)
+    assert plan == CF.dx_plan.__wrapped__(N, H, W, ci8, co8, n_sm)
+    t = CF.tiles(N, H, W)
+    cw = 64 * plan.nb
+    assert plan.nb == (1 if ci8 <= 64 else 2)
+    assert plan.cblocks == -(-ci8 // cw) and plan.pairs == -(-t // 2)
+    assert plan.items == plan.pairs * plan.cblocks
+    assert plan.grid == min(plan.items, n_sm)
+    assert plan.resident == (plan.cblocks == 1 and co8 <= 64
+                             and plan.nb == 1)
+    walk = _dx_walk(plan)
+    assert walk == _dx_walk(plan)
+    per_block = collections.defaultdict(list)
+    for block, item, _, _ in walk:
+        per_block[block].append(item)
+    assert sorted(per_block) == list(range(plan.grid))
+    assert all(items == sorted(items) for items in per_block.values())
+    assert max(map(len, per_block.values())) == -(-plan.items // plan.grid)
+    cover = torch.zeros(2 * plan.pairs, plan.cblocks * cw, dtype=torch.int32)
+    for _, _, pair, cb in walk:
+        cover[2 * pair:2 * pair + 2, cb * cw:(cb + 1) * cw] += 1
+    assert bool((cover[:t, :ci8] == 1).all())
+    # each pixel's tile and place in it: all tiles exist, no place twice
+    vr = torch.arange(N).view(N, 1, 1) * (H + 1) + torch.arange(H).view(
+        1, H, 1)
+    col = torch.arange(W).view(1, 1, W)
+    tile = (vr // TH) * -(-W // TW) + col // TW
+    place = tile * TH * TW + (vr % TH) * TW + col % TW
+    assert int(tile.max()) < t
+    assert place.unique().numel() == N * H * W
+
+
+def _emulate_dx(x, s, b, w, dy, relu, n_sm):
+    """(dx, ds, db) f32 by the bf16 d-input kernel's decomposition: the
+    wrapper's padding to multiples of 8; per item and consumer, the tile's
+    halo boxes of each dy chunk (the virtual image with zero fill), the
+    tap windows against the (chunk, tap) weight pieces in K order; the
+    epilogue on the tile's pixels that lie in an image; per-consumer rows
+    of partials added in item order, folded in row order. Every dx element
+    must be written exactly once (it starts as NaN)."""
+    N, H, W, Ci = x.shape
+    Co = dy.shape[3]
+    ci8, co8 = _pad8(Ci), _pad8(Co)
+    xp = torch.nn.functional.pad(x, (0, ci8 - Ci))
+    sp = torch.nn.functional.pad(s, (0, ci8 - Ci))
+    bp = torch.nn.functional.pad(b, (0, ci8 - Ci))
+    dyp = torch.nn.functional.pad(dy, (0, co8 - Co))
+    wp = torch.nn.functional.pad(w, (0, co8 - Co, 0, ci8 - Ci))
+    wt = torch.flip(wp, (0, 1)).permute(0, 1, 3, 2).reshape(9, co8, ci8)
+    plan = CF.dx_plan(N, H, W, ci8, co8, n_sm)
+    cw, kc = 64 * plan.nb, -(-co8 // 64)
+    V = N * (H + 1) - 1
+    col_tiles = -(-W // TW)
+    row_tiles = -(-V // TH)
+    # the boxes' view of dy: image n at virtual rows n*(H+1) .., one row and
+    # column before, and room for a pair's second tile past the last one
+    dp = torch.zeros((row_tiles + 1) * TH + 2, col_tiles * TW + 2, kc * 64)
+    for n in range(N):
+        r = 1 + n * (H + 1)
+        dp[r:r + H, 1:1 + W, :co8] = dyp[n]
+    wz = torch.zeros(9, kc * 64, plan.cblocks * cw)
+    wz[:, :co8, :ci8] = wt
+    dx = torch.full((N, H, W, ci8), float("nan"))
+    part = torch.zeros(2, 2 * plan.grid, ci8)
+    trow = torch.arange(TH).view(TH, 1).expand(TH, TW).reshape(-1)
+    tcol = torch.arange(TW).view(1, TW).expand(TH, TW).reshape(-1)
+    for block, _, pair, cb in _dx_walk(plan):
+        ch = slice(cb * cw, min(ci8, (cb + 1) * cw))
+        nch = ch.stop - ch.start
+        for g in range(2):
+            rt, ct = divmod(2 * pair + g, col_tiles)
+            r0, c0 = rt * TH, ct * TW
+            acc = torch.zeros(TH * TW, cw)
+            for c in range(kc):
+                halo = dp[r0:r0 + TH + 2, c0:c0 + TW + 2, c * 64:(c + 1) * 64]
+                for tap in range(9):
+                    ky, kx = divmod(tap, 3)
+                    a = halo[ky:ky + TH, kx:kx + TW].reshape(-1, 64)
+                    acc += a @ wz[tap, c * 64:(c + 1) * 64, cb * cw:(cb + 1)
+                                  * cw]
+            vr, cc = r0 + trow, c0 + tcol
+            n, h = vr // (H + 1), vr % (H + 1)
+            ok = (vr < V) & (cc < W) & (h < H)
+            n, h, cc = n[ok], h[ok], cc[ok]
+            dz = acc[ok][:, :nch]
+            xv = xp[n, h, cc][:, ch]
+            pre = xv * sp[ch] + bp[ch]
+            dpre = dz * (pre > 0) if relu else dz
+            assert bool(torch.isnan(dx[n, h, cc][:, ch]).all())
+            dx[n, h, cc, ch] = dpre * sp[ch]
+            part[0, 2 * block + g, ch] += (dpre * xv).sum(0)
+            part[1, 2 * block + g, ch] += dpre.sum(0)
+    assert not bool(torch.isnan(dx).any())
+    ds, db = torch.zeros(ci8), torch.zeros(ci8)
+    for row in range(2 * plan.grid):
+        ds, db = ds + part[0, row], db + part[1, row]
+    return dx[..., :Ci], ds[:Ci], db[:Ci]
+
+
+@pytest.mark.parametrize("n_sm", [132, 3])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", EDGE_SHAPES + [(4, 14, 14, 64, 128),
+                                                 (2, 7, 7, 136, 72)])
+def test_dx_emulation_matches_reference(shape, relu, n_sm):
+    """The CPU model of the bf16 d-input kernel's decomposition against
+    ``backward_input_reference``, f32: the same sums in another order, so
+    within 1e-5 of max |reference| (measured: up to 1.4e-6). At 3 SMs the
+    blocks walk several items each; (2, 7, 7, 136, 72) has two ci blocks of
+    128 (the second ragged) and two dy chunks."""
+    N, H, W, Ci, Co = shape
+    x, s, b, w = _t(*_mats(*shape, seed=5))
+    dy = torch.from_numpy(_dy(N, H, W, Co, seed=6))
+    got = _emulate_dx(x, s, b, w, dy, relu, n_sm)
+    ref = CF.backward_input_reference(x, s, b, w, dy, relu)
+    for name, g, r in zip(("dx", "ds", "db"), got, ref):
+        assert g.shape == r.shape, name
+        assert (g - r).abs().max() <= 1e-5 * r.abs().max(), name

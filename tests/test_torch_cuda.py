@@ -242,6 +242,37 @@ def test_conv_fused_dw_bf16_relaunch_same_bits(shape, n_sm, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_sm", [None, 5])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", [(8, 28, 28, 128, 128), (8, 7, 7, 512, 512),
+                                   (4, 15, 17, 40, 129)])
+def test_conv_fused_dx_bf16_relaunch_same_bits(shape, relu, n_sm,
+                                               monkeypatch):
+    """The bf16 d-input kernel and its finalize give dx, ds and db the same
+    bits on a second launch, within one bf16 step of the plain version,
+    also planned for a card of 5 SMs, where each persistent block walks
+    several work items."""
+    _need_card()
+    if n_sm is not None:
+        monkeypatch.setattr(CF, "_sm_count", lambda dev: n_sm)
+    x, s, b, w = _mats(*shape)
+    x, w = x.bfloat16(), w.bfloat16()
+    dy = torch.randn(shape[:3] + (shape[4],), device="cuda").bfloat16()
+    got = CF.fused_conv_backward(x, s, b, w, dy, relu=relu)[:3]
+    again = CF.fused_conv_backward(x, s, b, w, dy, relu=relu)[:3]
+    want = CF.backward_input_reference(x, s, b, w, dy, relu=relu)
+    torch.cuda.synchronize()
+    for name, g, a, r in zip(("dx", "ds", "db"), got, again, want):
+        assert torch.equal(g.view(torch.int16 if g.dtype == torch.bfloat16
+                                  else torch.int32),
+                           a.view(torch.int16 if a.dtype == torch.bfloat16
+                                  else torch.int32)), name
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= BWD_RTOL["bfloat16"][name] * \
+            r.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
 def test_conv_fused_autograd_on_the_card():
     """Gradients through the autograd Function on the card match the CPU's
     plain backward (f32, TF32 off); a non-contiguous dy is copied and
