@@ -200,7 +200,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // Shared-memory fills (any block size)
 // ---------------------------------------------------------------------------
 
-// Halo tile of channels ci0 .. ci0+CK16 of the operand, activated when g.act.
+// Halo tile of channels ci0 .. ci0+CK16 of x, activated (the forward's).
 __device__ void fill_halo16(__nv_bfloat16* Hs, const __nv_bfloat16* x,
                             const float* s, const float* b, const Geom& g,
                             int r0, int c0, int ci0) {
@@ -213,28 +213,22 @@ __device__ void fill_halo16(__nv_bfloat16* Hs, const __nv_bfloat16* x,
     __align__(16) __nv_bfloat16 o[8];
     if (off >= 0 && g.xvec && ci + 8 <= g.Ci) {
       uint4 raw = __ldg(reinterpret_cast<const uint4*>(x + off + ci));
-      if (g.act) {
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float v16 = act16(__bfloat162float(e[j]),
-                            bf16_round(__ldg(s + ci + j)),
-                            bf16_round(__ldg(b + ci + j)), g.relu);
-          o[j] = __float2bfloat16_rn(v16);
-        }
-      } else {
-        *reinterpret_cast<uint4*>(o) = raw;
+      for (int j = 0; j < 8; ++j) {
+        float v16 = act16(__bfloat162float(e[j]),
+                          bf16_round(__ldg(s + ci + j)),
+                          bf16_round(__ldg(b + ci + j)), g.relu);
+        o[j] = __float2bfloat16_rn(v16);
       }
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         float v16 = 0.f;
-        if (off >= 0 && ci + j < g.Ci) {
-          v16 = __bfloat162float(x[off + ci + j]);
-          if (g.act)
-            v16 = act16(v16, bf16_round(__ldg(s + ci + j)),
-                        bf16_round(__ldg(b + ci + j)), g.relu);
-        }
+        if (off >= 0 && ci + j < g.Ci)
+          v16 = act16(__bfloat162float(x[off + ci + j]),
+                      bf16_round(__ldg(s + ci + j)),
+                      bf16_round(__ldg(b + ci + j)), g.relu);
         o[j] = __float2bfloat16_rn(v16);
       }
     }
@@ -1075,20 +1069,6 @@ struct DxbWalk {
   int w_stages;   // pieces in the weight ring (9 when resident)
 };
 
-// One TMA box of a 3-D tensor map into shared memory, completing on `bar`;
-// coordinates outside the tensor read as zeros.
-__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
-                                          int c0, int c1, int c2,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
 // Shared-memory descriptor of the A operand: 64 pixel rows x 16 channels,
 // K-major in the 128-byte swizzle, from a halo window -- 8 groups of 8
 // pixel rows 128 bytes apart, the groups one halo row (DXB_HROW) apart.
@@ -1879,9 +1859,6 @@ template <typename T>
 using FwdFn = void (*)(const T*, const float*, const float*, const T*, T*,
                        Geom);
 template <typename T>
-using DxFn = void (*)(const T*, const T*, const T*, const float*,
-                      const float*, T*, float*, Geom);
-template <typename T>
 int launch_fwd(FwdFn<T> kernel, int smem, int vec_elems, const void* x,
                const float* s, const float* b, const void* w, void* out,
                int N, int H, int W, int Ci, int Co, int relu, void* stream) {
@@ -1899,23 +1876,23 @@ int launch_fwd(FwdFn<T> kernel, int smem, int vec_elems, const void* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dx(DxFn<T> kernel, int smem, int vec_elems, const void* dy,
-              const void* wt, const void* x, const float* s, const float* b,
-              void* dx, float* part, int N, int H, int W, int Ci, int Co,
-              int relu, void* stream) {
+int launch_dx_f32(const void* dy, const void* wt, const void* x,
+                  const float* s, const float* b, void* dx, float* part,
+                  int N, int H, int W, int Ci, int Co, int relu,
+                  void* stream) {
   // the GEMM reads dy (Co channels) and produces Ci channels
-  Geom g = make_geom(N, H, W, Co, Ci, relu, 0, dy, wt, vec_elems);
-  int err = set_smem(kernel, smem);
+  Geom g = make_geom(N, H, W, Co, Ci, relu, 0, dy, wt, 4);
+  int err = set_smem(conv_bwd_dx_f32_kernel, SMEM32);
   if (err != 0) return err;
   const long long blocks = tiles_of(g);
   const int c_tiles = (Ci + BN - 1) / BN;
   if (blocks > 0x7fffffffLL || c_tiles > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   dim3 grid(static_cast<unsigned>(blocks), c_tiles);
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(wt),
-      static_cast<const T*>(x), s, b, static_cast<T*>(dx), part, g);
+  conv_bwd_dx_f32_kernel<<<grid, THREADS, SMEM32,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dy), static_cast<const float*>(wt),
+      static_cast<const float*>(x), s, b, static_cast<float*>(dx), part, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2141,8 +2118,8 @@ int conv_fused_bwd_dx_f32(const void* dy, const void* wt, const void* x,
                           const float* s, const float* b, void* dx,
                           float* part, int N, int H, int W, int Ci, int Co,
                           int relu, void* stream) {
-  return launch_dx<float>(conv_bwd_dx_f32_kernel, SMEM32, 4, dy, wt, x, s, b,
-                          dx, part, N, H, W, Ci, Co, relu, stream);
+  return launch_dx_f32(dy, wt, x, s, b, dx, part, N, H, W, Ci, Co, relu,
+                       stream);
 }
 
 // ds, db (C,) float32 from the (2, T, C) partials of the d-input kernel.
