@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
     python3 chip_smoke.py --phases env,kernel_conv_bwd,time_conv_bwd
+    python3 chip_smoke.py --phases env,kernel_flash,time_flash
 
 Phases, each printing JSON lines:
 
@@ -157,8 +158,11 @@ Phases, each printing JSON lines:
               and train_fused's.
 
 --phases may also name kernel_conv_bwd and time_conv_bwd, the conv_fused
-backward pair's part of phases kernel and time, to run them alone after
-env (the default run does not name them: phases kernel and time run them).
+backward pair's part of phases kernel and time, and kernel_flash and
+time_flash, the flash kernels' part (rows 9-11; time_flash also times the
+bf16 forward at head dim 64 and the f32 forward), to run them alone after
+env (the default run does not name them: phases kernel and time run
+them).
 
 The run ends with the nvidia-smi name/power line, then the
 {"kernels": [...]} line (per kernel: launches on its path, max abs error at
@@ -184,8 +188,9 @@ import numpy as np
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_lm", "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
-# the conv_fused backward pair's checks and its timing.
-SUB_PHASES = ("kernel_conv_bwd", "time_conv_bwd")
+# the conv_fused backward pair's checks and timing, and the flash kernels'.
+SUB_PHASES = ("kernel_conv_bwd", "time_conv_bwd", "kernel_flash",
+              "time_flash")
 
 # ResNet-50's fused 3x3 links at batch 32: (N, H, W, Ci, Co) and how many
 # of the 16 launches per forward run at that shape.
@@ -1145,8 +1150,10 @@ def phase_kernel_flash(torch, state):
     in bf16, contiguous and as the transposed [B, S, H, D] views the LM
     passes, and at the edge shapes in bf16 and f32 (FLASH_RTOL; bf16 also
     row by row); at the LM shape a second launch must give the same
-    bits."""
+    bits. TF32 off for the f32 references (also when run alone as
+    --phases kernel_flash)."""
     from mxnet_tpu_torch.kernels import flash_attention as FA
+    torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
     worst = {k: [0.0, 0.0] for k in FLASH_OUTS}    # abs, row-relative
     for dtype in (torch.bfloat16, torch.float32):
@@ -2999,9 +3006,10 @@ def phase_time_train(torch, state):
                        "where_the_time_goes": key + ",b128"}, **tops))
 
 
-def flash_bound(kernel, card):
+def flash_bound(kernel, card, D=128):
     """Least time (s) of one launch of a flash kernel at the LM's attention
-    (B 12, H 32, S 2048, D 128, causal, bf16), and which side bounds it.
+    (B 12, H 32, S 2048, head dim D (the LM's is 128), causal, bf16), and
+    which side bounds it.
     Operations: one causal S x S x D product is B*H*S^2*D (half of
     2*B*H*S^2*D); the forward does 2 (QK^T, PV), dQ 3 (QK^T, dO V^T, dS K),
     dK/dV 4 (and P^T dO, dS^T Q). Bytes: each [B, H, S, D] input read once
@@ -3009,7 +3017,7 @@ def flash_bound(kernel, card):
     in, dQ out; dK/dV: q, k, v, dO in, dK, dV out), plus the f32 row
     vectors (lse; lse and delta)."""
     _, (bf16_peak, _, bw) = card
-    B, H, S, D = LM_BATCH, LM_CFG["n_heads"], LM_SEQ, 128
+    B, H, S = LM_BATCH, LM_CFG["n_heads"], LM_SEQ
     product = float(B * H * S * S * D)
     ops = {"fwd": 2, "dq": 3, "dkv": 4}[kernel] * product
     tensors = {"fwd": 4, "dq": 5, "dkv": 6}[kernel]
@@ -3083,6 +3091,26 @@ def phase_time_flash(torch, state):
                      "forward for row 9; its backward (dq, dk and dv "
                      "together) for rows 10 and 11"})
     del q, k, v, do, o, lse, qg, kg, vg, out
+    # the forward at head dim 64, the kernel's other width
+    case = (LM_BATCH, FLASH_MAIN[1], LM_SEQ, LM_SEQ, 64, True)
+    q, k, v, _ = flash_case(torch, case, torch.bfloat16, seed=1201)
+    t_bound, by = flash_bound("fwd", card, D=64)
+    ms = device_ms(torch, lambda: FA._flash_forward(q, k, v, True, 0.125),
+                   iters=20)
+    lib_ms = device_ms(torch, lambda: tF.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=20)
+    emit({"phase": "time", "kernel": "flash_attention.fwd",
+          "dtype": "bfloat16", "shape_bhsd": list(case[:5]), "causal": True,
+          "ms_per_launch": ms, "bound_ms": t_bound * 1e3, "bound_by": by,
+          "roofline_share": t_bound * 1e3 / ms, "library_ms": lib_ms})
+    # the f32 forward (CUDA cores) at the LM's attention, batch cut to 1
+    q, k, v, _ = flash_case(torch, FLASH_MAIN, torch.float32, seed=1202)
+    ms = device_ms(torch, lambda: FA._flash_forward(q, k, v, True,
+                                                     128 ** -0.5), iters=5)
+    emit({"phase": "time", "kernel": "flash_attention.fwd",
+          "dtype": "float32", "shape_bhsd": list(FLASH_MAIN[:5]),
+          "causal": True, "ms_per_launch": ms})
+    del q, k, v
     torch.cuda.empty_cache()
 
 

@@ -86,6 +86,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int TH = 16;                 // output tile: virtual rows
@@ -166,10 +168,6 @@ __device__ __forceinline__ long long out_offset(const Geom& g, int r0, int c0,
   int h = vr - n * (g.H + 1);
   if (h >= g.H) return -1;
   return ((static_cast<long long>(n) * g.H + h) * g.W + c) * g.Co;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -525,96 +523,6 @@ static_assert(DWB_PRODUCER_REGS * 128 +
               "register file");
 // the ring, plus slack to align it to the 1024-byte swizzle atom
 constexpr int SMEM_DWB = DWB_STAGES * DWB_STAGE + 1024;
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.shared.b64 st, [%0];\n}\n" ::"r"(
-          smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned tx) {
-  asm volatile(
-      "{\n.reg .b64 st;\n"
-      "mbarrier.arrive.expect_tx.shared.b64 st, [%0], %1;\n}\n" ::"r"(
-          smem_addr(bar)),
-      "r"(tx)
-      : "memory");
-}
-
-// Waits for the completion of the barrier's phase of parity `parity`. A
-// wait that never ends is a fault in the kernel: trap rather than hang.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t a = smem_addr(bar);
-  for (unsigned spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == (1u << 26)) __trap();
-  }
-}
-
-// One TMA box of a 4-D (channel, column, row, image) tensor map into shared
-// memory, completing on `bar`. Coordinates may lie outside the tensor:
-// those elements are written as zeros.
-__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
-                                          int c, int w, int h, int n,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h), "r"(n),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void reg_fence(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-
-// Shared-memory descriptor of a K x 64 bf16 operand stored N-major (one
-// 128-byte row per k) in the 128-byte swizzle, from a 1024-byte aligned
-// base. Groups of 8 rows are 1024 bytes apart; both offset fields say so
-// (the leading one is not read at N = 64).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t a = smem_addr(p);
-  return ((a & 0x3FFFF) >> 4) | (64ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-// d += A (64 x 16, registers, the mma.m16n8k16 A fragment of each warp's 16
-// rows) * B (16 x 64, shared memory, N-major: the transpose bit set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
 
 // act16 on a pair of bf16 (low half first): x*s and +b each rounded to
 // bf16 (bf16 operands: the f32 product and sum of act16 are exact before
@@ -1075,61 +983,13 @@ struct DxbWalk {
 // The window starts at slot kx of a swizzle atom; wgmma, like TMA, takes
 // the swizzle from the address bits, so the base-offset field stays 0.
 __device__ __forceinline__ uint64_t dxb_adesc(const void* p) {
-  const uint64_t a = smem_addr(p);
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(DXB_HROW >> 4) << 32) | (1ull << 62);
+  return sw128_desc_at(p, 16, DXB_HROW);
 }
 
 // The B operand of NB 64-channel boxes 8192 bytes apart (N-major, 128-byte
 // swizzle): the leading offset steps from one box to the next.
 __device__ __forceinline__ uint64_t dxb_bdesc(const void* p) {
-  const uint64_t a = smem_addr(p);
-  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(DXB_BOX >> 4) << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
-// d += A (64 x 16, shared memory, K-major) * B (16 x 64*NB, shared memory,
-// N-major: the transpose bit set).
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(da), "l"(db), "r"(1));
+  return sw128_desc_at(p, DXB_BOX, 1024);
 }
 
 // Pixel (tile row tr, column tc) of tile `tile` -> its index in the N*H*W
@@ -1201,17 +1061,6 @@ struct DxbRing {
   const CUtensorMap* tmw;
 };
 
-// Lane 0 of each warp counts the warp in; true in the warp that makes the
-// count `need` (which also sets it back to 0).
-__device__ __forceinline__ bool dxb_last(int* cnt, int need, int lane) {
-  int old = 0;
-  if (lane == 0) {
-    old = atomicAdd(cnt, 1);
-    if (old == need - 1) *cnt = 0;
-  }
-  return __shfl_sync(FULL, old, 0) == need - 1;
-}
-
 // A warp of consumer cg issues its halo h: 18 rows of 16 pixels (columns
 // c0 - 1 .. c0 + 14; the last six only fill the stage's row) x 64 dy
 // channels. Where the 18 virtual rows are rows h0 .. h0 + 17 of one image
@@ -1266,7 +1115,7 @@ template <int NB>
 __device__ __forceinline__ void dxb_piece_done(const DxbRing& rg,
                                                const DxbWalk& walk, int p,
                                                int lane) {
-  if (dxb_last(&rg.wdone[p % walk.w_stages], 8, lane) && lane == 0)
+  if (count_last(&rg.wdone[p % walk.w_stages], 8, lane) && lane == 0)
     dxb_issue_piece<NB>(rg, walk, p + walk.w_stages);
 }
 
@@ -1314,7 +1163,7 @@ __device__ __forceinline__ void dxb_tap(float (&acc)[2][NB][8][4],
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   if (tau >= 2) {
     if (!walk.resident) dxb_piece_done<NB>(rg, walk, pi - 2, lane);
-    if ((tau - 2) % 9 == 8 && dxb_last(&rg.hdone[2 * cg + ((h + 1) & 1)], 4,
+    if ((tau - 2) % 9 == 8 && count_last(&rg.hdone[2 * cg + ((h + 1) & 1)], 4,
                                        lane))
       dxb_issue_halo(rg, g, walk, inv_h1, cg, h + 1, lane);
   }
@@ -1916,46 +1765,6 @@ int launch_dw_f32(const void* x, const float* s, const float* b,
       static_cast<const float*>(x), s, b, static_cast<const float*>(dy), part,
       g, tps, static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// does not link the driver.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The tensor map of a bf16 tensor of `rank` dimensions (dims[0] innermost
-// and contiguous; the others `byte_strides` apart, or packed), read in
-// boxes of box[] elements and written in the 128-byte swizzle; elements
-// outside the tensor read as zero.
-int encode_tiled(CUtensorMap* map, const void* base, int rank,
-                 const cuuint64_t* dims, const cuuint32_t* box,
-                 const cuuint64_t* byte_strides = nullptr) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return static_cast<int>(cudaErrorNotSupported);
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  cuuint64_t strides[4];
-  cuuint64_t stride = 2;
-  for (int i = 0; i + 1 < rank; ++i)
-    strides[i] = byte_strides ? byte_strides[i] : stride *= dims[i];
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The map of a contiguous bf16 NHWC tensor as (channel, column, row,

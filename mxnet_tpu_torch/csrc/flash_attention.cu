@@ -10,21 +10,57 @@
 //                                                               dK = sum_q dS^T Q
 // The TPU ran its grid in order, with the k (or q) axis innermost and the
 // running state in VMEM scratch. Here one block owns one (batch*head, tile)
-// and loops over the other axis itself, keeping the state in registers:
-//   forward: a block per 64 query rows, 4 warps of 16 rows; k tiles of 64;
-//   dQ:      a block per 64 query rows, looping over k tiles of 64;
-//   dK/dV:   a block per 64 keys, 4 warps of 16 keys; q tiles of 32.
+// and loops over the other axis itself, keeping the state in registers.
 // dQ and dK/dV stay two launches, as on the TPU: neither needs float atomics,
 // so two launches on the same inputs give the same bits.
 //
 // What bounds them on an H100: at the transformer LM's shapes (S = 2048,
 // D = 128) each launch does O(S^2 D) tensor-core operations against O(S D)
-// bytes, so they are bound by operations (989 TFLOP/s bf16). The design keeps
-// the S x S score matrix out of device memory in both directions and feeds
-// the tensor cores with mma.sync (m16n8k16, bf16 in, f32 accumulate); K/V
-// (or Q/dO) tiles are double-buffered in shared memory with cp.async, so the
-// next tile's load overlaps this tile's math. No wgmma, TMA or warp
-// specialisation yet: this is the simple form.
+// bytes, so they are bound by operations (989 TFLOP/s bf16). Every kernel
+// keeps the S x S score matrix out of device memory.
+//
+// The bf16 forward is built for Hopper. A block of 256 threads -- two
+// consumer warpgroups and no producer, so that ptxas may give each thread up
+// to 255 registers -- owns 128 query rows of one (batch, head); warpgroup w
+// owns rows 64w .. 64w+63. A head's query tiles run together (so its K and
+// V are read from device memory about once, then from L2), heavy (late,
+// causal) tiles first. Loads are TMA in the 128-byte swizzle through 4-D
+// tensor maps (d, s, h, b) built from the tensors' strides, so [B, S, H, D]
+// buffers seen transposed are read in place; a box is 64 columns x 128 rows
+// (two per tile at D = 128), and rows past S read as zeros. Q is loaded
+// once; K and V come in tiles of 128 keys through a 2-stage ring, each tile
+// on its own mbarrier, and the last of the 8 warps done with a K (or V)
+// tile loads the stage's next one. Shared memory: Q 32 KB + 2 x (32 + 32)
+// KB at D = 128, half that at D = 64: one block per SM. Per k tile each
+// warpgroup runs
+//   S  = Q K^T   wgmma m64n128k16, both operands K-major in shared memory;
+//   the online softmax in registers, in the accumulator's layout (a row's
+//                128 columns lie in a quad of lanes: two shuffles a
+//                reduction); only the diagonal tile and a ragged last tile
+//                are masked, and tiles wholly above the diagonal are skipped;
+//   O += P V     wgmma m64nDk16 with A from registers -- S's fragment,
+//                packed to bf16 pairs, is the A fragment of the k16 steps --
+//                and V N-major in shared memory.
+// S of tile j + 1 and P V of tile j go out together, and the softmax of
+// tile j + 1 runs while P V does. The two warpgroups take turns at issuing
+// (pingpong, two named barriers), so that one's softmax runs while the
+// other's products do. S (64 f32), O (D/2 f32) and P (32 pairs) live in
+// registers. The epilogue divides O by l, writes bf16 into the warpgroup's
+// own rows of the Q tile in the boxes' swizzle, and stores them with TMA,
+// which drops rows past Sq.
+//
+// What bounds it (PERF.md): the softmax's issue. With the accurate expf
+// (seven instructions and an ex2) a score costs about 13 instructions, and
+// a warp alone on its scheduler issues them well below one a cycle, so a
+// warpgroup's softmax outlasts the other's two products and the tensor
+// cores idle for much of the loop. Each block also pays for its start, its
+// epilogue and the hand-over to the next block on its SM.
+
+// The dQ and dK/dV kernels (bf16) are the simple form: mma.sync (m16n8k16,
+// bf16 in, f32 accumulate) fed by ldmatrix, K/V (or Q/dO) tiles
+// double-buffered in shared memory with cp.async:
+//   dQ:      a block per 64 query rows, looping over k tiles of 64;
+//   dK/dV:   a block per 64 keys, 4 warps of 16 keys; q tiles of 32.
 //
 // Numerics mirror the TPU kernels' rounding points: s = (q.k) * scale in f32
 // after the dot (q is not pre-scaled); p = expf(s - m) in f32, rounded to the
@@ -47,20 +83,24 @@
 //
 // Layout: each tensor is [B, H, S, D] given by three element strides (batch,
 // head, sequence) with the last dim contiguous; the wrapper checks that rows
-// are 16-byte aligned. lse and delta are contiguous f32 [B*H, Sq].
+// are 16-byte aligned (and copies a bf16 forward input that has stride 0
+// along a dimension longer than 1: a tensor map cannot say so). lse and
+// delta are contiguous f32 [B*H, Sq].
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int THREADS = 128;   // bf16 kernels: 4 warps
-constexpr int BM = 64;         // query rows per forward / dQ block
-constexpr int BN = 64;         // keys per k tile, and per dK/dV block
+constexpr int THREADS = 128;   // bf16 dQ and dK/dV: 4 warps
+constexpr int BM = 64;         // query rows per dQ block
+constexpr int BN = 64;         // keys per dQ k tile, and per dK/dV block
 constexpr int BQ = 32;         // query rows per q tile of dK/dV
 constexpr int F32_ROWS = 8;    // f32 kernels: warps (rows or keys) per block
 constexpr int F32_TILE = 32;   // f32 kernels: keys (or queries) per tile
@@ -88,10 +128,6 @@ __device__ __forceinline__ long long head_offset(const View& v, int bh,
                                                  int H) {
   return static_cast<long long>(bh / H) * v.sb +
          static_cast<long long>(bh % H) * v.sh;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -200,154 +236,329 @@ __device__ __forceinline__ int k_tiles_for(const Params& p, int q0) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward
+// bf16 forward (TMA, wgmma)
 // ---------------------------------------------------------------------------
 
+constexpr int FT = 128;                // query rows per block, keys per k tile
+constexpr int FWD_THREADS = 256;       // two consumer warpgroups of 64 rows
+constexpr int FWD_STAGES = 2;          // the K/V ring
+constexpr int BOX = FT * 128;          // a box: 128 rows x 64 bf16, 16384 B
+
+// Bytes of a 128-row tile of D columns: D / 64 boxes.
 template <int D>
-constexpr int fwd_smem() { return (BM + 4 * BN) * (D + 8) * 2; }
+__host__ __device__ constexpr int tile_bytes() { return D / 64 * BOX; }
 
+// Q, the ring of K and V tiles, and slack to align them to the 1024-byte
+// swizzle atom.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_bf16_kernel(Params p) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BM * LD;               // 2 buffers of BN x LD
-  bf16* Vs = Ks + 2 * BN * LD;           // 2 buffers of BN x LD
+constexpr int fwd_smem() {
+  return (1 + 2 * FWD_STAGES) * tile_bytes<D>() + 1024;
+}
 
-  const int bh = blockIdx.y;
-  // heavy (late, causal) tiles first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* qh = static_cast<const bf16*>(p.q) + head_offset(p.vq, bh, p.H);
-  const bf16* kh = static_cast<const bf16*>(p.k) + head_offset(p.vk, bh, p.H);
-  const bf16* vh = static_cast<const bf16*>(p.v) + head_offset(p.vv, bh, p.H);
-  const int nk = k_tiles_for(p, q0);
+struct FwdArgs {
+  float* lse;                  // [B*H, Sq]
+  int H, Sq, Sk, causal;
+  float scale;
+};
 
-  load_rows<D, BM>(Qs, qh, p.vq.ss, q0, p.Sq);
-  load_rows<D, BN>(Ks, kh, p.vk.ss, 0, p.Sk);
-  load_rows<D, BN>(Vs, vh, p.vv.ss, 0, p.Sk);
-  cp_async_commit();
-
-  uint32_t qf[D / 16][4];
-  float o[D / 8][4];
+// The online-softmax step of one k tile on a warpgroup's S fragment (the
+// thread's rows row0 and row0 + 8, columns col0 + 8n and + 1, col0 = the
+// tile's first key + 2t): scale; mask where `edge` (the tile crosses the
+// diagonal or Sk); the running max m, corr = exp(m_old - m), p = exp(s - m)
+// in place of s, and l = corr * l + rowsum(p). The mask is a pass of its
+// own, so that the loop holds one copy of the rest. The row max and sum run
+// as four independent chains per row (n % 4) folded at the end; a sum's
+// order is the kernel's own.
+__device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             const FwdArgs& a, bool edge,
+                                             int col0, int row0) {
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
-
-  for (int j = 0; j < nk; ++j) {
-    if (j + 1 < nk) {
-      int b = (j + 1) & 1;
-      load_rows<D, BN>(Ks + b * BN * LD, kh, p.vk.ss, (j + 1) * BN, p.Sk);
-      load_rows<D, BN>(Vs + b * BN * LD, vh, p.vv.ss, (j + 1) * BN, p.Sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
+  for (int n = 0; n < 16; ++n)
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        frag_a<LD>(qf[kk], Qs, warp * 16, kk * 16);
-    }
-    const bf16* Kt = Ks + (j & 1) * BN * LD;
-    const bf16* Vt = Vs + (j & 1) * BN * LD;
-
-    float s[BN / 8][4];
+    for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], a.scale);
+  if (edge) {
 #pragma unroll
-    for (int i = 0; i < BN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    for (int n = 0; n < 16; ++n)
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nn = 0; nn < BN / 16; ++nn) {
-        uint32_t b[4];
-        frag_b_nk<LD>(b, Kt, nn * 16, kk * 16);
-        mma_bf16(s[2 * nn], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * nn + 1], qf[kk], b[2], b[3]);
+      for (int e = 0; e < 4; ++e) {
+        const int col = col0 + n * 8 + (e & 1);
+        if (col >= a.Sk || (a.causal && col > row0 + (e >> 1) * 8))
+          s[n][e] = -INFINITY;
       }
-    }
-
-    // scale, mask, running max
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int col = j * BN + nt * 8 + 2 * t + (i & 1);
-        int row = row0 + (i >> 1) * 8;
-        float x = __fmul_rn(s[nt][i], p.scale);
-        if (col >= p.Sk || (p.causal && col > row)) x = -INFINITY;
-        s[nt][i] = x;
-        mx[i >> 1] = fmaxf(mx[i >> 1], x);
-      }
-    }
-    float corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = expf(__fsub_rn(m[r], mx[r]));
-    }
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float e = expf(__fsub_rn(s[nt][i], mx[i >> 1]));
-        s[nt][i] = e;
-        rs[i >> 1] = __fadd_rn(rs[i >> 1], e);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] = __fadd_rn(rs[r], __shfl_xor_sync(0xffffffffu, rs[r], 1));
-      rs[r] = __fadd_rn(rs[r], __shfl_xor_sync(0xffffffffu, rs[r], 2));
-      l[r] = __fadd_rn(__fmul_rn(corr[r], l[r]), rs[r]);
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      o[dt][0] = __fmul_rn(o[dt][0], corr[0]);
-      o[dt][1] = __fmul_rn(o[dt][1], corr[0]);
-      o[dt][2] = __fmul_rn(o[dt][2], corr[1]);
-      o[dt][3] = __fmul_rn(o[dt][3], corr[1]);
-    }
-
-    // o += bf16(p) @ v
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                       pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                       pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                       pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t b[4];
-        frag_b_kn<LD>(b, Vt, kk * 16, dd * 16);
-        mma_bf16(o[2 * dd], a, b[0], b[1]);
-        mma_bf16(o[2 * dd + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();
   }
-
-  bf16* oh = static_cast<bf16*>(p.out) + head_offset(p.vout, bh, p.H);
+  float mx[4][2];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) mx[c][0] = m[0], mx[c][1] = m[1];
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mx[n & 3][e >> 1] = fmaxf(mx[n & 3][e >> 1], s[n][e]);
+  float rs[4][2] = {};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    int row = row0 + r * 8;
-    if (row >= p.Sq) continue;
-    bf16* orow = oh + row * p.vout.ss;
+    float v = fmaxf(fmaxf(mx[0][r], mx[1][r]), fmaxf(mx[2][r], mx[3][r]));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    corr[r] = expf(__fsub_rn(m[r], v));
+    m[r] = v;
+  }
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      __nv_bfloat162 v = __floats2bfloat162_rn(
-          __fdiv_rn(o[dt][2 * r], l[r]), __fdiv_rn(o[dt][2 * r + 1], l[r]));
-      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * t) = v;
+  for (int n = 0; n < 16; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = expf(__fsub_rn(s[n][e], m[e >> 1]));
+      s[n][e] = p;
+      rs[n & 3][e >> 1] = __fadd_rn(rs[n & 3][e >> 1], p);
     }
-    if (t == 0)
-      p.lse[static_cast<long long>(bh) * p.Sq + row] =
-          __fadd_rn(m[r], logf(l[r]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float v = __fadd_rn(__fadd_rn(rs[0][r], rs[1][r]),
+                        __fadd_rn(rs[2][r], rs[3][r]));
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    l[r] = __fadd_rn(__fmul_rn(corr[r], l[r]), v);
+  }
+}
+
+// One thread loads the K (v = 0) or V (v = 1) tile of k tile j of head
+// (hi, bi) into stage j % FWD_STAGES of the ring, on that stage's barrier.
+template <int D>
+__device__ __forceinline__ void fwd_load(unsigned char* ring, uint64_t* full,
+                                         const CUtensorMap* tm, int j, int v,
+                                         int hi, int bi) {
+  constexpr int TB = tile_bytes<D>();
+  const int st = j % FWD_STAGES;
+  unsigned char* dst = ring + (2 * st + v) * TB;
+  mbar_expect_tx(&full[st], TB);
+#pragma unroll
+  for (int nb = 0; nb < D / 64; ++nb)
+    tma_load4(dst + nb * BOX, tm, nb * 64, j * FT, hi, bi, &full[st]);
+}
+
+// S = Q K^T for a warpgroup's 64 rows (qw: its rows of the Q tile) against
+// a K tile, one wgmma group: k-step kk reads 16 columns, 32 bytes into box
+// kk / 4 of both operands.
+template <int D>
+__device__ __forceinline__ void fwd_scores(float (&s)[16][4],
+                                           const unsigned char* qw,
+                                           const unsigned char* kt) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = kk / 4 * BOX + kk % 4 * 32;
+    const uint64_t da = sw128_desc_at(qw + off, 16, 1024);
+    const uint64_t db = sw128_desc_at(kt + off, 16, 1024);
+    if (kk == 0)
+      wgmma_ss_kk_first(s, da, db);
+    else
+      wgmma_ss_kk(s, da, db);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// O += P V, one wgmma group: P's k-step kk is pa[kk], V's 16 rows of 128
+// bytes, 2048 bytes on; at D = 128 the leading offset steps to V's second
+// box.
+template <int D>
+__device__ __forceinline__ void fwd_pv(float (&o)[D / 8][4],
+                                       const uint32_t (&pa)[8][4],
+                                       const unsigned char* vt) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_rs(o, pa[kk], sw128_desc_at(vt + kk * 2048, BOX, 1024));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Pingpong: the two warpgroups take turns to issue their products, so that
+// one's softmax runs while the other's products do. Named barrier 3 + w is
+// warpgroup w's turn (256 threads: w syncs on it, the other arrives).
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - wg) : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
+                      const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv,
+                      const __grid_constant__ CUtensorMap tmo, FwdArgs a) {
+  constexpr int NB = D / 64;             // boxes per tile
+  constexpr int TB = tile_bytes<D>();
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t qfull, kfull[FWD_STAGES],
+      vfull[FWD_STAGES];
+  __shared__ int kdone[FWD_STAGES], vdone[FWD_STAGES];
+  // the swizzle works on shared-memory address bits: align the tiles there
+  unsigned char* qs =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  unsigned char* ring = qs + TB;         // stage s: K at 2s TB, V at (2s+1) TB
+
+  // the grid runs x fastest: a head's query tiles run together, so its K
+  // and V are read from device memory about once and then from L2; heavy
+  // (late, causal) tiles first
+  const int bh = blockIdx.y;
+  const int bi = bh / a.H, hi = bh - bi * a.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * FT;
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int nk = (a.Sk + FT - 1) / FT;
+  if (a.causal) nk = min(nk, (min(q0 + FT, a.Sq) - 1) / FT + 1);
+
+  if (threadIdx.x == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmq) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmk) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmv) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmo) : "memory");
+    mbar_init(&qfull, 1);
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      kdone[s] = vdone[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&qfull, TB);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      tma_load4(qs + nb * BOX, &tmq, nb * 64, q0, hi, bi, &qfull);
+    for (int j = 0; j < FWD_STAGES && j < nk; ++j) {
+      fwd_load<D>(ring, kfull, &tmk, j, 0, hi, bi);
+      fwd_load<D>(ring, vfull, &tmv, j, 1, hi, bi);
+    }
+  }
+
+  // this warpgroup's 64 rows of Q (8 KB into each box); the thread's rows
+  const unsigned char* qw = qs + wg * 64 * 128;
+  const int row0 = q0 + wg * 64 + warp * 16 + g;   // and row0 + 8
+  float o[D / 8][4], s[16][4];
+  uint32_t pa[8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+
+  // The softmax of k tile j on s, masked only where the tile crosses this
+  // warpgroup's diagonal or Sk. A warp done with a K or V tile counts
+  // itself out; the last of the 8 loads the stage's next tile.
+  auto softmax = [&](int j) {
+    softmax_tile(s, m, l, corr, a,
+                 (j + 1) * FT > a.Sk ||
+                     (a.causal && j * FT + FT - 1 > q0 + wg * 64),
+                 j * FT + 2 * t, row0);
+  };
+  auto release = [&](int* done, uint64_t* full, const CUtensorMap* tm,
+                     int j, int v) {
+    if (count_last(&done[j % FWD_STAGES], 8, lane) && lane == 0 &&
+        j + FWD_STAGES < nk)
+      fwd_load<D>(ring, full, tm, j + FWD_STAGES, v, hi, bi);
+  };
+  // P's A fragments: S's fragment of k-step kk, packed to bf16 pairs
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+  };
+
+  mbar_wait(&qfull, 0);
+  if (wg == 1) turn_pass(wg);      // warpgroup 0 goes first
+  turn_wait(wg);
+  mbar_wait(&kfull[0], 0);
+  fwd_scores<D>(s, qw, ring);
+  turn_pass(wg);
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  reg_fence_all(s);
+  release(kdone, kfull, &tmk, 0, 0);
+  softmax(0);
+  pack();
+  reg_fence_all(pa);
+
+  // Each turn issues S of tile j + 1, then O += P V of tile j; the softmax
+  // of tile j + 1 runs while the second product does, and O is rescaled
+  // (by tile j + 1's corr) once it is done. The last turn is O += P V of
+  // the last tile alone. (Every turn of the loop issues both products: with
+  // S issued on only some paths, ptxas cannot tell that the first of the two
+  // groups is complete and serialises the products.)
+  for (int j = 0; j + 1 < nk; ++j) {
+    turn_wait(wg);
+    mbar_wait(&kfull[(j + 1) % FWD_STAGES], ((j + 1) / FWD_STAGES) & 1);
+    fwd_scores<D>(s, qw, ring + 2 * ((j + 1) % FWD_STAGES) * TB);
+    mbar_wait(&vfull[j % FWD_STAGES], (j / FWD_STAGES) & 1);
+    fwd_pv<D>(o, pa, ring + (2 * (j % FWD_STAGES) + 1) * TB);
+    turn_pass(wg);
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    reg_fence_all(s);
+    release(kdone, kfull, &tmk, j + 1, 0);
+    softmax(j + 1);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    reg_fence_all(o);
+    reg_fence_all(pa);
+    release(vdone, vfull, &tmv, j, 1);
+    // (a row whose max did not move has corr 1: o * 1 is o)
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[i][0] = __fmul_rn(o[i][0], corr[0]);
+        o[i][1] = __fmul_rn(o[i][1], corr[0]);
+        o[i][2] = __fmul_rn(o[i][2], corr[1]);
+        o[i][3] = __fmul_rn(o[i][3], corr[1]);
+      }
+    }
+    pack();
+    // both done before the next turn issues anything
+    reg_fence_all(o);
+    reg_fence_all(pa);
+  }
+  turn_wait(wg);
+  mbar_wait(&vfull[(nk - 1) % FWD_STAGES], ((nk - 1) / FWD_STAGES) & 1);
+  fwd_pv<D>(o, pa, ring + (2 * ((nk - 1) % FWD_STAGES) + 1) * TB);
+  // warpgroup 1's last turn passes to no one: the turns balance
+  if (wg == 0) turn_pass(wg);
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  reg_fence_all(o);
+
+  // o / l in bf16 into this warpgroup's rows of the Q tile (no other warp
+  // reads them), in the boxes' swizzle: 16-byte chunk c of row r at chunk
+  // c ^ (r % 8); then one thread stores them with TMA.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rl = wg * 64 + warp * 16 + g + r * 8;   // row in the tile
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      __nv_bfloat162 v = __floats2bfloat162_rn(
+          __fdiv_rn(o[i][2 * r], l[r]), __fdiv_rn(o[i][2 * r + 1], l[r]));
+      *reinterpret_cast<__nv_bfloat162*>(
+          qs + i / 8 * BOX + rl * 128 + (((i % 8) ^ g) << 4) + 4 * t) = v;
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  if ((threadIdx.x & 127) == 0 && q0 + wg * 64 < a.Sq) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      tma_store4(&tmo, qw + nb * BOX, nb * 64, q0 + wg * 64, hi, bi);
+    tma_store_commit();
+    tma_store_wait_read();
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + r * 8 < a.Sq)
+        a.lse[static_cast<long long>(bh) * a.Sq + row0 + r * 8] =
+            __fadd_rn(m[r], logf(l[r]));
   }
 }
 
@@ -870,6 +1081,56 @@ int launch(K kernel, int smem, dim3 grid, int threads, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The map of a bf16 [B, H, S, D] tensor as (d, s, h, b) from its element
+// strides, in boxes of 64 columns x `rows` rows. A dimension of extent 1
+// takes a packed stride (it is never stepped); every other stride must be a
+// nonzero multiple of 16 bytes.
+int encode_bhsd(CUtensorMap* map, const void* base, const View& v, int B,
+                int H, int S, int D, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const long long st[3] = {v.ss, v.sh, v.sb};
+  cuuint64_t strides[3];
+  cuuint64_t packed = 2ull * D;
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) {
+      strides[i] = packed;
+    } else {
+      if (st[i] <= 0 || (st[i] * 2) % 16 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+      strides[i] = static_cast<cuuint64_t>(st[i]) * 2;
+    }
+    packed *= dims[i + 1];
+  }
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  return encode_tiled(map, base, 4, dims, box, strides);
+}
+
+template <int D>
+int launch_fwd_bf16(const Params& p, int BH, void* stream) {
+  const int B = BH / p.H;
+  const int n_qt = (p.Sq + FT - 1) / FT;
+  if (BH > 65535 || B * p.H != BH)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap tmq, tmk, tmv, tmo;
+  int err = encode_bhsd(&tmq, p.q, p.vq, B, p.H, p.Sq, D, FT);
+  if (err == 0) err = encode_bhsd(&tmk, p.k, p.vk, B, p.H, p.Sk, D, FT);
+  if (err == 0) err = encode_bhsd(&tmv, p.v, p.vv, B, p.H, p.Sk, D, FT);
+  if (err == 0) err = encode_bhsd(&tmo, p.out, p.vout, B, p.H, p.Sq, D, 64);
+  if (err != 0) return err;
+  constexpr int smem = fwd_smem<D>();
+  auto kernel = flash_fwd_bf16_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const FwdArgs a = {p.lse, p.H, p.Sq, p.Sk, p.causal, p.scale};
+  kernel<<<dim3(n_qt, BH), FWD_THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(tmq, tmk, tmv, tmo, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 enum Which { FWD = 0, DQ = 1, DKV = 2 };
 
 int run(Which which, int f32, int D, const Params& p, int BH, void* stream) {
@@ -887,13 +1148,9 @@ int run(Which which, int f32, int D, const Params& p, int BH, void* stream) {
     return D == 64 ? launch(flash_dkv_f32_kernel<64>, 0, grid, th, p, stream)
                    : launch(flash_dkv_f32_kernel<128>, 0, grid, th, p, stream);
   }
-  if (which == FWD) {
-    dim3 grid((rows + BM - 1) / BM, BH);
-    return D == 64 ? launch(flash_fwd_bf16_kernel<64>, fwd_smem<64>(), grid,
-                            THREADS, p, stream)
-                   : launch(flash_fwd_bf16_kernel<128>, fwd_smem<128>(), grid,
-                            THREADS, p, stream);
-  }
+  if (which == FWD)
+    return D == 64 ? launch_fwd_bf16<64>(p, BH, stream)
+                   : launch_fwd_bf16<128>(p, BH, stream);
   if (which == DQ) {
     dim3 grid((rows + BM - 1) / BM, BH);
     return D == 64 ? launch(flash_dq_bf16_kernel<64>, dq_smem<64>(), grid,

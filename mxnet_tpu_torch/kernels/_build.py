@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``. Builds happen
 at first use, into ``mxnet_tpu_torch/_build/`` (listed in .gitignore), under
-a file name keyed by the source's and flags' hash, so an edited source is
-rebuilt and an unchanged one is reused. ``build_all()`` starts one ``nvcc``
-per source, all at once.
+a file name keyed by the hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused. ``build_all()`` starts one ``nvcc`` per
+source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module on a
 host that has no ``nvcc``.
@@ -13,6 +14,7 @@ host that has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -53,9 +55,14 @@ def _nvcc():
 
 
 def _target(name):
+    """(source path, library path): the library's name carries the hash of
+    the source, every shared header in csrc/ and the flags."""
     src = os.path.join(_SRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in [src] + sorted(glob.glob(os.path.join(_SRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    digest.update(" ".join(_FLAGS).encode())
     return src, os.path.join(_BUILD_DIR, "lib%s-%s.so"
                              % (name, digest.hexdigest()[:16]))
 

@@ -251,8 +251,9 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
     transposed); o is laid out as q is when q is such a view.
 
     ``block_q`` and ``block_k`` are accepted for the JAX package's API and
-    not used: the CUDA kernels pick their own tiles (64 query rows by 64
-    keys; 64 keys by 32 query rows in dK/dV).
+    not used: the CUDA kernels pick their own tiles (the bf16 forward 128
+    query rows by 128 keys, dQ 64 by 64, dK/dV 64 keys by 32 query rows;
+    the f32 kernels 8 rows by 32).
     """
     del block_q, block_k
     if causal and q.shape[2] != k.shape[2]:
@@ -312,9 +313,20 @@ def _like(t):
     return torch.empty(b, h, s, d, dtype=t.dtype, device=t.device)
 
 
+def _tma_view(t):
+    """``t``, or a contiguous copy where a dimension longer than 1 has
+    stride 0 (an expanded view): the bf16 forward reads through TMA tensor
+    maps, whose strides are nonzero multiples of 16 bytes."""
+    if any(s == 0 and n > 1 for s, n in zip(t.stride()[:3], t.shape[:3])):
+        return t.contiguous()
+    return t
+
+
 def _launch_forward(q, k, v, causal, scale):
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    if q.dtype == torch.bfloat16:
+        q, k, v = _tma_view(q), _tma_view(k), _tma_view(v)
     o = _like(q)
     lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
     if q.numel() == 0:

@@ -1,0 +1,89 @@
+"""The port's kernel build (mxnet_tpu_torch/kernels/_build.py) on the CPU:
+the library name each source builds to, which must change whenever the
+source, a shared header in csrc/ or the flags change, so that a stale
+library is never loaded. Nothing here runs nvcc."""
+import os
+import re
+
+import pytest
+
+from mxnet_tpu_torch.kernels import _build
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "mxnet_tpu_torch", "csrc")
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    """A temporary csrc/ with one source that includes one header."""
+    (tmp_path / "k.cu").write_text('#include "hopper.cuh"\nint k();\n')
+    (tmp_path / "hopper.cuh").write_text("int helper();\n")
+    monkeypatch.setattr(_build, "_SRC_DIR", str(tmp_path))
+    return tmp_path
+
+
+def _lib(name="k"):
+    return os.path.basename(_build._target(name)[1])
+
+
+def test_key_is_stable(csrc):
+    assert _lib() == _lib()
+    assert re.fullmatch(r"libk-[0-9a-f]{16}\.so", _lib())
+
+
+def test_key_changes_with_a_header(csrc):
+    before = _lib()
+    (csrc / "hopper.cuh").write_text("int helper(int);\n")
+    assert _lib() != before
+
+
+def test_key_changes_with_a_new_header(csrc):
+    before = _lib()
+    (csrc / "more.cuh").write_text("int other();\n")
+    assert _lib() != before
+
+
+def test_key_changes_with_the_source_and_flags(csrc, monkeypatch):
+    before = _lib()
+    (csrc / "k.cu").write_text('#include "hopper.cuh"\nint k(int);\n')
+    edited = _lib()
+    assert edited != before
+    monkeypatch.setattr(_build, "_FLAGS", _build._FLAGS + ["-DX"])
+    assert _lib() != edited
+
+
+def test_key_ignores_other_files(csrc):
+    before = _lib()
+    (csrc / "notes.txt").write_text("not a header\n")
+    assert _lib() == before
+
+
+def test_every_source_has_its_own_library():
+    libs = [_lib(name) for name in _build.SOURCES]
+    assert len(set(libs)) == len(libs)
+    for name, lib in zip(_build.SOURCES, libs):
+        assert lib.startswith("lib%s-" % name)
+
+
+# The Hopper primitives that the TMA and wgmma kernels (conv_fused,
+# flash_attention) use live once, in csrc/sm90.cuh.
+HOPPER = ("conv_fused.cu", "flash_attention.cu", "sm90.cuh")
+SHARED = ("smem_addr", "mbar_init", "mbar_arrive", "mbar_expect_tx",
+          "mbar_wait", "tma_load4", "tma_store4", "reg_fence", "sw128_desc",
+          "sw128_desc_at", "wgmma_rs", "wgmma_ss", "count_last",
+          "encode_tiled")
+
+
+@pytest.mark.parametrize("name", SHARED)
+def test_hopper_primitives_have_one_copy(name):
+    pattern = re.compile(r"^(?:__device__ __forceinline__ \S+|int) %s\("
+                         % name, re.M)
+    defined = [f for f in HOPPER
+               if pattern.search(open(os.path.join(CSRC, f)).read())]
+    assert defined == ["sm90.cuh"], defined
+
+
+@pytest.mark.parametrize("source", ["conv_fused", "flash_attention"])
+def test_hopper_kernels_include_the_shared_header(source):
+    text = open(os.path.join(CSRC, source + ".cu")).read()
+    assert '#include "sm90.cuh"' in text

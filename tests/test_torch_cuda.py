@@ -465,6 +465,51 @@ def test_flash_kernels_match_plain_on_transposed_views(case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("case", [(2, 3, 640, 640, 128, True),
+                                  (1, 4, 520, 520, 64, True)])
+def test_flash_forward_multi_tile_causal(case, layout):
+    """The bf16 forward over several 128-row query tiles and 128-key tiles
+    (ragged at 520), causal, contiguous and on transposed views: o and lse
+    against flash_forward_reference as a whole and row by row (FLASH_RTOL),
+    o laid out as q, one launch per call, and the same bits on a second
+    launch."""
+    _need_card()
+    causal, scale = case[5], case[4] ** -0.5
+    q, k, v, _ = _flash_inputs(case, "bfloat16", layout)
+    before = FA.LAUNCHES["fwd"]
+    o, lse = FA._flash_forward(q, k, v, causal, scale)
+    o2, lse2 = FA._flash_forward(q, k, v, causal, scale)
+    ro, rlse = FA.flash_forward_reference(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["fwd"] - before == 2
+    assert o.stride() == q.stride() and o.dtype == torch.bfloat16
+    tol = FLASH_RTOL["bfloat16"]
+    err = (o.float() - ro.float()).abs().max().item()
+    assert err <= tol["o"] * ro.float().abs().max().item(), err
+    assert _row_rel_err(o, ro) <= tol["o"], _row_rel_err(o, ro)
+    lerr = (lse - rlse).abs().max().item()
+    assert lerr <= tol["lse"] * rlse.abs().max().item(), lerr
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_flash_forward_takes_expanded_views():
+    """k and v broadcast over heads (stride 0, as an expand gives them): the
+    bf16 forward reads them through a copy and gives what contiguous inputs
+    give, bit for bit."""
+    _need_card()
+    q, k, v, _ = _flash_inputs((2, 4, 300, 300, 64, True), "bfloat16")
+    ke, ve = k[:, :1].expand(-1, 4, -1, -1), v[:, :1].expand(-1, 4, -1, -1)
+    assert ke.stride(1) == 0
+    got = FA._flash_forward(q, ke, ve, True, 0.125)
+    want = FA._flash_forward(q, ke.contiguous(), ve.contiguous(), True,
+                             0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
 def test_flash_kernels_raise_on_unsupported_inputs():
     _need_card()
     q = torch.randn(1, 2, 128, 96, device="cuda", dtype=torch.bfloat16)

@@ -241,3 +241,129 @@ def test_backward_halves_equal_the_whole():
                                                         tdo))
         hk, hv = FA.backward_dkv_reference(tq, tk, tv, o, lse, tdo)
         assert torch.equal(dk, hk) and torch.equal(dv, hv)
+
+
+# -- the bf16 forward kernel's decomposition ----------------------------------
+# csrc/flash_attention.cu's bf16 forward: a block per TILE query rows of one
+# (batch, head), split into two halves of HALF rows (one per consumer
+# warpgroup); k tiles of TILE keys in order, up to the causal diagonal; the
+# mask applied only where a tile crosses the half's diagonal or Sk; rows and
+# keys past S read as zeros (TMA's fill) and rows past Sq never stored.
+TILE, HALF = 128, 64
+
+
+def _kernel_model(q, k, v, causal, scale):
+    """The kernel's work in plain torch, at its rounding points: s =
+    (q.k)*scale in f32, the running max m, p = exp(s - m) rounded to
+    v.dtype before P@V, o = corr*o + p@v and l = corr*l + rowsum(p) in f32,
+    o / l cast last, lse = m + log(l). Returns (o, lse, visits): visits
+    maps (q tile, half) to its k tiles, each with whether it was masked."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    nq, nkt = -(-sq // TILE), -(-sk // TILE)
+
+    def pad(t, n):
+        out = torch.zeros(b, h, n * TILE, d, dtype=t.dtype)
+        out[:, :, :t.shape[2]] = t
+        return out
+
+    qp, kp, vp = pad(q, nq), pad(k, nkt), pad(v, nkt)
+    o = torch.empty(b, h, sq, d, dtype=q.dtype)
+    lse = torch.empty(b, h, sq, dtype=torch.float32)
+    visits = {}
+    for qt in range(nq):
+        q0 = qt * TILE
+        nk = nkt if not causal else min(nkt, (min(q0 + TILE, sq) - 1)
+                                        // TILE + 1)
+        for w in range(2):
+            r0 = q0 + w * HALF
+            rows = torch.arange(r0, r0 + HALF)
+            qa = qp[:, :, r0:r0 + HALF].float()
+            m = torch.full((b, h, HALF), float("-inf"))
+            l = torch.zeros(b, h, HALF)
+            acc = torch.zeros(b, h, HALF, d)
+            visits[(qt, w)] = []
+            for j in range(nk):
+                cols = torch.arange(j * TILE, (j + 1) * TILE)
+                kt, vt = kp[:, :, cols].float(), vp[:, :, cols]
+                s = (qa @ kt.transpose(-1, -2)) * scale
+                edge = (j + 1) * TILE > sk or \
+                    (causal and (j + 1) * TILE - 1 > r0)
+                if edge:
+                    mask = cols[None, :] >= sk
+                    if causal:
+                        mask = mask | (cols[None, :] > rows[:, None])
+                    s = s.masked_fill(mask, float("-inf"))
+                visits[(qt, w)].append((j, edge))
+                mx = torch.maximum(m, s.amax(dim=-1))
+                corr = torch.exp(m - mx)
+                p = torch.exp(s - mx[..., None])
+                l = corr * l + p.sum(dim=-1)
+                acc = acc * corr[..., None] + p.to(v.dtype).float() @ \
+                    vt.float()
+                m = mx
+            keep = min(HALF, max(0, sq - r0))
+            o[:, :, r0:r0 + keep] = (acc / l[..., None])[:, :, :keep] \
+                .to(q.dtype)
+            lse[:, :, r0:r0 + keep] = (m + torch.log(l))[:, :, :keep]
+    return o, lse.reshape(b * h, sq), visits
+
+
+def _check_visits(visits, sq, sk, causal):
+    """Every (row < Sq, key < Sk) pair a half needs lies in a visited tile,
+    a tile left out is wholly masked, and an unmasked tile needs no mask:
+    skipping and masking lose nothing."""
+    nkt = -(-sk // TILE)
+    for (qt, w), tiles in visits.items():
+        r0 = qt * TILE + w * HALF
+        rows = [r for r in range(r0, r0 + HALF) if r < sq] or [r0]
+        seen = [j for j, _ in tiles]
+        assert seen == list(range(len(seen)))
+        for j in range(nkt):
+            cols = range(j * TILE, min((j + 1) * TILE, sk))
+            needed = any(c <= r for c in cols for r in rows) \
+                if causal else True
+            if j not in seen:
+                assert not needed, (qt, w, j)
+        for j, edge in tiles:
+            needs_mask = (j + 1) * TILE > sk or (
+                causal and any(c > r for c in range(j * TILE, (j + 1)
+                                                       * TILE)
+                               for r in range(r0, r0 + HALF)))
+            assert edge == needs_mask, (qt, w, j)
+
+
+# (Sq, Sk): S in {100, 128, 257, 384} with Sq == Sk, causal and not; and
+# cross-attention shapes (non-causal) with Sq != Sk.
+MODEL_CASES = [(s, s, d, c) for s in (100, 128, 257, 384) for d in (64, 128)
+               for c in (False, True)] + \
+    [(sq, sk, d, False) for sq, sk in ((100, 257), (257, 128), (384, 100))
+     for d in (64, 128)]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", MODEL_CASES)
+def test_forward_kernel_model_matches_reference_and_pallas(sq, sk, d,
+                                                           causal):
+    """The bf16 forward kernel's decomposition (128-key tiles, 64-row
+    halves, the diagonal-tile mask, the ragged last tile) against
+    flash_forward_reference and JAX's _pallas_forward in interpret mode,
+    at the file's bf16 forward tolerances."""
+    q, k, v, _ = _qkv(1, 2, sq, sk, d, seed=10)
+    scale = d ** -0.5
+    tq, tk, tv = (_t(a, torch.bfloat16) for a in (q, k, v))
+    o, lse, visits = _kernel_model(tq, tk, tv, causal, scale)
+    _check_visits(visits, sq, sk, causal)
+    if causal:
+        # only the diagonal tile of each half is masked
+        assert all([j for j, e in ts if e] == [qt] for (qt, _), ts in
+                   visits.items())
+    ro, rlse = FA.flash_forward_reference(tq, tk, tv, causal, scale)
+    assert o.dtype == torch.bfloat16 and o.shape == ro.shape
+    _close_bf16(o, ro)
+    np.testing.assert_allclose(lse.numpy(), rlse.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    jo, jl = JFA._pallas_forward(*(_j(a, jnp.bfloat16) for a in (q, k, v)),
+                                 causal, scale, TILE, TILE, True)
+    _close_bf16(o, jo)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl)[:, :, 0],
+                               rtol=1e-5, atol=1e-5)
