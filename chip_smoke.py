@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases env,kernel,serve_int8
     python3 chip_smoke.py --phases env,kernel_conv_bwd,time_conv_bwd
     python3 chip_smoke.py --phases env,kernel_flash,time_flash
+    python3 chip_smoke.py --phases env,train_lm,time_lm
 
 Phases, each printing JSON lines:
 
@@ -39,8 +40,8 @@ Phases, each printing JSON lines:
               S 2048, D 128, causal, bf16; batch cut to 1 so that the
               plain version's scores fit), contiguous and as the
               transposed [B, S, H, D] views the LM passes, and at edge
-              shapes (non-causal, Sq != Sk, S = 100 and 257, D = 64,
-              B*H = 1) in bf16 and f32 (FLASH_RTOL; bf16 outputs also row
+              shapes (non-causal, Sq != Sk, S = 100 and 257, Sq 129
+              against Sk 449, D = 64, B*H = 1) in bf16 and f32 (FLASH_RTOL; bf16 outputs also row
               by row, FLASH_ROWWISE); a second launch must give the same
               bits. The int8 matmul (int32 and scaled forms) at every
               product shape int8 ResNet-50 v1 gives it at batch 32 (read
@@ -161,8 +162,8 @@ Phases, each printing JSON lines:
 backward pair's part of phases kernel and time, and kernel_flash and
 time_flash, the flash kernels' part (rows 9-11; time_flash also times the
 bf16 forward at head dim 64 and the f32 forward), to run them alone after
-env (the default run does not name them: phases kernel and time run
-them).
+env, and time_lm, the LM step's timing, after env,train_lm (the default
+run does not name them: phases kernel and time run them).
 
 The run ends with the nvidia-smi name/power line, then the
 {"kernels": [...]} line (per kernel: launches on its path, max abs error at
@@ -188,9 +189,10 @@ import numpy as np
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_lm", "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
-# the conv_fused backward pair's checks and timing, and the flash kernels'.
+# the conv_fused backward pair's checks and timing, the flash kernels',
+# and the LM step's timing (after train_lm).
 SUB_PHASES = ("kernel_conv_bwd", "time_conv_bwd", "kernel_flash",
-              "time_flash")
+              "time_flash", "time_lm")
 
 # ResNet-50's fused 3x3 links at batch 32: (N, H, W, Ci, Co) and how many
 # of the 16 launches per forward run at that shape.
@@ -326,6 +328,12 @@ FLASH_PER_STEP = {"fwd": 2 * LM_CFG["n_layers"], "dq": LM_CFG["n_layers"],
 # Line of each TPU kernel body in mxnet_tpu/pallas_kernels/flash_attention.py.
 FLASH_REPLACES = {"fwd": 105, "dq": 249, "dkv": 280}
 FLASH_OUTS = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+FLASH_DESIGN = {
+    "fwd": "redesigned for Hopper: 128-row query tiles, a TMA ring of K and "
+           "V tiles, wgmma, pingpong warpgroups",
+    "dq": "mma.sync fed by ldmatrix, cp.async double buffers",
+    "dkv": "redesigned for Hopper: 128-key blocks, a TMA ring of Q and dO "
+           "tiles, wgmma, pingpong warpgroups"}
 # Flash kernels against their plain versions, relative to max |reference|:
 # bf16 outputs one bf16 rounding step (as conv_fused); lse is f32 from f32
 # scores that differ by summation order only; f32 o/lse 1e-5 and gradients
@@ -336,8 +344,9 @@ FLASH_RTOL = {"bfloat16": {"o": 1.6e-2, "lse": 1e-5, "dq": 1.6e-2,
                           "dv": 1e-4}}
 # (B, H, Sq, Sk, D, causal): the LM's attention with the batch cut from 12
 # to 1, so that the plain version's [B, H, S, S] f32 scores fit; and the
-# edge shapes: non-causal, Sq != Sk, ragged tiles (S = 100, 257), D = 64,
-# B*H = 1; each in bf16 and f32.
+# edge shapes: non-causal, Sq != Sk, ragged tiles (S = 100, 257; Sq 129
+# and Sk 449 against the dK/dV kernel's 64-row q tiles and 128-key
+# blocks), D = 64, B*H = 1; each in bf16 and f32.
 FLASH_MAIN = (1, 32, 2048, 2048, 128, True)
 # The bf16 outputs are also held row by row: each row of o and dq (a query
 # row) and of dk and dv (a key row) within FLASH_RTOL of that row's own max
@@ -355,7 +364,8 @@ FLASH_ROWWISE = ("o", "dq", "dk", "dv")
 FLASH_LAYOUTS = ("bhsd", "bshd")
 FLASH_EDGE = [(2, 4, 256, 256, 128, False), (2, 2, 128, 384, 64, False),
               (2, 3, 100, 100, 128, True), (1, 2, 257, 257, 64, True),
-              (1, 1, 384, 384, 128, True), (1, 2, 100, 257, 128, False)]
+              (1, 1, 384, 384, 128, True), (1, 2, 100, 257, 128, False),
+              (1, 3, 129, 449, 64, False)]
 # The narrow f32 LM of the card-vs-CPU step (TF32 off), and its bounds
 # relative to each tensor's max: both sides keep f32 products (the card's
 # f32 flash kernels run on the CUDA cores, cuBLAS without TF32), so they
@@ -3450,6 +3460,7 @@ def kernel_summary(state):
             "bound_by": f["bound_by"], "library_ms": n * f["library_ms"],
             "per": "one transformer-LM training step, bf16, batch 12 x "
                    "2048, H 32, D 128, causal (%d launches)" % n,
+            "design": FLASH_DESIGN[k],
         })
         if k != "fwd":
             # one SDPA backward computes dq, dk and dv: its time belongs to

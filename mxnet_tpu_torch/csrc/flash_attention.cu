@@ -56,11 +56,47 @@
 // cores idle for much of the loop. Each block also pays for its start, its
 // epilogue and the hand-over to the next block on its SM.
 
-// The dQ and dK/dV kernels (bf16) are the simple form: mma.sync (m16n8k16,
-// bf16 in, f32 accumulate) fed by ldmatrix, K/V (or Q/dO) tiles
-// double-buffered in shared memory with cp.async:
-//   dQ:      a block per 64 query rows, looping over k tiles of 64;
-//   dK/dV:   a block per 64 keys, 4 warps of 16 keys; q tiles of 32.
+// The bf16 dK/dV kernel is built for Hopper as the forward is. A block of
+// 256 threads (two consumer warpgroups, no producer) owns 128 keys of one
+// (batch, head); warpgroup w owns keys 64w .. 64w+63. A head's key blocks
+// run together (Q and dO come from L2 after the first), heavy (early,
+// causal) blocks first. K and V are loaded once by TMA (boxes of 64 columns
+// x 128 rows, the 128-byte swizzle, the forward's 4-D maps); Q and dO come
+// in q tiles of 64 rows through a 2-stage ring, with the tile's lse and
+// delta (cp.async, 4 bytes a lane: a row of [B*H, Sq] need not be 16-byte
+// aligned) on the same mbarrier; the last of the 8 warps done with a stage
+// refills it. Shared memory: K + V 64 KB + 2 x (32 KB + 512 B) at D = 128,
+// half the tiles at D = 64: one block per SM. Per q tile each warpgroup runs
+//   S^T  = K Q^T, dP^T = V dO^T   wgmma m64n64k16, both operands K-major in
+//                                 shared memory, two groups: P^T = exp(S^T
+//                                 * scale - lse) runs while dP^T does;
+//   dS^T = P^T (dP^T - delta) * scale, in the accumulator's layout; only
+//                                 the tile on the warpgroup's diagonal and
+//                                 a ragged last tile are masked;
+//   dV += P^T dO, dK += dS^T Q    wgmma m64nDk16 with A from registers (the
+//                                 score fragments packed to bf16 pairs) and
+//                                 dO, Q N-major in shared memory.
+// Causal: q tiles before k0 are skipped; the first tile (queries k0 ..
+// k0+63) lies wholly before warpgroup 1's keys, which passes it with no
+// products. The two warpgroups take turns at issuing (pingpong, two turns a
+// q tile), so that one's exp and dS run while the other's products do.
+// dK, dV (D/2 f32 each), S^T and dP^T (32 f32 each) live in registers. The
+// epilogue writes bf16 into the warpgroup's own rows of the K and V tiles
+// and stores them with TMA, which drops rows past Sk.
+//
+// What bounds it (PERF.md, chip_flash_probe.py): the series inside a
+// warpgroup. It runs at about half the tensor rate; the score products,
+// the exp/dS pass and the dV/dK products of a q tile run one after the
+// other, and the other warpgroup hides only part of each (the turns
+// themselves change little). The score products also read all of an SM's
+// 128 B/clock of shared memory at the full tensor rate (an m64n64k16 from
+// shared memory reads 4 KB for 131k operations). Issuing the next tile's
+// score products with this tile's dV/dK needs more than 255 registers at
+// D = 128 (it spills).
+//
+// The bf16 dQ kernel is the simple form: mma.sync (m16n8k16, bf16 in, f32
+// accumulate) fed by ldmatrix, a block per 64 query rows looping over k
+// tiles of 64 double-buffered in shared memory with cp.async.
 //
 // Numerics mirror the TPU kernels' rounding points: s = (q.k) * scale in f32
 // after the dot (q is not pre-scaled); p = expf(s - m) in f32, rounded to the
@@ -73,7 +109,9 @@
 // Masking: causal is left-aligned (col > row masked; the caller only passes
 // Sq == Sk then). Tiles entirely above the diagonal are skipped. Padded rows
 // and columns of a ragged last tile (S not a multiple of the tile) are loaded
-// as zeros, masked out of every sum (p = 0), and never stored. Every row's
+// as zeros, masked out of every sum (p = 0), and never stored (the bf16
+// dK/dV kernel leaves padded keys unmasked: each feeds only its own row of
+// dK and dV, which is dropped). Every row's
 // first k tile holds its column 0, so the running max is finite after it and
 // no exp(-inf - -inf) forms.
 //
@@ -83,9 +121,9 @@
 //
 // Layout: each tensor is [B, H, S, D] given by three element strides (batch,
 // head, sequence) with the last dim contiguous; the wrapper checks that rows
-// are 16-byte aligned (and copies a bf16 forward input that has stride 0
-// along a dimension longer than 1: a tensor map cannot say so). lse and
-// delta are contiguous f32 [B*H, Sq].
+// are 16-byte aligned (and copies a bf16 input of the forward or the
+// backward that has stride 0 along a dimension longer than 1: a tensor map
+// cannot say so). lse and delta are contiguous f32 [B*H, Sq].
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -98,10 +136,9 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int THREADS = 128;   // bf16 dQ and dK/dV: 4 warps
+constexpr int THREADS = 128;   // bf16 dQ: 4 warps
 constexpr int BM = 64;         // query rows per dQ block
-constexpr int BN = 64;         // keys per dQ k tile, and per dK/dV block
-constexpr int BQ = 32;         // query rows per q tile of dK/dV
+constexpr int BN = 64;         // keys per dQ k tile
 constexpr int F32_ROWS = 8;    // f32 kernels: warps (rows or keys) per block
 constexpr int F32_TILE = 32;   // f32 kernels: keys (or queries) per tile
 
@@ -178,6 +215,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragments of a wgmma accumulator's K x 16 columns packed to bf16
+// pairs: k-step kk holds columns 16kk .. 16kk+15.
+template <int K>
+__device__ __forceinline__ void pack_frag(uint32_t (&f)[K][4],
+                                          const float (&s)[2 * K][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+    f[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    f[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    f[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    f[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
 }
 
 // Rows r0 .. r0+ROWS-1 of a [S, D] head (row stride ss) into shared memory
@@ -462,16 +513,6 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
         j + FWD_STAGES < nk)
       fwd_load<D>(ring, full, tm, j + FWD_STAGES, v, hi, bi);
   };
-  // P's A fragments: S's fragment of k-step kk, packed to bf16 pairs
-  auto pack = [&]() {
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-  };
 
   mbar_wait(&qfull, 0);
   if (wg == 1) turn_pass(wg);      // warpgroup 0 goes first
@@ -483,7 +524,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
   reg_fence_all(s);
   release(kdone, kfull, &tmk, 0, 0);
   softmax(0);
-  pack();
+  pack_frag(pa, s);
   reg_fence_all(pa);
 
   // Each turn issues S of tile j + 1, then O += P V of tile j; the softmax
@@ -517,7 +558,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
         o[i][3] = __fmul_rn(o[i][3], corr[1]);
       }
     }
-    pack();
+    pack_frag(pa, s);
     // both done before the next turn issues anything
     reg_fence_all(o);
     reg_fence_all(pa);
@@ -694,161 +735,299 @@ flash_dq_bf16_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dK / dV
+// bf16 dK / dV (TMA, wgmma)
 // ---------------------------------------------------------------------------
 
+constexpr int KT = 128;                // keys per block
+constexpr int QT = 64;                 // query rows per q tile
+constexpr int DKV_STAGES = 2;          // the Q/dO ring
+constexpr int QBOX = QT * 128;         // a q-tile box: 64 rows x 64 bf16, 8192 B
+
+// K and V, the ring of Q and dO tiles, and slack to align them to the
+// 1024-byte swizzle atom.
 template <int D>
 constexpr int dkv_smem() {
-  return (2 * BN + 4 * BQ) * (D + 8) * 2 + 4 * BQ * 4;
+  return 2 * tile_bytes<D>() + DKV_STAGES * 2 * (D / 64) * QBOX + 1024;
+}
+
+struct DkvArgs {
+  const float* lse;            // [B*H, Sq]
+  const float* delta;          // [B*H, Sq]
+  int H, Sq, Sk, causal;
+  float scale;
+};
+
+// The thread's cp.async copies issued so far arrive on `bar` when they
+// complete; the barrier's count includes that arrival.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// S^T = K Q^T (or dP^T = V dO^T) for a warpgroup's 64 keys (kw: its rows of
+// the K or V tile) against a q tile, one wgmma group: k-step kk reads 16
+// columns, 32 bytes into box kk / 4 of both operands.
+template <int D>
+__device__ __forceinline__ void dkv_scores(float (&s)[8][4],
+                                           const unsigned char* kw,
+                                           const unsigned char* qt) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = sw128_desc_at(kw + kk / 4 * BOX + kk % 4 * 32, 16,
+                                      1024);
+    const uint64_t db = sw128_desc_at(qt + kk / 4 * QBOX + kk % 4 * 32, 16,
+                                      1024);
+    if (kk == 0)
+      wgmma_ss_kk_first(s, da, db);
+    else
+      wgmma_ss_kk(s, da, db);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// dV += P^T dO and dK += dS^T Q, one wgmma group: the A fragments of k-step
+// kk (16 query rows) are pa[kk] and da[kk]; dO's and Q's 16 rows of 128
+// bytes lie 2048 bytes on, and at D = 128 the leading offset steps to the
+// tile's second box.
+template <int D>
+__device__ __forceinline__ void dkv_acc(float (&dv)[D / 8][4],
+                                        float (&dk)[D / 8][4],
+                                        const uint32_t (&pa)[4][4],
+                                        const uint32_t (&da)[4][4],
+                                        const unsigned char* qt,
+                                        const unsigned char* dot) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(dv, pa[kk], sw128_desc_at(dot + kk * 2048, QBOX, 1024));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(dk, da[kk], sw128_desc_at(qt + kk * 2048, QBOX, 1024));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_bf16_kernel(Params p) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BN * LD;
-  bf16* Qs = Vs + BN * LD;               // 2 buffers of BQ x LD
-  bf16* Os = Qs + 2 * BQ * LD;           // dO: 2 buffers of BQ x LD
-  float* Ls = reinterpret_cast<float*>(Os + 2 * BQ * LD);  // 2 x BQ lse
-  float* Ds = Ls + 2 * BQ;                                 // 2 x BQ delta
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
+                      const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv,
+                      const __grid_constant__ CUtensorMap tmdo,
+                      const __grid_constant__ CUtensorMap tmdk,
+                      const __grid_constant__ CUtensorMap tmdv, DkvArgs a) {
+  constexpr int NB = D / 64;             // boxes per tile
+  constexpr int TB = tile_bytes<D>();    // a K or V tile
+  constexpr int SB = NB * QBOX;          // a Q or dO tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t kvfull, full[DKV_STAGES];
+  __shared__ int done[DKV_STAGES];
+  __shared__ __align__(16) float rowv[DKV_STAGES][2][QT];   // lse, delta
+  // the swizzle works on shared-memory address bits: align the tiles there
+  unsigned char* ks =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  unsigned char* vs = ks + TB;
+  unsigned char* ring = vs + TB;         // stage s: Q at 2s SB, dO at (2s+1) SB
 
+  // the grid runs x fastest: a head's key blocks run together, so its Q
+  // and dO are read from device memory about once and then from L2; heavy
+  // (early, causal) blocks first
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bi = bh / a.H, hi = bh - bi * a.H;
+  const int k0 = blockIdx.x * KT;
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* qh = static_cast<const bf16*>(p.q) + head_offset(p.vq, bh, p.H);
-  const bf16* kh = static_cast<const bf16*>(p.k) + head_offset(p.vk, bh, p.H);
-  const bf16* vh = static_cast<const bf16*>(p.v) + head_offset(p.vv, bh, p.H);
-  const bf16* doh =
-      static_cast<const bf16*>(p.dout) + head_offset(p.vdo, bh, p.H);
-  const float* lseh = p.lse + static_cast<long long>(bh) * p.Sq;
-  const float* deltah = p.delta + static_cast<long long>(bh) * p.Sq;
-  // causal: query rows before k0 see none of this block's keys
-  const int t0 = p.causal ? k0 / BQ : 0;
-  const int nq = (p.Sq + BQ - 1) / BQ;
+  // causal: query rows before k0 see none of the block's keys
+  const int t0 = a.causal ? k0 / QT : 0;
+  const int n = (a.Sq + QT - 1) / QT - t0;   // q tiles the block visits
+  const float* lseh = a.lse + static_cast<long long>(bh) * a.Sq;
+  const float* deltah = a.delta + static_cast<long long>(bh) * a.Sq;
+  const CUtensorMap* mq = &tmq;
+  const CUtensorMap* mdo = &tmdo;
 
-  auto load_q_tile = [&](int tq, int b) {
-    load_rows<D, BQ>(Qs + b * BQ * LD, qh, p.vq.ss, tq * BQ, p.Sq);
-    load_rows<D, BQ>(Os + b * BQ * LD, doh, p.vdo.ss, tq * BQ, p.Sq);
-    for (int i = threadIdx.x; i < 2 * BQ; i += blockDim.x) {
-      int r = i % BQ;
-      int gr = tq * BQ + r;
-      bool ok = gr < p.Sq;
-      const float* src = i < BQ ? lseh : deltah;
-      float* dst = (i < BQ ? Ls : Ds) + b * BQ + r;
-      cp_async4(dst, ok ? src + gr : src, ok ? 4 : 0);
+  // A whole warp loads q tile t0 + i into stage i % DKV_STAGES: lse and
+  // delta of its 64 rows by cp.async, two each a lane (zero past Sq; a row
+  // of [B*H, Sq] f32 need not be 16-byte aligned), Q and dO by TMA (rows
+  // past Sq read as zeros); all on the stage's barrier.
+  auto load = [&](int i) {
+    const int st = i % DKV_STAGES, q0 = (t0 + i) * QT;
+#pragma unroll
+    for (int h = 0; h < QT / 32; ++h) {
+      const int r = lane + 32 * h;
+      const bool ok = q0 + r < a.Sq;
+      cp_async4(&rowv[st][0][r], lseh + (ok ? q0 + r : 0), ok ? 4 : 0);
+      cp_async4(&rowv[st][1][r], deltah + (ok ? q0 + r : 0), ok ? 4 : 0);
+    }
+    cp_async_arrive(&full[st]);
+    if (lane == 0) {
+      unsigned char* qt = ring + 2 * st * SB;
+      mbar_expect_tx(&full[st], 2 * SB);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        tma_load4(qt + nb * QBOX, mq, nb * 64, q0, hi, bi, &full[st]);
+        tma_load4(qt + SB + nb * QBOX, mdo, nb * 64, q0, hi, bi, &full[st]);
+      }
     }
   };
 
-  load_rows<D, BN>(Ks, kh, p.vk.ss, k0, p.Sk);
-  load_rows<D, BN>(Vs, vh, p.vv.ss, k0, p.Sk);
-  if (t0 < nq) load_q_tile(t0, 0);
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmq) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmk) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmv) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmdo) : "memory");
+    mbar_init(&kvfull, 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);       // the TMA bytes' arrival + 32 lanes
+      done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    if (lane == 0) {
+      mbar_expect_tx(&kvfull, 2 * TB);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        tma_load4(ks + nb * BOX, &tmk, nb * 64, k0, hi, bi, &kvfull);
+        tma_load4(vs + nb * BOX, &tmv, nb * 64, k0, hi, bi, &kvfull);
+      }
+    }
+    for (int i = 0; i < DKV_STAGES && i < n; ++i) load(i);
+  }
 
-  float dk[D / 8][4], dv[D / 8][4];
+  // this warpgroup's 64 keys of K and V (8 KB into each box); the thread's
+  const unsigned char* kw = ks + wg * 64 * 128;
+  const unsigned char* vw = vs + wg * 64 * 128;
+  const int key0 = k0 + wg * 64 + warp * 16 + g;   // and key0 + 8
+  float dk[D / 8][4], dv[D / 8][4], s[8][4], dp[8][4];
+  uint32_t pa[4][4], da[4][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
     dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
   }
-  const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, key0+8
 
-  for (int tq = t0; tq < nq; ++tq) {
-    const int buf = (tq - t0) & 1;
-    if (tq + 1 < nq) {
-      load_q_tile(tq + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qt = Qs + buf * BQ * LD;
-    const bf16* Ot = Os + buf * BQ * LD;
-    const float* Lt = Ls + buf * BQ;
-    const float* Dt = Ds + buf * BQ;
+  // A warp done with q tile i counts itself out of its stage; the last of
+  // the 8 loads the stage's next tile.
+  auto release = [&](int i) {
+    if (count_last(&done[i % DKV_STAGES], 8, lane) && i + DKV_STAGES < n)
+      load(i + DKV_STAGES);
+  };
+  // Pingpong turns, two a q tile (the S^T and dP^T products, then the dV
+  // and dK products); warpgroup 1's last turn passes to no one.
+  auto pass = [&](bool last) {
+    if (wg == 0 || !last) turn_pass(wg);
+  };
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ queries
-    float st[BQ / 8][4], dpt[BQ / 8][4];
+  mbar_wait(&kvfull, 0);
+  if (wg == 1) turn_pass(wg);            // warpgroup 0 goes first
+  int i = 0;
+  if (a.causal && wg == 1) {
+    // q tile t0 (queries k0 .. k0+63) lies wholly before this warpgroup's
+    // keys: its two turns pass with no products. It still waits for the
+    // tile's load before counting out: every warp waits every phase of a
+    // stage's barrier, so that a parity wait never meets a phase that has
+    // not begun (a wait for parity 1 before phase 0 completes returns at
+    // once).
+    turn_wait(wg);
+    turn_pass(wg);
+    turn_wait(wg);
+    pass(n == 1);
+    mbar_wait(&full[0], 0);
+    release(0);
+    i = 1;
+  }
+  for (; i < n; ++i) {
+    const int st = i % DKV_STAGES;
+    const int q0 = (t0 + i) * QT;
+    const unsigned char* qt = ring + 2 * st * SB;
+    const unsigned char* dot = qt + SB;
+    const float* lrow = rowv[st][0];
+    const float* drow = rowv[st][1];
+    turn_wait(wg);
+    mbar_wait(&full[st], (i / DKV_STAGES) & 1);
+    dkv_scores<D>(s, kw, qt);
+    dkv_scores<D>(dp, vw, dot);
+    turn_pass(wg);
+    // P^T = exp(S^T * scale - lse) while dP^T runs; masked (to 0) only
+    // where the tile crosses this warpgroup's diagonal or Sq
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    reg_fence_all(s);
 #pragma unroll
-    for (int i = 0; i < BQ / 8; ++i) {
-      st[i][0] = st[i][1] = st[i][2] = st[i][3] = 0.f;
-      dpt[i][0] = dpt[i][1] = dpt[i][2] = dpt[i][3] = 0.f;
+    for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nn][e] = __fmul_rn(s[nn][e], a.scale);
+    if (q0 + QT > a.Sq || (a.causal && q0 < k0 + wg * 64 + 64)) {
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = q0 + nn * 8 + 2 * t + (e & 1);
+          if (q >= a.Sq || (a.causal && key0 + (e >> 1) * 8 > q))
+            s[nn][e] = -INFINITY;
+        }
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      frag_a<LD>(ak, Ks, warp * 16, kk * 16);
-      frag_a<LD>(av, Vs, warp * 16, kk * 16);
+    for (int nn = 0; nn < 8; ++nn) {
+      const float2 l = *reinterpret_cast<const float2*>(lrow + nn * 8 + 2 * t);
 #pragma unroll
-      for (int nn = 0; nn < BQ / 16; ++nn) {
-        uint32_t b[4];
-        frag_b_nk<LD>(b, Qt, nn * 16, kk * 16);
-        mma_bf16(st[2 * nn], ak, b[0], b[1]);
-        mma_bf16(st[2 * nn + 1], ak, b[2], b[3]);
-        frag_b_nk<LD>(b, Ot, nn * 16, kk * 16);
-        mma_bf16(dpt[2 * nn], av, b[0], b[1]);
-        mma_bf16(dpt[2 * nn + 1], av, b[2], b[3]);
-      }
+      for (int e = 0; e < 4; ++e)
+        s[nn][e] = expf(__fsub_rn(s[nn][e], (e & 1) ? l.y : l.x));
     }
-    // P^T and dS^T; 0 where masked or past the last query row
+    // dS^T = P^T (dP^T - delta) * scale
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    reg_fence_all(dp);
 #pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
+    for (int nn = 0; nn < 8; ++nn) {
+      const float2 d = *reinterpret_cast<const float2*>(drow + nn * 8 + 2 * t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int c = nt * 8 + 2 * t + (i & 1);
-        int row = tq * BQ + c;
-        int key = key0 + (i >> 1) * 8;
-        bool keep = row < p.Sq && !(p.causal && key > row);
-        float pv = keep ? expf(__fsub_rn(__fmul_rn(st[nt][i], p.scale), Lt[c]))
-                        : 0.f;
-        st[nt][i] = pv;
-        dpt[nt][i] = __fmul_rn(__fmul_rn(pv, __fsub_rn(dpt[nt][i], Dt[c])),
-                               p.scale);
-      }
+      for (int e = 0; e < 4; ++e)
+        dp[nn][e] = __fmul_rn(
+            __fmul_rn(s[nn][e], __fsub_rn(dp[nn][e], (e & 1) ? d.y : d.x)),
+            a.scale);
     }
-    // dV += bf16(P^T) @ dO;  dK += bf16(dS^T) @ Q
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t ap[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-                        pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-                        pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                        pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      uint32_t ad[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-                        pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-                        pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                        pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t b[4];
-        frag_b_kn<LD>(b, Ot, kk * 16, dd * 16);
-        mma_bf16(dv[2 * dd], ap, b[0], b[1]);
-        mma_bf16(dv[2 * dd + 1], ap, b[2], b[3]);
-        frag_b_kn<LD>(b, Qt, kk * 16, dd * 16);
-        mma_bf16(dk[2 * dd], ad, b[0], b[1]);
-        mma_bf16(dk[2 * dd + 1], ad, b[2], b[3]);
-      }
-    }
-    __syncthreads();
+    pack_frag(pa, s);
+    pack_frag(da, dp);
+    reg_fence_all(pa);
+    reg_fence_all(da);
+    turn_wait(wg);
+    dkv_acc<D>(dv, dk, pa, da, qt, dot);
+    pass(i + 1 == n);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    reg_fence_all(dv);
+    reg_fence_all(dk);
+    reg_fence_all(pa);
+    reg_fence_all(da);
+    release(i);
   }
 
-  bf16* dkh = static_cast<bf16*>(p.dk) + head_offset(p.vdk, bh, p.H);
-  bf16* dvh = static_cast<bf16*>(p.dv) + head_offset(p.vdv, bh, p.H);
+  // dK and dV in bf16 into this warpgroup's rows of the K and V tiles (no
+  // other warp reads them), in the boxes' swizzle: 16-byte chunk c of row r
+  // at chunk c ^ (r % 8); then one thread stores them with TMA, which drops
+  // rows past Sk.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    int key = key0 + r * 8;
-    if (key >= p.Sk) continue;
-    bf16* krow = dkh + key * p.vdk.ss;
-    bf16* vrow = dvh + key * p.vdv.ss;
+    const int rl = wg * 64 + warp * 16 + g + r * 8;   // row in the tile
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(krow + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(dk[dt][2 * r], dk[dt][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(vrow + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(dv[dt][2 * r], dv[dt][2 * r + 1]);
+    for (int c = 0; c < D / 8; ++c) {
+      const int off = c / 8 * BOX + rl * 128 + (((c % 8) ^ g) << 4) + 4 * t;
+      *reinterpret_cast<__nv_bfloat162*>(ks + off) =
+          __floats2bfloat162_rn(dk[c][2 * r], dk[c][2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(vs + off) =
+          __floats2bfloat162_rn(dv[c][2 * r], dv[c][2 * r + 1]);
     }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  if ((threadIdx.x & 127) == 0 && k0 + wg * 64 < a.Sk) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_store4(&tmdk, kw + nb * BOX, nb * 64, k0 + wg * 64, hi, bi);
+      tma_store4(&tmdv, vw + nb * BOX, nb * 64, k0 + wg * 64, hi, bi);
+    }
+    tma_store_commit();
+    tma_store_wait_read();
   }
 }
 
@@ -1131,6 +1310,32 @@ int launch_fwd_bf16(const Params& p, int BH, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_dkv_bf16(const Params& p, int BH, void* stream) {
+  const int B = BH / p.H;
+  const int n_kt = (p.Sk + KT - 1) / KT;
+  if (BH > 65535 || B * p.H != BH)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap tmq, tmk, tmv, tmdo, tmdk, tmdv;
+  int err = encode_bhsd(&tmq, p.q, p.vq, B, p.H, p.Sq, D, QT);
+  if (err == 0) err = encode_bhsd(&tmk, p.k, p.vk, B, p.H, p.Sk, D, KT);
+  if (err == 0) err = encode_bhsd(&tmv, p.v, p.vv, B, p.H, p.Sk, D, KT);
+  if (err == 0) err = encode_bhsd(&tmdo, p.dout, p.vdo, B, p.H, p.Sq, D, QT);
+  if (err == 0) err = encode_bhsd(&tmdk, p.dk, p.vdk, B, p.H, p.Sk, D, 64);
+  if (err == 0) err = encode_bhsd(&tmdv, p.dv, p.vdv, B, p.H, p.Sk, D, 64);
+  if (err != 0) return err;
+  constexpr int smem = dkv_smem<D>();
+  auto kernel = flash_dkv_bf16_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const DkvArgs a = {p.lse, p.delta, p.H, p.Sq, p.Sk, p.causal, p.scale};
+  kernel<<<dim3(n_kt, BH), FWD_THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(tmq, tmk, tmv, tmdo, tmdk,
+                                                tmdv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 enum Which { FWD = 0, DQ = 1, DKV = 2 };
 
 int run(Which which, int f32, int D, const Params& p, int BH, void* stream) {
@@ -1158,11 +1363,8 @@ int run(Which which, int f32, int D, const Params& p, int BH, void* stream) {
                    : launch(flash_dq_bf16_kernel<128>, dq_smem<128>(), grid,
                             THREADS, p, stream);
   }
-  dim3 grid((rows + BN - 1) / BN, BH);
-  return D == 64 ? launch(flash_dkv_bf16_kernel<64>, dkv_smem<64>(), grid,
-                          THREADS, p, stream)
-                 : launch(flash_dkv_bf16_kernel<128>, dkv_smem<128>(), grid,
-                          THREADS, p, stream);
+  return D == 64 ? launch_dkv_bf16<64>(p, BH, stream)
+                 : launch_dkv_bf16<128>(p, BH, stream);
 }
 
 Params base(const void* q, const void* k, const void* v, int H, int Sq,

@@ -2,6 +2,7 @@
 the library name each source builds to, which must change whenever the
 source, a shared header in csrc/ or the flags change, so that a stale
 library is never loaded. Nothing here runs nvcc."""
+import importlib.util
 import os
 import re
 
@@ -70,8 +71,8 @@ def test_every_source_has_its_own_library():
 HOPPER = ("conv_fused.cu", "flash_attention.cu", "sm90.cuh")
 SHARED = ("smem_addr", "mbar_init", "mbar_arrive", "mbar_expect_tx",
           "mbar_wait", "tma_load4", "tma_store4", "reg_fence", "sw128_desc",
-          "sw128_desc_at", "wgmma_rs", "wgmma_ss", "count_last",
-          "encode_tiled")
+          "sw128_desc_at", "wgmma_rs", "wgmma_ss", "wgmma_ss_kk",
+          "wgmma_ss_kk_first", "count_last", "encode_tiled")
 
 
 @pytest.mark.parametrize("name", SHARED)
@@ -87,3 +88,36 @@ def test_hopper_primitives_have_one_copy(name):
 def test_hopper_kernels_include_the_shared_header(source):
     text = open(os.path.join(CSRC, source + ".cu")).read()
     assert '#include "sm90.cuh"' in text
+
+
+def _flash_probe():
+    path = os.path.join(os.path.dirname(CSRC), os.pardir,
+                        "chip_flash_probe.py")
+    spec = importlib.util.spec_from_file_location("chip_flash_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# chip_flash_probe.py builds its variants of the dK/dV kernel by editing
+# csrc/flash_attention.cu's text: each edit must still apply to the source,
+# change only the dK/dV kernel (and the ring's depth), and keep the rest.
+@pytest.mark.parametrize("name", ["as_is", "no_turns", "early_dv", "stages3",
+                                  "step_b", "no_exp", "no_elementwise",
+                                  "no_scores"])
+def test_flash_probe_variants_apply(name, tmp_path):
+    probe = _flash_probe()
+    assert set(probe.VARIANTS) | set(probe.ABLATIONS) >= {name}
+    src = open(os.path.join(CSRC, "flash_attention.cu")).read()
+    out = open(probe.write_sources([name], str(tmp_path))[name]).read()
+    assert (out == src) == (name == "as_is")
+    assert open(os.path.join(tmp_path, name, "sm90.cuh")).read() == \
+        open(os.path.join(CSRC, "sm90.cuh")).read()
+    cut = src.index(probe.KERNEL)
+    head = src[:cut]
+    if name == "early_dv":          # adds its one-group helper before
+        head = head.rsplit("template <int D>", 1)[0]
+    if name in ("stages3", "step_b"):
+        head = head.replace("DKV_STAGES = 2;", "DKV_STAGES = 3;")
+    assert out.startswith(head)
+    assert out.endswith(src[src.index(probe.END):])

@@ -510,6 +510,56 @@ def test_flash_forward_takes_expanded_views():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("case", [(2, 3, 384, 384, 128, True),
+                                  (1, 4, 1000, 1000, 64, True)])
+def test_flash_backward_multi_block_causal(case, layout):
+    """The bf16 backward over several 128-key blocks and 64-row query tiles
+    (ragged at 1000), causal, contiguous and on transposed views: dq, dk and
+    dv against flash_backward_reference as a whole and row by row
+    (FLASH_RTOL), laid out as q, k and v, one dQ and one dK/dV launch per
+    call, and the same bits on a second launch."""
+    _need_card()
+    causal, scale = case[5], case[4] ** -0.5
+    q, k, v, do = _flash_inputs(case, "bfloat16", layout)
+    ro, rlse = FA.flash_forward_reference(q, k, v, causal, scale)
+    before = dict(FA.LAUNCHES)
+    got = FA._flash_backward(q, k, v, ro, rlse, do, causal, scale)
+    again = FA._flash_backward(q, k, v, ro, rlse, do, causal, scale)
+    want = FA.flash_backward_reference(q, k, v, ro, rlse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert {n: FA.LAUNCHES[n] - before[n] for n in ("dq", "dkv")} == \
+        {"dq": 2, "dkv": 2}
+    tol = FLASH_RTOL["bfloat16"]["grad"]
+    for name, a, b, like, c in zip(("dq", "dk", "dv"), got, want, (q, k, v),
+                                   again):
+        assert a.dtype == torch.bfloat16 and a.stride() == like.stride()
+        assert bool(torch.isfinite(a.float()).all()), name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * b.float().abs().max().item(), (name, err)
+        assert _row_rel_err(a, b) <= tol, (name, _row_rel_err(a, b))
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.cuda
+def test_flash_backward_takes_expanded_views():
+    """q, k, v and dO broadcast over heads (stride 0, as an expand gives
+    them): the bf16 backward reads them through copies and gives what
+    contiguous inputs give, bit for bit."""
+    _need_card()
+    q, k, v, do = _flash_inputs((2, 4, 300, 300, 128, True), "bfloat16")
+    qe, ke, ve, doe = (t[:, :1].expand(-1, 4, -1, -1) for t in (q, k, v, do))
+    assert all(t.stride(1) == 0 for t in (qe, ke, ve, doe))
+    qc, kc, vc, doc = (t.contiguous() for t in (qe, ke, ve, doe))
+    o, lse = FA._flash_forward(qc, kc, vc, True, 128 ** -0.5)
+    got = FA._flash_backward(qe, ke, ve, o, lse, doe, True, 128 ** -0.5)
+    want = FA._flash_backward(qc, kc, vc, o, lse, doc, True, 128 ** -0.5)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_flash_kernels_raise_on_unsupported_inputs():
     _need_card()
     q = torch.randn(1, 2, 128, 96, device="cuda", dtype=torch.bfloat16)

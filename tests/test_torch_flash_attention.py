@@ -367,3 +367,141 @@ def test_forward_kernel_model_matches_reference_and_pallas(sq, sk, d,
     _close_bf16(o, jo)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jl)[:, :, 0],
                                rtol=1e-5, atol=1e-5)
+
+
+# -- the bf16 dK/dV kernel's decomposition ------------------------------------
+# csrc/flash_attention.cu's bf16 dK/dV: a block per KT keys of one (batch,
+# head), split into two halves of HALF keys (one per consumer warpgroup); q
+# tiles of QT rows in order, from the first that holds a query at or past
+# the block's first key (causal), where the first tile (queries k0 ..
+# k0+63) passes the second half by with no products; the mask applied only
+# where a tile crosses the half's diagonal or Sq; rows past Sq and keys past
+# Sk read as zeros (TMA's fill), lse and delta past Sq as zeros, and keys
+# past Sk never stored.
+KT, QT = 128, 64
+
+
+def _dkv_model(q, k, v, o, lse, do, causal, scale):
+    """The kernel's work in plain torch, at its rounding points: s^T =
+    (k.q)*scale in f32, p^T = exp(s^T - lse) in f32, dS^T = p^T * (dP^T -
+    delta) * scale, dV += bf16(p^T) dO and dK += bf16(dS^T) Q in f32 tile by
+    tile, both cast last. Returns (dk, dv, visits): visits maps (key block,
+    half) to its q tiles, each with whether it was masked, or None where the
+    tile passed with no products."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    nkb, nq = -(-sk // KT), -(-sq // QT)
+
+    def pad(t, n):
+        out = torch.zeros(t.shape[:2] + (n,) + t.shape[3:], dtype=t.dtype)
+        out[:, :, :t.shape[2]] = t
+        return out
+
+    qp, dop = pad(q, nq * QT).float(), pad(do, nq * QT).float()
+    kp, vp = pad(k, nkb * KT).float(), pad(v, nkb * KT).float()
+    delta = (do.float() * o.float()).sum(dim=-1)
+    lsep = pad(lse.reshape(b, h, sq, 1), nq * QT)[..., 0]
+    deltap = pad(delta[..., None], nq * QT)[..., 0]
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    visits = {}
+    for kb in range(nkb):
+        k0 = kb * KT
+        t0 = k0 // QT if causal else 0
+        for w in range(2):
+            r0 = k0 + w * HALF
+            keys = torch.arange(r0, r0 + HALF)
+            ka, va = kp[:, :, r0:r0 + HALF], vp[:, :, r0:r0 + HALF]
+            acc_k = torch.zeros(b, h, HALF, d)
+            acc_v = torch.zeros(b, h, HALF, d)
+            visits[(kb, w)] = []
+            for tq in range(t0, nq):
+                if causal and w == 1 and tq == t0:
+                    visits[(kb, w)].append((tq, None))
+                    continue
+                rows = torch.arange(tq * QT, (tq + 1) * QT)
+                qt, dot = qp[:, :, rows], dop[:, :, rows]
+                st = (ka @ qt.transpose(-1, -2)) * scale
+                edge = (tq + 1) * QT > sq or \
+                    (causal and tq * QT < r0 + HALF)
+                if edge:
+                    mask = (rows[None, :] >= sq).expand(HALF, QT)
+                    if causal:
+                        mask = mask | (keys[:, None] > rows[None, :])
+                    st = st.masked_fill(mask, float("-inf"))
+                visits[(kb, w)].append((tq, edge))
+                p = torch.exp(st - lsep[:, :, None, rows])
+                dpt = va @ dot.transpose(-1, -2)
+                ds = p * (dpt - deltap[:, :, None, rows]) * scale
+                acc_v = acc_v + p.to(v.dtype).float() @ dot
+                acc_k = acc_k + ds.to(q.dtype).float() @ qt
+            keep = min(HALF, max(0, sk - r0))
+            dk[:, :, r0:r0 + keep] = acc_k[:, :, :keep].to(k.dtype)
+            dv[:, :, r0:r0 + keep] = acc_v[:, :, :keep].to(v.dtype)
+    return dk, dv, visits
+
+
+def _check_dkv_visits(visits, sq, sk, causal):
+    """Every (key < Sk, row < Sq) pair a half needs lies in a tile it
+    computed, a tile left out or passed is wholly masked for the half, and
+    a tile computed unmasked needs no mask: skipping and masking lose
+    nothing."""
+    nq = -(-sq // QT)
+    for (kb, w), tiles in visits.items():
+        r0 = kb * KT + w * HALF
+        keys = range(r0, min(r0 + HALF, sk))
+        seen = [tq for tq, _ in tiles]
+        assert seen == list(range(seen[0], nq)), (kb, w, seen)
+        done = [tq for tq, e in tiles if e is not None]
+        for tq in range(nq):
+            rows = range(tq * QT, min((tq + 1) * QT, sq))
+            needed = any(c <= r for c in keys for r in rows) \
+                if causal else bool(keys)
+            if tq not in done:
+                assert not needed, (kb, w, tq)
+                assert causal and all(c > r for c in range(r0, r0 + HALF)
+                                      for r in range(tq * QT,
+                                                     (tq + 1) * QT))
+        for tq, edge in tiles:
+            if edge is None:
+                continue
+            needs_mask = (tq + 1) * QT > sq or (causal and any(
+                c > r for c in range(r0, r0 + HALF)
+                for r in range(tq * QT, (tq + 1) * QT)))
+            assert edge == needs_mask, (kb, w, tq)
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", MODEL_CASES)
+def test_dkv_kernel_model_matches_reference_and_pallas(sq, sk, d, causal):
+    """The bf16 dK/dV kernel's decomposition (128-key blocks, 64-key halves,
+    64-row q tiles from the first the block needs, the diagonal-tile and
+    ragged-tile masks, the tile passed by the second half, zero-filled rows
+    past Sq and Sk) against backward_dkv_reference and JAX's
+    _pallas_backward in interpret mode on the same o and lse, at the file's
+    bf16 tolerance."""
+    q, k, v, do = _qkv(1, 2, sq, sk, d, seed=11)
+    scale = d ** -0.5
+    tq, tk, tv, tdo = (_t(a, torch.bfloat16) for a in (q, k, v, do))
+    o, lse = FA.flash_forward_reference(tq, tk, tv, causal, scale)
+    dk, dv, visits = _dkv_model(tq, tk, tv, o, lse, tdo, causal, scale)
+    _check_dkv_visits(visits, sq, sk, causal)
+    if causal:
+        # only the half's diagonal tile and a ragged last tile are masked;
+        # the second half passes the block's first tile
+        nq = -(-sq // QT)
+        for (kb, w), tiles in visits.items():
+            t0 = kb * KT // QT
+            assert tiles[0] == (t0, None if w else True)
+            masked = {tq for tq, e in tiles if e}
+            assert masked - {nq - 1} <= {t0 + w} <= masked | {nq}
+    rk, rv = FA.backward_dkv_reference(tq, tk, tv, o, lse, tdo, causal,
+                                       scale)
+    for got, want in ((dk, rk), (dv, rv)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        _close_bf16(got, want)
+    _, jk, jv = JFA._pallas_backward(
+        *(_j(_np(a), jnp.bfloat16) for a in (tq, tk, tv, o)),
+        jnp.asarray(lse.numpy()), _j(do, jnp.bfloat16), causal, scale, KT,
+        KT, True)
+    _close_bf16(dk, jk)
+    _close_bf16(dv, jv)
