@@ -40,10 +40,11 @@ Phases, each printing JSON lines:
               S 2048, D 128, causal, bf16; batch cut to 1 so that the
               plain version's scores fit), contiguous and as the
               transposed [B, S, H, D] views the LM passes, and at edge
-              shapes (non-causal, Sq != Sk, S = 100 and 257, Sq 129
-              against Sk 449, D = 64, B*H = 1) in bf16 and f32 (FLASH_RTOL; bf16 outputs also row
-              by row, FLASH_ROWWISE); a second launch must give the same
-              bits. The int8 matmul (int32 and scaled forms) at every
+              shapes (non-causal, Sq != Sk, S = 100, 130 and 257, Sq
+              129 against Sk 449, D = 64, B*H = 1) in bf16 and f32
+              (FLASH_RTOL; bf16 outputs also row by row, FLASH_ROWWISE);
+              a second launch must give the same bits. The int8 matmul
+              (int32 and scaled forms) at every
               product shape int8 ResNet-50 v1 gives it at batch 32 (read
               off the network), at edge shapes (M, K or N of 1, odd sizes,
               K = 147, N = 1000), with w N-contiguous, x row-strided and
@@ -161,6 +162,7 @@ Phases, each printing JSON lines:
 --phases may also name kernel_conv_bwd and time_conv_bwd, the conv_fused
 backward pair's part of phases kernel and time, and kernel_flash and
 time_flash, the flash kernels' part (rows 9-11; time_flash also times the
+three bf16 kernels on the LM's [B, S, H, D] buffers seen transposed, the
 bf16 forward at head dim 64 and the f32 forward), to run them alone after
 env, and time_lm, the LM step's timing, after env,train_lm (the default
 run does not name them: phases kernel and time run them).
@@ -331,7 +333,8 @@ FLASH_OUTS = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
 FLASH_DESIGN = {
     "fwd": "redesigned for Hopper: 128-row query tiles, a TMA ring of K and "
            "V tiles, wgmma, pingpong warpgroups",
-    "dq": "mma.sync fed by ldmatrix, cp.async double buffers",
+    "dq": "redesigned for Hopper: 128-row query blocks, a TMA ring of "
+          "128-key K and V tiles, wgmma, pingpong warpgroups",
     "dkv": "redesigned for Hopper: 128-key blocks, a TMA ring of Q and dO "
            "tiles, wgmma, pingpong warpgroups"}
 # Flash kernels against their plain versions, relative to max |reference|:
@@ -346,7 +349,9 @@ FLASH_RTOL = {"bfloat16": {"o": 1.6e-2, "lse": 1e-5, "dq": 1.6e-2,
 # to 1, so that the plain version's [B, H, S, S] f32 scores fit; and the
 # edge shapes: non-causal, Sq != Sk, ragged tiles (S = 100, 257; Sq 129
 # and Sk 449 against the dK/dV kernel's 64-row q tiles and 128-key
-# blocks), D = 64, B*H = 1; each in bf16 and f32.
+# blocks; causal S = 130, whose last 128-row query block holds two rows,
+# so that the dQ kernel's second warpgroup holds none), D = 64, B*H = 1;
+# each in bf16 and f32.
 FLASH_MAIN = (1, 32, 2048, 2048, 128, True)
 # The bf16 outputs are also held row by row: each row of o and dq (a query
 # row) and of dk and dv (a key row) within FLASH_RTOL of that row's own max
@@ -365,7 +370,7 @@ FLASH_LAYOUTS = ("bhsd", "bshd")
 FLASH_EDGE = [(2, 4, 256, 256, 128, False), (2, 2, 128, 384, 64, False),
               (2, 3, 100, 100, 128, True), (1, 2, 257, 257, 64, True),
               (1, 1, 384, 384, 128, True), (1, 2, 100, 257, 128, False),
-              (1, 3, 129, 449, 64, False)]
+              (1, 3, 129, 449, 64, False), (1, 2, 130, 130, 128, True)]
 # The narrow f32 LM of the card-vs-CPU step (TF32 off), and its bounds
 # relative to each tensor's max: both sides keep f32 products (the card's
 # f32 flash kernels run on the CUDA cores, cuBLAS without TF32), so they
@@ -586,7 +591,7 @@ def phase_env(torch, state):
     for name in _build.SOURCES:
         lines = [ln.strip() for ln in _build.build_log(name).splitlines()
                  if "registers" in ln or "spill" in ln
-                 or "entry function" in ln]
+                 or "entry function" in ln or "wgmma" in ln]
         ptxas[name] = lines
     emit({"phase": "env", "smi": state["smi"],
           "device": torch.cuda.get_device_name(0),
@@ -1159,7 +1164,7 @@ def phase_kernel_flash(torch, state):
     against their plain versions: at the LM's attention (batch cut to 1)
     in bf16, contiguous and as the transposed [B, S, H, D] views the LM
     passes, and at the edge shapes in bf16 and f32 (FLASH_RTOL; bf16 also
-    row by row); at the LM shape a second launch must give the same
+    row by row); at every shape a second launch must give the same
     bits. TF32 off for the f32 references (also when run alone as
     --phases kernel_flash)."""
     from mxnet_tpu_torch.kernels import flash_attention as FA
@@ -1171,13 +1176,22 @@ def phase_kernel_flash(torch, state):
         cases = [(FLASH_MAIN, lay) for lay in FLASH_LAYOUTS] \
             if dtype == torch.bfloat16 else []
         cases += [(case, "bhsd") for case in FLASH_EDGE]
-        edge = {}
+        edge, edge_same = {}, True
         contiguous = None
         for i, (case, layout) in enumerate(cases):
             main = case == FLASH_MAIN
             # both layouts of the LM shape hold the same values
             seed = 1100 if main else 1100 + i
             res, outs, ins = flash_check(torch, case, dtype, seed, layout)
+            # a second launch on the same inputs: the same bits
+            q, k, v, do, ro, rlse = ins
+            causal, scale = case[5], case[4] ** -0.5
+            again = FA._flash_forward(q, k, v, causal, scale) \
+                + FA._flash_backward(q, k, v, ro, rlse, do, causal, scale)
+            torch.cuda.synchronize()
+            same = all(same_bits(torch, a, b) for a, b in zip(outs, again))
+            if not same:
+                failures.append((dname, case, layout, "second launch bits"))
             for name, r in res.items():
                 if not r["ok"]:
                     failures.append((dname, case, layout, name,
@@ -1190,20 +1204,15 @@ def phase_kernel_flash(torch, state):
                                / max(r["ref_max_abs"], 1e-30))
                     e[2] = max(e[2], r.get("max_row_rel_err", 0.0))
             if not main:
-                del res, outs, ins
+                edge_same = edge_same and same
+                del res, outs, ins, again
                 continue
-            for k, outs_k in FLASH_OUTS.items():
+            for kern, outs_k in FLASH_OUTS.items():
                 for n in outs_k:
-                    worst[k][0] = max(worst[k][0], res[n]["max_abs_err"])
-                    worst[k][1] = max(worst[k][1],
-                                      res[n].get("max_row_rel_err", 0.0))
-            # a second launch on the same inputs: the same bits
-            q, k, v, do, ro, rlse = ins
-            causal, scale = case[5], case[4] ** -0.5
-            again = FA._flash_forward(q, k, v, causal, scale) \
-                + FA._flash_backward(q, k, v, ro, rlse, do, causal, scale)
-            torch.cuda.synchronize()
-            same = all(same_bits(torch, a, b) for a, b in zip(outs, again))
+                    worst[kern][0] = max(worst[kern][0],
+                                         res[n]["max_abs_err"])
+                    worst[kern][1] = max(worst[kern][1],
+                                         res[n].get("max_row_rel_err", 0.0))
             line = {"phase": "kernel", "kernel": "flash_attention",
                     "dtype": dname, "layout": layout,
                     "shape_bhsd": list(case[:5]), "causal": case[5],
@@ -1221,8 +1230,6 @@ def phase_kernel_flash(torch, state):
                 line["same_bits_as_contiguous"] = [
                     same_bits(torch, a, b) for a, b in zip(outs, contiguous)]
             emit(line)
-            if not same:
-                failures.append((dname, case, layout, "second launch bits"))
             del again, res, outs, ins
         del contiguous
         emit({"phase": "kernel", "kernel": "flash_attention", "dtype": dname,
@@ -1230,6 +1237,7 @@ def phase_kernel_flash(torch, state):
               "results": {k: {"ok": v[0], "max_rel_err": v[1],
                               "max_row_rel_err": v[2]}
                           for k, v in edge.items()},
+              "second_launch_same_bits": edge_same,
               "tolerance_rel": FLASH_RTOL[dname]})
     state["flash_err"] = worst
     torch.cuda.empty_cache()
@@ -3041,7 +3049,8 @@ def flash_bound(kernel, card, D=128):
 def phase_time_flash(torch, state):
     """Rows 9-11 at the LM's attention, bf16, causal: each kernel's device
     time per launch (CUDA events for the forward; the profiler, by name,
-    for the two backward kernels, whose call also computes delta), the
+    for the two backward kernels, whose call also computes delta), also
+    on the LM's [B, S, H, D] buffers seen transposed, the
     plain versions over the same batch (in slices of 2, so that their
     scores fit), and the library yardstick scaled_dot_product_attention
     (causal) forward and backward, timed here and never called by the
@@ -3101,6 +3110,21 @@ def phase_time_flash(torch, state):
                      "forward for row 9; its backward (dq, dk and dv "
                      "together) for rows 10 and 11"})
     del q, k, v, do, o, lse, qg, kg, vg, out
+    # the three bf16 kernels on the [B, S, H, D] buffers the LM passes,
+    # seen transposed, beside the contiguous times above
+    q, k, v, do = flash_case(torch, case, torch.bfloat16, seed=1200,
+                             layout="bshd")
+    o, lse = FA._flash_forward(q, k, v, True, scale)
+    strided = {"fwd": device_ms(torch, lambda: FA._flash_forward(
+        q, k, v, True, scale), iters=20)}
+    strided.update(kernel_ms(torch, lambda: FA._flash_backward(
+        q, k, v, o, lse, do, True, scale), 10,
+        {"dq": ("flash_dq",), "dkv": ("flash_dkv",)}))
+    emit({"phase": "time", "kernel": "flash_attention", "dtype": "bfloat16",
+          "layout": "bshd", "shape_bhsd": list(case[:5]), "causal": True,
+          "strides_q": list(q.stride()), "ms_per_launch": strided,
+          "over_bhsd": {n: strided[n] / per[n] for n in strided}})
+    del q, k, v, do, o, lse
     # the forward at head dim 64, the kernel's other width
     case = (LM_BATCH, FLASH_MAIN[1], LM_SEQ, LM_SEQ, 64, True)
     q, k, v, _ = flash_case(torch, case, torch.bfloat16, seed=1201)

@@ -94,9 +94,39 @@
 // score products with this tile's dV/dK needs more than 255 registers at
 // D = 128 (it spills).
 //
-// The bf16 dQ kernel is the simple form: mma.sync (m16n8k16, bf16 in, f32
-// accumulate) fed by ldmatrix, a block per 64 query rows looping over k
-// tiles of 64 double-buffered in shared memory with cp.async.
+// The bf16 dQ kernel is built for Hopper as the other two are. A block of
+// 256 threads (two consumer warpgroups, no producer) owns 128 query rows of
+// one (batch, head); warpgroup w owns rows 64w .. 64w+63. The grid runs as
+// the forward's: a head's query blocks together, heavy (late, causal)
+// blocks first. Q and dO are loaded once by TMA (the forward's maps and
+// boxes); K and V come in k tiles of 128 keys through a 2-stage ring, both
+// on the stage's mbarrier, and the last of the 8 warps done with a stage
+// refills it. lse and delta of the thread's two rows are read once into
+// registers. Shared memory: Q + dO 64 KB + 2 x (32 + 32) KB at D = 128,
+// half that at D = 64: one block per SM. Per k tile each warpgroup runs
+//   S = Q K^T, dP = dO V^T   wgmma m64n128k16, both operands K-major in
+//                            shared memory, two groups: P = exp(S * scale
+//                            - lse) runs while dP does;
+//   dS = P (dP - delta) * scale, in the accumulator's layout; only the
+//                            tile on the warpgroup's diagonal and a ragged
+//                            last tile are masked;
+//   dQ += dS K               wgmma m64nDk16 with A from registers (dS
+//                            packed to bf16 pairs) and K N-major: the same
+//                            shared tile read under a second descriptor.
+// Causal: the block loads k tiles up to its diagonal; both warpgroups need
+// each of them (the diagonal tile is masked for both). The two warpgroups
+// take turns at issuing (pingpong, two turns a k tile). dQ (D/2 f32), S and
+// dP (64 f32 each) live in registers: 254 of them at D = 128. The epilogue
+// writes bf16 into the warpgroup's own rows of the Q tile and stores them
+// with TMA, which drops rows past Sq.
+//
+// What bounds it (PERF.md, chip_flash_probe.py --kernel dq): as in dK/dV,
+// the series inside a warpgroup. Leaving out the score products takes 28%
+// off a launch, leaving out the exp 16%; without the turns it is 2%
+// slower. 64-key tiles (m64n64k16 scores) are 22% slower: twice the waits
+// and turns per score, and twice the shared-memory bytes per operation of
+// B. Holding Q and dO in registers as the score products' A fragments
+// (64-key tiles: 128-key ones do not fit) is 15% slower than this form.
 //
 // Numerics mirror the TPU kernels' rounding points: s = (q.k) * scale in f32
 // after the dot (q is not pre-scaled); p = expf(s - m) in f32, rounded to the
@@ -136,9 +166,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int THREADS = 128;   // bf16 dQ: 4 warps
-constexpr int BM = 64;         // query rows per dQ block
-constexpr int BN = 64;         // keys per dQ k tile
 constexpr int F32_ROWS = 8;    // f32 kernels: warps (rows or keys) per block
 constexpr int F32_TILE = 32;   // f32 kernels: keys (or queries) per tile
 
@@ -167,49 +194,10 @@ __device__ __forceinline__ long long head_offset(const View& v, int bh,
          static_cast<long long>(bh % H) * v.sh;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
-}
-
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -229,61 +217,6 @@ __device__ __forceinline__ void pack_frag(uint32_t (&f)[K][4],
     f[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
     f[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
   }
-}
-
-// Rows r0 .. r0+ROWS-1 of a [S, D] head (row stride ss) into shared memory
-// with row pitch LD; rows at or past `rows` are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long ss, int r0, int rows) {
-  constexpr int LD = D + 8;
-  constexpr int CPR = D / 8;             // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CPR; i += blockDim.x) {
-    int r = i / CPR;
-    int c = (i - r * CPR) * 8;
-    int gr = r0 + r;
-    bool ok = gr < rows;
-    cp_async16(dst + r * LD + c, ok ? src + gr * ss + c : src, ok ? 16 : 0);
-  }
-}
-
-// A-operand fragments of the 16 x 16 block at (row0, col0) of a row-major
-// shared tile with pitch LD.
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* tile,
-                                       int row0, int col0) {
-  int lane = threadIdx.x & 31;
-  ldsm_x4(a, tile + (row0 + (lane & 15)) * LD + col0 + (lane >> 4) * 8);
-}
-
-// B-operand fragments of two 8-column n-tiles (n0, n0+8) at k-step k0, where
-// the shared tile is stored [n][k] (B^T row-major): b[0..1] for n0,
-// b[2..3] for n0+8.
-template <int LD>
-__device__ __forceinline__ void frag_b_nk(uint32_t (&b)[4], const bf16* tile,
-                                          int n0, int k0) {
-  int lane = threadIdx.x & 31;
-  ldsm_x4(b, tile + (n0 + ((lane >> 4) & 1) * 8 + (lane & 7)) * LD + k0 +
-                 ((lane >> 3) & 1) * 8);
-}
-
-// The same where the shared tile is stored [k][n] (B row-major).
-template <int LD>
-__device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4], const bf16* tile,
-                                          int k0, int n0) {
-  int lane = threadIdx.x & 31;
-  ldsm_x4_trans(b, tile + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                       n0 + ((lane >> 4) & 1) * 8);
-}
-
-// Last k tile (exclusive) that a block of query rows q0 .. q0+BM-1 visits.
-__device__ __forceinline__ int k_tiles_for(const Params& p, int q0) {
-  int n = (p.Sk + BN - 1) / BN;
-  if (p.causal) {
-    int last = min(q0 + BM, p.Sq) - 1;
-    n = min(n, last / BN + 1);
-  }
-  return n;
 }
 
 // ---------------------------------------------------------------------------
@@ -604,137 +537,6 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ
-// ---------------------------------------------------------------------------
-
-template <int D>
-constexpr int dq_smem() { return (2 * BM + 4 * BN) * (D + 8) * 2; }
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_dq_bf16_kernel(Params p) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Os = Qs + BM * LD;               // dO rows
-  bf16* Ks = Os + BM * LD;               // 2 buffers
-  bf16* Vs = Ks + 2 * BN * LD;           // 2 buffers
-
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* qh = static_cast<const bf16*>(p.q) + head_offset(p.vq, bh, p.H);
-  const bf16* kh = static_cast<const bf16*>(p.k) + head_offset(p.vk, bh, p.H);
-  const bf16* vh = static_cast<const bf16*>(p.v) + head_offset(p.vv, bh, p.H);
-  const bf16* doh =
-      static_cast<const bf16*>(p.dout) + head_offset(p.vdo, bh, p.H);
-  const int nk = k_tiles_for(p, q0);
-
-  load_rows<D, BM>(Qs, qh, p.vq.ss, q0, p.Sq);
-  load_rows<D, BM>(Os, doh, p.vdo.ss, q0, p.Sq);
-  load_rows<D, BN>(Ks, kh, p.vk.ss, 0, p.Sk);
-  load_rows<D, BN>(Vs, vh, p.vv.ss, 0, p.Sk);
-  cp_async_commit();
-
-  const int row0 = q0 + warp * 16 + g;
-  float lse[2], delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    int row = row0 + r * 8;
-    long long at = static_cast<long long>(bh) * p.Sq + row;
-    lse[r] = row < p.Sq ? p.lse[at] : 0.f;
-    delta[r] = row < p.Sq ? p.delta[at] : 0.f;
-  }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-
-  for (int j = 0; j < nk; ++j) {
-    if (j + 1 < nk) {
-      int b = (j + 1) & 1;
-      load_rows<D, BN>(Ks + b * BN * LD, kh, p.vk.ss, (j + 1) * BN, p.Sk);
-      load_rows<D, BN>(Vs + b * BN * LD, vh, p.vv.ss, (j + 1) * BN, p.Sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Kt = Ks + (j & 1) * BN * LD;
-    const bf16* Vt = Vs + (j & 1) * BN * LD;
-
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i) {
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      frag_a<LD>(aq, Qs, warp * 16, kk * 16);
-      frag_a<LD>(ao, Os, warp * 16, kk * 16);
-#pragma unroll
-      for (int nn = 0; nn < BN / 16; ++nn) {
-        uint32_t b[4];
-        frag_b_nk<LD>(b, Kt, nn * 16, kk * 16);
-        mma_bf16(s[2 * nn], aq, b[0], b[1]);
-        mma_bf16(s[2 * nn + 1], aq, b[2], b[3]);
-        frag_b_nk<LD>(b, Vt, nn * 16, kk * 16);
-        mma_bf16(dp[2 * nn], ao, b[0], b[1]);
-        mma_bf16(dp[2 * nn + 1], ao, b[2], b[3]);
-      }
-    }
-    // dS = p * (dp - delta) * scale, p = exp(s*scale - lse); 0 where masked
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int col = j * BN + nt * 8 + 2 * t + (i & 1);
-        int row = row0 + (i >> 1) * 8;
-        bool keep = col < p.Sk && !(p.causal && col > row);
-        float pv = keep ? expf(__fsub_rn(__fmul_rn(s[nt][i], p.scale),
-                                         lse[i >> 1]))
-                        : 0.f;
-        s[nt][i] = __fmul_rn(__fmul_rn(pv, __fsub_rn(dp[nt][i],
-                                                     delta[i >> 1])),
-                             p.scale);
-      }
-    }
-    // dq += bf16(dS) @ K
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                       pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                       pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                       pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t b[4];
-        frag_b_kn<LD>(b, Kt, kk * 16, dd * 16);
-        mma_bf16(dq[2 * dd], a, b[0], b[1]);
-        mma_bf16(dq[2 * dd + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-  bf16* dqh = static_cast<bf16*>(p.out) + head_offset(p.vout, bh, p.H);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    int row = row0 + r * 8;
-    if (row >= p.Sq) continue;
-    bf16* drow = dqh + row * p.vout.ss;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(drow + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(dq[dt][2 * r], dq[dt][2 * r + 1]);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // bf16 dK / dV (TMA, wgmma)
 // ---------------------------------------------------------------------------
 
@@ -750,7 +552,7 @@ constexpr int dkv_smem() {
   return 2 * tile_bytes<D>() + DKV_STAGES * 2 * (D / 64) * QBOX + 1024;
 }
 
-struct DkvArgs {
+struct BwdArgs {
   const float* lse;            // [B*H, Sq]
   const float* delta;          // [B*H, Sq]
   int H, Sq, Sk, causal;
@@ -815,7 +617,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
                       const __grid_constant__ CUtensorMap tmv,
                       const __grid_constant__ CUtensorMap tmdo,
                       const __grid_constant__ CUtensorMap tmdk,
-                      const __grid_constant__ CUtensorMap tmdv, DkvArgs a) {
+                      const __grid_constant__ CUtensorMap tmdv, BwdArgs a) {
   constexpr int NB = D / 64;             // boxes per tile
   constexpr int TB = tile_bytes<D>();    // a K or V tile
   constexpr int SB = NB * QBOX;          // a Q or dO tile
@@ -1026,6 +828,241 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
       tma_store4(&tmdk, kw + nb * BOX, nb * 64, k0 + wg * 64, hi, bi);
       tma_store4(&tmdv, vw + nb * BOX, nb * 64, k0 + wg * 64, hi, bi);
     }
+    tma_store_commit();
+    tma_store_wait_read();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dQ (TMA, wgmma)
+// ---------------------------------------------------------------------------
+
+constexpr int DQ_BN = 128;             // keys per k tile
+constexpr int DQ_STAGES = 2;           // the K/V ring
+constexpr int KBOX = DQ_BN * 128;      // a k-tile box: DQ_BN rows x 64 bf16
+
+// Q, dO, the ring of K and V tiles, and slack to align them to the
+// 1024-byte swizzle atom.
+template <int D>
+constexpr int dq_smem() {
+  return 2 * tile_bytes<D>() + DQ_STAGES * 2 * (D / 64) * KBOX + 1024;
+}
+
+// S = Q K^T (or dP = dO V^T) for a warpgroup's 64 rows (aw: its rows of
+// the Q or dO tile) against a k tile, one wgmma group: k-step kk reads 16
+// columns, 32 bytes into box kk / 4 of both operands.
+template <int D, int N>
+__device__ __forceinline__ void dq_scores(float (&s)[N][4],
+                                          const unsigned char* aw,
+                                          const unsigned char* kt) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = sw128_desc_at(aw + kk / 4 * BOX + kk % 4 * 32, 16,
+                                      1024);
+    const uint64_t db = sw128_desc_at(kt + kk / 4 * KBOX + kk % 4 * 32, 16,
+                                      1024);
+    if (kk == 0)
+      wgmma_ss_kk_first(s, da, db);
+    else
+      wgmma_ss_kk(s, da, db);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// dQ += dS K, one wgmma group: dS's k-step kk (16 keys) is da[kk]; K, read
+// N-major, has its 16 rows of 128 bytes 2048 bytes on, and at D = 128 the
+// leading offset steps to the tile's second box.
+template <int D>
+__device__ __forceinline__ void dq_acc(float (&dq)[D / 8][4],
+                                       const uint32_t (&da)[DQ_BN / 16][4],
+                                       const unsigned char* kt) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < DQ_BN / 16; ++kk)
+    wgmma_rs(dq, da[kk], sw128_desc_at(kt + kk * 2048, KBOX, 1024));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
+                     const __grid_constant__ CUtensorMap tmk,
+                     const __grid_constant__ CUtensorMap tmv,
+                     const __grid_constant__ CUtensorMap tmdo,
+                     const __grid_constant__ CUtensorMap tmdq, BwdArgs a) {
+  constexpr int NB = D / 64;             // boxes per tile
+  constexpr int TB = tile_bytes<D>();    // a Q or dO tile
+  constexpr int KB = NB * KBOX;          // a K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t qfull, full[DQ_STAGES];
+  __shared__ int done[DQ_STAGES];
+  // the swizzle works on shared-memory address bits: align the tiles there
+  unsigned char* qs =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  unsigned char* dos = qs + TB;
+  unsigned char* ring = dos + TB;        // stage s: K at 2s KB, V at (2s+1) KB
+
+  // the grid runs x fastest: a head's query blocks run together, so its K
+  // and V are read from device memory about once and then from L2; heavy
+  // (late, causal) blocks first
+  const int bh = blockIdx.y;
+  const int bi = bh / a.H, hi = bh - bi * a.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * FT;
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + wg * 64;           // the warpgroup's first row
+  const int row0 = r0 + warp * 16 + g;   // the thread's rows: and row0 + 8
+  // k tiles the block visits: causal, up to its diagonal tile. A tile is
+  // as wide as the block, so both warpgroups need every one.
+  int nk = (a.Sk + DQ_BN - 1) / DQ_BN;
+  if (a.causal) nk = min(nk, (min(q0 + FT, a.Sq) - 1) / DQ_BN + 1);
+  const CUtensorMap* mk = &tmk;
+  const CUtensorMap* mv = &tmv;
+
+  // One thread loads k tile j (K and V) into stage j % DQ_STAGES, on the
+  // stage's barrier; keys past Sk read as zeros.
+  auto load = [&](int j) {
+    const int st = j % DQ_STAGES;
+    unsigned char* kt = ring + 2 * st * KB;
+    mbar_expect_tx(&full[st], 2 * KB);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_load4(kt + nb * KBOX, mk, nb * 64, j * DQ_BN, hi, bi, &full[st]);
+      tma_load4(kt + KB + nb * KBOX, mv, nb * 64, j * DQ_BN, hi, bi,
+                &full[st]);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmq) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmk) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmv) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmdo) : "memory");
+    mbar_init(&qfull, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&qfull, 2 * TB);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_load4(qs + nb * BOX, &tmq, nb * 64, q0, hi, bi, &qfull);
+      tma_load4(dos + nb * BOX, &tmdo, nb * 64, q0, hi, bi, &qfull);
+    }
+    for (int j = 0; j < DQ_STAGES && j < nk; ++j) load(j);
+  }
+
+  // lse and delta of the thread's rows (zero past Sq, where Q and dO read
+  // as zeros too, so that dS is 0 there)
+  float lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    const long long at = static_cast<long long>(bh) * a.Sq + row;
+    lse[r] = row < a.Sq ? a.lse[at] : 0.f;
+    delta[r] = row < a.Sq ? a.delta[at] : 0.f;
+  }
+  // this warpgroup's 64 rows of Q and dO (8 KB into each box)
+  unsigned char* qw = qs + wg * 64 * 128;
+  const unsigned char* dow = dos + wg * 64 * 128;
+  float dq[D / 8][4], s[DQ_BN / 8][4], dp[DQ_BN / 8][4];
+  uint32_t da[DQ_BN / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+    dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+
+  // A warp done with k tile j counts itself out of its stage; the last of
+  // the 8 loads the stage's next tile.
+  auto release = [&](int j) {
+    if (count_last(&done[j % DQ_STAGES], 8, lane) && lane == 0 &&
+        j + DQ_STAGES < nk)
+      load(j + DQ_STAGES);
+  };
+  // Pingpong turns, two a k tile (the S and dP products, then the dQ
+  // product); warpgroup 1's last turn passes to no one.
+  auto pass = [&](bool last) {
+    if (wg == 0 || !last) turn_pass(wg);
+  };
+
+  mbar_wait(&qfull, 0);
+  if (wg == 1) turn_pass(wg);            // warpgroup 0 goes first
+  for (int j = 0; j < nk; ++j) {
+    const int st = j % DQ_STAGES;
+    const unsigned char* kt = ring + 2 * st * KB;
+    const unsigned char* vt = kt + KB;
+    turn_wait(wg);
+    mbar_wait(&full[st], (j / DQ_STAGES) & 1);
+    dq_scores<D>(s, qw, kt);
+    dq_scores<D>(dp, dow, vt);
+    turn_pass(wg);
+    // P = exp(S * scale - lse) while dP runs; masked (to 0) only where the
+    // tile crosses this warpgroup's diagonal or Sk
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    reg_fence_all(s);
+#pragma unroll
+    for (int n = 0; n < DQ_BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], a.scale);
+    if ((j + 1) * DQ_BN > a.Sk || (a.causal && j * DQ_BN + DQ_BN - 1 > r0)) {
+#pragma unroll
+      for (int n = 0; n < DQ_BN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * DQ_BN + n * 8 + 2 * t + (e & 1);
+          if (col >= a.Sk || (a.causal && col > row0 + (e >> 1) * 8))
+            s[n][e] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < DQ_BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = expf(__fsub_rn(s[n][e], lse[e >> 1]));
+    // dS = P (dP - delta) * scale
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    reg_fence_all(dp);
+#pragma unroll
+    for (int n = 0; n < DQ_BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[n][e] = __fmul_rn(
+            __fmul_rn(s[n][e], __fsub_rn(dp[n][e], delta[e >> 1])), a.scale);
+    pack_frag(da, dp);
+    reg_fence_all(da);
+    turn_wait(wg);
+    dq_acc<D>(dq, da, kt);
+    pass(j + 1 == nk);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    reg_fence_all(dq);
+    reg_fence_all(da);
+    release(j);
+  }
+
+  // dQ in bf16 into this warpgroup's rows of the Q tile (no other warp
+  // reads them), in the boxes' swizzle: 16-byte chunk c of row r at chunk
+  // c ^ (r % 8); then one thread stores them with TMA, which drops rows
+  // past Sq.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rl = wg * 64 + warp * 16 + g + r * 8;   // row in the tile
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(
+          qs + c / 8 * BOX + rl * 128 + (((c % 8) ^ g) << 4) + 4 * t) =
+          __floats2bfloat162_rn(dq[c][2 * r], dq[c][2 * r + 1]);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  if ((threadIdx.x & 127) == 0 && r0 < a.Sq) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      tma_store4(&tmdq, qw + nb * BOX, nb * 64, r0, hi, bi);
     tma_store_commit();
     tma_store_wait_read();
   }
@@ -1329,10 +1366,34 @@ int launch_dkv_bf16(const Params& p, int BH, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const DkvArgs a = {p.lse, p.delta, p.H, p.Sq, p.Sk, p.causal, p.scale};
+  const BwdArgs a = {p.lse, p.delta, p.H, p.Sq, p.Sk, p.causal, p.scale};
   kernel<<<dim3(n_kt, BH), FWD_THREADS, smem,
            static_cast<cudaStream_t>(stream)>>>(tmq, tmk, tmv, tmdo, tmdk,
                                                 tmdv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_bf16(const Params& p, int BH, void* stream) {
+  const int B = BH / p.H;
+  const int n_qt = (p.Sq + FT - 1) / FT;
+  if (BH > 65535 || B * p.H != BH)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap tmq, tmk, tmv, tmdo, tmdq;
+  int err = encode_bhsd(&tmq, p.q, p.vq, B, p.H, p.Sq, D, FT);
+  if (err == 0) err = encode_bhsd(&tmk, p.k, p.vk, B, p.H, p.Sk, D, DQ_BN);
+  if (err == 0) err = encode_bhsd(&tmv, p.v, p.vv, B, p.H, p.Sk, D, DQ_BN);
+  if (err == 0) err = encode_bhsd(&tmdo, p.dout, p.vdo, B, p.H, p.Sq, D, FT);
+  if (err == 0) err = encode_bhsd(&tmdq, p.out, p.vout, B, p.H, p.Sq, D, 64);
+  if (err != 0) return err;
+  constexpr int smem = dq_smem<D>();
+  auto kernel = flash_dq_bf16_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const BwdArgs a = {p.lse, p.delta, p.H, p.Sq, p.Sk, p.causal, p.scale};
+  kernel<<<dim3(n_qt, BH), FWD_THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(tmq, tmk, tmv, tmdo, tmdq, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1340,8 +1401,8 @@ enum Which { FWD = 0, DQ = 1, DKV = 2 };
 
 int run(Which which, int f32, int D, const Params& p, int BH, void* stream) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = which == DKV ? p.Sk : p.Sq;
   if (f32) {
+    const int rows = which == DKV ? p.Sk : p.Sq;
     dim3 grid((rows + F32_ROWS - 1) / F32_ROWS, BH);
     const int th = F32_ROWS * 32;
     if (which == FWD)
@@ -1356,13 +1417,9 @@ int run(Which which, int f32, int D, const Params& p, int BH, void* stream) {
   if (which == FWD)
     return D == 64 ? launch_fwd_bf16<64>(p, BH, stream)
                    : launch_fwd_bf16<128>(p, BH, stream);
-  if (which == DQ) {
-    dim3 grid((rows + BM - 1) / BM, BH);
-    return D == 64 ? launch(flash_dq_bf16_kernel<64>, dq_smem<64>(), grid,
-                            THREADS, p, stream)
-                   : launch(flash_dq_bf16_kernel<128>, dq_smem<128>(), grid,
-                            THREADS, p, stream);
-  }
+  if (which == DQ)
+    return D == 64 ? launch_dq_bf16<64>(p, BH, stream)
+                   : launch_dq_bf16<128>(p, BH, stream);
   return D == 64 ? launch_dkv_bf16<64>(p, BH, stream)
                  : launch_dkv_bf16<128>(p, BH, stream);
 }

@@ -252,7 +252,7 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
 
     ``block_q`` and ``block_k`` are accepted for the JAX package's API and
     not used: the CUDA kernels pick their own tiles (the bf16 forward 128
-    query rows by 128 keys, dQ 64 by 64, dK/dV 128 keys by 64 query rows;
+    query rows by 128 keys, dQ the same, dK/dV 128 keys by 64 query rows;
     the f32 kernels 8 rows by 32).
     """
     del block_q, block_k
@@ -315,12 +315,18 @@ def _like(t):
 
 def _tma_view(t):
     """``t``, or a contiguous copy where a dimension longer than 1 has
-    stride 0 (an expanded view): the bf16 forward and dK/dV kernels read
-    through TMA tensor maps, whose strides are nonzero multiples of 16
-    bytes."""
+    stride 0 (an expanded view): the bf16 kernels read through TMA tensor
+    maps, whose strides are nonzero multiples of 16 bytes."""
     if any(s == 0 and n > 1 for s, n in zip(t.stride()[:3], t.shape[:3])):
         return t.contiguous()
     return t
+
+
+def _tma_layout(t):
+    """Whether a TMA tensor map can hold ``t`` [B, H, S, D]: the kernels'
+    layout, with no zero stride along a dimension longer than 1."""
+    return _kernel_layout(t) and all(
+        s != 0 or n == 1 for s, n in zip(t.stride()[:3], t.shape[:3]))
 
 
 def _launch_forward(q, k, v, causal, scale):
@@ -345,14 +351,17 @@ def _launch_forward(q, k, v, causal, scale):
 
 def _launch_backward(q, k, v, o, lse, do, causal, scale):
     """dQ and dK/dV launches. bf16 q, k, v and dO pass through
-    ``_tma_view``: the dK/dV kernel reads them through TMA tensor maps,
-    which cannot hold an expanded (stride 0) view, and dQ reads the same
-    tensors."""
+    ``_tma_view``: both kernels read them through TMA tensor maps, which
+    cannot hold an expanded (stride 0) view, and store dQ (and dK, dV)
+    through maps too, whose strides must be nonzero multiples of 16 bytes."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if q.dtype == torch.bfloat16:
         q, k, v, do = (_tma_view(t) for t in (q, k, v, do))
     dq, dk, dv = _like(q), _like(k), _like(v)
+    if q.dtype == torch.bfloat16 and not _tma_layout(dq):
+        raise MXNetError("flash_attention backward: dq has strides %s, which "
+                         "a TMA tensor map cannot hold" % (dq.stride(),))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     # delta = rowsum(dO * O) in f32, outside the kernels as on the TPU

@@ -99,25 +99,49 @@ def _flash_probe():
     return mod
 
 
-# chip_flash_probe.py builds its variants of the dK/dV kernel by editing
-# csrc/flash_attention.cu's text: each edit must still apply to the source,
-# change only the dK/dV kernel (and the ring's depth), and keep the rest.
-@pytest.mark.parametrize("name", ["as_is", "no_turns", "early_dv", "stages3",
-                                  "step_b", "no_exp", "no_elementwise",
-                                  "no_scores"])
-def test_flash_probe_variants_apply(name, tmp_path):
+# chip_flash_probe.py builds its variants of the dK/dV and the dQ kernel
+# by editing csrc/flash_attention.cu's text: each edit must still apply to
+# the source, change only its kernel (and the named constants it names),
+# and keep the rest.
+DKV_PROBES = ["as_is", "no_turns", "early_dv", "stages3", "step_b", "no_exp",
+              "no_elementwise", "no_scores"]
+DQ_PROBES = ["as_is", "no_turns", "step_a", "step_b", "no_exp", "no_scores"]
+
+
+@pytest.mark.parametrize("kernel,name", [
+    pytest.param("dkv", n, id=n) for n in DKV_PROBES] + [
+    pytest.param("dq", n, id="dq-" + n) for n in DQ_PROBES])
+def test_flash_probe_variants_apply(kernel, name, tmp_path):
     probe = _flash_probe()
-    assert set(probe.VARIANTS) | set(probe.ABLATIONS) >= {name}
+    variants, ablations, _ = probe.KERNELS[kernel]
+    assert set(variants) | set(ablations) >= {name}
     src = open(os.path.join(CSRC, "flash_attention.cu")).read()
-    out = open(probe.write_sources([name], str(tmp_path))[name]).read()
+    out = open(probe.write_sources([name], str(tmp_path), kernel)[name]) \
+        .read()
     assert (out == src) == (name == "as_is")
     assert open(os.path.join(tmp_path, name, "sm90.cuh")).read() == \
         open(os.path.join(CSRC, "sm90.cuh")).read()
-    cut = src.index(probe.KERNEL)
+    start, end = probe.REGIONS[kernel]
+    cut = src.index(start)
     head = src[:cut]
-    if name == "early_dv":          # adds its one-group helper before
+    if (kernel, name) in (("dkv", "early_dv"), ("dq", "step_b")):
+        # adds its helpers before the kernel
         head = head.rsplit("template <int D>", 1)[0]
-    if name in ("stages3", "step_b"):
+    if (kernel, name) in (("dkv", "stages3"), ("dkv", "step_b")):
         head = head.replace("DKV_STAGES = 2;", "DKV_STAGES = 3;")
+    if (kernel, name) in (("dq", "step_a"), ("dq", "step_b")):
+        head = head.replace("DQ_BN = 128;", "DQ_BN = 64;")
     assert out.startswith(head)
-    assert out.endswith(src[src.index(probe.END):])
+    assert out.endswith(src[src.index(end, cut):])
+
+
+def test_flash_probe_regions_hold_one_kernel_each():
+    """The dK/dV region ends where the dQ section begins, so that an edit
+    of one kernel never reaches the other."""
+    probe = _flash_probe()
+    src = open(os.path.join(CSRC, "flash_attention.cu")).read()
+    spans = {k: probe._region(src, k) for k in probe.REGIONS}
+    for k, (a, b) in spans.items():
+        body = src[a:b]
+        for other, (start, _) in probe.REGIONS.items():
+            assert (start in body) == (other == k), (k, other)

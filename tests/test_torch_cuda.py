@@ -560,6 +560,52 @@ def test_flash_backward_takes_expanded_views():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("case", [(1, 2, 130, 130, 128, True),
+                                  (2, 3, 640, 640, 128, True),
+                                  (1, 4, 520, 520, 64, True)])
+def test_flash_dq_multi_block_causal(case, layout):
+    """The bf16 dQ kernel over several 128-row query blocks and 128-key
+    tiles, causal (S = 130: the last block's second half holds no row; 520:
+    a ragged last tile), contiguous and on transposed views: dq against
+    backward_dq_reference as a whole and row by row (FLASH_RTOL), laid out
+    as q, one dQ launch per call, and the same bits on a second launch."""
+    _need_card()
+    causal, scale = case[5], case[4] ** -0.5
+    q, k, v, do = _flash_inputs(case, "bfloat16", layout)
+    ro, rlse = FA.flash_forward_reference(q, k, v, causal, scale)
+    before = FA.LAUNCHES["dq"]
+    dq = FA._flash_backward(q, k, v, ro, rlse, do, causal, scale)[0]
+    again = FA._flash_backward(q, k, v, ro, rlse, do, causal, scale)[0]
+    want = FA.backward_dq_reference(q, k, v, ro, rlse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["dq"] - before == 2
+    assert dq.dtype == torch.bfloat16 and dq.stride() == q.stride()
+    assert bool(torch.isfinite(dq.float()).all())
+    tol = FLASH_RTOL["bfloat16"]["grad"]
+    err = (dq.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+    assert _row_rel_err(dq, want) <= tol, _row_rel_err(dq, want)
+    assert torch.equal(dq, again)
+
+
+@pytest.mark.cuda
+def test_flash_dq_takes_expanded_views():
+    """q, k, v and dO broadcast over heads (stride 0) at head dim 64: the
+    bf16 dQ kernel reads them through copies and gives what contiguous
+    inputs give, bit for bit."""
+    _need_card()
+    q, k, v, do = _flash_inputs((2, 4, 260, 260, 64, True), "bfloat16")
+    qe, ke, ve, doe = (t[:, :1].expand(-1, 4, -1, -1) for t in (q, k, v, do))
+    qc, kc, vc, doc = (t.contiguous() for t in (qe, ke, ve, doe))
+    o, lse = FA._flash_forward(qc, kc, vc, True, 0.125)
+    got = FA._flash_backward(qe, ke, ve, o, lse, doe, True, 0.125)[0]
+    want = FA._flash_backward(qc, kc, vc, o, lse, doc, True, 0.125)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_flash_kernels_raise_on_unsupported_inputs():
     _need_card()
     q = torch.randn(1, 2, 128, 96, device="cuda", dtype=torch.bfloat16)

@@ -8,6 +8,7 @@ The CUDA kernels run only on the card: tests/test_torch_cuda.py holds them
 against the plain versions there (``python3 chip_smoke.py`` does the same
 at the transformer LM's shape).
 """
+import functools
 import importlib
 
 import numpy as np
@@ -505,3 +506,162 @@ def test_dkv_kernel_model_matches_reference_and_pallas(sq, sk, d, causal):
         KT, True)
     _close_bf16(dk, jk)
     _close_bf16(dv, jv)
+
+
+# -- the bf16 dQ kernel's decomposition ---------------------------------------
+# csrc/flash_attention.cu's bf16 dQ: a block per TILE query rows of one
+# (batch, head), split into two halves of HALF rows (one per consumer
+# warpgroup); k tiles of bk keys (DQ_BN: 128, and 64 in
+# chip_flash_probe.py's step_a and step_b) from 0 up to the last the block
+# needs (causal) or all of them; a half skips the tiles wholly above its
+# diagonal (at 64-key tiles the first half skips the block's last tile,
+# where its rows end before it) and masks only the tile that crosses its
+# diagonal and a ragged last tile; rows past Sq and keys past Sk read as
+# zeros (TMA's fill), lse and delta past Sq as zeros, and rows past Sq never
+# stored.
+DQ_BN = 128
+
+
+def _dq_model(q, k, v, o, lse, do, causal, scale, bk=DQ_BN):
+    """The kernel's work in plain torch, at its rounding points: s =
+    (q.k)*scale in f32, p = exp(s - lse) in f32, dS = p * (dP - delta) *
+    scale, dQ += bf16(dS) K in f32 tile by tile, cast last. Returns (dq,
+    visits): visits maps (query block, half) to the block's k tiles, each
+    with whether it was masked, or None where the half skipped it."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    nqb, nkt = -(-sq // TILE), -(-sk // bk)
+
+    def pad(t, n):
+        out = torch.zeros(t.shape[:2] + (n,) + t.shape[3:], dtype=t.dtype)
+        out[:, :, :t.shape[2]] = t
+        return out
+
+    qp, dop = pad(q, nqb * TILE).float(), pad(do, nqb * TILE).float()
+    kp, vp = pad(k, nkt * bk).float(), pad(v, nkt * bk).float()
+    delta = (do.float() * o.float()).sum(dim=-1)
+    lsep = pad(lse.reshape(b, h, sq, 1), nqb * TILE)[..., 0]
+    deltap = pad(delta[..., None], nqb * TILE)[..., 0]
+    dq = torch.empty_like(q)
+    visits = {}
+    for qb in range(nqb):
+        q0 = qb * TILE
+        nk = nkt if not causal else min(nkt, (min(q0 + TILE, sq) - 1)
+                                        // bk + 1)
+        for w in range(2):
+            r0 = q0 + w * HALF
+            rows = torch.arange(r0, r0 + HALF)
+            nw = min(nk, (r0 + HALF - 1) // bk + 1) if causal else nk
+            qa, doa = qp[:, :, r0:r0 + HALF], dop[:, :, r0:r0 + HALF]
+            acc = torch.zeros(b, h, HALF, d)
+            visits[(qb, w)] = []
+            for j in range(nk):
+                if j >= nw:
+                    visits[(qb, w)].append((j, None))
+                    continue
+                cols = torch.arange(j * bk, (j + 1) * bk)
+                kt, vt = kp[:, :, cols], vp[:, :, cols]
+                s = (qa @ kt.transpose(-1, -2)) * scale
+                edge = (j + 1) * bk > sk or \
+                    (causal and j * bk + bk - 1 > r0)
+                if edge:
+                    mask = (cols[None, :] >= sk).expand(HALF, bk)
+                    if causal:
+                        mask = mask | (cols[None, :] > rows[:, None])
+                    s = s.masked_fill(mask, float("-inf"))
+                visits[(qb, w)].append((j, edge))
+                p = torch.exp(s - lsep[:, :, r0:r0 + HALF, None])
+                dp = doa @ vt.transpose(-1, -2)
+                ds = p * (dp - deltap[:, :, r0:r0 + HALF, None]) * scale
+                acc = acc + ds.to(q.dtype).float() @ kt
+            keep = min(HALF, max(0, sq - r0))
+            dq[:, :, r0:r0 + keep] = acc[:, :, :keep].to(q.dtype)
+    return dq, visits
+
+
+def _check_dq_visits(visits, sq, sk, causal, bk):
+    """Every (row < Sq, key < Sk) pair a half needs lies in a tile it
+    computed, a tile it skipped or the block left out is wholly masked for
+    the half, and a tile computed unmasked needs no mask: skipping and
+    masking lose nothing."""
+    nkt = -(-sk // bk)
+    for (qb, w), tiles in visits.items():
+        r0 = qb * TILE + w * HALF
+        rows = range(r0, min(r0 + HALF, sq))
+        seen = [j for j, _ in tiles]
+        assert seen == list(range(len(seen))), (qb, w, seen)
+        done = [j for j, e in tiles if e is not None]
+        for j in range(nkt):
+            cols = range(j * bk, min((j + 1) * bk, sk))
+            needed = any(c <= r for c in cols for r in rows) \
+                if causal else bool(rows)
+            if j not in done:
+                assert not needed, (qb, w, j)
+            if j in seen and j not in done:
+                assert causal and all(c > r for c in range(j * bk,
+                                                           (j + 1) * bk)
+                                      for r in range(r0, r0 + HALF))
+        for j, edge in tiles:
+            if edge is None:
+                continue
+            needs_mask = (j + 1) * bk > sk or (causal and any(
+                c > r for c in range(j * bk, (j + 1) * bk)
+                for r in range(r0, r0 + HALF)))
+            assert edge == needs_mask, (qb, w, j)
+
+
+# MODEL_CASES and causal S = 130, whose last block holds two rows: all in
+# its first half, so that the second half holds no row at all.
+DQ_CASES = MODEL_CASES + [(130, 130, d, True) for d in (64, 128)]
+
+
+@functools.lru_cache(maxsize=None)
+def _dq_case(sq, sk, d, causal):
+    """bf16 q, k, v, dO, the plain forward's o and lse, and JAX's dq from
+    _pallas_backward in interpret mode on them."""
+    q, k, v, do = _qkv(1, 2, sq, sk, d, seed=12)
+    scale = d ** -0.5
+    tq, tk, tv, tdo = (_t(a, torch.bfloat16) for a in (q, k, v, do))
+    o, lse = FA.flash_forward_reference(tq, tk, tv, causal, scale)
+    jq, _, _ = JFA._pallas_backward(
+        *(_j(_np(a), jnp.bfloat16) for a in (tq, tk, tv, o)),
+        jnp.asarray(lse.numpy()), _j(do, jnp.bfloat16), causal, scale, TILE,
+        TILE, True)
+    return tq, tk, tv, tdo, o, lse, _np(jq)
+
+
+@pytest.mark.parametrize("bk", [DQ_BN, 64])
+@pytest.mark.parametrize("sq,sk,d,causal", DQ_CASES)
+def test_dq_kernel_model_matches_reference_and_pallas(sq, sk, d, causal,
+                                                      bk):
+    """The bf16 dQ kernel's decomposition (128-row blocks, 64-row halves,
+    bk-key tiles from 0, the per-half causal skip, the diagonal-tile and
+    ragged-tile masks, zero-filled rows past Sq and keys past Sk) against
+    backward_dq_reference and JAX's _pallas_backward in interpret mode on
+    the same o and lse, at the file's bf16 tolerance: at the kernel's
+    128-key tiles and the probe's 64."""
+    tq, tk, tv, tdo, o, lse, jq = _dq_case(sq, sk, d, causal)
+    scale = d ** -0.5
+    dq, visits = _dq_model(tq, tk, tv, o, lse, tdo, causal, scale, bk)
+    _check_dq_visits(visits, sq, sk, causal, bk)
+    nkt = -(-sk // bk)
+    for (qb, w), tiles in visits.items():
+        r0 = qb * TILE + w * HALF
+        masked = {j for j, e in tiles if e}
+        skipped = [j for j, e in tiles if e is None]
+        # only the half's diagonal tile and a ragged last tile are masked;
+        # only the first half skips, only the block's last tile, and only
+        # where a tile is narrower than the block
+        assert masked <= ({r0 // bk} if causal else set()) | (
+            {nkt - 1} if sk % bk else set()), (qb, w, masked)
+        if causal and r0 // bk < len(tiles):
+            assert r0 // bk in masked
+        assert skipped in ([], [len(tiles) - 1]) and (w == 0 or not skipped)
+        assert bk < TILE or not skipped
+    if (sq, causal) == (130, True):
+        assert all(r >= sq for r in range(TILE + HALF, 2 * TILE))
+        assert [j for j, e in visits[(1, 1)]] == list(range(nkt))
+    rq = FA.backward_dq_reference(tq, tk, tv, o, lse, tdo, causal, scale)
+    assert dq.dtype == torch.bfloat16 and dq.shape == rq.shape
+    _close_bf16(dq, rq)
+    _close_bf16(dq, jq)
