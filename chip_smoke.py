@@ -12,6 +12,8 @@
     python3 chip_smoke.py --phases env,kernel_conv_bwd,time_conv_bwd
     python3 chip_smoke.py --phases env,kernel_flash,time_flash
     python3 chip_smoke.py --phases env,train_lm,time_lm
+    python3 chip_smoke.py --phases env,kernel_qmm,time_qmm
+    python3 chip_smoke.py --phases env,serve_int8,time_int8
 
 Phases, each printing JSON lines:
 
@@ -44,12 +46,16 @@ Phases, each printing JSON lines:
               129 against Sk 449, D = 64, B*H = 1) in bf16 and f32
               (FLASH_RTOL; bf16 outputs also row by row, FLASH_ROWWISE);
               a second launch must give the same bits. The int8 matmul
-              (int32 and scaled forms) at every
-              product shape int8 ResNet-50 v1 gives it at batch 32 (read
-              off the network), at edge shapes (M, K or N of 1, odd sizes,
-              K = 147, N = 1000), with w N-contiguous, x row-strided and
-              transposed (refused), and at int8 extremes: bit for bit,
-              and the same bits on a second launch. The 2-bit quantize and
+              (int32 and scaled forms) at every product shape int8
+              ResNet-50 v1 gives it at batch 32 (read off the network; each
+              on the wgmma route), at edge shapes of both routes (M, K or N
+              of 1, odd sizes, K = 147, N = 1000, ragged tails of the wgmma
+              tiles, M below 64, N % 4 != 0, split K) and planned for a
+              card of FEW_SMS SMs, with w N-contiguous, x row-strided, 1
+              byte off alignment (the byte route) and transposed (refused),
+              and at int8 extremes: bit for bit, the same bits on a second
+              launch, and the route the wrapper's predicate names. The
+              2-bit quantize and
               dequantize kernels at every compressed ResNet-50 parameter
               size and at edge sizes (CODEC_EDGE_N), bf16 and f32,
               thresholds 0.5 and 0.3, with exactly +-threshold, +-0.0,
@@ -164,8 +170,13 @@ backward pair's part of phases kernel and time, and kernel_flash and
 time_flash, the flash kernels' part (rows 9-11; time_flash also times the
 three bf16 kernels on the LM's [B, S, H, D] buffers seen transposed, the
 bf16 forward at head dim 64 and the f32 forward), to run them alone after
-env, and time_lm, the LM step's timing, after env,train_lm (the default
-run does not name them: phases kernel and time run them).
+env, time_lm, the LM step's timing, after env,train_lm, and kernel_qmm
+and time_qmm, the int8 matmul's part (rows 12-13: its checks, including
+the wgmma route's edge shapes and a FEW_SMS-SM plan, and its times per
+shape beside torch._int_mm, the bound and the route taken), after env
+alone, and time_int8, int8 serving's part of phase time (time_qmm, then
+the int8 and float32 forwards' images/sec), after env,serve_int8 (the
+default run does not name them: phases kernel and time run them).
 
 The run ends with the nvidia-smi name/power line, then the
 {"kernels": [...]} line (per kernel: launches on its path, max abs error at
@@ -192,9 +203,11 @@ PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_lm", "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
 # the conv_fused backward pair's checks and timing, the flash kernels',
-# and the LM step's timing (after train_lm).
+# the LM step's timing (after train_lm), the int8 matmul's checks and
+# timing, and int8 serving's timing (after serve_int8).
 SUB_PHASES = ("kernel_conv_bwd", "time_conv_bwd", "kernel_flash",
-              "time_flash", "time_lm")
+              "time_flash", "time_lm", "kernel_qmm", "time_qmm",
+              "time_int8")
 
 # ResNet-50's fused 3x3 links at batch 32: (N, H, W, Ci, Co) and how many
 # of the 16 launches per forward run at that shape.
@@ -388,6 +401,10 @@ LM_NARROW_RTOL = {"loss": 1e-5, "grad": 1e-4, "param": 1e-5}
 # each per forward. Line of each TPU kernel body in
 # mxnet_tpu/pallas_kernels/quantized_matmul.py.
 QMM_REPLACES = {"mm": 79, "mm_scaled": 95}
+QMM_DESIGN = ("redesigned for Hopper: persistent blocks over qmm_plan's "
+              "tiles, a TMA ring, s8 wgmma, split K where tiles are few, a "
+              "TMA-stored epilogue; a byte route (mma.sync) for operands TMA "
+              "cannot describe")
 INT8_LAYERS = 54
 INT8_BATCH = 32
 INT8_CALIB = 2
@@ -413,6 +430,17 @@ INT8_THRESHOLD_RTOL = 1e-4
 QMM_EDGE = [(1, 64, 64), (64, 1, 64), (64, 64, 1), (1, 1, 1), (37, 33, 29),
             (129, 147, 1000), (33, 147, 64), (255, 2047, 17), (5, 16, 1000),
             (1000, 160, 3)]
+# Edge shapes of the wgmma route (aligned operands): ragged M, N and K
+# tails against its 128-row tiles, 64- and 128-column tiles and 128-byte K
+# blocks; M below the 64-row wgmma tile; N = 1000; N % 4 != 0 (guarded
+# stores in place of the TMA store); deep K split across blocks.
+QMM_WGMMA_EDGE = [(130, 4608, 72), (1605, 4624, 520), (257, 1040, 260),
+                  (31, 96, 1000), (32, 2048, 1000), (100, 48, 30),
+                  (200, 4608, 38), (129, 64, 64)]
+# The wgmma route planned for a card of FEW_SMS SMs, so that each
+# persistent block walks several items (split tiles among them).
+QMM_FEW_SMS = [(1568, 4608, 512), (130, 4608, 72), (1605, 4624, 520),
+               (100352, 64, 64), (257, 4608, 200), (257, 9216, 72)]
 # Dense int8 tensor-core operations/s from NVIDIA's data sheets (twice the
 # bf16 rate), keyed like PEAKS.
 INT8_PEAKS = {"H100 PCIe": 1513e12, "H100 NVL": 1671e12, "H200": 1979e12,
@@ -1385,13 +1413,36 @@ def _int8_net(mx, state, ctx, calib=None):
     return net
 
 
+# The int8 kernels' launch counters: the wgmma route's (int32 and scaled
+# form), the byte route's (a tree without that route counts 0), and the w
+# copies.
+QMM_COUNTERS = {"mm": "LAUNCHES_MM", "mm_scaled": "LAUNCHES_MM_SCALED",
+                "mm_bytes": "LAUNCHES_MM_BYTES",
+                "mm_scaled_bytes": "LAUNCHES_MM_SCALED_BYTES",
+                "copies": "COPIES"}
+
+
 def _qmm_counts(QM):
-    return {"mm": QM.LAUNCHES_MM, "mm_scaled": QM.LAUNCHES_MM_SCALED,
-            "copies": QM.COPIES}
+    return {k: getattr(QM, v, 0) for k, v in QMM_COUNTERS.items()}
 
 
 def _zero_qmm(QM):
-    QM.LAUNCHES_MM = QM.LAUNCHES_MM_SCALED = QM.COPIES = 0
+    for v in QMM_COUNTERS.values():
+        if hasattr(QM, v):
+            setattr(QM, v, 0)
+
+
+def _qmm_route_of(QM, before, name):
+    """The route the launches since ``before`` (_qmm_counts) of form
+    ``name`` took: "wgmma", "bytes", "both", or None where the tree counts
+    no routes."""
+    now = _qmm_counts(QM)
+    if not hasattr(QM, "LAUNCHES_MM_BYTES"):
+        return None
+    fast = now[name] > before[name]
+    slow = now[name + "_bytes"] > before[name + "_bytes"]
+    return "both" if fast and slow else "wgmma" if fast else \
+        "bytes" if slow else None
 
 
 def _record_products(QM, fn):
@@ -1474,30 +1525,36 @@ def _int_err(a, b):
 def qmm_check(torch, x, w, s):
     """Both forms of the kernel against the plain version, and a second
     launch: {"mm"|"mm_scaled": (equal bit for bit, second launch same
-    bits, max abs err)}."""
+    bits, max abs err, route taken)}."""
     from mxnet_tpu_torch.kernels import quantized_matmul as QM
     res = {}
     for name, sc in (("mm", None), ("mm_scaled", s)):
+        before = _qmm_counts(QM)
         out = QM.quantized_matmul(x, w, sc)
         ref = QM.quantized_matmul_reference(x, w, sc)
         again = QM.quantized_matmul(x, w, sc)
         torch.cuda.synchronize()
         res[name] = (same_bits(torch, out, ref), same_bits(torch, out, again),
-                     _int_err(out, ref))
+                     _int_err(out, ref), _qmm_route_of(QM, before, name))
     return res
 
 
-def _qmm_record(state, phase, kind, shape, res, failures, **extra):
+def _qmm_record(state, phase, kind, shape, res, failures, route=None,
+                **extra):
     """Emit one kernel-check line of qmm_check's result, raise the worst
     errors in state["qmm_err"], mark the shape checked, and add it to
-    ``failures`` if it failed."""
+    ``failures`` if it failed: if a launch disagreed, or, with ``route``,
+    if a launch took another route."""
     ok = all(r[0] and r[1] for r in res.values())
+    routes = {k: v[3] for k, v in res.items()}
+    if route is not None:
+        ok = ok and all(r == route for r in routes.values())
     emit(dict({"phase": phase, "kernel": "quantized_matmul",
                "case": kind, "shape_mkn": list(shape),
                "bitwise": {k: v[0] for k, v in res.items()},
                "second_launch_same_bits": {k: v[1] for k, v in res.items()},
                "max_abs_err": {k: v[2] for k, v in res.items()},
-               "ok": ok}, **extra))
+               "route": routes, "route_wanted": route, "ok": ok}, **extra))
     worst = state.setdefault("qmm_err", {"mm": 0.0, "mm_scaled": 0.0})
     for k, v in res.items():
         worst[k] = max(worst[k], v[2])
@@ -1508,38 +1565,78 @@ def _qmm_record(state, phase, kind, shape, res, failures, **extra):
 
 def phase_kernel_qmm(torch, state):
     """Rows 12 and 13 (quantized_matmul: the int32 and the scaled form)
-    against the plain version on the card, bit for bit: at every distinct
-    (M, K, N) of int8 ResNet-50 v1 at batch 32 (read off the network), at
-    QMM_EDGE, with w given N-contiguous (the wrapper copies it once), x as
-    a row-strided view (taken in place) and transposed (refused), and at
-    int8 extremes; each launched twice for the same bits."""
+    against the plain version on the card, bit for bit, each launched
+    twice for the same bits: at every distinct (M, K, N) of int8 ResNet-50
+    v1 at batch 32 (read off the network; each must take the wgmma route),
+    at QMM_EDGE (the route the wrapper's predicate names), at
+    QMM_WGMMA_EDGE, and planned for FEW_SMS SMs at QMM_FEW_SMS (wgmma);
+    with w given N-contiguous (the wrapper copies it once), x as a
+    row-strided view (taken in place, wgmma), a view of x 1 byte off
+    16-byte alignment (the byte route) and transposed (refused); and at
+    int8 extremes."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.kernels import quantized_matmul as QM
 
+    routed = hasattr(QM, "route")
+    wgmma = "wgmma" if routed else None
     shapes = _int8_shapes(torch, mx, state)
-    cases = [("resnet50_b32", shape, 300 + i, -127)
-             for i, (shape, _) in enumerate(shapes)]
-    cases += [("edge", shape, 400 + i, -128)
-              for i, shape in enumerate(QMM_EDGE)]
     failures = []
 
-    def record(kind, shape, res, **extra):
-        _qmm_record(state, "kernel", kind, shape, res, failures, **extra)
+    def record(kind, shape, res, route=None, **extra):
+        _qmm_record(state, "kernel", kind, shape, res, failures, route,
+                    **extra)
 
-    for kind, (M, K, N), seed, lo in cases:
-        x, w, s = qmm_case(torch, M, K, N, seed, lo)
-        record(kind, (M, K, N), qmm_check(torch, x, w, s))
+    def predicted(x, w):
+        M, K = x.shape
+        N = w.shape[1]
+        return QM.route(M, K, N, x.stride(0) if M > 1 else K,
+                        w.stride(1) if N > 1 else K, x.data_ptr(),
+                        w.data_ptr()) if routed else None
+
+    def plan(M, K, N, n_sm):
+        if not routed:
+            return {}
+        p = QM.qmm_plan(M, K, N, n_sm)
+        return {"plan": {"bn": p.bn, "nsplit": p.nsplit, "kps": p.kps,
+                         "items": p.items, "grid": p.grid, "n_sm": n_sm}}
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, ((M, K, N), _) in enumerate(shapes):
+        x, w, s = qmm_case(torch, M, K, N, 300 + i, -127)
+        record("resnet50_b32", (M, K, N), qmm_check(torch, x, w, s), wgmma,
+               **plan(M, K, N, n_sm))
+    for i, (M, K, N) in enumerate(QMM_EDGE):
+        x, w, s = qmm_case(torch, M, K, N, 400 + i, -128)
+        record("edge", (M, K, N), qmm_check(torch, x, w, s), predicted(x, w))
+    for i, (M, K, N) in enumerate(QMM_WGMMA_EDGE):
+        x, w, s = qmm_case(torch, M, K, N, 450 + i, -128)
+        record("wgmma_edge", (M, K, N), qmm_check(torch, x, w, s), wgmma,
+               **plan(M, K, N, n_sm))
+    if routed:
+        counted = QM._sm_count
+        QM._sm_count = lambda dev: FEW_SMS
+        try:
+            for i, (M, K, N) in enumerate(QMM_FEW_SMS):
+                x, w, s = qmm_case(torch, M, K, N, 470 + i, -128)
+                record("few_sms", (M, K, N), qmm_check(torch, x, w, s),
+                       wgmma, **plan(M, K, N, FEW_SMS))
+        finally:
+            QM._sm_count = counted
     x, w, s = qmm_case(torch, 300, 96, 200, 500, -128)
     copies = QM.COPIES
     record("w_n_contiguous", (300, 96, 200),
-           qmm_check(torch, x, w.contiguous(), s),
+           qmm_check(torch, x, w.contiguous(), s), wgmma,
            copies=QM.COPIES - copies)
     if QM.COPIES - copies != 4:          # 2 launches of each form
         failures.append(("w_n_contiguous copies", QM.COPIES - copies))
     wide = torch.zeros(300, 112, dtype=torch.int8, device="cuda")
     wide[:, :96] = x
     record("x_row_strided_view", (300, 96, 200),
-           qmm_check(torch, wide[:, :96], w, s), x_strides=[112, 1])
+           qmm_check(torch, wide[:, :96], w, s), wgmma, x_strides=[112, 1])
+    wide[:, 1:97] = x
+    record("x_misaligned_view", (300, 96, 200),
+           qmm_check(torch, wide[:, 1:97], w, s),
+           "bytes" if routed else None, x_offset_bytes=1)
     try:
         QM.quantized_matmul(x.t().contiguous().t(), w)
         failures.append(("x with K strided", "not refused"))
@@ -1551,11 +1648,11 @@ def phase_kernel_qmm(torch, state):
         xe = torch.full((200, 4608), fx, dtype=torch.int8, device="cuda")
         we = torch.full((72, 4608), fw, dtype=torch.int8, device="cuda").t()
         record("extreme_%d_%d" % (fx, fw), (200, 4608, 72),
-               qmm_check(torch, xe, we, s[:72]), acc=4608 * fx * fw)
+               qmm_check(torch, xe, we, s[:72]), wgmma, acc=4608 * fx * fw)
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("quantized_matmul disagrees with its plain "
-                             "version: %s" % failures)
+                             "version or took another route: %s" % failures)
 
 
 def _qmm_path_shapes(torch, state, calls):
@@ -1563,15 +1660,18 @@ def _qmm_path_shapes(torch, state, calls):
     second launch, at every distinct (M, K, N) of ``calls`` (the products
     the main path gave the kernel) that no earlier check covered: batch
     256's products are 8x taller than batch 32's (M up to 3,211,264 at the
-    stem), which exercises the large-grid indexing. The float64 plain
-    version of the largest needs about 6 GB."""
+    stem), which exercises the large-grid indexing. Each must take the
+    wgmma route. The float64 plain version of the largest needs about 6
+    GB."""
+    from mxnet_tpu_torch.kernels import quantized_matmul as QM
     distinct = sorted({c[:3] for c in calls})
     todo = [s for s in distinct if s not in state.get("qmm_checked", ())]
     failures = []
     for i, (M, K, N) in enumerate(todo):
         x, w, s = qmm_case(torch, M, K, N, 600 + i)
         _qmm_record(state, "serve_int8", "main_path", (M, K, N),
-                    qmm_check(torch, x, w, s), failures)
+                    qmm_check(torch, x, w, s), failures,
+                    "wgmma" if hasattr(QM, "route") else None)
         del x, w, s
         torch.cuda.empty_cache()
     emit({"phase": "serve_int8", "check": "quantized_matmul at every product "
@@ -1674,12 +1774,16 @@ def phase_serve_int8(torch, state):
         worst_rel = max(worst_rel, err / ref.abs().max().item())
         top1 += int((out.argmax(1) == ref.argmax(1)).sum().item())
         n_img += req.shape[0]
-    ok_main = counts == {"mm": 0, "mm_scaled": want, "copies": 0} \
+    # every launch of the path on the wgmma route
+    ok_main = counts == {"mm": 0, "mm_scaled": want, "mm_bytes": 0,
+                         "mm_scaled_bytes": 0, "copies": 0} \
         and len(calls) == want and worst_rel <= INT8_LOGIT_RTOL
     emit({"phase": "serve_int8", "dtype": "int8 layers, float32 between",
           "requests": [int(r.shape[0]) for r in requests],
           "int8_layers": n_layers, "calibration_s": calib_s,
-          "launches": counts, "launches_wanted": {"mm": 0, "mm_scaled": want},
+          "launches": counts, "launches_wanted": {"mm": 0, "mm_scaled": want,
+                                                  "mm_bytes": 0,
+                                                  "mm_scaled_bytes": 0},
           "products_recorded": len(calls),
           "max_rel_diff_vs_float32": worst_rel,
           "tolerance_rel": INT8_LOGIT_RTOL, "top1_agree_with_float32":
@@ -1687,9 +1791,9 @@ def phase_serve_int8(torch, state):
           "peak_memory_b256_bytes": peak, "ok": ok_main})
     del logits
     if not ok_main:
-        raise AssertionError("int8 serving: launches %s (want %d scaled, 0 "
-                             "int32) or logits %.4g of max from float32"
-                             % (counts, want, worst_rel))
+        raise AssertionError("int8 serving: launches %s (want %d scaled on "
+                             "the wgmma route, no other) or logits %.4g of "
+                             "max from float32" % (counts, want, worst_rel))
     _qmm_path_shapes(torch, state, calls)
     state["int8"] = {"net": net, "float_net": float_net}
     _int8_card_vs_cpu(torch, mx, state, net, requests[0][:2], calib[0][:2])
@@ -1757,7 +1861,7 @@ def _int8_op_family(torch, mx, state, net, req):
     through im2col) and quantized_fully_connected at 2048 -> 1000, on the
     card, each against the port on the CPU on the batch's first two
     images: int32 payloads and ranges bit for bit; exactly one int32
-    kernel launch per call and no scaled one."""
+    kernel launch per call, on the wgmma route, and no scaled one."""
     from mxnet_tpu_torch.contrib import quantization as Q
     from mxnet_tpu_torch.kernels import quantized_matmul as QM
 
@@ -1813,7 +1917,8 @@ def _int8_op_family(torch, mx, state, net, req):
     state["int8_op_shapes"] = [c[:3] for c in calls]
     bad = [cfg for cfg, ok in results if not ok]
     ok = not bad and counts["mm"] == len(results) \
-        and counts["mm_scaled"] == 0 and not any(c[3] for c in calls)
+        and counts["mm_scaled"] == counts["mm_bytes"] == 0 \
+        and counts["mm_scaled_bytes"] == 0 and not any(c[3] for c in calls)
     emit({"phase": "serve_int8", "check": "nd.contrib op family at "
           "ResNet-50's shapes, card vs CPU", "calls": len(results),
           "launches": counts, "product_shapes_mkn": [list(c[:3])
@@ -3206,37 +3311,39 @@ def _int8_split(torch, net, x):
     return split
 
 
-def phase_time_int8(torch, state):
+def phase_time_qmm(torch, state):
     """Rows 12 and 13 at every distinct product shape of int8 ResNet-50 v1
-    at batch 32 (CUDA events): the kernel, its plain version and the
-    library yardstick torch._int_mm (cuBLASLt; for row 13 followed by a
-    multiply by the scales, two calls), timed here and never called by the
-    port, beside the bound. Then the int8 forward at batch 32 and 256:
-    images/sec (host clock), device busy ms and idle share (profiler), and
-    device ms split into the kernels, the im2col, the quantize passes and
-    the float layers (the rest); beside it the same network's float32
-    forward, with TF32 off and on."""
+    at batch 32 (read off the network; the op family's pass makes one
+    int32 product at each), CUDA events: both forms of the kernel, their
+    plain versions and the library yardstick torch._int_mm (cuBLASLt; for
+    row 13 followed by a multiply by the scales, two calls), timed here and
+    never called by the port, beside the bound, its share and the route
+    the launches took. Then the totals per op-family pass (row 12) and per
+    b32 forward (row 13). Needs no other phase but env, so that a parent
+    tree can be timed with this script in turns."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.kernels import quantized_matmul as QM
 
     card = state["card"]
     shapes = _int8_shapes(torch, mx, state)
     counts = dict(shapes)
-    for shape in state["int8_op_shapes"]:
+    for shape in state.get("int8_op_shapes", ()):
         counts.setdefault(shape, 0)
     per = {}
     for i, ((M, K, N), count) in enumerate(sorted(counts.items())):
         x, w, s = qmm_case(torch, M, K, N, 800 + i)
-        row = {"mm": device_ms(torch, lambda: QM.quantized_matmul(x, w),
-                               iters=20),
-               "mm_scaled": device_ms(torch, lambda: QM.quantized_matmul(
-                   x, w, s), iters=20),
-               "plain_mm": device_ms(torch, lambda: QM
-                                     .quantized_matmul_reference(x, w),
-                                     iters=3, warmup=1),
-               "plain_mm_scaled": device_ms(torch, lambda: QM
-                                            .quantized_matmul_reference(
-                                                x, w, s), iters=3, warmup=1)}
+        row = {}
+        for name, sc in (("mm", None), ("mm_scaled", s)):
+            before = _qmm_counts(QM)
+            row[name] = device_ms(torch, lambda: QM.quantized_matmul(
+                x, w, sc), iters=20)
+            row["route_" + name] = _qmm_route_of(QM, before, name)
+        row["plain_mm"] = device_ms(
+            torch, lambda: QM.quantized_matmul_reference(x, w), iters=3,
+            warmup=1)
+        row["plain_mm_scaled"] = device_ms(
+            torch, lambda: QM.quantized_matmul_reference(x, w, s), iters=3,
+            warmup=1)
         try:
             row["library_mm"] = device_ms(torch, lambda: torch._int_mm(x, w),
                                           iters=20)
@@ -3251,6 +3358,10 @@ def phase_time_int8(torch, state):
             row["bound_" + name] = t_bound * 1e3
             row["bound_by_" + name] = by
             row["roofline_share_" + name] = t_bound * 1e3 / row[name]
+        if hasattr(QM, "qmm_plan"):
+            p = QM.qmm_plan(M, K, N, QM._sm_count(x.device))
+            row["plan"] = {"bn": p.bn, "nsplit": p.nsplit, "items": p.items,
+                           "grid": p.grid}
         per[(M, K, N)] = row
         emit({"phase": "time", "kernel": "quantized_matmul",
               "shape_mkn": [M, K, N], "launches_per_int8_forward_b32": count,
@@ -3263,21 +3374,34 @@ def phase_time_int8(torch, state):
         bound = sum(per[c]["bound_" + name] for c in calls)
         ops_bound = sum(per[c]["bound_" + name] for c in calls
                         if per[c]["bound_by_" + name] == "operations")
-        return {"ms": sum(per[c][name] for c in calls),
+        ms = sum(per[c][name] for c in calls)
+        return {"ms": ms,
                 "plain_ms": sum(per[c]["plain_" + name] for c in calls),
-                "bound_ms": bound,
+                "bound_ms": bound, "roofline_share": bound / ms,
                 "bound_by": "operations" if ops_bound >= bound / 2
                 else "bytes",
                 "library_ms": None if None in lib else sum(lib),
                 "library_refused": sorted({per[c]["library_refused"]
-                                           for c in calls} - {None})}
+                                           for c in calls} - {None}),
+                "routes": sorted({str(per[c]["route_" + name])
+                                  for c in calls})}
 
     forward = [c for c, n in shapes for _ in range(n)]
-    state["qmm_timing"] = {"mm": totals(state["int8_op_shapes"], "mm"),
+    op_family = state.get("int8_op_shapes") or [c for c, _ in shapes]
+    state["qmm_timing"] = {"mm": totals(op_family, "mm"),
                            "mm_scaled": totals(forward, "mm_scaled")}
     emit({"phase": "time", "kernel": "quantized_matmul",
           "per_int8_forward_b32_mm_scaled": state["qmm_timing"]["mm_scaled"],
           "per_op_family_pass_mm": state["qmm_timing"]["mm"]})
+
+
+def phase_time_int8(torch, state):
+    """Rows 12 and 13 per shape (phase_time_qmm). Then the int8 forward at
+    batch 32 and 256: images/sec (host clock), device busy ms and idle
+    share (profiler), and device ms split into the kernels, the im2col,
+    the quantize passes and the float layers (the rest); beside it the
+    same network's float32 forward, with TF32 off and on."""
+    phase_time_qmm(torch, state)
 
     # whole forward: int8, float32 (TF32 off), float32 (TF32 on)
     nets = state["int8"]
@@ -3299,7 +3423,7 @@ def phase_time_int8(torch, state):
             wall = (time.perf_counter() - t0) / iters * 1e3
             busy_ms, by_kernel, ops = profile_busy_ms(
                 torch, lambda: model(x), 3,
-                top=10 if batch == 32 else None, match=("qmm_kernel",))
+                top=10 if batch == 32 else None, match=("qmm_",))
             res = {"images_per_sec": batch / wall * 1e3,
                    "wall_ms_per_forward": wall,
                    "device_busy_ms_per_forward": busy_ms,
@@ -3308,7 +3432,7 @@ def phase_time_int8(torch, state):
             if label == "int8":
                 split = _int8_split(torch, model, x)
                 split["profiler_kernel_ms"] = None if by_kernel is None \
-                    else by_kernel["qmm_kernel"]
+                    else by_kernel["qmm_"]
                 if busy_ms is not None:
                     split["float_layers_ms"] = busy_ms - (
                         split["quantize_ms"] + split["im2col_ms"]
@@ -3513,6 +3637,7 @@ def kernel_summary(state):
                 if k == "mm_scaled" else "")
             + ("; refused: %s" % q["library_refused"]
                if q["library_refused"] else ""),
+            "design": QMM_DESIGN,
             "per": "one int8 ResNet-50 v1 forward at batch 32 (%d launches; "
                    "phase serve_int8 made %d forwards)"
                    % (INT8_LAYERS, n // INT8_LAYERS) if k == "mm_scaled"

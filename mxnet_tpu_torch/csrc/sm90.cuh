@@ -3,8 +3,9 @@
 // wgmma shared-memory descriptors in the 128-byte swizzle and the wgmma
 // forms the kernels issue, and the host-side tensor-map encoder.
 //
-// Included by csrc/conv_fused.cu and csrc/flash_attention.cu; each source
-// builds into its own library, so everything here has internal linkage.
+// Included by csrc/conv_fused.cu, csrc/flash_attention.cu and
+// csrc/quantized_matmul.cu; each source builds into its own library, so
+// everything here has internal linkage.
 #pragma once
 
 #include <cuda.h>
@@ -342,13 +343,15 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// The tensor map of a bf16 tensor of `rank` dimensions (dims[0] innermost
-// and contiguous; the others `byte_strides` apart, or packed), read in
-// boxes of box[] elements and written in the 128-byte swizzle; elements
-// outside the tensor read as zero.
+// The tensor map of a tensor of `rank` dimensions and element type `dtype`
+// (bf16, or uint8, int32 or f32; dims[0] innermost and contiguous; the
+// others `byte_strides` apart, or packed), read in boxes of box[] elements
+// and written in the 128-byte swizzle; elements outside the tensor read as
+// zero.
 int encode_tiled(CUtensorMap* map, const void* base, int rank,
                  const cuuint64_t* dims, const cuuint32_t* box,
-                 const cuuint64_t* byte_strides = nullptr) {
+                 const cuuint64_t* byte_strides = nullptr,
+                 CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -361,15 +364,16 @@ int encode_tiled(CUtensorMap* map, const void* base, int rank,
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
   cuuint64_t strides[4];
-  cuuint64_t stride = 2;
+  cuuint64_t stride = dtype == CU_TENSOR_MAP_DATA_TYPE_UINT8      ? 1
+                      : dtype == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2
+                                                                  : 4;
   for (int i = 0; i + 1 < rank; ++i)
     strides[i] = byte_strides ? byte_strides[i] : stride *= dims[i];
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, dtype, rank, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -67,8 +67,9 @@ def test_every_source_has_its_own_library():
 
 
 # The Hopper primitives that the TMA and wgmma kernels (conv_fused,
-# flash_attention) use live once, in csrc/sm90.cuh.
-HOPPER = ("conv_fused.cu", "flash_attention.cu", "sm90.cuh")
+# flash_attention, quantized_matmul) use live once, in csrc/sm90.cuh.
+HOPPER = ("conv_fused.cu", "flash_attention.cu", "quantized_matmul.cu",
+          "sm90.cuh")
 SHARED = ("smem_addr", "mbar_init", "mbar_arrive", "mbar_expect_tx",
           "mbar_wait", "tma_load4", "tma_store4", "reg_fence", "sw128_desc",
           "sw128_desc_at", "wgmma_rs", "wgmma_ss", "wgmma_ss_kk",
@@ -84,7 +85,8 @@ def test_hopper_primitives_have_one_copy(name):
     assert defined == ["sm90.cuh"], defined
 
 
-@pytest.mark.parametrize("source", ["conv_fused", "flash_attention"])
+@pytest.mark.parametrize("source", ["conv_fused", "flash_attention",
+                                    "quantized_matmul"])
 def test_hopper_kernels_include_the_shared_header(source):
     text = open(os.path.join(CSRC, source + ".cu")).read()
     assert '#include "sm90.cuh"' in text
@@ -145,3 +147,32 @@ def test_flash_probe_regions_hold_one_kernel_each():
         body = src[a:b]
         for other, (start, _) in probe.REGIONS.items():
             assert (start in body) == (other == k), (k, other)
+
+
+def _qmm_probe():
+    path = os.path.join(os.path.dirname(CSRC), os.pardir, "chip_qmm_probe.py")
+    spec = importlib.util.spec_from_file_location("chip_qmm_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# chip_qmm_probe.py builds its variants of the int8 matmul's wgmma route by
+# editing csrc/quantized_matmul.cu's text: each edit must still apply and
+# change only the wgmma route's section (its named constants included).
+@pytest.mark.parametrize("name", ["as_is", "m_fastest", "staging2",
+                                  "staging2_bn64", "prefetch", "no_split",
+                                  "split_more"])
+def test_qmm_probe_variants_apply(name, tmp_path):
+    probe = _qmm_probe()
+    assert name in probe.VARIANTS
+    src = open(os.path.join(CSRC, "quantized_matmul.cu")).read()
+    out = open(probe.write_sources([name], str(tmp_path))[name]).read()
+    # the plans build the source as it is and set qmm_plan's constants
+    assert (out == src) == (name == "as_is" or name in probe.PLANS)
+    assert open(os.path.join(tmp_path, name, "sm90.cuh")).read() == \
+        open(os.path.join(CSRC, "sm90.cuh")).read()
+    start = src.index(probe.START)
+    end = src.index(probe.END)
+    assert out.startswith(src[:start])
+    assert out.endswith(src[end:])

@@ -665,23 +665,80 @@ def _qmm_operands(M, K, N, seed):
     return x.cuda(), w.cuda().t(), s.cuda()
 
 
+def _qmm_launches():
+    return (QM.LAUNCHES_MM, QM.LAUNCHES_MM_SCALED, QM.LAUNCHES_MM_BYTES,
+            QM.LAUNCHES_MM_SCALED_BYTES)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(100352, 576, 64), (32, 2048, 1000),
                                    (37, 147, 29), (1, 33, 1000)])
 def test_quantized_matmul_kernel_bitwise(shape):
     """Both forms of the int8 kernel (int32 and scaled) against the plain
-    version at two int8 ResNet-50 shapes and two edge shapes (odd K: the
-    byte path), bit for bit; one launch per call."""
+    version at two int8 ResNet-50 shapes (the wgmma route) and two edge
+    shapes (odd K: the byte route), bit for bit; one launch per call."""
     _need_card()
     x, w, s = _qmm_operands(*shape, seed=sum(shape))
-    before = (QM.LAUNCHES_MM, QM.LAUNCHES_MM_SCALED)
+    fast = shape[1] % 16 == 0
+    before = _qmm_launches()
     out = QM.quantized_matmul(x, w)
     out_s = QM.quantized_matmul(x, w, s)
     torch.cuda.synchronize()
-    assert (QM.LAUNCHES_MM, QM.LAUNCHES_MM_SCALED) == (before[0] + 1,
-                                                       before[1] + 1)
+    assert [b - a for a, b in zip(before, _qmm_launches())] == \
+        ([1, 1, 0, 0] if fast else [0, 0, 1, 1])
     assert torch.equal(out, QM.quantized_matmul_reference(x, w))
     assert _same_bits(out_s, QM.quantized_matmul_reference(x, w, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sm", [None, 5])
+@pytest.mark.parametrize("shape", [(1568, 4608, 512), (130, 4608, 72),
+                                   (1605, 4624, 520), (32, 2048, 1000),
+                                   (257, 1040, 260), (100, 48, 30),
+                                   (257, 4608, 200), (257, 9216, 72)])
+def test_quantized_matmul_wgmma_route_relaunch_same_bits(shape, n_sm,
+                                                         monkeypatch):
+    """The wgmma route, both forms, bit for bit against the plain version
+    and the same bits on a second launch: deep K split across blocks (M =
+    1568, K = 4608), ragged M, N and K tails, M = 32 below the 64-row
+    wgmma tile, N = 1000, N % 4 != 0 (guarded stores); also planned for a
+    card of 5 SMs, where each persistent block walks several items."""
+    _need_card()
+    if n_sm is not None:
+        monkeypatch.setattr(QM, "_sm_count", lambda dev: n_sm)
+    x, w, s = _qmm_operands(*shape, seed=sum(shape))
+    before = _qmm_launches()
+    outs = [QM.quantized_matmul(x, w, sc) for sc in (None, s, None, s)]
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(before, _qmm_launches())] == [2, 2, 0, 0]
+    assert torch.equal(outs[0], QM.quantized_matmul_reference(x, w))
+    assert torch.equal(outs[0], outs[2])
+    assert _same_bits(outs[1], QM.quantized_matmul_reference(x, w, s))
+    assert _same_bits(outs[1], outs[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k147", "k1", "x_misaligned"])
+def test_quantized_matmul_byte_route_relaunch_same_bits(case):
+    """The byte route, both forms, bit for bit against the plain version
+    and the same bits on a second launch: K = 147 unpadded, K = 1, and an
+    x view one byte off 16-byte alignment."""
+    _need_card()
+    M, K, N = {"k147": (300, 147, 200), "k1": (64, 1, 64),
+               "x_misaligned": (300, 96, 200)}[case]
+    x, w, s = _qmm_operands(M, K, N, seed=M + K + N)
+    if case == "x_misaligned":
+        wide = torch.zeros(M, 112, dtype=torch.int8, device="cuda")
+        wide[:, 1:97] = x
+        x = wide[:, 1:97]
+    before = _qmm_launches()
+    outs = [QM.quantized_matmul(x, w, sc) for sc in (None, s, None, s)]
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(before, _qmm_launches())] == [0, 0, 2, 2]
+    assert torch.equal(outs[0], QM.quantized_matmul_reference(x, w))
+    assert torch.equal(outs[0], outs[2])
+    assert _same_bits(outs[1], QM.quantized_matmul_reference(x, w, s))
+    assert _same_bits(outs[1], outs[3])
 
 
 @pytest.mark.cuda
