@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases env,kernel,train_adam
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
+    python3 chip_smoke.py --phases env,kernel_conv_fwd,time_conv_fwd
     python3 chip_smoke.py --phases env,kernel_conv_bwd,time_conv_bwd
     python3 chip_smoke.py --phases env,kernel_flash,time_flash
     python3 chip_smoke.py --phases env,train_lm,time_lm
@@ -22,7 +23,9 @@ Phases, each printing JSON lines:
               nvcc per source, all started together).
 2. kernel  -- each kernel against its plain PyTorch version on the card:
               conv_fused at the shapes ResNet-50 serving gives it (batch
-              32) and at edge shapes; the four training-BatchNorm kernels
+              32) and at edge shapes, the bf16 forward also with the same
+              bits on a second launch at the serving shapes and planned
+              for a card of FEW_SMS SMs; the four training-BatchNorm kernels
               (stats, apply, bwd_reduce, bwd_dx) at the nine (R, C) shapes
               of ResNet-50 training at batch 128 and at edge shapes (a
               channel of zeros, a variance that clamps to 0, an inf); bf16
@@ -165,8 +168,12 @@ Phases, each printing JSON lines:
               images/sec, device busy time and idle share beside train's
               and train_fused's.
 
---phases may also name kernel_conv_bwd and time_conv_bwd, the conv_fused
-backward pair's part of phases kernel and time, and kernel_flash and
+--phases may also name kernel_conv_fwd and time_conv_fwd, the conv_fused
+forward's part of phases kernel and time (row 1: its checks, then per
+serving shape the kernel, the library call, cuDNN's convolution alone, the
+bound and fwd_plan's nb and items; it needs no other phase, so copy this
+chip_smoke.py into a parent tree to time the two in turns), kernel_conv_bwd
+and time_conv_bwd, the conv_fused backward pair's part, and kernel_flash and
 time_flash, the flash kernels' part (rows 9-11; time_flash also times the
 three bf16 kernels on the LM's [B, S, H, D] buffers seen transposed, the
 bf16 forward at head dim 64 and the f32 forward), to run them alone after
@@ -202,12 +209,13 @@ import numpy as np
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_lm", "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
-# the conv_fused backward pair's checks and timing, the flash kernels',
+# the conv_fused forward's checks and timing, the backward pair's, the
+# flash kernels',
 # the LM step's timing (after train_lm), the int8 matmul's checks and
 # timing, and int8 serving's timing (after serve_int8).
-SUB_PHASES = ("kernel_conv_bwd", "time_conv_bwd", "kernel_flash",
-              "time_flash", "time_lm", "kernel_qmm", "time_qmm",
-              "time_int8")
+SUB_PHASES = ("kernel_conv_fwd", "time_conv_fwd", "kernel_conv_bwd",
+              "time_conv_bwd", "kernel_flash", "time_flash", "time_lm",
+              "kernel_qmm", "time_qmm", "time_int8")
 
 # ResNet-50's fused 3x3 links at batch 32: (N, H, W, Ci, Co) and how many
 # of the 16 launches per forward run at that shape.
@@ -220,6 +228,10 @@ EDGE_SHAPES = [((3, 8, 8, 16, 24), True), ((2, 7, 7, 24, 40), True),
                ((5, 9, 13, 24, 40), False), ((1, 1, 1, 8, 8), True),
                ((3, 17, 9, 32, 72), False), ((2, 5, 3, 3, 5), True),
                ((4, 15, 17, 40, 129), True)]
+# How the bf16 forward kernel is built (csrc/conv_fused.cu).
+CONV_FWD_DESIGN = ("redesigned for Hopper: persistent blocks over fwd_plan's "
+                   "items, a TMA ring of x halos activated in place and of "
+                   "weight boxes, wgmma, a TMA-stored epilogue")
 
 # Tolerances, relative to the largest |reference| value of the case:
 # bf16 -- one bf16 rounding step at the output's magnitude (2^-6 ~ 1.6e-2
@@ -625,10 +637,48 @@ def phase_env(torch, state):
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "peaks_from": state["card"][0],
-          "nvcc_seconds": seconds, "build_wall_s": wall, "ptxas": ptxas})
+          "nvcc_seconds": seconds, "build_wall_s": wall, "ptxas": ptxas,
+          "conv_fwd_ptxas": ptxas_entries(_build.build_log("conv_fused"),
+                                          "conv_fused_fwd_bf16_kernel")})
+
+
+def ptxas_entries(log, name):
+    """{entry function: its registers, spill line and any wgmma note} for
+    the entries of nvcc's -Xptxas -v report whose name contains `name`."""
+    out, cur = {}, None
+
+    def entry(ln):
+        key = ln.split("'")[1] if "'" in ln else ln.strip()
+        return out.setdefault(key, {"registers": None, "spills": None,
+                                    "notes": []})
+    for ln in log.splitlines():
+        if "wgmma" in ln and name in ln:      # a note names its function
+            entry(ln)["notes"].append(ln.strip())
+        elif "Compiling entry function" in ln:
+            cur = entry(ln) if name in ln else None
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(ln.split("Used")[1].split()[0])
+        elif cur is not None and "spill" in ln:
+            cur["spills"] = ln.strip()
+    return out
 
 
 def phase_kernel(torch, state):
+    phase_kernel_conv_fwd(torch, state)
+    phase_kernel_bn(torch, state)
+    phase_kernel_conv_bwd(torch, state)
+    phase_kernel_apply(torch, state)
+    phase_kernel_flash(torch, state)
+    phase_kernel_qmm(torch, state)
+    phase_kernel_codec(torch, state)
+    phase_kernel_adam(torch, state)
+
+
+def phase_kernel_conv_fwd(torch, state):
+    """The forward kernel (row 1) against the plain version at the serving
+    shapes and the edge shapes, bf16 and f32 (RTOL); the bf16 forward also
+    with the same bits on a second launch at the serving shapes, and
+    planned for a card of FEW_SMS SMs. TF32 off for the references."""
     from mxnet_tpu_torch.kernels import conv_fused as CF
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -641,34 +691,67 @@ def phase_kernel(torch, state):
         for i, (shape, relu, main) in enumerate(cases):
             x, s, b, w = make_case(torch, shape, dtype, seed=100 + i)
             out = CF.fused_scale_relu_conv3x3(x, s, b, w, relu=relu)
+            again = CF.fused_scale_relu_conv3x3(x, s, b, w, relu=relu) \
+                if main and dtype == torch.bfloat16 else out
             ref = CF.fused_conv_reference(x, s, b, w, relu=relu)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
+            relaunch = same_bits(torch, out, again)
             ok = bool(torch.isfinite(out).all().item()) \
                 and out.shape == ref.shape and out.dtype == ref.dtype \
-                and err <= RTOL[dname] * max(scale, 1e-30)
+                and err <= RTOL[dname] * max(scale, 1e-30) and relaunch
             emit({"phase": "kernel", "kernel": "conv_fused", "dtype": dname,
                   "shape": list(shape), "relu": relu, "max_abs_err": err,
                   "ref_max_abs": scale, "tolerance": RTOL[dname] * scale,
-                  "ok": ok})
+                  "same_bits_relaunched": relaunch if again is not out
+                  else None, "ok": ok})
             if not ok:
-                failures.append((dname, shape, relu, err, scale))
+                failures.append((dname, shape, relu, err, scale, relaunch))
             if main:
                 w = worst.setdefault(dname, [0.0, 0.0])
                 w[0] = max(w[0], err)
                 w[1] = max(w[1], err / max(scale, 1e-30))
     state["kernel_err"] = worst
+    failures += _fwd_several_items(torch, CF)
     if failures:
         raise AssertionError("conv_fused disagrees with its plain version: "
                              "%s" % failures)
-    phase_kernel_bn(torch, state)
-    phase_kernel_conv_bwd(torch, state)
-    phase_kernel_apply(torch, state)
-    phase_kernel_flash(torch, state)
-    phase_kernel_qmm(torch, state)
-    phase_kernel_codec(torch, state)
-    phase_kernel_adam(torch, state)
+
+
+def _fwd_several_items(torch, CF):
+    """The bf16 forward kernel with fewer blocks than work items (its plan
+    for a card of FEW_SMS SMs), so that each persistent block walks
+    several items, at the serving shapes and the ragged edge shapes:
+    within RTOL and the same bits relaunched."""
+    failures = []
+    sm_count = CF._sm_count
+    CF._sm_count = lambda dev: FEW_SMS
+    try:
+        cases = [(shape, True) for shape, _ in RN50_SHAPES] + EDGE_SHAPES[-2:]
+        for i, (shape, relu) in enumerate(cases):
+            x, s, b, w = make_case(torch, shape, torch.bfloat16, 160 + i)
+            p8 = [-(-c // 8) * 8 for c in shape[3:]]
+            plan = CF.fwd_plan(*shape[:3], *p8, FEW_SMS)
+            out = CF.fused_scale_relu_conv3x3(x, s, b, w, relu=relu)
+            again = CF.fused_scale_relu_conv3x3(x, s, b, w, relu=relu)
+            ref = CF.fused_conv_reference(x, s, b, w, relu=relu)
+            torch.cuda.synchronize()
+            err = max_abs_err(torch, out, ref)
+            scale = ref.float().abs().max().item()
+            relaunch = same_bits(torch, out, again)
+            ok = err <= RTOL["bfloat16"] * max(scale, 1e-30) and relaunch
+            emit({"phase": "kernel", "kernel": "conv_fused",
+                  "dtype": "bfloat16", "shape": list(shape), "relu": relu,
+                  "sm_count": FEW_SMS, "fwd_plan": plan._asdict(),
+                  "max_abs_err": err, "ref_max_abs": scale,
+                  "same_bits_relaunched": relaunch, "ok": ok})
+            if not ok:
+                failures.append(("bfloat16", shape, relu, "%d SMs" % FEW_SMS,
+                                 err, scale, relaunch))
+    finally:
+        CF._sm_count = sm_count
+    return failures
 
 
 def phase_kernel_bn(torch, state):
@@ -2636,14 +2719,20 @@ def _lm_f32_card_vs_cpu(torch, mx, T):
                              % (gap, LM_NARROW_RTOL))
 
 
-def phase_time(torch, state):
-    import mxnet_tpu_torch as mx
+def phase_time_conv_fwd(torch, state):
+    """Row 1 at the four serving shapes (bf16, batch 32, relu): the kernel
+    (the wrapper's whole call), the plain version, the library yardstick
+    (cuDNN's convolution after relu(x*s + b) in torch, channels-last) and
+    cuDNN's convolution alone, beside the bound, with fwd_plan's nb and
+    items (null in a tree without fwd_plan)."""
     import torch.nn.functional as tF
     from mxnet_tpu_torch.kernels import conv_fused as CF
 
     card = state["card"]
+    plan = getattr(CF, "fwd_plan", None)
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-              "bound_ms": 0.0, "bound_ops_ms": 0.0}
+              "cudnn_conv_only_ms": 0.0, "bound_ms": 0.0,
+              "bound_ops_ms": 0.0}
     for i, (shape, count) in enumerate(RN50_SHAPES):
         x, s, b, w = make_case(torch, shape, torch.bfloat16, seed=200 + i)
         sb, bb = s.to(torch.bfloat16), b.to(torch.bfloat16)
@@ -2659,28 +2748,41 @@ def phase_time(torch, state):
             return tF.conv2d(x_cf, w_cl, padding=1)
 
         k_ms = device_ms(torch, lambda: CF.fused_scale_relu_conv3x3(
-            x, s, b, w), iters=50)
+            x, s, b, w), iters=100)
         p_ms = device_ms(torch, lambda: CF.fused_conv_reference(
             x, s, b, w), iters=10)
-        l_ms = device_ms(torch, library, iters=20)
-        c_ms = device_ms(torch, conv_only, iters=20)
+        l_ms = device_ms(torch, library, iters=50)
+        c_ms = device_ms(torch, conv_only, iters=50)
         t_bound, by = bound(shape, 2, card)
         b_ms = t_bound * 1e3
+        fp = None if plan is None else plan(*shape, CF._sm_count(x.device))
         emit({"phase": "time", "kernel": "conv_fused", "dtype": "bfloat16",
               "shape": list(shape), "launches_per_forward": count,
               "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
               "cudnn_conv_only_ms": c_ms, "bound_ms": b_ms, "bound_by": by,
-              "roofline_share": b_ms / k_ms})
+              "roofline_share": b_ms / k_ms,
+              "fwd_plan": None if fp is None else {"nb": fp.nb,
+                                                   "items": fp.items,
+                                                   "grid": fp.grid}})
         totals["ms"] += count * k_ms
         totals["plain_ms"] += count * p_ms
         totals["library_ms"] += count * l_ms
+        totals["cudnn_conv_only_ms"] += count * c_ms
         totals["bound_ms"] += count * b_ms
         if by == "operations":
             totals["bound_ops_ms"] += count * b_ms
+        del x, s, b, w, x_cf, w_cl
     totals["bound_by"] = "operations" \
-        if totals["bound_ops_ms"] >= totals["bound_ms"] / 2 else "bytes"
+        if totals.pop("bound_ops_ms") >= totals["bound_ms"] / 2 else "bytes"
     state["timing"] = totals
+    emit({"phase": "time", "kernel": "conv_fused",
+          "per_forward_bf16_b32": totals})
 
+
+def phase_time(torch, state):
+    import mxnet_tpu_torch as mx
+
+    phase_time_conv_fwd(torch, state)
     # whole forward, bf16, fused and unfused, batch resident on the card:
     # host wall clock (what an eager caller sees) and, from the profiler,
     # the device's busy time per forward and its idle share
@@ -3549,6 +3651,7 @@ def kernel_summary(state):
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
         "per": "one ResNet-50 forward at batch 32, bf16 (16 launches)",
+        "design": CONV_FWD_DESIGN,
     }]
     for k in BN_KERNELS:
         b = state["bn_timing"][k]

@@ -15,15 +15,12 @@
 //
 // What bounds them on an H100: each launch does 2*N*H*W*9*Ci*Co operations
 // against one read of x (and dy) and W and one write of the result; in bf16
-// the two bounds are about equal at ResNet-50's shapes. The forward and the
-// f32 kernels keep the bytes at that floor (each block reads its input tile
-// plus a one-pixel halo once per channel chunk; all nine taps then read it
-// from shared memory) and feed the tensor cores with mma.sync (m16n8k16,
-// bf16 in, f32 accumulate) or the CUDA cores. They are the simple form: no
-// TMA, no wgmma, no pipelining of the loads against the math. The bf16
-// d-input and d-weight kernels are built for Hopper: persistent,
-// warp-specialised blocks with a ring of TMA-filled stages feeding wgmma
-// (below).
+// the two bounds are about equal at ResNet-50's shapes. Every kernel reads
+// its input tile plus a one-pixel halo once per channel chunk, and all nine
+// taps then read it from shared memory. The three bf16 kernels are built
+// for Hopper: persistent blocks with rings of TMA-filled stages feeding
+// wgmma (below). The f32 kernels are the simple form, on the CUDA cores: no
+// TMA, no pipelining of the loads against the math.
 //
 // Forward, implicit GEMM: rows are output pixels, columns output channels,
 // and the reduction runs over (tap, input channel) with the weight matrix
@@ -76,7 +73,8 @@
 //
 // Numerics follow the TPU kernel's _act/_compute_dtype: for bf16 input, s
 // and b are rounded to bf16, then x*s and +b are each rounded to bf16 (no
-// FMA contraction); for f32 the product and sum are separate f32 ops.
+// FMA contraction: "the bf16 rule"); for f32 the product and sum are
+// separate f32 ops.
 // Accumulation is f32. The f32 kernels run on the CUDA cores with FMA (no
 // TF32), so their results differ from a float32 reference only by
 // summation order.
@@ -100,13 +98,6 @@ constexpr int THREADS = 256;
 constexpr int DW_THREADS = 288;        // f32 d-weight: one warp per tap
 constexpr unsigned FULL = 0xffffffffu;
 
-// bf16 kernels: 32 input channels per chunk; rows padded so that ldmatrix
-// row addresses fall in distinct banks (80-byte and 144-byte strides).
-constexpr int CK16 = 32;
-constexpr int LDH16 = CK16 + 8;
-constexpr int LDB16 = BN + 8;
-constexpr int SMEM16 = (HALO_P * LDH16 + 9 * CK16 * LDB16) * 2;
-
 // f32 kernels: 16 input channels per chunk.
 constexpr int CK32 = 16;
 constexpr int LDH32 = CK32 + 1;
@@ -125,20 +116,8 @@ struct Geom {
   int wvec;       // rows of w (or of dy, in d-weight) likewise
 };
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 __device__ __forceinline__ float act32(float x, float s, float b, int relu) {
   float v = __fadd_rn(__fmul_rn(x, s), b);
-  return (relu && v < 0.f) ? 0.f : v;
-}
-
-// s16 and b16 are s and b already rounded to bf16.
-__device__ __forceinline__ float act16(float x, float s16, float b16,
-                                       int relu) {
-  float v = bf16_round(__fmul_rn(x, s16));
-  v = bf16_round(__fadd_rn(v, b16));
   return (relu && v < 0.f) ? 0.f : v;
 }
 
@@ -170,13 +149,6 @@ __device__ __forceinline__ long long out_offset(const Geom& g, int r0, int c0,
   return ((static_cast<long long>(n) * g.H + h) * g.W + c) * g.Co;
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
                                               const void* p) {
   asm volatile(
@@ -185,83 +157,9 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // ---------------------------------------------------------------------------
 // Shared-memory fills (any block size)
 // ---------------------------------------------------------------------------
-
-// Halo tile of channels ci0 .. ci0+CK16 of x, activated (the forward's).
-__device__ void fill_halo16(__nv_bfloat16* Hs, const __nv_bfloat16* x,
-                            const float* s, const float* b, const Geom& g,
-                            int r0, int c0, int ci0) {
-  constexpr int VPP = CK16 / 8;  // 16-byte vectors per halo pixel
-  for (int idx = threadIdx.x; idx < HALO_P * VPP; idx += blockDim.x) {
-    int p = idx / VPP;
-    int v = idx - p * VPP;
-    int ci = ci0 + v * 8;
-    long long off = halo_offset(g, r0, c0, p);
-    __align__(16) __nv_bfloat16 o[8];
-    if (off >= 0 && g.xvec && ci + 8 <= g.Ci) {
-      uint4 raw = __ldg(reinterpret_cast<const uint4*>(x + off + ci));
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float v16 = act16(__bfloat162float(e[j]),
-                          bf16_round(__ldg(s + ci + j)),
-                          bf16_round(__ldg(b + ci + j)), g.relu);
-        o[j] = __float2bfloat16_rn(v16);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float v16 = 0.f;
-        if (off >= 0 && ci + j < g.Ci)
-          v16 = act16(__bfloat162float(x[off + ci + j]),
-                      bf16_round(__ldg(s + ci + j)),
-                      bf16_round(__ldg(b + ci + j)), g.relu);
-        o[j] = __float2bfloat16_rn(v16);
-      }
-    }
-    *reinterpret_cast<uint4*>(Hs + p * LDH16 + v * 8) =
-        *reinterpret_cast<const uint4*>(o);
-  }
-}
-
-// Weight chunk: rows tap*CK16 + j hold W[(tap*Ci + ci0 + j), co0 .. co0+BN).
-__device__ void fill_w16(__nv_bfloat16* Bs, const __nv_bfloat16* w,
-                         const Geom& g, int ci0, int co0) {
-  constexpr int VPR = BN / 8;
-  for (int idx = threadIdx.x; idx < 9 * CK16 * VPR; idx += blockDim.x) {
-    int kr = idx / VPR;
-    int v = idx - kr * VPR;
-    int tap = kr / CK16;
-    int ci = ci0 + (kr - tap * CK16);
-    int co = co0 + v * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (ci < g.Ci) {
-      const __nv_bfloat16* src =
-          w + (static_cast<long long>(tap) * g.Ci + ci) * g.Co + co;
-      if (g.wvec && co + 8 <= g.Co) {
-        val = __ldg(reinterpret_cast<const uint4*>(src));
-      } else {
-        __align__(16) __nv_bfloat16 o[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          o[j] = (co + j < g.Co) ? src[j] : __float2bfloat16_rn(0.f);
-        val = *reinterpret_cast<const uint4*>(o);
-      }
-    }
-    *reinterpret_cast<uint4*>(Bs + kr * LDB16 + v * 8) = val;
-  }
-}
 
 __device__ void fill_halo32(float* Hs, const float* x, const float* s,
                             const float* b, const Geom& g, int r0, int c0,
@@ -351,123 +249,6 @@ __device__ void fill_dy32(float* Ds, const float* dy, const Geom& g, int r0,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 implicit GEMM core (forward): tensor cores
-// ---------------------------------------------------------------------------
-
-// Accumulates the block's 128 x 64 output tile into acc: warp (warp_m,
-// warp_n) owns pixels warp_m*32 .. +32 and channels warp_n*32 .. +32.
-__device__ __forceinline__ void core16(float (&acc)[2][4][4],
-                                       const __nv_bfloat16* x, const float* s,
-                                       const float* b, const __nv_bfloat16* w,
-                                       const Geom& g, int r0, int c0, int co0,
-                                       __nv_bfloat16* Hs, __nv_bfloat16* Bs) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warp_m = warp & 3;   // 4 warps over the 128 pixels (32 each)
-  const int warp_n = warp >> 2;  // 2 warps over the 64 channels (32 each)
-  const int q = lane >> 3;       // ldmatrix: which 8x8 matrix this lane
-  const int r = lane & 7;        //           addresses, and which row
-
-  // Halo pixel of this lane's ldmatrix row for tap (0, 0), per m16 tile.
-  // With TW = 8, m16 tile i of the warp covers tile rows warp_m*4 + 2i and
-  // +1, and the lane's row r is column r.
-  int a_pix[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    a_pix[i] = (warp_m * 4 + i * 2 + (q & 1)) * HALO_W + r;
-  const int a_col = (q >> 1) * 8;
-  const int b_row = (q & 1) * 8 + r;
-  const int b_col = warp_n * 32 + (q >> 1) * 8;
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int ci0 = 0; ci0 < g.Ci; ci0 += CK16) {
-    fill_halo16(Hs, x, s, b, g, r0, c0, ci0);
-    fill_w16(Bs, w, g, ci0, co0);
-    __syncthreads();
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int shift = (tap / 3) * HALO_W + (tap % 3);
-#pragma unroll
-      for (int kk = 0; kk < CK16; kk += 16) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          ldsm_x4(a[i], Hs + (a_pix[i] + shift) * LDH16 + kk + a_col);
-        uint32_t bf[2][4];
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
-          ldsm_x4_trans(bf[jj], Bs + (tap * CK16 + kk + b_row) * LDB16 +
-                                    b_col + jj * 16);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            mma_bf16(acc[i][jj * 2], a[i], bf[jj][0], bf[jj][1]);
-            mma_bf16(acc[i][jj * 2 + 1], a[i], bf[jj][2], bf[jj][3]);
-          }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(THREADS, 2)
-conv_fused_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                       const float* __restrict__ s,
-                       const float* __restrict__ b,
-                       const __nv_bfloat16* __restrict__ w,
-                       __nv_bfloat16* __restrict__ out, Geom g) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = Hs + HALO_P * LDH16;
-
-  const int rt = blockIdx.x / g.col_tiles;
-  const int r0 = rt * TH;
-  const int c0 = (blockIdx.x - rt * g.col_tiles) * TW;
-  const int co0 = blockIdx.y * BN;
-
-  float acc[2][4][4];
-  core16(acc, x, s, b, w, g, r0, c0, co0, Hs, Bs);
-
-  // Epilogue: accumulator (row g, cols 2t, 2t+1) and (row g+8, same cols).
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warp_m = warp & 3;
-  const int warp_n = warp >> 2;
-  const int gq = lane >> 2;
-  const int t = lane & 3;
-  const bool pair_ok = (g.Co % 2) == 0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = warp_m * 32 + i * 16 + half * 8 + gq;
-      const long long off = out_offset(g, r0, c0, m);
-      if (off < 0) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int co = co0 + warp_n * 32 + j * 8 + 2 * t;
-        const float v0 = acc[i][j][half * 2];
-        const float v1 = acc[i][j][half * 2 + 1];
-        if (pair_ok && co + 1 < g.Co) {
-          *reinterpret_cast<__nv_bfloat162*>(out + off + co) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          if (co < g.Co) out[off + co] = __float2bfloat16_rn(v0);
-          if (co + 1 < g.Co) out[off + co + 1] = __float2bfloat16_rn(v1);
-        }
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // d-weight, bf16: persistent, warp-specialised, TMA + wgmma
 // ---------------------------------------------------------------------------
 
@@ -487,8 +268,8 @@ conv_fused_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 // image; the item's s and b rounded to bf16). Warpgroup kx (0..2) is a
 // consumer that owns the three taps (0..2, kx): an m64n64 accumulator per
 // tap, rows = input channels, columns = output channels. The 384 consumer
-// threads activate each tile's halo in place (act16's roundings, padding
-// left at zero as fill_halo16 leaves it) while the tile before it runs on
+// threads activate each tile's halo in place (the bf16 rule's roundings,
+// padding left at zero) while the tile before it runs on
 // the tensor cores, meet at a named barrier, and run the tile's wgmma
 // k-steps. Stage handshakes are mbarriers: full (the boxes' bytes and the
 // producer's arrival) and empty (the consumer threads, after their last
@@ -524,10 +305,11 @@ static_assert(DWB_PRODUCER_REGS * 128 +
 // the ring, plus slack to align it to the 1024-byte swizzle atom
 constexpr int SMEM_DWB = DWB_STAGES * DWB_STAGE + 1024;
 
-// act16 on a pair of bf16 (low half first): x*s and +b each rounded to
-// bf16 (bf16 operands: the f32 product and sum of act16 are exact before
-// that rounding, so the bits are act16's), then the ReLU. max.NaN keeps a
-// NaN as act16 does; it maps -0 to +0, which adds nothing to any sum.
+// The bf16 activation (the header's rule) on a pair of bf16 (low half
+// first): x*s and +b each rounded to bf16 (bf16 operands: the rule's f32
+// product and sum are exact before that rounding, so the bits are the
+// rule's), then the ReLU. max.NaN keeps a NaN as the rule does; it maps -0
+// to +0, which adds nothing to any sum.
 __device__ __forceinline__ uint32_t act_pair(uint32_t w, uint32_t s2,
                                              uint32_t b2, int relu) {
   uint32_t v;
@@ -942,11 +724,11 @@ conv_bwd_dw_bf16_kernel(const __grid_constant__ CUtensorMap tmx,
 // Epilogue, in the consumer's last halo stage of the item: x of the lane's
 // pixels is loaded (16 bytes at a time) while the taps run; each warp
 // stages 16 pixels x 32 channels of its accumulator, and each lane reads
-// back 8 channels of a pixel, recomputes pre with act16's roundings, masks,
-// scales and stores 8 bf16 of dx with one 16-byte store. ds and db are
-// folded in a fixed order -- per lane, over the 8 lanes that share its
-// channels, over the 4 warps -- and summed over the block's items of a ci
-// block in item order into the consumer's own row of part (2, 2 *
+// back 8 channels of a pixel, recomputes pre with the bf16 rule's
+// roundings, masks, scales and stores 8 bf16 of dx with one 16-byte store.
+// ds and db are folded in a fixed order -- per lane, over the 8 lanes that
+// share its channels, over the 4 warps -- and summed over the block's items
+// of a ci block in item order into the consumer's own row of part (2, 2 *
 // gridDim.x, Ci); the finalize folds the rows in order. No float atomics:
 // every launch gives the same bits. What bounds it on an H100 is in
 // PERF.md.
@@ -1008,8 +790,8 @@ __device__ __forceinline__ int dxb_pixel(const Geom& g, int tile, int tr,
 
 // dx of channels cl .. cl + 7 of one pixel from dz and the pixel's x (8
 // bf16). tab: the item's s (f32), then `stride` floats on, its bf16 s and
-// then bf16 b as pairs. pre = x*s + b with act16's roundings, as bf16 pair operations
-// (act_pair: the bits are act16's); dpre = dz * (pre > 0), dx = dpre * s
+// then bf16 b as pairs. pre = x*s + b with the bf16 rule's roundings, as
+// bf16 pair operations (act_pair); dpre = dz * (pre > 0), dx = dpre * s
 // rounded to bf16, and dpre*x and dpre added to ps, pb -- no contraction.
 __device__ __forceinline__ uint4 dxb_finish(const float (&dz)[8], uint4 xr,
                                             const float* tab, int cl,
@@ -1397,6 +1179,422 @@ conv_bwd_dx_bf16_kernel(const __grid_constant__ CUtensorMap tmrow,
 }
 
 // ---------------------------------------------------------------------------
+// Forward, bf16: persistent, warp-specialised, TMA + wgmma, the activation
+// in place
+// ---------------------------------------------------------------------------
+
+// Replaces _fwd_kernel (mxnet_tpu/pallas_kernels/conv_fused.py). The
+// d-input kernel's implicit GEMM with x in place of dy and W, laid out (9,
+// Ci, co64), in place of its flipped transpose: rows are the 128 output
+// pixels of a tile, columns a block of 64*NB output channels (the co
+// block), and the reduction runs over (64-channel chunk of x, tap, 16
+// channels). A work item is (tile pair, co block), numbered co-block-major
+// (item = cb * n_pairs + pair), so that the blocks in flight read the same
+// weights from L2; block i takes items i, i + gridDim.x, ... (fwd_plan in
+// kernels/conv_fused.py), and consumer warpgroup cg (0, 1) takes tile 2 *
+// pair + cg of each. The halos, the weight pieces and the wgmma operands
+// are the d-input kernel's (DxbWalk, DXB_*, dxb_adesc, dxb_bdesc): a
+// block's walk is a sequence of chunk steps q (its items in order, each
+// item's chunks in order), and step q needs each consumer's halo of the
+// chunk -- 18 rows of 16 pixel slots x 64 channels, in the consumer's stage
+// 2cg + q % 2 -- and the chunk's nine pieces (chunk, tap), 64 input x
+// 64*NB output channels each, in a ring of slots shared by both consumers
+// (loaded once where every item reads the same nine: Ci and Co <= 64).
+//
+// The block is three warpgroups with one role each, so that the consumers'
+// loop holds nothing but waits and tensor-core work:
+// - warp 8, the producer: walks the chunk steps and issues the TMA boxes
+//   of each halo (a box per row from 18 lanes where the rows span images)
+//   and piece as soon as its stage or slot is empty;
+// - warps 9-11, the activators: once a halo lands, they rewrite it in
+//   place as relu(x*s + b) by the bf16 rule (act_pair), 16 bytes at a time
+//   in the boxes' swizzle, touching only the 10 pixel slots a tap window
+//   reads and only pixels inside an image -- the boxes' zero fill is the
+//   padding, which lives in activated space (the fill is not an activated
+//   zero: relu(0*s + b) is relu(b)), and channels past Ci activate to 0*0 +
+//   0 -- then fence the writes for the async proxy and mark the halo ready;
+// - warpgroups 0 and 1, the consumers: each holds an m128 x n(64*NB) f32
+//   accumulator and runs a tap's wgmma m64n(64*NB)k16 (both m64 halves,
+//   four k-steps) as one group, both operands read from shared memory,
+//   with FWB_DEPTH groups in flight. Once a group has completed, its piece
+//   is freed and, after a chunk's last tap, its stage.
+// Handshakes are mbarriers: full (the boxes' bytes), ready (the 96
+// activator threads), empty (a lane of each warp that read it); setmaxnreg
+// moves registers from the producer warpgroup to the consumers.
+//
+// Epilogue, in the consumer's stage of the item's last chunk once its
+// groups have completed: the accumulator, rounded to bf16, is written in
+// the 128-byte swizzle as 16*NB boxes of one tile row x 64 channels, and
+// lane k of the consumer's first warp stores box k with TMA; then the
+// stage is freed. Rows on a separator or past the last image are not
+// stored, and columns past W and channels past Co fall outside the tensor
+// and are not written. No float atomics: every launch gives the same bits.
+// At ResNet-50's shapes the bound is the operations (bytes at 56x56); what
+// holds the kernel above it, measured with chip_conv_probe.py, is in
+// PERF.md.
+constexpr int FWB_THREADS = 384;
+constexpr int FWB_ACTIVATORS = 96;                    // warps 9-11
+// tap groups a consumer keeps in flight: a group's piece (and stage) is
+// freed once the group FWB_DEPTH later has been issued
+constexpr int FWB_DEPTH = 1;
+constexpr int FWB_ACT_J = HALO_P * 8 / FWB_ACTIVATORS;   // 15 passes
+constexpr int FWB_ACT_BATCH = 3;          // passes whose loads fly together
+static_assert(HALO_P * 8 % FWB_ACTIVATORS == 0, "activation passes");
+static_assert(FWB_ACT_J % FWB_ACT_BATCH == 0, "activation batches");
+static_assert(2 * TH * 1024 <= DXB_HALO, "epilogue staging");
+static_assert(FWB_DEPTH >= 1 && FWB_DEPTH < 9, "groups in flight");
+// registers per thread after setmaxnreg: the consumers hold up to two
+// m64n128 f32 accumulators (128), an activator a batch of 16-byte chunks.
+// Leave some of the file free: with every register given out, the
+// consumers' setmaxnreg.inc waited for ever.
+constexpr int FWB_PRODUCER_REGS = 56;
+constexpr int FWB_CONSUMER_REGS = 224;
+static_assert(FWB_PRODUCER_REGS * 128 + FWB_CONSUMER_REGS * 256 < 65536,
+              "register file");
+
+// The mbarriers of a block: per halo stage full, ready and empty; per
+// weight slot full and empty.
+struct FwbBars {
+  uint64_t* hfull;
+  uint64_t* hready;
+  uint64_t* hempty;
+  uint64_t* wfull;
+  uint64_t* wempty;
+};
+
+// The producer warp's issue of one halo: tile `tile`'s 18 rows of 16
+// pixels (columns c0 - 1 .. c0 + 14) x channels c .. c + 63 of x. Where the
+// rows lie in one image (counting its row -1 and its row H, which lie
+// outside the tensor and read as zeros) lane 0 issues one box for them
+// all; otherwise lane k < 18 issues row k's.
+__device__ __forceinline__ void fwb_issue_halo(
+    unsigned char* dst, uint64_t* bar, const CUtensorMap* tmrow,
+    const CUtensorMap* tmhalo, const Geom& g, float inv_h1, int tile, int c,
+    int lane) {
+  const int rt = tile / g.col_tiles;
+  const int w0 = (tile - rt * g.col_tiles) * TW - 1;
+  int n, hh;
+  dwb_box_rows(rt * TH - 1, g, inv_h1, n, hh);
+  if (lane == 0) mbar_expect_tx(bar, DXB_HALO);
+  if (hh + TH + 1 <= g.H || n >= g.N) {
+    if (lane == 0) tma_load4(dst, tmhalo, c, w0, hh, n, bar);
+  } else if (lane < TH + 2) {
+    dwb_box_rows(rt * TH - 1 + lane, g, inv_h1, n, hh);
+    tma_load4(dst + lane * DXB_HROW, tmrow, c, w0, hh, n, bar);
+  }
+}
+
+// The producer warp: for each chunk step q of the block's walk, the two
+// consumers' halos, each once its stage is empty, then (unless resident)
+// the step's nine pieces into the next slots of the ring, each once both
+// consumers have freed the slot. Every lane waits; lane 0 issues the
+// pieces.
+template <int NB>
+__device__ void fwb_produce(const FwbBars& bb, unsigned char* hring,
+                            unsigned char* wring, const CUtensorMap* tmrow,
+                            const CUtensorMap* tmhalo,
+                            const CUtensorMap* tmw, const Geom& g,
+                            const DxbWalk& walk, float inv_h1, int lane) {
+  if (walk.resident && lane == 0)
+    for (int tap = 0; tap < 9; ++tap) {
+      mbar_expect_tx(&bb.wfull[tap], NB * DXB_BOX);
+      tma_load4(wring + tap * NB * DXB_BOX, tmw, 0, 0, 0, tap,
+                &bb.wfull[tap]);
+    }
+  int slot = 0, phase = 0, p = 0, q = 0;
+  for (int item = blockIdx.x; item < walk.n_items; item += gridDim.x) {
+    const int pair = item % walk.n_pairs;
+    const int cb = item / walk.n_pairs;
+    for (int c = 0; c < walk.kc; ++c, ++q) {
+      for (int cg = 0; cg < 2; ++cg) {
+        const int stg = 2 * cg + (q & 1);
+        if (q >= 2) mbar_wait(&bb.hempty[stg], ((q - 2) >> 1) & 1);
+        fwb_issue_halo(hring + stg * DXB_HALO, &bb.hfull[stg], tmrow,
+                       tmhalo, g, inv_h1, 2 * pair + cg, c * DXB_CH, lane);
+      }
+      if (walk.resident) continue;
+      for (int tap = 0; tap < 9; ++tap, ++p) {
+        if (p >= walk.w_stages) mbar_wait(&bb.wempty[slot], phase ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&bb.wfull[slot], NB * DXB_BOX);
+          tma_load4(wring + slot * NB * DXB_BOX, tmw, 0, c * DXB_CH,
+                    cb * NB, tap, &bb.wfull[slot]);
+        }
+        if (++slot == walk.w_stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  }
+}
+
+// Activator thread at (0 .. 95): for each chunk step q and consumer cg, in
+// the producer's order, once the halo lands it activates 16-byte chunk at %
+// 8 (channels 8 (at % 8) ..) of halo pixels p = at / 8 + 12j (row p / 10,
+// slot p % 10), j < 15, where the pixel lies in an image, fences its writes
+// for the async proxy and arrives on the stage's ready barrier. s and b are
+// rounded to bf16 pairs, zero past Ci. The passes go in batches whose
+// loads are all issued before the first store.
+__device__ void fwb_activate(const FwbBars& bb, unsigned char* hring,
+                             const float* s, const float* b, const Geom& g,
+                             const DxbWalk& walk, float inv_h1, int at) {
+  const int v = at & 7;
+  const int lane = at & 31;
+  int q = 0;
+  for (int item = blockIdx.x; item < walk.n_items; item += gridDim.x) {
+    const int pair = item % walk.n_pairs;
+    for (int c = 0; c < walk.kc; ++c, ++q) {
+      uint32_t s2[4], b2[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float sv[2], bv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ci = c * DXB_CH + 8 * v + 2 * k + e;
+          sv[e] = ci < g.Ci ? __ldg(s + ci) : 0.f;
+          bv[e] = ci < g.Ci ? __ldg(b + ci) : 0.f;
+        }
+        const __nv_bfloat162 sp = __floats2bfloat162_rn(sv[0], sv[1]);
+        const __nv_bfloat162 bp = __floats2bfloat162_rn(bv[0], bv[1]);
+        s2[k] = *reinterpret_cast<const uint32_t*>(&sp);
+        b2[k] = *reinterpret_cast<const uint32_t*>(&bp);
+      }
+      for (int cg = 0; cg < 2; ++cg) {
+        const int tile = 2 * pair + cg;
+        const int rt = tile / g.col_tiles;
+        const int c0 = (tile - rt * g.col_tiles) * TW;
+        // lane k < 18 asks whether halo row k lies in an image
+        const int vr = rt * TH - 1 + lane;
+        bool in = false;
+        if (lane < TH + 2 && vr >= 0 && vr < g.V) {
+          int hrow;
+          dwb_image(vr, g.H + 1, inv_h1, hrow);
+          in = hrow < g.H;
+        }
+        const uint32_t rows = __ballot_sync(FULL, in);
+        const int stg = 2 * cg + (q & 1);
+        const uint32_t halo = smem_addr(hring + stg * DXB_HALO);
+        mbar_wait(&bb.hfull[stg], (q >> 1) & 1);
+#pragma unroll 1
+        for (int j0 = 0; j0 < FWB_ACT_J; j0 += FWB_ACT_BATCH) {
+          uint32_t addr[FWB_ACT_BATCH];
+          uint4 x[FWB_ACT_BATCH];
+#pragma unroll
+          for (int k = 0; k < FWB_ACT_BATCH; ++k) {
+            const int p = (at >> 3) + 12 * (j0 + k);
+            const int hr = p / HALO_W;
+            const int hc = p - hr * HALO_W;
+            addr[k] = ((rows >> hr) & 1u) &&
+                              static_cast<unsigned>(c0 - 1 + hc) <
+                                  static_cast<unsigned>(g.W)
+                          ? halo + hr * DXB_HROW + hc * DXB_CH * 2 +
+                                ((v ^ (hc & 7)) << 4)
+                          : 0u;
+            if (addr[k]) x[k] = lds128(addr[k]);
+          }
+#pragma unroll
+          for (int k = 0; k < FWB_ACT_BATCH; ++k)
+            if (addr[k])
+              sts128(addr[k],
+                     make_uint4(act_pair(x[k].x, s2[0], b2[0], g.relu),
+                                act_pair(x[k].y, s2[1], b2[1], g.relu),
+                                act_pair(x[k].z, s2[2], b2[2], g.relu),
+                                act_pair(x[k].w, s2[3], b2[3], g.relu)));
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(&bb.hready[stg]);
+      }
+    }
+  }
+}
+
+// Issues the wgmma group of tap `tap` (0 .. 8) on the halo whose A
+// descriptor is da and the piece whose B descriptor is db: both m64 halves
+// of the accumulator, four k-steps each. The window of tap (ky, kx) starts
+// ky halo rows and kx pixel slots into the halo; the offsets are added to
+// the descriptors' address field (16-byte units, no carry: shared memory
+// lies below 2^18 bytes).
+template <int NB>
+__device__ __forceinline__ void fwb_group(float (&acc)[2][NB][8][4],
+                                          uint64_t da, uint64_t db,
+                                          int tap) {
+  const int ky = tap / 3;
+  const int kx = tap - ky * 3;
+  reg_fence_all(reinterpret_cast<float(&)[2 * NB * 8][4]>(acc));
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(reinterpret_cast<float(&)[NB * 8][4]>(acc[i]),
+               da + ((ky * DXB_HROW + kx * 128 + 8 * i * DXB_HROW +
+                      kk * 32) >> 4),
+               db + ((kk * 16 * DXB_CH * 2) >> 4));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int NB>
+__global__ void __launch_bounds__(FWB_THREADS, 1)
+conv_fused_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tmrow,
+                           const __grid_constant__ CUtensorMap tmhalo,
+                           const __grid_constant__ CUtensorMap tmw,
+                           const __grid_constant__ CUtensorMap tmout,
+                           const float* __restrict__ s,
+                           const float* __restrict__ b, Geom g,
+                           DxbWalk walk) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t hfull[DXB_H_STAGES];
+  __shared__ __align__(8) uint64_t hready[DXB_H_STAGES];
+  __shared__ __align__(8) uint64_t hempty[DXB_H_STAGES];
+  __shared__ __align__(8) uint64_t wfull[DXB_MAX_W_STAGES];
+  __shared__ __align__(8) uint64_t wempty[DXB_MAX_W_STAGES];
+  // the swizzle works on shared-memory address bits: align the rings there
+  unsigned char* hring = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) &
+                                     1023u);
+  unsigned char* wring = hring + DXB_H_STAGES * DXB_HALO;
+  const FwbBars bb = {hfull, hready, hempty, wfull, wempty};
+  const float inv_h1 = 1.f / static_cast<float>(g.H + 1);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < DXB_H_STAGES; ++i) {
+      mbar_init(&hfull[i], 1);
+      mbar_init(&hready[i], FWB_ACTIVATORS);
+      mbar_init(&hempty[i], 4);
+    }
+    for (int i = 0; i < walk.w_stages; ++i) {
+      mbar_init(&wfull[i], 1);
+      mbar_init(&wempty[i], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- the producer warpgroup: warp 8 issues the loads, warps 9-11
+    // activate
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        FWB_PRODUCER_REGS));
+    if (threadIdx.x >= 288) {
+      fwb_activate(bb, hring, s, b, g, walk, inv_h1, threadIdx.x - 288);
+      return;
+    }
+    if (threadIdx.x == 256) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmrow) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmhalo) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmw) : "memory");
+    }
+    fwb_produce<NB>(bb, hring, wring, &tmrow, &tmhalo, &tmw, g, walk,
+                    inv_h1, threadIdx.x & 31);
+    return;
+  }
+
+  // ---- consumer warpgroup cg: tile 2 * pair + cg of each item
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      FWB_CONSUMER_REGS));
+  const int cg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;    // accumulator: row gq (and gq + 8) of the
+  const int t = lane & 3;      // warp's 16, columns 8j + 2t and +1
+  if (threadIdx.x == 0)
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tmout) : "memory");
+  float acc[2][NB][8][4];
+  int slot = 0, phase = 0;     // the next piece's slot and pass (ring)
+  int q = 0;                   // chunk step
+  for (int item = blockIdx.x; item < walk.n_items; item += gridDim.x) {
+    const int co0 = item / walk.n_pairs * NB * DXB_CH;
+    const int tile = 2 * (item % walk.n_pairs) + cg;
+    const int rt = tile / g.col_tiles;
+    const int c0 = (tile - rt * g.col_tiles) * TW;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][nb][j][e] = 0.f;
+    for (int c = 0; c < walk.kc; ++c, ++q) {
+      const int stg = 2 * cg + (q & 1);
+      mbar_wait(&hready[stg], (q >> 1) & 1);
+      const uint64_t da = dxb_adesc(hring + stg * DXB_HALO);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int ws = walk.resident ? tap : slot;
+        mbar_wait(&wfull[ws], walk.resident ? 0 : phase);
+        fwb_group<NB>(acc, da, dxb_bdesc(wring + ws * NB * DXB_BOX), tap);
+        asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(FWB_DEPTH)
+                     : "memory");
+        // the item's group FWB_DEPTH back has completed: free its piece
+        // and, after a chunk's last tap, its stage (the epilogue frees an
+        // item's last)
+        if (lane == 0 && (c > 0 || tap >= FWB_DEPTH)) {
+          if (!walk.resident)
+            mbar_arrive(&wempty[ws >= FWB_DEPTH
+                                    ? ws - FWB_DEPTH
+                                    : ws + walk.w_stages - FWB_DEPTH]);
+          if (tap == FWB_DEPTH - 1)
+            mbar_arrive(&hempty[2 * cg + ((q - 1) & 1)]);
+        }
+        if (!walk.resident && ++slot == walk.w_stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    reg_fence_all(reinterpret_cast<float(&)[2 * NB * 8][4]>(acc));
+    if (lane == 0 && !walk.resident)
+      for (int k = 1; k <= FWB_DEPTH; ++k)
+        mbar_arrive(&wempty[slot >= k ? slot - k : slot + walk.w_stages - k]);
+
+    // ---- epilogue, in the stage of the item's last chunk once every
+    // warp's groups that read it have completed: box (nb, tile row tr) at
+    // (nb * TH + tr) * 1024, pixel tc's 128 bytes at tc * 128, 16-byte
+    // chunk c at c ^ tc. Warp w holds tile rows 8i + 2w (accumulator rows
+    // gq) and 8i + 2w + 1 (gq + 8), column gq.
+    const int stg = 2 * cg + ((q - 1) & 1);
+    unsigned char* scr = hring + stg * DXB_HALO;
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cg) : "memory");
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          unsigned char* row =
+              scr + (nb * TH + 8 * i + 2 * warp + r) * 1024 + gq * 128 + 4 * t;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const __nv_bfloat162 v = __floats2bfloat162_rn(
+                acc[i][nb][j][2 * r], acc[i][nb][j][2 * r + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(row + ((j ^ gq) << 4)) = v;
+          }
+        }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cg) : "memory");
+    if (warp == 0) {
+      if (lane < NB * TH) {
+        const int tr = lane % TH;
+        const int nb = lane / TH;
+        const int vr = rt * TH + tr;
+        int hrow = g.H, n = 0;
+        if (vr < g.V) n = dwb_image(vr, g.H + 1, inv_h1, hrow);
+        if (hrow < g.H)
+          tma_store4(&tmout, scr + (nb * TH + tr) * 1024,
+                     co0 + nb * DXB_CH, c0, hrow, n);
+      }
+      tma_store_commit();
+      // the stores have read the stage before it is freed
+      tma_store_wait_read();
+      __syncwarp();
+    }
+    if (lane == 0) mbar_arrive(&hempty[stg]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: CUDA cores, full float32 FMA
 // ---------------------------------------------------------------------------
 
@@ -1704,24 +1902,21 @@ int set_smem(K kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
-template <typename T>
-using FwdFn = void (*)(const T*, const float*, const float*, const T*, T*,
-                       Geom);
-template <typename T>
-int launch_fwd(FwdFn<T> kernel, int smem, int vec_elems, const void* x,
-               const float* s, const float* b, const void* w, void* out,
-               int N, int H, int W, int Ci, int Co, int relu, void* stream) {
-  Geom g = make_geom(N, H, W, Ci, Co, relu, 1, x, w, vec_elems);
-  int err = set_smem(kernel, smem);
+int launch_fwd_f32(const void* x, const float* s, const float* b,
+                   const void* w, void* out, int N, int H, int W, int Ci,
+                   int Co, int relu, void* stream) {
+  Geom g = make_geom(N, H, W, Ci, Co, relu, 1, x, w, 4);
+  int err = set_smem(conv_fused_f32_kernel, SMEM32);
   if (err != 0) return err;
   const long long blocks = tiles_of(g);
   const int co_tiles = (Co + BN - 1) / BN;
   if (blocks > 0x7fffffffLL || co_tiles > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   dim3 grid(static_cast<unsigned>(blocks), co_tiles);
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), s, b, static_cast<const T*>(w),
-      static_cast<T*>(out), g);
+  conv_fused_f32_kernel<<<grid, THREADS, SMEM32,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), s, b, static_cast<const float*>(w),
+      static_cast<float*>(out), g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1817,6 +2012,55 @@ int launch_dw_bf16(const void* x, const float* s, const float* b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The walk of a persistent bf16 kernel (d-input or forward) over the items
+// (tile pair, block of 64*nb result channels) of a plan, for a halo
+// operand of k_ch channels (chunks of 64) and a result of n_ch channels:
+// checks the plan and sizes the weight ring; smem is the dynamic shared
+// memory the kernel asks for.
+int plan_walk(const Geom& g, int k_ch, int n_ch, int nb, int grid,
+              int resident, DxbWalk& walk, int& smem) {
+  const long long n_tiles = tiles_of(g);
+  const long long n_pairs = (n_tiles + 1) / 2;
+  const int n_cb = (n_ch + nb * DXB_CH - 1) / (nb * DXB_CH);
+  const long long items = n_pairs * n_cb;
+  walk.kc = (k_ch + DXB_CH - 1) / DXB_CH;
+  // dwb_image's float estimate is exact below 2^24 virtual rows
+  if (items > 0x7fffffffLL || g.V >= (1 << 24) ||
+      static_cast<long long>(g.N) * g.H * g.W > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  walk.n_pairs = static_cast<int>(n_pairs);
+  walk.n_items = static_cast<int>(items);
+  walk.resident = resident;
+  // resident: one result block of 64 channels and one halo chunk, so that
+  // every item reads the same nine pieces
+  if (grid <= 0 || grid > items ||
+      (resident && (n_cb != 1 || walk.kc != 1 || nb != 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rings = 1024 + DXB_H_STAGES * DXB_HALO;
+  walk.w_stages = resident ? 9
+                           : (SMEM_OPTIN - DXB_STATIC - rings) /
+                                 (nb * DXB_BOX);
+  if (walk.w_stages > DXB_MAX_W_STAGES) walk.w_stages = DXB_MAX_W_STAGES;
+  smem = rings + walk.w_stages * nb * DXB_BOX;
+  return 0;
+}
+
+// The weight pieces of a (9, k_ch, n64) bf16 matrix, n64 = n_ch rounded
+// up to 64, as (n % 64, k, n / 64, tap): a box is a piece, nb blocks of 64
+// k rows x 64 result channels.
+int encode_pieces(CUtensorMap* map, const void* base, int k_ch, int n_ch,
+                  int nb) {
+  const long long n64 = (n_ch + DXB_CH - 1) / DXB_CH * DXB_CH;
+  const cuuint64_t dims[4] = {DXB_CH, static_cast<cuuint64_t>(k_ch),
+                              static_cast<cuuint64_t>(n64 / DXB_CH), 9};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(n64) * 2,
+                                 DXB_CH * 2,
+                                 static_cast<cuuint64_t>(k_ch * n64) * 2};
+  const cuuint32_t box[4] = {DXB_CH, DXB_CH, static_cast<cuuint32_t>(nb),
+                             1};
+  return encode_tiled(map, base, 4, dims, box, strides);
+}
+
 // The bf16 d-input kernel over the items of a dx_plan: `grid` blocks, ci
 // blocks of 64*nb channels, the weight pieces loaded once if `resident`.
 int launch_dx_bf16(const void* dy, const void* wt, const void* x,
@@ -1832,54 +2076,59 @@ int launch_dx_bf16(const void* dy, const void* wt, const void* x,
       reinterpret_cast<uintptr_t>(dx) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Geom g = make_geom(N, H, W, Ci, Co, relu, 0, x, dy, 8);
-  const long long n_tiles = tiles_of(g);
-  const long long n_pairs = (n_tiles + 1) / 2;
-  const int n_cb = (Ci + nb * DXB_CH - 1) / (nb * DXB_CH);
-  const long long items = n_pairs * n_cb;
   DxbWalk walk;
-  walk.kc = (Co + DXB_CH - 1) / DXB_CH;
-  // dwb_image's float estimate is exact below 2^24 virtual rows
-  if (items > 0x7fffffffLL || g.V >= (1 << 24) ||
-      static_cast<long long>(N) * H * W > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  walk.n_pairs = static_cast<int>(n_pairs);
-  walk.n_items = static_cast<int>(items);
-  walk.resident = resident;
-  // resident: one ci block of 64 channels and one dy chunk, so that every
-  // item reads the same nine pieces
-  if (grid <= 0 || grid > items ||
-      (resident && (n_cb != 1 || walk.kc != 1 || nb != 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int rings = 1024 + DXB_H_STAGES * DXB_HALO;
-  walk.w_stages = resident ? 9
-                           : (SMEM_OPTIN - DXB_STATIC - rings) /
-                                 (nb * DXB_BOX);
-  if (walk.w_stages > DXB_MAX_W_STAGES) walk.w_stages = DXB_MAX_W_STAGES;
-  const int smem = rings + walk.w_stages * nb * DXB_BOX;
+  int smem;
+  int err = plan_walk(g, Co, Ci, nb, grid, resident, walk, smem);
+  if (err != 0) return err;
   auto kernel =
       nb == 1 ? conv_bwd_dx_bf16_kernel<1> : conv_bwd_dx_bf16_kernel<2>;
-  int err = set_smem(kernel, smem);
+  err = set_smem(kernel, smem);
   if (err != 0) return err;
   CUtensorMap tmrow, tmhalo, tmw;
   err = encode_nhwc(&tmrow, dy, N, H, W, Co, DXB_HALO_W, 1);
   if (err != 0) return err;
   err = encode_nhwc(&tmhalo, dy, N, H, W, Co, DXB_HALO_W, TH + 2);
   if (err != 0) return err;
-  // wt (9, Co, ci64) as (ci % 64, co, ci / 64, tap): a box is a piece, nb
-  // blocks of 64 co rows x 64 input channels
-  const long long ci64 = (Ci + DXB_CH - 1) / DXB_CH * DXB_CH;
-  const cuuint64_t wdims[4] = {DXB_CH, static_cast<cuuint64_t>(Co),
-                               static_cast<cuuint64_t>(ci64 / DXB_CH), 9};
-  const cuuint64_t wstrides[3] = {static_cast<cuuint64_t>(ci64) * 2,
-                                  DXB_CH * 2,
-                                  static_cast<cuuint64_t>(Co * ci64) * 2};
-  const cuuint32_t wbox[4] = {DXB_CH, DXB_CH, static_cast<cuuint32_t>(nb),
-                              1};
-  err = encode_tiled(&tmw, wt, 4, wdims, wbox, wstrides);
+  err = encode_pieces(&tmw, wt, Co, Ci, nb);
   if (err != 0) return err;
   kernel<<<grid, DXB_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       tmrow, tmhalo, tmw, static_cast<const __nv_bfloat16*>(x), s, b,
       static_cast<__nv_bfloat16*>(dx), part, g, walk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 forward kernel over the items of a fwd_plan: `grid` blocks, co
+// blocks of 64*nb channels, the weight pieces loaded once if `resident`.
+int launch_fwd_bf16(const void* x, const float* s, const float* b,
+                    const void* w, void* out, int N, int H, int W, int Ci,
+                    int Co, int relu, int nb, int grid, int resident,
+                    void* stream) {
+  // the boxes' rows: channel counts a multiple of 8, 16-byte aligned bases
+  if (Ci % 8 != 0 || Co % 8 != 0 || (nb != 1 && nb != 2) ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geom g = make_geom(N, H, W, Ci, Co, relu, 1, x, w, 8);
+  DxbWalk walk;
+  int smem;
+  int err = plan_walk(g, Ci, Co, nb, grid, resident, walk, smem);
+  if (err != 0) return err;
+  auto kernel = nb == 1 ? conv_fused_fwd_bf16_kernel<1>
+                        : conv_fused_fwd_bf16_kernel<2>;
+  err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  CUtensorMap tmrow, tmhalo, tmw, tmout;
+  err = encode_nhwc(&tmrow, x, N, H, W, Ci, DXB_HALO_W, 1);
+  if (err != 0) return err;
+  err = encode_nhwc(&tmhalo, x, N, H, W, Ci, DXB_HALO_W, TH + 2);
+  if (err != 0) return err;
+  err = encode_pieces(&tmw, w, Ci, Co, nb);
+  if (err != 0) return err;
+  err = encode_nhwc(&tmout, out, N, H, W, Co, TW, 1);
+  if (err != 0) return err;
+  kernel<<<grid, FWB_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      tmrow, tmhalo, tmw, tmout, s, b, g, walk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1892,19 +2141,23 @@ extern "C" {
 // waited for. N, H, W, Ci, Co are the convolution's: x (N,H,W,Ci), s and b
 // (Ci,) float32, dy and out (N,H,W,Co).
 
-// Forward: w (9*Ci, Co) tap-major; x, w and out share the dtype.
+// Forward, bf16: w (9, Ci, co64), W's rows padded with zeros to a multiple
+// of 64 output channels; Ci and Co multiples of 8; x, w and out 16-byte
+// aligned; `grid` persistent blocks (at most one per SM) walk the
+// ceil(T/2) x ceil(Co / (64*nb)) items of a fwd_plan.
 int conv_fused_fwd_bf16(const void* x, const float* s, const float* b,
                         const void* w, void* out, int N, int H, int W, int Ci,
-                        int Co, int relu, void* stream) {
-  return launch_fwd<__nv_bfloat16>(conv_fused_bf16_kernel, SMEM16, 8, x, s,
-                                   b, w, out, N, H, W, Ci, Co, relu, stream);
+                        int Co, int relu, int nb, int grid, int resident,
+                        void* stream) {
+  return launch_fwd_bf16(x, s, b, w, out, N, H, W, Ci, Co, relu, nb, grid,
+                         resident, stream);
 }
 
+// Forward, f32: w (9*Ci, Co) tap-major.
 int conv_fused_fwd_f32(const void* x, const float* s, const float* b,
                        const void* w, void* out, int N, int H, int W, int Ci,
                        int Co, int relu, void* stream) {
-  return launch_fwd<float>(conv_fused_f32_kernel, SMEM32, 4, x, s, b, w, out,
-                           N, H, W, Ci, Co, relu, stream);
+  return launch_fwd_f32(x, s, b, w, out, N, H, W, Ci, Co, relu, stream);
 }
 
 // d-input: wt (9*Co, Ci) is W flipped in space and transposed; dx like x.

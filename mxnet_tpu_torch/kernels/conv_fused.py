@@ -7,8 +7,9 @@ plain PyTorch versions (counterpart of mxnet_tpu/pallas_kernels/conv_fused.py).
 whose forward is the forward kernel and whose backward is the d-input
 kernel (dx, with the ds/db partials and a finalize launch that folds them)
 and the d-weight kernel (dW partials and a reduce launch), all in
-``csrc/conv_fused.cu``. In bf16 both backward kernels are persistent: one
-block per SM walks the work items of ``dx_plan`` or ``dw_plan``. A CPU
+``csrc/conv_fused.cu``. In bf16 all three kernels are persistent: one
+block per SM walks the work items of ``fwd_plan``, ``dx_plan`` or
+``dw_plan``. A CPU
 tensor runs ``fused_conv_reference`` forward and
 ``fused_conv_backward_reference`` backward; a CUDA tensor launches the
 kernels or raises. There is no other route. The kernels' design note is in
@@ -31,7 +32,7 @@ from ..base import MXNetError
 __all__ = ["fused_scale_relu_conv3x3", "fused_conv_reference",
            "fused_conv_backward_reference", "backward_input_reference",
            "backward_weight_reference", "fused_conv_backward",
-           "compute_dtype", "dx_plan", "dw_plan", "LAUNCHES",
+           "compute_dtype", "fwd_plan", "dx_plan", "dw_plan", "LAUNCHES",
            "LAUNCHES_BWD_DX", "LAUNCHES_BWD_DW",
            "LAUNCHES_FINALIZE", "LAUNCHES_REDUCE", "COPIES"]
 
@@ -61,10 +62,13 @@ _DW_TILE_US = 2.0
 _DW_PART_BYTES_PER_US = 2.5e6
 
 DwPlan = collections.namedtuple("DwPlan", "nsplit tps items grid")
-# The bf16 d-input kernel's input channels per box (a ci block is one or two).
+# The bf16 d-input and forward kernels' channels per box (a block of result
+# channels is one or two boxes).
 _DX_BOX = 64
 DxPlan = collections.namedtuple("DxPlan",
                                 "nb cblocks pairs items grid resident")
+FwdPlan = collections.namedtuple("FwdPlan",
+                                 "nb cblocks pairs items grid resident")
 
 
 def compute_dtype(dtype):
@@ -229,6 +233,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGS = {
     "conv_fused_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    "conv_fused_fwd_bf16": [_P] * 5 + [_I] * 9 + [_P],
     "conv_fused_bwd_dx": [_P] * 7 + [_I] * 6 + [_P],
     "conv_fused_bwd_dx_bf16": [_P] * 7 + [_I] * 9 + [_P],
     "conv_fused_bwd_dw_f32": [_P] * 5 + [_I] * 8 + [_P],
@@ -261,6 +266,37 @@ def tiles(N, H, W):
     zero separator row between images): the f32 d-input kernel writes one
     ds/db partial per tile; the bf16 one takes them in pairs (``dx_plan``)."""
     return -(-(N * (H + 1) - 1) // _TH) * -(-W // _TW)
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(N, H, W, Ci, Co, n_sm):
+    """The bf16 forward kernel's work partition on a card of ``n_sm`` SMs,
+    for channel counts already padded to multiples of 8: a
+    ``FwdPlan(nb, cblocks, pairs, items, grid, resident)``.
+
+    An item is (tile pair, co block): the block's two consumer warpgroups
+    take tiles 2*pair and 2*pair + 1 of ``tiles(N, H, W)`` (past the last
+    tile, a tile is all padding) for ``64*nb`` output channels, every input
+    channel and tap. Items are numbered co-block-major (item = cb * pairs +
+    pair), so that the blocks in flight read the same weights; ``grid``
+    persistent blocks, at most one per SM, take items ``i, i + grid, ...``.
+    ``nb`` (1 or 2) makes the busiest block's work least: its rounds of
+    items times the 64*nb channels of an item, ties going to 2, whose x
+    halo serves twice the channels. ``resident``: every item reads the same
+    nine weight pieces (Ci <= 64 and Co <= 64), which the kernel then loads
+    once."""
+    pairs = -(-tiles(N, H, W) // 2)
+    best = None
+    for nb in (2, 1):
+        cblocks = -(-Co // (_DX_BOX * nb))
+        items = pairs * cblocks
+        grid = min(items, n_sm)
+        cost = -(-items // grid) * nb
+        if best is None or cost < best[0]:
+            best = (cost, FwdPlan(nb, cblocks, pairs, items, grid,
+                                  nb == 1 and cblocks == 1
+                                  and Ci <= _DX_BOX))
+    return best[1]
 
 
 @functools.lru_cache(maxsize=256)
@@ -330,12 +366,18 @@ def _sm_count(dev):
 
 
 def _launch(x, s, b, w, relu):
+    """The forward kernel: the result in x's dtype. The bf16 kernel reads x
+    and the weights in boxes of 16-byte rows and stores the result in boxes
+    of 16-byte rows: where Ci or Co is not a multiple of 8, or a base is not
+    16-byte aligned, the operands are first copied into zero-padded ones
+    (x, s and b pad with zeros, so the extra channels activate to 0*0 + 0)
+    and the result is cut back. Its weights go as (9, Ci, co64), the rows
+    padded with zeros to a multiple of 64 output channels."""
     global LAUNCHES
     N, H, W_, Ci = x.shape
     Co = w.shape[-1]
     cdt = compute_dtype(x.dtype)
     xc = x if x.dtype == cdt else x.to(cdt)
-    w2 = w.reshape(9 * Ci, Co).to(cdt).contiguous()
     s2 = s.to(torch.float32).contiguous()
     b2 = b.to(torch.float32).contiguous()
     out = torch.empty((N, H, W_, Co), dtype=cdt, device=x.device)
@@ -343,13 +385,39 @@ def _launch(x, s, b, w, relu):
         return out.to(x.dtype)
     if Ci == 0:
         return out.zero_().to(x.dtype)
+    shape = (N, H, W_, Ci, Co)
     with torch.cuda.device(x.device):
-        _call("forward", (N, H, W_, Ci, Co), _fn("conv_fused_fwd", cdt),
-              xc.data_ptr(), s2.data_ptr(), b2.data_ptr(), w2.data_ptr(),
-              out.data_ptr(), N, H, W_, Ci, Co, int(relu),
-              torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if cdt == torch.bfloat16:
+            out = _launch_bf16(xc, s2, b2, w.to(cdt), relu, shape, stream)
+        else:
+            w2 = w.reshape(9 * Ci, Co).to(cdt).contiguous()
+            _call("forward", shape, _fn("conv_fused_fwd", cdt),
+                  xc.data_ptr(), s2.data_ptr(), b2.data_ptr(), w2.data_ptr(),
+                  out.data_ptr(), N, H, W_, Ci, Co, int(relu), stream)
     LAUNCHES += 1
     return out if out.dtype == x.dtype else out.to(x.dtype)
+
+
+def _launch_bf16(x, s, b, w, relu, shape, stream):
+    N, H, W, Ci, Co = shape
+    ci8, co8 = -(-Ci // 8) * 8, -(-Co // 8) * 8
+    if (ci8, co8) != (Ci, Co) or x.data_ptr() % 16:
+        x = tF.pad(x, (0, ci8 - Ci))
+        s, b = tF.pad(s, (0, ci8 - Ci)), tF.pad(b, (0, ci8 - Ci))
+    co64 = -(-co8 // _DX_BOX) * _DX_BOX
+    if (ci8, co64) != (Ci, Co):
+        w = tF.pad(w, (0, co64 - Co, 0, ci8 - Ci))
+    w = w.reshape(9, ci8, co64)
+    if not w.is_contiguous() or w.data_ptr() % 16:
+        w = w.clone(memory_format=torch.contiguous_format)
+    out = torch.empty((N, H, W, co8), dtype=x.dtype, device=x.device)
+    plan = fwd_plan(N, H, W, ci8, co8, _sm_count(x.device))
+    _call("forward", shape, _fn("conv_fused_fwd", torch.bfloat16),
+          x.data_ptr(), s.data_ptr(), b.data_ptr(), w.data_ptr(),
+          out.data_ptr(), N, H, W, ci8, co8, int(relu), plan.nb, plan.grid,
+          int(plan.resident), stream)
+    return out if co8 == Co else out[..., :Co].contiguous()
 
 
 def _launch_backward(x, s, b, w, dy, relu):

@@ -176,3 +176,35 @@ def test_qmm_probe_variants_apply(name, tmp_path):
     end = src.index(probe.END)
     assert out.startswith(src[:start])
     assert out.endswith(src[end:])
+
+
+def _conv_probe():
+    path = os.path.join(os.path.dirname(CSRC), os.pardir,
+                        "chip_conv_probe.py")
+    spec = importlib.util.spec_from_file_location("chip_conv_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# chip_conv_probe.py builds its variants of the bf16 conv_fused forward by
+# editing csrc/conv_fused.cu's text: each edit must still apply and change
+# only the forward kernel's section, except that the trace adds its copy
+# function to the C interface.
+@pytest.mark.parametrize("name", ["as_is", "trace", "depth2", "depth3",
+                                  "batch1", "batch5", "no_act", "no_store"])
+def test_conv_probe_variants_apply(name, tmp_path):
+    probe = _conv_probe()
+    assert name in probe.VARIANTS
+    src = open(os.path.join(CSRC, "conv_fused.cu")).read()
+    out = open(probe.write_sources([name], str(tmp_path))[name]).read()
+    assert (out == src) == (name == "as_is")
+    assert open(os.path.join(tmp_path, name, "sm90.cuh")).read() == \
+        open(os.path.join(CSRC, "sm90.cuh")).read()
+    start = src.index(probe.START)
+    end = src.index(probe.END)
+    assert out.startswith(src[:start])
+    tail = src[end:]
+    if name == "trace":
+        tail = tail.replace('extern "C" {\n', probe.TRACE_FETCH, 1)
+    assert out.endswith(tail)

@@ -519,3 +519,222 @@ def test_dx_emulation_matches_reference(shape, relu, n_sm):
     for name, g, r in zip(("dx", "ds", "db"), got, ref):
         assert g.shape == r.shape, name
         assert (g - r).abs().max() <= 1e-5 * r.abs().max(), name
+
+
+# -- the forward kernel's work partition, modelled on the CPU -----------------
+#
+# The bf16 forward kernel (csrc/conv_fused.cu, conv_fused_fwd_bf16_kernel)
+# walks the items of ``fwd_plan``: block i of ``grid`` takes items i, i +
+# grid, ...; item = cb * pairs + pair gives consumer warpgroup g (0, 1) tile
+# 2*pair + g and output channels cb*64*nb .. +64*nb. Its K order is (x chunk
+# of 64 channels, tap, channel); each chunk's halo is TMA boxes of the
+# virtual image of x whose zero fill is the padding. The block's 96
+# activator threads activate the halo in place -- thread at, pass j:
+# 16-byte chunk at % 8 of halo pixel at // 8 + 12j (row p // 10, slot p %
+# 10) -- only where the pixel lies in an image, by the bf16 rule, with s
+# and b zero past Ci.
+# Each (chunk, tap) weight piece is a box of W laid out (9, Ci, co64). The
+# epilogue stores a box per tile row and 64 channels, skipping rows that lie
+# in no image; TMA clips columns past W and channels past Co. Channel counts
+# reach the kernel padded to multiples of 8 (the wrapper).
+
+SERVE_SHAPES = [(32, 56, 56, 64, 64), (32, 28, 28, 128, 128),
+                (32, 14, 14, 256, 256), (32, 7, 7, 512, 512)]
+HALO_W, HALO_P = TW + 2, (TH + 2) * (TW + 2)
+
+
+def _fwd_cost(items, nb, n_sm):
+    """The busiest block's work: rounds of items times an item's 64*nb
+    channels (in units of 64)."""
+    return -(-items // min(items, n_sm)) * nb
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 7])
+@pytest.mark.parametrize("shape", SERVE_SHAPES + TRAIN_SHAPES + EDGE_SHAPES)
+def test_fwd_plan_partition(shape, n_sm):
+    """Every output pixel and channel is written by exactly one item (each
+    (tile, channel) once, and the tiles partition the pixels); the plan and
+    each block's item list are fixed; no block is idle and none walks more
+    than its even share of items, rounded up; nb makes the busiest block's
+    work least, ties going to 2 (so at least as little as d-input's rule,
+    nb 2 wherever C > 64); the weights are resident exactly where Ci and Co
+    are at most 64."""
+    N, H, W, Ci, Co = shape
+    ci8, co8 = _pad8(Ci), _pad8(Co)
+    plan = CF.fwd_plan(N, H, W, ci8, co8, n_sm)
+    assert plan == CF.fwd_plan.__wrapped__(N, H, W, ci8, co8, n_sm)
+    t = CF.tiles(N, H, W)
+    cw = 64 * plan.nb
+    items = {nb: -(-t // 2) * -(-co8 // (64 * nb)) for nb in (1, 2)}
+    cost = {nb: _fwd_cost(items[nb], nb, n_sm) for nb in (1, 2)}
+    assert plan.nb == (2 if cost[2] <= cost[1] else 1)
+    assert cost[plan.nb] <= cost[1 if co8 <= 64 else 2]
+    assert plan.cblocks == -(-co8 // cw) and plan.pairs == -(-t // 2)
+    assert plan.items == plan.pairs * plan.cblocks == items[plan.nb]
+    assert plan.grid == min(plan.items, n_sm)
+    assert plan.resident == (ci8 <= 64 and co8 <= 64)
+    walk = _dx_walk(plan)
+    assert walk == _dx_walk(plan)
+    per_block = collections.defaultdict(list)
+    for block, item, _, _ in walk:
+        per_block[block].append(item)
+    assert sorted(per_block) == list(range(plan.grid))
+    assert max(map(len, per_block.values())) == -(-plan.items // plan.grid)
+    cover = torch.zeros(2 * plan.pairs, plan.cblocks * cw, dtype=torch.int32)
+    for _, _, pair, cb in walk:
+        cover[2 * pair:2 * pair + 2, cb * cw:(cb + 1) * cw] += 1
+    assert bool((cover[:t, :co8] == 1).all())
+
+
+def test_fwd_plan_halves_the_deep_serving_shapes():
+    """At the serving shapes on 132 SMs: the 56x56 link keeps its weights
+    resident, 28x28 takes nb 2, and at 14x14 and 7x7 nb 1 halves the busiest
+    block's work against nb 2 (d-input's rule), which would leave 72 and 100
+    SMs idle."""
+    plans = [CF.fwd_plan(*shape, 132) for shape in SERVE_SHAPES]
+    assert [(p.nb, p.items, p.resident) for p in plans] == [
+        (1, 399, True), (2, 116, False), (1, 120, False), (1, 64, False)]
+    for shape, plan in zip(SERVE_SHAPES[2:], plans[2:]):
+        pairs = -(-CF.tiles(*shape[:3]) // 2)
+        two = pairs * -(-shape[4] // 128)
+        assert 132 - two in (72, 100)
+        assert 2 * _fwd_cost(plan.items, 1, 132) == _fwd_cost(two, 2, 132)
+
+
+ACTIVATORS, ACT_BATCH = 96, 3      # csrc/conv_fused.cu: warps 9-11
+
+
+def _act_passes():
+    """(p, v) of each activator thread's passes, thread-major: thread at,
+    pass j -> halo pixel at // 8 + 12j, chunk at % 8."""
+    at = torch.arange(ACTIVATORS).view(-1, 1)
+    j = torch.arange(HALO_P * 8 // ACTIVATORS).view(1, -1)
+    p = (at // 8 + ACTIVATORS // 8 * j).reshape(-1)
+    v = (at % 8).expand(-1, j.shape[1]).reshape(-1)
+    return p, v
+
+
+def test_fwd_activation_passes_cover_each_window_chunk_once():
+    """The 96 activator threads' 15 passes, in batches of 3, reach each
+    16-byte chunk of the 10 slots x 18 rows a tap window reads exactly
+    once, and no pixel past them."""
+    p, v = _act_passes()
+    assert int(p.max()) < HALO_P
+    seen = torch.zeros(HALO_P, 8, dtype=torch.int32)
+    seen.index_put_((p, v), torch.ones_like(p, dtype=torch.int32),
+                    accumulate=True)
+    assert bool((seen == 1).all())
+    assert HALO_P * 8 % ACTIVATORS == 0
+    assert HALO_P * 8 // ACTIVATORS % ACT_BATCH == 0
+
+
+def _emulate_fwd(x, s, b, w, relu, n_sm):
+    """out (N, H, W, Co) f32 by the bf16 forward kernel's decomposition: the
+    wrapper's padding to multiples of 8 and w to (9, ci8, co64); per item
+    and consumer, each x chunk's halo boxes (the virtual image with zero
+    fill), activated in place by the activator threads' passes only where
+    the pixel lies in an image (the bf16 rule, s and b rounded to bf16,
+    zero past Ci), the tap windows against the (chunk, tap) pieces in K
+    order; the epilogue on the tile's rows that lie in an image and its
+    columns inside W. Every output element must be written exactly once (it
+    starts as NaN)."""
+    N, H, W, Ci = x.shape
+    Co = w.shape[3]
+    ci8, co8 = _pad8(Ci), _pad8(Co)
+    xp = torch.nn.functional.pad(x, (0, ci8 - Ci))
+    s16 = torch.nn.functional.pad(s, (0, ci8 - Ci)).bfloat16()
+    b16 = torch.nn.functional.pad(b, (0, ci8 - Ci)).bfloat16()
+    plan = CF.fwd_plan(N, H, W, ci8, co8, n_sm)
+    cw, kc = 64 * plan.nb, -(-ci8 // 64)
+    co64 = -(-co8 // 64) * 64
+    wz = torch.zeros(9, kc * 64, plan.cblocks * cw)
+    wz[:, :Ci, :Co] = w.reshape(9, Ci, Co)
+    assert plan.cblocks * cw >= co64
+    V = N * (H + 1) - 1
+    col_tiles = -(-W // TW)
+    row_tiles = -(-V // TH)
+    # the boxes' view of x: image n at virtual rows n*(H+1) .., one row and
+    # column before, and room for a pair's second tile past the last one
+    rows = (row_tiles + 1) * TH + 2
+    xv = torch.zeros(rows, col_tiles * TW + 2, kc * 64)
+    for n in range(N):
+        r = 1 + n * (H + 1)
+        xv[r:r + H, 1:1 + W, :ci8] = xp[n]
+    sv = torch.zeros(kc * 64, dtype=torch.bfloat16)
+    bv = torch.zeros(kc * 64, dtype=torch.bfloat16)
+    sv[:ci8], bv[:ci8] = s16, b16
+    p, v = _act_passes()
+    hr, hc = p // HALO_W, p % HALO_W
+    out = torch.full((N, H, W, co8), float("nan"))
+    trow = torch.arange(TH).view(TH, 1).expand(TH, TW).reshape(-1)
+    tcol = torch.arange(TW).view(1, TW).expand(TH, TW).reshape(-1)
+    for _, _, pair, cb in _dx_walk(plan):
+        ch = slice(cb * cw, min(co8, (cb + 1) * cw))
+        for g in range(2):
+            rt, ct = divmod(2 * pair + g, col_tiles)
+            r0, c0 = rt * TH, ct * TW
+            vr = r0 - 1 + torch.arange(TH + 2)
+            row_in = (vr >= 0) & (vr < V) & (vr % (H + 1) != H)
+            col_in = (c0 - 1 + torch.arange(HALO_W) >= 0) & \
+                (c0 - 1 + torch.arange(HALO_W) < W)
+            acc = torch.zeros(TH * TW, cw)
+            for c in range(kc):
+                halo = xv[r0:r0 + TH + 2, c0:c0 + HALO_W,
+                          c * 64:(c + 1) * 64]
+                # the 16-byte chunks the passes activate, as channels
+                on = row_in[hr] & col_in[hc]
+                hit = torch.zeros(TH + 2, HALO_W, 8, dtype=torch.bool)
+                hit[hr[on], hc[on], v[on]] = True
+                z = halo.bfloat16() * sv[c * 64:(c + 1) * 64] \
+                    + bv[c * 64:(c + 1) * 64]
+                z = (torch.clamp_min(z, 0) if relu else z).float()
+                halo = torch.where(hit.repeat_interleave(8, dim=2), z, halo)
+                for tap in range(9):
+                    ky, kx = divmod(tap, 3)
+                    a = halo[ky:ky + TH, kx:kx + TW].reshape(-1, 64)
+                    acc += a @ wz[tap, c * 64:(c + 1) * 64,
+                                  cb * cw:(cb + 1) * cw]
+            vr, cc = r0 + trow, c0 + tcol
+            n, h = vr // (H + 1), vr % (H + 1)
+            ok = (vr < V) & (cc < W) & (h < H)
+            n, h, cc = n[ok], h[ok], cc[ok]
+            assert bool(torch.isnan(out[n, h, cc][:, ch]).all())
+            out[n, h, cc, ch] = acc[ok][:, :ch.stop - ch.start]
+    assert not bool(torch.isnan(out).any())
+    return out[..., :Co]
+
+
+@pytest.mark.parametrize("n_sm", [132, 3])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", EDGE_SHAPES + [(2, 7, 7, 136, 72)])
+def test_fwd_emulation_matches_reference(shape, relu, n_sm):
+    """The CPU model of the bf16 forward kernel's decomposition, in f32 on
+    bf16-valued inputs, against the plain version and JAX's Pallas forward
+    in interpret mode, each given the plain version's bf16 activation z =
+    relu(x*s + b) (bf16 rule) with s = 1, b = 0 and no ReLU, in f32: the
+    same sums in another order, so within 1e-5 of max |reference|. And
+    against JAX's forward on the bf16 inputs themselves (its own bf16
+    activation, bf16 out), within one bf16 ulp of the output's magnitude.
+    At 3 SMs the blocks walk several items each; (2, 7, 7, 136, 72) has
+    three x chunks (the last ragged) and a ragged co block."""
+    N, H, W, Ci, Co = shape
+    x, s, b, w = _mats(*shape, seed=8)
+    xb, sb, bb, wb = (torch.from_numpy(a).bfloat16() for a in (x, s, b, w))
+    s, b = sb.float(), bb.float()
+    got = _emulate_fwd(xb.float(), s, b, wb.float(), relu, n_sm)
+    pre = CF._pre(xb, s, b)
+    z = (torch.clamp_min(pre, 0) if relu else pre).float()
+    ones, zeros = torch.ones(Ci), torch.zeros(Ci)
+    ref = CF.fused_conv_reference(z, ones, zeros, wb.float(), relu=False)
+    jref = np.asarray(JCF.fused_scale_relu_conv3x3(
+        *(jnp.asarray(t.numpy()) for t in (z, ones, zeros, wb.float())),
+        relu=False, interpret=True))
+    for r in (ref.numpy(), jref):
+        assert got.shape == r.shape
+        assert np.abs(got.numpy() - r).max() <= 1e-5 * np.abs(r).max()
+    j16 = JCF.fused_scale_relu_conv3x3(
+        jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(s.numpy()),
+        jnp.asarray(b.numpy()), jnp.asarray(w).astype(jnp.bfloat16),
+        relu=relu, interpret=True)
+    j16 = np.asarray(j16.astype(jnp.float32))
+    assert np.abs(got.numpy() - j16).max() <= BF16_EPS * np.abs(j16).max()

@@ -71,6 +71,57 @@ def test_conv_fused_kernel_raises_on_non_contiguous_input():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_sm", [None, 5])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", [(4, 56, 56, 64, 64), (8, 28, 28, 128, 128),
+                                   (8, 7, 7, 512, 512), (2, 7, 7, 136, 72),
+                                   (4, 15, 17, 40, 129)])
+def test_conv_fused_fwd_bf16_relaunch_same_bits(shape, relu, n_sm,
+                                                monkeypatch):
+    """The bf16 forward kernel gives the same bits on a second launch,
+    within one bf16 step of the plain version, also planned for a card of 5
+    SMs, where each persistent block walks several work items (several x
+    chunks, co blocks of 64 and 128, resident weights at 64 x 64)."""
+    _need_card()
+    if n_sm is not None:
+        monkeypatch.setattr(CF, "_sm_count", lambda dev: n_sm)
+    x, s, b, w = _mats(*shape)
+    x, w = x.bfloat16(), w.bfloat16()
+    before = CF.LAUNCHES
+    got = CF.fused_scale_relu_conv3x3(x, s, b, w, relu=relu)
+    again = CF.fused_scale_relu_conv3x3(x, s, b, w, relu=relu)
+    want = CF.fused_conv_reference(x, s, b, w, relu=relu)
+    torch.cuda.synchronize()
+    assert CF.LAUNCHES == before + 2
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= RTOL["bfloat16"] * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "misaligned"])
+def test_conv_fused_fwd_bf16_pads_through_the_wrapper(case):
+    """Ci and Co that are not multiples of 8 (the wrapper pads x, s, b and
+    w with zeros and cuts the result back), and an x whose base lies 2
+    bytes off 16-byte alignment (the wrapper copies it): within one bf16
+    step of the plain version."""
+    _need_card()
+    shape = (3, 10, 11, 20, 70) if case == "ragged" else (2, 9, 9, 64, 72)
+    x, s, b, w = _mats(*shape)
+    x, w = x.bfloat16(), w.bfloat16()
+    if case == "misaligned":
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        x = buf[1:].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16
+    out = CF.fused_scale_relu_conv3x3(x, s, b, w)
+    ref = CF.fused_conv_reference(x, s, b, w)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= RTOL["bfloat16"] * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
 def test_fused_resnet_forward_launches_kernel_per_block():
     """A narrow fused ResNet on the card: one launch per bottleneck, and
     the logits agree with the unfused net in f32."""
