@@ -9,6 +9,8 @@
     python3 chip_smoke.py --phases env,kernel,train_adam
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
+    python3 chip_smoke.py --phases env,kernel_bn,time_bn
+    python3 chip_smoke.py --phases env,train,time_train
     python3 chip_smoke.py --phases env,kernel_conv_fwd,time_conv_fwd
     python3 chip_smoke.py --phases env,kernel_conv_bwd,time_conv_bwd
     python3 chip_smoke.py --phases env,kernel_flash,time_flash
@@ -30,7 +32,11 @@ Phases, each printing JSON lines:
               of ResNet-50 training at batch 128 and at edge shapes (a
               channel of zeros, a variance that clamps to 0, an inf); bf16
               and f32, relu on and off. BatchNorm forward outputs must be
-              equal bit for bit, backward within 2e-4 of max |reference|.
+              equal bit for bit, backward within 2e-4 of max |reference|;
+              the two folds (stats, bwd_reduce) must give the same bits on
+              a second launch, also at BN_SEVERAL_ITEMS (R = 64 * 25088 +
+              17, and plans for a card of FEW_SMS SMs), where each
+              persistent block walks several items.
               The conv_fused backward pair (d-input with its finalize
               launch, d-weight with its reduce launch) at the four fused
               shapes of ResNet-50 training at batch 128 and the edge
@@ -168,7 +174,14 @@ Phases, each printing JSON lines:
               images/sec, device busy time and idle share beside train's
               and train_fused's.
 
---phases may also name kernel_conv_fwd and time_conv_fwd, the conv_fused
+--phases may also name kernel_bn and time_bn, the four BatchNorm kernels'
+part of phases kernel and time (rows 4-7: their checks, then per training
+shape each kernel's per-launch time, plain and library times and share of
+bound, with the folds' fold_plan; they need no other phase, so copy this
+chip_smoke.py into a parent tree to time the two in turns), time_train,
+the training steps' part of phase time (images/sec, device busy ms and idle
+share of each train phase run before it, e.g. --phases env,train,time_train),
+kernel_conv_fwd and time_conv_fwd, the conv_fused
 forward's part of phases kernel and time (row 1: its checks, then per
 serving shape the kernel, the library call, cuDNN's convolution alone, the
 bound and fwd_plan's nb and items; it needs no other phase, so copy this
@@ -209,11 +222,13 @@ import numpy as np
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_lm", "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
-# the conv_fused forward's checks and timing, the backward pair's, the
-# flash kernels',
+# the BatchNorm kernels' checks and timing, the training steps' timing
+# (after the train phases), the conv_fused forward's, the backward pair's,
+# the flash kernels',
 # the LM step's timing (after train_lm), the int8 matmul's checks and
 # timing, and int8 serving's timing (after serve_int8).
-SUB_PHASES = ("kernel_conv_fwd", "time_conv_fwd", "kernel_conv_bwd",
+SUB_PHASES = ("kernel_bn", "time_bn", "time_train", "kernel_conv_fwd",
+              "time_conv_fwd", "kernel_conv_bwd",
               "time_conv_bwd", "kernel_flash", "time_flash", "time_lm",
               "kernel_qmm", "time_qmm", "time_int8")
 
@@ -253,7 +268,9 @@ BN_SHAPES = [((128, 112, 112, 64), 1), ((128, 56, 56, 64), 6),
              ((128, 7, 7, 2048), 4)]
 BN_PER_STEP = sum(n for _, n in BN_SHAPES)       # 53
 BN_EDGE_R = (1, 63, 65, 4097)
-BN_EDGE_C = (3, 5, 129, 2049)
+# 3, 5, 129 and 2049 channels take the folds' plain-load route (a row pitch
+# TMA cannot describe); 24 and 72 the TMA route with a part-filled slab.
+BN_EDGE_C = (3, 5, 24, 72, 129, 2049)
 BN_EPS = 1e-5                   # gluon.nn.BatchNorm's default epsilon
 # Backward tolerance of the BatchNorm kernels against their plain
 # versions, relative to max |reference| (the JAX suite's own bound for its
@@ -291,6 +308,21 @@ BWD_RTOL = {"bfloat16": {"dx": 1.6e-2, "ds": 1.6e-2, "db": 1.6e-2,
 FEW_SMS = 5
 FEW_SMS_CASES = [((8, 28, 28, 128, 128), True), ((8, 7, 7, 512, 512), False),
                  ((4, 15, 17, 40, 129), False)]
+# The two BatchNorm folds where each persistent block walks several items:
+# (R, C, dtype, act, SMs, None for the card's own): a row count that is not
+# a multiple of 64, with 16 blocks per warp and item; training shapes
+# planned for FEW_SMS SMs; both routes.
+BN_SEVERAL_ITEMS = [(64 * 25088 + 17, 64, "bfloat16", None, None),
+                    (64 * 25088 + 17, 64, "float32", "relu", None),
+                    (401408, 256, "bfloat16", "relu", FEW_SMS),
+                    (100352, 128, "float32", None, FEW_SMS),
+                    (6272, 2048, "bfloat16", None, FEW_SMS),
+                    (4097, 72, "bfloat16", "relu", FEW_SMS),
+                    (4097, 129, "float32", "relu", FEW_SMS)]
+# How the two folds are built (csrc/batchnorm_fused.cu).
+BN_FOLD_DESIGN = ("redesigned for Hopper: persistent blocks over fold_plan's "
+                  "items, a TMA ring of 64-row boxes per warp, the JAX tree "
+                  "folded from shared memory (+ the finalize launch)")
 # The two backward kernels: their outputs, the names of their launches in
 # the profiler (kernel and second pass) and the line of the TPU kernel body
 # in mxnet_tpu/pallas_kernels/conv_fused.py.
@@ -583,30 +615,37 @@ def max_abs_err(torch, a, b):
 
 def bn_check(torch, x2, g, b, dy, act, backward=True):
     """Each BatchNorm kernel against its plain version on the same inputs
-    (the plain statistics and sums feed the later kernels). Returns
-    {kernel: (ok, max abs err, max |ref|, bitwise share)}."""
+    (the plain statistics and sums feed the later kernels); the two folds
+    also against their own second launch, bit for bit. Returns {kernel:
+    (ok, max abs err, max |ref|, bitwise share)}."""
     from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
     res = {}
     mean, var = BNF.stats(x2)
+    mean2, var2 = BNF.stats(x2)
     rm, rv = BNF.stats_reference(x2)
     out = BNF.apply(x2, g, b, rm, rv, BN_EPS, act)
     rout = BNF.apply_reference(x2, g, b, rm, rv, BN_EPS, act)
     torch.cuda.synchronize()
+    again = same_bits(torch, mean, mean2) and same_bits(torch, var, var2)
     for name, pairs in (("stats", ((mean, rm), (var, rv))),
                         ("apply", ((out, rout),))):
-        ok = all(same_bits(torch, k, r) for k, r in pairs)
+        ok = all(same_bits(torch, k, r) for k, r in pairs) \
+            and (again or name != "stats")
         err = max(max_abs_err(torch, k, r) for k, r in pairs)
         res[name] = (ok, err, 0.0, 1.0 if ok else 0.0)
     if not backward:
         return res
     db, dg = BNF.bwd_reduce(x2, dy, g, b, rm, rv, BN_EPS, act)
+    db2, dg2 = BNF.bwd_reduce(x2, dy, g, b, rm, rv, BN_EPS, act)
     rdb, rdg = BNF.bwd_reduce_reference(x2, dy, g, b, rm, rv, BN_EPS, act)
     dx = BNF.bwd_dx(x2, dy, g, b, rm, rv, rdb, rdg, BN_EPS, act)
     rdx = BNF.bwd_dx_reference(x2, dy, g, b, rm, rv, rdb, rdg, BN_EPS, act)
     torch.cuda.synchronize()
+    again = same_bits(torch, db, db2) and same_bits(torch, dg, dg2)
     for name, pairs in (("bwd_reduce", ((db, rdb), (dg, rdg))),
                         ("bwd_dx", ((dx, rdx),))):
-        ok, err, scale, eq, n = True, 0.0, 0.0, 0, 0
+        ok = again or name != "bwd_reduce"
+        err, scale, eq, n = 0.0, 0.0, 0, 0
         for k, r in pairs:
             e = max_abs_err(torch, k, r)
             sc = r.float().abs().max().item()
@@ -761,7 +800,7 @@ def phase_kernel_bn(torch, state):
     cases += [(r, c, False) for r in BN_EDGE_R for c in BN_EDGE_C]
     worst = {k: [0.0, 0.0] for k in BN_KERNELS}     # abs, relative (bf16)
     summary = {}
-    failures = []
+    failures = _bn_fresh_thread(torch)
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
         for act in (None, "relu"):
@@ -806,10 +845,84 @@ def phase_kernel_bn(torch, state):
           "results": summary,
           "tolerance": {"forward": "bitwise", "backward_rtol": BN_BWD_RTOL}})
     state["bn_err"] = worst
+    failures += _bn_several_items(torch)
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("batchnorm_fused disagrees with its plain "
                              "version: %s" % failures[:20])
+
+
+def _bn_several_items(torch):
+    """The two folds at BN_SEVERAL_ITEMS, where each persistent block walks
+    several items (planned for the card's SMs or for FEW_SMS): stats bit
+    for bit, bwd_reduce within BN_BWD_RTOL, both the same bits relaunched
+    (bn_check)."""
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    failures = []
+    sm_count = BNF._sm_count
+    try:
+        for i, (R, C, dname, act, n_sm) in enumerate(BN_SEVERAL_ITEMS):
+            BNF._sm_count = sm_count if n_sm is None else (lambda dev: n_sm)
+            x2, g, b, dy = bn_case(torch, R, C, getattr(torch, dname),
+                                   seed=700 + i)
+            res = bn_check(torch, x2, g, b, dy, act)
+            plans = {k: BNF._plan(k, x2)._asdict()
+                     for k in ("stats", "bwd_reduce")}
+            emit({"phase": "kernel", "kernel": "batchnorm_fused",
+                  "several_items": True, "dtype": dname, "act": act,
+                  "R": R, "C": C, "sm_count": n_sm or sm_count(x2.device),
+                  "fold_plan": plans,
+                  "results": {k: {"ok": res[k][0], "max_abs_err": res[k][1],
+                                  "bitwise_share": res[k][3]}
+                              for k in ("stats", "bwd_reduce")}})
+            failures += [(dname, act, R, C, n_sm, k, res[k][1])
+                         for k in ("stats", "bwd_reduce") if not res[k][0]]
+            del x2, g, b, dy
+    finally:
+        BNF._sm_count = sm_count
+    return failures
+
+
+def _bn_fresh_thread(torch):
+    """fused_batch_norm forward in a new thread and backward in autograd's
+    device thread, before any other backward of the run: there the
+    backward reduce is the thread's first CUDA call (the folds' tensor maps
+    need the context current in the calling thread). bf16 and f32, against
+    the plain versions (bn_check's tolerances)."""
+    import threading
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    failures = []
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        x2, g, b, dy = bn_case(torch, 126, 64, dtype, seed=790 + i)
+        got = {}
+
+        def run():
+            try:
+                xr = x2.clone().requires_grad_()
+                out, mean, var = BNF.fused_batch_norm(xr, g, b)
+                out.backward(dy)
+                got.update(out=out, mean=mean, var=var, dx=xr.grad)
+            except Exception as e:     # reported below, with the case
+                got["error"] = repr(e)
+        th = threading.Thread(target=run)
+        th.start()
+        th.join(timeout=300)
+        torch.cuda.synchronize()
+        ok = "error" not in got and not th.is_alive()
+        if ok:
+            rout, rm, rv = BNF.batchnorm_reference(x2, g, b)
+            rdx = BNF.batchnorm_backward_reference(x2, g, b, rm, rv, dy)[0]
+            ok = same_bits(torch, got["out"], rout) \
+                and same_bits(torch, got["mean"], rm) \
+                and same_bits(torch, got["var"], rv) \
+                and max_abs_err(torch, got["dx"], rdx) <= BN_BWD_RTOL * \
+                rdx.float().abs().max().item()
+        emit({"phase": "kernel", "kernel": "batchnorm_fused",
+              "fresh_thread": True, "dtype": str(dtype), "R": 126, "C": 64,
+              "error": got.get("error"), "ok": ok})
+        if not ok:
+            failures.append(("fresh thread", str(dtype), got.get("error")))
+    return failures
 
 
 def conv_bwd_case(torch, shape, dtype, seed):
@@ -2890,10 +3003,15 @@ def phase_time_bn(torch, state):
             [True, True, True]), iters=20)
         pair_lib["forward"] += count * fwd_lib
         pair_lib["backward"] += count * bwd_lib
+        plan = getattr(BNF, "_plan", None)
         emit({"phase": "time", "kernel": "batchnorm_fused",
               "dtype": "bfloat16", "shape_nhwc": list(shape), "R": R,
               "C": C, "launches_per_step": count, "kernels": row,
-              "library_forward_ms": fwd_lib, "library_backward_ms": bwd_lib})
+              "library_forward_ms": fwd_lib, "library_backward_ms": bwd_lib,
+              "folds": {k: {"ms": row[k]["ms"],
+                            "share": row[k]["roofline_share"],
+                            "fold_plan": plan(k, x2)._asdict() if plan
+                            else None} for k in ("stats", "bwd_reduce")}})
         del x2, g, b, dy, x_cf, dy_cf
     for k in BN_KERNELS:
         t = totals[k]
@@ -2901,6 +3019,7 @@ def phase_time_bn(torch, state):
             if t.pop("bound_ops_ms") >= t["bound_ms"] / 2 else "bytes"
     state["bn_timing"] = totals
     emit({"phase": "time", "kernel": "batchnorm_fused",
+          "design": {k: BN_FOLD_DESIGN for k in ("stats", "bwd_reduce")},
           "per_step_bf16_b128": totals,
           "library_per_step_ms": {
               "forward_batch_norm_training": pair_lib["forward"],
@@ -3667,6 +3786,8 @@ def kernel_summary(state):
             "ms": b["ms"], "kernel_ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": b["library_ms"],
+            "design": BN_FOLD_DESIGN if k in ("stats", "bwd_reduce")
+            else None,
             "per": "one ResNet-50 training step at batch 128, bf16 "
                    "(%d launches%s)" % (BN_PER_STEP, "" if k in (
                        "apply", "bwd_dx") else " and %d finalize "

@@ -9,9 +9,9 @@
 // mask applied when act is relu.
 //
 // Replaces the four TPU kernels of mxnet_tpu/pallas_kernels/batchnorm_fused.py:
-//   _stats_kernel       -> bn_stats_partials_kernel (+ bn_finalize_kernel)
+//   _stats_kernel       -> bn_fold_kernel<StatsOp> (+ bn_finalize_kernel)
 //   _apply_kernel       -> bn_apply_kernel
-//   _bwd_reduce_kernel  -> bn_bwd_partials_kernel   (+ bn_finalize_kernel)
+//   _bwd_reduce_kernel  -> bn_fold_kernel<BwdOp>   (+ bn_finalize_kernel)
 //   _bwd_dx_kernel      -> bn_bwd_dx_kernel
 // On the TPU the fold of the per-block partials and the mean/var formula ran
 // as XLA ops; here they are a small second launch, bn_finalize_kernel, made
@@ -19,17 +19,46 @@
 //
 // What bounds them on an H100: bytes. Each is one or two passes over R*C
 // elements with a handful of f32 operations per element (stats: one read;
-// apply: a read and a write; bwd partials: two reads; bwd dx: two reads and
-// a write). The design keeps every pass at one read of each input and one
-// write of each output: loads run along C, so neighbouring threads read
-// neighbouring addresses (16-byte vectors in apply and dx, 8 bytes of bf16 /
-// 16 bytes of f32 in the two folding kernels, whose per-thread stacks would
-// spill with wider vectors), per-channel constants are computed once per
-// thread, and no float atomics are used. A folding thread folds a strided
-// set of 64-row blocks (enough of them that about 2^17 threads stay busy),
-// so the partial rows the finalize folds are few and their traffic small. It
-// is the simple form: no shared-memory staging, no cp.async or TMA
-// pipelining.
+// apply: a read and a write; bwd reduce: two reads; bwd dx: two reads and
+// a write). Apply and dx load 16-byte vectors along C from device memory.
+//
+// The two folds (rows 4 and 6) share one skeleton, bn_fold_kernel: one
+// persistent block of FOLD_WARPS warps per SM walks a plan of items. An item
+// is a slab of channels (Op::BS bytes of each row: 64 bf16 channels for the
+// stats, 32 for the backward's two tensors) times one partial row c of
+// G' = 2^logG; its warp h folds the 64-row blocks {c + G'h + G'Hk : k < K}
+// (H = 2^logH warps, K = 2^logK blocks each). Each warp keeps its own ring
+// of FOLD_STAGES stages in shared memory that its lane 0 fills by TMA, one
+// 64-row box (of x, and of dy) per block, FOLD_STAGES blocks ahead of the
+// fold, across item boundaries; so a block holds up to 192 KB of loads in
+// flight per SM without spending registers on them, where the simple form
+// (every thread folding 8 bytes a row through __ldg) held about a tenth of
+// what the memory's latency asks for. The fold reads the staged box from
+// shared memory, a 4-byte word (two bf16 or one f32 channel) per lane, so
+// the access pattern no longer has to follow the tree: a warp reads whole
+// 128-byte rows, conflict free, while the tree stays the JAX package's.
+// Blocks past the tensor (the power-of-two padding) are not loaded; a
+// block's rows past R are masked to exact zeros. When C's row pitch or a
+// base is not 16-byte aligned, TMA cannot describe the tensor and the warps
+// fill their stage with plain loads instead (the same fold).
+//
+// The tree, level by level (the fold_blocks/fold_partials tree exactly):
+//  - a block's 64 rows by contiguous halves: lane (word w, row class j)
+//    folds rows {j + JR m} over m in registers, in bit-reversed streaming
+//    order with a binary-counter stack of compile-time indices, and
+//    __shfl_down_sync folds the JR row classes (offsets JR/2 ... 1 in j);
+//  - the K blocks of a warp, by contiguous halves in k (bit-reversed order
+//    again; the stack of block sums is indexed by a switch on the counter's
+//    trailing ones, so it too stays in registers); padding blocks add +0;
+//  - the H warps of an item, by contiguous halves in h, in shared memory:
+//    {c + G'm} is a subtree of the block tree, so the item's result is
+//    partial row c;
+//  - the G' partial rows, by contiguous halves, in bn_finalize_kernel (a
+//    second launch: having the fold's last block do it measured slower).
+// What bounds the folds now: the device memory's rate at the large shapes,
+// and at the small ones the fixed cost of two launches and of filling the
+// rings (a 7x7 batch-128 tensor is 6-26 MB, 2-8 us of bytes; the finalize
+// launch alone takes about 2 us).
 //
 // Bitwise contract (forward). out, mean and var equal the plain PyTorch
 // version (kernels/batchnorm_fused.py:batchnorm_reference) bit for bit:
@@ -45,7 +74,10 @@
 //    padding is added, not skipped (-0.0 + 0.0 is +0.0);
 //  - squares and the normalize product use exact-product splitting (the top
 //    12 significant bits by masking, the rest by subtraction), so every
-//    partial product is exact, with a plain product for non-finite inputs;
+//    partial product is exact, with a plain product for non-finite inputs.
+//    A bf16 value has 8 significant bits, so its split leaves a zero low
+//    part and exact_sq(x) is the single product x*x, bit for bit: the bf16
+//    stats fold takes that product;
 //  - mean = sum / R and var = max(sumsq / R - exact_sq(mean), 0) divide by R
 //    rounded to f32, in f32; a NaN variance stays NaN.
 // The backward uses the same trees and the same rounded products, so it too
@@ -55,16 +87,20 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int FOLD_BLOCK = 64;
-constexpr int FOLD_LEVELS = 6;          // log2(FOLD_BLOCK)
 constexpr int THREADS = 256;
-constexpr int FOLD_VEC = 4;             // channels per thread, folding kernels
 constexpr long long TARGET_THREADS = 1LL << 18;  // elementwise kernels
-constexpr long long FOLD_THREADS = 1LL << 17;    // folding kernels
-constexpr int MAX_LOG_K = 16;     // blocks per folding thread: at most 2^16
+constexpr int FOLD_WARPS = 8;         // warps of a fold block: H <= 8
+constexpr int FOLD_STAGES = 3;        // ring depth of each warp
+constexpr int FOLD_STAGE_BYTES = 8192;          // the boxes of one block
+constexpr int FOLD_SMEM = 1024 + FOLD_WARPS * FOLD_STAGES * FOLD_STAGE_BYTES;
+constexpr int MAX_LOG_K = 10;     // blocks per warp and item: at most 2^10
 constexpr int MAX_LOG_G = 40;     // partial rows: at most 2^40
 constexpr int FIN_CH = 16;        // finalize: channels per block
 constexpr int FIN_LANES = 64;     // finalize: lanes per channel
@@ -139,17 +175,6 @@ struct Vec<float, 4> {
 };
 
 template <>
-struct Vec<__nv_bfloat16, 4> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float (&o)[4]) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[j] = __bfloat162float(e[j]);
-  }
-};
-
-template <>
 struct Vec<__nv_bfloat16, 8> {
   static __device__ __forceinline__ void load(const __nv_bfloat16* p,
                                               float (&o)[8]) {
@@ -168,12 +193,13 @@ struct Vec<__nv_bfloat16, 8> {
 };
 
 // ---------------------------------------------------------------------------
-// the in-thread fold of one 64-row block
+// rows 4 and 6: the persistent fold
 // ---------------------------------------------------------------------------
 
-__host__ __device__ constexpr int brev6(int j) {
-  return ((j & 1) << 5) | ((j & 2) << 3) | ((j & 4) << 1) | ((j & 8) >> 1) |
-         ((j & 16) >> 3) | ((j & 32) >> 5);
+__host__ __device__ constexpr int brev_bits(int v, int bits) {
+  int r = 0;
+  for (int i = 0; i < bits; ++i) r |= ((v >> i) & 1) << (bits - 1 - i);
+  return r;
 }
 
 __host__ __device__ constexpr int trailing_ones(int j) {
@@ -185,203 +211,349 @@ __host__ __device__ constexpr int trailing_ones(int j) {
   return n;
 }
 
-// Folds the two per-element quantities (u, v) that `elem(row, u, v)` gives
-// for rows 0..63 of one block, each by contiguous halves. Rows are visited
-// in bit-reversed order and merged like a binary counter: visit J merges the
-// stack levels below trailing_ones(J), so the adds happen in the tree's
-// pairs. Every index is a compile-time constant, so the stack lives in
-// registers.
-template <int J, int V, class Elem>
-__device__ __forceinline__ void fold_step(float (&su)[FOLD_LEVELS + 1][V],
-                                          float (&sv)[FOLD_LEVELS + 1][V],
-                                          const Elem& elem) {
-  if constexpr (J < FOLD_BLOCK) {
-    float u[V], v[V];
-    elem(brev6(J), u, v);
-    constexpr int L = trailing_ones(J);
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        u[e] = __fadd_rn(su[l][e], u[e]);
-        v[e] = __fadd_rn(sv[l][e], v[e]);
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      su[L][e] = u[e];
-      sv[L][e] = v[e];
-    }
-    fold_step<J + 1, V>(su, sv, elem);
+__host__ __device__ constexpr int ilog2(int v) {
+  int n = 0;
+  while ((1 << n) < v) ++n;
+  return n;
+}
+
+// How a warp reads a staged box of 64 rows x BS bytes of element type T:
+// lane = j * LC + w reads the 4-byte word w (E channels) of rows
+// {j + JR m : m < M}. JR consecutive rows are 128 bytes, so each read of
+// the warp is one conflict-free 128-byte line.
+template <typename T, int BS>
+struct Lanes {
+  static constexpr int E = 4 / sizeof(T);
+  static constexpr int LC = BS / 4;
+  static constexpr int JR = 32 / LC;
+  static constexpr int M = FOLD_BLOCK / JR;
+  static constexpr int LM = ilog2(M);
+  static constexpr int S = BS / sizeof(T);   // channels of a slab
+  static constexpr int N = 2 * E;            // folded values of a lane
+};
+
+template <typename T>
+__device__ __forceinline__ T zero() {
+  if constexpr (sizeof(T) == 2) return __float2bfloat16_rn(0.f);
+  else return 0.f;
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack(uint32_t w, float (&f)[4 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 2) {
+    f[0] = __uint_as_float(w << 16);
+    f[1] = __uint_as_float(w & 0xffff0000u);
+  } else {
+    f[0] = __uint_as_float(w);
   }
 }
 
-// Folds, for thread row g of G, the 64-row blocks {g + kG : k < 2^logK} of
-// its strided set: each block by fold_step, then the blocks by contiguous
-// halves in streaming order (block g + kG with g + (k + K/2)G first), with
-// exact zeros for blocks past NB. These are the first levels of
-// fold_partials over the NB padded to P = G * 2^logK blocks, so the G
-// results per channel are partial rows that bn_finalize_kernel folds on.
-// `block(blk, u, v)` folds one block. The stack of block partials has a
-// runtime index and lives in local memory; it is touched once per block.
-template <int V, class Block>
-__device__ __forceinline__ void fold_strided(long long g, long long G,
-                                             long long NB, int logK,
-                                             const Block& block,
-                                             float (&u)[V], float (&v)[V]) {
-  float su[MAX_LOG_K + 1][V], sv[MAX_LOG_K + 1][V];
-  const int K = 1 << logK;
-  for (int j = 0; j < K; ++j) {
-    const int k = logK ? static_cast<int>(__brev(j) >> (32 - logK)) : 0;
-    const long long blk = g + static_cast<long long>(k) * G;
-    if (blk < NB) {
-      block(blk, u, v);
-    } else {
+// Row 4: u = x, v = x*x exactly (exact_sq; for bf16 the plain product, which
+// equals it bit for bit, see the header).
+template <typename T>
+struct StatsOp {
+  static constexpr int TENSORS = 1;
+  static constexpr int BS = 128;
+  __device__ __forceinline__ void slab(int, int) {}
+  __device__ __forceinline__ void elem(float x, float, int, float& u,
+                                       float& v) const {
+    u = x;
+    v = sizeof(T) == 2 ? __fmul_rn(x, x) : exact_sq(x);
+  }
+};
+
+// Row 6: u = dy' (dy masked by relu(y) > 0), v = dy' * xhat.
+template <typename T>
+struct BwdOp {
+  static constexpr int TENSORS = 2;
+  static constexpr int BS = 64;
+  static constexpr int E = 4 / sizeof(T);
+  const float* g;
+  const float* b;
+  const float* mean;
+  const float* var;
+  float eps;
+  int relu;
+  float m[E], inv[E], gg[E], bb[E];
+  // The constants of channels c0 .. c0+E-1 (zeros past C).
+  __device__ __forceinline__ void slab(int c0, int C) {
 #pragma unroll
-      for (int e = 0; e < V; ++e) u[e] = v[e] = 0.f;
-    }
-    int l = 0;
-    while ((j >> l) & 1) {
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        u[e] = __fadd_rn(su[l][e], u[e]);
-        v[e] = __fadd_rn(sv[l][e], v[e]);
-      }
-      ++l;
-    }
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      su[l][e] = u[e];
-      sv[l][e] = v[e];
+    for (int e = 0; e < E; ++e) {
+      const bool in = c0 + e < C;
+      m[e] = in ? mean[c0 + e] : 0.f;
+      inv[e] = in ? inv_std(var[c0 + e], eps) : 0.f;
+      gg[e] = in ? g[c0 + e] : 0.f;
+      bb[e] = in ? b[c0 + e] : 0.f;
     }
   }
-#pragma unroll
-  for (int e = 0; e < V; ++e) {
-    u[e] = su[logK][e];
-    v[e] = sv[logK][e];
+  __device__ __forceinline__ void elem(float x, float d, int e, float& u,
+                                       float& v) const {
+    const float xh = __fmul_rn(__fsub_rn(x, m[e]), inv[e]);
+    if (relu) {
+      const float y = __fadd_rn(__fmul_rn(xh, gg[e]), bb[e]);
+      d = __fmul_rn(d, y > 0.f ? 1.f : 0.f);
+    }
+    u = d;
+    v = __fmul_rn(d, xh);
   }
-}
+};
 
-// ---------------------------------------------------------------------------
-// row 4: partials of sum(x) and sum(exact_sq(x))
-// ---------------------------------------------------------------------------
-
-template <typename T, int V>
-__global__ void __launch_bounds__(THREADS)
-bn_stats_partials_kernel(const T* __restrict__ x, float* __restrict__ psum,
-                         float* __restrict__ psq, long long R, int C, int CVn,
-                         long long NB, long long G, int logK) {
-  const long long tid = static_cast<long long>(blockIdx.x) * THREADS +
-                        threadIdx.x;
-  const long long g = tid / CVn;
-  if (g >= G) return;
-  const int c0 = static_cast<int>(tid - g * CVn) * V;
-  long long row0 = 0;
-  auto elem = [&](int r, float (&u)[V], float (&v)[V]) {
-    const long long row = row0 + r;
-    if (row < R) {
-      Vec<T, V>::load(x + row * C + c0, u);
-    } else {
+// Visit Jv of a lane's in-block fold: row j + JR*m, m = brev(Jv), merged
+// into the binary-counter stack st (levels 0..LM, values u then v of each
+// channel). Rows at or past `valid` are exact zeros when MASK.
+template <int Jv, typename T, bool MASK, class Op>
+__device__ __forceinline__ void fold_rows(
+    const unsigned char* px, int j, int valid, const Op& op,
+    float (&st)[Lanes<T, Op::BS>::LM + 1][Lanes<T, Op::BS>::N]) {
+  using L = Lanes<T, Op::BS>;
+  if constexpr (Jv < L::M) {
+    constexpr int m = brev_bits(Jv, L::LM);
+    constexpr int off = m * L::JR * Op::BS;
+    float xs[L::E], ds[L::E], val[L::N];
+    unpack<T>(*reinterpret_cast<const uint32_t*>(px + off), xs);
+    if constexpr (Op::TENSORS == 2)
+      unpack<T>(*reinterpret_cast<const uint32_t*>(px + FOLD_BLOCK * Op::BS +
+                                                   off),
+                ds);
 #pragma unroll
-      for (int e = 0; e < V; ++e) u[e] = 0.f;   // exact-zero row padding
+    for (int e = 0; e < L::E; ++e) {
+      op.elem(xs[e], Op::TENSORS == 2 ? ds[e] : 0.f, e, val[2 * e],
+              val[2 * e + 1]);
+      if (MASK && j + L::JR * m >= valid) val[2 * e] = val[2 * e + 1] = 0.f;
     }
+    constexpr int T1 = trailing_ones(Jv);
 #pragma unroll
-    for (int e = 0; e < V; ++e) v[e] = exact_sq(u[e]);
-  };
-  auto block = [&](long long blk, float (&u)[V], float (&v)[V]) {
-    float su[FOLD_LEVELS + 1][V], sv[FOLD_LEVELS + 1][V];
-    row0 = blk * FOLD_BLOCK;
-    fold_step<0, V>(su, sv, elem);
+    for (int l = 0; l < T1; ++l)
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      u[e] = su[FOLD_LEVELS][e];
-      v[e] = sv[FOLD_LEVELS][e];
-    }
-  };
-  float u[V], v[V];
-  fold_strided<V>(g, G, NB, logK, block, u, v);
+      for (int n = 0; n < L::N; ++n) val[n] = __fadd_rn(st[l][n], val[n]);
 #pragma unroll
-  for (int e = 0; e < V; ++e) {
-    psum[g * C + c0 + e] = u[e];
-    psq[g * C + c0 + e] = v[e];
+    for (int n = 0; n < L::N; ++n) st[T1][n] = val[n];
+    fold_rows<Jv + 1, T, MASK>(px, j, valid, op, st);
   }
 }
 
-// ---------------------------------------------------------------------------
-// row 6: partials of sum(dy') and sum(dy' * xhat)
-// ---------------------------------------------------------------------------
+// One staged 64-row block: the lane's word of rows {j + JR m} folded in
+// registers, then the JR row classes by shuffles. The lanes of row class 0
+// hold the block's sums of their E channels.
+template <typename T, bool MASK, class Op>
+__device__ __forceinline__ void fold_block(
+    const unsigned char* stage, int lane, int valid, const Op& op,
+    float (&out)[Lanes<T, Op::BS>::N]) {
+  using L = Lanes<T, Op::BS>;
+  const int j = lane / L::LC;
+  float st[L::LM + 1][L::N];
+  fold_rows<0, T, MASK>(stage + j * Op::BS + (lane % L::LC) * 4, j, valid,
+                        op, st);
+#pragma unroll
+  for (int n = 0; n < L::N; ++n) out[n] = st[L::LM][n];
+#pragma unroll
+  for (int o = L::JR / 2; o >= 1; o /= 2)
+#pragma unroll
+    for (int n = 0; n < L::N; ++n)
+      out[n] = __fadd_rn(out[n],
+                         __shfl_down_sync(0xffffffffu, out[n], o * L::LC));
+}
 
-template <typename T, int V>
-__global__ void __launch_bounds__(THREADS)
-bn_bwd_partials_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                       const float* __restrict__ g_,
-                       const float* __restrict__ b,
-                       const float* __restrict__ mean,
-                       const float* __restrict__ var, float eps, int relu,
-                       float* __restrict__ pdb, float* __restrict__ pdg,
-                       long long R, int C, int CVn, long long NB, long long G,
-                       int logK) {
-  const long long tid = static_cast<long long>(blockIdx.x) * THREADS +
-                        threadIdx.x;
-  const long long g = tid / CVn;
-  if (g >= G) return;
-  const int c0 = static_cast<int>(tid - g * CVn) * V;
-  float m[V], inv[V], gg[V], bb[V];
-#pragma unroll
-  for (int e = 0; e < V; ++e) {
-    m[e] = mean[c0 + e];
-    inv[e] = inv_std(var[c0 + e], eps);
-    gg[e] = g_[c0 + e];
-    bb[e] = b[c0 + e];
+// Pushes the value of visit J (t = trailing ones of J) onto the stack of
+// block sums: it is folded with levels 0..t-1 and stored at level t. The
+// switch keeps every index a compile-time constant.
+template <int L, int N>
+__device__ __forceinline__ void push(float (&stk)[MAX_LOG_K + 1][N],
+                                     float (&v)[N], int t) {
+  if constexpr (L < MAX_LOG_K) {
+    if (t != L) {
+      push<L + 1, N>(stk, v, t);
+      return;
+    }
   }
-  long long row0 = 0;
-  auto elem = [&](int r, float (&u)[V], float (&v)[V]) {
-    const long long row = row0 + r;
-    if (row < R) {
-      float xv[V];
-      Vec<T, V>::load(x + row * C + c0, xv);
-      Vec<T, V>::load(dy + row * C + c0, u);
 #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const float xh = __fmul_rn(__fsub_rn(xv[e], m[e]), inv[e]);
-        if (relu) {
-          const float y = __fadd_rn(__fmul_rn(xh, gg[e]), bb[e]);
-          u[e] = __fmul_rn(u[e], y > 0.f ? 1.f : 0.f);
+  for (int l = 0; l < L; ++l)
+#pragma unroll
+    for (int n = 0; n < N; ++n) v[n] = __fadd_rn(stk[l][n], v[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) stk[L][n] = v[n];
+}
+
+// The plan of a launch (kernels/batchnorm_fused.py:fold_plan): NB blocks
+// padded to P = 2^(logG + logH + logK); items = ns << logG, item i being
+// slab i % ns and partial row i / ns; pa, pb the (G', C) partial rows.
+struct FoldArgs {
+  long long R, NB;
+  int C, ns, items, logG, logH, logK;
+  float* pa;
+  float* pb;
+};
+
+// A warp's stream of blocks to load: (item, J) in the order the fold visits
+// them, skipping padding blocks (at or past NB).
+struct Cursor {
+  int item, J;
+};
+
+__device__ __forceinline__ long long block_of(const FoldArgs& a, int item,
+                                              int h, int J) {
+  const long long c = item / a.ns;
+  const long long k = a.logK ? __brev(static_cast<unsigned>(J)) >>
+                                   (32 - a.logK)
+                             : 0;
+  return c + (static_cast<long long>(h) << a.logG) +
+         (k << (a.logG + a.logH));
+}
+
+__device__ __forceinline__ void cursor_next(const FoldArgs& a, int h,
+                                            Cursor& q) {
+  do {
+    if (++q.J == (1 << a.logK)) {
+      q.J = 0;
+      q.item += gridDim.x;
+    }
+  } while (q.item < a.items && block_of(a, q.item, h, q.J) >= a.NB);
+}
+
+// Lane 0 fills `stage` with block blk of the slab from channel c0 on: a
+// 64-row box of x (and of dy), completing on bar. The fence orders the
+// warp's earlier reads of the stage before the TMA unit's writes.
+template <class Op>
+__device__ __forceinline__ void issue(const CUtensorMap* tmx,
+                                      const CUtensorMap* tmdy,
+                                      unsigned char* stage, uint64_t* bar,
+                                      int c0, long long blk) {
+  const int r0 = static_cast<int>(blk * FOLD_BLOCK);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  mbar_expect_tx(bar, Op::TENSORS * FOLD_BLOCK * Op::BS);
+  tma_load4(stage, tmx, c0, r0, 0, 0, bar);
+  if constexpr (Op::TENSORS == 2)
+    tma_load4(stage + FOLD_BLOCK * Op::BS, tmdy, c0, r0, 0, 0, bar);
+}
+
+template <typename T, bool TMA, class Op>
+__global__ void __launch_bounds__(FOLD_WARPS * 32, 1)
+bn_fold_kernel(const __grid_constant__ CUtensorMap tmx,
+               const __grid_constant__ CUtensorMap tmdy,
+               const T* __restrict__ x, const T* __restrict__ dy, Op op,
+               FoldArgs a) {
+  using L = Lanes<T, Op::BS>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[FOLD_WARPS][FOLD_STAGES];
+  __shared__ float comb[2][FOLD_WARPS][2][L::S];
+  unsigned char* ring = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) &
+                                    1023u);
+  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (TMA && lane == 0) {
+    for (int st = 0; st < FOLD_STAGES; ++st) mbar_init(&full[h][st], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const bool active = h < (1 << a.logH);
+  const int K = 1 << a.logK;
+  unsigned char* mine = ring + h * FOLD_STAGES * FOLD_STAGE_BYTES;
+  const int w = lane % L::LC;
+
+  // the warp's first FOLD_STAGES loads
+  Cursor pq{static_cast<int>(blockIdx.x), -1};
+  if (TMA && active) {
+    cursor_next(a, h, pq);
+    for (int st = 0; st < FOLD_STAGES && pq.item < a.items; ++st) {
+      if (lane == 0)
+        issue<Op>(&tmx, &tmdy, mine + st * FOLD_STAGE_BYTES, &full[h][st],
+                  (pq.item % a.ns) * L::S, block_of(a, pq.item, h, pq.J));
+      cursor_next(a, h, pq);
+    }
+  }
+
+  int q = 0;   // real blocks consumed by this warp
+  for (int item = blockIdx.x, t = 0; item < a.items;
+       item += gridDim.x, ++t) {
+    const int s = item % a.ns;
+    const long long c = item / a.ns;
+    op.slab(s * L::S + w * L::E, a.C);
+    if (active) {
+      float stk[MAX_LOG_K + 1][L::N];
+      float v[L::N];
+      for (int J = 0; J < K; ++J) {
+        const long long blk = block_of(a, item, h, J);
+        if (blk < a.NB) {
+          const int st = q % FOLD_STAGES;
+          unsigned char* stage = mine + st * FOLD_STAGE_BYTES;
+          if constexpr (TMA) {
+            mbar_wait(&full[h][st], (q / FOLD_STAGES) & 1);
+          } else {
+            // plain loads: the box TMA would have written, zeros outside
+            __syncwarp();
+            for (int i = lane; i < FOLD_BLOCK * L::S; i += 32) {
+              const long long row = blk * FOLD_BLOCK + i / L::S;
+              const int ch = s * L::S + i % L::S;
+              const bool in = row < a.R && ch < a.C;
+              T* sx = reinterpret_cast<T*>(stage) + i;
+              *sx = in ? x[row * a.C + ch] : zero<T>();
+              if constexpr (Op::TENSORS == 2)
+                *reinterpret_cast<T*>(stage + FOLD_BLOCK * Op::BS +
+                                      i * sizeof(T)) =
+                    in ? dy[row * a.C + ch] : zero<T>();
+            }
+            __syncwarp();
+          }
+          const long long valid = a.R - blk * FOLD_BLOCK;
+          if (valid < FOLD_BLOCK)
+            fold_block<T, true>(stage, lane, static_cast<int>(valid), op, v);
+          else
+            fold_block<T, false>(stage, lane, FOLD_BLOCK, op, v);
+          if constexpr (TMA) {
+            __syncwarp();
+            if (pq.item < a.items) {
+              if (lane == 0)
+                issue<Op>(&tmx, &tmdy, stage, &full[h][st],
+                          (pq.item % a.ns) * L::S,
+                          block_of(a, pq.item, h, pq.J));
+              cursor_next(a, h, pq);
+            }
+          }
+          ++q;
+        } else {
+#pragma unroll
+          for (int n = 0; n < L::N; ++n) v[n] = 0.f;   // padding adds +0
         }
-        v[e] = __fmul_rn(u[e], xh);
+        push<0, L::N>(stk, v, __ffs(~J) - 1);
       }
-    } else {
+      // after visit K-1, v is the fold of the warp's K blocks
+      if (lane < L::LC)
 #pragma unroll
-      for (int e = 0; e < V; ++e) u[e] = v[e] = 0.f;
+        for (int e = 0; e < L::E; ++e) {
+          comb[t & 1][h][0][w * L::E + e] = v[2 * e];
+          comb[t & 1][h][1][w * L::E + e] = v[2 * e + 1];
+        }
     }
-  };
-  auto block = [&](long long blk, float (&u)[V], float (&v)[V]) {
-    float su[FOLD_LEVELS + 1][V], sv[FOLD_LEVELS + 1][V];
-    row0 = blk * FOLD_BLOCK;
-    fold_step<0, V>(su, sv, elem);
+    __syncthreads();
+    if (h == 0) {
+      // the item's H warps by contiguous halves: partial row c of slab s
+      const int H = 1 << a.logH;
+      for (int i = lane; i < 2 * L::S; i += 32) {
+        const int u = i / L::S, ch = i % L::S;
+        float f[FOLD_WARPS];
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      u[e] = su[FOLD_LEVELS][e];
-      v[e] = sv[FOLD_LEVELS][e];
+        for (int k = 0; k < FOLD_WARPS; ++k)
+          f[k] = k < H ? comb[t & 1][k][u][ch] : 0.f;
+#pragma unroll
+        for (int half = FOLD_WARPS / 2; half >= 1; half /= 2)
+          if (half < H)
+#pragma unroll
+            for (int k = 0; k < half; ++k) f[k] = __fadd_rn(f[k], f[k + half]);
+        const int col = s * L::S + ch;
+        if (col < a.C) (u ? a.pb : a.pa)[c * a.C + col] = f[0];
+      }
     }
-  };
-  float u[V], v[V];
-  fold_strided<V>(g, G, NB, logK, block, u, v);
-#pragma unroll
-  for (int e = 0; e < V; ++e) {
-    pdb[g * C + c0 + e] = u[e];
-    pdg[g * C + c0 + e] = v[e];
   }
 }
 
 // ---------------------------------------------------------------------------
-// second launch of rows 4 and 6: fold the G partial rows of each channel
+// second launch of rows 4 and 6: fold the G' partial rows of each channel
 // ---------------------------------------------------------------------------
 
 // Block (FIN_CH, T): threadIdx.x picks the channel, threadIdx.y = t one of T
-// lanes (T a power of two, T <= G). Lane t folds partial rows
-// {t + kT : k < G/T} by contiguous halves in streaming order -- the next
-// log2(G/T) levels of the tree -- and the lanes finish the last log2(T)
+// lanes (T a power of two, T <= G'). Lane t folds partial rows
+// {t + kT : k < G'/T} by contiguous halves in streaming order -- the next
+// log2(G'/T) levels of the tree -- and the lanes finish the last log2(T)
 // levels in shared memory. mode 0 writes mean and var, mode 1 the two sums.
 __global__ void bn_finalize_kernel(const float* __restrict__ pa,
                                    const float* __restrict__ pb, int logK,
@@ -543,33 +715,9 @@ long long elementwise_threads(long long R, int CVn) {
   return lanes * CVn;
 }
 
-// The fold plan of an (R, C) reduction: NB 64-row blocks, padded to
-// P = 2^logP; G = P / 2^logK partial rows, with 2^logK blocks folded per
-// thread, K the smallest that keeps about FOLD_THREADS threads busy.
-struct FoldPlan {
-  long long NB, G;
-  int logP, logK, CVn, V;
-};
-
-FoldPlan fold_plan(long long R, int C, bool vec) {
-  FoldPlan f;
-  f.V = vec ? FOLD_VEC : 1;
-  f.CVn = C / f.V;
-  f.NB = (R + FOLD_BLOCK - 1) / FOLD_BLOCK;
-  f.logP = 0;
-  while ((1LL << f.logP) < f.NB) ++f.logP;
-  f.logK = 0;
-  while (f.logK < f.logP && f.logK < MAX_LOG_K &&
-         ((1LL << (f.logP - f.logK)) * f.CVn) > FOLD_THREADS)
-    ++f.logK;
-  f.G = 1LL << (f.logP - f.logK);
-  return f;
-}
-
-// The finalize launch over the plan's G partial rows.
-int finalize(const FoldPlan& f, const float* pa, const float* pb, int C,
-             float Rf, int mode, float* oa, float* ob, cudaStream_t stream) {
-  const int logG = f.logP - f.logK;
+// The finalize launch over the plan's G' = 2^logG partial rows.
+int finalize(int logG, const float* pa, const float* pb, int C, float Rf,
+             int mode, float* oa, float* ob, cudaStream_t stream) {
   const int logT = logG < 6 ? logG : 6;      // FIN_LANES = 64
   if (logG - logT > MAX_LOG_G) return static_cast<int>(cudaErrorInvalidValue);
   dim3 block(FIN_CH, 1 << logT);
@@ -578,52 +726,96 @@ int finalize(const FoldPlan& f, const float* pa, const float* pb, int C,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Row 4: partials, then finalize (mean, var). scratch holds 2 * P * C floats.
-template <typename T>
-int stats(const void* x, float* scratch, float* mean, float* var, long long R,
-          int C, cudaStream_t stream) {
-  const bool vec = C % FOLD_VEC == 0 && aligned(x, FOLD_VEC * sizeof(T));
-  const FoldPlan f = fold_plan(R, C, vec);
-  float* psum = scratch;
-  float* psq = scratch + f.G * C;
-  const int grid = grid_for(f.G * f.CVn);
-  if (grid < 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  if (vec)
-    bn_stats_partials_kernel<T, FOLD_VEC><<<grid, THREADS, 0, stream>>>(
-        static_cast<const T*>(x), psum, psq, R, C, f.CVn, f.NB, f.G, f.logK);
-  else
-    bn_stats_partials_kernel<T, 1><<<grid, THREADS, 0, stream>>>(
-        static_cast<const T*>(x), psum, psq, R, C, f.CVn, f.NB, f.G, f.logK);
-  const int err = static_cast<int>(cudaGetLastError());
+// The fold launch of rows 4 and 6 under the wrapper's plan (logG, logH,
+// logK, grid): checks it against (R, C), then launches bn_fold_kernel by
+// TMA where the tensors allow it, by plain loads where not. scratch holds
+// the two (G', C) float arrays of partial rows.
+template <typename T, class Op>
+int fold(const void* x, const void* dy, const Op& op, float* scratch,
+         long long R, int C, int logG, int logH, int logK, int grid,
+         cudaStream_t stream) {
+  using L = Lanes<T, Op::BS>;
+  FoldArgs a;
+  a.R = R;
+  a.C = C;
+  a.NB = (R + FOLD_BLOCK - 1) / FOLD_BLOCK;
+  int logP = 0;
+  while ((1LL << logP) < a.NB) ++logP;
+  const long long ns = (C + L::S - 1) / L::S;
+  if (R < 1 || C < 1 || R > 0x7fffffffLL - FOLD_BLOCK || logG < 0 ||
+      logH < 0 || (1 << logH) > FOLD_WARPS || logK < 0 || logK > MAX_LOG_K ||
+      logG + logH + logK != logP || logG > 30 ||
+      (ns << logG) > 0x7fffffffLL || grid < 1 || grid > (ns << logG))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.ns = static_cast<int>(ns);
+  a.items = static_cast<int>(ns << logG);
+  a.logG = logG;
+  a.logH = logH;
+  a.logK = logK;
+  a.pa = scratch;
+  a.pb = scratch + (1LL << logG) * C;
+  const bool tma = (static_cast<long long>(C) * sizeof(T)) % 16 == 0 &&
+                   aligned(x, 16) && (Op::TENSORS == 1 || aligned(dy, 16));
+  // A runtime call before the tensor maps: it makes the device's context
+  // current in this thread, which the driver's encoder needs (autograd's
+  // backward thread may have made no CUDA call yet).
+  auto kernel =
+      tma ? bn_fold_kernel<T, true, Op> : bn_fold_kernel<T, false, Op>;
+  int err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FOLD_SMEM));
   if (err != 0) return err;
-  return finalize(f, psum, psq, C, static_cast<float>(R), 0, mean, var,
-                  stream);
+  CUtensorMap tmx, tmdy;
+  memset(&tmx, 0, sizeof(tmx));
+  memset(&tmdy, 0, sizeof(tmdy));
+  if (tma) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C),
+                                static_cast<cuuint64_t>(R), 1, 1};
+    const cuuint32_t box[4] = {L::S, FOLD_BLOCK, 1, 1};
+    const CUtensorMapDataType dt = sizeof(T) == 2
+                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    err = encode_tiled(&tmx, x, 4, dims, box, nullptr, dt,
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err == 0 && Op::TENSORS == 2)
+      err = encode_tiled(&tmdy, dy, 4, dims, box, nullptr, dt,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != 0) return err;
+  }
+  kernel<<<grid, FOLD_WARPS * 32, FOLD_SMEM, stream>>>(
+      tmx, tmdy, static_cast<const T*>(x), static_cast<const T*>(dy), op, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Row 6: partials, then finalize (dbeta, dgamma). scratch as for stats.
+// Row 4: the fold, then finalize (mean, var).
+template <typename T>
+int stats(const void* x, float* scratch, float* mean, float* var, long long R,
+          int C, int logG, int logH, int logK, int grid,
+          cudaStream_t stream) {
+  const int err = fold<T>(x, nullptr, StatsOp<T>{}, scratch, R, C, logG,
+                          logH, logK, grid, stream);
+  if (err != 0) return err;
+  return finalize(logG, scratch, scratch + (1LL << logG) * C, C,
+                  static_cast<float>(R), 0, mean, var, stream);
+}
+
+// Row 6: the fold, then finalize (dbeta, dgamma).
 template <typename T>
 int bwd_reduce(const void* x, const void* dy, const float* g, const float* b,
                const float* mean, const float* var, float eps, int relu,
                float* scratch, float* db, float* dg, long long R, int C,
-               cudaStream_t stream) {
-  const bool vec = C % FOLD_VEC == 0 && aligned(x, FOLD_VEC * sizeof(T)) &&
-                   aligned(dy, FOLD_VEC * sizeof(T));
-  const FoldPlan f = fold_plan(R, C, vec);
-  float* pdb = scratch;
-  float* pdg = scratch + f.G * C;
-  const int grid = grid_for(f.G * f.CVn);
-  if (grid < 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  if (vec)
-    bn_bwd_partials_kernel<T, FOLD_VEC><<<grid, THREADS, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(dy), g, b, mean, var,
-        eps, relu, pdb, pdg, R, C, f.CVn, f.NB, f.G, f.logK);
-  else
-    bn_bwd_partials_kernel<T, 1><<<grid, THREADS, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(dy), g, b, mean, var,
-        eps, relu, pdb, pdg, R, C, f.CVn, f.NB, f.G, f.logK);
-  const int err = static_cast<int>(cudaGetLastError());
+               int logG, int logH, int logK, int grid, cudaStream_t stream) {
+  BwdOp<T> op;
+  op.g = g;
+  op.b = b;
+  op.mean = mean;
+  op.var = var;
+  op.eps = eps;
+  op.relu = relu;
+  const int err = fold<T>(x, dy, op, scratch, R, C, logG, logH, logK, grid,
+                          stream);
   if (err != 0) return err;
-  return finalize(f, pdb, pdg, C, static_cast<float>(R), 1, db, dg, stream);
+  return finalize(logG, scratch, scratch + (1LL << logG) * C, C,
+                  static_cast<float>(R), 1, db, dg, stream);
 }
 
 template <typename T>
@@ -683,17 +875,20 @@ extern "C" {
 // one dtype (bf16 or f32); g, b, mean, var, db, dg are (C,) float32.
 // R >= 1 and C >= 1.
 
-// Row 4 and its finalize: mean and var of each column. scratch: 2 * P * C
-// floats, P = ceil(R/64) rounded up to a power of two.
+// Row 4 and its finalize: mean and var of each column, under the plan
+// (logG, logH, logK, grid) of kernels/batchnorm_fused.py:fold_plan.
+// scratch: 2 * 2^logG * C floats.
 int bn_stats_bf16(const void* x, float* scratch, float* mean, float* var,
-                  long long R, int C, void* stream) {
-  return stats<__nv_bfloat16>(x, scratch, mean, var, R, C,
-                              static_cast<cudaStream_t>(stream));
+                  long long R, int C, int logG, int logH, int logK, int grid,
+                  void* stream) {
+  return stats<__nv_bfloat16>(x, scratch, mean, var, R, C, logG, logH, logK,
+                              grid, static_cast<cudaStream_t>(stream));
 }
 
 int bn_stats_f32(const void* x, float* scratch, float* mean, float* var,
-                 long long R, int C, void* stream) {
-  return stats<float>(x, scratch, mean, var, R, C,
+                 long long R, int C, int logG, int logH, int logK, int grid,
+                 void* stream) {
+  return stats<float>(x, scratch, mean, var, R, C, logG, logH, logK, grid,
                       static_cast<cudaStream_t>(stream));
 }
 
@@ -711,23 +906,26 @@ int bn_apply_f32(const void* x, const float* g, const float* b,
                       static_cast<cudaStream_t>(stream));
 }
 
-// Row 6 and its finalize: db = sum dy', dg = sum dy' * xhat. scratch as for
-// bn_stats.
+// Row 6 and its finalize: db = sum dy', dg = sum dy' * xhat. Plan and
+// scratch as for bn_stats.
 int bn_bwd_reduce_bf16(const void* x, const void* dy, const float* g,
                        const float* b, const float* mean, const float* var,
                        float eps, int relu, float* scratch, float* db,
-                       float* dg, long long R, int C, void* stream) {
+                       float* dg, long long R, int C, int logG, int logH,
+                       int logK, int grid, void* stream) {
   return bwd_reduce<__nv_bfloat16>(x, dy, g, b, mean, var, eps, relu,
-                                   scratch, db, dg, R, C,
-                                   static_cast<cudaStream_t>(stream));
+                                   scratch, db, dg, R, C, logG, logH, logK,
+                                   grid, static_cast<cudaStream_t>(stream));
 }
 
 int bn_bwd_reduce_f32(const void* x, const void* dy, const float* g,
                       const float* b, const float* mean, const float* var,
                       float eps, int relu, float* scratch, float* db,
-                      float* dg, long long R, int C, void* stream) {
+                      float* dg, long long R, int C, int logG, int logH,
+                      int logK, int grid, void* stream) {
   return bwd_reduce<float>(x, dy, g, b, mean, var, eps, relu, scratch, db, dg,
-                           R, C, static_cast<cudaStream_t>(stream));
+                           R, C, logG, logH, logK, grid,
+                           static_cast<cudaStream_t>(stream));
 }
 
 int bn_bwd_dx_bf16(const void* x, const void* dy, const float* g,

@@ -3,9 +3,9 @@
 // wgmma shared-memory descriptors in the 128-byte swizzle and the wgmma
 // forms the kernels issue, and the host-side tensor-map encoder.
 //
-// Included by csrc/conv_fused.cu, csrc/flash_attention.cu and
-// csrc/quantized_matmul.cu; each source builds into its own library, so
-// everything here has internal linkage.
+// Included by csrc/conv_fused.cu, csrc/flash_attention.cu,
+// csrc/quantized_matmul.cu and csrc/batchnorm_fused.cu; each source builds
+// into its own library, so everything here has internal linkage.
 #pragma once
 
 #include <cuda.h>
@@ -346,12 +346,13 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
 // The tensor map of a tensor of `rank` dimensions and element type `dtype`
 // (bf16, or uint8, int32 or f32; dims[0] innermost and contiguous; the
 // others `byte_strides` apart, or packed), read in boxes of box[] elements
-// and written in the 128-byte swizzle; elements outside the tensor read as
-// zero.
+// and written in the 128-byte swizzle (or `swizzle`); elements outside the
+// tensor read as zero.
 int encode_tiled(CUtensorMap* map, const void* base, int rank,
                  const cuuint64_t* dims, const cuuint32_t* box,
                  const cuuint64_t* byte_strides = nullptr,
-                 CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                 CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                 CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -372,7 +373,7 @@ int encode_tiled(CUtensorMap* map, const void* base, int rank,
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, dtype, rank, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

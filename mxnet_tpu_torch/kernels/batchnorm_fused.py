@@ -9,10 +9,12 @@ mxnet_tpu/pallas_kernels/batchnorm_fused.py).
 Four kernels in ``csrc/batchnorm_fused.cu``, one wrapper each over (R, C)
 row-major tensors: ``stats`` (with a second "finalize" launch that folds
 its partial sums into mean and var), ``apply``, ``bwd_reduce`` (with its
-finalize launch: dbeta and dgamma) and ``bwd_dx``. Beside each is its plain
-version (``stats_reference``, ``apply_reference``, ...). A wrapper runs the
-plain version for a CPU tensor and launches its kernel for a CUDA tensor,
-or raises; there is no other route. ``fused_batch_norm`` is the
+finalize launch: dbeta and dgamma) and ``bwd_dx``; the two folds (stats
+and bwd_reduce) are persistent blocks that walk ``fold_plan``'s items.
+Beside each is its plain version (``stats_reference``,
+``apply_reference``, ...). A wrapper runs the plain version for a CPU
+tensor and launches its kernel for a CUDA tensor, or raises; there is no
+other route. ``fused_batch_norm`` is the
 ``torch.autograd.Function`` over the four; ``batchnorm_reference`` and
 ``batchnorm_backward_reference`` compose the plain versions on whole
 tensors. The kernels' design note is in their source.
@@ -27,6 +29,7 @@ deviation is taken as two IEEE ops (sqrt, then divide).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -34,6 +37,7 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["FOLD_BLOCK", "fold_blocks", "fold_partials", "tree_fold_rows",
+           "FOLD_WARPS", "MAX_LOG_K", "SLAB_BYTES", "FoldPlan", "fold_plan",
            "exact_sq", "exact_mul", "inv_std", "max0", "div_count",
            "stats_reference", "apply_reference", "bwd_reduce_reference",
            "bwd_dx_reference", "batchnorm_reference",
@@ -94,6 +98,51 @@ def fold_partials(parts):
 def tree_fold_rows(v):
     """Deterministic column sum of a float32 (R, C) tensor -> (1, C)."""
     return fold_partials(fold_blocks(v))
+
+
+# -- the fold kernels' plan ---------------------------------------------------
+#
+# The stats and backward-reduce kernels split the tree above without changing
+# it. Their persistent blocks of FOLD_WARPS warps walk items: an item is a
+# slab of channels (SLAB_BYTES of each row) times one of G' = 2^logg partial
+# rows c; warp h of the item folds the 64-row blocks {c + G'h + G'Hk : k < K}
+# (H = 2^logh, K = 2^logk, G'HK = P, the block count padded to a power of
+# two), each block by contiguous halves and the K blocks by contiguous halves
+# in k; the H warps' sums fold by contiguous halves in h into partial row c,
+# and the finalize launch folds the G' rows by contiguous halves. Each of
+# these sets of blocks is a subtree of fold_partials' tree, so the result is
+# tree_fold_rows bit for bit.
+
+FOLD_WARPS = 8          # warps of a fold block (csrc: FOLD_WARPS)
+MAX_LOG_K = 10          # blocks per warp and item: at most 2^10 (csrc)
+# Bytes of each row an item reads: 64 bf16 or 32 f32 channels for the stats
+# (one tensor), half that for the backward reduce (x and dy).
+SLAB_BYTES = {"stats": 128, "bwd_reduce": 64}
+
+FoldPlan = collections.namedtuple(
+    "FoldPlan", "nb logp slab ns logg logh logk items grid")
+
+
+def fold_plan(R, C, n_sm, slab):
+    """The work partition of one fold launch over (R, C) with ``slab``
+    channels per item, for a card of ``n_sm`` SMs (one persistent block
+    each): nb 64-row blocks padded to 2^logp; ns slabs; G' = 2^logg partial
+    rows, the fewest that give every SM an item, but at most 2^MAX_LOG_K
+    blocks per warp; H = 2^logh warps (fewer than FOLD_WARPS only when P
+    is smaller); K = 2^logk blocks per warp and item; ``items`` = ns * G',
+    ``grid`` persistent blocks."""
+    nb = -(-R // FOLD_BLOCK)
+    logp = (nb - 1).bit_length()
+    ns = -(-C // slab)
+    logh = min(FOLD_WARPS.bit_length() - 1, logp)
+    room = logp - logh
+    logg = 0
+    while logg < room and (ns << logg) < n_sm:
+        logg += 1
+    logg = max(logg, room - MAX_LOG_K)
+    items = ns << logg
+    return FoldPlan(nb, logp, slab, ns, logg, logh, room - logg, items,
+                    min(items, n_sm))
 
 
 def _hi(t):
@@ -324,11 +373,12 @@ def stats(x2):
     R, C = _launchable("stats", x2)
     mean = torch.empty(C, dtype=torch.float32, device=x2.device)
     var = torch.empty_like(mean)
-    scratch = _scratch(R, C, x2.device)
+    plan = _plan("stats", x2)
+    scratch = _scratch(plan, C, x2.device)
     with torch.cuda.device(x2.device):
         _call("bn_stats", x2.dtype, (R, C), x2.data_ptr(),
               scratch.data_ptr(), mean.data_ptr(), var.data_ptr(), R, C,
-              _stream(x2))
+              plan.logg, plan.logh, plan.logk, plan.grid, _stream(x2))
         LAUNCHES_STATS += 1
         LAUNCHES_FINALIZE += 1
     return mean, var
@@ -361,12 +411,14 @@ def bwd_reduce(x2, dy2, gamma, beta, mean, var, eps=1e-3, act=None):
     g32, b32 = _f32(gamma, beta, x2)
     db = torch.empty(C, dtype=torch.float32, device=x2.device)
     dg = torch.empty_like(db)
-    scratch = _scratch(R, C, x2.device)
+    plan = _plan("bwd_reduce", x2)
+    scratch = _scratch(plan, C, x2.device)
     with torch.cuda.device(x2.device):
         _call("bn_bwd_reduce", x2.dtype, (R, C), x2.data_ptr(),
               dy2.data_ptr(), g32.data_ptr(), b32.data_ptr(), mean.data_ptr(),
               var.data_ptr(), eps, int(act == "relu"), scratch.data_ptr(),
-              db.data_ptr(), dg.data_ptr(), R, C, _stream(x2))
+              db.data_ptr(), dg.data_ptr(), R, C, plan.logg, plan.logh,
+              plan.logk, plan.grid, _stream(x2))
         LAUNCHES_BWD_REDUCE += 1
         LAUNCHES_FINALIZE += 1
     return db, dg
@@ -398,10 +450,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGS = {
-    "bn_stats": [_P, _P, _P, _P, _L, _I, _P],
+    "bn_stats": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     "bn_apply": [_P, _P, _P, _P, _P, _F, _I, _P, _L, _I, _P],
     "bn_bwd_reduce": [_P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P, _L, _I,
-                      _P],
+                      _I, _I, _I, _I, _P],
     "bn_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _F, _P, _L, _I,
                   _P],
 }
@@ -464,9 +516,19 @@ def _call(name, dtype, shape, *args):
                          "(R, C = %s, %s)" % (name, err, shape, dtype))
 
 
-def _scratch(R, C, device):
-    """Room for the two (P, C) float32 partial arrays of a fold, P the
-    number of 64-row blocks rounded up to a power of two."""
-    nb = -(-R // FOLD_BLOCK)
-    return torch.empty(2 * (1 << max(nb - 1, 0).bit_length()) * C,
-                       dtype=torch.float32, device=device)
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _plan(kernel, x2):
+    """``fold_plan`` of the stats or backward-reduce launch over x2."""
+    R, C = x2.shape
+    return fold_plan(R, C, _sm_count(x2.device),
+                     SLAB_BYTES[kernel] // x2.element_size())
+
+
+def _scratch(plan, C, device):
+    """Room for the two (G', C) float32 arrays of partial rows that a fold
+    launch under ``plan`` writes."""
+    return torch.empty(2 * (1 << plan.logg) * C, dtype=torch.float32,
+                       device=device)

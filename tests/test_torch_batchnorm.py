@@ -102,6 +102,189 @@ def test_exact_sq_bitwise():
     assert _same_bits(out, JBN.exact_sq(jnp.asarray(x)))
 
 
+# -- the fold kernels' plan ---------------------------------------------------
+#
+# A plain-torch model of csrc/batchnorm_fused.cu's bn_fold_kernel and
+# bn_finalize_kernel under fold_plan, level by level in the kernels' own
+# order and grouping: a lane's rows {j + JR m} of a 64-row block in
+# bit-reversed streaming order (JR row classes: 1 for the stats' 128-byte
+# slabs, 2 for the backward's 64-byte ones), the row classes by shuffles, a
+# warp's K blocks {c + G'h + G'Hk} in bit-reversed streaming order, the H
+# warps by contiguous halves, then the finalize's lanes and its shared-memory
+# halves. It must give tree_fold_rows bit for bit: the plan only regroups
+# the JAX package's tree.
+
+# (slab channels, row classes JR) of each fold kernel and dtype.
+FOLD_KINDS = {"stats-bf16": (64, 1), "stats-f32": (32, 1),
+              "bwd-bf16": (32, 2), "bwd-f32": (16, 2)}
+FOLD_ROWS = [1, 63, 65, 4097, 64 * 25088 + 17]
+
+
+def _trailing_ones(j):
+    n = 0
+    while j & 1:
+        n, j = n + 1, j >> 1
+    return n
+
+
+def _brev(j, bits):
+    return int(format(j, "0%db" % bits)[::-1], 2) if bits else 0
+
+
+def _stream_fold(visits):
+    """The kernels' binary-counter stack over visits J = 0 .. 2^L - 1:
+    visit J is folded with the stack's levels below trailing_ones(J) and
+    stored at that level; the last visit leaves the whole fold."""
+    stack = {}
+    for J, v in enumerate(visits):
+        t = _trailing_ones(J)
+        for level in range(t):
+            v = stack[level] + v
+        stack[t] = v
+    return v
+
+
+def _halves(v):
+    """Contiguous halves over dim 0 of a power-of-two length."""
+    while v.shape[0] > 1:
+        n = v.shape[0] // 2
+        v = v[:n] + v[n:]
+    return v
+
+
+def _fold_like_the_kernel(v, plan, jr):
+    """(R, c) float32 -> the (G', c) partial rows bn_fold_kernel writes
+    under ``plan`` (channels are independent: c may be fewer than the
+    plan's C)."""
+    R, c = v.shape
+    rows = torch.cat([v, v.new_zeros(plan.nb * 64 - R, c)])  # masked: +0
+    b = rows.reshape(plan.nb, 64 // jr, jr, c)               # m * jr + j
+    lm = (64 // jr).bit_length() - 1
+    lanes = _stream_fold([b[:, _brev(J, lm)] for J in range(64 // jr)])
+    o = jr // 2
+    while o >= 1:                                   # __shfl_down_sync
+        lanes = lanes[:, :o] + lanes[:, o:2 * o]
+        o //= 2
+    blocks = torch.cat([lanes[:, 0],                # padding blocks: +0
+                        v.new_zeros((1 << plan.logp) - plan.nb, c)])
+    K, H, G = 1 << plan.logk, 1 << plan.logh, 1 << plan.logg
+    units = blocks.reshape(K, H, G, c)              # c + G h + G H k
+    warps = _stream_fold([units[_brev(J, plan.logk)] for J in range(K)])
+    return _halves(warps)[0]                        # (G', c)
+
+
+def _finalize_like_the_kernel(parts):
+    """bn_finalize_kernel's fold of (G', c) partial rows -> (1, c): lane t
+    of T = min(G', 64) streams rows {t + T k}, then halves over t."""
+    G = parts.shape[0]
+    T = min(G, 64)
+    kf = G // T
+    lanes = parts.reshape(kf, T, parts.shape[1])
+    return _halves(_stream_fold([lanes[_brev(J, kf.bit_length() - 1)]
+                                 for J in range(kf)]))
+
+
+def _fold_values(rows, seed):
+    """(rows, 3) float32 over many magnitudes: a channel of -0.0 (the
+    padding's +0 must win), and inf and NaN entries beside finite ones."""
+    rs = np.random.RandomState(seed)
+    v = (rs.randn(rows, 3) * 10.0 ** rs.randint(-6, 6, (rows, 3))) \
+        .astype("float32")
+    v[:, 0] = -0.0
+    if rows > 64:
+        v[rows // 3, 2] = np.inf
+        v[rows - 1, 2] = np.nan
+    return torch.from_numpy(v)
+
+
+@pytest.mark.parametrize("n_sm", [132, 5])
+@pytest.mark.parametrize("kind", sorted(FOLD_KINDS))
+@pytest.mark.parametrize("rows", FOLD_ROWS)
+def test_fold_plan_regroups_the_tree(rows, kind, n_sm):
+    """Sums and exact_sq sums folded by the plan's items (for C of 3, 64
+    and 2048 channels) and then by the finalize's tree equal
+    tree_fold_rows bit for bit, padding, masked rows and the sign of zero
+    included."""
+    slab, jr = FOLD_KINDS[kind]
+    v = _fold_values(rows, rows % 97)
+    for q in (v, BN.exact_sq(v)):
+        want = BN.tree_fold_rows(q)
+        for C in (3, 64, 2048):
+            plan = BN.fold_plan(rows, C, n_sm, slab)
+            got = _finalize_like_the_kernel(_fold_like_the_kernel(q, plan,
+                                                                  jr))
+            assert _same_bits(got, want.numpy()), (C, plan)
+
+
+@pytest.mark.parametrize("kind", sorted(FOLD_KINDS))
+@pytest.mark.parametrize("rows", [65, 64 * 10 + 17])
+def test_fold_plan_regroups_jax_tree(rows, kind):
+    """The same model against JAX's fold_blocks and fold_partials."""
+    slab, jr = FOLD_KINDS[kind]
+    v = _fold_values(rows, 11)
+    plan = BN.fold_plan(rows, 130, 5, slab)
+    got = _finalize_like_the_kernel(_fold_like_the_kernel(v, plan, jr))
+    ref = JBN.fold_partials(JBN.fold_blocks(jnp.asarray(v.numpy())))
+    assert _same_bits(got, ref)
+
+
+def _walk(plan, R):
+    """The loads of every warp of every persistent block, in the kernel's
+    order (csrc: block_of and cursor_next): [(item, block)]."""
+    nb, K = -(-R // 64), 1 << plan.logk
+    loads = []
+    for cta in range(plan.grid):
+        for h in range(1 << plan.logh):
+            for item in range(cta, plan.items, plan.grid):
+                c = item // plan.ns
+                for J in range(K):
+                    blk = c + (h << plan.logg) \
+                        + (_brev(J, plan.logk) << (plan.logg + plan.logh))
+                    if blk < nb:
+                        loads.append((item, blk))
+    return loads
+
+
+@pytest.mark.parametrize("n_sm", [132, 5])
+@pytest.mark.parametrize("slab", [64, 32])
+@pytest.mark.parametrize("rows", FOLD_ROWS)
+def test_fold_walk_loads_every_block_once(rows, slab, n_sm):
+    """Every (slab, 64-row block) is loaded exactly once, every item (slab,
+    partial row) is walked by one persistent block, and with 5 SMs each
+    block walks several items."""
+    C = 130
+    plan = BN.fold_plan(rows, C, n_sm, slab)
+    loads = _walk(plan, rows)
+    seen = sorted((item % plan.ns, blk) for item, blk in loads)
+    assert seen == [(s, b) for s in range(plan.ns) for b in range(plan.nb)]
+    assert plan.grid <= n_sm and plan.items == plan.ns << plan.logg
+    if n_sm == 5 and plan.items > 5:
+        assert plan.items > plan.grid
+
+
+@pytest.mark.parametrize("C", [1, 64, 2048, 100000])
+@pytest.mark.parametrize("rows", [1, 2, 64 * 2 ** 20 + 1, 2 ** 31 - 64])
+def test_fold_plan_limits(rows, C):
+    """The plan stays inside what the kernel checks: K <= 2^MAX_LOG_K,
+    H <= FOLD_WARPS, G' H K = P, items fit an int, 1 <= grid <= items."""
+    for slab in (64, 32, 16):
+        p = BN.fold_plan(rows, C, 132, slab)
+        assert p.logg + p.logh + p.logk == p.logp
+        assert (1 << p.logp) >= p.nb > (1 << p.logp) // 2 or p.nb == 1
+        assert 0 <= p.logk <= BN.MAX_LOG_K
+        assert (1 << p.logh) <= BN.FOLD_WARPS
+        assert 1 <= p.grid <= p.items < 2 ** 31
+
+
+def test_bf16_square_is_exact_sq():
+    """Every bf16 value's square in f32 is exact (8 significant bits), so
+    the bf16 stats kernel's plain product equals exact_sq bit for bit."""
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16) \
+        .view(torch.bfloat16).float()
+    assert torch.equal(BN.exact_sq(x).view(torch.int32),
+                       (x * x).view(torch.int32))
+
+
 # -- the plain forward against the JAX reference ------------------------------
 
 @pytest.mark.parametrize("act", [None, "relu"])

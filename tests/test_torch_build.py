@@ -67,9 +67,10 @@ def test_every_source_has_its_own_library():
 
 
 # The Hopper primitives that the TMA and wgmma kernels (conv_fused,
-# flash_attention, quantized_matmul) use live once, in csrc/sm90.cuh.
+# flash_attention, quantized_matmul, batchnorm_fused) use live once, in
+# csrc/sm90.cuh.
 HOPPER = ("conv_fused.cu", "flash_attention.cu", "quantized_matmul.cu",
-          "sm90.cuh")
+          "batchnorm_fused.cu", "sm90.cuh")
 SHARED = ("smem_addr", "mbar_init", "mbar_arrive", "mbar_expect_tx",
           "mbar_wait", "tma_load4", "tma_store4", "reg_fence", "sw128_desc",
           "sw128_desc_at", "wgmma_rs", "wgmma_ss", "wgmma_ss_kk",
@@ -86,7 +87,7 @@ def test_hopper_primitives_have_one_copy(name):
 
 
 @pytest.mark.parametrize("source", ["conv_fused", "flash_attention",
-                                    "quantized_matmul"])
+                                    "quantized_matmul", "batchnorm_fused"])
 def test_hopper_kernels_include_the_shared_header(source):
     text = open(os.path.join(CSRC, source + ".cu")).read()
     assert '#include "sm90.cuh"' in text
@@ -208,3 +209,31 @@ def test_conv_probe_variants_apply(name, tmp_path):
     if name == "trace":
         tail = tail.replace('extern "C" {\n', probe.TRACE_FETCH, 1)
     assert out.endswith(tail)
+
+
+def _bn_probe():
+    path = os.path.join(os.path.dirname(CSRC), os.pardir, "chip_bn_probe.py")
+    spec = importlib.util.spec_from_file_location("chip_bn_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# chip_bn_probe.py builds its variants of the BatchNorm folds by editing
+# csrc/batchnorm_fused.cu's text: each edit must still apply, and leave the
+# elementwise kernels (rows 5 and 7) as they are.
+@pytest.mark.parametrize("name", ["as_is", "stages2", "warps4", "bwd128",
+                                  "pdl", "items2x"])
+def test_bn_probe_variants_apply(name, tmp_path):
+    probe = _bn_probe()
+    assert name in probe.VARIANTS
+    src = open(os.path.join(CSRC, "batchnorm_fused.cu")).read()
+    out = open(probe.write_sources([name], str(tmp_path))[name]).read()
+    # the plans build the source as it is and change fold_plan's SM count
+    assert (out == src) == (name == "as_is" or name in probe.PLANS)
+    assert open(os.path.join(tmp_path, name, "sm90.cuh")).read() == \
+        open(os.path.join(CSRC, "sm90.cuh")).read()
+    start = src.index("// row 5: out = act")
+    end = src.index("// launch helpers")
+    assert out[out.index("// row 5: out = act"):
+               out.index("// launch helpers")] == src[start:end]

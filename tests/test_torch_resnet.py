@@ -192,7 +192,8 @@ def test_entry_points_default_to_the_card():
 
 def test_import_leaves_jax_out():
     code = ("import sys; sys.path.insert(0, %r); import mxnet_tpu_torch, "
-            "chip_smoke, chip_f32_witness, chip_flash_probe, chip_conv_probe; "
+            "chip_smoke, chip_f32_witness, chip_flash_probe, chip_conv_probe, "
+            "chip_bn_probe; "
             "bad = [m for m in sys.modules if m.split('.')[0] "
             "in ('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)" % REPO)
@@ -212,6 +213,7 @@ def _port_sources():
     yield os.path.join(REPO, "chip_f32_witness.py")
     yield os.path.join(REPO, "chip_flash_probe.py")
     yield os.path.join(REPO, "chip_conv_probe.py")
+    yield os.path.join(REPO, "chip_bn_probe.py")
 
 
 def test_no_jax_or_reference_imports_in_port_sources():
