@@ -17,6 +17,7 @@
     python3 chip_smoke.py --phases env,train_lm,time_lm
     python3 chip_smoke.py --phases env,kernel_qmm,time_qmm
     python3 chip_smoke.py --phases env,serve_int8,time_int8
+    python3 chip_smoke.py --phases env,kernel_codec,time_codec
 
 Phases, each printing JSON lines:
 
@@ -64,12 +65,17 @@ Phases, each printing JSON lines:
               byte off alignment (the byte route) and transposed (refused),
               and at int8 extremes: bit for bit, the same bits on a second
               launch, and the route the wrapper's predicate names. The
-              2-bit quantize and
+              flash and int8 launchers also as the first CUDA call of a
+              new thread (they encode tensor maps). The 2-bit quantize and
               dequantize kernels at every compressed ResNet-50 parameter
               size and at edge sizes (CODEC_EDGE_N), bf16 and f32,
               thresholds 0.5 and 0.3, with exactly +-threshold, +-0.0,
-              +-inf and NaN among the values: words, residuals and decoded
-              values bit for bit, the same bits on a second launch. The
+              +-inf and NaN among the values, one tensor a call and in
+              grouped calls (all 54 sizes, the edge sizes and a
+              misaligned segment in one launch; 71 segments in two
+              launches planned for FEW_SMS SMs): words, residuals and
+              decoded values bit for bit, the same bits on a second
+              launch. The
               packed Adam apply over ResNet-50's trainable shapes, bf16 and
               f32, with weight decay, with and without clip, at update
               counts 1 and 10: bit for bit against its plain version and
@@ -114,10 +120,12 @@ Phases, each printing JSON lines:
               given to gluon.Trainer, 5 steps. Every gradient is pushed
               (compressed when it has at least 4096 elements: 54 of the
               161 trainable parameters, 25,502,912 elements) and pulled
-              back into param.grad(). Counters are zeroed just before:
-              exactly 54 quantize and 54 dequantize launches per step, 53
-              per BatchNorm kernel, no conv_fused; the loss finite and
-              falling. Then one more step with the pushes recorded: every
+              back into param.grad(): the Trainer pushes and pulls all
+              161 keys at once, so the store encodes the 54 with one
+              grouped call of each codec kernel. Counters are zeroed just
+              before: exactly 1 quantize and 1 dequantize launch per step,
+              each of 54 segments, 53 per BatchNorm kernel, no conv_fused;
+              the loss finite and falling. Then one more step with the pushes recorded: every
               compressed key's pulled gradient and residual equal the plain
               codec on the card on the same pushed gradient and residual,
               every other key's pulled gradient the pushed one, bit for
@@ -168,7 +176,9 @@ Phases, each printing JSON lines:
               and device ms split into kernels, im2col, quantize passes
               and float layers, beside the f32 forward (TF32 off and
               on); the 2-bit codec kernels over one train_kv step's 54
-              compressed gradients and the packed Adam kernel over one
+              compressed gradients (one grouped launch of each; per size
+              alone), the store's push and pull host ms, and the packed
+              Adam kernel over one
               update phase, beside their bounds and plain versions (and
               torch._fused_adam_ for Adam); train_kv's and train_adam's
               images/sec, device busy time and idle share beside train's
@@ -194,9 +204,14 @@ env, time_lm, the LM step's timing, after env,train_lm, and kernel_qmm
 and time_qmm, the int8 matmul's part (rows 12-13: its checks, including
 the wgmma route's edge shapes and a FEW_SMS-SM plan, and its times per
 shape beside torch._int_mm, the bound and the route taken), after env
-alone, and time_int8, int8 serving's part of phase time (time_qmm, then
-the int8 and float32 forwards' images/sec), after env,serve_int8 (the
-default run does not name them: phases kernel and time run them).
+alone, time_int8, int8 serving's part of phase time (time_qmm, then
+the int8 and float32 forwards' images/sec), after env,serve_int8, and
+kernel_codec and time_codec, the 2-bit codec's part (rows 14-15: its
+checks; its times per step and per size and the store's push and pull
+host ms; time_codec needs no other phase and times a tree without the
+grouped calls in its per-tensor form, so copy this chip_smoke.py into a
+parent tree to time the two in turns) (the default run does not name
+them: phases kernel and time run them).
 
 The run ends with the nvidia-smi name/power line, then the
 {"kernels": [...]} line (per kernel: launches on its path, max abs error at
@@ -226,11 +241,13 @@ PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
 # (after the train phases), the conv_fused forward's, the backward pair's,
 # the flash kernels',
 # the LM step's timing (after train_lm), the int8 matmul's checks and
-# timing, and int8 serving's timing (after serve_int8).
+# timing, int8 serving's timing (after serve_int8), and the 2-bit codec's
+# checks and timing.
 SUB_PHASES = ("kernel_bn", "time_bn", "time_train", "kernel_conv_fwd",
               "time_conv_fwd", "kernel_conv_bwd",
               "time_conv_bwd", "kernel_flash", "time_flash", "time_lm",
-              "kernel_qmm", "time_qmm", "time_int8")
+              "kernel_qmm", "time_qmm", "time_int8", "kernel_codec",
+              "time_codec")
 
 # ResNet-50's fused 3x3 links at batch 32: (N, H, W, Ci, Co) and how many
 # of the 16 launches per forward run at that shape.
@@ -883,45 +900,151 @@ def _bn_several_items(torch):
     return failures
 
 
+def _in_fresh_thread(torch, fn):
+    """fn() as the first call of a new thread: (its result, repr of what it
+    raised or None). The launchers that encode tensor maps need the
+    device's context current in the calling thread, which a thread's first
+    CUDA runtime call makes; a launcher must make that call before its
+    first encode."""
+    import threading
+    got = {}
+
+    def run():
+        try:
+            got["out"] = fn()
+        except Exception as e:     # reported by the caller, with the case
+            got["error"] = repr(e)
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(timeout=300)
+    torch.cuda.synchronize()
+    if th.is_alive():
+        return None, "the thread did not finish"
+    return got.get("out"), got.get("error")
+
+
 def _bn_fresh_thread(torch):
     """fused_batch_norm forward in a new thread and backward in autograd's
     device thread, before any other backward of the run: there the
     backward reduce is the thread's first CUDA call (the folds' tensor maps
     need the context current in the calling thread). bf16 and f32, against
     the plain versions (bn_check's tolerances)."""
-    import threading
     from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
     failures = []
     for i, dtype in enumerate((torch.bfloat16, torch.float32)):
         x2, g, b, dy = bn_case(torch, 126, 64, dtype, seed=790 + i)
-        got = {}
 
         def run():
-            try:
-                xr = x2.clone().requires_grad_()
-                out, mean, var = BNF.fused_batch_norm(xr, g, b)
-                out.backward(dy)
-                got.update(out=out, mean=mean, var=var, dx=xr.grad)
-            except Exception as e:     # reported below, with the case
-                got["error"] = repr(e)
-        th = threading.Thread(target=run)
-        th.start()
-        th.join(timeout=300)
-        torch.cuda.synchronize()
-        ok = "error" not in got and not th.is_alive()
+            xr = x2.clone().requires_grad_()
+            out, mean, var = BNF.fused_batch_norm(xr, g, b)
+            out.backward(dy)
+            return out, mean, var, xr.grad
+        got, error = _in_fresh_thread(torch, run)
+        ok = error is None
         if ok:
             rout, rm, rv = BNF.batchnorm_reference(x2, g, b)
             rdx = BNF.batchnorm_backward_reference(x2, g, b, rm, rv, dy)[0]
-            ok = same_bits(torch, got["out"], rout) \
-                and same_bits(torch, got["mean"], rm) \
-                and same_bits(torch, got["var"], rv) \
-                and max_abs_err(torch, got["dx"], rdx) <= BN_BWD_RTOL * \
+            ok = same_bits(torch, got[0], rout) \
+                and same_bits(torch, got[1], rm) \
+                and same_bits(torch, got[2], rv) \
+                and max_abs_err(torch, got[3], rdx) <= BN_BWD_RTOL * \
                 rdx.float().abs().max().item()
         emit({"phase": "kernel", "kernel": "batchnorm_fused",
               "fresh_thread": True, "dtype": str(dtype), "R": 126, "C": 64,
-              "error": got.get("error"), "ok": ok})
+              "error": error, "ok": ok})
         if not ok:
-            failures.append(("fresh thread", str(dtype), got.get("error")))
+            failures.append(("fresh thread", str(dtype), error))
+    return failures
+
+
+def _flash_fresh_thread(torch):
+    """The bf16 flash forward, dQ and dK/dV launchers, each called as the
+    first CUDA call of a new thread on tensors made beforehand (outputs,
+    the plain forward's o and lse, and delta included; a launch through
+    the wrapper would allocate first), against the plain versions
+    (FLASH_RTOL). The launchers encode tensor maps."""
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    case = (1, 2, 256, 256, 128, True)
+    B, H, Sq, Sk, D, causal = case
+    scale = D ** -0.5
+    q, k, v, do = flash_case(torch, case, torch.bfloat16, seed=795)
+    ro, rlse = FA.flash_forward_reference(q, k, v, causal, scale)
+    refs = {"o": ro, "lse": rlse,
+            "dq": FA.backward_dq_reference(q, k, v, ro, rlse, do, causal,
+                                           scale)}
+    refs["dk"], refs["dv"] = FA.backward_dkv_reference(q, k, v, ro, rlse, do,
+                                                       causal, scale)
+    delta = (do.float() * ro.float()).sum(dim=-1).reshape(B * H, Sq)
+    lse = rlse.contiguous()
+    out = {n: torch.empty_like(refs[n]) for n in refs}
+    fns = {n: FA._fn(n) for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+    stream = torch.cuda.current_stream().cuda_stream
+    dims = (B * H, H, Sq, Sk, D, int(causal), scale)
+    calls = {
+        "fwd": (("o", "lse"), lambda: FA._call(
+            "forward", case, fns["flash_fwd"], 0, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out["o"].data_ptr(), out["lse"].data_ptr(), *dims,
+            FA._strides(q, k, v, out["o"]), stream)),
+        "dq": (("dq",), lambda: FA._call(
+            "dq", case, fns["flash_dq"], 0, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            out["dq"].data_ptr(), *dims,
+            FA._strides(q, k, v, do, out["dq"]), stream)),
+        "dkv": (("dk", "dv"), lambda: FA._call(
+            "dk/dv", case, fns["flash_dkv"], 0, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            out["dk"].data_ptr(), out["dv"].data_ptr(), *dims,
+            FA._strides(q, k, v, do, out["dk"], out["dv"]), stream))}
+    torch.cuda.synchronize()
+    failures = []
+    for kern, (names, fn) in calls.items():
+        _, error = _in_fresh_thread(torch, fn)
+        errs = {n: max_abs_err(torch, out[n], refs[n]) for n in names}
+        ok = error is None and all(
+            bool(torch.isfinite(out[n].float()).all().item())
+            and errs[n] <= FLASH_RTOL["bfloat16"][n]
+            * refs[n].float().abs().max().item() for n in names)
+        emit({"phase": "kernel", "kernel": "flash_attention." + kern,
+              "fresh_thread": True, "dtype": "bfloat16",
+              "shape_bhsd": list(case[:5]), "causal": causal,
+              "max_abs_err": errs, "error": error, "ok": ok})
+        if not ok:
+            failures.append(("fresh thread", kern, error))
+    return failures
+
+
+def _qmm_fresh_thread(torch):
+    """An int8 product on the wgmma route (both forms, no split K), its
+    launcher called as the first CUDA call of a new thread on tensors made
+    beforehand, against the plain version bit for bit. The launcher
+    encodes tensor maps."""
+    from mxnet_tpu_torch.kernels import quantized_matmul as QM
+    M, K, N = 256, 512, 256
+    x, w, s = qmm_case(torch, M, K, N, seed=796)
+    lda, ldb = x.stride(0), w.stride(1)
+    plan = QM.qmm_plan(M, K, N, QM._sm_count(x.device))
+    stream = torch.cuda.current_stream().cuda_stream
+    failures = []
+    for name, sc in (("mm", None), ("mm_scaled", s)):
+        ref = QM.quantized_matmul_reference(x, w, sc)
+        if QM.route(M, K, N, lda, ldb, x.data_ptr(),
+                    w.data_ptr()) != "wgmma" or plan.nsplit != 1:
+            raise AssertionError("the fresh-thread int8 case left the "
+                                 "wgmma route without split K")
+        out = torch.empty_like(ref)
+        fn = QM._fn("qmm_s32" if sc is None else "qmm_scaled")
+        ptrs = [x.data_ptr(), w.data_ptr()] \
+            + ([] if sc is None else [sc.data_ptr()]) + [out.data_ptr()]
+        torch.cuda.synchronize()
+        err, error = _in_fresh_thread(torch, lambda: fn(
+            *ptrs, M, N, K, lda, ldb, 0, 0, plan.bn, plan.nsplit, plan.kps,
+            plan.grid, stream))
+        ok = error is None and err == 0 and same_bits(torch, out, ref)
+        emit({"phase": "kernel", "kernel": "quantized_matmul." + name,
+              "fresh_thread": True, "shape_mkn": [M, K, N],
+              "launch_error": err, "error": error, "bitwise": ok, "ok": ok})
+        if not ok:
+            failures.append(("fresh thread", name, err, error))
     return failures
 
 
@@ -1198,16 +1321,77 @@ def codec_case(torch, n, dtype, thr, seed):
     return g.to(dtype), r.to(dtype)
 
 
+def _codec_counts(C):
+    return (C.LAUNCHES_QUANTIZE, C.SEGMENTS_QUANTIZE, C.LAUNCHES_DEQUANTIZE,
+            C.SEGMENTS_DEQUANTIZE)
+
+
+def _codec_group_check(torch, C, sizes, dtype, thr, seed):
+    """One grouped quantize and dequantize over segments of ``sizes``, each
+    twice, against the per-tensor plain versions, bit for bit (words,
+    residuals, decoded values in flat and in the views; the same bits on
+    the second launch). A size given as (n, "misaligned") is a view one
+    element into its buffers, so that its gradient, residual and new
+    residual are not 16-byte aligned (the scalar route); in the decoded
+    flat buffer every segment after an n % 4 != 0 is misaligned too.
+    Returns (sizes that failed, worst abs error, (launches, segments) of
+    one quantize and of one dequantize call)."""
+    gs, rs, ns = [], [], []
+    for i, size in enumerate(sizes):
+        n = size[0] if isinstance(size, tuple) else size
+        skew = 1 if isinstance(size, tuple) else 0
+        g, r = codec_case(torch, n + skew, dtype, thr, seed=seed + i)
+        gs.append(g[skew:])
+        rs.append(r[skew:])
+        ns.append(n)
+    before = _codec_counts(C)
+    w1, r1 = C.quantize_2bit_group(gs, rs, thr)
+    mid = _codec_counts(C)
+    w2, r2 = C.quantize_2bit_group(gs, rs, thr)
+    f1, v1 = C.dequantize_2bit_group(w1, ns, thr)
+    after = _codec_counts(C)
+    f2, _ = C.dequantize_2bit_group(w1, ns, thr)
+    torch.cuda.synchronize()
+    bad, worst, start = [], 0.0, 0
+    for i, (g, r, n) in enumerate(zip(gs, rs, ns)):
+        rw, rr = C.quantize_2bit_reference(g, r, thr)
+        rd = C.dequantize_2bit_reference(rw, n, thr)
+        ok = torch.equal(w1[i], rw) and torch.equal(w2[i], rw) \
+            and same_bits(torch, r1[i], rr) and same_bits(torch, r2[i], rr) \
+            and same_bits(torch, v1[i], rd) \
+            and same_bits(torch, f1[start:start + n], rd) \
+            and same_bits(torch, f2[start:start + n], rd)
+        worst = max(worst, max_abs_err(torch, r1[i], rr),
+                    max_abs_err(torch, v1[i], rd))
+        start += n
+        if not ok:
+            bad.append(sizes[i])
+    counts = ((mid[0] - before[0], mid[1] - before[1]),
+              (after[2] - mid[2], after[3] - mid[3]))
+    return bad, worst, counts
+
+
 def phase_kernel_codec(torch, state):
     """Rows 14-15, the 2-bit quantize and dequantize kernels, against their
-    plain versions on the card: every compressed ResNet-50 parameter size
-    and CODEC_EDGE_N, bf16 and f32, both thresholds; words, residuals and
-    decoded values bit for bit, and the same bits on a second launch."""
+    plain versions on the card, bf16 and f32, both thresholds: the single
+    calls at every compressed ResNet-50 parameter size and CODEC_EDGE_N;
+    one grouped call of all 54 ResNet-50 sizes, CODEC_EDGE_N and a
+    misaligned segment (63 segments: one launch each); and, planned for
+    FEW_SMS SMs so that every warp walks many chunks, a grouped call of 71
+    segments (two launches each) with the edge sizes first. Words,
+    residuals and decoded values bit for bit, and the same bits on a
+    second launch."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.kernels import compression as C
-    sizes = sorted(set(_kv_sizes(mx, state)) | set(CODEC_EDGE_N))
+    rn50 = _kv_sizes(mx, state)
+    sizes = sorted(set(rn50) | set(CODEC_EDGE_N))
+    skew = (CODEC_EDGE_N[-1], "misaligned")
+    groups = {"path": (rn50 + list(CODEC_EDGE_N) + [skew], None, (1, 63)),
+              "few_sms": (list(CODEC_EDGE_N) + [skew] + rn50
+                          + list(CODEC_EDGE_N), FEW_SMS, (2, 71))}
     failures = []
     worst = 0.0
+    sm_count = C._sm_count
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
         for thr in CODEC_THRESHOLDS:
@@ -1228,12 +1412,32 @@ def phase_kernel_codec(torch, state):
                             max_abs_err(torch, d1, rd))
                 if not ok:
                     bad.append(n)
+            grouped = {}
+            for name, (group, n_sm, want) in groups.items():
+                try:
+                    if n_sm is not None:
+                        C._sm_count = lambda dev, n_sm=n_sm: n_sm
+                    gbad, gerr, counts = _codec_group_check(
+                        torch, C, group, dtype, thr, seed=1600)
+                finally:
+                    C._sm_count = sm_count
+                worst = max(worst, gerr)
+                ok = not gbad and counts == (want, want)
+                grouped[name] = {"segments": len(group), "sms": n_sm,
+                                 "launches_segments_quantize": counts[0],
+                                 "launches_segments_dequantize": counts[1],
+                                 "wanted_each": want, "failed_sizes": gbad,
+                                 "ok": ok}
+                if not ok:
+                    failures.append((dname, thr, name, gbad[:5], counts))
             emit({"phase": "kernel", "kernel": "compression",
                   "dtype": dname, "threshold": thr, "sizes": sizes,
                   "bitwise_words_residuals_values": not bad,
                   "same_bits_relaunched": not bad, "failed_sizes": bad,
-                  "ok": not bad})
+                  "grouped": grouped,
+                  "ok": not bad and all(v["ok"] for v in grouped.values())})
             failures += [(dname, thr, n) for n in bad]
+            torch.cuda.empty_cache()
     state["codec_err"] = worst
     if failures:
         raise AssertionError("the 2-bit codec kernels disagree with their "
@@ -1389,11 +1593,12 @@ def phase_kernel_flash(torch, state):
     in bf16, contiguous and as the transposed [B, S, H, D] views the LM
     passes, and at the edge shapes in bf16 and f32 (FLASH_RTOL; bf16 also
     row by row); at every shape a second launch must give the same
-    bits. TF32 off for the f32 references (also when run alone as
-    --phases kernel_flash)."""
+    bits. First the three bf16 launchers, each as the first CUDA call of a
+    new thread (_flash_fresh_thread). TF32 off for the f32 references
+    (also when run alone as --phases kernel_flash)."""
     from mxnet_tpu_torch.kernels import flash_attention as FA
     torch.backends.cuda.matmul.allow_tf32 = False
-    failures = []
+    failures = _flash_fresh_thread(torch)
     worst = {k: [0.0, 0.0] for k in FLASH_OUTS}    # abs, row-relative
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
@@ -1769,14 +1974,15 @@ def phase_kernel_qmm(torch, state):
     with w given N-contiguous (the wrapper copies it once), x as a
     row-strided view (taken in place, wgmma), a view of x 1 byte off
     16-byte alignment (the byte route) and transposed (refused); and at
-    int8 extremes."""
+    int8 extremes. First the wgmma launcher as the first CUDA call of a
+    new thread (_qmm_fresh_thread)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.kernels import quantized_matmul as QM
 
     routed = hasattr(QM, "route")
     wgmma = "wgmma" if routed else None
     shapes = _int8_shapes(torch, mx, state)
-    failures = []
+    failures = _qmm_fresh_thread(torch)
 
     def record(kind, shape, res, route=None, **extra):
         _qmm_record(state, "kernel", kind, shape, res, failures, route,
@@ -2216,6 +2422,7 @@ def phase_train(torch, state):
 
 def _zero_codec(C):
     C.LAUNCHES_QUANTIZE = C.LAUNCHES_DEQUANTIZE = 0
+    C.SEGMENTS_QUANTIZE = C.SEGMENTS_DEQUANTIZE = 0
 
 
 def _compressed_kv(mx):
@@ -2270,10 +2477,15 @@ def phase_train_kv(torch, state):
     counts = _bn_counts(BNF)
     conv = CF.LAUNCHES
     codec = {"quantize": C.LAUNCHES_QUANTIZE,
-             "dequantize": C.LAUNCHES_DEQUANTIZE}
+             "dequantize": C.LAUNCHES_DEQUANTIZE,
+             "quantize_segments": C.SEGMENTS_QUANTIZE,
+             "dequantize_segments": C.SEGMENTS_DEQUANTIZE}
     want = {k: 5 * BN_PER_STEP for k in BN_KERNELS}
     want["finalize"] = 2 * 5 * BN_PER_STEP
-    want_codec = {k: 5 * len(compressed) for k in codec}
+    # one grouped launch of each kernel per step, over every compressed key
+    want_codec = {"quantize": 5, "dequantize": 5,
+                  "quantize_segments": 5 * len(compressed),
+                  "dequantize_segments": 5 * len(compressed)}
     ok_counts = all(counts[k] == n for k, n in want.items()) \
         and conv == 0 and codec == want_codec
     ok_loss = all(np.isfinite(losses)) and losses[-1] < losses[0]
@@ -2303,10 +2515,11 @@ def phase_train_kv(torch, state):
 
 
 def _kv_pulled_check(torch, mx, net, trainer, loss_fn, x, y, bound_n):
-    """One more step with the pushes recorded: every compressed key's pulled
-    gradient and new residual equal the plain codec run on the card on the
-    same pushed gradient and residual, bit for bit; every other key's
-    pulled gradient equals the pushed one."""
+    """One more step with the pushes recorded (the Trainer pushes a list of
+    every key): every compressed key's pulled gradient and new residual
+    equal the plain codec run on the card on the same pushed gradient and
+    residual, bit for bit; every other key's pulled gradient equals the
+    pushed one."""
     from mxnet_tpu_torch.kernels import compression as C
     kv = trainer._kvstore
     thr = kv._compression_params["threshold"]
@@ -2314,9 +2527,12 @@ def _kv_pulled_check(torch, mx, net, trainer, loss_fn, x, y, bound_n):
     push = kv.push
 
     def recording_push(key, value, priority=0):
-        res = kv._compression_residuals.get(key)
-        pushed[key] = (value.detach().clone(),
-                       None if res is None else res.clone())
+        keys, vals = (key, value) if isinstance(key, list) \
+            else ([key], [value])
+        for k, v in zip(keys, vals):
+            res = kv._compression_residuals.get(k)
+            pushed[k] = (v.detach().clone(),
+                         None if res is None else res.clone())
         return push(key, value, priority)
     kv.push = recording_push
     try:
@@ -3196,13 +3412,23 @@ def phase_time_apply(torch, state):
 
 def phase_time_codec(torch, state):
     """Rows 14-15 over one train_kv step's pushes: the 54 compressed
-    ResNet-50 gradients in bf16 (threshold 0.5) through quantize_2bit, and
-    their words through dequantize_2bit: the kernels' device time by name
-    (profiler), the plain versions' device time, and the bound (bytes: row
-    14 reads the gradient and the residual and writes the residual and
-    1/8 of a word per value, 6.125 bytes in bf16; row 15 reads 1/8 word and
-    writes 4 bytes). No single PyTorch call packs 2-bit codes."""
+    ResNet-50 gradients in bf16 (threshold 0.5) in the form the store runs
+    them, one grouped call of each kernel (quantize_2bit_group, then
+    dequantize_2bit_group of its words), or, in a tree whose codec has no
+    grouped calls, one call per tensor: the kernels' device time by name
+    (profiler), the whole calls' device and host time, the plain versions'
+    device time, the launches and segments of a step, and the bound
+    (bytes: row 14 reads the gradient and the residual and writes the
+    residual and 1/16 of a 4-byte word per value, 6.25 bytes in bf16; row
+    15 reads 1/16 word and writes 4 bytes: 4.25). Per distinct size, each
+    kernel's time for that tensor alone and its bound (and, for a grouped
+    call, the size's share of it by bytes). No single PyTorch call packs
+    2-bit codes. Then the store's part of a train_kv step: host and device
+    ms of Trainer._allreduce_grads (the push and pull of the 161
+    gradients) on the compressed kvstore, after one step at batch 16 has
+    made the gradients."""
     import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.kernels import compression as C
 
     _, (_, f32_peak, bw) = state["card"]
@@ -3213,40 +3439,91 @@ def phase_time_codec(torch, state):
           .to(torch.bfloat16) for n in sizes]
     rs = [(torch.randn(n, generator=gen, device="cuda") * 0.1)
           .to(torch.bfloat16) for n in sizes]
-    words = [C.quantize_2bit(g, r, thr)[0] for g, r in zip(gs, rs)]
+    grouped = hasattr(C, "quantize_2bit_group")
+    if grouped:
+        words = C.quantize_2bit_group(gs, rs, thr)[0]
+        calls = {"quantize": lambda: C.quantize_2bit_group(gs, rs, thr),
+                 "dequantize": lambda: C.dequantize_2bit_group(words, sizes,
+                                                               thr)}
+    else:
+        words = [C.quantize_2bit(g, r, thr)[0] for g, r in zip(gs, rs)]
+        calls = {"quantize": lambda: [C.quantize_2bit(g, r, thr)
+                                      for g, r in zip(gs, rs)],
+                 "dequantize": lambda: [C.dequantize_2bit(w, k, thr)
+                                        for w, k in zip(words, sizes)]}
+    plain = {"quantize": lambda: [C.quantize_2bit_reference(g, r, thr)
+                                  for g, r in zip(gs, rs)],
+             "dequantize": lambda: [C.dequantize_2bit_reference(w, k, thr)
+                                    for w, k in zip(words, sizes)]}
+    counters = {"quantize": ("LAUNCHES_QUANTIZE", "SEGMENTS_QUANTIZE"),
+                "dequantize": ("LAUNCHES_DEQUANTIZE", "SEGMENTS_DEQUANTIZE")}
     n = sum(sizes)
     nw = sum(w.numel() for w in words)
+    per_value = {"quantize": 3 * 2 + 4 / 16, "dequantize": 4 / 16 + 4}
     res = {}
-    for row, fn, plain, nbytes, name in (
-            ("quantize", lambda: [C.quantize_2bit(g, r, thr)
-                                  for g, r in zip(gs, rs)],
-             lambda: [C.quantize_2bit_reference(g, r, thr)
-                      for g, r in zip(gs, rs)],
-             3 * 2 * n + 4 * nw, "codec_quantize_kernel"),
-            ("dequantize", lambda: [C.dequantize_2bit(w, k, thr)
-                                    for w, k in zip(words, sizes)],
-             lambda: [C.dequantize_2bit_reference(w, k, thr)
-                      for w, k in zip(words, sizes)],
-             4 * nw + 4 * n, "codec_dequantize_kernel")):
+    for row, fn in calls.items():
+        name = "codec_%s_kernel" % row
+        before = [getattr(C, c, 0) for c in counters[row]]
+        fn()
+        launches, segments = [getattr(C, c, 0) - b
+                              for c, b in zip(counters[row], before)]
+        nbytes = (3 * 2 * n + 4 * nw) if row == "quantize" \
+            else (4 * nw + 4 * n)
         t_bytes = nbytes / bw
         t_ops = 6 * n / f32_peak
         r = {"ms": kernel_ms(torch, fn, 10, {"k": (name,)})["k"],
              "call_ms": device_busy_ms(torch, fn, 10),
              "call_host_ms": host_ms(torch, fn, 10),
-             "plain_ms": device_busy_ms(torch, plain, 3),
+             "plain_ms": device_busy_ms(torch, plain[row], 3),
              "bound_ms": max(t_bytes, t_ops) * 1e3,
              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
              "library_ms": None,
              "library_note": "none: no single PyTorch call packs or "
                              "unpacks 2-bit codes",
-             "launches_per_step": len(sizes), "elements": n, "bytes": nbytes}
+             "form": "grouped" if grouped else "per tensor",
+             "launches_per_step": launches,
+             "segments_per_step": segments if grouped else launches,
+             "elements": n, "bytes": nbytes}
         r["roofline_share"] = r["bound_ms"] / r["ms"]
+        per_size = {}
+        for size in sorted(set(sizes)):
+            i = sizes.index(size)
+            one = (lambda i=i: C.quantize_2bit(gs[i], rs[i], thr)) \
+                if row == "quantize" else \
+                (lambda i=i: C.dequantize_2bit(words[i], sizes[i], thr))
+            b = per_value[row] * size / bw * 1e6
+            per_size[size] = {
+                "count": sizes.count(size),
+                "alone_us": kernel_ms(torch, one, 20, {"k": (name,)})["k"]
+                * 1e3,
+                "bound_us": b,
+                "grouped_share_us": r["ms"] * 1e3 * size / n if grouped
+                else None}
+        r["per_size"] = per_size
         res[row] = r
+    del gs, rs, words
+    torch.cuda.empty_cache()
+
+    # the store's push and pull inside a compressed step
+    arrays = _arrays(mx, state)
+    x_np, y_np = _batch(state)
+    net = _build_net(mx, arrays, False, "bfloat16", mx.gpu(0))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD),
+                               kvstore=_compressed_kv(mx))
+    _train_step(mx, net, trainer, SoftmaxCrossEntropyLoss(),
+                torch.from_numpy(x_np[:16]).to("cuda", torch.bfloat16),
+                torch.from_numpy(y_np[:16]).cuda())
+    torch.cuda.synchronize()
+    res["store"] = {
+        "what": "Trainer._allreduce_grads: push and pull of the 161 "
+                "gradients, 54 compressed",
+        "host_ms": host_ms(torch, trainer._allreduce_grads, 10),
+        "device_busy_ms": device_busy_ms(torch, trainer._allreduce_grads, 5)}
+    del net, trainer
+    torch.cuda.empty_cache()
     state["codec_timing"] = res
     emit({"phase": "time", "kernel": "compression", "dtype": "bfloat16",
           "per_step": res})
-    del gs, rs, words
-    torch.cuda.empty_cache()
 
 
 def phase_time_adam(torch, state):
@@ -3677,30 +3954,49 @@ def _self_device_us(ev):
     return getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
 
 
+PROFILE_TRIES = 3
+
+
 def _profile(torch, fn, iters):
     """torch.profiler over `iters` calls of fn(): ({device kernel or copy
-    name: device us}, [(device us of its kernels, host op name)])."""
+    name: device us}, [(device us of its kernels, host op name)]). A
+    window that came back with no device event at all (CUPTI now and then
+    loses a short one) is profiled again, up to PROFILE_TRIES times; after
+    that the dict stays empty."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels, by_op = {}, []
-    for ev in prof.key_averages():
-        us = _self_device_us(ev)
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            if us > 0:                  # a host op, by its kernels' time
-                by_op.append((us, ev.key))
-            continue
-        kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels, by_op = {}, []
+        for ev in prof.key_averages():
+            us = _self_device_us(ev)
+            if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                if us > 0:              # a host op, by its kernels' time
+                    by_op.append((us, ev.key))
+                continue
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+        if any(us > 0 for us in kernels.values()):
+            break
+        print("chip_smoke: the profiler saw no device event (try %d of %d)"
+              % (attempt + 1, PROFILE_TRIES), file=sys.stderr)
     return kernels, by_op
 
 
 def kernel_ms(torch, fn, iters, groups):
     """Device ms per call of fn() in the kernels of each group ({label:
-    name substrings}), from the profiler. Fails where it saw none."""
+    name substrings}), from the profiler. Where the profiler saw no device
+    time at all, a single group is timed with CUDA events instead
+    (device_ms: the queued launches' span, so gaps between them count).
+    Fails where the profiler saw device work but none in a group's
+    kernels."""
     kernels, _ = _profile(torch, fn, iters)
+    if not any(us > 0 for us in kernels.values()) and len(groups) == 1:
+        print("chip_smoke: timing %s with CUDA events" % list(groups),
+              file=sys.stderr)
+        return {label: device_ms(torch, fn, iters) for label in groups}
     out = {}
     for label, names in groups.items():
         us = sum(v for k, v in kernels.items() if any(n in k for n in names))
@@ -3713,9 +4009,14 @@ def kernel_ms(torch, fn, iters, groups):
 
 def device_busy_ms(torch, fn, iters):
     """Device time per call of fn(), summed over its kernels and copies
-    (profiler): unlike device_ms, no host gap between launches counts."""
+    (profiler): unlike device_ms, no host gap between launches counts.
+    Where the profiler saw no device time, device_ms (CUDA events)."""
     kernels, _ = _profile(torch, fn, iters)
-    return sum(kernels.values()) / iters / 1e3
+    us = sum(kernels.values())
+    if us <= 0:
+        print("chip_smoke: timing a call with CUDA events", file=sys.stderr)
+        return device_ms(torch, fn, iters)
+    return us / iters / 1e3
 
 
 def host_ms(torch, fn, iters):
@@ -3917,9 +4218,10 @@ def kernel_summary(state):
             "ms": c["ms"], "kernel_ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": None, "library_note": c["library_note"],
-            "per": "one compressed-kvstore ResNet-50 step, bf16 (%d "
-                   "launches: the compressed gradients)"
-                   % c["launches_per_step"],
+            "segments": state["launches"]["compression.%s_segments" % k],
+            "per": "one compressed-kvstore ResNet-50 step, bf16 (%d launch "
+                   "of %d segments: the compressed gradients)"
+                   % (c["launches_per_step"], c["segments_per_step"]),
         })
     return kernels
 

@@ -1330,17 +1330,19 @@ int launch_fwd_bf16(const Params& p, int BH, void* stream) {
   const int n_qt = (p.Sq + FT - 1) / FT;
   if (BH > 65535 || B * p.H != BH)
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  // The runtime call comes before the first encode: the driver's
+  // encoder fails with no current context, as in a fresh thread.
+  constexpr int smem = fwd_smem<D>();
+  auto kernel = flash_fwd_bf16_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap tmq, tmk, tmv, tmo;
   int err = encode_bhsd(&tmq, p.q, p.vq, B, p.H, p.Sq, D, FT);
   if (err == 0) err = encode_bhsd(&tmk, p.k, p.vk, B, p.H, p.Sk, D, FT);
   if (err == 0) err = encode_bhsd(&tmv, p.v, p.vv, B, p.H, p.Sk, D, FT);
   if (err == 0) err = encode_bhsd(&tmo, p.out, p.vout, B, p.H, p.Sq, D, 64);
   if (err != 0) return err;
-  constexpr int smem = fwd_smem<D>();
-  auto kernel = flash_fwd_bf16_kernel<D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const FwdArgs a = {p.lse, p.H, p.Sq, p.Sk, p.causal, p.scale};
   kernel<<<dim3(n_qt, BH), FWD_THREADS, smem,
            static_cast<cudaStream_t>(stream)>>>(tmq, tmk, tmv, tmo, a);
@@ -1353,6 +1355,11 @@ int launch_dkv_bf16(const Params& p, int BH, void* stream) {
   const int n_kt = (p.Sk + KT - 1) / KT;
   if (BH > 65535 || B * p.H != BH)
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  constexpr int smem = dkv_smem<D>();
+  auto kernel = flash_dkv_bf16_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap tmq, tmk, tmv, tmdo, tmdk, tmdv;
   int err = encode_bhsd(&tmq, p.q, p.vq, B, p.H, p.Sq, D, QT);
   if (err == 0) err = encode_bhsd(&tmk, p.k, p.vk, B, p.H, p.Sk, D, KT);
@@ -1361,11 +1368,6 @@ int launch_dkv_bf16(const Params& p, int BH, void* stream) {
   if (err == 0) err = encode_bhsd(&tmdk, p.dk, p.vdk, B, p.H, p.Sk, D, 64);
   if (err == 0) err = encode_bhsd(&tmdv, p.dv, p.vdv, B, p.H, p.Sk, D, 64);
   if (err != 0) return err;
-  constexpr int smem = dkv_smem<D>();
-  auto kernel = flash_dkv_bf16_kernel<D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const BwdArgs a = {p.lse, p.delta, p.H, p.Sq, p.Sk, p.causal, p.scale};
   kernel<<<dim3(n_kt, BH), FWD_THREADS, smem,
            static_cast<cudaStream_t>(stream)>>>(tmq, tmk, tmv, tmdo, tmdk,
@@ -1379,6 +1381,11 @@ int launch_dq_bf16(const Params& p, int BH, void* stream) {
   const int n_qt = (p.Sq + FT - 1) / FT;
   if (BH > 65535 || B * p.H != BH)
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  constexpr int smem = dq_smem<D>();
+  auto kernel = flash_dq_bf16_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap tmq, tmk, tmv, tmdo, tmdq;
   int err = encode_bhsd(&tmq, p.q, p.vq, B, p.H, p.Sq, D, FT);
   if (err == 0) err = encode_bhsd(&tmk, p.k, p.vk, B, p.H, p.Sk, D, DQ_BN);
@@ -1386,11 +1393,6 @@ int launch_dq_bf16(const Params& p, int BH, void* stream) {
   if (err == 0) err = encode_bhsd(&tmdo, p.dout, p.vdo, B, p.H, p.Sq, D, FT);
   if (err == 0) err = encode_bhsd(&tmdq, p.out, p.vout, B, p.H, p.Sq, D, 64);
   if (err != 0) return err;
-  constexpr int smem = dq_smem<D>();
-  auto kernel = flash_dq_bf16_kernel<D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const BwdArgs a = {p.lse, p.delta, p.H, p.Sq, p.Sk, p.causal, p.scale};
   kernel<<<dim3(n_qt, BH), FWD_THREADS, smem,
            static_cast<cudaStream_t>(stream)>>>(tmq, tmk, tmv, tmdo, tmdq, a);

@@ -389,20 +389,34 @@ int q_set_smem(K kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
+// Sets the kernel's shared memory, encodes the maps and launches. The
+// runtime call comes before the first encode: the driver's encoder fails
+// with no current context, as in a thread that has made no CUDA call yet.
 template <int BN, bool SCALED, bool TMA_OUT>
-int launch_wgmma(const CUtensorMap& tmx, const CUtensorMap& tmw,
-                 const CUtensorMap& tmo, const QArgs& a, int grid,
+int launch_wgmma(const int8_t* x, const int8_t* w, void* out,
+                 long long lda, long long ldb, const QArgs& a, int grid,
                  cudaStream_t s) {
   auto kernel = qmm_wgmma_kernel<BN, SCALED, TMA_OUT>;
-  const int err = q_set_smem(kernel, QCfg<BN>::SMEM);
+  int err = q_set_smem(kernel, QCfg<BN>::SMEM);
   if (err != 0) return err;
+  CUtensorMap tmx, tmw, tmo;
+  err = encode_matrix(&tmx, x, a.M, a.K, lda, QBK, QBM,
+                      CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (err == 0)
+    err = encode_matrix(&tmw, w, a.N, a.K, ldb, QBK, BN,
+                        CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (err == 0 && TMA_OUT)
+    err = encode_matrix(&tmo, out, a.M, a.N, 4LL * a.N, QBOX_COLS, 64,
+                        SCALED ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                               : CU_TENSOR_MAP_DATA_TYPE_INT32);
+  if (err != 0) return err;
+  if (!TMA_OUT) tmo = tmx;             // not read
   kernel<<<grid, QT, QCfg<BN>::SMEM, s>>>(tmx, tmw, tmo, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The wgmma route: checks the plan (bn, nsplit, kps, grid from qmm_plan)
-// against the shape and the operands against TMA's rules, encodes the
-// maps and launches.
+// against the shape and the operands against TMA's rules, and launches.
 template <bool SCALED>
 int run_wgmma(const int8_t* x, const int8_t* w, const float* scales,
               void* out, int* ws, int* cnt, int M, int N, int K,
@@ -438,26 +452,17 @@ int run_wgmma(const int8_t* x, const int8_t* w, const float* scales,
   a.kps = kps;
   a.nsplit = nsplit;
   a.items = static_cast<int>(items);
-  CUtensorMap tmx, tmw, tmo;
-  int err = encode_matrix(&tmx, x, M, K, lda, QBK, QBM,
-                          CU_TENSOR_MAP_DATA_TYPE_UINT8);
-  if (err == 0)
-    err = encode_matrix(&tmw, w, N, K, ldb, QBK, bn,
-                        CU_TENSOR_MAP_DATA_TYPE_UINT8);
   const bool tma_out = N % 4 == 0;     // output rows a multiple of 16 bytes
-  if (err == 0 && tma_out)
-    err = encode_matrix(&tmo, out, M, N, 4LL * N, QBOX_COLS, 64,
-                        SCALED ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                               : CU_TENSOR_MAP_DATA_TYPE_INT32);
-  if (err != 0) return err;
-  if (!tma_out) tmo = tmx;             // not read
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bn == 64)
-    return tma_out ? launch_wgmma<64, SCALED, true>(tmx, tmw, tmo, a, grid, s)
-                   : launch_wgmma<64, SCALED, false>(tmx, tmw, tmo, a, grid,
-                                                     s);
-  return tma_out ? launch_wgmma<128, SCALED, true>(tmx, tmw, tmo, a, grid, s)
-                 : launch_wgmma<128, SCALED, false>(tmx, tmw, tmo, a, grid, s);
+    return tma_out
+               ? launch_wgmma<64, SCALED, true>(x, w, out, lda, ldb, a, grid, s)
+               : launch_wgmma<64, SCALED, false>(x, w, out, lda, ldb, a, grid,
+                                                 s);
+  return tma_out
+             ? launch_wgmma<128, SCALED, true>(x, w, out, lda, ldb, a, grid, s)
+             : launch_wgmma<128, SCALED, false>(x, w, out, lda, ldb, a, grid,
+                                                s);
 }
 
 // ---------------------------------------------------------------------------

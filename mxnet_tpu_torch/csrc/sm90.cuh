@@ -1,11 +1,12 @@
 // Hopper (sm_90a) primitives shared by the port's kernels: shared-memory
-// addresses, mbarriers, TMA loads and stores through 4-D tensor maps,
-// wgmma shared-memory descriptors in the 128-byte swizzle and the wgmma
-// forms the kernels issue, and the host-side tensor-map encoder.
+// addresses, mbarriers, TMA loads and stores through 4-D tensor maps, 1-D
+// bulk copies, wgmma shared-memory descriptors in the 128-byte swizzle and
+// the wgmma forms the kernels issue, and the host-side tensor-map encoder.
 //
 // Included by csrc/conv_fused.cu, csrc/flash_attention.cu,
-// csrc/quantized_matmul.cu and csrc/batchnorm_fused.cu; each source builds
-// into its own library, so everything here has internal linkage.
+// csrc/quantized_matmul.cu, csrc/batchnorm_fused.cu and csrc/compression.cu;
+// each source builds into its own library, so everything here has internal
+// linkage.
 #pragma once
 
 #include <cuda.h>
@@ -83,6 +84,31 @@ __device__ __forceinline__ void tma_store4(const CUtensorMap* map,
       "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(src)), "r"(c), "r"(w), "r"(h), "r"(n)
+      : "memory");
+}
+
+// 1-D bulk copy (TMA with no tensor map) of `bytes` contiguous bytes from
+// device memory into shared memory, completing on `bar`. Both addresses and
+// `bytes` must be multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 1-D bulk copy of `bytes` contiguous bytes from shared memory to device
+// memory, in the thread's bulk group (multiples of 16, as bulk_load). The
+// threads that wrote the shared memory fence it for the async proxy
+// (fence.proxy.async.shared::cta) before it is issued.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_addr(src)), "r"(bytes)
       : "memory");
 }
 

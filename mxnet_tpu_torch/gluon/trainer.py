@@ -167,19 +167,26 @@ class Trainer:
         self._allreduce_grads()
 
     def _allreduce_grads(self):
+        """One push of every gradient and one pull into the gradients (one
+        pushpull into the weights with update on kvstore), keys in
+        parameter order: the store then encodes every compressed gradient
+        of the step with one codec call. The reference pushes key by key
+        with a priority each; the in-process store has no queue to order,
+        so the port ignores priority, and the values equal the per-key
+        loop's."""
         if self._kvstore is None:
             return
-        for i, param in enumerate(self._params):
-            if param.grad_req == "null":
-                continue
-            idx = self._param2idx[param.name]
-            if self._update_on_kvstore:
-                self._kvstore.pushpull(idx, param.grad(), out=param.data(),
-                                       priority=-i)
-            else:
-                self._kvstore.push(idx, param.grad(), priority=-i)
-                self._kvstore.pull(idx, param.grad(), priority=-i,
-                                   ignore_sparse=False)
+        live = [p for p in self._params if p.grad_req != "null"]
+        if not live:
+            return
+        keys = [self._param2idx[p.name] for p in live]
+        grads = [p.grad() for p in live]
+        if self._update_on_kvstore:
+            self._kvstore.pushpull(keys, grads,
+                                   out=[p.data() for p in live])
+        else:
+            self._kvstore.push(keys, grads)
+            self._kvstore.pull(keys, grads, ignore_sparse=False)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The update half of ``step``, for gradients already reduced

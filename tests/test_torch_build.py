@@ -66,15 +66,15 @@ def test_every_source_has_its_own_library():
         assert lib.startswith("lib%s-" % name)
 
 
-# The Hopper primitives that the TMA and wgmma kernels (conv_fused,
-# flash_attention, quantized_matmul, batchnorm_fused) use live once, in
-# csrc/sm90.cuh.
+# The Hopper primitives that the TMA, bulk-copy and wgmma kernels
+# (conv_fused, flash_attention, quantized_matmul, batchnorm_fused,
+# compression) use live once, in csrc/sm90.cuh.
 HOPPER = ("conv_fused.cu", "flash_attention.cu", "quantized_matmul.cu",
-          "batchnorm_fused.cu", "sm90.cuh")
+          "batchnorm_fused.cu", "compression.cu", "sm90.cuh")
 SHARED = ("smem_addr", "mbar_init", "mbar_arrive", "mbar_expect_tx",
-          "mbar_wait", "tma_load4", "tma_store4", "reg_fence", "sw128_desc",
-          "sw128_desc_at", "wgmma_rs", "wgmma_ss", "wgmma_ss_kk",
-          "wgmma_ss_kk_first", "count_last", "encode_tiled")
+          "mbar_wait", "tma_load4", "tma_store4", "bulk_load", "bulk_store",
+          "reg_fence", "sw128_desc", "sw128_desc_at", "wgmma_rs", "wgmma_ss",
+          "wgmma_ss_kk", "wgmma_ss_kk_first", "count_last", "encode_tiled")
 
 
 @pytest.mark.parametrize("name", SHARED)
@@ -87,7 +87,8 @@ def test_hopper_primitives_have_one_copy(name):
 
 
 @pytest.mark.parametrize("source", ["conv_fused", "flash_attention",
-                                    "quantized_matmul", "batchnorm_fused"])
+                                    "quantized_matmul", "batchnorm_fused",
+                                    "compression"])
 def test_hopper_kernels_include_the_shared_header(source):
     text = open(os.path.join(CSRC, source + ".cu")).read()
     assert '#include "sm90.cuh"' in text
@@ -237,3 +238,32 @@ def test_bn_probe_variants_apply(name, tmp_path):
     end = src.index("// launch helpers")
     assert out[out.index("// row 5: out = act"):
                out.index("// launch helpers")] == src[start:end]
+
+
+def _codec_probe():
+    path = os.path.join(os.path.dirname(CSRC), os.pardir,
+                        "chip_codec_probe.py")
+    spec = importlib.util.spec_from_file_location("chip_codec_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# chip_codec_probe.py builds its variants of the codec kernels by editing
+# csrc/compression.cu's text: each edit must still apply, change only the
+# kernel it names, and keep the shared header.
+@pytest.mark.parametrize("name", ["as_is", "b2s3", "vec8", "dq_direct",
+                                  "per_tensor"])
+def test_codec_probe_variants_apply(name, tmp_path):
+    probe = _codec_probe()
+    assert name in probe.VARIANTS
+    src = open(os.path.join(CSRC, "compression.cu")).read()
+    out = open(probe.write_sources([name], str(tmp_path))[name]).read()
+    assert (out == src) == (name in ("as_is", "per_tensor"))
+    assert open(os.path.join(tmp_path, name, "sm90.cuh")).read() == \
+        open(os.path.join(CSRC, "sm90.cuh")).read()
+    dq = "__global__ void __launch_bounds__(WARPS * 32)\ncodec_dequantize"
+    if name != "dq_direct":      # the quantize edits leave dequantize alone
+        assert out[out.index(dq):] == src[src.index(dq):]
+    else:
+        assert out[:out.index(dq)] == src[:src.index(dq)]

@@ -172,3 +172,242 @@ def test_operand_checks():
         tc.dequantize_2bit(torch.zeros(3, dtype=torch.int32), 32)
     with pytest.raises(ValueError):
         tc.dequantize_2bit(torch.zeros(2, dtype=torch.int64), 32)
+
+
+# -- the grouped entry points and the kernels' walk ----------------------------
+
+# ResNet-50 v1's 54 compressed parameters (its 53 convolution weights and the
+# classifier's weight), as (element count, how many), 25,502,912 elements.
+RN50_COUNTS = ((4096, 1), (9408, 1), (16384, 6), (32768, 1), (36864, 3),
+               (65536, 7), (131072, 2), (147456, 4), (262144, 11),
+               (524288, 2), (589824, 6), (1048576, 5), (2048000, 1),
+               (2097152, 1), (2359296, 3))
+RN50_54 = tuple(n for n, k in RN50_COUNTS for _ in range(k))
+# One group: the edge sizes around a word and the size bound, and an empty
+# segment.
+EDGE_GROUP = (1, 15, 16, 17, 4095, 0, 4096, 4097)
+GROUPS = {"rn50": RN50_54, "edge": EDGE_GROUP,
+          # over MAX_SEGMENTS non-empty segments: two launches
+          "rn50_edge_edge": RN50_54 + EDGE_GROUP + EDGE_GROUP}
+
+
+def test_rn50_sizes():
+    assert len(RN50_54) == 54 and sum(RN50_54) == 25502912
+    assert set(RN50_54) == set(RN50_N)
+
+
+@pytest.mark.parametrize("thr", THRESHOLDS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_group_references_match_jnp(dtype, thr):
+    """The grouped plain versions against quantize_2bit_jnp and
+    dequantize_2bit_jnp segment by segment, bit for bit: words, new
+    residuals, and the decoded values in flat and in each view."""
+    cases = [_case(n, dtype, thr, seed=50 + i) if n else
+             ((jnp.zeros(0, dtype), torch.zeros(0, dtype=getattr(torch,
+                                                                 dtype))),) * 2
+             for i, n in enumerate(EDGE_GROUP)]
+    words, res = tc.quantize_2bit_group([tg for (_, tg), _ in cases],
+                                        [tr for _, (_, tr) in cases], thr)
+    flat, views = tc.dequantize_2bit_group(words, EDGE_GROUP, thr)
+    assert flat.dtype == torch.float32 and flat.shape == (sum(EDGE_GROUP),)
+    assert [v.shape[0] for v in views] == list(EDGE_GROUP)
+    start = 0
+    for ((jg, _), (jr, _)), n, w, r, v in zip(cases, EDGE_GROUP, words, res,
+                                               views):
+        jw, jres = jc.quantize_2bit_jnp(jg, jr, thr)
+        _assert_same_bits(w, jw)
+        _assert_same_bits(r, jres)
+        jd = jc.dequantize_2bit_jnp(jw, n, thr)
+        _assert_same_bits(v, jd)
+        _assert_same_bits(flat[start:start + n], jd)
+        start += n
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_group_of_one_equals_single_call(dtype):
+    (_, tg), (_, tr) = _case(4097, dtype, 0.5, seed=7)
+    words, res = tc.quantize_2bit_group([tg], [tr], 0.5)
+    w1, r1 = tc.quantize_2bit(tg, tr, 0.5)
+    _assert_same_bits(words[0], w1)
+    _assert_same_bits(res[0], r1)
+    flat, views = tc.dequantize_2bit_group(words, [4097], 0.5)
+    _assert_same_bits(flat, tc.dequantize_2bit(w1, 4097, 0.5))
+    _assert_same_bits(views[0], flat)
+
+
+def test_group_operand_checks():
+    g32, g16 = torch.zeros(32), torch.zeros(32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="one gradient dtype"):
+        tc.quantize_2bit_group([g32, g16], [g32, g16])
+    with pytest.raises(ValueError):
+        tc.quantize_2bit_group([g32], [g32, g32])
+    with pytest.raises(ValueError):
+        tc.quantize_2bit_group([g32], [g16])
+    with pytest.raises(ValueError):
+        tc.dequantize_2bit_group([torch.zeros(2, dtype=torch.int32)], [33])
+    assert tc.quantize_2bit_group([], []) == ([], [])
+    flat, views = tc.dequantize_2bit_group([], [])
+    assert flat.numel() == 0 and views == []
+
+
+def test_chunk_words():
+    assert tc.chunk_words("quantize", 2) == 128
+    assert tc.chunk_words("quantize", 4) == 64
+    assert tc.chunk_words("dequantize") == 128
+
+
+@pytest.mark.parametrize("n_sm", [132, 5])
+@pytest.mark.parametrize("words_per_chunk", [128, 64])
+@pytest.mark.parametrize("group", sorted(GROUPS))
+def test_plan_walk_covers_every_word_once(group, words_per_chunk, n_sm):
+    """codec_plan and the kernel's walk (codec_walk): launches of at most
+    MAX_SEGMENTS non-empty segments, in order; a grid within BLOCKS_PER_SM
+    blocks an SM and one warp a chunk; every chunk inside one segment, and
+    every word of every segment taken exactly once."""
+    ns = GROUPS[group]
+    plan = tc.codec_plan(ns, words_per_chunk, n_sm)
+    live = [i for i, n in enumerate(ns) if n]
+    assert [i for launch in plan for i in launch.segments] == live
+    assert len(plan) == -(-len(live) // tc.MAX_SEGMENTS)
+    seen = {i: np.zeros(tc.num_words(ns[i]), np.int64) for i in live}
+    for launch in plan:
+        assert 1 <= len(launch.segments) <= tc.MAX_SEGMENTS
+        assert launch.first[0] == 0
+        assert 1 <= launch.grid <= tc.BLOCKS_PER_SM * n_sm
+        assert (launch.grid - 1) * tc.WARPS < launch.chunks
+        walk = tc.codec_walk(launch, ns, words_per_chunk)
+        assert len(walk) == launch.grid * tc.WARPS
+        assert sum(map(len, walk)) == launch.chunks
+        for chunks in walk:
+            for seg, w0, cnt in chunks:
+                assert seg in launch.segments
+                assert 0 < cnt <= words_per_chunk
+                assert w0 % words_per_chunk == 0
+                assert w0 + cnt <= tc.num_words(ns[seg])
+                seen[seg][w0:w0 + cnt] += 1
+    assert all((s == 1).all() for s in seen.values())
+
+
+def _codes(g, r, thr):
+    """Each value's 2-bit code, from the plain version's words."""
+    words, _ = tc.quantize_2bit_reference(g, r, thr)
+    shifts = 2 * (15 - np.arange(16))
+    codes = (words.numpy().astype(np.int64)[:, None] >> shifts) & 3
+    return codes.reshape(-1)[:g.shape[0]]
+
+
+def _kernel_quantize_words(codes, n, aligned, cw, itemsize, walk):
+    """The words as the quantize kernel assembles them over its walk, and
+    how often each value was taken. Bulk route (an aligned segment's whole
+    words): lane l of a pass holds 16-byte unit u = base + l, VPU values
+    from value 16 w0 + VPU u, each at bit-pair 15 - (u % UPW) VPU - k; the
+    UPW lanes of a word OR their bits. Scalar route (the rest): lane l
+    holds value v0 + l at bit-pair 15 - l % 16; 16 lanes OR theirs."""
+    vpu = 16 // itemsize
+    upw = 16 // vpu
+    words = np.full(tc.num_words(n), -1, np.int64)
+    taken = np.zeros(n, np.int64)
+    for w0, _ in walk:
+        fw = min(max(n // 16 - w0, 0), cw)
+        bulk = aligned and fw > 0
+        if bulk:
+            for base in range(0, fw * upw, 32):
+                u = base + np.arange(32)
+                u = u[u < fw * upw]
+                k = np.arange(vpu)
+                v = 16 * w0 + vpu * u[:, None] + k
+                bits = (codes[v] << (2 * (15 - (u[:, None] % upw) * vpu - k))
+                        ).sum(axis=1)
+                np.add.at(taken, v.reshape(-1), 1)
+                for j in range(0, len(u), upw):
+                    assert u[j] % upw == 0
+                    words[w0 + u[j] // upw] = bits[j:j + upw].sum()
+        v1 = min((w0 + cw) * 16, n)
+        for v0 in range(16 * (w0 + (fw if bulk else 0)), v1, 32):
+            lane = np.arange(32)
+            v = v0 + lane
+            ok = v < v1
+            bits = np.where(ok, codes[np.minimum(v, n - 1)]
+                            << (2 * (15 - lane % 16)), 0)
+            np.add.at(taken, v[ok], 1)
+            for half in (0, 16):
+                if v0 + half < v1:
+                    words[(v0 + half) // 16] = bits[half:half + 16].sum()
+    words = np.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words, taken
+
+
+def _kernel_dequantize(words, n, aligned, thr, walk):
+    """The values as the dequantize kernel writes them over its walk. Bulk
+    route: lane l loads words l + 32 k of the chunk; pass i's unit 32 i + l
+    takes word 8 i + l // 4 from lane 8 (i % 4) + l // 4 of register
+    i // 4 and expands its quarter l % 4. Scalar route: value v from word
+    v // 16."""
+    cw = tc.chunk_words("dequantize")
+    out = np.full(n, np.nan, np.float32)
+    taken = np.zeros(n, np.int64)
+    codes_of = (lambda w, k: (w.astype(np.int64) >> (2 * (15 - k))) & 3)
+    dec = (lambda c: np.where(c == 3, np.float32(thr),
+                              np.where(c == 2, -np.float32(thr),
+                                       np.float32(0))))
+    lane = np.arange(32)
+    for w0, _ in walk:
+        fw = min(max(n // 16 - w0, 0), cw)
+        bulk = aligned and fw > 0
+        if bulk:
+            wd = [np.where(lane + 32 * k < fw,
+                           words[np.minimum(w0 + lane + 32 * k,
+                                            len(words) - 1)], 0)
+                  for k in range(cw // 32)]
+            for i in range(cw // 8):
+                if 8 * i >= fw:
+                    break
+                word = wd[i // 4][8 * (i % 4) + lane // 4]
+                ok = 8 * i + lane // 4 < fw
+                for j in range(4):
+                    v = 16 * w0 + 4 * (32 * i + lane) + j
+                    out[v[ok]] = dec(codes_of(word, 4 * (lane % 4) + j))[ok]
+                    np.add.at(taken, v[ok], 1)
+        v1 = min((w0 + cw) * 16, n)
+        for v0 in range(16 * (w0 + (fw if bulk else 0)), v1, 32):
+            v = v0 + lane
+            v = v[v < v1]
+            out[v] = dec(codes_of(words[v // 16], v % 16))
+            np.add.at(taken, v, 1)
+    return out, taken
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_model_matches_reference(dtype, aligned):
+    """A model of both kernels' routes over their walk (132 and 5 SMs)
+    gives the plain versions' words and values bit for bit, taking every
+    value once: the bulk route's 16-byte units and word shuffles where the
+    segment is aligned, the scalar route for a misaligned segment and for
+    the last partial word."""
+    ns = EDGE_GROUP + (100003,)
+    itemsize = 2 if dtype == "bfloat16" else 4
+    cw = tc.chunk_words("quantize", itemsize)
+    for n_sm in (132, 5):
+        for kernel, wpc in (("quantize", cw),
+                            ("dequantize", tc.chunk_words("dequantize"))):
+            for launch in tc.codec_plan(ns, wpc, n_sm):
+                items = [it for chunks in tc.codec_walk(launch, ns, wpc)
+                         for it in chunks]
+                for seg in launch.segments:
+                    n = ns[seg]
+                    walk = [(w0, cnt) for s, w0, cnt in items if s == seg]
+                    (_, tg), (_, tr) = _case(n, dtype, 0.5, seed=seg)
+                    rw, _ = tc.quantize_2bit_reference(tg, tr, 0.5)
+                    if kernel == "quantize":
+                        words, taken = _kernel_quantize_words(
+                            _codes(tg, tr, 0.5), n, aligned, cw, itemsize,
+                            walk)
+                        np.testing.assert_array_equal(words, rw.numpy())
+                    else:
+                        vals, taken = _kernel_dequantize(
+                            rw.numpy(), n, aligned, 0.5, walk)
+                        _assert_same_bits(
+                            torch.from_numpy(vals),
+                            tc.dequantize_2bit_reference(rw, n, 0.5))
+                    assert (taken == 1).all()

@@ -896,6 +896,39 @@ def test_compression_kernels_bitwise(n, dtype, thr):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_compression_group_kernels_bitwise(dtype):
+    """One grouped quantize and one grouped dequantize over the edge sizes,
+    an empty segment and a view one element off alignment (the scalar
+    route), against the per-tensor plain versions bit for bit: one launch
+    each, the non-empty segments counted, the same bits on a second
+    launch."""
+    _need_card()
+    from mxnet_tpu_torch.kernels import compression as C
+    ns = [1, 15, 16, 17, 0, 4095, 4096, 4097, 100003, 4097]
+    cases = [_codec_case(n + 1, dtype, 0.5, seed=i) for i, n in enumerate(ns)]
+    gs = [g[:n] for (g, _), n in zip(cases, ns)]
+    rs = [r[:n] for (_, r), n in zip(cases, ns)]
+    gs[-1], rs[-1] = cases[-1][0][1:], cases[-1][1][1:]
+    before = (C.LAUNCHES_QUANTIZE, C.SEGMENTS_QUANTIZE,
+              C.LAUNCHES_DEQUANTIZE, C.SEGMENTS_DEQUANTIZE)
+    words, res = C.quantize_2bit_group(gs, rs, 0.5)
+    flat, views = C.dequantize_2bit_group(words, ns, 0.5)
+    words2, res2 = C.quantize_2bit_group(gs, rs, 0.5)
+    torch.cuda.synchronize()
+    assert (C.LAUNCHES_QUANTIZE - before[0], C.SEGMENTS_QUANTIZE - before[1],
+            C.LAUNCHES_DEQUANTIZE - before[2],
+            C.SEGMENTS_DEQUANTIZE - before[3]) == (2, 18, 1, 9)
+    for g, r, n, w, w2, nr, nr2, v in zip(gs, rs, ns, words, words2, res,
+                                          res2, views):
+        rw, rres = C.quantize_2bit_reference(g, r, 0.5)
+        assert torch.equal(w, rw) and torch.equal(w2, rw)
+        assert _same_bits(nr, rres) and _same_bits(nr2, rres)
+        assert _same_bits(v, C.dequantize_2bit_reference(rw, n, 0.5))
+    assert flat.shape == (sum(ns),)
+
+
+@pytest.mark.cuda
 def test_compression_kernels_raise_on_unsupported_inputs():
     _need_card()
     from mxnet_tpu_torch.kernels import compression as C
@@ -972,6 +1005,42 @@ def test_compressed_push_pull_on_the_card():
             torch.cuda.synchronize()
             assert (C.LAUNCHES_QUANTIZE - before[0],
                     C.LAUNCHES_DEQUANTIZE - before[1]) == (6, 6)
+        outs[dev] = got
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_compressed_list_push_on_the_card():
+    """A list push of every key on the card equals the same on the CPU bit
+    for bit, with one quantize and one dequantize launch per push over the
+    keys at or above the bound."""
+    _need_card()
+    from mxnet_tpu_torch.kernels import compression as C
+    shapes = {0: (64, 64), 1: (100,), 2: (3, 3, 64, 64)}
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        kv = mx.kv.create("local")
+        kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+        for k, sh in shapes.items():
+            kv.init(k, torch.zeros(sh, dtype=torch.bfloat16, device=dev))
+        before = (C.LAUNCHES_QUANTIZE, C.SEGMENTS_QUANTIZE,
+                  C.LAUNCHES_DEQUANTIZE)
+        got = []
+        for step in range(3):
+            gs = [torch.from_numpy((np.random.RandomState(10 * step + k)
+                                    .randn(*sh) * 0.4).astype("float32"))
+                  .to(dev, torch.bfloat16) for k, sh in shapes.items()]
+            kv.push(list(shapes), gs)
+            res = [torch.empty(sh, dtype=torch.bfloat16, device=dev)
+                   for sh in shapes.values()]
+            kv.pull(list(shapes), out=res)
+            got += [o.cpu() for o in res]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (C.LAUNCHES_QUANTIZE - before[0],
+                    C.SEGMENTS_QUANTIZE - before[1],
+                    C.LAUNCHES_DEQUANTIZE - before[2]) == (3, 6, 3)
         outs[dev] = got
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert _same_bits(a, b)

@@ -106,6 +106,98 @@ def test_list_push_sums_like_jax_bf16(compress):
         assert np.array_equal(_bits(tout), _bits(jout))
 
 
+def _compressed_trio(dtype, update, keys):
+    """Two port stores and a JAX store with the same compression (and, with
+    ``update``, the same SGD on the store), each key initialized from the
+    same numpy values."""
+    stores = [mx.kv.create("local"), mx.kv.create("local"),
+              mxj.kv.create("local")]
+    rs = np.random.RandomState(6)
+    for kv in stores:
+        kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+        if update:
+            kv.set_optimizer((mxj.optimizer if kv is stores[2] else topt)
+                             .create("sgd", **_OPTS["sgd"]))
+    for k in keys:
+        t, j = _pair(rs.randn(*KEYS[k]).astype(np.float32), dtype)
+        stores[0].init(k, t)
+        stores[1].init(k, t)
+        stores[2].init(k, j)
+    return stores
+
+
+@pytest.mark.parametrize("update", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compressed_list_push_equals_per_key_and_jax(dtype, update):
+    """Three rounds of one list push (and one list pull) of every key
+    against the same keys pushed and pulled one by one, and against the JAX
+    store fed the same numpy values: pulled values (the weights, with an
+    updater) and residuals bit for bit. The list goes through one grouped
+    codec call per round. Integer keys with an updater (string keys share
+    int key 0's optimizer state in both packages). JAX's float32 SGD
+    update is contracted into an FMA by XLA:CPU, so float32 weights are
+    held against JAX only without an updater; the residuals always are."""
+    keys = [k for k in KEYS if isinstance(k, int) or not update]
+    tlist, teach, jkv = _compressed_trio(dtype, update, keys)
+    rs = np.random.RandomState(7)
+    for _ in range(3):
+        pairs = [_pair((rs.randn(*KEYS[k]) * 0.4).astype(np.float32), dtype)
+                 for k in keys]
+        tlist.push(keys, [t.clone() for t, _ in pairs])
+        for k, (t, _) in zip(keys, pairs):
+            teach.push(k, t.clone())
+        jkv.push(keys, [j for _, j in pairs])
+        outs = [_pair(np.zeros(KEYS[k], np.float32), dtype) for k in keys]
+        tlist.pull(keys, out=[t for t, _ in outs])
+        jkv.pull(keys, out=[j for _, j in outs])
+        for k, (t, j) in zip(keys, outs):
+            each = torch.zeros(KEYS[k], dtype=t.dtype)
+            teach.pull(k, out=each)
+            assert np.array_equal(_bits(t), _bits(each)), k
+            if dtype == "bfloat16" or not update:
+                assert np.array_equal(_bits(t), _bits(j)), k
+        assert sorted(tlist._compression_residuals, key=str) == \
+            sorted(jkv._compression_residuals, key=str)
+        for k, res in tlist._compression_residuals.items():
+            assert np.array_equal(_bits(res),
+                                  _bits(teach._compression_residuals[k]))
+            assert np.array_equal(_bits(res),
+                                  _bits(jkv._compression_residuals[k]))
+    assert tlist.bytes_pushed == teach.bytes_pushed == jkv.bytes_pushed
+
+
+@pytest.mark.parametrize("update", [False, True])
+def test_repeated_key_in_a_list_push(update):
+    """A key twice in one list push equals two successive pushes: the
+    second sees the residual the first left (and the weight it updated)."""
+    keys = [0, 1]
+    one, two, _ = _compressed_trio("bfloat16", update, keys)
+    rs = np.random.RandomState(8)
+    gs = [_pair((rs.randn(*KEYS[k]) * 0.4).astype(np.float32),
+                "bfloat16")[0] for k in (0, 1, 0)]
+    one.push([0, 1, 0], [g.clone() for g in gs])
+    two.push([0, 1], [gs[0].clone(), gs[1].clone()])
+    two.push(0, gs[2].clone())
+    for k in keys:
+        a, b = (torch.zeros(KEYS[k], dtype=torch.bfloat16) for _ in range(2))
+        one.pull(k, out=a)
+        two.pull(k, out=b)
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+        assert torch.equal(one._compression_residuals[k].view(torch.int16),
+                           two._compression_residuals[k].view(torch.int16))
+
+
+def test_list_push_raises_at_the_first_key_not_initialized():
+    """Keys before it are pushed, as the reference's loop pushes them."""
+    kv = mx.kv.create("local")
+    kv.init(0, torch.zeros(4))
+    with pytest.raises(ValueError, match="not been initialized"):
+        kv.push([0, 5, 0], [torch.ones(4), torch.ones(4), torch.ones(4)])
+    out = torch.zeros(4)
+    kv.pull(0, out=out)
+    assert torch.equal(out, torch.ones(4))
+
+
 def test_roundtrip_with_residual():
     """The JAX suite's case (tests/test_pallas.py): 0.3 stays below the
     threshold once, and fires with the residual the second time."""
@@ -344,6 +436,31 @@ def test_trainer_with_compressed_store_matches_hand_compression(dtype):
     idx = tr._param2idx[net[0].weight.name]
     assert list(kv._compression_residuals) == [idx]
     assert torch.equal(kv._compression_residuals[idx], residual)
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_trainer_pushes_every_gradient_at_once(on):
+    """A step makes one push of every trainable key in parameter order and
+    one pull (pushpull into the weights with update on kvstore)."""
+    x, y = _batch("float32")
+    kv = mx.kv.create("local")
+    kv.set_gradient_compression({"type": "2bit", "threshold": THR})
+    calls = []
+    push, pull = kv.push, kv.pull
+    kv.push = lambda key, value, priority=0: (
+        calls.append(("push", list(key))), push(key, value, priority))
+    kv.pull = lambda key, out=None, priority=0, ignore_sparse=True: (
+        calls.append(("pull", list(key))), pull(key, out, priority))
+    net = _net("float32")
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.1}, kvstore=kv,
+                          update_on_kvstore=on)
+    with autograd.record():
+        loss = SoftmaxCrossEntropyLoss()(net(x), y)
+    loss.backward()
+    tr.step(16)
+    keys = [tr._param2idx[p.name] for p in tr._params]
+    assert calls == [("push", keys), ("pull", keys)]
 
 
 @pytest.mark.parametrize("name", ["sgd", "adam"])
