@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases env,kernel,train_kv
     python3 chip_smoke.py --phases env,kernel,train_fused
     python3 chip_smoke.py --phases env,kernel,train_adam
+    python3 chip_smoke.py --phases env,train_sharded,time_train
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
     python3 chip_smoke.py --phases env,kernel_bn,time_bn
@@ -151,6 +152,27 @@ Phases, each printing JSON lines:
               two bf16 steps (equal bit for bit), and one eager f32
               Trainer.step with Adam, the card against the CPU (the bounds
               of train's f32 check).
+5c. train_sharded -- bench.py's bench_resnet path: resnet50_v1(layout=
+              "NHWC") in bf16, batch 128, through parallel.ShardedTrainStep
+              (create_mesh(devices=[cuda:0], dp=1), data_parallel,
+              SoftmaxCrossEntropyLoss, SGD lr 0.01 momentum 0.9), the batch
+              placed once, 2 warm steps then 5: fuse=True ("sharded",
+              BENCH_FUSED=pallas_all), fuse="auto" with
+              remat_policy="conv_outs" ("sharded_remat", pallas_remat),
+              and fuse="auto" without remat ("sharded_auto"). Counters
+              are zeroed just before the 5 steps: exact launches of rows
+              1-7 per step (_sharded_want: 16 fused links, or 3 under
+              "auto"; under remat the backward's recompute runs each
+              training BatchNorm's statistics and apply kernels again and
+              no conv_fused forward); the loss finite and falling. Remat
+              against "sharded_auto": lower peak memory over the 5 steps
+              (both printed), and the same losses, weights and running
+              statistics bit for bit after the 2 warm steps (cuDNN
+              deterministic). Then two f32 steps of the narrow ResNet
+              (fuse=True; fuse=False with remat), TF32 off, card against
+              CPU (NARROW_RTOL), and all 17 registered optimizers (f32,
+              and bf16 with multi_precision) through ShardedTrainStep,
+              card against CPU (SHARDED_OPTIMIZERS, OPT_RTOL).
 6. train_lm -- the transformer LM of bench.py's bench_transformer at its
               full width (dim 4096, 5 layers, 32 heads of 128, FFN 16384,
               vocab 32000, bf16, chunked CE over 8 chunks, full per-layer
@@ -190,7 +212,8 @@ shape each kernel's per-launch time, plain and library times and share of
 bound, with the folds' fold_plan; they need no other phase, so copy this
 chip_smoke.py into a parent tree to time the two in turns), time_train,
 the training steps' part of phase time (images/sec, device busy ms and idle
-share of each train phase run before it, e.g. --phases env,train,time_train),
+share of each train phase run before it, e.g. --phases env,train,time_train
+or env,train_sharded,time_train),
 kernel_conv_fwd and time_conv_fwd, the conv_fused
 forward's part of phases kernel and time (row 1: its checks, then per
 serving shape the kernel, the library call, cuDNN's convolution alone, the
@@ -214,7 +237,8 @@ parent tree to time the two in turns) (the default run does not name
 them: phases kernel and time run them).
 
 The run ends with the nvidia-smi name/power line, then the
-{"kernels": [...]} line (per kernel: launches on its path, max abs error at
+{"kernels": [...]} line (per kernel: launches on its path (rows 1-7 also
+on train_sharded's, per configuration), max abs error at
 the ResNet-50 shapes in bf16 and its tolerance, and the times, bound,
 plain and library times of one forward (conv_fused; the int8 forward at
 batch 32 for the scaled int8 matmul) or one training step (the other
@@ -235,7 +259,7 @@ import time
 import numpy as np
 
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
-          "train_fused", "train_adam", "train_lm", "time")
+          "train_fused", "train_adam", "train_sharded", "train_lm", "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
 # the BatchNorm kernels' checks and timing, the training steps' timing
 # (after the train phases), the conv_fused forward's, the backward pair's,
@@ -364,6 +388,55 @@ APPLY_OPS = 7
 # lr*m, /, -): far below the 14 bytes (bf16) it moves.
 ADAM = {"learning_rate": 1e-3, "wd": 1e-4}
 ADAM_OPS = 15
+
+# The sharded training step (phase train_sharded): bench.py's bench_resnet
+# through parallel.ShardedTrainStep on a one-device mesh, in the two
+# configurations BENCH_FUSED names, and fuse="auto" without remat as the
+# baseline of remat's memory, launches and bits. fuse="auto" fuses the
+# bottlenecks whose 3x3 is at least 512 wide: stage 4's three.
+SHARDED = {"sharded": (True, None),             # BENCH_FUSED=pallas_all
+           "sharded_remat": ("auto", "conv_outs"),    # pallas_remat
+           "sharded_auto": ("auto", None)}
+SHARDED_AUTO_FUSED = 3
+# The narrow NHWC ResNet of tests/test_torch_train.py (f32, batch 4 of
+# 32x32, weights from numpy seed 3), card against CPU, within the bounds
+# of its test_narrow_resnet_trains_like_jax: the loss 1e-5 relative, every
+# parameter and running statistic 1e-5 of its largest magnitude.
+NARROW = ([1, 1, 1, 1], [16, 32, 64, 128, 256])
+NARROW_RTOL = {"loss": 1e-5, "param": 1e-5}
+# Every registered optimizer (Test aside) through ShardedTrainStep, card
+# against CPU: a Dense(16 -> 8) at batch 1 under the linear loss
+# sum(out * y), so that both devices get the same gradients bit for bit
+# (every product exact, no sum) and only the optimizers' arithmetic can
+# differ; 3 steps, each on its own batch. f32 weights, and bf16 weights
+# with multi_precision. Every f32 tensor (weights, masters, states) within
+# OPT_RTOL of its largest magnitude: a CUDA division by a Python scalar
+# multiplies by its reciprocal and norms sum in another order, a few ulps;
+# bf16 weights within one bf16 ulp of their largest magnitude.
+SHARDED_OPTIMIZERS = {
+    "sgd": dict(learning_rate=0.1, momentum=0.9, wd=1e-3, clip_gradient=2.0),
+    "signum": dict(learning_rate=0.01, momentum=0.9, wd=1e-3, wd_lh=1e-3),
+    "ftml": dict(learning_rate=0.05, wd=1e-3),
+    "lars": dict(learning_rate=0.1, momentum=0.9, lars_eta=0.01,
+                 lars_epsilon=1e-8, wd=1e-3),
+    "lbsgd": dict(learning_rate=0.1, momentum=0.9, batch_scale=4,
+                  warmup_epochs=1, updates_per_epoch=8),
+    "dcasgd": dict(learning_rate=0.1, momentum=0.9, wd=1e-3),
+    "sgld": dict(learning_rate=0.01, wd=1e-3),
+    "adam": dict(learning_rate=0.01, wd=1e-3, clip_gradient=2.0),
+    "adamw": dict(learning_rate=0.01, wd=1e-3),
+    "adagrad": dict(learning_rate=0.1, wd=1e-3),
+    "adadelta": dict(wd=1e-3),
+    "rmsprop": dict(learning_rate=0.01, centered=True, clip_weights=1.5),
+    "adamax": dict(learning_rate=0.01, wd=1e-3),
+    "nadam": dict(learning_rate=0.01, wd=1e-3),
+    "ftrl": dict(learning_rate=0.1, lamda1=0.05, wd=1e-3),
+    "nag": dict(learning_rate=0.1, momentum=0.9, wd=1e-3),
+    "lamb": dict(learning_rate=0.01, wd=1e-3, lower_bound=0.1,
+                 upper_bound=5.0),
+}
+OPT_RTOL = 1e-5
+OPT_BF16_RTOL = 2.0 ** -8
 
 # The compressed kvstore (phase train_kv): 2-bit compression at the
 # reference's default threshold. A pushed gradient is compressed when it
@@ -2944,6 +3017,250 @@ def _train_adam(torch, state):
                      opt=("adam", ADAM), phase="train_adam")
 
 
+def _sharded_step(mx, torch, net, opt, device, remat_policy=None,
+                  loss_fn=None):
+    """bench_resnet's construction: a one-device mesh, data_parallel and
+    ShardedTrainStep (SoftmaxCrossEntropyLoss unless ``loss_fn``)."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import (ShardedTrainStep, create_mesh,
+                                          data_parallel)
+    mesh = create_mesh(devices=[device], dp=1)
+    return ShardedTrainStep(net, loss_fn or SoftmaxCrossEntropyLoss(),
+                            mx.optimizer.create(opt[0], **opt[1]),
+                            strategy=data_parallel(mesh),
+                            remat_policy=remat_policy)
+
+
+def _sharded_want(fused_links, remat):
+    """Launches per step of rows 1-7 on the sharded path: each fused link
+    launches the three conv_fused kernels (and the finalize and reduce
+    launches) once; every other BatchNorm the four BatchNorm kernels once
+    each, with a finalize launch after each fold. Under remat the backward
+    recomputes each region's forward: the fused conv's output is kept (one
+    dispatcher op, tagged), but a training BatchNorm is an autograd
+    Function that launches its statistics and apply kernels inside, so it
+    runs again (the statistics it returns are kept, the normalized output
+    is not, and the Function recomputes both)."""
+    bn = BN_PER_STEP - fused_links
+    conv = {k: fused_links
+            for k in ("fwd", "bwd_dx", "bwd_dw", "finalize", "reduce")}
+    fwd = 2 if remat else 1
+    bnw = {"stats": fwd * bn, "apply": fwd * bn, "bwd_reduce": bn,
+           "bwd_dx": bn, "finalize": fwd * bn + bn}
+    return conv, bnw
+
+
+def phase_train_sharded(torch, state):
+    """Path train_sharded: bench_resnet's parallel.ShardedTrainStep on a
+    one-device mesh, in bf16 at batch 128 (SHARDED), then the narrow f32
+    step card vs CPU and every optimizer card vs CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+
+    arrays = _arrays(mx, state)
+    x_np, y_np = _batch(state)
+    x = torch.from_numpy(x_np).to(torch.bfloat16)
+    y = torch.from_numpy(y_np)
+    dev = mx.gpu(0).device
+    runs = {}
+    for name in ("sharded_auto", "sharded_remat", "sharded"):
+        fuse, remat = SHARDED[name]
+        net = _build_net(mx, arrays, fuse, "bfloat16", mx.gpu(0))
+        links = sum(1 for m in net.modules() if getattr(m, "_fuse", False))
+        step = _sharded_step(mx, torch, net, ("sgd", SGD), dev, remat)
+        xd, yd = step.place_batch(x, y)
+        # 2 warm steps, with cuDNN's deterministic algorithms: the
+        # fuse="auto" pair is compared after them, remat against not
+        prev = _deterministic_cudnn(torch)
+        try:
+            warm = [step.step(xd, yd) for _ in range(2)]
+            torch.cuda.synchronize()
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = prev
+        snap = {k: v.detach().clone() for k, v in step.params.items()} \
+            if fuse == "auto" else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(BNF, CF)
+        t0 = time.perf_counter()
+        out = [step.step(xd, yd) for _ in range(5)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [float(v) for v in out]
+        peak = torch.cuda.max_memory_allocated()
+        conv, bn = _conv_counts(CF), _bn_counts(BNF)
+        want_conv, want_bn = _sharded_want(links, remat)
+        ok_counts = links == (FUSED_PER_STEP if fuse is True
+                              else SHARDED_AUTO_FUSED) \
+            and all(conv[k] == 5 * n for k, n in want_conv.items()) \
+            and all(bn[k] == 5 * n for k, n in want_bn.items())
+        ok_loss = all(np.isfinite(losses)) and losses[-1] < losses[0]
+        runs[name] = {"warm_losses": [float(v) for v in warm],
+                      "snap": snap, "peak": peak}
+        emit({"phase": "train_sharded", "config": name, "fuse": fuse,
+              "remat_policy": remat, "dtype": "bfloat16", "batch": 128,
+              "steps": 5, "losses": losses,
+              "launches": {"conv_fused": conv, "batchnorm_fused": bn},
+              "launches_wanted_per_step": {"conv_fused": want_conv,
+                                           "batchnorm_fused": want_bn},
+              "fused_links": links,
+              "max_memory_allocated_bytes": peak, "wall_s": wall,
+              "ok": ok_counts and ok_loss})
+        if not ok_counts:
+            raise AssertionError(
+                "%s launches conv %s, bn %s over 5 steps (%d fused links); "
+                "want per step %s, %s" % (name, conv, bn, links, want_conv,
+                                          want_bn))
+        if not ok_loss:
+            raise AssertionError("%s loss not finite and falling: %s"
+                                 % (name, losses))
+        if name != "sharded_auto":
+            state.setdefault("launches_sharded", {})[name] = {
+                "conv_fused": conv["fwd"],
+                "conv_fused.bwd_dx": conv["bwd_dx"],
+                "conv_fused.bwd_dw": conv["bwd_dw"],
+                **{k: bn[k] for k in BN_KERNELS}}
+            state[name] = (step, xd, yd, peak)
+        del net
+    _sharded_remat_checks(torch, runs)
+    torch.cuda.empty_cache()
+    _sharded_narrow_card_vs_cpu(torch, mx)
+    _sharded_optimizers_card_vs_cpu(torch, mx)
+
+
+def _sharded_remat_checks(torch, runs):
+    """Remat against no remat, fuse="auto", from the same weights: lower
+    peak memory over the timed steps, and after the two warm steps (cuDNN
+    deterministic) the same losses, weights and running statistics bit
+    for bit."""
+    a, r = runs["sharded_auto"], runs["sharded_remat"]
+    same = a["warm_losses"] == r["warm_losses"] and all(
+        same_bits(torch, a["snap"][k], r["snap"][k]) for k in a["snap"])
+    ok_mem = r["peak"] < a["peak"]
+    emit({"phase": "train_sharded", "check": "remat_vs_no_remat",
+          "fuse": "auto", "warm_losses": {"remat": r["warm_losses"],
+                                          "no_remat": a["warm_losses"]},
+          "bitwise_after_2_steps": same,
+          "max_memory_allocated_bytes": {"remat": r["peak"],
+                                         "no_remat": a["peak"]},
+          "ok": same and ok_mem})
+    if not same:
+        raise AssertionError("remat_policy='conv_outs' trained other bits "
+                             "than no remat")
+    if not ok_mem:
+        raise AssertionError("remat peak memory %d not below no remat's %d"
+                             % (r["peak"], a["peak"]))
+
+
+def _narrow_net(mx, torch, fuse, ctx, arrays=None):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as R
+    net = R.ResNetV1(R.BottleneckV1, *NARROW, classes=10, thumbnail=True,
+                     layout="NHWC", fuse=fuse)
+    net.initialize(ctx=ctx)
+    net(torch.zeros(1, 3, 32, 32, device=ctx.device))
+    if arrays is None:
+        arrays = mx.convert.random_numpy_params(
+            mx.convert.param_shapes(net), seed=3)
+    mx.convert.load_numpy_params(net, arrays)
+    return net, arrays
+
+
+def _sharded_narrow_card_vs_cpu(torch, mx):
+    """Two f32 ShardedTrainStep steps of the narrow ResNet (fuse=True, and
+    fuse=False with remat), TF32 off, the card against the CPU from the
+    same weights: NARROW_RTOL."""
+    rs = np.random.RandomState(1)
+    x = rs.rand(4, 3, 32, 32).astype("float32")
+    y = np.random.RandomState(2).randint(0, 10, (4,)).astype("float32")
+    with mx.precision.matmul_precision("float32"):
+        for fuse, remat in ((True, None), (False, "conv_outs")):
+            got = {}
+            arrays = None
+            for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+                net, arrays = _narrow_net(mx, torch, fuse, ctx, arrays)
+                step = _sharded_step(mx, torch, net, ("sgd", SGD),
+                                     ctx.device, remat)
+                losses = [step(x, y) for _ in range(2)]
+                got[where] = (losses, {k: v.detach().float().cpu()
+                                       for k, v in step.params.items()})
+            loss_rel = max(abs(a - b) / abs(b) for a, b in
+                           zip(got["card"][0], got["cpu"][0]))
+            param_rel = max(
+                (((got["card"][1][k] - v).abs().max()
+                  / v.abs().max().clamp_min(1e-30)).item(), k)
+                for k, v in got["cpu"][1].items())
+            ok = loss_rel <= NARROW_RTOL["loss"] \
+                and param_rel[0] <= NARROW_RTOL["param"]
+            emit({"phase": "train_sharded", "check": "narrow_f32_card_vs_cpu",
+                  "fuse": fuse, "remat_policy": remat, "batch": 4, "steps": 2,
+                  "loss_max_rel": loss_rel, "param_max_rel": param_rel,
+                  "bound_rel": NARROW_RTOL, "ok": ok})
+            if not ok:
+                raise AssertionError("narrow f32 sharded step card vs CPU "
+                                     "(fuse=%s, remat=%s): loss %g, param "
+                                     "%s" % (fuse, remat, loss_rel,
+                                             param_rel))
+
+
+def _opt_leaves(st):
+    if st is None:
+        return []
+    if isinstance(st, (tuple, list)):
+        return [a for s in st for a in _opt_leaves(s)]
+    return [st]
+
+
+def _sharded_optimizers_card_vs_cpu(torch, mx):
+    """SHARDED_OPTIMIZERS through ShardedTrainStep, card against CPU (see
+    the constant's comment)."""
+    rs = np.random.RandomState(5)
+    w0 = {"weight": rs.uniform(-0.5, 0.5, (8, 16)).astype("float32"),
+          "bias": rs.uniform(-0.1, 0.1, (8,)).astype("float32")}
+    batches = [(rs.randn(1, 16).astype("float32"),
+                rs.randn(1, 8).astype("float32")) for _ in range(3)]
+
+    def linear(out, y):
+        return (out * y).sum(-1)
+    worst = {}
+    for name, kw in SHARDED_OPTIMIZERS.items():
+        for dtype, mp in (("float32", False), ("bfloat16", True)):
+            got = {}
+            for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+                net = mx.gluon.nn.Dense(8, in_units=16)
+                net.initialize(ctx=ctx)
+                mx.convert.load_numpy_params(net, w0)
+                net.cast(dtype)
+                mx.random.seed(0)              # SGLD's noise
+                step = _sharded_step(
+                    mx, torch, net, (name, dict(kw, multi_precision=mp)),
+                    ctx.device, loss_fn=linear)
+                for bx, by in batches:
+                    step.step(torch.from_numpy(bx).to(getattr(torch, dtype)),
+                              torch.from_numpy(by).to(getattr(torch, dtype)))
+                got[where] = [t.detach().float().cpu() for path in
+                              step._param_paths for t in
+                              [step.params[path]]
+                              + _opt_leaves(step.opt_states[path])]
+            errs = [((c - r).abs().max() / r.abs().max().clamp_min(1e-30))
+                    .item() for c, r in zip(got["card"], got["cpu"])]
+            # the bf16 weights lead each path's list: one bf16 ulp for them
+            n = len(got["cpu"]) // 2
+            bounds = [OPT_BF16_RTOL if mp and i in (0, n) else OPT_RTOL
+                      for i in range(len(errs))]
+            key = "%s/%s" % (name, dtype)
+            worst[key] = max(errs)
+            if any(e > b for e, b in zip(errs, bounds)):
+                raise AssertionError("ShardedTrainStep %s card vs CPU: "
+                                     "errors %s over bounds %s"
+                                     % (key, errs, bounds))
+    emit({"phase": "train_sharded", "check": "optimizers_card_vs_cpu",
+          "optimizers": len(SHARDED_OPTIMIZERS), "steps": 3,
+          "bound_rel": {"f32": OPT_RTOL, "bf16_weights": OPT_BF16_RTOL},
+          "max_rel": worst, "ok": True})
+
+
 def _lm_batch(torch, vocab, batch, seq, seed, device):
     """Tokens and targets [batch, seq] from numpy ``seed``, as bench.py
     draws them."""
@@ -3625,6 +3942,54 @@ def phase_time_train(torch, state):
         if tops:
             emit(dict({"phase": "time",
                        "where_the_time_goes": key + ",b128"}, **tops))
+    for key in ("sharded", "sharded_remat"):
+        if key in state:
+            _time_sharded(torch, state, key)
+
+
+def _time_sharded(torch, state, key):
+    """Phase train_sharded's step in one configuration: images/sec, device
+    busy ms and idle share, peak memory (from its timed steps), and the
+    update phase (the optimizer over every path, one at a time) on its
+    own, device and host ms, beside train_fused's packed apply."""
+    step, xd, yd, peak = state[key]
+
+    def run():
+        step.step(xd, yd)
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    iters = 5
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters
+    busy_ms, by_kernel, tops = profile_busy_ms(
+        torch, run, 2, top=12,
+        match=("bn_", "conv_fused_", "conv_bwd_dx_", "conv_bwd_finalize",
+               "conv_bwd_dw_", "conv_dw_reduce"))
+    grads = [torch.zeros_like(step.params[p]) for p in step._param_paths]
+
+    def update():
+        step._apply(grads, {})
+    res = {"images_per_sec": 128 / wall, "wall_ms_per_step": wall * 1e3,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": None if busy_ms is None
+           else max(0.0, 1.0 - busy_ms / (wall * 1e3)),
+           "kernel_ms_per_step_by_name": by_kernel,
+           "max_memory_allocated_bytes": peak,
+           "update_phase_device_ms": device_busy_ms(torch, update, 3),
+           "update_phase_host_ms": host_ms(torch, update, 3),
+           "update_phase_paths": len(step._param_paths),
+           "train_fused_packed_apply_ms":
+               state.get("apply_timing", {}).get("ms")}
+    state.setdefault("sharded_timing", {})[key] = res
+    emit({"phase": "time", "sharded_train_step_resnet50_v1_nhwc_bf16_b128_"
+          + key: res})
+    if tops:
+        emit(dict({"phase": "time",
+                   "where_the_time_goes": key + ",b128"}, **tops))
 
 
 def flash_bound(kernel, card, D=128):
@@ -4059,11 +4424,17 @@ def kernel_summary(state):
     its error against its plain version and its times beside its bound,
     from the state the phases filled."""
     t = state["timing"]
+
+    def sharded(key):
+        # launches over phase train_sharded's 5 timed steps, per
+        # configuration
+        return {cfg: n[key] for cfg, n in state["launches_sharded"].items()}
     kernels = [{
         "name": "conv_fused", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/conv_fused.cu",
         "replaces": "mxnet_tpu/pallas_kernels/conv_fused.py:121",
         "launches": state["launches"]["conv_fused"],
+        "launches_train_sharded": sharded("conv_fused"),
         "max_abs_err": state["kernel_err"]["bfloat16"][0],
         "max_rel_err": state["kernel_err"]["bfloat16"][1],
         "tolerance_rel": RTOL["bfloat16"],
@@ -4081,6 +4452,7 @@ def kernel_summary(state):
             "replaces": "mxnet_tpu/pallas_kernels/batchnorm_fused.py:%d"
             % BN_REPLACES[k],
             "launches": state["launches"][k],
+            "launches_train_sharded": sharded(k),
             "max_abs_err": state["bn_err"][k][0],
             "max_rel_err": state["bn_err"][k][1],
             "tolerance_rel": 0.0 if k in ("stats", "apply") else BN_BWD_RTOL,
@@ -4102,6 +4474,7 @@ def kernel_summary(state):
             "replaces": "mxnet_tpu/pallas_kernels/conv_fused.py:%d"
             % body_line,
             "launches": state["launches"]["conv_fused." + k],
+            "launches_train_sharded": sharded("conv_fused." + k),
             "max_abs_err": state["conv_bwd_err"][k][0],
             "max_rel_err": state["conv_bwd_err"][k][1],
             "tolerance_rel": BWD_RTOL["bfloat16"]["dx"],

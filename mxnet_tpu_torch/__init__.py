@@ -39,6 +39,7 @@ from . import ndarray
 from . import kernels
 from . import parallel
 from . import optimizer
+from . import lr_scheduler
 from . import kvstore
 from . import gluon
 from . import convert
@@ -52,4 +53,5 @@ kv = kvstore
 __all__ = ["base", "MXNetError", "context", "Context", "cpu", "gpu",
            "current_context", "random", "precision", "autograd",
            "initializer", "init", "ndarray", "nd", "kernels", "parallel",
-           "optimizer", "kvstore", "kv", "gluon", "convert", "contrib"]
+           "optimizer", "lr_scheduler", "kvstore", "kv", "gluon", "convert",
+           "contrib"]

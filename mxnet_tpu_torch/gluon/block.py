@@ -27,6 +27,27 @@ from .parameter import Parameter, ParameterDict, DeferredInitializationError
 __all__ = ["Block", "HybridBlock", "report_aux_update"]
 
 
+class _AuxCollector(threading.local):
+    """Collects the (param, new_data) running-statistic updates that a
+    forward under ``parallel.train.functional_call`` reports, so that the
+    call returns them instead of writing them. Each entry of ``stack`` is
+    a list that takes the updates, or None to drop them (a remat
+    recompute replays a forward whose updates were collected already)."""
+
+    def __init__(self):
+        self.stack = []
+
+    def active(self):
+        return bool(self.stack)
+
+    def add(self, param, new_data):
+        if self.stack[-1] is not None:
+            self.stack[-1].append((param, new_data))
+
+
+_AUX = _AuxCollector()
+
+
 class _BlockScope(threading.local):
     def __init__(self):
         self.counters = {}
@@ -222,7 +243,13 @@ class HybridBlock(Block):
 
 
 def report_aux_update(param, new_data):
-    """Publish a running-statistic update: written in place, outside the
-    graph (also under recording)."""
+    """Publish a running-statistic update. Inside
+    ``parallel.train.functional_call`` it is collected (detached) and
+    returned by the call; otherwise, the eager paths (``Trainer``,
+    ``gluon.train_step``), it is written in place, outside the graph
+    (also under recording)."""
+    if _AUX.active():
+        _AUX.add(param, new_data.detach())
+        return
     with torch.no_grad():
         param.data().copy_(new_data)

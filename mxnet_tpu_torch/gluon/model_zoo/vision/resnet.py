@@ -58,10 +58,15 @@ def _fused_opdefs():
             b = beta.float() - mean.float() * s
             return s, b, mean, var
 
+        from ....remat import checkpoint_name
+
         def _fused_conv(x, s, b, w, relu=True):
             w_hwio = w.permute(2, 3, 1, 0)           # OIHW -> HWIO
-            return fused_scale_relu_conv3x3(x.contiguous(), s, b, w_hwio,
-                                            relu=relu)
+            x = x.contiguous()
+            # tagged like every other conv, so that a conv_outs remat
+            # policy keeps it instead of launching the kernel again
+            with checkpoint_name("conv_out"):
+                return fused_scale_relu_conv3x3(x, s, b, w_hwio, relu=relu)
 
         _BN_FOLD_OP = OpDef("_fused_bn_fold", _bn_fold)
         _FUSED_CONV_OP = OpDef("_fused_scale_relu_conv3x3", _fused_conv)

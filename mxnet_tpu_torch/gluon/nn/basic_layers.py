@@ -5,6 +5,7 @@ from __future__ import annotations
 import math
 
 from ... import autograd
+from ... import remat
 from ...base import weak_scalar
 from ..block import HybridBlock, report_aux_update
 
@@ -13,7 +14,10 @@ __all__ = ["HybridSequential", "Dense", "BatchNorm", "Activation",
 
 
 class HybridSequential(HybridBlock):
-    """Children run in the order they were added; child i is named "i"."""
+    """Children run in the order they were added; child i is named "i".
+    Under a remat policy (``remat.segmenting()``) each composite child and
+    each run of consecutive leaf children runs as one checkpoint region
+    (``remat.py`` says why)."""
 
     def add(self, *blocks):
         for block in blocks:
@@ -21,9 +25,29 @@ class HybridSequential(HybridBlock):
             self._params.update(block.collect_params())
 
     def forward(self, x, *args):
+        if remat.segmenting():
+            return self._forward_regions(x)
         for block in self._modules.values():
             x = block(x)
         return x
+
+    def _forward_regions(self, x):
+        run = []
+
+        def flush(x):
+            if run:
+                blocks = tuple(run)
+                run.clear()
+                x = remat.region(lambda t: _chain(blocks, t), x)
+            return x
+        for block in self._modules.values():
+            if isinstance(block, HybridSequential):
+                x = block(flush(x))
+            elif block._child_blocks():
+                x = remat.region(block, flush(x))
+            else:
+                run.append(block)
+        return flush(x)
 
     def __len__(self):
         return len(self._modules)
@@ -33,6 +57,12 @@ class HybridSequential(HybridBlock):
 
     def __iter__(self):
         return iter(self._modules.values())
+
+
+def _chain(blocks, x):
+    for block in blocks:
+        x = block(x)
+    return x
 
 
 class Dense(HybridBlock):

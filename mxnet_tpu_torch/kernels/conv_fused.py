@@ -3,8 +3,8 @@ plain PyTorch versions (counterpart of mxnet_tpu/pallas_kernels/conv_fused.py).
 
     y = conv3x3(relu(x * s + b), W)        # stride 1, SAME padding, NHWC
 
-``fused_scale_relu_conv3x3`` is differentiable: a ``torch.autograd.Function``
-whose forward is the forward kernel and whose backward is the d-input
+``fused_scale_relu_conv3x3`` is differentiable: a ``torch.library`` custom
+op whose forward is the forward kernel and whose backward is the d-input
 kernel (dx, with the ds/db partials and a finalize launch that folds them)
 and the d-weight kernel (dW partials and a reduce launch), all in
 ``csrc/conv_fused.cu``. In bf16 all three kernels are persistent: one
@@ -171,20 +171,37 @@ def _check(x, s, b, w):
                          % x.device)
 
 
-class _FusedConv(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, s, b, w, relu):
-        ctx.relu = relu
-        ctx.save_for_backward(x, s, b, w)
-        if x.device.type == "cpu":
-            return fused_conv_reference(x, s, b, w, relu)
-        return _launch(x, s, b, w, relu)
+@torch.library.custom_op("mxnet_tpu_torch::fused_scale_relu_conv3x3",
+                         mutates_args=())
+def _fused_conv(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor,
+                w: torch.Tensor, relu: bool) -> torch.Tensor:
+    """The forward as one dispatcher op, so that a selective checkpoint
+    policy sees it (and keeps its output, "conv_out", instead of
+    launching the kernel again in a recompute; ``remat.py``)."""
+    if x.device.type == "cpu":
+        return fused_conv_reference(x, s, b, w, relu)
+    return _launch(x, s, b, w, relu)
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, s, b, w = ctx.saved_tensors
-        dx, ds, db, dw = fused_conv_backward(x, s, b, w, dy, ctx.relu)
-        return dx, ds, db, dw, None
+
+@_fused_conv.register_fake
+def _fused_conv_fake(x, s, b, w, relu):
+    return x.new_empty(tuple(x.shape[:3]) + (w.shape[-1],))
+
+
+def _fused_conv_setup(ctx, inputs, output):
+    x, s, b, w, relu = inputs
+    ctx.relu = relu
+    ctx.save_for_backward(x, s, b, w)
+
+
+def _fused_conv_backward(ctx, dy):
+    x, s, b, w = ctx.saved_tensors
+    dx, ds, db, dw = fused_conv_backward(x, s, b, w, dy, ctx.relu)
+    return dx, ds, db, dw, None
+
+
+_fused_conv.register_autograd(_fused_conv_backward,
+                              setup_context=_fused_conv_setup)
 
 
 def fused_scale_relu_conv3x3(x, s, b, w, relu=True):
@@ -201,7 +218,7 @@ def fused_scale_relu_conv3x3(x, s, b, w, relu=True):
     if x.device.type == "cuda" and not x.is_contiguous():
         raise ValueError("fused_scale_relu_conv3x3: x must be contiguous "
                          "NHWC")
-    return _FusedConv.apply(x, s, b, w, bool(relu))
+    return _fused_conv(x, s, b, w, bool(relu))
 
 
 def fused_conv_backward(x, s, b, w, dy, relu=True):

@@ -6,6 +6,11 @@ Layouts follow the JAX package: NCHW by default, the channels-last layouts
 (NWC/NHWC/NDHWC) where ``layout=`` says so, and OIHW weights in every
 layout. Convolutions and pooling outside the fused BN->ReLU->conv3x3 link
 run through ``torch.nn.functional``; the JAX package leaves them to XLA.
+
+The values a ``remat_policy`` may keep are tagged where they are made, as
+the JAX package tags them: convolution outputs "conv_out", max-pool
+outputs "pool_out" and training BatchNorm statistics "bn_stat"
+(``remat.checkpoint_name``; outside a policy a tag does nothing).
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import torch.nn.functional as tF
 from ..base import canonical_dtype
 from ..kernels import batchnorm_fused as _bnf
 from ..kernels.batchnorm_fused import exact_mul, exact_sq, tree_fold_rows
+from ..remat import checkpoint_name
 from .registry import register
 
 __all__ = ["fully_connected", "convolution", "pooling", "activation",
@@ -79,13 +85,15 @@ def convolution(x, weight, bias=None, kernel=None, stride=None, dilate=None,
         # slice of the input (the JAX package's form, ops/nn.py)
         xs = x[:, ::stride[0], ::stride[1], :] if stride != (1, 1) else x
         n, h, w_, cin = xs.shape
-        out = torch.matmul(xs.reshape(n * h * w_, cin),
-                           weight.reshape(weight.shape[0], cin).t())
-        out = out.reshape(n, h, w_, weight.shape[0])
-        return out + bias if use_bias else out
+        a = xs.reshape(n * h * w_, cin)
+        b = weight.reshape(weight.shape[0], cin).t()
+        with checkpoint_name("conv_out"):
+            out = torch.matmul(a, b).reshape(n, h, w_, weight.shape[0])
+            return out + bias if use_bias else out
     xin = _to_cf(x) if channels_last else x
-    out = _CONV[nd](xin, weight, bias if use_bias else None, stride, pad,
-                    dilate, num_group)
+    with checkpoint_name("conv_out"):
+        out = _CONV[nd](xin, weight, bias if use_bias else None, stride,
+                        pad, dilate, num_group)
     return _to_cl(out) if channels_last else out
 
 
@@ -120,8 +128,9 @@ def pooling(x, kernel=None, pool_type="max", stride=None, pad=None,
             extra = max((out_sz - 1) * stride[i] + kernel[i] - in_sz, 0)
         flat += [pad[i], pad[i] + extra]
     xp = tF.pad(xin, flat, value=float("-inf")) if any(flat) else xin
-    out = (tF.max_pool1d, tF.max_pool2d, tF.max_pool3d)[nd - 1](
-        xp, kernel, stride)
+    with checkpoint_name("pool_out"):
+        out = (tF.max_pool1d, tF.max_pool2d, tF.max_pool3d)[nd - 1](
+            xp, kernel, stride)
     return _to_cl(out) if channels_last else out
 
 
@@ -197,7 +206,8 @@ def batch_moments(x, axes, axis=None, fp32_out=False):
         var32 = _bnf.div_count(tree_fold_rows(exact_sq(x2 - mean32))[0], n)
     if fp32_out:
         return mean32, var32
-    return mean32.to(x.dtype), var32.to(x.dtype)
+    with checkpoint_name("bn_stat"):
+        return mean32.to(x.dtype), var32.to(x.dtype)
 
 
 @register("BatchNorm", aliases=("batch_norm",))
@@ -218,11 +228,12 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-3,
     if _training and not use_global_stats:
         if x.dim() >= 2 and cax == x.dim() - 1:
             out, mean32, var32 = _bnf.fused_batch_norm(x, g, beta, eps=eps)
+        else:
+            axes = tuple(i for i in range(x.dim()) if i != cax)
+            mean32, var32 = batch_moments(x, axes, axis, fp32_out=True)
+            out = bn_apply(x, mean32, bn_inv_std(var32, eps), g, beta, cax)
+        with checkpoint_name("bn_stat"):
             return out, mean32.to(x.dtype), var32.to(x.dtype)
-        axes = tuple(i for i in range(x.dim()) if i != cax)
-        mean32, var32 = batch_moments(x, axes, axis, fp32_out=True)
-        return (bn_apply(x, mean32, bn_inv_std(var32, eps), g, beta, cax),
-                mean32.to(x.dtype), var32.to(x.dtype))
     mean32 = moving_mean.to(torch.float32)
     var32 = moving_var.to(torch.float32)
     return (bn_apply(x, mean32, bn_inv_std(var32, eps), g, beta, cax),

@@ -1,8 +1,5 @@
 """Weight-update rules (counterpart of mxnet_tpu/optimizer)."""
-from .optimizer import Optimizer, SGD, Adam, Updater, create, register, \
-    get_updater
+from .optimizer import *  # noqa: F401,F403
+from .optimizer import Optimizer, Updater, create, register, get_updater
 
 opt_registry = Optimizer.opt_registry
-
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "create", "register",
-           "get_updater", "opt_registry"]

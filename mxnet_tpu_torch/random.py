@@ -6,11 +6,12 @@ global RNG, so user code that seeds ``torch.manual_seed`` is unaffected.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "replay"]
 
 
 class _RngState(threading.local):
@@ -32,3 +33,18 @@ def seed(seed_state, ctx="all"):
 def generator():
     """The host ``torch.Generator`` the initializers draw from."""
     return _STATE.gen
+
+
+@contextlib.contextmanager
+def replay(state):
+    """Draw from a generator at ``state`` (a ``get_state()`` of this
+    module's generator) inside the block, on this thread, and leave the
+    thread's own stream as it was: a remat recompute draws the numbers
+    its first run drew."""
+    gen = torch.Generator(device="cpu")
+    gen.set_state(state)
+    prev, _STATE.gen = _STATE.gen, gen
+    try:
+        yield gen
+    finally:
+        _STATE.gen = prev
