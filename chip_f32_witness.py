@@ -150,9 +150,9 @@ def run(mx, net_name, arrays, x, y, fuse, route):
             trainer.step(x.shape[0])
     params = net._collect_params_with_prefix()
     out = {"loss": loss.detach().cpu().double(),
-           "grad": {k: p.grad().detach().cpu().double()
+           "grad": {k: p._grad_tensor().detach().cpu().double()
                     for k, p in params.items() if p.grad_req != "null"},
-           "param": {k: p.data().detach().cpu().double()
+           "param": {k: p._tensor().detach().cpu().double()
                      for k, p in params.items()}}
     return out
 

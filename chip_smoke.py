@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases env,kernel,train_fused
     python3 chip_smoke.py --phases env,kernel,train_adam
     python3 chip_smoke.py --phases env,train_sharded,time_train
+    python3 chip_smoke.py --phases env,ndarray
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
     python3 chip_smoke.py --phases env,kernel_bn,time_bn
@@ -173,6 +174,26 @@ Phases, each printing JSON lines:
               CPU (NARROW_RTOL), and all 17 registered optimizers (f32,
               and bf16 with multi_precision) through ShardedTrainStep,
               card against CPU (SHARDED_OPTIMIZERS, OPT_RTOL).
+5d. ndarray -- the same ResNet-50 v1 NHWC bf16 (weights from numpy seed 0,
+              data from seed 1) through the mx.nd front end. Serving: 4
+              requests of mx.nd.array(x, ctx=mx.gpu(0), dtype="bfloat16"),
+              batch 32, fuse=True: each answer an NDArray on gpu(0) with
+              the bits of the same net called on the tensor, exactly 16
+              conv_fused launches per forward (counters zeroed just
+              before). Training: 2 eager steps (fuse=False, batch 128,
+              bench_resnet's SGD) fed NDArray data and labels under
+              autograd.record(), loss.backward(), trainer.step(128):
+              exactly 53 launches of each BatchNorm kernel per step, every
+              weight and running statistic equal bit for bit to 2
+              tensor-fed steps from the same start (cuDNN deterministic).
+              Checkpoint: save_parameters and save_states after step 2;
+              the file's bytes equal nd.save of the same arrays moved to
+              the CPU; a fresh net load_parameters(f, ctx=mx.gpu(0)) and a
+              fresh Trainer load_states: the same weights, the same bits
+              of a b32 forward, and after a third step on both the same
+              weights. Then the save and load wall times, and host ms per
+              eager step fed tensors and NDArrays in turns (tensor,
+              NDArray, NDArray, tensor; 3 steps a turn).
 6. train_lm -- the transformer LM of bench.py's bench_transformer at its
               full width (dim 4096, 5 layers, 32 heads of 128, FFN 16384,
               vocab 32000, bf16, chunked CE over 8 chunks, full per-layer
@@ -259,7 +280,8 @@ import time
 import numpy as np
 
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
-          "train_fused", "train_adam", "train_sharded", "train_lm", "time")
+          "train_fused", "train_adam", "train_sharded", "ndarray", "train_lm",
+          "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
 # the BatchNorm kernels' checks and timing, the training steps' timing
 # (after the train phases), the conv_fused forward's, the backward pair's,
@@ -2526,8 +2548,8 @@ def phase_train_kv(torch, state):
                                kvstore=kv)
     bound_n = kv._compression_params["size_lower_bound"]
     trainable = [p for p in trainer._params if p.grad_req != "null"]
-    compressed = [p for p in trainable if p.data().numel() >= bound_n]
-    elements = sum(p.data().numel() for p in compressed)
+    compressed = [p for p in trainable if p._tensor().numel() >= bound_n]
+    elements = sum(p._tensor().numel() for p in compressed)
     derived = (len(trainable), len(compressed), elements)
     if derived != (KV_TRAINABLE, KV_COMPRESSED, KV_COMPRESSED_ELEMENTS):
         raise AssertionError("compressed parameters (trainable, compressed, "
@@ -2626,11 +2648,11 @@ def _kv_pulled_check(torch, mx, net, trainer, loss_fn, x, y, bound_n):
                 flat, torch.zeros_like(flat) if res is None else res, thr)
             want = C.dequantize_2bit_reference(rw, flat.numel(), thr) \
                 .reshape(g.shape).to(g.dtype)
-            ok = same_bits(torch, p.grad(), want) and same_bits(
+            ok = same_bits(torch, p._grad_tensor(), want) and same_bits(
                 torch, kv._compression_residuals[idx], rr)
         else:
             n_plain += 1
-            ok = same_bits(torch, p.grad(), g)
+            ok = same_bits(torch, p._grad_tensor(), g)
         if not ok:
             bad.append(p.name)
     emit({"phase": "train_kv", "check": "pulled gradients against the "
@@ -2661,7 +2683,7 @@ def _kv_update_on_kvstore_check(torch, mx, arrays, x_np, y_np, loss_fn):
                 _train_step(mx, net, trainer, loss_fn, x, y)
             if trainer._update_on_kvstore is not on:
                 raise AssertionError("update_on_kvstore=%s not attached" % on)
-            weights[on] = {k: p.data().detach().clone() for k, p in
+            weights[on] = {k: p._tensor().detach().clone() for k, p in
                            net._collect_params_with_prefix().items()}
             del net, trainer
     finally:
@@ -2763,9 +2785,9 @@ def _one_step(torch, mx, arrays, ctx, x_np, y_np, loss_fn, fuse, dtype,
             loss = _train_step(mx, net, trainer, loss_fn, x, y)
     params = net._collect_params_with_prefix()
     return {"loss": loss.detach().cpu(),
-            "grad": {k: p.grad().cpu() for k, p in params.items()
+            "grad": {k: p._grad_tensor().cpu() for k, p in params.items()
                      if p.grad_req != "null"},
-            "param": {k: p.data().detach().cpu()
+            "param": {k: p._tensor().detach().cpu()
                       for k, p in params.items()}}
 
 
@@ -2816,7 +2838,7 @@ def _train_fused(torch, state):
     step = mx.gluon.train_step(net, loss_fn, trainer)
     # the trainable weights in the order the step packs them
     all_params, train_pos, _ = step._param_split()
-    trainable = [all_params[pos].data() for pos in train_pos]
+    trainable = [all_params[pos]._tensor() for pos in train_pos]
     buckets = len(OA.bucketize(trainable))
     x = torch.from_numpy(x_np).to("cuda", torch.bfloat16)
     y = torch.from_numpy(y_np).cuda()
@@ -2950,7 +2972,7 @@ def _train_adam(torch, state):
     trainer = mx.gluon.Trainer(net.collect_params(), "adam", dict(ADAM))
     step = mx.gluon.train_step(net, loss_fn, trainer)
     all_params, train_pos, _ = step._param_split()
-    trainable = [all_params[pos].data() for pos in train_pos]
+    trainable = [all_params[pos]._tensor() for pos in train_pos]
     buckets = len(OA.bucketize(trainable))
     x = torch.from_numpy(x_np).to("cuda", torch.bfloat16)
     y = torch.from_numpy(y_np).cuda()
@@ -3259,6 +3281,196 @@ def _sharded_optimizers_card_vs_cpu(torch, mx):
           "optimizers": len(SHARDED_OPTIMIZERS), "steps": 3,
           "bound_rel": {"f32": OPT_RTOL, "bf16_weights": OPT_BF16_RTOL},
           "max_rel": worst, "ok": True})
+
+
+# -- the NDArray front end: serving, training and the checkpoint path
+#    through mx.nd ----------------------------------------------------------
+
+ND_STEPS = 2          # NDArray-fed eager steps held against tensor-fed ones
+ND_TIMED = 3          # steps per timed turn (tensor, NDArray, NDArray, tensor)
+
+
+def _params_equal(torch, a, b):
+    """The structural names whose tensors differ between nets a and b."""
+    pb = b._collect_params_with_prefix()
+    return [k for k, p in a._collect_params_with_prefix().items()
+            if not torch.equal(p._tensor(), pb[k]._tensor())]
+
+
+def _nd_step(mx, net, trainer, loss_fn, x, y):
+    """One eager step; x and y NDArrays or tensors alike."""
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def phase_ndarray(torch, state):
+    """ResNet-50 served, trained, saved and reloaded through mx.nd (the
+    module docstring, phase 5d)."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+    from mxnet_tpu_torch.ndarray import ndarray as NDA
+
+    prev = _deterministic_cudnn(torch)
+    arrays = _arrays(mx, state)
+    gpu = mx.gpu(0)
+    failures = []
+
+    # -- 1. serving: 4 requests of 32 as NDArrays on gpu(0) ---------------
+    rs = np.random.RandomState(1)
+    requests = [rs.rand(32, 3, 224, 224).astype("float32") for _ in range(4)]
+    net = _build_net(mx, arrays, True, "bfloat16", gpu)
+    xs = [mx.nd.array(r, ctx=gpu, dtype="bfloat16") for r in requests]
+    torch.cuda.synchronize()
+    CF.LAUNCHES = 0
+    outs = [net(x) for x in xs]
+    torch.cuda.synchronize()
+    serve_launches = CF.LAUNCHES
+    same = 0
+    for r, x, out in zip(requests, xs, outs):
+        ok = isinstance(out, mx.nd.NDArray) and out.context == gpu \
+            and out.shape == (32, 1000) and str(out.dtype) in (
+                "bfloat16", "torch.bfloat16")
+        ref = net(torch.from_numpy(r).to("cuda", torch.bfloat16))
+        same += int(ok and same_bits(torch, out._data, ref))
+    ok_serve = same == len(requests) and serve_launches == 16 * len(xs)
+    emit({"phase": "ndarray", "part": "serve", "dtype": "bfloat16",
+          "requests": len(xs), "batch": 32, "launches": serve_launches,
+          "launches_wanted": 16 * len(xs), "same_bits_as_tensor": same,
+          "ml_dtypes": NDA._ml_dtypes is not None, "ok": ok_serve})
+    if not ok_serve:
+        failures.append("serve: %d of %d NDArray answers with the tensor "
+                        "bits, %d conv_fused launches"
+                        % (same, len(xs), serve_launches))
+    del net, outs
+
+    # -- 2. training: 2 eager steps fed NDArrays against tensors ----------
+    x_np, y_np = _batch(state)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    net = _build_net(mx, arrays, False, "bfloat16", gpu)
+    ref = _build_net(mx, arrays, False, "bfloat16", gpu)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD))
+    rtrainer = mx.gluon.Trainer(ref.collect_params(), "sgd", dict(SGD))
+    xn = mx.nd.array(x_np, ctx=gpu, dtype="bfloat16")
+    yn = mx.nd.array(y_np, ctx=gpu)
+    xt = torch.from_numpy(x_np).to("cuda", torch.bfloat16)
+    yt = torch.from_numpy(y_np).cuda()
+    torch.cuda.synchronize()
+    _zero_counts(BNF, CF)
+    losses = []
+    for _ in range(ND_STEPS):
+        loss = _nd_step(mx, net, trainer, loss_fn, xn, yn)
+        losses.append(float(loss.mean().asscalar()))
+    torch.cuda.synchronize()
+    counts = _bn_counts(BNF)
+    conv = CF.LAUNCHES
+    for _ in range(ND_STEPS):
+        _nd_step(mx, ref, rtrainer, loss_fn, xt, yt)
+    torch.cuda.synchronize()
+    differ = _params_equal(torch, net, ref)
+    want = {k: ND_STEPS * BN_PER_STEP for k in BN_KERNELS}
+    want["finalize"] = 2 * ND_STEPS * BN_PER_STEP
+    ok_counts = all(counts[k] == n for k, n in want.items()) and conv == 0
+    ok_train = ok_counts and not differ and isinstance(loss, mx.nd.NDArray) \
+        and all(np.isfinite(losses))
+    state.setdefault("launches", {})["ndarray"] = {
+        "conv_fused": serve_launches,
+        **{k: counts[k] for k in BN_KERNELS}}
+    emit({"phase": "ndarray", "part": "train", "dtype": "bfloat16",
+          "batch": 128, "steps": ND_STEPS, "losses": losses,
+          "launches": counts, "launches_wanted": want,
+          "conv_fused_launches": conv,
+          "weights_differing_from_tensor_fed": differ[:5],
+          "n_differing": len(differ), "ok": ok_train})
+    if not ok_train:
+        failures.append("train: launches %s (conv_fused %d), want %s; %d "
+                        "weights differ from the tensor-fed steps"
+                        % (counts, conv, want, len(differ)))
+
+    # -- 3. the checkpoint round trip -------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nd_") as tmp:
+        fparams = os.path.join(tmp, "resnet50.params")
+        fstates = os.path.join(tmp, "resnet50.states")
+        fcpu = os.path.join(tmp, "resnet50_cpu.params")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.save_parameters(fparams)
+        save_s = time.perf_counter() - t0
+        trainer.save_states(fstates)
+        cpu_arrays = {k: p.data().as_in_context(mx.cpu()) for k, p in
+                      net._collect_params_with_prefix().items()}
+        mx.nd.save(fcpu, cpu_arrays)
+        n_values = sum(a.size for a in cpu_arrays.values())
+        size = os.path.getsize(fparams)
+        with open(fparams, "rb") as a, open(fcpu, "rb") as b:
+            same_file = a.read() == b.read()
+        del cpu_arrays
+        net2 = resnet50_v1(layout="NHWC", fuse=False)
+        net2.initialize(ctx=gpu)
+        net2.cast("bfloat16")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net2.load_parameters(fparams, ctx=mx.gpu(0))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        trainer2 = mx.gluon.Trainer(net2.collect_params(), "sgd", dict(SGD))
+        trainer2.load_states(fstates)
+    reload_differ = _params_equal(torch, net, net2)
+    f_a, f_b = net(xs[0]), net2(xs[0])
+    same_fwd = same_bits(torch, f_a._data, f_b._data)
+    _nd_step(mx, net, trainer, loss_fn, xn, yn)
+    _nd_step(mx, net2, trainer2, loss_fn, xn, yn)
+    torch.cuda.synchronize()
+    step3_differ = _params_equal(torch, net, net2)
+    ok_ckpt = same_file and same_fwd and not reload_differ \
+        and not step3_differ
+    emit({"phase": "ndarray", "part": "checkpoint", "file_bytes": size,
+          "values": n_values, "same_bytes_as_cpu_save": same_file,
+          "reloaded_weights_differing": len(reload_differ),
+          "reloaded_b32_forward_same_bits": same_fwd,
+          "third_step_weights_differing": len(step3_differ),
+          "save_parameters_s": save_s, "load_parameters_s": load_s,
+          "ok": ok_ckpt})
+    if not ok_ckpt:
+        failures.append("checkpoint: same bytes %s, reloaded forward bits "
+                        "%s, %d / %d weights differ after reload / step 3"
+                        % (same_file, same_fwd, len(reload_differ),
+                           len(step3_differ)))
+    del net2, trainer2, f_a, f_b
+
+    # -- 4. host ms per eager step, tensor-fed and NDArray-fed in turns ---
+    turns = []
+    for kind in ("tensor", "ndarray", "ndarray", "tensor"):
+        m, tr, x, y = (ref, rtrainer, xt, yt) if kind == "tensor" else \
+            (net, trainer, xn, yn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ND_TIMED):
+            _nd_step(mx, m, tr, loss_fn, x, y)
+        torch.cuda.synchronize()
+        turns.append((kind, (time.perf_counter() - t0) * 1e3 / ND_TIMED))
+    tensor_ms = [ms for k, ms in turns if k == "tensor"]
+    nd_ms = [ms for k, ms in turns if k == "ndarray"]
+    spread = max(tensor_ms) - min(tensor_ms)
+    cost = sum(nd_ms) / 2 - sum(tensor_ms) / 2
+    emit({"phase": "ndarray", "part": "time", "smi": state["smi"],
+          "turns_ms_per_step": turns, "steps_per_turn": ND_TIMED,
+          "ndarray_minus_tensor_ms": cost, "tensor_spread_ms": spread,
+          "within_tensor_spread": cost <= spread,
+          "save_parameters_s": save_s, "load_parameters_s": load_s})
+    state["ndarray_timing"] = {"turns": turns, "save_s": save_s,
+                               "load_s": load_s}
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        prev
+    if failures:
+        raise AssertionError("phase ndarray: " + "; ".join(failures))
 
 
 def _lm_batch(torch, vocab, batch, seq, seed, device):

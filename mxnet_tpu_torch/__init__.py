@@ -26,16 +26,25 @@ int8 quantization: ``contrib.quantization`` (calibration and
 ``quantize_net``) and the quantized operator family
 (``ops/quantized.py``, exposed as ``nd.contrib.quantized_conv`` and the
 rest), on the int8 matmul kernel (``kernels/quantized_matmul.py``).
+
+Arrays: ``mx.nd.array(...)`` gives an ``NDArray`` (``ndarray/ndarray.py``)
+over a tensor, with the JAX package's methods, operators and elementwise
+and tensor op families, ``attach_grad``/``backward``, and the checkpoint
+path (``nd.save``/``nd.load``, ``Block.save_parameters``/
+``load_parameters``, ``ParameterDict.save``/``load``) in the reference's
+``.params`` format.
 """
 from . import base
 from .base import MXNetError
 from . import context
-from .context import Context, cpu, gpu, current_context
+from .context import Context, cpu, gpu, cpu_pinned, current_context
+from .context import num_gpus
 from . import random
 from . import precision
 from . import autograd
 from . import initializer
 from . import ndarray
+from .ndarray import NDArray
 from . import kernels
 from . import parallel
 from . import optimizer
@@ -50,8 +59,20 @@ nd = ndarray
 init = initializer
 kv = kvstore
 
+
+def seed(seed_state, ctx="all"):
+    """Seed the port's random stream (``mx.random.seed``)."""
+    random.seed(seed_state, ctx)
+
+
+def waitall():
+    """Wait for all work on the devices (``mx.nd.waitall``)."""
+    nd.waitall()
+
+
 __all__ = ["base", "MXNetError", "context", "Context", "cpu", "gpu",
-           "current_context", "random", "precision", "autograd",
+           "cpu_pinned", "num_gpus", "current_context", "NDArray", "seed",
+           "waitall", "random", "precision", "autograd",
            "initializer", "init", "ndarray", "nd", "kernels", "parallel",
            "optimizer", "lr_scheduler", "kvstore", "kv", "gluon", "convert",
            "contrib"]

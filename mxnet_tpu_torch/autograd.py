@@ -15,6 +15,12 @@ gradient conventions on top of it:
 - A non-scalar head. ``backward`` seeds ones for a head given no gradient,
   as MXNet does, and a block's output under recording is a ``Head`` whose
   ``.backward()`` does the same.
+- NDArrays. ``backward``, ``grad`` and ``mark_variables`` take NDArray
+  heads, head gradients and variables as well as tensors. An NDArray
+  variable (``attach_grad``, ``mark_variables``) keeps its gradient in an
+  NDArray of its own (``.grad``, or the one given to ``mark_variables``),
+  which each backward rebinds to the new gradient (``_bind_grad``), as the
+  JAX package's tape writes it.
 """
 from __future__ import annotations
 
@@ -111,9 +117,43 @@ def _on_leaf_grad(ref):
         if t is not None and not _IN_GRAD[0]:
             if getattr(t, "_grad_req", "write") == "write":
                 t.grad = None            # the new gradient replaces the old
+            else:
+                holder = getattr(t, "_nd_grad", None)
+                if holder is not None:   # "add" starts from the holder's
+                    t.grad = holder._data
             t._fresh_grad = True
         return g
     return hook
+
+
+def _deliver_nd_grad(t):
+    """After accumulation: the NDArray that holds ``t``'s gradient takes
+    the new one."""
+    holder = getattr(t, "_nd_grad", None)
+    if holder is not None and t.grad is not None:
+        holder._data = t.grad
+
+
+def _bind_grad(arr):
+    """Make NDArray ``arr``'s tensor a leaf with request ``arr._grad_req``
+    whose gradient lands in NDArray ``arr._grad``."""
+    t = arr._data
+    track(t, arr._grad_req)
+    holder = arr._grad
+    if holder._data.shape != t.shape or holder._data.dtype != t.dtype \
+            or holder._data.device != t.device:
+        holder._data = torch.zeros_like(t)
+    t.grad = holder._data
+    t._nd_grad = holder
+    if not getattr(t, "_nd_hooked", False):
+        t.register_post_accumulate_grad_hook(_deliver_nd_grad)
+        t._nd_hooked = True
+
+
+def _tensor(x):
+    """The tensor of an NDArray (else ``x`` itself)."""
+    from .ndarray.ndarray import NDArray
+    return x._data if isinstance(x, NDArray) else x
 
 
 def track(tensor, grad_req):
@@ -132,19 +172,30 @@ def track(tensor, grad_req):
 
 
 def mark_variables(variables, gradients, grad_reqs="write"):
-    """Mark leaf tensors as variables: each gets ``gradients[i]`` as its
-    gradient buffer and the request ``grad_reqs[i]``."""
-    if isinstance(variables, torch.Tensor):
+    """Mark leaves as variables: each gets ``gradients[i]`` as its gradient
+    buffer and the request ``grad_reqs[i]``. Tensors or NDArrays; an
+    NDArray gradient is rebound to each new gradient."""
+    from .ndarray.ndarray import NDArray
+    if isinstance(variables, (torch.Tensor, NDArray)):
         variables, gradients = [variables], [gradients]
     if isinstance(grad_reqs, str):
         grad_reqs = [grad_reqs] * len(variables)
     for var, gradient, req in zip(variables, gradients, grad_reqs):
+        if isinstance(var, NDArray):
+            var._grad_req = req
+            var._data = var._data.detach()
+            if req == "null":
+                var._grad = None
+            else:
+                var._grad = gradient
+                _bind_grad(var)
+            continue
         track(var, req)
-        var.grad = gradient if req != "null" else None
+        var.grad = _tensor(gradient) if req != "null" else None
 
 
 def _seeds(heads, head_grads):
-    if isinstance(heads, torch.Tensor):
+    if not isinstance(heads, (list, tuple)):
         heads = [heads]
         if head_grads is not None and not isinstance(head_grads,
                                                      (list, tuple)):
@@ -153,7 +204,8 @@ def _seeds(heads, head_grads):
         head_grads = [None] * len(heads)
     if len(heads) != len(head_grads):
         raise ValueError("heads and head_grads must have the same length")
-    seeds = [torch.ones_like(h) if g is None else g
+    heads = [_tensor(h) for h in heads]
+    seeds = [torch.ones_like(h) if g is None else _tensor(g)
              for h, g in zip(heads, head_grads)]
     return heads, seeds
 
@@ -170,10 +222,13 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
          create_graph=False, train_mode=True):
     """Gradients of ``heads`` with respect to ``variables``, returned
     instead of written into ``.grad`` (zeros for a variable the heads do
-    not reach)."""
-    single = isinstance(variables, torch.Tensor)
+    not reach); NDArrays for NDArray variables."""
+    from .ndarray.ndarray import NDArray, wrap
+    single = not isinstance(variables, (list, tuple))
     if single:
         variables = [variables]
+    as_nd = [isinstance(v, NDArray) for v in variables]
+    variables = [_tensor(v) for v in variables]
     heads, seeds = _seeds(heads, head_grads)
     _IN_GRAD[0] += 1         # the leaves' .grad stay as they are
     try:
@@ -185,6 +240,7 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
         _IN_GRAD[0] -= 1
     out = [torch.zeros_like(v) if g is None else g
            for g, v in zip(out, variables)]
+    out = [wrap(g) if nd else g for g, nd in zip(out, as_nd)]
     return out[0] if single else out
 
 

@@ -27,6 +27,7 @@ _DTYPES = {
     "float16": torch.float16,
     "bfloat16": torch.bfloat16,
     "int8": torch.int8,
+    "int16": torch.int16,
     "uint8": torch.uint8,
     "int32": torch.int32,
     "int64": torch.int64,
@@ -36,10 +37,14 @@ _DTYPES = {
 
 def canonical_dtype(dtype):
     """A dtype given as a name, a numpy dtype or a torch dtype, as a
-    ``torch.dtype``."""
+    ``torch.dtype``; None is float32, as in the JAX package."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if dtype is None:
+        return torch.float32
     name = getattr(dtype, "name", None) or str(dtype)
+    if name.startswith("torch."):
+        name = name[len("torch."):]
     name = {"float": "float32", "double": "float64", "half": "float16",
             "bf16": "bfloat16"}.get(name, name)
     if name not in _DTYPES:

@@ -14,7 +14,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "as_device"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
+           "as_device", "num_gpus"]
 
 
 class Context:
@@ -26,7 +27,7 @@ class Context:
         if isinstance(device_type, Context):
             device_type, device_id = device_type.device_type, \
                 device_type.device_id
-        if device_type not in ("cpu", "gpu"):
+        if device_type not in ("cpu", "gpu", "cpu_pinned"):
             raise MXNetError("unknown device type %r" % (device_type,))
         self.device_type = device_type
         self.device_id = int(device_id)
@@ -35,8 +36,10 @@ class Context:
     @property
     def device(self):
         """The ``torch.device``. Raises for a GPU context on a host with no
-        CUDA device (or too few)."""
-        if self.device_type == "cpu":
+        CUDA device (or too few). ``cpu_pinned`` is host memory that the
+        card can read directly: the CPU device, with the arrays placed
+        there pinned (which needs a CUDA device)."""
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError(
@@ -75,6 +78,16 @@ def cpu(device_id=0):
 
 def gpu(device_id=0):
     return Context("gpu", device_id)
+
+
+def cpu_pinned(device_id=0):
+    """Pinned (page-locked) host memory."""
+    return Context("cpu_pinned", device_id)
+
+
+def num_gpus():
+    """The number of CUDA devices."""
+    return torch.cuda.device_count()
 
 
 def current_context():

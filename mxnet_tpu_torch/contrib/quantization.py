@@ -35,6 +35,7 @@ from ..gluon import nn as _nn
 from ..gluon.block import HybridBlock
 from ..kernels import quantized_matmul as QM
 from ..base import weak_scalar
+from ..ndarray.ndarray import nd_io
 from ..ops.quantized import (ALIGN, _div, _f32, _operand, _promote, im2col,
                              quantize_codes, weight_matrix)
 
@@ -50,6 +51,7 @@ def _tensor(v):
 
 # -- primitive ops (ref: src/operator/quantization/quantize.cc etc.) --------
 
+@nd_io
 def quantize(data, min_range, max_range, out_type="int8"):
     """Symmetric int8 quantization of float data at a given range
     (ref: quantize.cc): ``clip(round(x * (127 / max(amax, 1e-8))))``, with
@@ -65,6 +67,7 @@ def quantize(data, min_range, max_range, out_type="int8"):
     return q, -amax, amax
 
 
+@nd_io
 def dequantize(data, min_range, max_range, out_type="float32"):
     """ref: dequantize.cc: ``q * (amax / 127)``, ``amax / 127`` in the
     range's type."""
@@ -224,8 +227,9 @@ class _QuantizedLayer(HybridBlock):
         super().__init__(prefix=layer.prefix)
         # the int8 state keeps no autograd history back to the float weight
         with torch.no_grad():
-            wq, w_scale = _quantize_weight(layer.weight.data())
-            bias = layer.bias.data() if "bias" in layer._reg_params else None
+            wq, w_scale = _quantize_weight(layer.weight._tensor())
+            bias = layer.bias._tensor() if "bias" in layer._reg_params \
+                else None
             self._set_state(wq, w_scale, float(act_threshold) / 127.0, bias)
         self.act = getattr(layer, "act", None)
 
@@ -340,7 +344,7 @@ def quantized_layers(network):
 def _device_of(network):
     for p in network._collect_params_with_prefix().values():
         if p._data is not None:
-            return p.data().device
+            return p._tensor().device
     return current_context().device
 
 

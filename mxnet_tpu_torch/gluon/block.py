@@ -12,6 +12,12 @@ and the parameters' tensors.
 Blocks run eagerly. Outside ``autograd.record()`` a block call runs under
 ``torch.no_grad()``; under recording its tensor output is an
 ``autograd.Head``, whose ``backward()`` seeds ones like MXNet's.
+
+A block called with NDArrays unwraps them, runs on the tensors and wraps
+its outputs as NDArrays; called with tensors it returns tensors. The
+children it calls get tensors, so nothing is wrapped inside a forward.
+``save_parameters``/``load_parameters`` write and read the reference's
+``.params`` format (``nd.save``), keyed by structural name.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ import torch
 
 from .. import autograd
 from .. import ndarray as _F
+from ..context import Context
+from ..ndarray.ndarray import NDArray, wrap as _wrap
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
 __all__ = ["Block", "HybridBlock", "report_aux_update"]
@@ -196,7 +204,62 @@ class Block(torch.nn.Module):
                 out.append(p)
         return out
 
+    # -- persistence (the reference's block.py:366 save_parameters, :408) ---
+    def save_parameters(self, filename, deduplicate=False):
+        """Save the parameters with ``nd.save``, keyed by structural name
+        ("features.0.weight"); ``deduplicate`` saves a shared parameter
+        once, under its first name."""
+        params = self._collect_params_with_prefix()
+        arg, seen = {}, set()
+        for n, p in params.items():
+            if p._data is None or (deduplicate and id(p) in seen):
+                continue
+            seen.add(id(p))
+            arg[n] = p.data()
+        _F.save(filename, arg)
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load what ``save_parameters`` (or, by full names, an older
+        ``ParameterDict.save``) wrote. Each value is cast to its
+        parameter's dtype, or with ``cast_dtype`` and ``dtype_source=
+        "saved"`` the parameter takes the file's. A parameter without data
+        yet is placed on ``ctx`` (default: the current context)."""
+        loaded = _F.load(filename, ctx=Context("cpu"))
+        canonical = self._collect_params_with_prefix()
+        if loaded and canonical and not any(k in canonical for k in loaded):
+            # full-name keys, as an older ParameterDict.save wrote them
+            canonical = {}
+            for n, p in self.collect_params().items():
+                short = n[len(self._prefix):] \
+                    if n.startswith(self._prefix) else n
+                canonical[short] = p
+        ctx = ctx[0] if isinstance(ctx, (list, tuple)) else ctx
+        for k, v in loaded.items():
+            if k in canonical:
+                if cast_dtype and dtype_source == "saved":
+                    canonical[k].cast(v._data.dtype)
+                canonical[k].set_data(v, ctx=ctx)
+            elif not ignore_extra:
+                raise KeyError("Parameter %r in file not found in Block" % k)
+        if not allow_missing:
+            missing = [k for k, p in canonical.items()
+                       if p._data is None and p._deferred_init is None
+                       and k not in loaded]
+            if missing:
+                raise KeyError("Missing parameters in file: %s" % missing)
+
+    save_params = save_parameters
+    load_params = load_parameters
+
     def __call__(self, *args, **kwargs):
+        for a in args:
+            if isinstance(a, NDArray):
+                return _nd_call(self, args, kwargs)
+        for a in kwargs.values():
+            if isinstance(a, NDArray):
+                return _nd_call(self, args, kwargs)
         if not autograd.is_recording():
             if torch.is_grad_enabled():
                 with torch.no_grad():
@@ -209,6 +272,18 @@ class Block(torch.nn.Module):
         return out
 
 
+def _nd_call(block, args, kwargs):
+    """A block called with NDArrays: the call on their tensors, its
+    outputs wrapped."""
+    out = block(*[a._data if isinstance(a, NDArray) else a for a in args],
+                **{k: v._data if isinstance(v, NDArray) else v
+                   for k, v in kwargs.items()})
+    if isinstance(out, (tuple, list)):
+        return type(out)(_wrap(o) if isinstance(o, torch.Tensor) else o
+                         for o in out)
+    return _wrap(out) if isinstance(out, torch.Tensor) else out
+
+
 class HybridBlock(Block):
     """A block written as ``hybrid_forward(F, x, *args, **params)``."""
 
@@ -216,10 +291,10 @@ class HybridBlock(Block):
         params = {}
         for name, p in self._reg_params.items():
             try:
-                params[name] = p.data()
+                params[name] = p._tensor()
             except DeferredInitializationError:
                 self._infer_param_shapes(x, *args)
-                params[name] = p.data()
+                params[name] = p._tensor()
         return self.hybrid_forward(_F, x, *args, **params)
 
     def _infer_param_shapes(self, *args):
@@ -252,4 +327,4 @@ def report_aux_update(param, new_data):
         _AUX.add(param, new_data.detach())
         return
     with torch.no_grad():
-        param.data().copy_(new_data)
+        param._tensor().copy_(new_data)

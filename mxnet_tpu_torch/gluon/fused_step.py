@@ -173,7 +173,7 @@ class FusedTrainStep:
         # the trainer's own updater creates the states, so the eager and
         # the fused steps share one state store
         tr = self._trainer
-        states = [tr._updater.ensure_state(i, tr._params[i].data())
+        states = [tr._updater.ensure_state(i, tr._params[i]._tensor())
                   for i in indices]
         loss = self._run(all_params, train_pos, indices, states, args,
                          batch_size)
@@ -238,7 +238,7 @@ class FusedTrainStep:
         try:
             lrs = [opt.step_lr(i) for i in indices]
             wds = opt._get_wds(list(indices))
-            ws = [all_params[pos].data() for pos in train_pos]
+            ws = [all_params[pos]._tensor() for pos in train_pos]
             with autograd.record():
                 loss = self._call(*args)
             # the gradient of sum(loss): backward's all-ones head seed;

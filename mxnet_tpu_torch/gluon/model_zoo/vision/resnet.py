@@ -86,7 +86,7 @@ def _fused_producer_conv(bn, conv, y, F):
     fold_op, conv_op = _fused_opdefs()
     if bn.gamma._data is None:
         bn._infer_param_shapes(y)
-    gamma, beta = bn.gamma.data(), bn.beta.data()
+    gamma, beta = bn.gamma._tensor(), bn.beta._tensor()
     if not bn._scale:
         # BatchNorm's fix_gamma (= not scale) replaces gamma with ones
         gamma = F.ones_like(gamma)
@@ -95,16 +95,16 @@ def _fused_producer_conv(bn, conv, y, F):
                                  {"eps": bn._eps})
         m = bn._momentum
         for param, stat in ((bn.running_mean, mean), (bn.running_var, var)):
-            run = param.data()
+            run = param._tensor()
             report_aux_update(param, weak_scalar(m, run.dtype) * run
                               + weak_scalar(1 - m, run.dtype)
                               * stat.detach().to(run.dtype))
     else:
-        rm = F.cast(bn.running_mean.data(), "float32")
-        rv = F.cast(bn.running_var.data(), "float32")
+        rm = F.cast(bn.running_mean._tensor(), "float32")
+        rv = F.cast(bn.running_var._tensor(), "float32")
         s = F.cast(gamma, "float32") * F.rsqrt(rv + bn._eps)
         b = F.cast(beta, "float32") - rm * s
-    return invoke(conv_op, (y, s, b, conv.weight.data()), {"relu": True})
+    return invoke(conv_op, (y, s, b, conv.weight._tensor()), {"relu": True})
 
 
 class BasicBlockV1(HybridBlock):

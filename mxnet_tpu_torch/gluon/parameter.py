@@ -12,7 +12,12 @@ buffer in ``_buffers``. ``state_dict()``, ``named_parameters()`` and
 Gradients are torch's ``.grad`` with MXNet's conventions
 (``autograd.track``): ``grad_req`` "write" overwrites at each backward,
 "add" accumulates, "null" takes none, and each backward marks the tensor's
-gradient fresh (``data()._fresh_grad``) for ``Trainer``.
+gradient fresh (``_tensor()._fresh_grad``) for ``Trainer``.
+
+``data()`` and ``grad()`` return NDArrays, as the JAX package's do: one
+live view of each per parameter, through which ``p.data()[:] = v`` and
+``p.data() += g`` write the parameter itself. The port's own code reads
+the tensors through ``_tensor()`` and ``_grad_tensor()``.
 """
 from __future__ import annotations
 
@@ -21,14 +26,64 @@ import torch
 
 from .. import autograd
 from .. import initializer as _initializer
+from .. import ndarray as nd
 from ..base import MXNetError, canonical_dtype
-from ..context import as_device, current_context
+from ..context import Context, as_device
+from ..ndarray.ndarray import NDArray
 
 __all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
 
 
 class DeferredInitializationError(MXNetError):
     """The parameter's shape is not known until the first forward."""
+
+
+class _ParamArray(NDArray):
+    """``Parameter.data()``: a live NDArray view of the parameter's tensor.
+    Writes through it (``[:] =``, ``+=``, ``out=``, a kvstore pull) land in
+    the tensor in place, in its dtype; what is taken from it is a copy."""
+
+    __slots__ = ("_param",)
+    _live = True
+
+    def __init__(self, param):
+        self._param = param
+        self._ctx = None
+        self._grad = None
+        self._grad_req = "null"
+
+    @property
+    def _data(self):
+        return self._param._tensor()
+
+    def _value(self):
+        return self._data.detach().clone()
+
+    def _assign(self, t):
+        with torch.no_grad():
+            self._data.copy_(t)
+
+    @property
+    def grad(self):
+        return self._param.grad()
+
+    def attach_grad(self, grad_req="write", stype=None):
+        self._param.grad_req = grad_req
+
+
+class _GradArray(_ParamArray):
+    """``Parameter.grad()``: a live NDArray view of the parameter's
+    gradient (zeros until the first backward)."""
+
+    __slots__ = ()
+
+    @property
+    def _data(self):
+        return self._param._grad_tensor()
+
+    @property
+    def grad(self):
+        return None
 
 
 def _first(ctx):
@@ -55,6 +110,7 @@ class Parameter:
         self._own = None            # the tensor while no Block owns it
         self._owner = None          # (block, attribute name)
         self._deferred_init = None  # (init, device, default_init)
+        self._views = None          # (data(), grad()) once asked for
 
     # -- storage ------------------------------------------------------------
     @property
@@ -135,7 +191,8 @@ class Parameter:
         self._finish_init(init, device, default_init)
 
     # -- access -------------------------------------------------------------
-    def data(self, ctx=None):
+    def _tensor(self):
+        """The parameter's tensor (what the port's code reads)."""
         t = self._data
         if t is None:
             if self._deferred_init is not None:
@@ -146,10 +203,10 @@ class Parameter:
                              "Call initialize()" % self.name)
         return t
 
-    def grad(self, ctx=None):
-        """The gradient buffer (zeros until the first backward). Raises for
+    def _grad_tensor(self):
+        """The gradient tensor (zeros until the first backward). Raises for
         grad_req "null"."""
-        t = self.data()
+        t = self._tensor()
         if self._grad_req == "null":
             raise MXNetError("Parameter '%s' has no gradient (grad_req=null)"
                              % self.name)
@@ -157,17 +214,46 @@ class Parameter:
             t.grad = torch.zeros_like(t)
         return t.grad
 
+    def _view(self, i):
+        if self._views is None:
+            self._views = (_ParamArray(self), _GradArray(self))
+        return self._views[i]
+
+    def data(self, ctx=None):
+        """The parameter's NDArray (a live view; the module docstring)."""
+        self._tensor()
+        return self._view(0)
+
+    def list_data(self):
+        return [self.data()]
+
+    def grad(self, ctx=None):
+        """The gradient's NDArray (a live view). Raises for grad_req
+        "null"."""
+        self._grad_tensor()
+        return self._view(1)
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def list_ctx(self):
+        t = self._data
+        return [NDArray(t).context] if t is not None else []
+
     def zero_grad(self):
         t = self._data
         if t is not None and t.grad is not None:
             t.grad.zero_()
 
-    def set_data(self, data):
-        """Write ``data`` (a tensor or numpy array) into the parameter,
-        cast to its dtype, on its device (for a parameter that has none
-        yet: the device its initialize() chose, else the current
-        context's). Raises on a shape that disagrees with a known dim."""
-        if isinstance(data, _np.ndarray):
+    def set_data(self, data, ctx=None):
+        """Write ``data`` (an NDArray, a tensor or a numpy array) into the
+        parameter, cast to its dtype, on its device (for a parameter that
+        has none yet: the device its initialize() chose, else ``ctx`` or
+        the current context's). Raises on a shape that disagrees with a
+        known dim."""
+        if isinstance(data, NDArray):
+            data = data._value()
+        elif isinstance(data, _np.ndarray):
             data = torch.from_numpy(_np.ascontiguousarray(data))
         if self.shape is not None and (
                 len(self.shape) != data.dim()
@@ -186,7 +272,7 @@ class Parameter:
         elif self._deferred_init is not None:
             device = self._deferred_init[1]
         else:
-            device = current_context().device
+            device = as_device(ctx)
         # a copy: the parameter is updated in place and must not alias the
         # caller's array
         self._store(data.to(device=device, dtype=self.dtype, copy=True))
@@ -275,6 +361,35 @@ class ParameterDict:
     def zero_grad(self):
         for p in self._params.values():
             p.zero_grad()
+
+    def save(self, filename, strip_prefix=""):
+        """Save every initialized parameter with ``nd.save``, keyed by its
+        name less ``strip_prefix``."""
+        arg = {}
+        for name, p in self._params.items():
+            if p._data is None:
+                continue
+            k = name[len(strip_prefix):] if name.startswith(strip_prefix) \
+                else name
+            arg[k] = p.data()
+        nd.save(filename, arg)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Load what ``save`` wrote, each key given ``restore_prefix``."""
+        loaded = nd.load(filename, ctx=Context("cpu"))
+        loaded = {restore_prefix + k: v for k, v in loaded.items()}
+        for name, p in self._params.items():
+            if name in loaded:
+                p.set_data(loaded[name], ctx=_first(ctx))
+            elif not allow_missing:
+                raise KeyError("Parameter %r missing in file %s"
+                               % (name, filename))
+        if not ignore_extra:
+            extra = set(loaded) - set(self._params)
+            if extra:
+                raise KeyError("File %s contains extra parameters: %s"
+                               % (filename, sorted(extra)))
 
     def __repr__(self):
         return "ParameterDict(%s)" % ", ".join(self._params)

@@ -100,7 +100,8 @@ class Trainer:
             if param._deferred_init is not None:
                 continue
             if self._kvstore is not None and param._data is not None:
-                self._kvstore.init(self._param2idx[param.name], param.data())
+                self._kvstore.init(self._param2idx[param.name],
+                                   param._tensor())
         self._params_to_init = [p for p in self._params_to_init
                                 if p._deferred_init is not None]
 
@@ -180,10 +181,10 @@ class Trainer:
         if not live:
             return
         keys = [self._param2idx[p.name] for p in live]
-        grads = [p.grad() for p in live]
+        grads = [p._grad_tensor() for p in live]
         if self._update_on_kvstore:
             self._kvstore.pushpull(keys, grads,
-                                   out=[p.data() for p in live])
+                                   out=[p._tensor() for p in live])
         else:
             self._kvstore.push(keys, grads)
             self._kvstore.pull(keys, grads, ignore_sparse=False)
@@ -204,7 +205,7 @@ class Trainer:
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
                 continue
-            if not getattr(param.data(), "_fresh_grad", True):
+            if not getattr(param._tensor(), "_fresh_grad", True):
                 if not ignore_stale_grad:
                     raise UserWarning(
                         "Gradient of Parameter `%s` on context %s has not "
@@ -214,13 +215,13 @@ class Trainer:
                         "iteration. If you are intentionally only using a "
                         "subset, call step with ignore_stale_grad=True to "
                         "suppress this warning" % (
-                            param.name, param.data().device))
+                            param.name, param._tensor().device))
                 continue    # a stale gradient is not applied again
             if self._kvstore and self._update_on_kvstore:
                 # the store's pushpull applied this update already
-                param.data()._fresh_grad = False
+                param._tensor()._fresh_grad = False
                 continue
-            updates.append((i, param.grad(), param.data()))
+            updates.append((i, param._grad_tensor(), param._tensor()))
         if updates:
             i, g, w = zip(*updates)
             self._updater(list(i), list(g), list(w))

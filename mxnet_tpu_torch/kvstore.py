@@ -30,6 +30,10 @@ it is stored, and ``pull`` copies into the caller's tensor (under
 ``no_grad``: with update on kvstore the output is a parameter that
 requires grad). Nothing a caller holds aliases the store.
 
+Values and outputs are tensors or NDArrays. A pull into an NDArray
+rebinds it to a copy of the key's value (into a Parameter's view: written
+in place), as the JAX store's pull writes its NDArray outputs.
+
 ``bytes_pushed`` and ``bytes_pulled`` count the bytes each call would move
 (plain counters: the port has no profiler yet). ``row_sparse_pull`` waits
 for sparse arrays (Slice I).
@@ -44,6 +48,7 @@ from . import optimizer as opt
 from .base import atomic_write, getenv
 from .kernels.compression import (dequantize_2bit_group,
                                   quantize_2bit_group)
+from .ndarray.ndarray import nd_io
 
 __all__ = ["KVStore", "create"]
 
@@ -261,6 +266,13 @@ class KVStore:
         assert self._updater is not None, "updater is not initialized"
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())
+
+    # the NDArray boundary (the module docstring)
+    init = nd_io(init)
+    push = nd_io(push)
+    pull = nd_io(pull)
+    pushpull = nd_io(pushpull)
+    broadcast = nd_io(broadcast)
 
     def set_barrier_before_exit(self, barrier_before_exit):
         """ref: include/mxnet/kvstore.h:334 (one process: nothing to wait

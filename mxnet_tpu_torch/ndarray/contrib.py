@@ -2,7 +2,8 @@
 every registered ``_contrib_X`` op as ``X`` (``nd.contrib.quantized_conv``,
 ``nd.contrib.quantize_v2``, ...), and ``quantize`` / ``dequantize`` of
 ``contrib.quantization``, which take the names first, as in the JAX
-package and the reference."""
+package and the reference. Each takes tensors or NDArrays, and gives
+NDArrays for NDArrays, with ``out=`` written in place."""
 from ..contrib.quantization import quantize, dequantize
 from ..ops import registry as _registry
 from .register import make_op as _make_op

@@ -7,15 +7,16 @@ writes the new state tensors (momentum, mean and var, n, z, ...) into the
 state tensors it was given, in place and in their own dtype, and returns
 the new weight, written into ``out`` where one is given. The ``mp_*``
 forms write the new weight into ``weight`` itself when no ``out`` is
-given, as the JAX package's do. Tensors are ``torch.Tensor`` (the
-``NDArray`` type is not ported yet); the writes happen outside the
-autograd graph.
+given, as the JAX package's do. Each takes tensors or NDArrays (then
+its result is an NDArray: ``out``, or the weight it wrote); the writes
+happen outside the autograd graph.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops import optimizer_ops as _pure
+from .ndarray import nd_io
 
 __all__ = [
     "sgd_update", "sgd_mom_update", "mp_sgd_update", "mp_sgd_mom_update",
@@ -344,3 +345,8 @@ def preloaded_multi_mp_sgd_mom_update(*data, num_weights=1, momentum=0.0,
     return _preloaded(multi_mp_sgd_mom_update, data, int(num_weights),
                       dict(momentum=momentum, rescale_grad=rescale_grad,
                            clip_gradient=clip_gradient), out)
+
+
+
+for _name in __all__:
+    globals()[_name] = nd_io(globals()[_name])

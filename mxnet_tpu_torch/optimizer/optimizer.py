@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..base import is_low_precision, weak_scalar
+from ..ndarray.ndarray import nd_io
 
 __all__ = [
     "Optimizer", "SGD", "Signum", "FTML", "LARS", "LBSGD", "DCASGD", "NAG",
@@ -87,6 +88,14 @@ class Optimizer:
     of each half-precision weight, stepped in float32)."""
 
     opt_registry = {}
+
+    def __init_subclass__(cls, **kwargs):
+        # every optimizer's update and create_state take NDArrays too (the
+        # weight and states written in place, NDArray states created)
+        super().__init_subclass__(**kwargs)
+        for name in ("update", "create_state"):
+            if name in cls.__dict__:
+                setattr(cls, name, nd_io(cls.__dict__[name]))
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
@@ -138,6 +147,7 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    @nd_io
     def create_state_multi_precision(self, index, weight):
         """With ``multi_precision`` and a half-precision weight: ``(master,
         state)``, the float32 master copy and the state created for it.
@@ -150,6 +160,7 @@ class Optimizer:
     def update(self, index, weight, grad, state):
         raise NotImplementedError()
 
+    @nd_io
     def update_multi_precision(self, index, weight, grad, state):
         """``update``, on the float32 master copy where the state holds
         one; the weight then takes the master's value in its own dtype."""
@@ -1114,6 +1125,7 @@ class Updater:
             self.states_synced[index] = True
         return self.states[index]
 
+    @nd_io
     def __call__(self, index, grad, weight):
         if not isinstance(index, (list, tuple)):
             index, grad, weight = [index], [grad], [weight]

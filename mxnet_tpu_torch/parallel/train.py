@@ -48,7 +48,7 @@ _CONV_OUTS = ("conv_out", "pool_out", "bn_stat")
 def extract_params(block):
     """{structural path: tensor} of every parameter of a Block (the keys of
     ``_collect_params_with_prefix``)."""
-    return {path: p.data()
+    return {path: p._tensor()
             for path, p in block._collect_params_with_prefix().items()}
 
 
@@ -58,7 +58,7 @@ def attach_params(block, params):
     pmap = block._collect_params_with_prefix()
     with torch.no_grad():
         for path, t in params.items():
-            pmap[path].data().copy_(t)
+            pmap[path]._tensor().copy_(t)
 
 
 def _set(p, t):

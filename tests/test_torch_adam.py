@@ -236,8 +236,8 @@ def test_train_step_adam_matches_eager(dtype, apply, monkeypatch):
     fnet, ftr = _train("fused", dtype)
     ep, fp = (n._collect_params_with_prefix() for n in (enet, fnet))
     for k in ep:
-        assert torch.equal(ep[k].data(), fp[k].data()), k
-        assert torch.equal(ep[k].grad(), fp[k].grad()), k
+        assert torch.equal(ep[k]._tensor(), fp[k]._tensor()), k
+        assert torch.equal(ep[k]._grad_tensor(), fp[k]._grad_tensor()), k
     for i, (m, v) in etr._updater.states.items():
         fm, fv = ftr._updater.states[i]
         assert torch.equal(m, fm) and torch.equal(v, fv)

@@ -228,7 +228,7 @@ def test_narrow_resnet_trains_on_the_card():
     assert torch.allclose(losses[0], losses[1], rtol=1e-5)
     for (k, p), q in zip(nets[0]._collect_params_with_prefix().items(),
                          nets[1]._collect_params_with_prefix().values()):
-        w, wr = p.data().detach().cpu(), q.data().detach()
+        w, wr = p._tensor().detach().cpu(), q._tensor().detach()
         assert (w - wr).abs().max() <= 1e-5 * wr.abs().max(), k
 
 
@@ -426,7 +426,7 @@ def test_narrow_fused_resnet_trains_through_train_step_on_the_card(
             assert step.last_mode == "fused"
         losses.append(loss.cpu())
     torch.cuda.synchronize()
-    train = [p.data() for p in trainer._params if p.grad_req != "null"]
+    train = [p._tensor() for p in trainer._params if p.grad_req != "null"]
     buckets = len(OA.bucketize(train))
     assert (CF.LAUNCHES, CF.LAUNCHES_BWD_DX, CF.LAUNCHES_BWD_DW,
             OA.LAUNCHES) == (counts[0] + 8, counts[1] + 8, counts[2] + 8,
@@ -434,7 +434,7 @@ def test_narrow_fused_resnet_trains_through_train_step_on_the_card(
     assert torch.allclose(losses[0], losses[1], rtol=1e-5)
     for (k, p), q in zip(nets[0]._collect_params_with_prefix().items(),
                          nets[1]._collect_params_with_prefix().values()):
-        w, wr = p.data().detach().cpu(), q.data().detach()
+        w, wr = p._tensor().detach().cpu(), q._tensor().detach()
         assert (w - wr).abs().max() <= 1e-5 * wr.abs().max(), k
 
 
@@ -1044,3 +1044,49 @@ def test_compressed_list_push_on_the_card():
         outs[dev] = got
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_ndarray_moves_between_card_and_host():
+    _need_card()
+    rs = np.random.RandomState(40)
+    for dtype in ("float32", "bfloat16", "int32", "uint8"):
+        a = (rs.rand(3, 5) * 100).astype("float32")
+        h = mx.nd.array(a, ctx=mx.cpu(), dtype=dtype)
+        g = h.as_in_context(mx.gpu(0))
+        assert g.context == mx.gpu(0) and g._data.is_cuda
+        back = g.copyto(mx.cpu())
+        assert back.context == mx.cpu() and not back._data.is_cuda
+        assert str(back.dtype) == str(h.dtype)
+        assert np.array_equal(back.asnumpy().astype("float64"),
+                              h.asnumpy().astype("float64"))
+        # ops on the card stay there; the results come back equal
+        s = (g * 2 + 1).asnumpy().astype("float64")
+        assert np.array_equal(s, (h * 2 + 1).asnumpy().astype("float64"))
+    pinned = mx.nd.array(a, ctx=mx.cpu_pinned())
+    assert pinned._data.is_pinned() and pinned.context == mx.cpu_pinned()
+    assert mx.num_gpus() == torch.cuda.device_count() >= 1
+    mx.waitall()
+
+
+@pytest.mark.cuda
+def test_nd_save_on_the_card_gives_the_host_bytes(tmp_path):
+    _need_card()
+    rs = np.random.RandomState(41)
+    arrays = {"w": rs.randn(4, 3).astype("float32"),
+              "h": rs.randn(5).astype("float16"),
+              "i": rs.randint(0, 9, (3,)).astype("int32"),
+              "s": np.float32(1.5)}
+    fc, fg = str(tmp_path / "cpu.params"), str(tmp_path / "gpu.params")
+    card = {k: mx.nd.array(v, ctx=mx.gpu(0)) for k, v in arrays.items()}
+    card["b"] = mx.nd.array(rs.randn(6).astype("float32"), ctx=mx.gpu(0),
+                            dtype="bfloat16")
+    mx.nd.save(fg, card)
+    host = dict(card)
+    host["b"] = card["b"].as_in_context(mx.cpu())
+    mx.nd.save(fc, {k: v.as_in_context(mx.cpu()) for k, v in host.items()})
+    with open(fc, "rb") as a, open(fg, "rb") as b:
+        assert a.read() == b.read()
+    loaded = mx.nd.load(fg, ctx=mx.gpu(0))
+    assert all(v.context == mx.gpu(0) for v in loaded.values())
+    assert np.array_equal(loaded["w"].asnumpy(), arrays["w"])

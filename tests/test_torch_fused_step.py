@@ -51,7 +51,7 @@ def _trainer(net, opt=None, multi_precision=False):
 
 
 def _snapshot(net):
-    return {k: (p.data().detach().clone(), p.grad().clone())
+    return {k: (p._tensor().detach().clone(), p._grad_tensor().clone())
             for k, p in net._collect_params_with_prefix().items()}
 
 
@@ -182,9 +182,9 @@ def test_fallback_reasons_still_train(reason):
         fused_step.set_fused_step(prev)
     assert step.last_mode == "fallback:" + reason
     assert fused_step.stats()["fallbacks"] == before + 1
-    w = net[0].weight.data()
+    w = net[0].weight._tensor()
     if reason == "no-trainable-params":       # the eager backward ran
-        assert net[0].weight.grad().abs().sum() > 0
+        assert net[0].weight._grad_tensor().abs().sum() > 0
     elif reason == "deferred-init":
         assert w.shape == (16, 8)
         step(x, y)                              # shapes known: fused now

@@ -420,7 +420,7 @@ def test_trainer_with_compressed_store_matches_hand_compression(dtype):
             with autograd.record():
                 loss = loss_fn(n(x), y)
             loss.backward()
-        g = ref[0].weight.grad()
+        g = ref[0].weight._grad_tensor()
         flat = g.reshape(-1)
         if residual is None:
             residual = torch.zeros_like(flat)
@@ -431,8 +431,8 @@ def test_trainer_with_compressed_store_matches_hand_compression(dtype):
         rtr.step(16)
         p, r = (m._collect_params_with_prefix() for m in (net, ref))
         for k in p:
-            assert torch.equal(p[k].data(), r[k].data()), k
-            assert torch.equal(p[k].grad(), r[k].grad()), k
+            assert torch.equal(p[k]._tensor(), r[k]._tensor()), k
+            assert torch.equal(p[k]._grad_tensor(), r[k]._grad_tensor()), k
     idx = tr._param2idx[net[0].weight.name]
     assert list(kv._compression_residuals) == [idx]
     assert torch.equal(kv._compression_residuals[idx], residual)
@@ -490,7 +490,7 @@ def test_update_on_kvstore_equals_trainer_update(name):
         nets.append(net)
     a, b = (n._collect_params_with_prefix() for n in nets)
     for k in a:
-        assert torch.equal(a[k].data(), b[k].data()), k
+        assert torch.equal(a[k]._tensor(), b[k]._tensor()), k
 
 
 def test_string_kvstores_ignore_compression_and_update_on_kvstore():
@@ -510,7 +510,7 @@ def test_string_kvstores_ignore_compression_and_update_on_kvstore():
         loss.backward()
         tr.step(16)
         assert tr._kvstore is None and tr._update_on_kvstore is False
-        outs.append(net[0].weight.data().clone())
+        outs.append(net[0].weight._tensor().clone())
     assert all(torch.equal(o, outs[0]) for o in outs)
 
 
@@ -552,11 +552,11 @@ def test_trainer_save_and_load_states(on, tmp_path):
     tr.save_states(fname)
     net2 = _net("float32")
     for k, p in net2._collect_params_with_prefix().items():
-        p.set_data(net._collect_params_with_prefix()[k].data().detach())
+        p.set_data(net._collect_params_with_prefix()[k]._tensor().detach())
     tr2 = trainer(net2)
     tr2.load_states(fname)
     assert isinstance(tr2.optimizer, topt.Adam)
     assert tr2.optimizer.param_dict[0] is tr2._params[0]
     step(net, tr)
     step(net2, tr2)
-    assert torch.equal(net[0].weight.data(), net2[0].weight.data())
+    assert torch.equal(net[0].weight._tensor(), net2[0].weight._tensor())

@@ -401,8 +401,8 @@ def test_fused_step_takes_adagrad_rmsprop_nag(name, kw, mp, monkeypatch):
     (en, et), (fn, ft) = runs["eager"], runs["fused"]
     ep, fp = en._collect_params_with_prefix(), fn._collect_params_with_prefix()
     for k in ep:
-        assert torch.equal(ep[k].data(), fp[k].data()), k
-        assert torch.equal(ep[k].grad(), fp[k].grad()), k
+        assert torch.equal(ep[k]._tensor(), fp[k]._tensor()), k
+        assert torch.equal(ep[k]._grad_tensor(), fp[k]._grad_tensor()), k
     for i, st in et._updater.states.items():
         assert _tree_equal(ft._updater.states[i], st), i
     assert et._optimizer.num_update == ft._optimizer.num_update == 3

@@ -122,7 +122,7 @@ def test_bf16_fused_matches_unfused():
     for net in nets:
         convert.load_numpy_params(net, arrays)
         net.cast("bfloat16")
-        assert net.features[1][0].body[1].running_var.data().dtype == \
+        assert net.features[1][0].body[1].running_var._tensor().dtype == \
             torch.bfloat16
         outs.append(net(torch.from_numpy(x).bfloat16()).float())
     assert outs[0].dtype == torch.float32
@@ -136,7 +136,7 @@ def test_load_numpy_params_is_strict(case):
     net(torch.zeros(1, 3, 8, 8))
     arrays = convert.random_numpy_params(convert.param_shapes(net))
     key = "features.1.0.body.0.weight"
-    before = net.features[1][0].body[0].weight.data().clone()
+    before = net.features[1][0].body[0].weight._tensor().clone()
     if case == "missing":
         del arrays[key]
         err = KeyError
@@ -148,7 +148,7 @@ def test_load_numpy_params_is_strict(case):
         err = ValueError
     with pytest.raises(err):
         convert.load_numpy_params(net, arrays)
-    assert torch.equal(net.features[1][0].body[0].weight.data(), before)
+    assert torch.equal(net.features[1][0].body[0].weight._tensor(), before)
 
 
 def test_block_surface():
@@ -161,17 +161,17 @@ def test_block_surface():
     assert len(params) == len(net._collect_params_with_prefix())
     assert all(name.startswith(net.prefix) for name in params.keys())
     weight = net.features[0].weight
-    assert isinstance(weight.data(), torch.nn.Parameter)
+    assert isinstance(weight._tensor(), torch.nn.Parameter)
     bn = net.features[1][0].body[1]
-    assert not isinstance(bn.running_mean.data(), torch.nn.Parameter)
+    assert not isinstance(bn.running_mean._tensor(), torch.nn.Parameter)
     nets = []
     for _ in range(2):          # the seed fixes the deferred draws too
         mx.random.seed(5)
         nets.append(_port_net("basic", True))
         nets[-1](x)
     w1, w2 = nets
-    assert torch.equal(w1.features[0].weight.data(),
-                       w2.features[0].weight.data())
+    assert torch.equal(w1.features[0].weight._tensor(),
+                       w2.features[0].weight._tensor())
 
 
 def test_entry_points_default_to_the_card():

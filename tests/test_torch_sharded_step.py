@@ -369,7 +369,7 @@ def test_dense_adam_matches_jax():
         tr.step(8)
         assert float(loss.detach().mean()) == losses[-1]
         for k, p in ref._collect_params_with_prefix().items():
-            assert torch.equal(p.data(), step.params[k]), k
+            assert torch.equal(p._tensor(), step.params[k]), k
     assert losses[-1] < losses[0]
 
 

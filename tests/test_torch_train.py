@@ -217,7 +217,7 @@ def test_batchnorm_running_statistics_bf16_match_jax():
     with autograd.record():
         tbn(torch.from_numpy(x).bfloat16())
     for k in stats:
-        got = getattr(tbn, k).data().detach()
+        got = getattr(tbn, k)._tensor().detach()
         want = np.asarray(getattr(jbn, k).data()._data)
         assert np.array_equal(got.view(torch.int16).numpy(),
                               want.view(np.int16)), k
@@ -243,18 +243,18 @@ def test_grad_req_write_add_null():
                 y = net(x) * scale
             autograd.backward(y)
             if req != "null":
-                grads.append(net.weight.grad().clone())
+                grads.append(net.weight._grad_tensor().clone())
         if req == "write":
             assert torch.allclose(grads[1], 3.0 * grads[0])
         elif req == "add":
             assert torch.allclose(grads[1], 4.0 * grads[0])
         else:
-            assert not net.weight.data().requires_grad
+            assert not net.weight._tensor().requires_grad
             with pytest.raises(mx.MXNetError):
-                net.weight.grad()
-        assert torch.allclose(net.bias.grad(), torch.full((3,), 6.0))
+                net.weight._grad_tensor()
+        assert torch.allclose(net.bias._grad_tensor(), torch.full((3,), 6.0))
         net.collect_params().zero_grad()
-        assert not net.bias.grad().any()
+        assert not net.bias._grad_tensor().any()
 
 
 def test_non_scalar_head_seeds_ones():
@@ -264,7 +264,7 @@ def test_non_scalar_head_seeds_ones():
         y = net(x)
     assert isinstance(y, autograd.Head) and y.shape == (2, 3)
     y.backward()
-    np.testing.assert_allclose(net.weight.grad().numpy(),
+    np.testing.assert_allclose(net.weight._grad_tensor().numpy(),
                                np.tile(x.numpy().sum(0), (3, 1)), rtol=1e-6)
     z = y * 2
     assert type(z) is torch.Tensor          # ops give plain tensors
@@ -309,14 +309,14 @@ def test_trainer_stale_gradient():
     with autograd.record():
         y = net(x)
     y.backward()
-    w0 = net.weight.data().detach().clone()
+    w0 = net.weight._tensor().detach().clone()
     trainer.step(2)
-    assert not torch.equal(net.weight.data(), w0)
+    assert not torch.equal(net.weight._tensor(), w0)
     with pytest.raises(UserWarning):
         trainer.step(2)                     # no backward since the step
-    w1 = net.weight.data().detach().clone()
+    w1 = net.weight._tensor().detach().clone()
     trainer.step(2, ignore_stale_grad=True)  # skipped, not re-applied
-    assert torch.equal(net.weight.data(), w1)
+    assert torch.equal(net.weight._tensor(), w1)
 
 
 def test_trainer_rejects_distributed_kvstore():
@@ -363,15 +363,15 @@ def test_recording_a_fused_net_raises():
     params = net._collect_params_with_prefix()
     rm = params["features.1.0.body.1.running_mean"]
     for train_mode in (True, False):
-        before = rm.data().clone()
+        before = rm._tensor().clone()
         net.collect_params().zero_grad()
         with autograd.record(train_mode=train_mode):
             loss = tloss.SoftmaxCrossEntropyLoss()(net(x), y)
         loss.backward()
         for k in ("features.1.0.body.3.weight", "features.1.0.body.1.gamma",
                   "features.1.0.body.1.beta", "features.1.0.body.0.weight"):
-            assert params[k].grad().abs().sum() > 0, (train_mode, k)
-        assert torch.equal(rm.data(), before) is not train_mode
+            assert params[k]._grad_tensor().abs().sum() > 0, (train_mode, k)
+        assert torch.equal(rm._tensor(), before) is not train_mode
     with autograd.predict_mode():
         assert net(x).shape == (2, 10)
 
@@ -418,14 +418,14 @@ def test_narrow_resnet_trains_like_jax(monkeypatch):
         for k, p in tp.items():
             if p.grad_req == "null":
                 continue
-            g, gr = p.grad().numpy(), jp[k].grad().asnumpy()
+            g, gr = p._grad_tensor().numpy(), jp[k].grad().asnumpy()
             assert np.abs(g - gr).max() <= 1e-4 * np.abs(gr).max(), k
         jtrainer.step(4)
         trainer.step(4)
         for k, p in tp.items():
-            w, wr = p.data().detach().numpy(), jp[k].data().asnumpy()
+            w, wr = p._tensor().detach().numpy(), jp[k].data().asnumpy()
             assert np.abs(w - wr).max() <= 1e-5 * np.abs(wr).max(), k
-    moved = tp["features.1.0.body.1.running_mean"].data()
+    moved = tp["features.1.0.body.1.running_mean"]._tensor()
     assert not torch.allclose(moved, torch.from_numpy(
         arrays["features.1.0.body.1.running_mean"]))
 
@@ -453,7 +453,7 @@ def test_loaded_weights_do_not_alias_the_arrays():
     loss.backward()
     trainer.step(2)
     assert all(np.array_equal(arrays[k], saved[k]) for k in arrays)
-    w = fresh._collect_params_with_prefix()["features.0.weight"].data()
+    w = fresh._collect_params_with_prefix()["features.0.weight"]._tensor()
     assert not np.array_equal(w.detach().numpy(),
                               arrays["features.0.weight"])
 
@@ -486,9 +486,9 @@ def _state(net, jax_side=False):
             out[k] = (p.data().asnumpy(), None if p.grad_req == "null"
                       else p.grad().asnumpy())
         else:
-            out[k] = (p.data().detach().numpy().copy(),
+            out[k] = (p._tensor().detach().numpy().copy(),
                       None if p.grad_req == "null"
-                      else p.grad().numpy().copy())
+                      else p._grad_tensor().numpy().copy())
     return out
 
 
