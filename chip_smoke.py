@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases env,kernel,train_adam
     python3 chip_smoke.py --phases env,train_sharded,time_train
     python3 chip_smoke.py --phases env,ndarray
+    python3 chip_smoke.py --phases env,zoo
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
     python3 chip_smoke.py --phases env,kernel_bn,time_bn
@@ -194,6 +195,35 @@ Phases, each printing JSON lines:
               weights. Then the save and load wall times, and host ms per
               eager step fed tensors and NDArrays in turns (tensor,
               NDArray, NDArray, tensor; 3 steps a turn).
+5e. zoo    -- the vision model zoo (gluon.model_zoo.vision.get_model, random
+              weights from numpy seed 0, 1000 classes). Serving: alexnet,
+              vgg16_bn, densenet121, squeezenet1.1, inceptionv3 (299x299),
+              mobilenet1.0, mobilenetv2_1.0 and resnet50_v2 at their
+              published widths, each 2 requests of 32 images in f32 with
+              TF32 off: finite (32, 1000) logits, the first 2 images'
+              against the port on the CPU within ZOO_LOGIT_RTOL of their
+              largest magnitude; the forward's device busy ms, wall ms,
+              images/sec and idle share. Then rows 4-7 at ResNet-50 V2's
+              input BatchNorm (C = 3, R = 128 x 224 x 224, bf16, the
+              kernels' non-TMA route) against their plain versions.
+              ResNet-50 V2 training: NHWC, bf16, batch 128, SGD lr 0.01
+              momentum 0.9, 5 steps through gluon.train_step with
+              MXTPU_FUSED_APPLY=1. Counters are zeroed just before: rows 4
+              and 5 launch 51 times per step (every BatchNorm), rows 6 and
+              7 50 times (not the image's, which has nothing to
+              differentiate), each fold its finalize launch, the packed
+              apply once per bucket, conv_fused never; every step
+              "fused", no fallback; the loss finite and falling; then
+              images/sec, device busy ms, idle share and peak memory, and
+              one f32 step of a narrow V2, card against CPU
+              (NARROW_RTOL). VGG-16 training: bf16 NCHW, batch 64, 3 eager
+              Trainer steps with both Dropouts active: the loss finite,
+              each Dropout's keep share within 6 standard errors of 0.5
+              and every kept value x / 0.5 exactly, and the same masks
+              bit for bit twice under one mx.random.seed. DenseNet-121
+              training: bf16 NCHW, batch 64, 3 eager steps, the loss
+              falling (average pooling and concatenation backward at
+              full width).
 6. train_lm -- the transformer LM of bench.py's bench_transformer at its
               full width (dim 4096, 5 layers, 32 heads of 128, FFN 16384,
               vocab 32000, bf16, chunked CE over 8 chunks, full per-layer
@@ -259,7 +289,8 @@ them: phases kernel and time run them).
 
 The run ends with the nvidia-smi name/power line, then the
 {"kernels": [...]} line (per kernel: launches on its path (rows 1-7 also
-on train_sharded's, per configuration), max abs error at
+on train_sharded's, per configuration; rows 4-8 also on zoo's ResNet-50 V2
+training, launches_zoo), max abs error at
 the ResNet-50 shapes in bf16 and its tolerance, and the times, bound,
 plain and library times of one forward (conv_fused; the int8 forward at
 batch 32 for the scaled int8 matmul) or one training step (the other
@@ -280,8 +311,8 @@ import time
 import numpy as np
 
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
-          "train_fused", "train_adam", "train_sharded", "ndarray", "train_lm",
-          "time")
+          "train_fused", "train_adam", "train_sharded", "ndarray", "zoo",
+          "train_lm", "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
 # the BatchNorm kernels' checks and timing, the training steps' timing
 # (after the train phases), the conv_fused forward's, the backward pair's,
@@ -646,19 +677,48 @@ def bound(shape, dtype_bytes, card):
 def device_ms(torch, fn, iters, warmup=3):
     """Mean device time of fn() in ms. The stream is first held by a
     sleep kernel so that all `iters` launches are queued before the
-    timed window opens: host launch overhead stays out of the number."""
+    timed window opens: host launch overhead stays out of the number.
+    Where the window had opened before the last launch was queued (a slow
+    host), it is timed again behind a sleep four times as long, up to
+    three times."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    hold = 20_000_000
+    for attempt in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        opened = start.query()
+        torch.cuda.synchronize()
+        if not opened:
+            break
+        hold *= 4
+    else:
+        print("chip_smoke: the host queued slower than a %d-cycle sleep"
+              % (hold // 4), file=sys.stderr)
     return start.elapsed_time(end) / iters
+
+
+# No kernel runs faster than its bound; a time that puts it past the bound
+# by more than ROOFLINE_SLACK is a failed measurement, and the run fails on
+# it rather than print it.
+ROOFLINE_SLACK = 1.05
+
+
+def roofline_share(bound_ms, ms, what):
+    """bound_ms / ms, the share of the bound a measured time reaches;
+    raises where it exceeds ROOFLINE_SLACK."""
+    share = bound_ms / ms
+    if not share <= ROOFLINE_SLACK:
+        raise AssertionError(
+            "%s: %.6g ms measured against a bound of %.6g ms (share %.3f): "
+            "the measurement is wrong" % (what, ms, bound_ms, share))
+    return share
 
 
 def make_case(torch, shape, dtype, seed):
@@ -3473,6 +3533,403 @@ def phase_ndarray(torch, state):
         raise AssertionError("phase ndarray: " + "; ".join(failures))
 
 
+# -- the vision model zoo: serving every family, ResNet-50 V2 fused training
+#    on rows 4-8, VGG-16 with its Dropouts, DenseNet-121 ----------------------
+
+# Serving (phase zoo, part a): each family at its published widths, 1000
+# classes, random weights from numpy seed 0 (convert.random_numpy_params),
+# 2 requests of 32 images (numpy seed 1) in f32 with TF32 off. The logits of
+# the first 2 images against the port on the CPU within ZOO_LOGIT_RTOL of
+# their largest magnitude: f32 with TF32 off on both sides, so only the
+# summation order of the convolutions differs (phase serve's f32 bound).
+ZOO_SERVE = [("alexnet", 224), ("vgg16_bn", 224), ("densenet121", 224),
+             ("squeezenet1.1", 224), ("inceptionv3", 299),
+             ("mobilenet1.0", 224), ("mobilenetv2_1.0", 224),
+             ("resnet50_v2", 224)]
+ZOO_BATCH = 32
+ZOO_REQUESTS = 2
+ZOO_LOGIT_RTOL = 1e-4
+# ResNet-50 V2 training (part b): NHWC, bf16, batch 128, SGD, 5 steps
+# through gluon.train_step with MXTPU_FUSED_APPLY=1. 51 BatchNorms, all
+# channels-last: each runs rows 4 and 5 once per forward; the backward runs
+# rows 6 and 7 for every one but the image's (scale=False, center=False,
+# the input needs no gradient), and each fold its finalize launch.
+V2_BN = 1 + 1 + 3 * 16 + 1
+V2_BN_BWD = V2_BN - 1
+V2_C3_R = 128 * 224 * 224
+# VGG-16 (part c): bf16 NCHW, batch 64, 3 eager Trainer steps. Each of its
+# two Dropouts (rate 0.5) keeps a share of the nonzero entries within
+# ZOO_DROPOUT_SIGMAS standard errors of 0.5, every kept one x / 0.5.
+ZOO_DROPOUT_SIGMAS = 6.0
+ZOO_TRAIN_BATCH = 64
+
+
+def _zoo_net(mx, torch, name, ctx, size, arrays=None, **kw):
+    """get_model(name) on ctx with weights from numpy seed 0 (or
+    ``arrays``, which give the deferred shapes): without ``arrays`` a
+    first forward on one image finishes the deferred shapes."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    net = get_model(name, **kw)
+    net.initialize(ctx=ctx)
+    if arrays is None:
+        net(torch.zeros(1, 3, size, size, device=ctx.device))
+        arrays = mx.convert.random_numpy_params(
+            mx.convert.param_shapes(net), seed=0)
+    mx.convert.load_numpy_params(net, arrays)
+    return net, arrays
+
+
+def _zoo_serve(torch, mx, state):
+    gpu = mx.gpu(0)
+    results = {}
+    failures = []
+    with mx.precision.matmul_precision("float32"):
+        for name, size in ZOO_SERVE:
+            rs = np.random.RandomState(1)
+            reqs = [rs.rand(ZOO_BATCH, 3, size, size).astype("float32")
+                    for _ in range(ZOO_REQUESTS)]
+            net, arrays = _zoo_net(mx, torch, name, gpu, size)
+            outs = []
+            t0 = time.perf_counter()
+            for req in reqs:
+                outs.append(net(torch.from_numpy(req).cuda()))
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            ok = all(tuple(o.shape) == (ZOO_BATCH, 1000)
+                     and bool(torch.isfinite(o).all().item()) for o in outs)
+            cpu_net, _ = _zoo_net(mx, torch, name, mx.cpu(), size, arrays)
+            ref = cpu_net(torch.from_numpy(reqs[0][:2]))
+            err = (outs[0][:2].cpu() - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            ok = ok and err <= ZOO_LOGIT_RTOL * scale and scale > 0
+            x = torch.from_numpy(reqs[0]).cuda()
+            fwd = lambda: net(x)                          # noqa: E731
+            dev_ms = device_busy_ms(torch, fwd, 3)
+            wall_ms = host_ms(torch, fwd, 3)
+            results[name] = {
+                "input": [ZOO_BATCH, 3, size, size],
+                "parameters": sum(int(np.prod(a.shape))
+                                  for a in arrays.values()),
+                "max_abs_diff_vs_cpu_port": err, "logit_max_abs": scale,
+                "tolerance": ZOO_LOGIT_RTOL * scale,
+                "device_busy_ms": dev_ms, "wall_ms": wall_ms,
+                "images_per_sec": ZOO_BATCH * 1e3 / wall_ms,
+                "images_per_sec_device": ZOO_BATCH * 1e3 / dev_ms,
+                "device_idle_share": max(0.0, 1.0 - dev_ms / wall_ms),
+                "first_requests_s": first_s, "ok": ok}
+            emit(dict({"phase": "zoo", "part": "serve", "model": name,
+                       "dtype": "float32", "tf32": False,
+                       "requests": ZOO_REQUESTS}, **results[name]))
+            if not ok:
+                failures.append(name)
+            del net, cpu_net, outs, x, fwd
+            torch.cuda.empty_cache()
+    state["zoo_serve"] = results
+    if failures:
+        raise AssertionError("zoo serving out of tolerance: %s" % failures)
+
+
+def _c3_check(torch):
+    """Rows 4-7 at ResNet-50 V2's input BatchNorm: C = 3, R = 128 x 224 x
+    224, bf16, on the kernels' non-TMA route, against their plain versions
+    (the forward bit for bit, the backward within BN_BWD_RTOL; the folds
+    also their own second launch)."""
+    x2, g, b, dy = bn_case(torch, V2_C3_R, 3, torch.bfloat16, seed=500)
+    res = bn_check(torch, x2, g, b, dy, None)
+    out = {k: {"ok": v[0], "max_abs_err": v[1], "ref_max_abs": v[2],
+               "bitwise_share": v[3]} for k, v in res.items()}
+    emit({"phase": "zoo", "check": "batchnorm_c3", "R": V2_C3_R, "C": 3,
+          "dtype": "bfloat16", "results": out})
+    del x2, g, b, dy
+    torch.cuda.empty_cache()
+    bad = [k for k, v in res.items() if not v[0]]
+    if bad:
+        raise AssertionError("batchnorm_fused at C = 3, R = %d disagrees "
+                             "with its plain version: %s" % (V2_C3_R, bad))
+    return out
+
+
+def _v2_net(mx, torch, ctx, dtype, layers=None, size=224, arrays=None):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as R
+    if layers is None:
+        net = R.resnet50_v2(layout="NHWC")
+    else:
+        net = R.ResNetV2(R.BottleneckV2, *layers, classes=10, layout="NHWC")
+    net.initialize(ctx=ctx)
+    if arrays is None:
+        net(torch.zeros(1, 3, size, size, device=ctx.device))
+        arrays = mx.convert.random_numpy_params(
+            mx.convert.param_shapes(net), seed=0 if layers is None else 3)
+    mx.convert.load_numpy_params(net, arrays)
+    net.cast(dtype)
+    net.hybridize()
+    return net, arrays
+
+
+def _zoo_train_v2(torch, mx, state):
+    from mxnet_tpu_torch.gluon import fused_step
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+
+    c3 = _c3_check(torch)
+    x_np, y_np = _batch(state)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    net, _ = _v2_net(mx, torch, mx.gpu(0), "bfloat16")
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD))
+    step = mx.gluon.train_step(net, loss_fn, trainer)
+    all_params, train_pos, _ = step._param_split()
+    buckets = len(OA.bucketize([all_params[p]._tensor() for p in train_pos]))
+    x = torch.from_numpy(x_np).to("cuda", torch.bfloat16)
+    y = torch.from_numpy(y_np).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_step.reset_stats()
+    _zero_counts(BNF, CF, OA)
+    losses, modes = [], []
+    t0 = time.perf_counter()
+    for _ in range(5):
+        loss = step(x, y)
+        modes.append(step.last_mode)
+        losses.append(loss.float().mean().item())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bn = _bn_counts(BNF)
+    conv = _conv_counts(CF)
+    apply_n = OA.LAUNCHES
+    stats = fused_step.stats()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"stats": 5 * V2_BN, "apply": 5 * V2_BN,
+            "bwd_reduce": 5 * V2_BN_BWD, "bwd_dx": 5 * V2_BN_BWD,
+            "finalize": 5 * (V2_BN + V2_BN_BWD)}
+    ok_counts = all(bn[k] == n for k, n in want.items()) \
+        and apply_n == 5 * buckets and conv["fwd"] == 0 \
+        and conv["bwd_dx"] == 0 and conv["bwd_dw"] == 0
+    ok_mode = all(m == "fused" for m in modes) and stats["fallbacks"] == 0
+    ok_loss = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    state["launches_zoo"] = dict({k: bn[k] for k in BN_KERNELS},
+                                 optimizer_apply=apply_n)
+
+    def one_step():
+        prev = _set_fused_apply("1")
+        try:
+            step(x, y)
+        finally:
+            _set_fused_apply(prev)
+    busy_ms, by_kernel, tops = profile_busy_ms(
+        torch, one_step, 2, top=8, match=("bn_", "sgd_apply"))
+    wall_ms = host_ms(torch, one_step, 3)
+    timing = {"images_per_sec": 128 * 1e3 / wall_ms,
+              "wall_ms_per_step": wall_ms,
+              "images_per_sec_5_steps": 5 * 128 / wall,
+              "device_busy_ms_per_step": busy_ms,
+              "device_idle_share": None if busy_ms is None
+              else max(0.0, 1.0 - busy_ms / wall_ms),
+              "kernel_ms_per_step_by_name": by_kernel}
+    state["zoo_train_v2"] = dict(timing, peak_bytes=peak, losses=losses)
+    emit({"phase": "zoo", "part": "train_resnet50_v2", "layout": "NHWC",
+          "dtype": "bfloat16", "batch": 128, "steps": 5, "losses": losses,
+          "last_modes": modes, "fused_step_stats": stats,
+          "buckets": buckets, "batchnorm_c3": c3,
+          "launches": {"batchnorm_fused": bn, "conv_fused": conv,
+                       "optimizer_apply": apply_n},
+          "launches_wanted": {"batchnorm_fused": want,
+                              "optimizer_apply": 5 * buckets,
+                              "conv_fused": 0},
+          "max_memory_allocated_bytes": peak, "timing": timing,
+          "ok": ok_counts and ok_mode and ok_loss})
+    if tops:
+        emit(dict({"phase": "zoo",
+                   "where_the_time_goes": "train_resnet50_v2,b128"}, **tops))
+    if not ok_counts:
+        raise AssertionError("ResNet-50 V2 launches bn %s, conv %s, apply "
+                             "%d; want %s, 0, %d" % (bn, conv, apply_n, want,
+                                                     5 * buckets))
+    if not ok_mode:
+        raise AssertionError("ResNet-50 V2 train_step modes %s, stats %s"
+                             % (modes, stats))
+    if not ok_loss:
+        raise AssertionError("ResNet-50 V2 loss not finite and falling: %s"
+                             % losses)
+    del net, trainer, step, x
+    torch.cuda.empty_cache()
+    _v2_narrow_card_vs_cpu(torch, mx)
+
+
+def _v2_narrow_card_vs_cpu(torch, mx):
+    """One f32 fused step (MXTPU_FUSED_APPLY=1) of a narrow ResNet V2 NHWC
+    (bottleneck, one unit per stage, widths 16-256, batch 4 of 32x32, the
+    stem included), TF32 off, the card against the CPU from the same
+    weights: the loss, every parameter and running statistic within
+    NARROW_RTOL (tests/test_torch_train.py's bounds)."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    x = np.random.RandomState(1).rand(4, 3, 32, 32).astype("float32")
+    y = np.random.RandomState(2).randint(0, 10, (4,)).astype("float32")
+    got, arrays = {}, None
+    prev = _set_fused_apply("1")
+    try:
+        with mx.precision.matmul_precision("float32"):
+            for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+                net, arrays = _v2_net(mx, torch, ctx, "float32", NARROW, 32,
+                                      arrays)
+                step = mx.gluon.train_step(
+                    net, SoftmaxCrossEntropyLoss(),
+                    mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD)))
+                loss = step(torch.from_numpy(x).to(ctx.device),
+                            torch.from_numpy(y).to(ctx.device))
+                got[where] = (loss.cpu(), {
+                    k: p._tensor().detach().cpu()
+                    for k, p in net._collect_params_with_prefix().items()},
+                    step.last_mode)
+    finally:
+        _set_fused_apply(prev)
+    loss_rel = ((got["card"][0] - got["cpu"][0]).abs().max()
+                / got["cpu"][0].abs().max()).item()
+    param_rel = max((((got["card"][1][k] - v).abs().max()
+                      / v.abs().max().clamp_min(1e-30)).item(), k)
+                    for k, v in got["cpu"][1].items())
+    ok = loss_rel <= NARROW_RTOL["loss"] \
+        and param_rel[0] <= NARROW_RTOL["param"] \
+        and got["card"][2] == got["cpu"][2] == "fused"
+    emit({"phase": "zoo", "check": "narrow_v2_f32_card_vs_cpu", "batch": 4,
+          "steps": 1, "loss_max_rel": loss_rel, "param_max_rel": param_rel,
+          "bound_rel": NARROW_RTOL, "ok": ok})
+    if not ok:
+        raise AssertionError("narrow ResNet V2 f32 step card vs CPU: loss "
+                             "%g, param %s" % (loss_rel, param_rel))
+
+
+def _dropouts(mx, net):
+    return [m for m in net.modules() if isinstance(m, mx.gluon.nn.Dropout)]
+
+
+def _eager_steps(torch, mx, net, x, y, steps):
+    """``steps`` eager SGD steps (phase train's): the losses, the wall ms
+    per step (the first included) and the step as a function."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD))
+    loss_fn = SoftmaxCrossEntropyLoss()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = _train_step(mx, net, trainer, loss_fn, x, y)
+        losses.append(loss.detach().float().mean().item())
+    torch.cuda.synchronize()
+    return losses, (time.perf_counter() - t0) / steps * 1e3, \
+        lambda: _train_step(mx, net, trainer, loss_fn, x, y)
+
+
+def _zoo_train_vgg(torch, mx, state):
+    rs = np.random.RandomState(1)
+    x_np = rs.rand(ZOO_TRAIN_BATCH, 3, 224, 224).astype("float32")
+    y_np = rs.randint(0, 1000, (ZOO_TRAIN_BATCH,)).astype("float32")
+    net, _ = _zoo_net(mx, torch, "vgg16", mx.gpu(0), 224)
+    net.cast("bfloat16")
+    drops = _dropouts(mx, net)
+    seen = []
+    hooks = [d.register_forward_hook(
+        lambda m, inp, out, i=i: seen.append((i, inp[0].detach(),
+                                              out.detach())))
+        for i, d in enumerate(drops)]
+    x = torch.from_numpy(x_np).to("cuda", torch.bfloat16)
+    y = torch.from_numpy(y_np).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        losses, step_ms, _ = _eager_steps(torch, mx, net, x, y, 3)
+        checks = []
+        half = torch.tensor(0.5, dtype=torch.bfloat16, device="cuda")
+        for i, xin, out in seen:
+            live = xin != 0
+            kept = (out != 0) & live
+            n = int(live.sum().item())
+            share = int(kept.sum().item()) / max(n, 1)
+            exact = bool(torch.equal(out[kept], (xin / half)[kept])) \
+                and not bool((out[~kept] != 0).any().item())
+            checks.append({"dropout": i, "nonzero_inputs": n,
+                           "keep_share": share,
+                           "sigmas": abs(share - 0.5) / np.sqrt(0.25 / n),
+                           "kept_exact": exact})
+        seen.clear()
+        bits = []
+        for _ in range(2):
+            mx.random.seed(42)
+            with mx.autograd.train_mode():
+                net(x[:8])
+            bits.append([o for _, _, o in seen])
+            seen.clear()
+        same = len(bits[0]) == len(drops) and all(
+            same_bits(torch, a, b) for a, b in zip(*bits))
+    finally:
+        for h in hooks:
+            h.remove()
+    ok = all(np.isfinite(losses)) and len(checks) == 3 * len(drops) == 6 \
+        and all(c["sigmas"] <= ZOO_DROPOUT_SIGMAS and c["kept_exact"]
+                for c in checks) and same
+    state["zoo_train_vgg"] = {"wall_ms_per_step": step_ms,
+                              "images_per_sec": ZOO_TRAIN_BATCH * 1e3
+                              / step_ms}
+    emit({"phase": "zoo", "part": "train_vgg16", "layout": "NCHW",
+          "dtype": "bfloat16", "batch": ZOO_TRAIN_BATCH, "steps": 3,
+          "losses": losses, "dropouts": checks,
+          "same_bits_under_one_seed": same,
+          "wall_ms_per_step": step_ms,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "ok": ok})
+    del net, x, bits
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("VGG-16 training: losses %s, dropouts %s, same "
+                             "bits %s" % (losses, checks, same))
+
+
+def _zoo_train_densenet(torch, mx, state):
+    rs = np.random.RandomState(1)
+    x_np = rs.rand(ZOO_TRAIN_BATCH, 3, 224, 224).astype("float32")
+    y_np = rs.randint(0, 1000, (ZOO_TRAIN_BATCH,)).astype("float32")
+    net, _ = _zoo_net(mx, torch, "densenet121", mx.gpu(0), 224)
+    net.cast("bfloat16")
+    x = torch.from_numpy(x_np).to("cuda", torch.bfloat16)
+    y = torch.from_numpy(y_np).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, step = _eager_steps(torch, mx, net, x, y, 3)
+    ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    peak = torch.cuda.max_memory_allocated()
+    busy_ms, _, tops = profile_busy_ms(torch, step, 1, top=8, match=())
+    state["zoo_train_densenet"] = {"wall_ms_per_step": step_ms,
+                                   "images_per_sec": ZOO_TRAIN_BATCH * 1e3
+                                   / step_ms}
+    emit({"phase": "zoo", "part": "train_densenet121", "layout": "NCHW",
+          "dtype": "bfloat16", "batch": ZOO_TRAIN_BATCH, "steps": 3,
+          "losses": losses, "wall_ms_per_step": step_ms,
+          "device_busy_ms_per_step": busy_ms,
+          "max_memory_allocated_bytes": peak, "ok": ok})
+    if tops:
+        emit(dict({"phase": "zoo",
+                   "where_the_time_goes": "train_densenet121,b64"}, **tops))
+    del net, x, step
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("DenseNet-121 loss not finite and falling: %s"
+                             % losses)
+
+
+def phase_zoo(torch, state):
+    """The vision model zoo on the card: serving every family, ResNet-50
+    V2 trained fused (rows 4-8), VGG-16 and DenseNet-121 trained eagerly."""
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    _zoo_serve(torch, mx, state)
+    prev = _set_fused_apply("1")
+    try:
+        _zoo_train_v2(torch, mx, state)
+    finally:
+        _set_fused_apply(prev)
+    _zoo_train_vgg(torch, mx, state)
+    _zoo_train_densenet(torch, mx, state)
+    emit({"phase": "zoo", "wall_s": time.perf_counter() - t0, "ok": True})
+
+
 def _lm_batch(torch, vocab, batch, seq, seed, device):
     """Tokens and targets [batch, seq] from numpy ``seed``, as bench.py
     draws them."""
@@ -3618,7 +4075,8 @@ def phase_time_conv_fwd(torch, state):
               "shape": list(shape), "launches_per_forward": count,
               "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
               "cudnn_conv_only_ms": c_ms, "bound_ms": b_ms, "bound_by": by,
-              "roofline_share": b_ms / k_ms,
+              "roofline_share": roofline_share(
+                  b_ms, k_ms, "conv_fused forward %s" % (shape,)),
               "fwd_plan": None if fp is None else {"nb": fp.nb,
                                                    "items": fp.items,
                                                    "grid": fp.grid}})
@@ -3736,7 +4194,9 @@ def phase_time_bn(torch, state):
                       "plain_ms": device_ms(torch, plain, iters=3, warmup=1),
                       "library_ms": device_ms(torch, lib, iters=20),
                       "bound_ms": t_bound * 1e3, "bound_by": by}
-            row[k]["roofline_share"] = row[k]["bound_ms"] / row[k]["ms"]
+            row[k]["roofline_share"] = roofline_share(
+                row[k]["bound_ms"], row[k]["ms"],
+                "batchnorm_fused %s %s" % (k, shape))
             for f in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 totals[k][f] += count * row[k][f]
             if by == "operations":
@@ -3836,7 +4296,9 @@ def phase_time_conv_bwd(torch, state):
                           x, s, b, w, dy), iters=5, warmup=1),
                       "library_ms": device_ms(torch, libs[k], iters=20),
                       "bound_ms": t_bound * 1e3, "bound_by": by}
-            row[k]["roofline_share"] = row[k]["bound_ms"] / row[k]["ms"]
+            row[k]["roofline_share"] = roofline_share(
+                row[k]["bound_ms"], row[k]["ms"],
+                "conv_fused %s %s" % (k, shape))
             for f in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 totals[k][f] += count * row[k][f]
             if by == "operations":
@@ -3931,7 +4393,8 @@ def phase_time_apply(torch, state):
            "library_note": "no single PyTorch call computes MXNet's SGD "
                            "step (rescale, clip, wd, momentum as one op)",
            "tensors": len(ws), "elements": n, "buckets": len(segs)}
-    res["roofline_share"] = res["bound_ms"] / res["ms"]
+    res["roofline_share"] = roofline_share(res["bound_ms"], res["ms"],
+                                           "optimizer_apply SGD")
     state["apply_timing"] = res
     emit({"phase": "time", "kernel": "optimizer_apply", "dtype": "bfloat16",
           "per_step": res})
@@ -4013,7 +4476,8 @@ def phase_time_codec(torch, state):
              "launches_per_step": launches,
              "segments_per_step": segments if grouped else launches,
              "elements": n, "bytes": nbytes}
-        r["roofline_share"] = r["bound_ms"] / r["ms"]
+        r["roofline_share"] = roofline_share(r["bound_ms"], r["ms"],
+                                             "compression %s" % row)
         per_size = {}
         for size in sorted(set(sizes)):
             i = sizes.index(size)
@@ -4107,7 +4571,8 @@ def phase_time_adam(torch, state):
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "tensors": len(ws), "elements": n, "buckets": len(segs)}
-    res["roofline_share"] = res["bound_ms"] / res["ms"]
+    res["roofline_share"] = roofline_share(res["bound_ms"], res["ms"],
+                                           "optimizer_apply Adam")
     state["adam_timing"] = res
     emit({"phase": "time", "kernel": "optimizer_apply.adam",
           "dtype": "bfloat16", "per_step": res})
@@ -4280,7 +4745,8 @@ def phase_time_flash(torch, state):
         res[n] = {"ms": per[n], "plain_ms": plain_ms[n],
                   "library_ms": lib_fwd if n == "fwd" else lib_bwd,
                   "bound_ms": t_bound * 1e3, "bound_by": by,
-                  "roofline_share": t_bound * 1e3 / per[n],
+                  "roofline_share": roofline_share(
+                      t_bound * 1e3, per[n], "flash_attention %s" % n),
                   "launches_per_step": FLASH_PER_STEP[n]}
     state["flash_timing"] = res
     emit({"phase": "time", "kernel": "flash_attention", "dtype": "bfloat16",
@@ -4316,7 +4782,9 @@ def phase_time_flash(torch, state):
     emit({"phase": "time", "kernel": "flash_attention.fwd",
           "dtype": "bfloat16", "shape_bhsd": list(case[:5]), "causal": True,
           "ms_per_launch": ms, "bound_ms": t_bound * 1e3, "bound_by": by,
-          "roofline_share": t_bound * 1e3 / ms, "library_ms": lib_ms})
+          "roofline_share": roofline_share(
+              t_bound * 1e3, ms, "flash_attention fwd, head dim 64"),
+          "library_ms": lib_ms})
     # the f32 forward (CUDA cores) at the LM's attention, batch cut to 1
     q, k, v, _ = flash_case(torch, FLASH_MAIN, torch.float32, seed=1202)
     ms = device_ms(torch, lambda: FA._flash_forward(q, k, v, True,
@@ -4432,7 +4900,9 @@ def phase_time_qmm(torch, state):
             t_bound, by = qmm_bound(M, K, N, scaled, card)
             row["bound_" + name] = t_bound * 1e3
             row["bound_by_" + name] = by
-            row["roofline_share_" + name] = t_bound * 1e3 / row[name]
+            row["roofline_share_" + name] = roofline_share(
+                t_bound * 1e3, row[name],
+                "quantized_matmul %s %s" % (name, (M, K, N)))
         if hasattr(QM, "qmm_plan"):
             p = QM.qmm_plan(M, K, N, QM._sm_count(x.device))
             row["plan"] = {"bn": p.bn, "nsplit": p.nsplit, "items": p.items,
@@ -4452,7 +4922,9 @@ def phase_time_qmm(torch, state):
         ms = sum(per[c][name] for c in calls)
         return {"ms": ms,
                 "plain_ms": sum(per[c]["plain_" + name] for c in calls),
-                "bound_ms": bound, "roofline_share": bound / ms,
+                "bound_ms": bound,
+                "roofline_share": roofline_share(bound, ms,
+                                                 "quantized_matmul " + name),
                 "bound_by": "operations" if ops_bound >= bound / 2
                 else "bytes",
                 "library_ms": None if None in lib else sum(lib),
@@ -4532,21 +5004,43 @@ def _self_device_us(ev):
 
 
 PROFILE_TRIES = 3
+# Late in a long run a profiler window drops device events of launches made
+# near its start (5 of the first 10 launches a minute into a process, over
+# 100 late in a full pass; chip_profile_probe.py --windows). So each window
+# opens with PROFILE_PRIMER empty kernels and a synchronize, and fn's
+# launches follow.
+PROFILE_PRIMER = 256
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx")
 
 
 def _profile(torch, fn, iters):
     """torch.profiler over `iters` calls of fn(): ({device kernel or copy
-    name: device us}, [(device us of its kernels, host op name)]). A
-    window that came back with no device event at all (CUPTI now and then
-    loses a short one) is profiled again, up to PROFILE_TRIES times; after
-    that the dict stays empty."""
+    name: device us}, [(device us of its kernels, host op name)]). The
+    window opens with a primer of empty kernels; a launch of fn's with no
+    device event in the window (found by correlation id: a launch after
+    the primer's) means the window lost events, and then, as when a window
+    saw no device event at all, it is profiled again with a primer four
+    times as long, up to PROFILE_TRIES times; after that the dict stays
+    empty, as for a window that saw no device time."""
     from torch.profiler import ProfilerActivity, profile
+    primer = PROFILE_PRIMER
     for attempt in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(primer):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        evs = prof.profiler.kineto_results.events()
+        seen = {e.correlation_id() for e in evs
+                if str(e.device_type()).endswith("CUDA")}
+        calls = sorted((e.start_ns(), e.correlation_id()) for e in evs
+                       if str(e.device_type()).endswith("CPU")
+                       and e.name() in LAUNCH_CALLS)
+        lost = sum(c not in seen for _, c in calls[primer:])
         kernels, by_op = {}, []
         for ev in prof.key_averages():
             us = _self_device_us(ev)
@@ -4554,18 +5048,23 @@ def _profile(torch, fn, iters):
                 if us > 0:              # a host op, by its kernels' time
                     by_op.append((us, ev.key))
                 continue
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + us
-        if any(us > 0 for us in kernels.values()):
-            break
-        print("chip_smoke: the profiler saw no device event (try %d of %d)"
-              % (attempt + 1, PROFILE_TRIES), file=sys.stderr)
-    return kernels, by_op
+            if "spin_kernel" not in ev.key:     # not the primer's
+                kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+        if any(us > 0 for us in kernels.values()) and not lost:
+            return kernels, by_op
+        print("chip_smoke: the profiler %s (try %d of %d, primer %d)"
+              % ("lost %d of %d launches" % (lost, len(calls) - primer)
+                 if lost else "saw no device event",
+                 attempt + 1, PROFILE_TRIES, primer), file=sys.stderr)
+        primer *= 4
+    return {}, by_op
 
 
 def kernel_ms(torch, fn, iters, groups):
     """Device ms per call of fn() in the kernels of each group ({label:
     name substrings}), from the profiler. Where the profiler saw no device
-    time at all, a single group is timed with CUDA events instead
+    time at all or lost events, a single group is timed with CUDA events
+    instead
     (device_ms: the queued launches' span, so gaps between them count).
     Fails where the profiler saw device work but none in a group's
     kernels."""
@@ -4587,7 +5086,8 @@ def kernel_ms(torch, fn, iters, groups):
 def device_busy_ms(torch, fn, iters):
     """Device time per call of fn(), summed over its kernels and copies
     (profiler): unlike device_ms, no host gap between launches counts.
-    Where the profiler saw no device time, device_ms (CUDA events)."""
+    Where the profiler saw no device time or lost events, device_ms (CUDA
+    events)."""
     kernels, _ = _profile(torch, fn, iters)
     us = sum(kernels.values())
     if us <= 0:
@@ -4614,7 +5114,7 @@ def profile_busy_ms(torch, fn, iters, top=None, match=("conv_fused",)):
     `match` ({string: ms}), and (with `top`) {"top_ops": the host ops whose
     kernels took the most device time, "top_kernels": the kernels that
     took the most}. (None, None, {}) where the profiler saw no device
-    time."""
+    time or lost events."""
     kernels, by_op = _profile(torch, fn, iters)
     total = sum(kernels.values())
     fused = {m: sum(us for k, us in kernels.items() if m in k) / iters / 1e3
@@ -4665,6 +5165,7 @@ def kernel_summary(state):
             % BN_REPLACES[k],
             "launches": state["launches"][k],
             "launches_train_sharded": sharded(k),
+            "launches_zoo": state["launches_zoo"][k],
             "max_abs_err": state["bn_err"][k][0],
             "max_rel_err": state["bn_err"][k][1],
             "tolerance_rel": 0.0 if k in ("stats", "apply") else BN_BWD_RTOL,
@@ -4761,6 +5262,7 @@ def kernel_summary(state):
         "source": "mxnet_tpu_torch/csrc/optimizer_apply.cu",
         "replaces": "mxnet_tpu/pallas_kernels/optimizer_apply.py:80",
         "launches": state["launches"]["optimizer_apply"],
+        "launches_zoo": state["launches_zoo"]["optimizer_apply"],
         # the phase failed unless the apply matched bit for bit
         "max_abs_err": state["apply_err"], "max_rel_err": 0.0,
         "tolerance_rel": 0.0,

@@ -33,6 +33,13 @@ and tensor op families, ``attach_grad``/``backward``, and the checkpoint
 path (``nd.save``/``nd.load``, ``Block.save_parameters``/
 ``load_parameters``, ``ParameterDict.save``/``load``) in the reference's
 ``.params`` format.
+
+Layers and models: every op of the JAX package's ``ops/nn.py`` (but the
+fused ``RNN``), ``ops/linalg.py`` (``mx.nd.linalg``) and
+``ops/random_ops.py`` (``mx.nd.random``, drawn from one generator per
+device, ``random.py``), every ``gluon.nn`` layer, and the vision model
+zoo's ``get_model`` names (ResNet V1 and V2, VGG, AlexNet, DenseNet,
+SqueezeNet, Inception V3, MobileNet V1 and V2).
 """
 from . import base
 from .base import MXNetError

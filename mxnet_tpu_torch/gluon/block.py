@@ -253,6 +253,15 @@ class Block(torch.nn.Module):
     save_params = save_parameters
     load_params = load_parameters
 
+    def summary(self, *inputs):
+        """Run the block on ``inputs`` (which finishes deferred shapes) and
+        return "<name>: <n> parameters", n the count of parameter values
+        (running statistics included)."""
+        self(*inputs)
+        n = sum(p._tensor().numel() for p in self.collect_params().values()
+                if p._data is not None)
+        return "%s: %d parameters" % (self.name, n)
+
     def __call__(self, *args, **kwargs):
         for a in args:
             if isinstance(a, NDArray):

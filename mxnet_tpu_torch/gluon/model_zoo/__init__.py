@@ -1,2 +1,5 @@
-"""Model zoo of the port."""
-from . import vision  # noqa: F401
+"""Model zoo of the port: ``vision`` and its ``get_model``."""
+from . import vision
+from .vision import get_model
+
+__all__ = ["vision", "get_model"]

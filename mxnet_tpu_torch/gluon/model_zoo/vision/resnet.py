@@ -1,4 +1,4 @@
-"""ResNet V1 for the model zoo (counterpart of
+"""ResNet V1 and V2 for the model zoo (counterpart of
 mxnet_tpu/gluon/model_zoo/vision/resnet.py).
 
 ``layout="NHWC"`` builds the channels-last variant: the public API still
@@ -11,7 +11,12 @@ applies them with the ReLU while loading its input. ``fuse="auto"`` does
 so only where the 3x3 conv is at least 512 channels wide, the JAX
 package's policy.
 
-V2 (pre-activation) networks are not ported yet.
+V2 is the pre-activation network (``BasicBlockV2``, ``BottleneckV2``,
+``ResNetV2``): a BatchNorm without scale or shift on the image, then
+BN -> ReLU -> conv units; it has no fused link. With ``layout="NHWC"``
+every one of its BatchNorms is channels-last, so in training each takes
+the fused BatchNorm kernels (``kernels/batchnorm_fused.py``), the one on
+the image at C = 3 included.
 """
 from __future__ import annotations
 
@@ -19,9 +24,11 @@ from ... import nn
 from ...block import HybridBlock
 from ....base import MXNetError
 
-__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "get_resnet",
-           "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
-           "resnet152_v1"]
+__all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
+           "BottleneckV1", "BottleneckV2", "get_resnet", "resnet18_v1",
+           "resnet34_v1", "resnet50_v1", "resnet101_v1", "resnet152_v1",
+           "resnet18_v2", "resnet34_v2", "resnet50_v2", "resnet101_v2",
+           "resnet152_v2"]
 
 
 def _bn_axis(layout):
@@ -244,6 +251,122 @@ class ResNetV1(HybridBlock):
         return self.output(x)
 
 
+class BasicBlockV2(HybridBlock):
+    """Two 3x3 convs, pre-activation residual unit."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        ax = _bn_axis(layout)
+        self.bn1 = nn.BatchNorm(axis=ax)
+        self.conv1 = _conv3x3(channels, stride, in_channels, layout)
+        self.bn2 = nn.BatchNorm(axis=ax)
+        self.conv2 = _conv3x3(channels, 1, channels, layout)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels,
+                                        layout=layout)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.Activation(self.bn2(x), act_type="relu")
+        return self.conv2(x) + residual
+
+
+class BottleneckV2(HybridBlock):
+    """1x1 -> 3x3 -> 1x1 pre-activation bottleneck; the stride sits on the
+    3x3."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        ax = _bn_axis(layout)
+        self.bn1 = nn.BatchNorm(axis=ax)
+        self.conv1 = nn.Conv2D(channels // 4, kernel_size=1, strides=1,
+                               use_bias=False, layout=layout)
+        self.bn2 = nn.BatchNorm(axis=ax)
+        self.conv2 = _conv3x3(channels // 4, stride, channels // 4, layout)
+        self.bn3 = nn.BatchNorm(axis=ax)
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                               use_bias=False, layout=layout)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels,
+                                        layout=layout)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.Activation(self.bn2(x), act_type="relu")
+        x = self.conv2(x)
+        x = F.Activation(self.bn3(x), act_type="relu")
+        return self.conv3(x) + residual
+
+
+class ResNetV2(HybridBlock):
+    """Pre-activation ResNet; ``layout="NHWC"`` as in ResNetV1."""
+
+    def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        assert len(layers) == len(channels) - 1
+        self._layout = layout
+        ax = _bn_axis(layout)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(nn.BatchNorm(scale=False, center=False,
+                                           axis=ax))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0, layout))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False, layout=layout))
+                self.features.add(nn.BatchNorm(axis=ax))
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(self._make_layer(
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    in_channels=in_channels, layout=layout))
+                in_channels = channels[i + 1]
+            self.features.add(nn.BatchNorm(axis=ax))
+            self.features.add(nn.Activation("relu"))
+            self.features.add(nn.GlobalAvgPool2D(layout=layout))
+            self.features.add(nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_channels)
+
+    def _make_layer(self, block, layers, channels, stride, stage_index,
+                    in_channels=0, layout="NCHW"):
+        layer = nn.HybridSequential(prefix="stage%d_" % stage_index)
+        with layer.name_scope():
+            layer.add(block(channels, stride, channels != in_channels,
+                            in_channels=in_channels, layout=layout,
+                            prefix=""))
+            for _ in range(layers - 1):
+                layer.add(block(channels, 1, False, in_channels=channels,
+                                layout=layout, prefix=""))
+        return layer
+
+    def hybrid_forward(self, F, x):
+        if self._layout == "NHWC":
+            x = F.transpose(x, axes=(0, 2, 3, 1))
+        x = self.features(x)
+        return self.output(x)
+
+
 # num_layers -> (block type, per-stage depths, channels)
 resnet_spec = {
     18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
@@ -252,22 +375,32 @@ resnet_spec = {
     101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
     152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
 }
-_BLOCKS = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+_NETS = {1: ResNetV1, 2: ResNetV2}
+_BLOCKS = {1: {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+           2: {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2}}
+
+
+def no_pretrained():
+    """What every zoo constructor raises for ``pretrained=True``."""
+    raise MXNetError("pretrained weights are not available offline; "
+                     "load weights with convert.load_numpy_params")
 
 
 def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
                **kwargs):
-    """Build a ResNet V1 (random weights; no pretrained downloads)."""
+    """Build a ResNet V1 or V2 (random weights; no pretrained
+    downloads)."""
     if pretrained:
-        raise MXNetError("pretrained weights are not available offline; "
-                         "load weights with convert.load_numpy_params")
-    if version != 1:
-        raise NotImplementedError("ResNet V2 is not ported yet")
+        no_pretrained()
+    if version not in _NETS:
+        raise ValueError("invalid resnet version %r; options: 1, 2"
+                         % (version,))
     if num_layers not in resnet_spec:
         raise ValueError("invalid resnet depth %d; options: %s"
                          % (num_layers, sorted(resnet_spec)))
     block_type, layers, channels = resnet_spec[num_layers]
-    return ResNetV1(_BLOCKS[block_type], layers, channels, **kwargs)
+    return _NETS[version](_BLOCKS[version][block_type], layers, channels,
+                          **kwargs)
 
 
 def resnet18_v1(**kwargs):
@@ -288,3 +421,23 @@ def resnet101_v1(**kwargs):
 
 def resnet152_v1(**kwargs):
     return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)

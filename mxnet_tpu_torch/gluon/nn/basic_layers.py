@@ -1,5 +1,7 @@
 """Core Gluon layers (counterpart of mxnet_tpu/gluon/nn/basic_layers.py):
-HybridSequential, Dense, BatchNorm, Activation, Flatten."""
+Sequential, HybridSequential, Dense, Dropout, BatchNorm, InstanceNorm,
+LayerNorm, GroupNorm, Embedding, Flatten, Lambda, HybridLambda,
+Activation, LeakyReLU, PReLU, ELU, SELU, Swish and GELU."""
 from __future__ import annotations
 
 import math
@@ -7,10 +9,35 @@ import math
 from ... import autograd
 from ... import remat
 from ...base import weak_scalar
-from ..block import HybridBlock, report_aux_update
+from ..block import Block, HybridBlock, report_aux_update
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm", "Activation",
-           "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "BatchNorm", "InstanceNorm", "LayerNorm", "GroupNorm",
+           "Embedding", "Flatten", "Lambda", "HybridLambda", "Activation",
+           "LeakyReLU", "PReLU", "ELU", "SELU", "Swish", "GELU"]
+
+
+class Sequential(Block):
+    """Children run in the order they were added; child i is named "i"."""
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block, str(len(self._modules)))
+            self._params.update(block.collect_params())
+
+    def forward(self, x, *args):
+        for block in self._modules.values():
+            x = block(x)
+        return x
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, idx):
+        return list(self._modules.values())[idx]
+
+    def __iter__(self):
+        return iter(self._modules.values())
 
 
 class HybridSequential(HybridBlock):
@@ -99,6 +126,22 @@ class Dense(HybridBlock):
         return out
 
 
+class Dropout(HybridBlock):
+    """Zeroes each entry (each slice along ``axes``) with probability
+    ``rate`` in training and scales the rest by 1 / (1 - rate); the mask
+    comes from the port's generator of the input's device."""
+
+    def __init__(self, rate, axes=(), prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate <= 0:
+            return x
+        return F.Dropout(x, p=self._rate, axes=self._axes)
+
+
 class BatchNorm(HybridBlock):
     """Batch normalization; the running statistics are buffers. In training
     mode (and not ``use_global_stats``) it normalizes with the batch
@@ -169,3 +212,160 @@ class Activation(HybridBlock):
 class Flatten(HybridBlock):
     def hybrid_forward(self, F, x):
         return F.flatten(x)
+
+
+class _AffineNorm(HybridBlock):
+    """A normalization layer with a per-channel gamma and beta over axis
+    ``axis`` of its input."""
+
+    def __init__(self, axis, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._eps = epsilon
+        self.gamma = self.params.get(
+            "gamma", shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True, differentiable=scale)
+        self.beta = self.params.get(
+            "beta", shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True, differentiable=center)
+
+    def _shape_hint(self, x, *args):
+        c = x.shape[self._axis]
+        return {self.gamma: (c,), self.beta: (c,)}
+
+
+class InstanceNorm(_AffineNorm):
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(1, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._eps)
+
+
+class LayerNorm(_AffineNorm):
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(axis, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._eps)
+
+
+class GroupNorm(_AffineNorm):
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        # gamma and beta train whatever center and scale say, as in the
+        # JAX package
+        super().__init__(1, epsilon, True, True, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params)
+        self._num_groups = num_groups
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._eps)
+
+
+class Embedding(HybridBlock):
+    """Rows of a (input_dim, output_dim) weight looked up by index."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self.weight = self.params.get(
+            "weight", shape=(input_dim, output_dim), dtype=dtype,
+            init=weight_initializer, allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
+
+
+class Lambda(Block):
+    """A block around a function, or the name of an ``mx.nd`` one."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+            function = getattr(nd, function)
+        self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A block around a function of its inputs, or the name of an ``F``
+    op (the JAX package's form: the function is not passed ``F``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._fname, self._func = function, None
+        else:
+            self._fname, self._func = None, function
+
+    def hybrid_forward(self, F, *args):
+        fn = getattr(F, self._fname) if self._fname else self._func
+        return fn(*args)
+
+
+class LeakyReLU(HybridBlock):
+    def __init__(self, alpha, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """Leaky ReLU with a learned slope (one value, initialized 0.25)."""
+
+    def __init__(self, alpha_initializer=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        from ... import initializer
+        self.alpha = self.params.get(
+            "alpha", shape=(1,),
+            init=alpha_initializer or initializer.Constant(0.25))
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")
+
+
+class Swish(HybridBlock):
+    def __init__(self, beta=1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)

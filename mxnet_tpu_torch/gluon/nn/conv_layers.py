@@ -1,11 +1,19 @@
 """Convolution and pooling layers (counterpart of
-mxnet_tpu/gluon/nn/conv_layers.py): Conv2D, MaxPool2D, GlobalAvgPool2D."""
+mxnet_tpu/gluon/nn/conv_layers.py): Conv1D/2D/3D and their transposes,
+max and average pooling in 1, 2 and 3 dimensions, the six global pools and
+ReflectionPad2D. Weights are OIHW (transposes: in, out / groups, *kernel)
+in every layout."""
 from __future__ import annotations
 
 from ..block import HybridBlock
 from .basic_layers import Activation
 
-__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
+           "Conv2DTranspose", "Conv3DTranspose", "MaxPool1D", "MaxPool2D",
+           "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
+           "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
+           "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D",
+           "ReflectionPad2D"]
 
 
 def _tup(v, n):
@@ -16,10 +24,12 @@ class _Conv(HybridBlock):
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", prefix=None, params=None):
+                 bias_initializer="zeros", op_name="Convolution",
+                 prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._channels = channels
         self._groups = groups
+        self._op_name = op_name
         self._kwargs = {
             "kernel": kernel_size, "stride": strides, "dilate": dilation,
             "pad": padding, "num_filter": channels, "num_group": groups,
@@ -48,11 +58,22 @@ class _Conv(HybridBlock):
         return hints
 
     def hybrid_forward(self, F, x, weight, bias=None):
-        out = F.Convolution(x, weight, bias, no_bias=bias is None,
-                            **self._kwargs)
+        out = getattr(F, self._op_name)(x, weight, bias, no_bias=bias is None,
+                                        **self._kwargs)
         if self.act is not None:
             out = self.act(out)
         return out
+
+
+class Conv1D(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 dilation=1, groups=1, layout="NCW", activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _tup(kernel_size, 1), _tup(strides, 1),
+                         _tup(padding, 1), _tup(dilation, 1), groups, layout,
+                         in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
 
 
 class Conv2D(_Conv):
@@ -66,9 +87,74 @@ class Conv2D(_Conv):
                          weight_initializer, bias_initializer, **kwargs)
 
 
+class Conv3D(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
+                 layout="NCDHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        super().__init__(channels, _tup(kernel_size, 3), _tup(strides, 3),
+                         _tup(padding, 3), _tup(dilation, 3), groups, layout,
+                         in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
+
+
+class _ConvTranspose(_Conv):
+    """A transposed convolution: weights (in_channels, channels / groups,
+    *kernel); ``output_padding`` is the op's ``adj``."""
+
+    def __init__(self, *args, output_padding=None, **kwargs):
+        super().__init__(*args, op_name="Deconvolution", **kwargs)
+        if output_padding is not None:
+            self._kwargs["adj"] = output_padding
+
+    def _weight_shape(self, in_channels):
+        return (in_channels, self._channels // self._groups) \
+            + tuple(self._kwargs["kernel"])
+
+
+class Conv1DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _tup(kernel_size, 1), _tup(strides, 1),
+                         _tup(padding, 1), _tup(dilation, 1), groups, layout,
+                         in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         output_padding=_tup(output_padding, 1), **kwargs)
+
+
+class Conv2DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1,
+                 layout="NCHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        super().__init__(channels, _tup(kernel_size, 2), _tup(strides, 2),
+                         _tup(padding, 2), _tup(dilation, 2), groups, layout,
+                         in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         output_padding=_tup(output_padding, 2), **kwargs)
+
+
+class Conv3DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _tup(kernel_size, 3), _tup(strides, 3),
+                         _tup(padding, 3), _tup(dilation, 3), groups, layout,
+                         in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         output_padding=_tup(output_padding, 3), **kwargs)
+
+
 class _Pooling(HybridBlock):
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
-                 pool_type, layout=None, prefix=None, params=None):
+                 pool_type, layout=None, count_include_pad=None, prefix=None,
+                 params=None):
         super().__init__(prefix=prefix, params=params)
         if strides is None:
             strides = pool_size
@@ -77,21 +163,111 @@ class _Pooling(HybridBlock):
             "pool_type": pool_type, "global_pool": global_pool,
             "layout": layout,
             "pooling_convention": "full" if ceil_mode else "valid"}
+        if count_include_pad is not None:
+            self._kwargs["count_include_pad"] = count_include_pad
 
     def hybrid_forward(self, F, x):
         return F.Pooling(x, **self._kwargs)
 
 
+def _pool_args(n, pool_size, strides, padding):
+    return (_tup(pool_size, n),
+            _tup(strides, n) if strides is not None else None,
+            _tup(padding, n))
+
+
+class MaxPool1D(_Pooling):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, **kwargs):
+        super().__init__(*_pool_args(1, pool_size, strides, padding),
+                         ceil_mode, False, "max", layout=layout, **kwargs)
+
+
 class MaxPool2D(_Pooling):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
                  layout="NCHW", ceil_mode=False, **kwargs):
-        super().__init__(_tup(pool_size, 2),
-                         _tup(strides, 2) if strides is not None else None,
-                         _tup(padding, 2), ceil_mode, False, "max",
-                         layout=layout, **kwargs)
+        super().__init__(*_pool_args(2, pool_size, strides, padding),
+                         ceil_mode, False, "max", layout=layout, **kwargs)
 
 
-class GlobalAvgPool2D(_Pooling):
+class MaxPool3D(_Pooling):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False, **kwargs):
+        super().__init__(*_pool_args(3, pool_size, strides, padding),
+                         ceil_mode, False, "max", layout=layout, **kwargs)
+
+
+class AvgPool1D(_Pooling):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, count_include_pad=True, **kwargs):
+        super().__init__(*_pool_args(1, pool_size, strides, padding),
+                         ceil_mode, False, "avg", layout=layout,
+                         count_include_pad=count_include_pad, **kwargs)
+
+
+class AvgPool2D(_Pooling):
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 layout="NCHW", ceil_mode=False, count_include_pad=True,
+                 **kwargs):
+        super().__init__(*_pool_args(2, pool_size, strides, padding),
+                         ceil_mode, False, "avg", layout=layout,
+                         count_include_pad=count_include_pad, **kwargs)
+
+
+class AvgPool3D(_Pooling):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False, count_include_pad=True,
+                 **kwargs):
+        super().__init__(*_pool_args(3, pool_size, strides, padding),
+                         ceil_mode, False, "avg", layout=layout,
+                         count_include_pad=count_include_pad, **kwargs)
+
+
+class _GlobalPool(_Pooling):
+    def __init__(self, pool_type, ndim, **kwargs):
+        super().__init__((1,) * ndim, (1,) * ndim, (0,) * ndim, False, True,
+                         pool_type, **kwargs)
+
+
+class GlobalMaxPool1D(_GlobalPool):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__("max", 1, layout=layout, **kwargs)
+
+
+class GlobalMaxPool2D(_GlobalPool):
     def __init__(self, layout="NCHW", **kwargs):
-        super().__init__((1, 1), None, (0, 0), False, True, "avg",
-                         layout=layout, **kwargs)
+        super().__init__("max", 2, layout=layout, **kwargs)
+
+
+class GlobalMaxPool3D(_GlobalPool):
+    def __init__(self, layout="NCDHW", **kwargs):
+        super().__init__("max", 3, layout=layout, **kwargs)
+
+
+class GlobalAvgPool1D(_GlobalPool):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__("avg", 1, layout=layout, **kwargs)
+
+
+class GlobalAvgPool2D(_GlobalPool):
+    def __init__(self, layout="NCHW", **kwargs):
+        super().__init__("avg", 2, layout=layout, **kwargs)
+
+
+class GlobalAvgPool3D(_GlobalPool):
+    def __init__(self, layout="NCDHW", **kwargs):
+        super().__init__("avg", 3, layout=layout, **kwargs)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Reflection padding of the two spatial dims of an NCHW input;
+    ``padding`` an int (each side) or the op's 8-entry ``pad_width``."""
+
+    def __init__(self, padding=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        self._padding = padding
+
+    def hybrid_forward(self, F, x):
+        return F.pad(x, mode="reflect", pad_width=self._padding)

@@ -1,5 +1,6 @@
 """Weight initializers (counterpart of mxnet_tpu/initializer.py): Uniform,
-the default, plus the Zero/One fills BatchNorm uses. Draws come from the
+the default, Normal (the VGG zoo's), Constant (PReLU's slope), plus the
+Zero/One fills BatchNorm uses. Draws come from the
 port's explicit host ``torch.Generator`` (``random.generator()``) and are
 moved to the parameter's device afterwards."""
 from __future__ import annotations
@@ -8,7 +9,8 @@ import torch
 
 from .random import generator as _generator
 
-__all__ = ["Initializer", "Zero", "One", "Uniform", "get", "fill"]
+__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
+           "get", "fill"]
 
 
 class Initializer:
@@ -51,6 +53,15 @@ class One(Initializer):
         arr.fill_(1.0)
 
 
+class Constant(Initializer):
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        arr.fill_(float(self.value))
+
+
 class Uniform(Initializer):
     def __init__(self, scale=0.07):
         super().__init__(scale=scale)
@@ -60,8 +71,17 @@ class Uniform(Initializer):
         arr.uniform_(-self.scale, self.scale, generator=_generator())
 
 
+class Normal(Initializer):
+    def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
+        self.sigma = sigma
+
+    def _init_weight(self, _, arr):
+        arr.normal_(0.0, self.sigma, generator=_generator())
+
+
 _BY_NAME = {"zero": Zero, "zeros": Zero, "one": One, "ones": One,
-            "uniform": Uniform}
+            "constant": Constant, "uniform": Uniform, "normal": Normal}
 
 
 def get(init):

@@ -15,8 +15,9 @@ other's files: a list of V2 records (V3 for a 0-dim array), each with the
 context ``cpu(0)`` and an mshadow type flag; bf16 stored as float32;
 names sorted for a dict; no names for a list.
 
-Not ported here: ``nd.random`` (with ``ops/random_ops.py``), ``nd.linalg``,
-``nd.image``, ``nd.sparse`` and ``Custom``.
+``nd.random`` (``ndarray/random.py``) draws on the current context's
+generator, ``nd.linalg`` (``ndarray/linalg.py``) wraps the ``linalg_*``
+ops. Not ported here: ``nd.image``, ``nd.sparse`` and ``Custom``.
 """
 from __future__ import annotations
 
@@ -126,20 +127,6 @@ def unique(data):
     return _wrap(torch.unique(t, sorted=True))
 
 
-def _dense_dot(a, b, transpose_a=False, transpose_b=False, precision=None):
-    """MXNet's dot: the last axis of ``a`` against the first of ``b``."""
-    if transpose_a and a.dim() > 1:
-        a = torch.movedim(a, 0, -1)
-    if transpose_b and b.dim() > 1:
-        b = torch.movedim(b, -1, 0)
-    if a.dim() == 1 and b.dim() == 1:
-        return torch.dot(a, b)
-    return torch.tensordot(a, b, dims=1)
-
-
-_DOT = _registry.OpDef("dot", _dense_dot)
-
-
 def dot(lhs, rhs, transpose_a=False, transpose_b=False, out=None, **kw):
     """The dense product. Sparse (CSR) operands arrive with ``nd.sparse``
     and raise here."""
@@ -148,8 +135,8 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False, out=None, **kw):
             raise NotImplementedError(
                 "dot of a %s operand needs nd.sparse (not ported)"
                 % x.stype)
-    res = invoke(_DOT, (lhs, rhs), dict(kw, transpose_a=transpose_a,
-                                        transpose_b=transpose_b))
+    res = invoke(_registry.get_op("dot"), (lhs, rhs),
+                 dict(kw, transpose_a=transpose_a, transpose_b=transpose_b))
     if out is None:
         return res
     out._assign(_unwrap(res))
@@ -308,3 +295,6 @@ populate(globals())
 # the optimizer update ops with the reference's in-place convention take
 # the place of the registry's pure forms of the same names
 from .optimizer_ops import *  # noqa: E402,F401,F403
+
+from . import random  # noqa: E402,F401  (nd.random)
+from . import linalg  # noqa: E402,F401  (nd.linalg)

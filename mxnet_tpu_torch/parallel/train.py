@@ -122,8 +122,7 @@ def functional_call(block, params, inputs, training=False, rng=None,
     them where torch's grad mode is on), and are left as they were.
     Running-statistic updates are collected, not written: with
     ``return_aux`` they come back as ``{path: new value}``. ``rng``, a
-    state of the port's random generator, replays that stream for the
-    call."""
+    ``random.get_state()`` snapshot, replays those streams for the call."""
     pmap = block._collect_params_with_prefix()
     inputs = inputs if isinstance(inputs, (tuple, list)) else [inputs]
     replay = _random_replay(rng)

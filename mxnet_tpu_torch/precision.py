@@ -60,10 +60,13 @@ def matmul_precision(precision):
 
         with mx.precision.matmul_precision("float32"):
             y = net(x)          # no TF32 in matmuls or convolutions
-    """
+
+    ``None`` leaves the policy in force as it stands (what an op's
+    ``precision=None`` means)."""
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32, _CURRENT[0])
-    _apply("default" if precision is None else precision)
+    if precision is not None:
+        _apply(precision)
     try:
         yield
     finally:

@@ -98,7 +98,7 @@ def region(fn, *args):
     from .gluon.block import _AUX
     names = _STATE.names
     training = autograd.is_training()
-    rng = _random.generator().get_state()
+    rng = _random.get_state()
     runs = [0]
 
     def body(*a):

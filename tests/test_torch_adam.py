@@ -238,9 +238,15 @@ def test_train_step_adam_matches_eager(dtype, apply, monkeypatch):
     for k in ep:
         assert torch.equal(ep[k]._tensor(), fp[k]._tensor()), k
         assert torch.equal(ep[k]._grad_tensor(), fp[k]._grad_tensor()), k
-    for i, (m, v) in etr._updater.states.items():
-        fm, fv = ftr._updater.states[i]
-        assert torch.equal(m, fm) and torch.equal(v, fv)
+    # each Trainer indexes its parameters in the order of their full
+    # names, which hang on the process's block counters ("dense9" sorts
+    # after "dense10"), so the states are matched by structural key
+    eidx = {id(p): i for i, p in enumerate(etr._params)}
+    fidx = {id(p): i for i, p in enumerate(ftr._params)}
+    for k in ep:
+        m, v = etr._updater.states[eidx[id(ep[k])]]
+        fm, fv = ftr._updater.states[fidx[id(fp[k])]]
+        assert torch.equal(m, fm) and torch.equal(v, fv), k
     assert ftr._optimizer.num_update == etr._optimizer.num_update == 3
 
 

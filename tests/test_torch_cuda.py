@@ -1090,3 +1090,63 @@ def test_nd_save_on_the_card_gives_the_host_bytes(tmp_path):
     loaded = mx.nd.load(fg, ctx=mx.gpu(0))
     assert all(v.context == mx.gpu(0) for v in loaded.values())
     assert np.array_equal(loaded["w"].asnumpy(), arrays["w"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_batchnorm_c3_input_matches_plain(dtype):
+    """ResNet V2's input BatchNorm on the card: C = 3 channels-last (row
+    pitch 6 or 12 bytes, the kernels' non-TMA route) at R = 16 x 224 x
+    224, through the four kernels: out, mean and var bit for bit against
+    the plain versions, each fold the same bits on a second launch, the
+    backward within 2e-4 of its largest magnitude."""
+    _need_card()
+    rs = np.random.RandomState(3)
+    dt = getattr(torch, dtype)
+    R = 16 * 224 * 224
+    x2 = torch.from_numpy(rs.rand(R, 3).astype("float32")).cuda().to(dt)
+    g, b = torch.ones(3, device="cuda"), torch.zeros(3, device="cuda")
+    dy = torch.from_numpy(rs.randn(R, 3).astype("float32")).cuda().to(dt)
+    mean, var = BNF.stats(x2)
+    mean2, var2 = BNF.stats(x2)
+    rmean, rvar = BNF.stats_reference(x2)
+    out = BNF.apply(x2, g, b, rmean, rvar, 1e-5)
+    rout = BNF.apply_reference(x2, g, b, rmean, rvar, 1e-5)
+    db, dg = BNF.bwd_reduce(x2, dy, g, b, rmean, rvar, 1e-5)
+    db2, dg2 = BNF.bwd_reduce(x2, dy, g, b, rmean, rvar, 1e-5)
+    rdb, rdg = BNF.bwd_reduce_reference(x2, dy, g, b, rmean, rvar, 1e-5)
+    dx = BNF.bwd_dx(x2, dy, g, b, rmean, rvar, rdb, rdg, 1e-5)
+    rdx = BNF.bwd_dx_reference(x2, dy, g, b, rmean, rvar, rdb, rdg, 1e-5)
+    torch.cuda.synchronize()
+    assert _same_bits(mean, rmean) and _same_bits(var, rvar)
+    assert _same_bits(mean2, mean) and _same_bits(var2, var)
+    assert _same_bits(out, rout)
+    assert _same_bits(db2, db) and _same_bits(dg2, dg)
+    for got, want in ((db, rdb), (dg, rdg), (dx, rdx)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-4 * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_dropout_mask_on_the_card_repeats_under_one_seed():
+    """Dropout on a CUDA tensor draws from the card's own generator: the
+    same mx.random.seed gives the same mask twice, another seed another
+    one, torch's global CUDA generator is left alone, and every kept value
+    is x / (1 - p)."""
+    _need_card()
+    x = torch.rand(512, 1024, device="cuda") + 1.0
+    glob = torch.cuda.get_rng_state()
+    outs = []
+    for seed in (7, 7, 8):
+        mx.random.seed(seed)
+        with mx.autograd.train_mode():
+            outs.append(mx.nd.Dropout(x, p=0.5))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], outs[2])
+    assert torch.equal(torch.cuda.get_rng_state(), glob)
+    kept = outs[0] != 0
+    assert torch.equal(outs[0][kept], (x / 0.5)[kept])
+    share = kept.float().mean().item()
+    assert abs(share - 0.5) <= 6 * (0.25 / x.numel()) ** 0.5
+    assert mx.random.generator(x.device).device.type == "cuda"

@@ -504,8 +504,27 @@ def test_port_op_matches_jax(module, name, canon, no_grad, jfn):
 
 def test_every_jax_name_has_a_case():
     """The table covers both JAX modules' names (a name added to either
-    module fails here until it is ported and given a case)."""
+    module fails here until it is ported and given a case), and so do the
+    tables of ``ops/nn.py`` (but ``RNN``, left for the recurrent slice),
+    ``ops/linalg.py`` and ``ops/random_ops.py`` in their own test files:
+    every name of theirs, aliases included, is in the port's registry."""
     canon = {c for _, _, c, _, _ in NAMES}
     assert canon <= set(SPECS), sorted(canon - set(SPECS))
     assert len({n for _, n, *_ in NAMES}) >= 190
     assert torch.is_tensor(mx.nd.relu(torch.ones(2)))   # tensors stay
+    nn_t = importlib.import_module("test_torch_nn_ops")
+    linalg_t = importlib.import_module("test_torch_linalg")
+    random_t = importlib.import_module("test_torch_random")
+    tables = (("mxnet_tpu.ops.nn", set(nn_t.SPECS), set(nn_t.LEFT_OUT)),
+              ("mxnet_tpu.ops.linalg", set(linalg_t.SPECS), set()),
+              ("mxnet_tpu.ops.random_ops",
+               set(random_t.LAWS) | random_t.OWN_TESTS, set()))
+    for modname, cases, left in tables:
+        got = _capture(modname)
+        names = {n for name, aliases, _, _ in got
+                 for n in (name,) + aliases if name not in left}
+        assert names <= set(treg.list_ops()), \
+            (modname, sorted(names - set(treg.list_ops())))
+        jcanon = {name for name, *_ in got} - left
+        assert jcanon <= cases, (modname, sorted(jcanon - cases))
+    assert set(nn_t.LEFT_OUT) == {"RNN"}

@@ -5,6 +5,8 @@ against its own eager step and against the JAX package's
 record/backward/``Trainer.step`` bit for bit, and each fallback reason
 names itself in ``last_mode`` and still trains.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -61,6 +63,15 @@ def _same(a, b):
                for k in a)
 
 
+def _natural_order(trainer):
+    """The trainer's parameter indices in the natural order of their names
+    (the counters compared as numbers)."""
+    def key(i):
+        return [int(t) if t.isdigit() else t
+                for t in re.split(r"(\d+)", trainer._params[i].name)]
+    return sorted(range(len(trainer._params)), key=key)
+
+
 def _run(mode, dtype, steps=3, multi_precision=False):
     x, y = _data()
     x, y = torch.from_numpy(x).to(getattr(torch, dtype)), torch.from_numpy(y)
@@ -100,8 +111,13 @@ def test_train_step_bitwise_across_apply_modes(dtype, mp, monkeypatch):
         monkeypatch.setenv("MXTPU_FUSED_APPLY", mode)
         got, tr = _run("fused", dtype, multi_precision=mp)
         assert _same(got, base), mode
-        for i, st in btr._updater.states.items():
-            assert _same_state(tr._updater.states[i], st)
+        # each Trainer indexes its parameters in the order of their full
+        # names, which hang on the process's block counters ("dense9"
+        # sorts after "dense10"): match the states in the names' natural
+        # order, the order the blocks were made in
+        for bi, i in zip(_natural_order(btr), _natural_order(tr)):
+            assert _same_state(tr._updater.states[i],
+                               btr._updater.states[bi])
         assert tr._optimizer.num_update == btr._optimizer.num_update == 3
 
 

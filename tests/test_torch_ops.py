@@ -199,9 +199,16 @@ def test_batch_norm_inference_matches_jax(axis, fix_gamma):
 
 
 def test_unported_pooling_raises():
-    with pytest.raises(NotImplementedError):
-        tnn.pooling(torch.zeros(1, 4, 4, 2), kernel=(2, 2),
-                    pool_type="avg", layout="NHWC")
+    """avg pooling is ported now (tests/test_torch_nn_ops.py holds every
+    pool type against JAX): channels-last avg pooling is the
+    channels-first result transposed, and only a pool type the JAX package
+    lacks raises."""
+    x = torch.from_numpy(_rand(1, 4, 4, 2))
+    out = tnn.pooling(x, kernel=(2, 2), pool_type="avg", layout="NHWC")
+    ref = tnn.pooling(x.permute(0, 3, 1, 2), kernel=(2, 2), pool_type="avg")
+    assert torch.equal(out, ref.permute(0, 2, 3, 1))
+    with pytest.raises(ValueError):
+        tnn.pooling(x, kernel=(2, 2), pool_type="median", layout="NHWC")
 
 
 def test_batch_norm_training_mode_is_not_ported():

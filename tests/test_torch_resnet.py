@@ -193,7 +193,8 @@ def test_entry_points_default_to_the_card():
 def test_import_leaves_jax_out():
     code = ("import sys; sys.path.insert(0, %r); import mxnet_tpu_torch, "
             "chip_smoke, chip_f32_witness, chip_flash_probe, chip_conv_probe, "
-            "chip_bn_probe, chip_qmm_probe, chip_codec_probe; "
+            "chip_bn_probe, chip_qmm_probe, chip_codec_probe, "
+            "chip_profile_probe; "
             "bad = [m for m in sys.modules if m.split('.')[0] "
             "in ('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)" % REPO)
@@ -216,6 +217,7 @@ def _port_sources():
     yield os.path.join(REPO, "chip_bn_probe.py")
     yield os.path.join(REPO, "chip_qmm_probe.py")
     yield os.path.join(REPO, "chip_codec_probe.py")
+    yield os.path.join(REPO, "chip_profile_probe.py")
 
 
 def test_no_jax_or_reference_imports_in_port_sources():
