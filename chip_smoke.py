@@ -10,6 +10,8 @@
     python3 chip_smoke.py --phases env,train_sharded,time_train
     python3 chip_smoke.py --phases env,ndarray
     python3 chip_smoke.py --phases env,zoo
+    python3 chip_smoke.py --phases env,train_amp
+    python3 chip_smoke.py --phases env,train_lm_deep
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
     python3 chip_smoke.py --phases env,kernel_bn,time_bn
@@ -224,6 +226,32 @@ Phases, each printing JSON lines:
               training: bf16 NCHW, batch 64, 3 eager steps, the loss
               falling (average pooling and concatenation backward at
               full width).
+5b. train_amp -- ResNet-50 v1 (layout="NHWC", fuse=False) with float32
+              parameters (numpy seed 0) trained under contrib.amp.init()
+              (bfloat16) from a gluon.data pipeline: an ArrayDataset of
+              1280 synthetic uint8 HWC 224x224x3 images with int labels of
+              (numpy seed AMP_DATA_SEED), transform_first(Compose([
+              RandomFlipLeftRight(), Cast("float32")])), a DataLoader
+              (batch 128, shuffle, last_batch "discard", 4 worker threads,
+              pin_memory); each batch through gluon.utils.split_and_load,
+              made NCHW, then autograd.record, amp.scale_loss,
+              SoftmaxCrossEntropyLoss, Trainer.step (SGD lr 0.01, momentum
+              0.9, amp.init_trainer's loss scaler), metric.Accuracy and
+              callback.Speedometer(frequent=5). Counters are zeroed just
+              before the 10 steps (one epoch): rows 4-7 launch 53 times per
+              step in float32 (each fold its finalize launch), the packed
+              apply and conv_fused never; no step skipped; the loss finite
+              and falling (the last 3 steps' mean below the first 3's,
+              each on a new batch); every metric.update() under
+              torch.cuda.set_sync_debug_mode("error"). Then one step
+              recording each op's dtypes (every Convolution and the
+              FullyConnected bfloat16, every BatchNorm float32, as JAX's
+              hook gives them); a step with an inf gradient leaves every
+              weight and momentum bit for bit and halves the scale;
+              gluon.train_step runs "fallback:amp-loss-scaler"; wall and
+              device busy ms per step, idle share, peak memory; and the
+              narrow NHWC ResNet's AMP step, card against the port on the
+              CPU (AMP_NARROW_*).
 6. train_lm -- the transformer LM of bench.py's bench_transformer at its
               full width (dim 4096, 5 layers, 32 heads of 128, FFN 16384,
               vocab 32000, bf16, chunked CE over 8 chunks, full per-layer
@@ -235,6 +263,21 @@ Phases, each printing JSON lines:
               memory printed. Then one f32 step of a narrow LM (dim 512,
               2 layers, S 256), TF32 off, the card against the port on
               the CPU (LM_NARROW_RTOL), with the CPU in f64 beside both.
+6b. train_lm_deep -- bench.py's deep LM config (24 layers, dim 2048, 16
+              heads of 128, FFN 8192, vocab 32000, bf16, batch 8 x 2048,
+              chunked CE over 8 chunks, full per-layer recompute; 1.74B
+              parameters, random weights from seed 0). First rows 9-11 at
+              its attention (batch cut to 1, the transposed [B, S, H, D]
+              views) against their plain versions (FLASH_RTOL). Then 3
+              SGD-momentum steps on one batch with remat_save=() and 3
+              with ("attn_o",), counters zeroed before each: 48 forward,
+              24 dQ and 24 dK/dV flash launches per step, then 24, 24, 24
+              (the kept attention output spares the recompute's forward);
+              the loss finite and falling; per run the peak memory, wall
+              and device busy ms per step, idle share, tokens/sec and model
+              TFLOP/s. Then one f32 step of the narrow LM with
+              attn_mode="blockwise", TF32 off, card against CPU
+              (LM_NARROW_RTOL).
 7. time    -- CUDA-event times per kernel and shape (kernel, plain version,
               PyTorch library yardstick) beside the card's bound;
               whole-forward images/sec at batch 32 and 256 and both
@@ -290,7 +333,9 @@ them: phases kernel and time run them).
 The run ends with the nvidia-smi name/power line, then the
 {"kernels": [...]} line (per kernel: launches on its path (rows 1-7 also
 on train_sharded's, per configuration; rows 4-8 also on zoo's ResNet-50 V2
-training, launches_zoo), max abs error at
+training, launches_zoo; rows 4-7 on train_amp's, launches_train_amp; rows
+9-11 on train_lm_deep's, per remat_save, launches_train_lm_deep), max abs
+error at
 the ResNet-50 shapes in bf16 and its tolerance, and the times, bound,
 plain and library times of one forward (conv_fused; the int8 forward at
 batch 32 for the scaled int8 matmul) or one training step (the other
@@ -302,7 +347,10 @@ Weights and data are drawn from fixed seeds; nothing is downloaded.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -312,7 +360,7 @@ import numpy as np
 
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_sharded", "ndarray", "zoo",
-          "train_lm", "time")
+          "train_amp", "train_lm", "train_lm_deep", "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
 # the BatchNorm kernels' checks and timing, the training steps' timing
 # (after the train phases), the conv_fused forward's, the backward pair's,
@@ -3991,17 +4039,20 @@ def phase_train_lm(torch, state):
     _lm_f32_card_vs_cpu(torch, mx, T)
 
 
-def _lm_f32_card_vs_cpu(torch, mx, T):
-    """One f32 step of the narrow LM (S = 256: the flash branch) with TF32
-    off, on the card against the port on the CPU, from the same weights;
-    the CPU in f64 beside both, to tell rounding from a fault."""
+def _lm_f32_card_vs_cpu(torch, mx, T, extra=None, phase="train_lm"):
+    """One f32 step of the narrow LM (S = 256: the flash branch, or with
+    ``extra`` other config fields, such as the blockwise attention mode)
+    with TF32 off, on the card against the port on the CPU, from the same
+    weights; the CPU in f64 beside both, to tell rounding from a fault."""
     runs = {}
     weights = None
+    extra = dict(extra or {})
     with mx.precision.matmul_precision("float32"):
         for name, ctx, dtype in (("cpu", mx.cpu(), "float32"),
                                  ("card", mx.gpu(0), "float32"),
                                  ("cpu_f64", mx.cpu(), "float64")):
-            cfg = T.TransformerConfig(**dict(LM_NARROW, dtype=dtype))
+            cfg = T.TransformerConfig(**dict(LM_NARROW, dtype=dtype,
+                                             **extra))
             init_fn, step_fn = T.make_train_step(cfg, learning_rate=LM_LR,
                                                  ctx=ctx)
             params, mom = init_fn(0)
@@ -4024,14 +4075,493 @@ def _lm_f32_card_vs_cpu(torch, mx, T):
         w: _max_rel(runs[a], runs["cpu_f64"], w) for w in LM_NARROW_RTOL}
         for a in ("card", "cpu")}
     ok = all(gap[w][0] <= LM_NARROW_RTOL[w] for w in LM_NARROW_RTOL)
-    emit(dict({"phase": "train_lm", "dtype": "float32",
-               "config": LM_NARROW, "batch": LM_NARROW_BATCH,
+    emit(dict({"phase": phase, "dtype": "float32",
+               "config": dict(LM_NARROW, **extra), "batch": LM_NARROW_BATCH,
                "seq": LM_NARROW_SEQ, "card_vs_cpu_max_rel": gap}, **vs64,
               bound_rel=LM_NARROW_RTOL, loss=float(runs["card"]["loss"]),
               ok=ok))
     if not ok:
-        raise AssertionError("f32 LM step, card vs CPU: %s over %s"
-                             % (gap, LM_NARROW_RTOL))
+        raise AssertionError("f32 LM step (%s), card vs CPU: %s over %s"
+                             % (extra, gap, LM_NARROW_RTOL))
+
+
+# -- AMP training from a DataLoader (phase train_amp) ------------------------
+
+# bench_resnet's SGD on ResNet-50 v1 NHWC fuse=False with float32
+# parameters (numpy seed 0) under amp.init() (bfloat16), fed by a
+# DataLoader: AMP_IMAGES synthetic uint8 HWC images with int labels from
+# numpy seed AMP_DATA_SEED, RandomFlipLeftRight then Cast("float32"),
+# batch 128, shuffle, last_batch "discard", 4 worker threads, pinned.
+AMP_IMAGES = 1280
+AMP_DATA_SEED = 7
+# The labels take 10 of the head's 1000 classes, so that 10 steps on fresh
+# batches show the loss falling (the head learns which classes occur):
+# over all 1000 classes it falls by less than the noise between batches
+# (on an H100, last-3 means 0.08 and 0.01 below the first-3's in two
+# runs; PERF.md has them).
+AMP_CLASSES = 10
+AMP_BATCH = 128
+AMP_STEPS = 10
+AMP_WORKERS = 4
+AMP_SPEEDOMETER = 5
+# Ops whose input dtypes the AMP policy decides, and the dtype each must
+# get: what the JAX package's cast hook gives them.
+AMP_DTYPES = {"Convolution": "bfloat16", "BatchNorm": "float32",
+              "FullyConnected": "bfloat16"}
+AMP_OPS_PER_STEP = {"Convolution": BN_PER_STEP, "BatchNorm": BN_PER_STEP,
+                    "FullyConnected": 1}
+# The narrow NHWC ResNet under AMP, one training-mode step (batch 16 of
+# 32x32, numpy seeds 11 and 12), card against the port on the CPU: the
+# loss within AMP_NARROW_LOSS_RTOL relative, each gradient's gap to the
+# CPU's within AMP_NARROW_SPREAD times the gap between the CPU's AMP and
+# float32 gradients (AMP's own rounding: tests/test_torch_amp.py's bound).
+AMP_NARROW_BATCH = 16
+AMP_NARROW_LOSS_RTOL = 5e-3
+AMP_NARROW_SPREAD = 3.0
+
+BatchEndParam = collections.namedtuple(
+    "BatchEndParam", ["epoch", "nbatch", "eval_metric", "locals"])
+
+
+@contextlib.contextmanager
+def _op_dtypes(names, record):
+    """Record (op name, input dtypes, output dtype) of every call of the
+    registry ops ``names`` into ``record``, where the op function receives
+    its arguments (after the dispatcher's AMP casts)."""
+    from mxnet_tpu_torch.ndarray import register as R
+    from mxnet_tpu_torch.ops import registry as REG
+    import torch
+    saved = {}
+    for name in names:
+        op = REG.get_op(name)
+        R._takes_training(op)           # read the real signature first
+        saved[name] = op.fn
+
+        def recording(*a, _fn=op.fn, _name=name, **k):
+            out = _fn(*a, **k)
+            first = out[0] if isinstance(out, (tuple, list)) else out
+            record.append((_name, sorted({
+                str(v.dtype).replace("torch.", "")
+                for v in list(a) + list(k.values())
+                if isinstance(v, torch.Tensor) and v.is_floating_point()}),
+                str(first.dtype).replace("torch.", "")))
+            return out
+        op.fn = recording
+    try:
+        yield record
+    finally:
+        for name, fn in saved.items():
+            REG.get_op(name).fn = fn
+
+
+def _amp_loader(mx):
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import transforms as Tr
+    rs = np.random.RandomState(AMP_DATA_SEED)
+    images = rs.randint(0, 256, (AMP_IMAGES, 224, 224, 3), dtype=np.uint8)
+    labels = rs.randint(0, AMP_CLASSES, AMP_IMAGES)
+    ds = ArrayDataset(images, labels).transform_first(
+        Tr.Compose([Tr.RandomFlipLeftRight(), Tr.Cast("float32")]))
+    return DataLoader(ds, batch_size=AMP_BATCH, shuffle=True,
+                      last_batch="discard", num_workers=AMP_WORKERS,
+                      pin_memory=True)
+
+
+def _amp_step(mx, amp, net, trainer, loss_fn, x, y):
+    """One AMP step as an MXNet script writes it: record, the scaled loss's
+    backward, Trainer.step. x: NHWC float32 on the card, made NCHW for the
+    net (its layout="NHWC" transposes back inside)."""
+    x = x.transpose((0, 3, 1, 2))
+    with mx.autograd.record():
+        out = net(x)
+        loss = loss_fn(out, y)
+        with amp.scale_loss(loss, trainer) as scaled:
+            scaled.backward()
+    trainer.step(x.shape[0])
+    return out, loss
+
+
+def phase_train_amp(torch, state):
+    """ResNet-50 v1 trained under bf16 AMP from a DataLoader (the module
+    docstring, phase 5b)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+    try:
+        _train_amp(torch, state, mx, amp)
+    finally:
+        amp._reset()
+
+
+def _train_amp(torch, state, mx, amp):
+    from mxnet_tpu_torch import callback, metric
+    from mxnet_tpu_torch.gluon import fused_step
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.utils import split_and_load
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+
+    gpu = mx.gpu(0)
+    arrays = _arrays(mx, state)
+    net = _build_net(mx, arrays, False, "float32", gpu)
+    amp.init()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD))
+    amp.init_trainer(trainer)
+    scaler = trainer._amp_loss_scaler
+    loss_fn = SoftmaxCrossEntropyLoss()
+    acc = metric.Accuracy()
+    speedo = callback.Speedometer(AMP_BATCH, AMP_SPEEDOMETER)
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: lines.append(rec.getMessage())
+    cb_log = logging.getLogger(callback.__name__)
+    cb_log.addHandler(handler)
+    cb_log.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    loader = _amp_loader(mx)
+    data_s = time.perf_counter() - t0
+    # the loader alone over one epoch, onto the card (its pinned host
+    # buffers allocated afresh: the first epoch's cost)
+    t0 = time.perf_counter()
+    n_alone = 0
+    for data, label in loader:
+        n_alone += 1
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
+
+    # -- the main path: 10 steps, one epoch of the loader ------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(BNF, CF, OA)
+    losses, scales, skipped, sync_ok, steps = [], [], 0, True, 0
+    ends = []
+    t0 = time.perf_counter()
+    for i, (data, label) in enumerate(loader):
+        x = split_and_load(data, [gpu])[0]
+        y = split_and_load(label, [gpu])[0]
+        before = scaler.loss_scale
+        out, loss = _amp_step(mx, amp, net, trainer, loss_fn, x, y)
+        skipped += scaler.loss_scale < before
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            acc.update([y], [out])
+        except RuntimeError as e:
+            sync_ok = False
+            emit({"phase": "train_amp", "metric_update_synced": str(e)})
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        speedo(BatchEndParam(0, i, acc, None))
+        losses.append(loss)
+        scales.append(scaler.loss_scale)
+        steps += 1
+        ends.append(time.perf_counter())   # the scaler synced this step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cb_log.removeHandler(handler)
+    losses = [float(l.asnumpy().mean()) for l in losses]
+    bn, conv, apply_n = _bn_counts(BNF), _conv_counts(CF), OA.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: AMP_STEPS * BN_PER_STEP for k in BN_KERNELS}
+    want["finalize"] = 2 * AMP_STEPS * BN_PER_STEP
+    ok_counts = steps == AMP_STEPS and all(
+        bn[k] == n for k, n in want.items()) and apply_n == 0 \
+        and conv["fwd"] == conv["bwd_dx"] == conv["bwd_dw"] == 0
+    ok_loss = all(np.isfinite(losses)) and \
+        np.mean(losses[-3:]) < np.mean(losses[:3])
+    state["launches_amp"] = {k: bn[k] for k in BN_KERNELS}
+
+    # -- the dtypes AMP gave each op, over one more step --------------------
+    x0, y0 = x, y
+    record = []
+    with _op_dtypes(AMP_DTYPES, record):
+        _amp_step(mx, amp, net, trainer, loss_fn, x0, y0)
+    kinds = {n: sum(r[0] == n for r in record) for n in AMP_DTYPES}
+    bad = [r for r in record if r[1] != [AMP_DTYPES[r[0]]]
+           or r[2] != AMP_DTYPES[r[0]]]
+    ok_dtypes = kinds == AMP_OPS_PER_STEP and not bad
+
+    # -- an inf gradient: the step is skipped, the scale halved -------------
+    with mx.autograd.record():
+        with amp.scale_loss(loss_fn(net(x0.transpose((0, 3, 1, 2))), y0),
+                            trainer) as scaled:
+            scaled.backward()
+    params = list(net.collect_params().values())
+    params[0]._grad_tensor().view(-1)[0] = float("inf")
+    weights = [p._tensor().detach().clone() for p in params]
+    moms = {i: s.clone() for i, s in trainer._updater.states.items()
+            if isinstance(s, torch.Tensor)}
+    s0 = scaler.loss_scale
+    trainer.step(AMP_BATCH)
+    same = all(torch.equal(p._tensor(), w) for p, w in zip(params, weights))
+    same_states = all(torch.equal(trainer._updater.states[i], m)
+                      for i, m in moms.items())
+    ok_skip = same and same_states and scaler.loss_scale == s0 / 2
+
+    # -- the fused step falls back with a scaler attached -------------------
+    net.hybridize()
+    step = mx.gluon.train_step(net, loss_fn, trainer)
+    fused_step.reset_stats()
+    step(x0.transpose((0, 3, 1, 2))._data, y0._data)
+    ok_fused = step.last_mode == "fallback:amp-loss-scaler" \
+        and OA.LAUNCHES == 0
+
+    # -- where the time goes: a step on one resident batch ------------------
+    def one_step():
+        _amp_step(mx, amp, net, trainer, loss_fn, x0, y0)
+    busy_ms, by_kernel, tops = profile_busy_ms(
+        torch, one_step, 2, top=8, match=("bn_",))
+    wall_ms = host_ms(torch, one_step, 3)
+    timing = {"images_per_sec": AMP_BATCH * 1e3 / wall_ms,
+              "wall_ms_per_step": wall_ms,
+              "wall_ms_per_step_from_loader": wall * 1e3 / max(steps, 1),
+              "images_per_sec_from_loader":
+                  steps * AMP_BATCH / wall if wall else None,
+              "wall_ms_per_step_from_loader_after_the_first":
+                  (ends[-1] - ends[0]) * 1e3 / (len(ends) - 1)
+                  if len(ends) > 1 else None,
+              "loader_alone_ms_per_batch_first_epoch":
+                  alone_s * 1e3 / max(n_alone, 1),
+              "device_busy_ms_per_step": busy_ms,
+              "device_idle_share": None if busy_ms is None
+              else max(0.0, 1.0 - busy_ms / wall_ms),
+              "device_idle_share_from_loader": None if busy_ms is None
+              else max(0.0, 1.0 - busy_ms * steps / (wall * 1e3)),
+              "kernel_ms_per_step_by_name": by_kernel}
+    state["amp_timing"] = dict(timing, peak_bytes=peak)
+    emit({"phase": "train_amp", "card": state["smi"], "layout": "NHWC",
+          "params": "float32", "amp": "bfloat16", "batch": AMP_BATCH,
+          "steps": steps, "images": AMP_IMAGES, "classes": AMP_CLASSES,
+          "workers": AMP_WORKERS,
+          "loader_build_s": data_s, "losses": losses,
+          "loss_scales": scales, "skipped_steps": int(skipped),
+          "accuracy": acc.get_global(), "speedometer": lines,
+          "metric_update_no_sync": sync_ok,
+          "launches": {"batchnorm_fused": bn, "conv_fused": conv,
+                       "optimizer_apply": apply_n},
+          "launches_wanted": {"batchnorm_fused": want,
+                              "optimizer_apply": 0, "conv_fused": 0},
+          "op_dtypes_per_step": kinds, "op_dtypes_wrong": bad[:5],
+          "inf_step": {"weights_same_bits": same,
+                       "states_same_bits": same_states,
+                       "scale_before": s0, "scale_after":
+                           scaler.loss_scale},
+          "fused_step_mode": step.last_mode,
+          "max_memory_allocated_bytes": peak, "timing": timing,
+          "ok": ok_counts and ok_loss and sync_ok and ok_dtypes
+          and ok_skip and ok_fused and skipped == 0})
+    if tops:
+        emit(dict({"phase": "train_amp",
+                   "where_the_time_goes": "amp_resnet50_v1,b128"}, **tops))
+    if not ok_counts:
+        raise AssertionError("AMP training launches bn %s, conv %s, apply "
+                             "%d over %d steps; want %s, 0, 0"
+                             % (bn, conv, apply_n, steps, want))
+    if not ok_loss:
+        raise AssertionError("AMP training loss not finite and falling: %s"
+                             % losses)
+    if not sync_ok:
+        raise AssertionError("metric.update() synchronized the device")
+    if not ok_dtypes:
+        raise AssertionError("AMP op dtypes: %s per step, wrong %s"
+                             % (kinds, bad[:5]))
+    if not ok_skip:
+        raise AssertionError("the inf step was not skipped bit for bit "
+                             "(weights %s, states %s, scale %s -> %s)"
+                             % (same, same_states, s0, scaler.loss_scale))
+    if not ok_fused:
+        raise AssertionError("the fused step ran %r (packed launches %d)"
+                             % (step.last_mode, OA.LAUNCHES))
+    if skipped:
+        raise AssertionError("%d AMP steps skipped (scales %s)"
+                             % (skipped, scales))
+    del net, trainer, step, loader, x0, y0, x, y, out, loss, scaled
+    torch.cuda.empty_cache()
+    _amp_narrow_card_vs_cpu(torch, mx, amp)
+
+
+def _amp_narrow_run(torch, mx, amp, ctx, arrays, x, y, use_amp):
+    """One training-mode step of the narrow NHWC ResNet on ``ctx`` (AMP on
+    or off): the loss and every gradient, on the host in float64."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    amp._reset()
+    net, _ = _narrow_net(mx, torch, False, ctx, arrays)
+    if use_amp:
+        amp.init()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD))
+    if use_amp:
+        amp.init_trainer(trainer)
+    xs = mx.nd.array(x, ctx=ctx)
+    ys = mx.nd.array(y, ctx=ctx)
+    with mx.autograd.record():
+        loss = SoftmaxCrossEntropyLoss()(net(xs), ys)
+        with amp.scale_loss(loss, trainer) as scaled:
+            scaled.backward()
+    scale = trainer._amp_loss_scaler.loss_scale if use_amp else 1.0
+    grads = {k: p._grad_tensor().double().cpu() / scale for k, p in
+             net._collect_params_with_prefix().items()
+             if p.grad_req != "null"}
+    trainer.step(len(x))
+    moved = all(bool(torch.isfinite(p._tensor()).all()) for p in
+                net.collect_params().values())
+    amp._reset()
+    return {"loss": torch.from_numpy(loss.asnumpy()).double(),
+            "grad": grads, "finite_after_step": moved}
+
+
+def _amp_narrow_card_vs_cpu(torch, mx, amp):
+    """The narrow NHWC ResNet's AMP step on the card against the port on
+    the CPU (AMP_NARROW_*), with the CPU's float32 step as the yardstick
+    of AMP's own rounding."""
+    rs = np.random.RandomState(11)
+    x = rs.rand(AMP_NARROW_BATCH, 3, 32, 32).astype("float32")
+    y = np.random.RandomState(12).randint(
+        0, 10, (AMP_NARROW_BATCH,)).astype("float32")
+    _, arrays = _narrow_net(mx, torch, False, mx.cpu())
+    with mx.precision.matmul_precision("float32"):
+        card = _amp_narrow_run(torch, mx, amp, mx.gpu(0), arrays, x, y, True)
+        cpu = _amp_narrow_run(torch, mx, amp, mx.cpu(), arrays, x, y, True)
+        f32 = _amp_narrow_run(torch, mx, amp, mx.cpu(), arrays, x, y, False)
+    loss_rel = ((card["loss"] - cpu["loss"]).abs().max()
+                / cpu["loss"].abs().max()).item()
+    worst = (0.0, None, 0.0, 0.0)
+    for k, g in cpu["grad"].items():
+        gap = (card["grad"][k] - g).abs().max().item()
+        spread = (g - f32["grad"][k]).abs().max().item()
+        ratio = gap / max(spread, 1e-30)
+        if ratio > worst[0]:
+            worst = (ratio, k, gap, spread)
+    ok = loss_rel <= AMP_NARROW_LOSS_RTOL and worst[0] <= AMP_NARROW_SPREAD \
+        and card["finite_after_step"]
+    emit({"phase": "train_amp", "check": "narrow_amp_card_vs_cpu",
+          "batch": AMP_NARROW_BATCH, "loss_max_rel": loss_rel,
+          "worst_grad_gap_over_amp_spread": {
+              "ratio": worst[0], "param": worst[1], "gap": worst[2],
+              "cpu_amp_vs_f32": worst[3]},
+          "bound": {"loss_rel": AMP_NARROW_LOSS_RTOL,
+                    "grad_gap_over_spread": AMP_NARROW_SPREAD}, "ok": ok})
+    if not ok:
+        raise AssertionError("narrow AMP step card vs CPU: loss %g, worst "
+                             "gradient %s" % (loss_rel, worst))
+
+
+# -- the deep transformer LM (phase train_lm_deep) ---------------------------
+
+# bench.py's deep config (bench.py:75-90,179-190): 24 layers of dim 2048,
+# 16 heads of 128, FFN 8192, vocab 32000, bf16, chunked CE over 8 chunks,
+# full per-layer recompute; batch 8 x 2048 (1.74B parameters).
+LM_DEEP_CFG = dict(vocab_size=32000, dim=2048, n_layers=24, n_heads=16,
+                   ffn_hidden=8192, max_seq_len=2048, dtype="bfloat16",
+                   attn_mode="local", loss_chunks=8, remat=True,
+                   remat_save=())
+LM_DEEP_BATCH, LM_DEEP_SEQ = 8, 2048
+LM_DEEP_STEPS = 3
+# Flash launches per step by remat_save: full recompute runs the forward
+# again in each layer's recompute; with "attn_o" kept it does not.
+_DEEP_L = LM_DEEP_CFG["n_layers"]
+LM_DEEP_SAVES = {(): {"fwd": 2 * _DEEP_L, "dq": _DEEP_L, "dkv": _DEEP_L},
+                 ("attn_o",): {"fwd": _DEEP_L, "dq": _DEEP_L,
+                               "dkv": _DEEP_L}}
+# The flash kernels at the deep LM's attention (batch cut from 8 to 1, as
+# the LM passes them: [B, S, H, D] buffers seen transposed).
+FLASH_DEEP = (1, 16, 2048, 2048, 128, True)
+
+
+def _save_key(save):
+    return "remat_save=%s" % (",".join(save) or "()")
+
+
+def phase_train_lm_deep(torch, state):
+    """The deep LM's steps (the module docstring, phase 6b)."""
+    import dataclasses
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    from mxnet_tpu_torch.parallel import transformer as T
+
+    res, _, _ = flash_check(torch, FLASH_DEEP, torch.bfloat16, 1200, "bshd")
+    bad = {n: r for n, r in res.items() if not r["ok"]}
+    emit({"phase": "train_lm_deep", "kernel": "flash_attention",
+          "shape_bhsd": list(FLASH_DEEP[:5]), "layout": "bshd",
+          "batch_cut_from": LM_DEEP_BATCH, "results": res,
+          "tolerance_rel": FLASH_RTOL["bfloat16"], "ok": not bad})
+    if bad:
+        raise AssertionError("flash kernels at the deep LM's shape: %s"
+                             % bad)
+    torch.cuda.empty_cache()
+
+    gpu = mx.gpu(0)
+    cfg = T.TransformerConfig(**LM_DEEP_CFG)
+    init_fn, _ = T.make_train_step(cfg, learning_rate=LM_LR, ctx=gpu)
+    t0 = time.perf_counter()
+    lm = init_fn(0)
+    tok, tgt = _lm_batch(torch, cfg.vocab_size, LM_DEEP_BATCH, LM_DEEP_SEQ,
+                         0, gpu.device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = T.n_params(lm[0])
+    tokens = LM_DEEP_BATCH * LM_DEEP_SEQ
+    peak_flops = state["card"][1][0]
+    runs, all_losses, failures = {}, [], []
+    for save, want1 in LM_DEEP_SAVES.items():
+        key = _save_key(save)
+        _, step_fn = T.make_train_step(
+            dataclasses.replace(cfg, remat_save=save),
+            learning_rate=LM_LR, ctx=gpu)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in FA.LAUNCHES:
+            FA.LAUNCHES[k] = 0
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(LM_DEEP_STEPS):
+            lm, loss = step_fn(lm, tok, tgt)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(FA.LAUNCHES)
+        want = {k: LM_DEEP_STEPS * v for k, v in want1.items()}
+        peak = torch.cuda.max_memory_allocated()
+        all_losses += losses
+
+        def one_step(step_fn=step_fn):
+            step_fn(lm, tok, tgt)
+        busy_ms, by_kernel, tops = profile_busy_ms(
+            torch, one_step, 1, top=10,
+            match=("flash_fwd", "flash_dq", "flash_dkv"))
+        wall_ms = host_ms(torch, one_step, 2)
+        tflops = 6.0 * n * tokens / (wall_ms / 1e3) / 1e12
+        runs[key] = {
+            "losses": losses, "launches": counts, "launches_wanted": want,
+            "max_memory_allocated_bytes": peak, "wall_s_3_steps": wall,
+            "wall_ms_per_step": wall_ms,
+            "tokens_per_sec": tokens / (wall_ms / 1e3),
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": None if busy_ms is None
+            else max(0.0, 1.0 - busy_ms / wall_ms),
+            "model_tflops_per_sec": tflops,
+            "mfu": tflops * 1e12 / peak_flops,
+            "flash_kernel_ms_per_step_by_name": by_kernel}
+        if counts != want:
+            failures.append((key, "launches", counts, want))
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            failures.append((key, "loss", losses))
+        if tops:
+            emit(dict({"phase": "train_lm_deep",
+                       "where_the_time_goes": key}, **tops))
+    if not all_losses[-1] < all_losses[0]:
+        failures.append(("loss over both runs", all_losses))
+    state["launches_lm_deep"] = {k: r["launches"] for k, r in runs.items()}
+    state["lm_deep_timing"] = runs
+    emit({"phase": "train_lm_deep", "card": state["smi"],
+          "config": LM_DEEP_CFG, "batch": LM_DEEP_BATCH, "seq": LM_DEEP_SEQ,
+          "learning_rate": LM_LR, "params": n, "init_s": init_s,
+          "steps_per_run": LM_DEEP_STEPS, "runs": runs,
+          "ok": not failures})
+    del lm, tok, tgt, step_fn
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("deep LM: %s" % failures)
+    _lm_f32_card_vs_cpu(torch, mx, T, {"attn_mode": "blockwise"},
+                        "train_lm_deep")
 
 
 def phase_time_conv_fwd(torch, state):
@@ -5166,6 +5696,7 @@ def kernel_summary(state):
             "launches": state["launches"][k],
             "launches_train_sharded": sharded(k),
             "launches_zoo": state["launches_zoo"][k],
+            "launches_train_amp": state["launches_amp"][k],
             "max_abs_err": state["bn_err"][k][0],
             "max_rel_err": state["bn_err"][k][1],
             "tolerance_rel": 0.0 if k in ("stats", "apply") else BN_BWD_RTOL,
@@ -5209,6 +5740,8 @@ def kernel_summary(state):
             "replaces": "mxnet_tpu/pallas_kernels/flash_attention.py:%d"
             % FLASH_REPLACES[k],
             "launches": state["launches"]["flash_attention." + k],
+            "launches_train_lm_deep": {
+                cfg: n[k] for cfg, n in state["launches_lm_deep"].items()},
             "max_abs_err": state["flash_err"][k][0],
             "max_rel_err": state["flash_err"][k][1],
             "rel_err_per": "row: a query row of o and dq, a key row of dk "

@@ -40,6 +40,13 @@ fused ``RNN``), ``ops/linalg.py`` (``mx.nd.linalg``) and
 device, ``random.py``), every ``gluon.nn`` layer, and the vision model
 zoo's ``get_model`` names (ResNet V1 and V2, VGG, AlexNet, DenseNet,
 SqueezeNet, Inception V3, MobileNet V1 and V2).
+
+Training scripts: automatic mixed precision (``contrib.amp``: a cast
+policy at the op dispatch point and a dynamic loss scaler), data loading
+(``gluon.data``: datasets, samplers, vision transforms and datasets, the
+``DataLoader``; ``io``: ``NDArrayIter`` and the file readers), metrics
+accumulated on the device (``metric``), callbacks (``callback``) and
+``gluon.utils`` (``split_and_load``, ``clip_global_norm``).
 """
 from . import base
 from .base import MXNetError
@@ -60,6 +67,9 @@ from . import kvstore
 from . import gluon
 from . import convert
 from . import contrib
+from . import metric
+from . import callback
+from . import io
 from .ndarray import contrib as _nd_contrib  # noqa: F401  (nd.contrib)
 
 nd = ndarray
@@ -82,4 +92,4 @@ __all__ = ["base", "MXNetError", "context", "Context", "cpu", "gpu",
            "waitall", "random", "precision", "autograd",
            "initializer", "init", "ndarray", "nd", "kernels", "parallel",
            "optimizer", "lr_scheduler", "kvstore", "kv", "gluon", "convert",
-           "contrib"]
+           "contrib", "metric", "callback", "io"]

@@ -8,3 +8,5 @@ from .trainer import Trainer  # noqa: F401
 from . import model_zoo  # noqa: F401
 from . import fused_step  # noqa: F401
 from .fused_step import train_step  # noqa: F401
+from . import utils  # noqa: F401
+from . import data  # noqa: F401

@@ -30,7 +30,9 @@ crash, counted in ``stats()["fallbacks"]`` and named in ``last_mode``
 ``set_fused_step(False)``: ``disabled``), an active ``autograd.record()``
 scope (``recording-scope``), a trainer with a kvstore attached, whose
 push and pull the step would bypass (``kvstore``), an optimizer without
-the pure ``step_fn`` form (``optimizer:<Name>``), a block that was not
+the pure ``step_fn`` form (``optimizer:<Name>``), a trainer with an AMP
+loss scaler attached (``amp.init_trainer``), whose overflow skip the fused
+update would bypass (``amp-loss-scaler``), a block that was not
 hybridized (``non-hybridized``), a parameter with ``grad_req="add"``
 (``grad-req-add``), no trainable parameter (``no-trainable-params``) and a
 parameter whose shape is not known yet (``deferred-init``: the eager step's
@@ -193,6 +195,10 @@ class FusedTrainStep:
             return "kvstore"
         if not tr._optimizer.fused_step_supported():
             return "optimizer:" + type(tr._optimizer).__name__
+        if hasattr(tr, "_amp_loss_scaler"):
+            # amp.init_trainer wraps Trainer._update with the loss scaler's
+            # overflow skip, which the fused update phase would bypass
+            return "amp-loss-scaler"
         if self._block is not None and \
                 not getattr(self._block, "_active", False):
             return "non-hybridized"

@@ -3,10 +3,12 @@
 
     o = softmax(q k^T * scale, causal: col > row masked) v      q,k,v [B,H,S,D]
 
-``flash_attention`` is differentiable: a ``torch.autograd.Function`` whose
+``flash_attention`` is differentiable: a ``torch.library`` custom op whose
 forward is the forward kernel (it also returns the per-row logsumexp, which
-the Function saves with q, k, v and o) and whose backward is the flash-2
-pair, the dQ kernel and the dK/dV kernel, all in ``csrc/flash_attention.cu``.
+the op saves with q, k, v and o) and whose backward is the flash-2 pair,
+the dQ kernel and the dK/dV kernel, all in ``csrc/flash_attention.cu``. As
+one dispatcher op, its (o, lse) can be kept by a selective checkpoint
+policy, so that a recompute does not launch the forward again.
 A CPU tensor runs ``flash_forward_reference`` and
 ``flash_backward_reference`` (the kernels' plain versions); a CUDA tensor
 launches the kernels or raises. There is no other route. The kernels'
@@ -19,6 +21,7 @@ or take the logsumexp, as the JAX package's ``_pallas_forward`` and
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -222,20 +225,37 @@ def _flash_backward(q, k, v, o, lse, do, causal, scale):
     return _launch_backward(q, k, v, o, lse, do, causal, scale)
 
 
-class _Flash(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = _flash_forward(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
+@torch.library.custom_op("mxnet_tpu_torch::flash_forward", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, scale: float) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """The forward as one dispatcher op, so that a selective checkpoint
+    policy sees it and keeps (o, lse) instead of launching the kernel again
+    in a recompute (``remat.py``; the LM's ``remat_save=("attn_o",)``)."""
+    return _flash_forward(q, k, v, causal, scale)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_backward(q, k, v, o, lse, do, ctx.causal,
-                                     ctx.scale)
-        return dq, dk, dv, None, None
+
+@_flash_op.register_fake
+def _flash_op_fake(q, k, v, causal, scale):
+    b, h, sq, _ = q.shape
+    return _like(q), q.new_empty((b * h, sq), dtype=torch.float32)
+
+
+def _flash_op_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    o, lse = output
+    ctx.causal, ctx.scale = causal, scale
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_op_backward(ctx, do, dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = _flash_backward(q, k, v, o, lse, do, ctx.causal, ctx.scale)
+    return dq, dk, dv, None, None
+
+
+_flash_op.register_autograd(_flash_op_backward, setup_context=_flash_op_setup)
 
 
 def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
@@ -268,7 +288,7 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
             % (q.shape[2], k.shape[2]))
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _Flash.apply(q, k, v, bool(causal), float(scale))
+    return _flash_op(q, k, v, bool(causal), float(scale))[0]
 
 
 # -- launch plumbing ----------------------------------------------------------

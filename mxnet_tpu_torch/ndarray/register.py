@@ -3,7 +3,11 @@
 calls ``F.Convolution(...)`` on tensors and gets a ``torch.Tensor`` back;
 user code calls ``mx.nd.relu(x)`` on an NDArray and gets an NDArray.
 
-``invoke`` is the one dispatch point. It supplies ``_training`` from
+``invoke`` is the one dispatch point. It first lets the AMP cast hook
+(``set_amp_cast_hook``, installed by ``contrib.amp.init``) recast the
+arguments, on both routes below: inside a Gluon net the ops run on
+tensors, so a hook that saw only NDArrays would leave a net's ops in its
+parameters' dtype. It supplies ``_training`` from
 ``autograd.is_training()`` to ops that take it and calls the op. Where an
 argument or keyword value is an NDArray, it unwraps them, runs the op on
 the tensors (outside ``autograd.record()`` under ``torch.no_grad()``, as
@@ -25,7 +29,16 @@ from .ndarray import NDArray, getitem as _getitem, wrap as _wrap
 from .ndarray import _clean_index
 
 __all__ = ["invoke", "invoke_by_name", "invoke_getitem", "populate",
-           "make_op"]
+           "make_op", "set_amp_cast_hook"]
+
+# The AMP input-cast hook, ``hook(op_name, args, kwargs) -> (args,
+# kwargs)``, or None.
+_amp_cast_hook = None
+
+
+def set_amp_cast_hook(hook):
+    global _amp_cast_hook
+    _amp_cast_hook = hook
 
 _TAKES_TRAINING = {}
 
@@ -43,6 +56,8 @@ def _takes_training(opdef):
 
 def invoke(opdef, args, kwargs):
     """Run ``opdef`` on tensors, or on NDArrays (the module docstring)."""
+    if _amp_cast_hook is not None:
+        args, kwargs = _amp_cast_hook(opdef.name, args, kwargs)
     for a in args:
         if isinstance(a, NDArray):
             return _invoke_nd(opdef, args, kwargs)

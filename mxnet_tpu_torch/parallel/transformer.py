@@ -2,10 +2,23 @@
 mxnet_tpu/parallel/transformer.py, its GSPMD mode with ``pp == 1``).
 
 RoPE positions, RMSNorm, SwiGLU FFN, a chunked cross-entropy, per-layer
-activation recompute, and a fused SGD-momentum step. Attention runs the
-flash kernels (``kernels/flash_attention.py``) whenever the sequence length
-is a multiple of 128, the JAX package's own dispatch rule; other lengths
-take ``attention_reference``.
+activation recompute, and a fused SGD-momentum step. Attention
+(``attn_mode="local"``) runs the flash kernels
+(``kernels/flash_attention.py``) whenever the sequence length is a
+multiple of 128, the JAX package's own dispatch rule; other lengths take
+``attention_reference``. ``attn_mode="blockwise"`` runs
+``ring_attention.blockwise_attention`` with its default 512-key blocks
+(plain PyTorch, as in the JAX package).
+
+Recompute. With ``remat`` each layer is one non-reentrant checkpoint
+region: its forward runs again in the backward. ``remat_save`` names the
+intermediates the backward keeps instead, as JAX's
+``save_only_these_names`` policy does: ``"attn_o"``, the attention's
+output (on the flash route the forward kernel's (o, lse), so that its
+recompute does not launch the kernel again), and ``"ffn_prod"``, the
+SwiGLU product. They are ``remat.checkpoint_name`` tags read by a
+selective checkpoint policy (``remat.policy``); the values are the same
+bits as full recompute's.
 
 The parameter structure is the JAX package's (``embed``, ``layers``,
 ``ln_f``, ``w_out``, with the per-layer names and shapes ``wq [D,H,Dh]``,
@@ -15,11 +28,10 @@ slice of a stacked tensor would allocate a full-size gradient per layer.
 ``params["layers"][i]["wq"]`` reads as the JAX tree does. Weights cross over
 with ``convert.transformer_params_from_numpy``.
 
-Not yet ported: attention modes other than ``local`` (``blockwise`` is the
-next single-device item; ``ring``, ``ring_flash`` and ``ulysses`` wait for
-the multi-GPU slice), MoE layers, pipeline stages (``pp > 1``), selective
-recompute (``remat_save``) and the single-reduction chunked cross-entropy
-of a batch-sharded mesh. Each raises NotImplementedError.
+Not yet ported: the sequence-parallel attention modes (``ring``,
+``ring_flash`` and ``ulysses`` wait for the multi-GPU slice), MoE layers,
+pipeline stages (``pp > 1``) and the single-reduction chunked
+cross-entropy of a batch-sharded mesh. Each raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -34,11 +46,16 @@ from ..base import MXNetError, canonical_dtype, weak_scalar
 from ..context import as_device
 from ..kernels.flash_attention import (_f32_matmul, attention_reference,
                                        flash_attention)
+from ..remat import checkpoint_name, policy as _remat_policy
+from .ring_attention import _accumulate as _blockwise_accumulate
+from .ring_attention import _normalize as _blockwise_normalize
 
 __all__ = ["TransformerConfig", "TransformerParams", "LayerParams",
            "init_params", "apply", "loss_fn", "make_train_step",
            "ce_local_accum_active", "n_params"]
 
+# The intermediates a layer tags for ``remat_save``.
+_SAVE_NAMES = ("attn_o", "ffn_prod")
 _LAYER_SHAPES = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up",
                  "w_down")
 
@@ -53,7 +70,7 @@ class TransformerConfig:
     max_seq_len: int = 2048
     dtype: str = "float32"
     # parallelism
-    attn_mode: str = "local"          # 'local' | 'ring' | 'ulysses' | 'blockwise'
+    attn_mode: str = "local"          # 'local' | 'blockwise' (| 'ring' | 'ulysses')
     pp: int = 1                        # pipeline stages (>1 = explicit mode)
     n_microbatch: int = 1
     # MoE: every `moe_every`-th layer is an expert layer when num_experts > 0
@@ -94,10 +111,10 @@ def _check_supported(cfg):
         raise NotImplementedError(
             "pipeline stages (pp > 1) are not ported yet: the explicit "
             "shard_map mode waits for the multi-GPU slice")
-    if cfg.remat_save:
-        raise NotImplementedError(
-            "selective recompute (remat_save=%r) is not ported yet; only "
-            "full per-layer recompute (remat_save=())" % (cfg.remat_save,))
+    unknown = set(cfg.remat_save) - set(_SAVE_NAMES)
+    if unknown:
+        raise ValueError("remat_save names %s; the layer tags %s"
+                         % (sorted(unknown), list(_SAVE_NAMES)))
     if cfg.ce_local_accum:
         raise NotImplementedError(
             "the single-reduction chunked CE (ce_local_accum=True) waits for "
@@ -214,23 +231,27 @@ def _rope(x, positions):
 def _attention(cfg, mesh, q, k, v, positions):
     """q/k/v: [B, S, H, Dh] -> [B, S, H, Dh]. ``local`` mode: the flash
     kernels when S is a multiple of 128, else ``attention_reference`` (the
-    JAX package's dispatch)."""
+    JAX package's dispatch); ``blockwise`` mode: ``blockwise_attention``.
+    The op that makes the output is tagged ``"attn_o"``: the flash
+    forward, the reference as a whole, blockwise's final normalisation."""
     del mesh, positions
     if cfg.attn_mode in ("ring", "ring_flash", "ulysses"):
         raise NotImplementedError(
             "attn_mode=%r is not ported yet: sequence-parallel attention "
             "waits for the multi-GPU slice" % cfg.attn_mode)
-    if cfg.attn_mode == "blockwise":
-        raise NotImplementedError(
-            "attn_mode='blockwise' is not ported yet: it is the next item "
-            "of the transformer slice (ring_attention.blockwise_attention)")
-    if cfg.attn_mode != "local":
+    if cfg.attn_mode not in ("local", "blockwise"):
         raise ValueError("unknown attn_mode %r" % cfg.attn_mode)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # [B, H, S, Dh]
-    if qt.shape[2] % 128 == 0:
-        ot = flash_attention(qt, kt, vt, causal=cfg.causal)
+    if cfg.attn_mode == "blockwise":
+        o, l = _blockwise_accumulate(qt, kt, vt, causal=cfg.causal)
+        with checkpoint_name("attn_o"):
+            ot = _blockwise_normalize(o, l)
+    elif qt.shape[2] % 128 == 0:
+        with checkpoint_name("attn_o"):
+            ot = flash_attention(qt, kt, vt, causal=cfg.causal)
     else:
-        ot = attention_reference(qt, kt, vt, causal=cfg.causal)
+        with checkpoint_name("attn_o"):
+            ot = attention_reference(qt, kt, vt, causal=cfg.causal)
     return ot.transpose(1, 2)
 
 
@@ -253,7 +274,20 @@ def _layer_body(cfg, mesh, positions, x, lp):
     h = _rms_norm(x, lp["ln2"])
     g = torch.nn.functional.silu(_proj(h, lp["w_gate"]))
     u = _proj(h, lp["w_up"])
-    return x + _proj(g * u, lp["w_down"])
+    with checkpoint_name("ffn_prod"):
+        prod = g * u
+    return x + _proj(prod, lp["w_down"])
+
+
+def _remat_context(cfg):
+    """The checkpoint regions' context: full recompute, or with
+    ``cfg.remat_save`` a selective policy keeping the tagged values."""
+    from torch.utils.checkpoint import (create_selective_checkpoint_contexts,
+                                        noop_context_fn)
+    if not cfg.remat_save:
+        return noop_context_fn
+    names = tuple(cfg.remat_save)
+    return lambda: create_selective_checkpoint_contexts(_remat_policy(names))
 
 
 def _hidden(params, tokens, cfg, mesh):
@@ -263,10 +297,11 @@ def _hidden(params, tokens, cfg, mesh):
     # embedding's backward sums repeated tokens in a fixed order
     x = torch.nn.functional.embedding(tokens, params["embed"])
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    context_fn = _remat_context(cfg)
     for lp in params["layers"]:
         if cfg.remat:
             x = checkpoint(_layer_body, cfg, mesh, positions, x, lp,
-                           use_reentrant=False)
+                           use_reentrant=False, context_fn=context_fn)
         else:
             x = _layer_body(cfg, mesh, positions, x, lp)
     return _rms_norm(x, params["ln_f"]), 0.0
@@ -389,8 +424,8 @@ def make_train_step(cfg: TransformerConfig, mesh=None, learning_rate=1e-3,
     returned state is the one passed in.
 
     ``mesh`` is None or a one-element sequence holding a device; a
-    multi-device mesh raises NotImplementedError, as do pipeline stages,
-    MoE and ``remat_save``."""
+    multi-device mesh raises NotImplementedError, as do pipeline stages
+    and MoE."""
     _check_supported(cfg)
     dev = _resolve_device(ctx, mesh)
     one_mesh = None if mesh is None else [dev]

@@ -1150,3 +1150,35 @@ def test_dropout_mask_on_the_card_repeats_under_one_seed():
     share = kept.float().mean().item()
     assert abs(share - 0.5) <= 6 * (0.25 / x.numel()) ** 0.5
     assert mx.random.generator(x.device).device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workers,threads", [(0, True), (3, True),
+                                             (2, False)])
+def test_dataloader_pins_and_lands_on_the_card(workers, threads):
+    """Batches of a pinned DataLoader land on gpu(0) with the values the
+    CPU loader gives; the host side stacks straight into pinned memory
+    (or rebuilds from shared memory into it) and copies without
+    blocking."""
+    _need_card()
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.gluon.data import dataloader as DL
+    from mxnet_tpu_torch.gluon.data.vision import transforms as Tr
+    rs = np.random.RandomState(3)
+    x = rs.randint(0, 256, (10, 6, 5, 3)).astype(np.uint8)
+    y = rs.randint(0, 7, 10)
+    ds = ArrayDataset(x, y).transform_first(Tr.Cast("float32"))
+    with mx.cpu():
+        want = [(a.asnumpy(), b.asnumpy())
+                for a, b in DataLoader(ds, batch_size=4)]
+    loader = DataLoader(ds, batch_size=4, num_workers=workers,
+                        thread_pool=threads, pin_memory=True)
+    got = list(loader)
+    assert len(got) == len(want) == 3
+    for (a, b), (wa, wb) in zip(got, want):
+        assert a.context == mx.gpu(0) and b.context == mx.gpu(0)
+        np.testing.assert_array_equal(a.asnumpy(), wa)
+        np.testing.assert_array_equal(b.asnumpy(), wb)
+    batch = DL._batchify([ds[i] for i in range(4)], True)
+    assert batch[0]._data.is_pinned() and batch[1]._data.is_pinned()
+    loader._shutdown_pool()

@@ -7,6 +7,15 @@ configurations: S = 16 takes the dense ``attention_reference`` in both
 packages; S = 128 (a multiple of 128) takes ``flash_attention``, whose CPU
 route is the kernels' plain versions in the port and the jnp reference in
 the JAX package.
+
+``attn_mode="blockwise"``: ``ring_attention.blockwise_attention`` against
+JAX's, causal and not, S not a multiple of the block, float32 and
+bfloat16 (m, l and o carried in q's dtype), with ``jax.vjp`` gradients,
+and the LM's loss and gradients in that mode. ``remat_save`` ("attn_o",
+"ffn_prod", both): the same bits as full recompute, and JAX's
+``save_only_these_names`` results within the float32 bound; with
+"attn_o" saved the backward runs no attention forward (its CPU calls
+counted).
 """
 import importlib
 
@@ -19,9 +28,12 @@ import torch
 import mxnet_tpu_torch as mx
 from mxnet_tpu.parallel import create_mesh
 from mxnet_tpu_torch import convert
+from mxnet_tpu_torch.kernels import flash_attention as FA
+from mxnet_tpu_torch.parallel import ring_attention as RA
 from mxnet_tpu_torch.parallel import transformer as T
 
 JT = importlib.import_module("mxnet_tpu.parallel.transformer")
+JRA = importlib.import_module("mxnet_tpu.parallel.ring_attention")
 
 # f32: logits and loss agree to float32 rounding of two summation orders
 # through a few layers; gradients, momentum and weights likewise, relative
@@ -270,10 +282,10 @@ def test_ce_local_accum_matches_jax_single_device(monkeypatch):
 @pytest.mark.parametrize("kw", [dict(attn_mode="ring"),
                                 dict(attn_mode="ulysses"),
                                 dict(attn_mode="ring_flash"),
-                                dict(attn_mode="blockwise"),
+                                dict(attn_mode="ring", causal=False),
                                 dict(num_experts=4),
                                 dict(pp=2, n_microbatch=2),
-                                dict(remat_save=("ffn_prod",))])
+                                dict(num_experts=2, moe_k=1)])
 def test_unported_modes_raise(kw):
     _, tc, _, tp, tok, tgt = _setup("s16")
     tc = T.TransformerConfig(**dict(CFGS["s16"][0], **kw))
@@ -335,3 +347,147 @@ def test_entry_points_default_to_the_card():
         T.init_params(0, tc)
     with pytest.raises(mx.MXNetError):
         T.make_train_step(tc)
+
+
+# -- blockwise attention and selective recompute ------------------------------
+
+BLOCKWISE_CASES = [(37, 16, True), (37, 16, False), (64, 32, True),
+                   (20, 512, True), (48, 48, False)]
+
+
+@pytest.mark.parametrize("S,block,causal", BLOCKWISE_CASES,
+                         ids=["s%d-b%d-%s" % (S, b, "causal" if c else "full")
+                              for S, b, c in BLOCKWISE_CASES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_blockwise_attention_matches_jax(S, block, causal, dtype):
+    rs = np.random.RandomState(S + block)
+    q, k, v, do = (rs.randn(2, 3, S, 16).astype(np.float32)
+                   for _ in range(4))
+    jdt = jnp.dtype(dtype)
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    want, vjp = jax.vjp(lambda a, b, c: JRA.blockwise_attention(
+        a, b, c, block_size=block, causal=causal), jq, jk, jv)
+    jgrads = vjp(jdo)
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  .requires_grad_() for a in (q, k, v))
+    got = RA.blockwise_attention(tq, tk, tv, block_size=block,
+                                 causal=causal)
+    assert got.dtype == getattr(torch, dtype) and str(want.dtype) == dtype
+    got.backward(torch.from_numpy(do).to(getattr(torch, dtype)))
+    bound = F32_RTOL if dtype == "float32" else BF16_RTOL["logits"]
+    assert _rel(got, want) <= bound, _rel(got, want)
+    gbound = F32_RTOL if dtype == "float32" else BF16_RTOL["grad"]
+    for t, g in zip((tq, tk, tv), jgrads):
+        assert t.grad.dtype == t.dtype
+        assert _rel(t.grad, g) <= gbound, _rel(t.grad, g)
+    o, l = RA._accumulate(tq.detach(), tk.detach(), tv.detach(), block,
+                          causal)
+    assert o.dtype == l.dtype == getattr(torch, dtype)
+
+
+def test_attn_block_fully_masked_row_gives_zeros_as_jax():
+    rs = np.random.RandomState(3)
+    q, k, v = (rs.randn(1, 2, 4, 8).astype(np.float32) for _ in range(3))
+    bias = np.zeros((1, 1, 4, 4), np.float32)
+    bias[..., 1, :] = -np.inf                   # row 1 sees no key
+    bias[..., 2, 3] = -np.inf
+    m0 = np.full((1, 2, 4), -np.inf, np.float32)
+    l0 = np.zeros((1, 2, 4), np.float32)
+    o0 = np.zeros((1, 2, 4, 8), np.float32)
+    want = JRA._attn_block(*(jnp.asarray(a) for a in
+                             (q, k, v, bias, m0, l0, o0)), 8 ** -0.5)
+    got = RA._attn_block(*(torch.from_numpy(a) for a in
+                           (q, k, v, bias, m0, l0, o0)), 8 ** -0.5)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-6, atol=1e-7)
+    out = RA._normalize(got[2], got[1])
+    assert torch.all(out[:, :, 1] == 0) and torch.isfinite(out).all()
+    assert torch.all(torch.isneginf(got[0][:, :, 1]))
+
+
+@pytest.mark.parametrize("name", sorted(CFGS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_blockwise_lm_matches_jax(name, dtype):
+    jc, tc, jp, tp, tok, tgt = _setup(name, dtype, attn_mode="blockwise",
+                                      loss_chunks=2)
+    jl, jg = jax.value_and_grad(JT.loss_fn)(jp, jnp.asarray(tok),
+                                            jnp.asarray(tgt), jc)
+    calls = []
+    real = T.flash_attention
+    T.flash_attention = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        loss = T.loss_fn(tp, torch.from_numpy(tok).long(),
+                         torch.from_numpy(tgt).long(), tc)
+        loss.backward()
+    finally:
+        T.flash_attention = real
+    assert calls == []
+    f32 = dtype == "float32"
+    lb = F32_RTOL if f32 else BF16_RTOL["loss"]
+    assert abs(loss.item() - float(jl)) <= lb * abs(float(jl))
+    grads = {n: p.grad for n, p in tp.named_parameters()}
+    gb = F32_RTOL if f32 else BF16_RTOL["grad"]
+    assert _worst(_port_tree(tp, grads), _tree_np(jg)) <= gb
+
+
+def _loss_grads(tc, tp, tok, tgt):
+    for p in tp.parameters():
+        p.grad = None
+    loss = T.loss_fn(tp, torch.from_numpy(tok).long(),
+                     torch.from_numpy(tgt).long(), tc)
+    loss.backward()
+    return loss.detach().clone(), {n: p.grad.clone()
+                                   for n, p in tp.named_parameters()}
+
+
+SAVES = [(), ("attn_o",), ("ffn_prod",), ("attn_o", "ffn_prod")]
+
+
+@pytest.mark.parametrize("save", SAVES[1:],
+                         ids=["+".join(s) for s in SAVES[1:]])
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_remat_save_same_bits_as_full_remat_and_matches_jax(name, save):
+    jc, tc, jp, tp, tok, tgt = _setup(name, loss_chunks=2)
+    full = _loss_grads(tc, tp, tok, tgt)
+    tc.remat_save = save
+    got = _loss_grads(tc, tp, tok, tgt)
+    assert torch.equal(got[0], full[0])
+    for n in full[1]:
+        assert torch.equal(got[1][n], full[1][n]), n
+    jc.remat_save = save
+    jl, jg = jax.value_and_grad(JT.loss_fn)(jp, jnp.asarray(tok),
+                                            jnp.asarray(tgt), jc)
+    assert abs(got[0].item() - float(jl)) <= F32_RTOL * abs(float(jl))
+    assert _worst(_port_tree(tp, got[1]), _tree_np(jg)) <= F32_RTOL
+
+
+@pytest.mark.parametrize("save,backward_calls", [
+    ((), 2), (("attn_o",), 0), (("ffn_prod",), 2),
+    (("attn_o", "ffn_prod"), 0)])
+def test_attn_o_skips_the_attention_forward_in_the_backward(
+        monkeypatch, save, backward_calls):
+    """S = 128, two layers: the forward runs the flash forward (its CPU
+    plain version) once per layer; full recompute runs it again per layer
+    in the backward, and with "attn_o" kept it does not."""
+    calls = [0]
+    real = FA.flash_forward_reference
+
+    def counting(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+    monkeypatch.setattr(FA, "flash_forward_reference", counting)
+    _, tc, _, tp, tok, tgt = _setup("s128", loss_chunks=2,
+                                    remat_save=save)
+    loss = T.loss_fn(tp, torch.from_numpy(tok).long(),
+                     torch.from_numpy(tgt).long(), tc)
+    assert calls[0] == 2
+    loss.backward()
+    assert calls[0] - 2 == backward_calls
+
+
+def test_remat_save_rejects_unknown_names():
+    _, tc, _, tp, tok, tgt = _setup("s16")
+    tc = T.TransformerConfig(**dict(CFGS["s16"][0], remat_save=("conv",)))
+    with pytest.raises(ValueError, match="remat_save"):
+        T.loss_fn(tp, torch.from_numpy(tok).long(),
+                  torch.from_numpy(tgt).long(), tc)
