@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases env,ndarray
     python3 chip_smoke.py --phases env,zoo
     python3 chip_smoke.py --phases env,train_amp
+    python3 chip_smoke.py --phases env,train_rec,api
     python3 chip_smoke.py --phases env,train_lm_deep
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
@@ -26,9 +27,11 @@
 
 Phases, each printing JSON lines:
 
-1. env     -- card name and power limit, torch/CUDA versions, and the nvcc
+1. env     -- card name and power limit, torch/CUDA versions, the nvcc
               build of every kernel source in mxnet_tpu_torch/csrc/ (one
-              nvcc per source, all started together).
+              nvcc per source, all started together), and the image
+              decoders the machine offers: whether PIL and cv2 import (in
+              a child interpreter) and where libnvjpeg is.
 2. kernel  -- each kernel against its plain PyTorch version on the card:
               conv_fused at the shapes ResNet-50 serving gives it (batch
               32) and at edge shapes, the bf16 forward also with the same
@@ -252,6 +255,40 @@ Phases, each printing JSON lines:
               device busy ms per step, idle share, peak memory; and the
               narrow NHWC ResNet's AMP step, card against the port on the
               CPU (AMP_NARROW_*).
+5f. train_rec -- bench.py's bench_input_pipeline path on the port: 2048
+              raw-pixel records of 256 x 256 x 3 uint8 (numpy seed 0,
+              labels i % 10; ~403 MB) written with recordio's
+              MXIndexedRecordIO into a temporary directory (deleted at
+              the end); ImageRecordIter (3 x 224 x 224, batch 128,
+              shuffle, rand_crop, rand_mirror, uint8, min(8, cores)
+              threads) through DevicePrefetchIter onto gpu(0); ResNet-50
+              v1 NHWC bf16, Xavier(gaussian, in, magnitude 2), through
+              ShardedTrainStep in the `sharded` configuration (fuse=True,
+              SGD momentum 0.9) at lr 1e-3 (REC_SGD says why); each batch
+              normalised on the card
+              as bench.py does ((x - mean) * 1/58 in bf16). Two epochs of
+              16 steps, counters zeroed just before: 16 launches of rows
+              1-3 and 37 of rows 4-7 per step. Checks: each epoch yields
+              every record once in the order of a second iterator on the
+              host (its orders, and each batch's labels and strided pixel
+              sums), epoch 2's order not epoch 1's; the first two batches
+              on the card equal the host's byte for byte; the first fed
+              step's loss equals, bit for bit, a resident step's (a second
+              ShardedTrainStep from the same weights) on the host's first
+              batch, cuDNN deterministic; the loss finite and epoch 2's
+              mean more than REC_LOSS_DROP below epoch 1's. Then the
+              iterator's own images/sec (two epochs on the host), the
+              host-to-card MB/s of one batch from pinned memory, fed and
+              resident wall ms per step, device busy ms and idle share
+              of both, and the peak memory.
+5g. api    -- the M3b names on the card, each against the port on the
+              CPU on the same inputs: every new loss's value and input
+              gradients in f32 (CTCLoss with and without lengths), an
+              autograd.Function with its own backward, foreach,
+              while_loop and cond with gradients (API_RTOL, API_CTC_RTOL);
+              a gluon.Constant left unchanged by Trainer.step;
+              Context.empty_cache lowering torch.cuda.memory_reserved;
+              nd.zeros(dtype=np.float16, ctx=mx.gpu(0)).
 6. train_lm -- the transformer LM of bench.py's bench_transformer at its
               full width (dim 4096, 5 layers, 32 heads of 128, FFN 16384,
               vocab 32000, bf16, chunked CE over 8 chunks, full per-layer
@@ -334,6 +371,7 @@ The run ends with the nvidia-smi name/power line, then the
 {"kernels": [...]} line (per kernel: launches on its path (rows 1-7 also
 on train_sharded's, per configuration; rows 4-8 also on zoo's ResNet-50 V2
 training, launches_zoo; rows 4-7 on train_amp's, launches_train_amp; rows
+1-7 on train_rec's, launches_train_rec; rows
 9-11 on train_lm_deep's, per remat_save, launches_train_lm_deep), max abs
 error at
 the ResNet-50 shapes in bf16 and its tolerance, and the times, bound,
@@ -360,7 +398,8 @@ import numpy as np
 
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_sharded", "ndarray", "zoo",
-          "train_amp", "train_lm", "train_lm_deep", "time")
+          "train_amp", "train_rec", "api", "train_lm", "train_lm_deep",
+          "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
 # the BatchNorm kernels' checks and timing, the training steps' timing
 # (after the train phases), the conv_fused forward's, the backward pair's,
@@ -898,7 +937,30 @@ def phase_env(torch, state):
           "python": sys.version.split()[0], "peaks_from": state["card"][0],
           "nvcc_seconds": seconds, "build_wall_s": wall, "ptxas": ptxas,
           "conv_fwd_ptxas": ptxas_entries(_build.build_log("conv_fused"),
-                                          "conv_fused_fwd_bf16_kernel")})
+                                          "conv_fused_fwd_bf16_kernel"),
+          "image_decoders": image_decoders()})
+
+
+def image_decoders():
+    """Which JPEG/PNG decoders this machine offers the port: whether PIL
+    and cv2 import (each tried in a child interpreter, so this process
+    imports neither) and where libnvjpeg is."""
+    import ctypes.util
+    import glob
+    out = {}
+    for mod in ("PIL", "cv2"):
+        r = subprocess.run([sys.executable, "-c", "import %s" % mod],
+                           capture_output=True, text=True, timeout=120)
+        out[mod] = r.returncode == 0
+    out["nvjpeg_find_library"] = ctypes.util.find_library("nvjpeg")
+    from mxnet_tpu_torch.kernels import _build
+    cuda = os.path.dirname(os.path.dirname(os.path.realpath(
+        _build._nvcc())))
+    out["nvjpeg_in_toolkit"] = sorted(
+        glob.glob(os.path.join(cuda, "lib64", "libnvjpeg.so*")) +
+        glob.glob(os.path.join(cuda, "targets", "*", "lib",
+                               "libnvjpeg.so*")))
+    return out
 
 
 def ptxas_entries(log, name):
@@ -4449,6 +4511,493 @@ def _amp_narrow_card_vs_cpu(torch, mx, amp):
 # bench.py's deep config (bench.py:75-90,179-190): 24 layers of dim 2048,
 # 16 heads of 128, FFN 8192, vocab 32000, bf16, chunked CE over 8 chunks,
 # full per-layer recompute; batch 8 x 2048 (1.74B parameters).
+# -- phase train_rec: bench_input_pipeline's path on the port -----------------
+REC_IMAGES = 2048               # _synth_rec(raw=True): 2048 records of
+REC_SIDE = 256                  # 256 x 256 x 3 uint8 (~403 MB)
+REC_CLASSES = 10                # labels i % 10, as AMP_CLASSES
+REC_BATCH = 128
+REC_EPOCHS = 2
+REC_STEPS = REC_IMAGES // REC_BATCH          # 16 per epoch
+REC_SHAPE = (3, 224, 224)
+# bench.py's on-card normalisation of the uint8 feed
+REC_MEAN = (123.68, 116.78, 103.94)
+REC_SCALE = 1.0 / 58.0
+# the reference's ImageNet recipe
+REC_XAVIER = dict(rnd_type="gaussian", factor_type="in", magnitude=2)
+# SGD with momentum 0.9 as in phase train_sharded, at a tenth of its
+# learning rate: from this initialisation (every BatchNorm gamma 1) the
+# pooled features of these noise images share one mean of squared norm
+# ~1.8e9, and at lr 0.01 the loss falls to ~3.3 by step 4 and then climbs
+# past 20 -- in float32 without any kernel of the repository too
+# (chip_rec_probe.py); at 1e-3 it falls to ~2.4 (ln 10: the labels'
+# prior) by epoch 2
+REC_SGD = {"learning_rate": 0.001, "momentum": 0.9}
+# the epoch-2 mean loss must lie this many nats below epoch 1's
+REC_LOSS_DROP = 1.0
+# epoch-2 steps run (and timed) before 2 steps under the profiler
+REC_TIMED_STEPS = 8
+# every REC_STRIDE-th pixel row and column of each image, summed: the
+# per-batch fingerprint the card's batches are held to the host's by
+REC_STRIDE = 7
+
+
+def _write_rec(mx, folder):
+    """The raw-pixel .rec/.idx of REC_IMAGES images from numpy seed 0."""
+    from mxnet_tpu_torch import recordio
+    rec = os.path.join(folder, "train.rec")
+    idx = os.path.join(folder, "train.idx")
+    rng = np.random.RandomState(0)
+    w = recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(REC_IMAGES):
+        img = rng.randint(0, 255, (REC_SIDE, REC_SIDE, 3), np.uint8)
+        w.write_idx(i, recordio.pack_raw_img(
+            recordio.IRHeader(0, float(i % REC_CLASSES), i, 0), img))
+    w.close()
+    return rec, idx
+
+
+def _rec_iter(mx, rec, idx):
+    return mx.io.ImageRecordIter(
+        path_imgrec=rec, path_imgidx=idx, data_shape=REC_SHAPE,
+        batch_size=REC_BATCH, shuffle=True, rand_crop=True,
+        rand_mirror=True, dtype="uint8",
+        preprocess_threads=min(8, os.cpu_count() or 1))
+
+
+def _fingerprint(x, label):
+    """(strided pixel sum per image, label) of a batch, numpy or torch."""
+    sub = x[:, :, ::REC_STRIDE, ::REC_STRIDE]
+    if isinstance(sub, np.ndarray):
+        return sub.sum(axis=(1, 2, 3), dtype=np.int64), label
+    import torch
+    return sub.sum(dim=(1, 2, 3), dtype=torch.int64), label
+
+
+def _host_pass(mx, rec, idx):
+    """The iterator alone on the host over two epochs, as the fed run will
+    see them: its sustained images/sec, each batch's fingerprint, each
+    epoch's order and the first two batches in full."""
+    t0 = time.perf_counter()
+    it = _rec_iter(mx, rec, idx)
+    prints, orders, first, n = [], [], [], 0
+    for epoch in range(REC_EPOCHS):
+        if epoch:
+            it.reset()
+        orders.append(list(it._order))
+        for b in it:
+            x, y = b.data[0].asnumpy(), b.label[0].asnumpy()
+            if len(first) < 2:
+                first.append((x, y))
+            prints.append(_fingerprint(x, y) + (b.pad,))
+            n += x.shape[0]
+    wall = time.perf_counter() - t0
+    return n / wall, prints, orders, first
+
+
+def _h2d_mbps(torch):
+    """Host-to-card MB/s of one uint8 batch from pinned memory, best of 5."""
+    src = torch.empty((REC_BATCH,) + REC_SHAPE, dtype=torch.uint8,
+                      pin_memory=True)
+    dst = torch.empty(src.shape, dtype=torch.uint8, device="cuda")
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(5):
+        t0 = time.perf_counter()
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return src.numel() / best / 1e6
+
+
+def phase_train_rec(torch, state):
+    """Path train_rec: ResNet-50 v1 NHWC bf16, Xavier-initialised, trained
+    by parallel.ShardedTrainStep (the `sharded` configuration) from a
+    raw-pixel .rec file through ImageRecordIter and DevicePrefetchIter."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    folder = tempfile.mkdtemp(prefix="chip_smoke_rec_")
+    try:
+        _train_rec(torch, state, mx, folder)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def _train_rec(torch, state, mx, folder):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+
+    t0 = time.perf_counter()
+    rec, idx = _write_rec(mx, folder)
+    write_s = time.perf_counter() - t0
+    rec_bytes = os.path.getsize(rec)
+    img_s, host_prints, host_orders, host_first = _host_pass(mx, rec, idx)
+    h2d = _h2d_mbps(torch)
+
+    gpu = mx.gpu(0)
+    dev = gpu.device
+    mx.random.seed(0)
+    net = resnet50_v1(layout="NHWC", fuse=True)
+    net.initialize(mx.init.Xavier(**REC_XAVIER), ctx=gpu)
+    net(torch.zeros((1,) + REC_SHAPE, device=dev))
+    net.cast("bfloat16")
+    links = sum(1 for m in net.modules() if getattr(m, "_fuse", False))
+    fed = _sharded_step(mx, torch, net, ("sgd", REC_SGD), dev)
+    resident = _sharded_step(mx, torch, net, ("sgd", REC_SGD), dev)
+    mean = torch.tensor(REC_MEAN, dtype=torch.bfloat16,
+                        device=dev).view(1, 3, 1, 1)
+    scale = torch.tensor(REC_SCALE, dtype=torch.bfloat16, device=dev)
+
+    def normalize(u8):
+        # bench.py's (u8 - mean) * scale in bf16, NCHW; the net's first op
+        # is its boundary transpose to NHWC
+        return (u8.to(torch.bfloat16) - mean) * scale
+
+    it = _rec_iter(mx, rec, idx)
+    orders = [list(it._order)]
+    pf = mx.io.DevicePrefetchIter(it, depth=2, sharding=gpu)
+    b0 = next(pf)
+
+    # the resident step on the host iterator's first batch, before the
+    # counted run: its loss is the fed step's, bit for bit
+    x_host, y_host = host_first[0]
+    xr, yr = resident.place_batch(x_host, y_host)
+    prev = _deterministic_cudnn(torch)
+    try:
+        loss_resident = resident.step(normalize(xr), yr)
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+
+    # -- the main path: 2 epochs of 16 fed steps ----------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(BNF, CF)
+    losses, prints, kept, pads = [], [], [], []
+    epoch_s = []
+
+    def fed_step(batch):
+        x, y = batch.data[0]._data, batch.label[0]._data
+        prints.append(_fingerprint(x, y))
+        pads.append(batch.pad)
+        if len(kept) < 2:
+            kept.append((x, y))
+        losses.append(fed.step(normalize(x), y))
+
+    prev = _deterministic_cudnn(torch)
+    try:
+        t0 = time.perf_counter()
+        fed_step(b0)
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    for b in pf:
+        fed_step(b)
+    torch.cuda.synchronize()
+    epoch_s.append(time.perf_counter() - t0)
+    n_epoch1 = len(losses)
+    pf.reset()
+    orders.append(list(it._order))
+    t0 = time.perf_counter()
+    for _ in range(REC_TIMED_STEPS):
+        fed_step(next(pf))
+    torch.cuda.synchronize()
+    fed_ms = (time.perf_counter() - t0) * 1e3 / REC_TIMED_STEPS
+    busy_fed, by_kernel, tops = profile_busy_ms(
+        torch, lambda: fed_step(next(pf)), 2, top=8,
+        match=("bn_", "conv_fused_", "Memcpy"))
+    for b in pf:
+        fed_step(b)
+    torch.cuda.synchronize()
+    epoch_s.append(time.perf_counter() - t0)
+    conv, bn = _conv_counts(CF), _bn_counts(BNF)
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(losses)
+
+    # -- the checks ---------------------------------------------------------
+    losses = [float(v) for v in losses]
+    want_conv, want_bn = _sharded_want(links, None)
+    ok_counts = links == FUSED_PER_STEP and steps == REC_EPOCHS * REC_STEPS \
+        and all(conv[k] == steps * n for k, n in want_conv.items()) \
+        and all(bn[k] == steps * n for k, n in want_bn.items())
+    keys = list(range(REC_IMAGES))
+    ok_order = n_epoch1 == REC_STEPS and all(
+        sorted(o) == keys for o in orders + host_orders) \
+        and orders == host_orders and orders[0] != orders[1] \
+        and not any(pads) and len(prints) == len(host_prints) and all(
+            np.array_equal(p[0].cpu().numpy(), h[0])
+            and np.array_equal(p[1].cpu().numpy(), h[1]) and h[2] == 0
+            for p, h in zip(prints, host_prints))
+    ok_bytes = all(
+        np.array_equal(x.cpu().numpy(), hx) and np.array_equal(
+            y.cpu().numpy(), hy)
+        for (x, y), (hx, hy) in zip(kept, host_first)) and len(kept) == 2
+    loss_fed0 = losses[0]
+    ok_first = loss_fed0 == float(loss_resident)
+    m1 = float(np.mean(losses[:REC_STEPS]))
+    m2 = float(np.mean(losses[REC_STEPS:]))
+    ok_loss = all(np.isfinite(losses)) and m2 < m1 - REC_LOSS_DROP
+
+    # -- where the time goes: the resident step -----------------------------
+    xn = normalize(xr)
+
+    def resident_step():
+        resident.step(xn, yr)
+    resident_ms = host_ms(torch, resident_step, 5)
+    busy_res, _, _ = profile_busy_ms(torch, resident_step, 2)
+    timing = {
+        "iterator_images_per_sec": img_s,
+        "host_to_card_MBps_pinned": h2d,
+        "fed_wall_ms_per_step": fed_ms,
+        "resident_wall_ms_per_step": resident_ms,
+        "fed_images_per_sec": REC_BATCH * 1e3 / fed_ms,
+        "resident_images_per_sec": REC_BATCH * 1e3 / resident_ms,
+        "epoch_wall_s": epoch_s,
+        "device_busy_ms_per_fed_step": busy_fed,
+        "device_busy_ms_per_resident_step": busy_res,
+        "device_idle_share_fed": None if busy_fed is None
+        else max(0.0, 1.0 - busy_fed / fed_ms),
+        "device_idle_share_resident": None if busy_res is None
+        else max(0.0, 1.0 - busy_res / resident_ms),
+        "kernel_ms_per_fed_step_by_name": by_kernel,
+        "peak_gb": peak / 1e9}
+    state["launches_rec"] = {
+        "conv_fused": conv["fwd"], "conv_fused.bwd_dx": conv["bwd_dx"],
+        "conv_fused.bwd_dw": conv["bwd_dw"],
+        **{k: bn[k] for k in BN_KERNELS}}
+    state["rec_timing"] = timing
+    emit({"phase": "train_rec", "card": state["smi"], "records": REC_IMAGES,
+          "record_side": REC_SIDE, "rec_bytes": rec_bytes,
+          "write_s": write_s, "batch": REC_BATCH, "epochs": REC_EPOCHS,
+          "steps": steps, "init": "Xavier(%s)" % REC_XAVIER,
+          "sgd": REC_SGD,
+          "losses": losses, "loss_mean_epoch": [m1, m2],
+          "first_step_loss": {"fed": loss_fed0,
+                              "resident": float(loss_resident)},
+          "launches": {"conv_fused": conv, "batchnorm_fused": bn},
+          "launches_wanted_per_step": {"conv_fused": want_conv,
+                                       "batchnorm_fused": want_bn},
+          "order_every_record_once": ok_order,
+          "first_two_batches_bytes_equal": ok_bytes,
+          "timing": timing,
+          "ok": ok_counts and ok_order and ok_bytes and ok_first and ok_loss})
+    if tops:
+        emit(dict({"phase": "train_rec",
+                   "where_the_time_goes": "rec_fed_resnet50_v1,b128"},
+                  **tops))
+    if not ok_counts:
+        raise AssertionError(
+            "train_rec launches conv %s, bn %s over %d steps (%d fused "
+            "links); want per step %s, %s" % (conv, bn, steps, links,
+                                              want_conv, want_bn))
+    if not ok_order:
+        raise AssertionError("train_rec: an epoch did not yield every record "
+                             "once in the host iterator's order")
+    if not ok_bytes:
+        raise AssertionError("train_rec: the first two batches on the card "
+                             "differ from the host iterator's")
+    if not ok_first:
+        raise AssertionError("train_rec: the first fed step's loss %r is "
+                             "not the resident step's %r"
+                             % (loss_fed0, float(loss_resident)))
+    if not ok_loss:
+        raise AssertionError("train_rec: loss not finite or epoch 2's mean "
+                             "%.4f not %.1f below epoch 1's %.4f"
+                             % (m2, REC_LOSS_DROP, m1))
+    del net, fed, resident, pf, it, kept, xn, xr, b0
+    torch.cuda.empty_cache()
+
+
+# -- phase api: the M3b names on the card against the CPU ---------------------
+# f32, elementwise formulas on both devices: within 1e-5 of the largest
+# magnitude (exp/log differ by an ulp); CTC: PyTorch's CUDA and CPU
+# ctc_loss sum the alpha recursion in other orders, within 1e-4
+API_RTOL = 1e-5
+API_CTC_RTOL = 1e-4
+
+
+def _api_losses():
+    """(loss class name, constructor kwargs, numpy inputs, differentiated
+    positions, tolerance) for every loss added to the port."""
+    rs = np.random.RandomState(0)
+    p, l = rs.randn(8, 5).astype("f4"), rs.randn(8, 5).astype("f4")
+    sign = np.sign(l).astype("f4")
+    binary = (l > 0).astype("f4")
+    prob = (1 / (1 + np.exp(-p))).astype("f4")
+    dist = rs.dirichlet(np.ones(5), 8).astype("f4")
+    sw = (rs.rand(8, 1) + 0.5).astype("f4")
+    ctc_pred = rs.randn(4, 12, 7).astype("f4")
+    ctc_label = rs.randint(1, 7, (4, 5)).astype("f4")
+    ctc_label[1, 3:] = -1
+    cases = [("L2Loss", {}, [p, l, sw]), ("L1Loss", {"weight": 2.0}, [p, l]),
+             ("HuberLoss", {"rho": 0.5}, [p, l]), ("HingeLoss", {}, [p, sign]),
+             ("SquaredHingeLoss", {}, [p, sign]),
+             ("LogisticLoss", {}, [p, sign]),
+             ("LogisticLoss", {"label_format": "binary"}, [p, binary]),
+             ("SigmoidBinaryCrossEntropyLoss", {}, [p, binary, sw]),
+             ("SigmoidBinaryCrossEntropyLoss", {"from_sigmoid": True},
+              [prob, binary]),
+             ("KLDivLoss", {"from_logits": False}, [p, dist]),
+             ("PoissonNLLLoss", {"compute_full": True},
+              [p, rs.poisson(2.0, (8, 5)).astype("f4")]),
+             ("CosineEmbeddingLoss", {}, [p, l, np.where(
+                 rs.rand(8) > 0.5, 1, -1).astype("f4")])]
+    out = [(n, k, a, (0,), API_RTOL) for n, k, a in cases]
+    out.append(("TripletLoss", {}, [p, l, rs.randn(8, 5).astype("f4")],
+                (0, 1, 2), API_RTOL))
+    out.append(("CTCLoss", {}, [ctc_pred, ctc_label], (0,), API_CTC_RTOL))
+    out.append(("CTCLoss", {"layout": "NTC"},
+                [ctc_pred, ctc_label, np.array([12, 9, 11, 10], "f4"),
+                 np.array([5, 3, 4, 2], "f4")], (0,), API_CTC_RTOL))
+    return out
+
+
+def _rel_err(a, b):
+    a = a.detach().double().cpu()
+    b = b.detach().double().cpu()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def _on(torch, device, arrays, diff):
+    ts = [torch.from_numpy(a).to(device) for a in arrays]
+    for i in diff:
+        ts[i].requires_grad_()
+    return ts
+
+
+def _api_loss_checks(torch, mx):
+    res = {}
+    for name, kw, arrays, diff, tol in _api_losses():
+        outs = {}
+        for device in ("cpu", "cuda"):
+            block = getattr(mx.gluon.loss, name)(**kw)
+            ts = _on(torch, device, arrays, diff)
+            with mx.autograd.record():
+                val = block(*ts)
+            grads = torch.autograd.grad(val.sum(), [ts[i] for i in diff])
+            outs[device] = [val] + list(grads)
+        err = max(_rel_err(c, h) for c, h in zip(outs["cuda"], outs["cpu"]))
+        res["%s%s" % (name, sorted(kw.items()) or "")] = (err, tol)
+    return res
+
+
+def _api_flow_checks(torch, mx):
+    """autograd.Function, foreach, while_loop and cond: outputs and input
+    gradients, card against CPU."""
+    rs = np.random.RandomState(1)
+    x_np, w_np = rs.randn(6, 4).astype("f4"), rs.randn(4).astype("f4")
+
+    class ScaledSigmoid(mx.autograd.Function):
+        def forward(self, x, w):
+            y = 1.0 / (1.0 + mx.nd.exp(-x))
+            self.save_for_backward(y, w)
+            return y * w
+
+        def backward(self, dy):
+            y, w = self.saved_tensors
+            return dy * w * y * (1.0 - y), (dy * y).sum(axis=0)
+
+    def function(x, w):
+        return [ScaledSigmoid()(x, w)]
+
+    def foreach(x, w):
+        outs, st = mx.nd.contrib.foreach(
+            lambda d, s: (mx.nd.tanh(d * s[0]), [s[0] + d]), x, [w])
+        return [outs, st[0]]
+
+    def while_loop(x, w):
+        i0 = mx.nd.zeros((1,), ctx=x.context)
+        outs, (_, v) = mx.nd.contrib.while_loop(
+            lambda i, v: i < 3, lambda i, v: ([v * w], [i + 1, v * 0.5 + w]),
+            [i0, x[0]], max_iterations=5)
+        return [outs[0], v]
+
+    def cond(x, w):
+        return [mx.nd.contrib.cond(x.sum() > 0, lambda: x * w,
+                                   lambda: x - w)]
+
+    res = {}
+    for name, fn in (("autograd.Function", function), ("foreach", foreach),
+                     ("while_loop", while_loop), ("cond", cond)):
+        outs = {}
+        for key, ctx in (("cpu", mx.cpu()), ("gpu", mx.gpu(0))):
+            x = mx.nd.array(x_np, ctx=ctx)
+            w = mx.nd.array(w_np, ctx=ctx)
+            for v in (x, w):
+                v.attach_grad()
+            with mx.autograd.record():
+                ys = fn(x, w)
+                head = sum((y * (k + 1.0)).sum() for k, y in enumerate(ys))
+            head.backward()
+            outs[key] = [y._data for y in ys] + [x.grad._data,
+                                                w.grad._data]
+        res[name] = (max(_rel_err(c, h) for c, h in
+                         zip(outs["gpu"], outs["cpu"])), API_RTOL)
+    return res
+
+
+def phase_api(torch, state):
+    """Path api: the losses, autograd.Function, nd.contrib control flow,
+    gluon.Constant, Context.empty_cache and type-object dtypes on the card,
+    each against the port on the CPU."""
+    import mxnet_tpu_torch as mx
+    checks = _api_loss_checks(torch, mx)
+    checks.update(_api_flow_checks(torch, mx))
+    bad = {k: v for k, v in checks.items() if not v[0] <= v[1]}
+
+    gpu = mx.gpu(0)
+    const = mx.gluon.Constant("const", np.arange(6.0).reshape(2, 3))
+    w = mx.gluon.Parameter("w", shape=(2, 3))
+    const.initialize(ctx=gpu)
+    w.initialize(init=mx.init.One(), ctx=gpu)
+    trainer = mx.gluon.Trainer([w, const], "sgd", {"learning_rate": 0.5})
+    with mx.autograd.record():
+        loss = (w.data() * const.data()).sum()
+    loss.backward()
+    trainer.step(1)
+    ok_const = bool((const.data().asnumpy() == np.arange(6.0).reshape(2, 3))
+                    .all()) and const.list_ctx() == [gpu] and \
+        bool(np.allclose(w.data().asnumpy(),
+                         1 - 0.5 * np.arange(6.0).reshape(2, 3)))
+
+    torch.cuda.synchronize()
+    big = torch.empty(1 << 30, dtype=torch.uint8, device=gpu.device)
+    del big
+    before = torch.cuda.memory_reserved()
+    gpu.empty_cache()
+    after = torch.cuda.memory_reserved()
+    ok_cache = after < before
+
+    z = mx.nd.zeros((2, 3), dtype=np.float16, ctx=gpu)
+    ok_dtype = z._data.dtype == torch.float16 and z._data.is_cuda \
+        and z.wait_to_write() is z
+
+    emit({"phase": "api", "card": state["smi"],
+          "card_vs_cpu_rel_err": {k: v[0] for k, v in checks.items()},
+          "tolerance": {k: v[1] for k, v in checks.items()},
+          "constant_unchanged_by_trainer": ok_const,
+          "memory_reserved_bytes": {"before_empty_cache": before,
+                                    "after": after},
+          "zeros_float16_on_gpu": ok_dtype,
+          "ok": not bad and ok_const and ok_cache and ok_dtype})
+    if bad:
+        raise AssertionError("api: card vs CPU past tolerance: %s" % bad)
+    if not ok_const:
+        raise AssertionError("api: Trainer.step changed a Constant")
+    if not ok_cache:
+        raise AssertionError("api: empty_cache left memory_reserved at %d "
+                             "(was %d)" % (after, before))
+    if not ok_dtype:
+        raise AssertionError("api: nd.zeros(dtype=np.float16, ctx=gpu(0)) "
+                             "gave %s on %s" % (z._data.dtype,
+                                                z._data.device))
+
+
 LM_DEEP_CFG = dict(vocab_size=32000, dim=2048, n_layers=24, n_heads=16,
                    ffn_hidden=8192, max_seq_len=2048, dtype="bfloat16",
                    attn_mode="local", loss_chunks=8, remat=True,
@@ -5677,6 +6226,7 @@ def kernel_summary(state):
         "replaces": "mxnet_tpu/pallas_kernels/conv_fused.py:121",
         "launches": state["launches"]["conv_fused"],
         "launches_train_sharded": sharded("conv_fused"),
+        "launches_train_rec": state["launches_rec"]["conv_fused"],
         "max_abs_err": state["kernel_err"]["bfloat16"][0],
         "max_rel_err": state["kernel_err"]["bfloat16"][1],
         "tolerance_rel": RTOL["bfloat16"],
@@ -5697,6 +6247,7 @@ def kernel_summary(state):
             "launches_train_sharded": sharded(k),
             "launches_zoo": state["launches_zoo"][k],
             "launches_train_amp": state["launches_amp"][k],
+            "launches_train_rec": state["launches_rec"][k],
             "max_abs_err": state["bn_err"][k][0],
             "max_rel_err": state["bn_err"][k][1],
             "tolerance_rel": 0.0 if k in ("stats", "apply") else BN_BWD_RTOL,
@@ -5719,6 +6270,7 @@ def kernel_summary(state):
             % body_line,
             "launches": state["launches"]["conv_fused." + k],
             "launches_train_sharded": sharded("conv_fused." + k),
+            "launches_train_rec": state["launches_rec"]["conv_fused." + k],
             "max_abs_err": state["conv_bwd_err"][k][0],
             "max_rel_err": state["conv_bwd_err"][k][1],
             "tolerance_rel": BWD_RTOL["bfloat16"]["dx"],

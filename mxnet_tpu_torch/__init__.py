@@ -46,7 +46,11 @@ policy at the op dispatch point and a dynamic loss scaler), data loading
 (``gluon.data``: datasets, samplers, vision transforms and datasets, the
 ``DataLoader``; ``io``: ``NDArrayIter`` and the file readers), metrics
 accumulated on the device (``metric``), callbacks (``callback``) and
-``gluon.utils`` (``split_and_load``, ``clip_global_norm``).
+``gluon.utils`` (``split_and_load``, ``clip_global_norm``); the record-file
+input path (``recordio``, ``io.ImageRecordIter`` on raw-pixel records,
+``io.DevicePrefetchIter``, the record datasets) and the losses,
+initializers, ``autograd.Function``, ``gluon.Constant`` and ``nd.contrib``
+control flow of the JAX package.
 """
 from . import base
 from .base import MXNetError
@@ -70,6 +74,7 @@ from . import contrib
 from . import metric
 from . import callback
 from . import io
+from . import recordio
 from .ndarray import contrib as _nd_contrib  # noqa: F401  (nd.contrib)
 
 nd = ndarray
@@ -92,4 +97,4 @@ __all__ = ["base", "MXNetError", "context", "Context", "cpu", "gpu",
            "waitall", "random", "precision", "autograd",
            "initializer", "init", "ndarray", "nd", "kernels", "parallel",
            "optimizer", "lr_scheduler", "kvstore", "kv", "gluon", "convert",
-           "contrib", "metric", "callback", "io"]
+           "contrib", "metric", "callback", "io", "recordio"]

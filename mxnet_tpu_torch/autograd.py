@@ -15,6 +15,8 @@ gradient conventions on top of it:
 - A non-scalar head. ``backward`` seeds ones for a head given no gradient,
   as MXNet does, and a block's output under recording is a ``Head`` whose
   ``.backward()`` does the same.
+- ``Function``. A user's forward and backward on NDArrays ride a
+  ``torch.autograd.Function``, so the graph stays torch's.
 - NDArrays. ``backward``, ``grad`` and ``mark_variables`` take NDArray
   heads, head gradients and variables as well as tensors. An NDArray
   variable (``attach_grad``, ``mark_variables``) keeps its gradient in an
@@ -31,7 +33,7 @@ import torch
 
 __all__ = ["is_training", "set_training", "is_recording", "set_recording",
            "record", "pause", "train_mode", "predict_mode",
-           "mark_variables", "backward", "grad", "Head"]
+           "mark_variables", "backward", "grad", "Head", "Function"]
 
 
 class _State(threading.local):
@@ -254,3 +256,64 @@ class Head(torch.Tensor):
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         backward([self], None if out_grad is None else [out_grad],
                  retain_graph=retain_graph)
+
+
+class _FunctionNode(torch.autograd.Function):
+    """Carries a user ``Function`` in torch's graph: its forward and
+    backward run on NDArrays, outside recording."""
+
+    @staticmethod
+    def forward(ctx, func, *tensors):
+        from .ndarray.ndarray import NDArray, wrap
+        with pause():
+            out = func.forward(*[wrap(t) for t in tensors])
+        ctx.func = func
+        func._single = isinstance(out, NDArray)
+        outs = [out] if func._single else list(out)
+        return tuple(o._data for o in outs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        from .ndarray.ndarray import NDArray, wrap
+        with pause():
+            grads = ctx.func.backward(*[wrap(c) for c in cts])
+        if isinstance(grads, NDArray):
+            grads = [grads]
+        return (None,) + tuple(_tensor(g) for g in grads)
+
+
+class Function:
+    """A user-defined differentiable function: subclass it, implement
+    ``forward(self, *inputs)`` and ``backward(self, *output_grads)`` on
+    NDArrays, and keep what backward needs with ``save_for_backward``
+    (read back as ``self.saved_tensors``). Under ``record()`` the call is
+    one node of the graph, and backward gets the outputs' gradients (zeros
+    for an output that reached no head). Given tensors instead of
+    NDArrays, it returns tensors."""
+
+    def __init__(self):
+        self.saved_tensors = ()
+        self._single = True
+
+    def save_for_backward(self, *args):
+        self.saved_tensors = args
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray, wrap
+        as_nd = any(isinstance(x, NDArray) for x in inputs)
+        tensors = [_tensor(x) for x in inputs]
+        if is_recording():
+            outs = _FunctionNode.apply(self, *tensors)
+        else:
+            with pause():
+                out = self.forward(*[wrap(t) for t in tensors])
+            self._single = isinstance(out, NDArray)
+            outs = [o._data for o in ([out] if self._single else out)]
+        outs = [wrap(o) if as_nd else o for o in outs]
+        return outs[0] if self._single else outs
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError

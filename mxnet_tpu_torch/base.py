@@ -6,6 +6,7 @@ from __future__ import annotations
 import contextlib as _contextlib
 import os as _os
 
+import numpy as _np
 import torch
 
 __all__ = ["getenv", "MXNetError", "canonical_dtype", "is_low_precision",
@@ -35,13 +36,25 @@ _DTYPES = {
 }
 
 
+# A type object names its numpy dtype; the JAX package (64-bit types off)
+# holds ``float``, ``int``, ``np.float64`` and ``np.int64`` in 32 bits.
+_NARROW_TYPES = {"float64": "float32", "int64": "int32"}
+
+
 def canonical_dtype(dtype):
-    """A dtype given as a name, a numpy dtype or a torch dtype, as a
+    """A dtype given as a name, a numpy dtype, a torch dtype or a type
+    object (``np.float32``, ``float``, ``int``, ``bool``), as a
     ``torch.dtype``; None is float32, as in the JAX package."""
     if isinstance(dtype, torch.dtype):
         return dtype
     if dtype is None:
         return torch.float32
+    if isinstance(dtype, type):
+        try:
+            dtype = _np.dtype(dtype).name
+        except TypeError:
+            raise MXNetError("unsupported dtype %r" % (dtype,)) from None
+        dtype = _NARROW_TYPES.get(dtype, dtype)
     name = getattr(dtype, "name", None) or str(dtype)
     if name.startswith("torch."):
         name = name[len("torch."):]

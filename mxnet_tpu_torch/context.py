@@ -51,6 +51,14 @@ class Context:
                              % (self, torch.cuda.device_count()))
         return torch.device("cuda", self.device_id)
 
+    def empty_cache(self):
+        """Give the card's unused cached blocks back to the driver
+        (``torch.cuda.empty_cache`` on this context's device); a CPU
+        context holds no cache."""
+        if self.device_type == "gpu":
+            with torch.cuda.device(self.device):
+                torch.cuda.empty_cache()
+
     def __enter__(self):
         self._saved.append(getattr(Context._default, "value", None))
         Context._default.value = self

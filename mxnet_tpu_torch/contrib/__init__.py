@@ -1,6 +1,8 @@
 """Contributed subsystems (counterpart of mxnet_tpu/contrib/): int8
-quantization (``quantization``) and automatic mixed precision (``amp``)."""
+quantization (``quantization``), automatic mixed precision (``amp``) and
+the DataLoader-as-DataIter adapter (``io``)."""
 from . import quantization
 from . import amp
+from . import io
 
-__all__ = ["quantization", "amp"]
+__all__ = ["quantization", "amp", "io"]

@@ -1,5 +1,5 @@
 """Gluon on ``torch.nn.Module``."""
-from .parameter import Parameter, ParameterDict, \
+from .parameter import Parameter, Constant, ParameterDict, \
     DeferredInitializationError  # noqa: F401
 from .block import Block, HybridBlock  # noqa: F401
 from . import nn  # noqa: F401

@@ -98,12 +98,16 @@ class ArrayDataset(Dataset):
 
 
 class RecordFileDataset(Dataset):
-    """Raw records of a RecordIO file. Not ported yet: it reads through
-    ``recordio.MXIndexedRecordIO``, which arrives with the rest of the data
-    slice (``recordio``, ``image_iter``)."""
+    """The raw records of a RecordIO file, by position, through its .idx
+    sidecar (``filename`` with the extension replaced by ``.idx``)."""
 
     def __init__(self, filename):
-        raise NotImplementedError(
-            "RecordFileDataset(%r): the recordio module is not ported yet; "
-            "it arrives with the rest of the data slice (recordio, "
-            "image_iter)" % (filename,))
+        from ...recordio import MXIndexedRecordIO
+        idx_file = filename[:filename.rfind(".")] + ".idx"
+        self._record = MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __len__(self):
+        return len(self._record.keys)
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])

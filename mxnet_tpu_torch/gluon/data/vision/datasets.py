@@ -9,10 +9,12 @@ deterministic synthetic set of the right shapes and classes stands in, as
 in the JAX package. An item is (image, label): the image an HWC uint8 host
 NDArray, the label an int32 scalar, or ``transform(image, label)``.
 
-``ImageRecordDataset`` and ``ImageFolderDataset`` decode images (RecordIO
-records, JPEG and PNG files), which the JAX package does with OpenCV; they
-arrive with the rest of the data slice (``recordio`` and an image decoder
-without OpenCV) and raise NotImplementedError until then.
+``ImageRecordDataset`` reads raw-pixel RecordIO records
+(``recordio.pack_raw_img``), which need no decoder: an item is the RGB
+HWC uint8 image and the record's label. JPEG and PNG, in a record or in
+``ImageFolderDataset``'s files, need an image decoder (OpenCV in the JAX
+package), which the port does not have yet (ROADMAP M7, JPEG/PNG
+decoding): they raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -186,18 +188,29 @@ class CIFAR100(CIFAR10):
         return b"fine_labels" if self._fine else b"coarse_labels"
 
 
-def _needs_decoding(what):
-    raise NotImplementedError(
-        "%s decodes images, which arrives with the rest of the data slice "
-        "(recordio, and an image decoder without OpenCV)" % what)
-
-
 class ImageRecordDataset(Dataset):
-    """Decoded images of a RecordIO file: not ported yet (the module
-    docstring)."""
+    """Images of a RecordIO file of raw-pixel records: (RGB HWC uint8 host
+    NDArray, label), or ``transform(image, label)``. ``flag=0`` gives the
+    gray image as (H, W, 1)."""
 
     def __init__(self, filename, flag=1, transform=None):
-        _needs_decoding("ImageRecordDataset(%r)" % (filename,))
+        from ..dataset import RecordFileDataset
+        self._record = RecordFileDataset(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __len__(self):
+        return len(self._record)
+
+    def __getitem__(self, idx):
+        from ....recordio import unpack_img
+        header, img = unpack_img(self._record[idx], self._flag)
+        img = img[..., ::-1] if img.ndim == 3 else img[..., None]
+        x = nd_array(np.ascontiguousarray(img), ctx=Context("cpu"))
+        label = header.label
+        if self._transform is not None:
+            return self._transform(x, label)
+        return x, label
 
 
 class ImageFolderDataset(Dataset):
@@ -206,4 +219,6 @@ class ImageFolderDataset(Dataset):
 
     def __init__(self, root, flag=1, transform=None,
                  exts=(".jpg", ".jpeg", ".png")):
-        _needs_decoding("ImageFolderDataset(%r)" % (root,))
+        raise NotImplementedError(
+            "ImageFolderDataset(%r) decodes JPEG/PNG files; the port has no "
+            "image decoder yet (ROADMAP M7: JPEG/PNG decoding)" % (root,))

@@ -31,7 +31,8 @@ from ..base import MXNetError, canonical_dtype
 from ..context import Context, as_device
 from ..ndarray.ndarray import NDArray
 
-__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -138,7 +139,8 @@ class Parameter:
     def _store(self, t):
         t = t.detach()
         if self._differentiable:
-            t = autograd.track(torch.nn.Parameter(t), self._grad_req)
+            t = autograd.track(torch.nn.Parameter(t, requires_grad=False),
+                               self._grad_req)
         if self._owner is None:
             self._own = t
         else:
@@ -283,9 +285,39 @@ class Parameter:
         if self._data is not None:
             self._store(self._data.to(self.dtype))
 
+    def reset_ctx(self, ctx):
+        """Move the parameter (or its pending deferred initialization) to
+        context ``ctx``; its gradient starts afresh there."""
+        device = as_device(_first(ctx))
+        if self._data is not None:
+            self._store(self._data.to(device))
+        elif self._deferred_init is not None:
+            init, _, default_init = self._deferred_init
+            self._deferred_init = (init, device, default_init)
+
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (
             self.name, self.shape, str(self.dtype).replace("torch.", ""))
+
+
+class Constant(Parameter):
+    """A parameter that never learns: ``grad_req="null"``, so no gradient
+    and no Trainer update; initialized to ``value`` (a numpy array, an
+    NDArray, a tensor or anything ``numpy.asarray`` takes) whatever
+    default initializer the block is given."""
+
+    def __init__(self, name, value):
+        if isinstance(value, NDArray):
+            value = value.asnumpy()
+        elif isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        value = _np.asarray(value)
+        self.value = value
+        # the dtype's type object: float64 and int64 are held in 32 bits,
+        # as in the JAX package
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype.type,
+                         init=_initializer.Constant(value))
 
 
 class ParameterDict:
@@ -334,6 +366,19 @@ class ParameterDict:
                 else tuple(shape)
         return param
 
+    def get_constant(self, name, value=None):
+        """Create-or-retrieve the Constant ``prefix + name``; creating one
+        needs ``value``."""
+        full = self._prefix + name
+        param = self._get_impl(full)
+        if param is None:
+            if value is None:
+                raise KeyError("constant %r not found and no value given"
+                               % name)
+            param = Constant(full, value)
+            self._params[full] = param
+        return param
+
     def _get_impl(self, full):
         if full in self._params:
             return self._params[full]
@@ -361,6 +406,17 @@ class ParameterDict:
     def zero_grad(self):
         for p in self._params.values():
             p.zero_grad()
+
+    def reset_ctx(self, ctx):
+        """Move every parameter to context ``ctx``."""
+        for p in self._params.values():
+            p.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every parameter (``setattr("grad_req",
+        "null")`` freezes them all)."""
+        for p in self._params.values():
+            setattr(p, name, value)
 
     def save(self, filename, strip_prefix=""):
         """Save every initialized parameter with ``nd.save``, keyed by its

@@ -1182,3 +1182,45 @@ def test_dataloader_pins_and_lands_on_the_card(workers, threads):
     batch = DL._batchify([ds[i] for i in range(4)], True)
     assert batch[0]._data.is_pinned() and batch[1]._data.is_pinned()
     loader._shutdown_pool()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+def test_device_prefetch_batches_equal_the_host(tmp_path, depth):
+    """ImageRecordIter through DevicePrefetchIter onto gpu(0), two epochs:
+    every batch the host iterator's bytes (the copy finished before use,
+    the pinned ring reused across batches and a reset)."""
+    _need_card()
+    from mxnet_tpu_torch import recordio
+    rs = np.random.RandomState(0)
+    rec, idx = str(tmp_path / "r.rec"), str(tmp_path / "r.idx")
+    w = recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(40):
+        img = rs.randint(0, 256, (48, 40, 3)).astype(np.uint8)
+        w.write_idx(i, recordio.pack_raw_img(
+            recordio.IRHeader(0, float(i % 10), i, 0), img))
+    w.close()
+    args = dict(path_imgrec=rec, path_imgidx=idx, data_shape=(3, 32, 32),
+                batch_size=8, shuffle=True, rand_crop=True,
+                rand_mirror=True, dtype="uint8")
+    host_it = mx.io.ImageRecordIter(**args)
+    want = []
+    for epoch in range(2):
+        if epoch:
+            host_it.reset()
+        want += [(b.data[0].asnumpy(), b.label[0].asnumpy())
+                 for b in host_it]
+    pf = mx.io.DevicePrefetchIter(mx.io.ImageRecordIter(**args),
+                                  depth=depth, sharding=mx.gpu(0))
+    got = []
+    for epoch in range(2):
+        if epoch:
+            pf.reset()
+        for b in pf:
+            x = b.data[0]
+            assert x.context == mx.gpu(0) and x._data.is_cuda
+            got.append((x.asnumpy(), b.label[0].asnumpy()))
+    assert len(got) == len(want) == 10
+    for (x, y), (wx, wy) in zip(got, want):
+        np.testing.assert_array_equal(x, wx)
+        np.testing.assert_array_equal(y, wy)

@@ -18,7 +18,9 @@
   interpolation code the port does not reproduce raises.
 - Vision datasets read from files the tests write (idx files plain and
   gzipped, CIFAR's pickles) and the synthetic sets item for item; the
-  datasets that decode images raise NotImplementedError.
+  datasets raise NotImplementedError for encoded (JPEG/PNG) images, which
+  the port cannot decode yet, and a record file without its index raises
+  as in the JAX package (raw-pixel records: test_torch_recordio.py).
 """
 import gzip
 import os
@@ -126,9 +128,14 @@ def test_dataset_api_matches_jax():
     assert len(sd.take(40)) == len(jsd.take(40)) == 9
 
 
-def test_record_file_dataset_raises():
-    with pytest.raises(NotImplementedError, match="recordio"):
-        tdata.RecordFileDataset("data.rec")
+def test_record_file_dataset_raises(tmp_path):
+    """A record file without its .idx sidecar raises in both packages."""
+    rec = tmp_path / "data.rec"
+    rec.write_bytes(b"")
+    with pytest.raises(FileNotFoundError):
+        jdata.RecordFileDataset(str(rec))
+    with pytest.raises(FileNotFoundError):
+        tdata.RecordFileDataset(str(rec))
 
 
 # -- DataLoader ----------------------------------------------------------------
@@ -439,8 +446,17 @@ def test_synthetic_sets_and_missing_files(tmp_path, monkeypatch):
 
 
 def test_decoding_datasets_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="recordio"):
-        tdata.vision.ImageRecordDataset(str(tmp_path / "x.rec"))
+    """A JPEG record and a folder of image files need a decoder the port
+    does not have yet: both raise, naming it."""
+    from mxnet_tpu_torch import recordio as trec
+    rec, idx = str(tmp_path / "x.rec"), str(tmp_path / "x.idx")
+    w = trec.MXIndexedRecordIO(idx, rec, "w")
+    w.write_idx(0, trec.pack(trec.IRHeader(0, 1.0, 0, 0),
+                             b"\xff\xd8\xff\xe0" + bytes(60)))
+    w.close()
+    ds = tdata.vision.ImageRecordDataset(rec)
+    with pytest.raises(NotImplementedError, match="decoder"):
+        ds[0]
     with pytest.raises(NotImplementedError, match="decod"):
         tdata.vision.ImageFolderDataset(str(tmp_path))
 

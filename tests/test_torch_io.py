@@ -241,5 +241,6 @@ def test_data_desc_and_batch():
     assert isinstance(tb.data, list) and tb.pad == 1
     assert sorted(tio.__all__) == sorted(
         ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
-         "LibSVMIter", "ResizeIter", "PrefetchingIter", "MNISTIter"])
+         "LibSVMIter", "ResizeIter", "PrefetchingIter", "MNISTIter",
+         "ImageRecordIter", "DevicePrefetchIter", "DevicePrefetcher"])
     assert set(tio.__all__) <= set(jio.__all__)

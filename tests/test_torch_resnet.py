@@ -194,9 +194,9 @@ def test_import_leaves_jax_out():
     code = ("import sys; sys.path.insert(0, %r); import mxnet_tpu_torch, "
             "chip_smoke, chip_f32_witness, chip_flash_probe, chip_conv_probe, "
             "chip_bn_probe, chip_qmm_probe, chip_codec_probe, "
-            "chip_profile_probe; "
+            "chip_profile_probe, chip_rec_probe; "
             "bad = [m for m in sys.modules if m.split('.')[0] "
-            "in ('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
+            "in ('jax', 'jaxlib', 'mxnet_tpu', 'cv2')]; print(bad); "
             "sys.exit(1 if bad else 0)" % REPO)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -218,6 +218,7 @@ def _port_sources():
     yield os.path.join(REPO, "chip_qmm_probe.py")
     yield os.path.join(REPO, "chip_codec_probe.py")
     yield os.path.join(REPO, "chip_profile_probe.py")
+    yield os.path.join(REPO, "chip_rec_probe.py")
 
 
 def test_no_jax_or_reference_imports_in_port_sources():
@@ -233,6 +234,6 @@ def test_no_jax_or_reference_imports_in_port_sources():
             else:
                 continue
             for name in names:
-                if name.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"):
+                if name.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu", "cv2"):
                     found.append((os.path.relpath(path, REPO), name))
     assert found == []
