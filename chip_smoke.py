@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases env,zoo
     python3 chip_smoke.py --phases env,train_amp
     python3 chip_smoke.py --phases env,train_rec,api
+    python3 chip_smoke.py --phases env,train_jpeg,train_det
     python3 chip_smoke.py --phases env,train_lm_deep
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
@@ -281,6 +282,37 @@ Phases, each printing JSON lines:
               host-to-card MB/s of one batch from pinned memory, fed and
               resident wall ms per step, device busy ms and idle share
               of both, and the peak memory.
+5f'. train_jpeg -- train_rec's recipe on JPEG records: the same 2048
+              images written with recordio.pack_img(..., quality=90,
+              img_fmt=".jpg") as bench.py's _synth_rec writes them, and
+              decoded by cv2 in ImageRecordIter's threads; the same
+              launches, orders, bytes and loss checks. It prints the
+              iterator's images/sec on JPEG beside train_rec's raw figure
+              from the same run.
+5f''. train_det -- example/ssd/train_ssd.py's detection path at its own
+              width, on the card: the JPEG .rec of 64 synthetic-square
+              images (ssd_make_rec_dataset), ImageDetIter with random
+              crop, pad and flip (ssd_det_iter), TinySSD, MultiBoxPrior
+              and MultiBoxTarget, softmax CE plus smooth-L1, SGD lr 0.1
+              momentum 0.9 for 12 epochs: the last epoch's loss under
+              0.7 x the first's (the example's own check). Then
+              ssd_detect (MultiBoxDetection, NMS 0.45) on two held-out
+              images, its shape and rows checked and held to the same
+              call on the CPU with the trained weights (DET_RTOL); the top
+              detection's IoU with the square is printed. Then the box
+              ops at SSD300-on-VOC scale (8,732 anchors from maps 38, 19,
+              10, 5, 3, 1 with 4, 6, 6, 6, 4, 4 anchors per location; 21
+              classes, batch 32, up to 16 ground-truth rows):
+              MultiBoxPrior, MultiBoxTarget and MultiBoxDetection on the
+              card against the port on the CPU, each run once under
+              torch.cuda.set_sync_debug_mode("error") (no host
+              synchronisation at all), with device ms; the box_nms kernel
+              against its plain version there, bit for bit, and timed
+              beside its bound. Then every other new op of ops/image.py,
+              ops/extended.py and ops/detection.py once on the card
+              against the CPU (DET_OP_CASES). TinySSD's convolutions are
+              cuDNN's: the phase launches no kernel of rows 1-15; its
+              only hand-written kernel is box_nms.
 5g. api    -- the M3b names on the card, each against the port on the
               CPU on the same inputs: every new loss's value and input
               gradients in f32 (CTCLoss with and without lengths), an
@@ -371,7 +403,8 @@ The run ends with the nvidia-smi name/power line, then the
 {"kernels": [...]} line (per kernel: launches on its path (rows 1-7 also
 on train_sharded's, per configuration; rows 4-8 also on zoo's ResNet-50 V2
 training, launches_zoo; rows 4-7 on train_amp's, launches_train_amp; rows
-1-7 on train_rec's, launches_train_rec; rows
+1-7 on train_rec's, launches_train_rec, and on train_jpeg's,
+launches_train_jpeg; box_nms on train_det's; rows
 9-11 on train_lm_deep's, per remat_save, launches_train_lm_deep), max abs
 error at
 the ResNet-50 shapes in bf16 and its tolerance, and the times, bound,
@@ -398,7 +431,8 @@ import numpy as np
 
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_sharded", "ndarray", "zoo",
-          "train_amp", "train_rec", "api", "train_lm", "train_lm_deep",
+          "train_amp", "train_rec", "train_jpeg", "train_det", "api",
+          "train_lm", "train_lm_deep",
           "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
 # the BatchNorm kernels' checks and timing, the training steps' timing
@@ -938,7 +972,13 @@ def phase_env(torch, state):
           "nvcc_seconds": seconds, "build_wall_s": wall, "ptxas": ptxas,
           "conv_fwd_ptxas": ptxas_entries(_build.build_log("conv_fused"),
                                           "conv_fused_fwd_bf16_kernel"),
-          "image_decoders": image_decoders()})
+          "image_decoders": image_decoders(), "cv2": cv2_version()})
+
+
+def cv2_version():
+    """OpenCV's version, through the port's one import of it."""
+    from mxnet_tpu_torch.base import cv2
+    return cv2().__version__
 
 
 def image_decoders():
@@ -4539,10 +4579,13 @@ REC_TIMED_STEPS = 8
 # every REC_STRIDE-th pixel row and column of each image, summed: the
 # per-batch fingerprint the card's batches are held to the host's by
 REC_STRIDE = 7
+# train_jpeg's records: bench.py's _synth_rec encodes at quality 90
+JPEG_QUALITY = 90
 
 
-def _write_rec(mx, folder):
-    """The raw-pixel .rec/.idx of REC_IMAGES images from numpy seed 0."""
+def _write_rec(mx, folder, jpeg=False):
+    """The .rec/.idx of REC_IMAGES images from numpy seed 0: raw pixels,
+    or JPEG at quality JPEG_QUALITY (bench.py's _synth_rec)."""
     from mxnet_tpu_torch import recordio
     rec = os.path.join(folder, "train.rec")
     idx = os.path.join(folder, "train.idx")
@@ -4550,8 +4593,10 @@ def _write_rec(mx, folder):
     w = recordio.MXIndexedRecordIO(idx, rec, "w")
     for i in range(REC_IMAGES):
         img = rng.randint(0, 255, (REC_SIDE, REC_SIDE, 3), np.uint8)
-        w.write_idx(i, recordio.pack_raw_img(
-            recordio.IRHeader(0, float(i % REC_CLASSES), i, 0), img))
+        header = recordio.IRHeader(0, float(i % REC_CLASSES), i, 0)
+        w.write_idx(i, recordio.pack_img(header, img, quality=JPEG_QUALITY,
+                                         img_fmt=".jpg") if jpeg
+                    else recordio.pack_raw_img(header, img))
     w.close()
     return rec, idx
 
@@ -4611,27 +4656,38 @@ def _h2d_mbps(torch):
     return src.numel() / best / 1e6
 
 
-def phase_train_rec(torch, state):
+def phase_train_rec(torch, state, jpeg=False):
     """Path train_rec: ResNet-50 v1 NHWC bf16, Xavier-initialised, trained
     by parallel.ShardedTrainStep (the `sharded` configuration) from a
-    raw-pixel .rec file through ImageRecordIter and DevicePrefetchIter."""
+    raw-pixel .rec file (``jpeg``: a JPEG one) through ImageRecordIter and
+    DevicePrefetchIter."""
     import shutil
     import tempfile
     import mxnet_tpu_torch as mx
     folder = tempfile.mkdtemp(prefix="chip_smoke_rec_")
     try:
-        _train_rec(torch, state, mx, folder)
+        _train_rec(torch, state, mx, folder, jpeg)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
 
 
-def _train_rec(torch, state, mx, folder):
+def phase_train_jpeg(torch, state):
+    """Path train_jpeg: train_rec's on JPEG records decoded by cv2."""
+    from mxnet_tpu_torch.base import cv2
+    emit({"phase": "train_jpeg", "cv2": cv2().__version__,
+          "cv2_threads": cv2().getNumThreads(), "cpus": os.cpu_count()})
+    phase_train_rec(torch, state, jpeg=True)
+
+
+def _train_rec(torch, state, mx, folder, jpeg=False):
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
     from mxnet_tpu_torch.kernels import conv_fused as CF
 
+    phase = "train_jpeg" if jpeg else "train_rec"
+    key = "jpeg" if jpeg else "rec"
     t0 = time.perf_counter()
-    rec, idx = _write_rec(mx, folder)
+    rec, idx = _write_rec(mx, folder, jpeg)
     write_s = time.perf_counter() - t0
     rec_bytes = os.path.getsize(rec)
     img_s, host_prints, host_orders, host_first = _host_pass(mx, rec, idx)
@@ -4766,12 +4822,17 @@ def _train_rec(torch, state, mx, folder):
         else max(0.0, 1.0 - busy_res / resident_ms),
         "kernel_ms_per_fed_step_by_name": by_kernel,
         "peak_gb": peak / 1e9}
-    state["launches_rec"] = {
+    state["launches_" + key] = {
         "conv_fused": conv["fwd"], "conv_fused.bwd_dx": conv["bwd_dx"],
         "conv_fused.bwd_dw": conv["bwd_dw"],
         **{k: bn[k] for k in BN_KERNELS}}
-    state["rec_timing"] = timing
-    emit({"phase": "train_rec", "card": state["smi"], "records": REC_IMAGES,
+    if jpeg:
+        raw = state.get("rec_timing")
+        timing["raw_iterator_images_per_sec_same_run"] = \
+            None if raw is None else raw["iterator_images_per_sec"]
+    state[key + "_timing"] = timing
+    emit({"phase": phase, "card": state["smi"], "records": REC_IMAGES,
+          "format": "jpeg q%d" % JPEG_QUALITY if jpeg else "raw",
           "record_side": REC_SIDE, "rec_bytes": rec_bytes,
           "write_s": write_s, "batch": REC_BATCH, "epochs": REC_EPOCHS,
           "steps": steps, "init": "Xavier(%s)" % REC_XAVIER,
@@ -4787,30 +4848,570 @@ def _train_rec(torch, state, mx, folder):
           "timing": timing,
           "ok": ok_counts and ok_order and ok_bytes and ok_first and ok_loss})
     if tops:
-        emit(dict({"phase": "train_rec",
-                   "where_the_time_goes": "rec_fed_resnet50_v1,b128"},
+        emit(dict({"phase": phase,
+                   "where_the_time_goes": "%s_fed_resnet50_v1,b128" % key},
                   **tops))
     if not ok_counts:
         raise AssertionError(
-            "train_rec launches conv %s, bn %s over %d steps (%d fused "
-            "links); want per step %s, %s" % (conv, bn, steps, links,
+            "%s launches conv %s, bn %s over %d steps (%d fused "
+            "links); want per step %s, %s" % (phase, conv, bn, steps, links,
                                               want_conv, want_bn))
     if not ok_order:
-        raise AssertionError("train_rec: an epoch did not yield every record "
-                             "once in the host iterator's order")
+        raise AssertionError("%s: an epoch did not yield every record "
+                             "once in the host iterator's order" % phase)
     if not ok_bytes:
-        raise AssertionError("train_rec: the first two batches on the card "
-                             "differ from the host iterator's")
+        raise AssertionError("%s: the first two batches on the card "
+                             "differ from the host iterator's" % phase)
     if not ok_first:
-        raise AssertionError("train_rec: the first fed step's loss %r is "
+        raise AssertionError("%s: the first fed step's loss %r is "
                              "not the resident step's %r"
-                             % (loss_fed0, float(loss_resident)))
+                             % (phase, loss_fed0, float(loss_resident)))
     if not ok_loss:
-        raise AssertionError("train_rec: loss not finite or epoch 2's mean "
+        raise AssertionError("%s: loss not finite or epoch 2's mean "
                              "%.4f not %.1f below epoch 1's %.4f"
-                             % (m2, REC_LOSS_DROP, m1))
+                             % (phase, m2, REC_LOSS_DROP, m1))
     del net, fed, resident, pf, it, kept, xn, xr, b0
     torch.cuda.empty_cache()
+
+
+# -- phase train_det: example/ssd/train_ssd.py on the card --------------------
+# The example's recipe (make_rec_dataset, make_det_iter, TinySSD, _ssd_loss,
+# train_from_rec, detect, make_batch), written here on the port's API: this
+# script imports nothing of example/, which imports the JAX package.
+SSD_SIZES = (0.3, 0.45)
+SSD_RATIOS = (1.0, 2.0, 0.5)
+SSD_EPOCHS = 12
+SSD_SGD = {"learning_rate": 0.1, "momentum": 0.9}
+SSD_LOSS_RATIO = 0.7            # the example's check: last < 0.7 x first
+DET_RTOL = 1e-5                 # detect, card against CPU
+# SSD300 on VOC: feature maps, anchors per location and their sizes
+SSD300_MAPS = ((38, 4), (19, 6), (10, 6), (5, 6), (3, 4), (1, 4))
+SSD300_SCALES = (0.1, 0.2, 0.37, 0.54, 0.71, 0.88, 1.05)
+SSD300_ANCHORS = sum(m * m * a for m, a in SSD300_MAPS)         # 8732
+SSD300_CLASSES = 21
+SSD300_BATCH = 32
+SSD300_GT = 16
+SSD300_NMS = 0.45
+# MultiBoxTarget's and MultiBoxDetection's coordinates, card against CPU
+# (exp and log differ by an ulp between the two)
+SSD300_RTOL = 1e-5
+# the least fp32 work of one IoU test with both areas known: 4 min/max,
+# 2 differences, 2 clamps, 1 product (the intersection), 2 for the union,
+# 1 quotient and 1 comparison
+NMS_IOU_OPS = 13
+
+
+def ssd_make_batch(rng, batch=8, size=32):
+    """Images with one white square and label rows (cls, x1, y1, x2, y2)
+    in [0, 1], padded with -1 rows (the example's make_batch)."""
+    x = rng.rand(batch, 3, size, size).astype("float32") * 0.1
+    labels = np.full((batch, 2, 5), -1.0, "float32")
+    for i in range(batch):
+        w = rng.randint(8, 16)
+        x0 = rng.randint(0, size - w)
+        y0 = rng.randint(0, size - w)
+        x[i, :, y0:y0 + w, x0:x0 + w] = 1.0
+        labels[i, 0] = [0, x0 / size, y0 / size, (x0 + w) / size,
+                        (y0 + w) / size]
+    return x, labels
+
+
+def ssd_make_rec_dataset(mx, path, n=64, size=64, seed=0):
+    """The synthetic-squares dataset as a JPEG .rec with the reference's
+    detection labels ([header width, object width, cls, x1, y1, x2, y2])
+    (the example's make_rec_dataset)."""
+    rng = np.random.RandomState(seed)
+    idx = path.replace(".rec", ".idx")
+    w = mx.recordio.MXIndexedRecordIO(idx, path, "w")
+    for i in range(n):
+        img = (rng.rand(size, size, 3) * 25).astype(np.uint8)
+        sq = rng.randint(size // 4, size // 2)
+        x0 = rng.randint(0, size - sq)
+        y0 = rng.randint(0, size - sq)
+        img[y0:y0 + sq, x0:x0 + sq] = 255
+        label = [2.0, 5.0, 0.0, x0 / size, y0 / size,
+                 (x0 + sq) / size, (y0 + sq) / size]
+        header = mx.recordio.IRHeader(0, label, i, 0)
+        w.write_idx(i, mx.recordio.pack_img(header, img, quality=95))
+    w.close()
+    return path, idx
+
+
+def ssd_det_iter(mx, path_imgrec, path_imgidx, batch_size=8, data_size=32):
+    """Random constrained crop, random expansion pad and flip, all
+    label-aware (the example's make_det_iter)."""
+    return mx.image.ImageDetIter(
+        batch_size=batch_size, data_shape=(3, data_size, data_size),
+        path_imgrec=path_imgrec, path_imgidx=path_imgidx, shuffle=True,
+        rand_crop=0.5, rand_pad=0.5, rand_mirror=True,
+        min_object_covered=0.5, std=np.array([255.0, 255.0, 255.0]))
+
+
+def ssd_tiny(mx, num_classes=1, num_anchors=4):
+    """The example's TinySSD: two conv-relu-pool stages and per-location
+    class and box heads."""
+    gluon = mx.gluon
+
+    class TinySSD(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.backbone = gluon.nn.HybridSequential()
+            for ch in (16, 32):
+                self.backbone.add(gluon.nn.Conv2D(ch, 3, padding=1),
+                                  gluon.nn.Activation("relu"),
+                                  gluon.nn.MaxPool2D(2))
+            self.cls_head = gluon.nn.Conv2D(
+                num_anchors * (num_classes + 1), 3, padding=1)
+            self.box_head = gluon.nn.Conv2D(num_anchors * 4, 3, padding=1)
+
+        def hybrid_forward(self, F, x):
+            feat = self.backbone(x)
+            return feat, self.cls_head(feat), self.box_head(feat)
+    return TinySSD()
+
+
+def ssd_loss(mx, net, x, labels, sizes=SSD_SIZES, ratios=SSD_RATIOS):
+    """Softmax CE over the matched and mined anchors plus smooth-L1 over
+    the positive boxes (the example's _ssd_loss)."""
+    nd = mx.nd
+    feat, cls, box = net(x)
+    B = x.shape[0]
+    anchors = nd.contrib.MultiBoxPrior(feat, sizes=sizes, ratios=ratios)
+    anchors = anchors.reshape(1, -1, 4)
+    A = anchors.shape[1]
+    cls_pred = nd.transpose(cls, axes=(0, 2, 3, 1)).reshape(B, A, 2)
+    cls_pred_t = nd.transpose(cls_pred, axes=(0, 2, 1))
+    box_flat = nd.transpose(box, axes=(0, 2, 3, 1)).reshape(B, -1)
+    loc_target, loc_mask, cls_target = nd.contrib.MultiBoxTarget(
+        anchors, labels, cls_pred_t, overlap_threshold=0.5,
+        negative_mining_ratio=3.0, negative_mining_thresh=0.5)
+    flat_pred = cls_pred.reshape(-1, 2)
+    flat_tgt = cls_target.reshape(-1)
+    keep = flat_tgt >= 0
+    safe_tgt = nd.where(keep, flat_tgt, nd.zeros_like(flat_tgt))
+    logp = nd.log_softmax(flat_pred, axis=-1)
+    ce = -nd.pick(logp, safe_tgt, axis=-1) * keep
+    n_kept = nd.maximum(keep.sum(), nd.ones((1,), ctx=x.context))
+    cls_loss = ce.sum() / n_kept
+    n_pos = nd.maximum(loc_mask.sum() / 4.0, nd.ones((1,), ctx=x.context))
+    box_loss = (nd.smooth_l1((box_flat - loc_target) * loc_mask,
+                             scalar=1.0)).sum() / n_pos
+    return cls_loss + box_loss
+
+
+def ssd_detect(mx, net, x, sizes=SSD_SIZES, ratios=SSD_RATIOS):
+    """MultiBoxDetection's decode and NMS (the example's detect)."""
+    nd = mx.nd
+    feat, cls, box = net(x)
+    B = x.shape[0]
+    anchors = nd.contrib.MultiBoxPrior(feat, sizes=sizes, ratios=ratios)
+    anchors = anchors.reshape(1, -1, 4)
+    A = anchors.shape[1]
+    cls_pred = nd.transpose(cls, axes=(0, 2, 3, 1)).reshape(B, A, 2)
+    cls_prob = nd.softmax(nd.transpose(cls_pred, axes=(0, 2, 1)), axis=1)
+    box_flat = nd.transpose(box, axes=(0, 2, 3, 1)).reshape(B, -1)
+    return nd.contrib.MultiBoxDetection(cls_prob, box_flat, anchors,
+                                        nms_threshold=0.45)
+
+
+def ssd_train_from_rec(mx, rec_dir, ctx, epochs=SSD_EPOCHS, log=None):
+    """TinySSD trained from the JPEG .rec through ImageDetIter (the
+    example's train_from_rec); the batches go to ``ctx``. Returns (net,
+    per-epoch mean losses)."""
+    rec, idx = ssd_make_rec_dataset(mx, os.path.join(rec_dir,
+                                                     "ssd_synth.rec"))
+    it = ssd_det_iter(mx, rec, idx)
+    net = ssd_tiny(mx)
+    net.initialize(ctx=ctx)
+    first = next(iter(it))
+    net(first.data[0].as_in_context(ctx))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SSD_SGD))
+    epoch_losses = []
+    for ep in range(epochs):
+        it.reset()
+        total, nb = 0.0, 0
+        for batch in it:
+            x = batch.data[0].as_in_context(ctx)
+            labels = batch.label[0].as_in_context(ctx)
+            with mx.autograd.record():
+                loss = ssd_loss(mx, net, x, labels)
+            loss.backward()
+            trainer.step(x.shape[0])
+            total += float(loss.asnumpy().reshape(-1)[0])
+            nb += 1
+        epoch_losses.append(total / nb)
+        if log is not None:
+            log(ep, epoch_losses[-1])
+    return net, epoch_losses
+
+
+def _ssd300_inputs(torch):
+    """SSD300-on-VOC inputs from numpy seed 3: the six feature maps, the
+    labels (up to SSD300_GT rows each, -1 rows after), class scores and
+    box offsets for every anchor."""
+    rs = np.random.RandomState(3)
+    feats = [np.zeros((1, 1, m, m), np.float32) for m, _ in SSD300_MAPS]
+    labels = np.full((SSD300_BATCH, SSD300_GT, 5), -1.0, np.float32)
+    for i in range(SSD300_BATCH):
+        k = rs.randint(1, SSD300_GT + 1)
+        xy = rs.uniform(0.0, 0.7, (k, 2))
+        wh = rs.uniform(0.05, 0.3, (k, 2))
+        labels[i, :k, 0] = rs.randint(0, SSD300_CLASSES - 1, k)
+        labels[i, :k, 1:3] = xy
+        labels[i, :k, 3:5] = xy + wh
+    cls = rs.randn(SSD300_BATCH, SSD300_CLASSES,
+                   SSD300_ANCHORS).astype(np.float32)
+    loc = (rs.randn(SSD300_BATCH, SSD300_ANCHORS * 4) * 0.5).astype(
+        np.float32)
+    prob = torch.softmax(torch.from_numpy(cls), dim=1).numpy()
+    return feats, labels, cls, prob, loc
+
+
+def _ssd300_priors(torch, mx, feats):
+    """The 8,732 SSD300 anchors, [1, A, 4], from MultiBoxPrior per map
+    (``feats``: the six maps, as tensors on the device to run on)."""
+    C = mx.nd.contrib
+    out = []
+    for k, ((m, a), f) in enumerate(zip(SSD300_MAPS, feats)):
+        s, s2 = SSD300_SCALES[k], SSD300_SCALES[k + 1]
+        ratios = (1.0, 2.0, 0.5) if a == 4 else (1.0, 2.0, 0.5, 3.0,
+                                                  1.0 / 3.0)
+        out.append(C.MultiBoxPrior(f, sizes=(s, (s * s2) ** 0.5),
+                                   ratios=ratios))
+    return torch.cat(out, 1)
+
+
+def _no_sync(torch, fn):
+    """fn() with any host synchronisation raising, then the result."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _ssd300_ops(torch, mx, state, card="cuda"):
+    """MultiBoxPrior, MultiBoxTarget and MultiBoxDetection at SSD300 scale,
+    card against CPU, with no host synchronisation; their device ms; the
+    box_nms kernel against its plain version, and timed."""
+    from mxnet_tpu_torch.kernels import box_nms as NMS
+    C = mx.nd.contrib
+    feats, labels, cls, prob, loc = _ssd300_inputs(torch)
+    res, times = {}, {}
+    runs = {}
+    # box_nms launches of the three ops' one run each (not of the timing)
+    path_launches = 0
+    for where in (card, "cpu"):
+        d = torch.device(where)
+        fs = [torch.from_numpy(f).to(d) for f in feats]
+        lab = torch.from_numpy(labels).to(d)
+        c = torch.from_numpy(cls).to(d)
+        p = torch.from_numpy(prob).to(d)
+        lo = torch.from_numpy(loc).to(d)
+        fns = {"MultiBoxPrior": lambda: _ssd300_priors(torch, mx, fs)}
+        anchors = fns["MultiBoxPrior"]()
+        fns["MultiBoxTarget"] = lambda: C.MultiBoxTarget(
+            anchors, lab, c, overlap_threshold=0.5,
+            negative_mining_ratio=3.0, negative_mining_thresh=0.5)
+        fns["MultiBoxDetection"] = lambda: C.MultiBoxDetection(
+            p, lo, anchors, nms_threshold=SSD300_NMS)
+        out = {}
+        for name, fn in fns.items():
+            if where == card:
+                before = NMS.LAUNCHES
+                out[name] = _no_sync(torch, fn)
+                path_launches += NMS.LAUNCHES - before
+                times[name] = {"device_ms": device_ms(torch, fn, 5),
+                               "device_busy_ms": device_busy_ms(torch, fn,
+                                                                5),
+                               "wall_ms": host_ms(torch, fn, 5)}
+            else:
+                out[name] = fn()
+        runs[where] = out
+        if where == card:
+            card_inputs = (fs, p, lo)
+    ok = True
+    for name in runs["cpu"]:
+        g = runs[card][name]
+        w = runs["cpu"][name]
+        g = g if isinstance(g, tuple) else (g,)
+        w = w if isinstance(w, tuple) else (w,)
+        errs = []
+        for gi, wi in zip(g, w):
+            gi, wi = gi.cpu().float(), wi.float()
+            scale = max(float(wi.abs().max()), 1e-30)
+            errs.append(float((gi - wi).abs().max()) / scale)
+        if name == "MultiBoxTarget":
+            # the mask and class targets exactly, the offsets within rtol
+            exact = torch.equal(g[1].cpu(), w[1]) and torch.equal(
+                g[2].cpu(), w[2])
+            ok_op = exact and errs[0] <= SSD300_RTOL
+        elif name == "MultiBoxDetection":
+            gd, wd = g[0].cpu(), w[0]
+            exact = torch.equal(gd[..., :2], wd[..., :2])
+            ok_op = exact and errs[0] <= SSD300_RTOL
+        else:
+            ok_op = errs[0] <= 1e-6
+        res[name] = dict({"rel_err": errs, "ok": bool(ok_op),
+                          "host_syncs": 0}, **times[name])
+        ok = ok and ok_op
+    kept = int((runs["cpu"]["MultiBoxDetection"][..., 0] >= 0).sum())
+
+    # the box_nms kernel alone at this scale, on the sorted inputs that
+    # MultiBoxDetection gave it on the card
+    seen = []
+    keep_fn = NMS.keep
+
+    def record(*a, **k):
+        seen.append((a, k))
+        return keep_fn(*a, **k)
+    before = NMS.LAUNCHES
+    NMS.keep = record
+    try:
+        fs, p, lo = card_inputs
+        C.MultiBoxDetection(p, lo, _ssd300_priors(torch, mx, fs),
+                            nms_threshold=SSD300_NMS)
+    finally:
+        NMS.keep = keep_fn
+    (boxes, ids, nvalid, thr), kw = seen[0]
+    got = NMS.keep(boxes, ids, nvalid, thr, **kw)
+    want = NMS.keep_reference(boxes, ids, nvalid, thr, **kw)
+    ok_nms = torch.equal(got.cpu(), want)
+    ms = device_ms(torch, lambda: NMS.keep(boxes, ids, nvalid, thr, **kw),
+                   5)
+    split = kernel_ms(torch, lambda: NMS.keep(boxes, ids, nvalid, thr,
+                                              **kw), 5,
+                      {"mask": ("nms_mask",), "walk": ("nms_walk",)})
+    wall = host_ms(torch, lambda: NMS.keep(boxes, ids, nvalid, thr, **kw), 5)
+    t0 = time.perf_counter()
+    NMS.keep_reference(boxes, ids, nvalid, thr, **kw)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    NMS.LAUNCHES = before
+    # the pairs this run's data needs an IoU for: those of one class
+    # within an image's valid prefix
+    pairs = 0.0
+    for b, nv in enumerate(nvalid.cpu().tolist()):
+        k = torch.bincount(ids[b, :nv].long().cpu()).double()
+        pairs += float((k * (k - 1) / 2).sum())
+    # bytes: boxes and ids read once, keep written once; operations:
+    # NMS_IOU_OPS fp32 operations per pair, on the CUDA cores
+    nbytes = boxes.numel() * 4 + ids.numel() * 4 + got.numel()
+    card = state["card"][1]
+    t_bytes = nbytes / card[2] * 1e3
+    t_ops = pairs * NMS_IOU_OPS / card[1] * 1e3
+    state["nms_timing"] = {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "pairs": pairs, "kernel_ms_by_name": split, "wall_ms": wall,
+        "plain_note": "keep_reference on the host, its inputs copied "
+        "there (wall ms)"}
+    res["box_nms_kernel"] = {"equal_to_plain": bool(ok_nms),
+                             **state["nms_timing"]}
+    return ok and ok_nms, res, kept, path_launches
+
+
+def _det_op_cases(rs):
+    """(op name, numpy inputs, kwargs, tolerance) for every new op that
+    train_det's path does not run, at the sizes of their CPU tests."""
+    def U(*s):
+        return rs.uniform(-1, 1, s).astype(np.float32)
+
+    def boxes(n, scale=1.0):
+        b = rs.uniform(0, 0.6, (n, 4)).astype(np.float32)
+        b[:, 2:] = b[:, :2] + rs.uniform(0.05, 0.4, (n, 2))
+        return b * scale
+    rec = np.concatenate([rs.randint(0, 3, (2, 60, 1)).astype(np.float32),
+                          rs.uniform(0, 1, (2, 60, 1)).astype(np.float32),
+                          np.stack([boxes(60), boxes(60)])], -1)
+    rois = np.concatenate([np.array([[0], [1], [0]], np.float32),
+                           boxes(3, 14.0)], 1)
+    rrois = np.array([[0, 6, 7, 5, 3, 30], [1, 8, 5, 4, 6, -45]],
+                     np.float32)
+    img = rs.randint(0, 256, (6, 7, 3)).astype(np.float32)
+    A = 3
+    cls_prob = rs.uniform(0, 1, (2, 2 * A, 5, 6)).astype(np.float32)
+    im_info = np.array([[80, 96, 1.0], [64, 90, 1.0]], np.float32)
+    prop = dict(rpn_pre_nms_top_n=60, rpn_post_nms_top_n=20, threshold=0.7,
+                rpn_min_size=4, scales=(2, 4, 8), ratios=(1.0,),
+                feature_stride=16)
+    return [
+        ("box_iou", (boxes(5), boxes(7)), {}, 1e-6),
+        ("box_nms", (rec,), dict(overlap_thresh=0.3, id_index=0,
+                                 topk=40), 1e-6),
+        ("bipartite_matching", (rs.uniform(0, 1, (2, 6, 9)).astype(
+            np.float32),), dict(threshold=0.1), 0.0),
+        ("ROIAlign", (U(2, 3, 16, 16), rois), dict(pooled_size=(3, 3),
+                                                   sample_ratio=2), 1e-5),
+        ("ROIPooling", (U(2, 3, 16, 16), rois), dict(pooled_size=(3, 3)),
+         1e-6),
+        ("PSROIPooling", (U(2, 2 * 9, 16, 16), rois),
+         dict(output_dim=2, pooled_size=3, group_size=3), 1e-5),
+        ("DeformablePSROIPooling", (U(2, 2 * 9, 16, 16), rois,
+                                    U(3, 2, 3, 3) * 0.2),
+         dict(output_dim=2, group_size=3, pooled_size=3, part_size=3,
+              sample_per_part=2, trans_std=0.1), 1e-5),
+        ("DeformableConvolution", (U(2, 4, 9, 9), U(2, 18, 9, 9),
+                                   U(6, 4, 3, 3), U(6)),
+         dict(kernel=(3, 3), pad=(1, 1), num_filter=6), 1e-5),
+        ("RROIAlign", (U(2, 3, 12, 12), rrois),
+         dict(pooled_size=(2, 3), sampling_ratio=2), 1e-5),
+        ("SpatialTransformer", (U(2, 3, 8, 9), np.array(
+            [[0.9, 0.1, 0.05, -0.1, 0.8, 0.0]] * 2, np.float32)),
+         dict(target_shape=(6, 7)), 1e-5),
+        ("BilinearResize2D", (U(2, 3, 8, 9),), dict(height=5, width=13),
+         1e-5),
+        ("AdaptiveAvgPooling2D", (U(2, 3, 8, 9),), dict(output_size=(3, 4)),
+         1e-5),
+        ("Correlation", (U(2, 3, 9, 9), U(2, 3, 9, 9)),
+         dict(kernel_size=3, max_displacement=2, pad_size=2), 1e-5),
+        ("Crop", (U(2, 3, 8, 9),), dict(h_w=(5, 6), center_crop=True), 0.0),
+        ("_contrib_Proposal", (cls_prob[:1], U(1, 4 * A, 5, 6) * 0.1,
+                               im_info[:1]), prop, 1e-6),
+        ("_contrib_MultiProposal", (cls_prob, U(2, 4 * A, 5, 6) * 0.1,
+                                    im_info), prop, 1e-6),
+        ("_image_to_tensor", (img.astype(np.uint8),), {}, 1e-6),
+        ("_image_normalize", (np.transpose(img, (2, 0, 1)) / 255.0,),
+         dict(mean=(0.4, 0.5, 0.6), std=(0.2, 0.3, 0.25)), 1e-6),
+        ("_image_flip_left_right", (img,), {}, 0.0),
+        ("_image_flip_top_bottom", (img,), {}, 0.0),
+        ("_image_resize", (img,), dict(size=(9, 4)), 1e-5),
+        ("_image_crop", (img,), dict(x=1, y=2, width=4, height=3), 0.0),
+        ("_image_random_brightness", (img,), dict(min_factor=0.7,
+                                                  max_factor=0.7), 1e-6),
+        ("_image_random_contrast", (img,), dict(min_factor=0.6,
+                                                max_factor=0.6), 1e-6),
+        ("_image_random_saturation", (img,), dict(min_factor=1.3,
+                                                  max_factor=1.3), 1e-6),
+        ("_image_random_hue", (img,), dict(min_factor=0.1,
+                                           max_factor=0.1), 1e-5),
+        ("_image_random_color_jitter", (img,), dict(brightness=0.0,
+                                                    contrast=0.0), 1e-6),
+        ("_image_random_flip_left_right", (img,), dict(p=1.0), 0.0),
+        ("_image_random_flip_top_bottom", (img,), dict(p=0.0), 0.0),
+        ("_image_random_lighting", (img,), dict(alpha_std=0.0), 1e-6),
+    ]
+
+
+def _det_op_checks(torch, mx, card="cuda"):
+    """Every case of _det_op_cases on the card against the CPU."""
+    from mxnet_tpu_torch.ops import registry
+    out, ok = {}, True
+    for name, args, kw, tol in _det_op_cases(np.random.RandomState(5)):
+        fn = registry.get_op(name).fn
+        res = []
+        for d in (card, "cpu"):
+            r = fn(*[torch.from_numpy(np.ascontiguousarray(a)).to(d)
+                     for a in args], **kw)
+            res.append(r if isinstance(r, tuple) else (r,))
+        err = 0.0
+        for g, w in zip(*res):
+            g, w = g.cpu().double(), w.double()
+            scale = max(float(w.abs().max()), 1.0) if w.numel() else 1.0
+            err = max(err, float((g - w).abs().max()) / scale
+                      if w.numel() else 0.0)
+        out[name] = err
+        ok = ok and err <= tol
+        if err > tol:
+            out[name + ".tolerance"] = tol
+    return ok, out
+
+
+def phase_train_det(torch, state):
+    """Path train_det: the SSD example trained and served on the card."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import box_nms as NMS
+    folder = tempfile.mkdtemp(prefix="chip_smoke_det_")
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    try:
+        # -- the main path: train, then detect, counters zeroed just before
+        import random
+        random.seed(0)
+        np.random.seed(0)
+        mx.random.seed(0)
+        NMS.LAUNCHES = 0
+        t0 = time.perf_counter()
+        net, losses = ssd_train_from_rec(mx, folder, gpu)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        x_np, lab_np = ssd_make_batch(np.random.RandomState(99), batch=2)
+        x = mx.nd.array(x_np, ctx=gpu)
+        # f32 on both sides for the card-vs-CPU check: no TF32 in cuDNN
+        with mx.precision.matmul_precision("float32"):
+            dets = ssd_detect(mx, net, x).asnumpy()
+        launches_path = NMS.LAUNCHES
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    # the same call on the CPU with the trained weights
+    arrays = {k: p.data().asnumpy() for k, p in
+              net._collect_params_with_prefix().items()}
+    with cpu:
+        net_cpu = ssd_tiny(mx)
+        net_cpu.initialize(ctx=cpu)
+        net_cpu(mx.nd.array(x_np, ctx=cpu))
+        from mxnet_tpu_torch import convert
+        convert.load_numpy_params(net_cpu, arrays)
+        with mx.precision.matmul_precision("float32"):
+            dets_cpu = ssd_detect(mx, net_cpu, mx.nd.array(
+                x_np, ctx=cpu)).asnumpy()
+    A = dets.shape[1]
+    ok_shape = dets.shape == (2, A, 6) and A == (32 // 4) ** 2 * 4
+    live = dets[..., 0] >= 0
+    # survivors first, then -1 rows
+    ok_rows = bool(all(np.all(live[i][:live[i].sum()]) for i in range(2))
+                   and np.all(dets[~live] == -1.0))
+    det_err = float(np.abs(dets - dets_cpu).max())
+    ok_det = bool(np.array_equal(dets[..., :1], dets_cpu[..., :1])
+                  and det_err <= DET_RTOL * max(
+                      1.0, float(np.abs(dets_cpu).max())))
+    top_iou = []
+    for i in range(2):
+        if live[i].any():
+            b = dets[i, 0, 2:6]
+            g = lab_np[i, 0, 1:5]
+            iw = max(0.0, min(b[2], g[2]) - max(b[0], g[0]))
+            ih = max(0.0, min(b[3], g[3]) - max(b[1], g[1]))
+            inter = iw * ih
+            union = (b[2] - b[0]) * (b[3] - b[1]) + \
+                (g[2] - g[0]) * (g[3] - g[1]) - inter
+            top_iou.append(float(inter / union) if union > 0 else 0.0)
+    ok_train = bool(all(np.isfinite(losses))
+                    and losses[-1] < SSD_LOSS_RATIO * losses[0])
+    ok_300, res_300, kept_300, launches_300 = _ssd300_ops(torch, mx, state)
+    ok_ops, op_errs = _det_op_checks(torch, mx)
+    state.setdefault("launches", {})["box_nms"] = launches_path + \
+        launches_300
+    emit({"phase": "train_det", "card": state["smi"],
+          "epochs": SSD_EPOCHS, "sgd": SSD_SGD, "epoch_losses": losses,
+          "train_wall_s": train_s,
+          "loss_ratio_last_first": losses[-1] / losses[0],
+          "detect_shape": list(dets.shape), "detect_rows_ok": ok_rows,
+          "detect_card_vs_cpu_max_abs": det_err,
+          "top_detection_iou_with_square": top_iou,
+          "box_nms_launches": {"train_det_detect": launches_path,
+                               "ssd300_ops": launches_300},
+          "kernels_of_rows_1_15": 0,
+          "ssd300": {"anchors": SSD300_ANCHORS, "batch": SSD300_BATCH,
+                     "classes": SSD300_CLASSES, "gt_rows": SSD300_GT,
+                     "kept_detections_batch": kept_300, **res_300},
+          "other_ops_card_vs_cpu_rel_err": op_errs,
+          "ok": bool(ok_train and ok_shape and ok_rows and ok_det
+                     and ok_300 and ok_ops)})
+    if not ok_train:
+        raise AssertionError("train_det: last epoch loss %.4f not below "
+                             "%.1f x the first's %.4f"
+                             % (losses[-1], SSD_LOSS_RATIO, losses[0]))
+    if not (ok_shape and ok_rows and ok_det):
+        raise AssertionError("train_det: detect shape %s, rows %s, card vs "
+                             "CPU %.3g" % (dets.shape, ok_rows, det_err))
+    if not ok_300:
+        raise AssertionError("train_det: SSD300-scale box ops %s" % res_300)
+    if not ok_ops:
+        raise AssertionError("train_det: ops card vs CPU %s" % op_errs)
+    if launches_path < 1:
+        raise AssertionError("train_det: detect did not launch box_nms")
 
 
 # -- phase api: the M3b names on the card against the CPU ---------------------
@@ -6227,6 +6828,7 @@ def kernel_summary(state):
         "launches": state["launches"]["conv_fused"],
         "launches_train_sharded": sharded("conv_fused"),
         "launches_train_rec": state["launches_rec"]["conv_fused"],
+        "launches_train_jpeg": state["launches_jpeg"]["conv_fused"],
         "max_abs_err": state["kernel_err"]["bfloat16"][0],
         "max_rel_err": state["kernel_err"]["bfloat16"][1],
         "tolerance_rel": RTOL["bfloat16"],
@@ -6248,6 +6850,7 @@ def kernel_summary(state):
             "launches_zoo": state["launches_zoo"][k],
             "launches_train_amp": state["launches_amp"][k],
             "launches_train_rec": state["launches_rec"][k],
+            "launches_train_jpeg": state["launches_jpeg"][k],
             "max_abs_err": state["bn_err"][k][0],
             "max_rel_err": state["bn_err"][k][1],
             "tolerance_rel": 0.0 if k in ("stats", "apply") else BN_BWD_RTOL,
@@ -6271,6 +6874,7 @@ def kernel_summary(state):
             "launches": state["launches"]["conv_fused." + k],
             "launches_train_sharded": sharded("conv_fused." + k),
             "launches_train_rec": state["launches_rec"]["conv_fused." + k],
+            "launches_train_jpeg": state["launches_jpeg"]["conv_fused." + k],
             "max_abs_err": state["conv_bwd_err"][k][0],
             "max_rel_err": state["conv_bwd_err"][k][1],
             "tolerance_rel": BWD_RTOL["bfloat16"]["dx"],
@@ -6395,6 +6999,25 @@ def kernel_summary(state):
                    "of %d segments: the compressed gradients)"
                    % (c["launches_per_step"], c["segments_per_step"]),
         })
+    n = state["nms_timing"]
+    kernels.append({
+        "name": "box_nms", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/box_nms.cu",
+        "replaces": "mxnet_tpu/ops/extended.py:418 (a lax.scan, not a "
+                    "Pallas kernel)",
+        "launches": state["launches"]["box_nms"],
+        # the phase failed unless the keep masks matched bit for bit
+        "max_abs_err": 0.0, "max_rel_err": 0.0, "tolerance_rel": 0.0,
+        "ms": n["ms"], "kernel_ms": n["ms"], "plain_ms": n["plain_ms"],
+        "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
+        "library_ms": None,
+        "library_note": "PyTorch has no NMS of its own (torchvision's is "
+                        "not installed)",
+        "kernel_ms_by_name": n["kernel_ms_by_name"],
+        "per": "one MultiBoxDetection NMS at SSD300 scale: batch %d, %d "
+               "sorted boxes, class-aware (one launch pair)"
+               % (SSD300_BATCH, SSD300_ANCHORS),
+    })
     return kernels
 
 

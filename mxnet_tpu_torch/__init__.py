@@ -47,10 +47,17 @@ policy at the op dispatch point and a dynamic loss scaler), data loading
 ``DataLoader``; ``io``: ``NDArrayIter`` and the file readers), metrics
 accumulated on the device (``metric``), callbacks (``callback``) and
 ``gluon.utils`` (``split_and_load``, ``clip_global_norm``); the record-file
-input path (``recordio``, ``io.ImageRecordIter`` on raw-pixel records,
-``io.DevicePrefetchIter``, the record datasets) and the losses,
-initializers, ``autograd.Function``, ``gluon.Constant`` and ``nd.contrib``
-control flow of the JAX package.
+input path (``recordio``, ``io.ImageRecordIter`` on raw-pixel, JPEG and PNG
+records, ``io.DevicePrefetchIter``, the record and folder datasets) and the
+losses, initializers, ``autograd.Function``, ``gluon.Constant`` and
+``nd.contrib`` control flow of the JAX package.
+
+Images and detection: ``image`` (decoding, augmenters, ``ImageIter``),
+``image_det`` (label-aware augmenters, ``ImageDetIter``; its names also
+resolve from ``image``), the ``nd.image`` ops, and the box, anchor, ROI
+and detection ops (``ops/extended.py``, ``ops/detection.py``; greedy NMS on
+the ``box_nms`` kernel). Encoded images are OpenCV's (``cv2``), imported at
+the first call that needs it and never by ``import mxnet_tpu_torch``.
 """
 from . import base
 from .base import MXNetError
@@ -75,6 +82,7 @@ from . import metric
 from . import callback
 from . import io
 from . import recordio
+from . import image
 from .ndarray import contrib as _nd_contrib  # noqa: F401  (nd.contrib)
 
 nd = ndarray
@@ -97,4 +105,4 @@ __all__ = ["base", "MXNetError", "context", "Context", "cpu", "gpu",
            "waitall", "random", "precision", "autograd",
            "initializer", "init", "ndarray", "nd", "kernels", "parallel",
            "optimizer", "lr_scheduler", "kvstore", "kv", "gluon", "convert",
-           "contrib", "metric", "callback", "io", "recordio"]
+           "contrib", "metric", "callback", "io", "recordio", "image"]

@@ -1,6 +1,6 @@
 """Base helpers of the PyTorch port: the env-read choke point, the error
-type, the dtype table and crash-consistent file writes (counterpart of
-mxnet_tpu/base.py)."""
+type, the dtype table, crash-consistent file writes and the one import of
+OpenCV (counterpart of mxnet_tpu/base.py)."""
 from __future__ import annotations
 
 import contextlib as _contextlib
@@ -10,7 +10,7 @@ import numpy as _np
 import torch
 
 __all__ = ["getenv", "MXNetError", "canonical_dtype", "is_low_precision",
-           "weak_scalar", "atomic_write"]
+           "weak_scalar", "atomic_write", "cv2"]
 
 
 def getenv(name, default=None):
@@ -20,6 +20,20 @@ def getenv(name, default=None):
 
 class MXNetError(RuntimeError):
     """Framework-level error (name kept for API parity with MXNet)."""
+
+
+def cv2():
+    """The ``cv2`` module: OpenCV decodes, encodes, resizes and converts
+    every image of the port, as it does in the JAX package, so both give
+    the same bytes on one build. It is imported here, at the first call,
+    and never when the package is imported; without it the call raises
+    ImportError, and nothing stands in for it."""
+    try:
+        import cv2 as _cv2
+    except ImportError as e:
+        raise ImportError("this image path needs OpenCV (the cv2 module), "
+                          "which does not import here: %s" % e) from e
+    return _cv2
 
 
 _DTYPES = {

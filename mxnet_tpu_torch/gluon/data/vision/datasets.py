@@ -9,12 +9,11 @@ deterministic synthetic set of the right shapes and classes stands in, as
 in the JAX package. An item is (image, label): the image an HWC uint8 host
 NDArray, the label an int32 scalar, or ``transform(image, label)``.
 
-``ImageRecordDataset`` reads raw-pixel RecordIO records
-(``recordio.pack_raw_img``), which need no decoder: an item is the RGB
-HWC uint8 image and the record's label. JPEG and PNG, in a record or in
-``ImageFolderDataset``'s files, need an image decoder (OpenCV in the JAX
-package), which the port does not have yet (ROADMAP M7, JPEG/PNG
-decoding): they raise NotImplementedError.
+``ImageRecordDataset`` reads RecordIO records, raw-pixel
+(``recordio.pack_raw_img``) or JPEG/PNG, and ``ImageFolderDataset`` the
+image files of ``root/<class>/``: an item is the RGB HWC uint8 image (gray
+as (H, W, 1) with ``flag=0``) and its label. Encoded images are decoded by
+OpenCV (``base.cv2``, imported at the first call), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,7 +25,7 @@ import struct
 import numpy as np
 
 from ..dataset import Dataset
-from ....base import getenv as _getenv
+from ....base import getenv as _getenv, cv2 as _cv2
 from ....context import Context
 from ....ndarray.ndarray import array as nd_array
 
@@ -189,9 +188,9 @@ class CIFAR100(CIFAR10):
 
 
 class ImageRecordDataset(Dataset):
-    """Images of a RecordIO file of raw-pixel records: (RGB HWC uint8 host
-    NDArray, label), or ``transform(image, label)``. ``flag=0`` gives the
-    gray image as (H, W, 1)."""
+    """Images of a RecordIO file: (RGB HWC uint8 host NDArray, label), or
+    ``transform(image, label)``. ``flag=0`` gives the gray image as
+    (H, W, 1)."""
 
     def __init__(self, filename, flag=1, transform=None):
         from ..dataset import RecordFileDataset
@@ -205,20 +204,50 @@ class ImageRecordDataset(Dataset):
     def __getitem__(self, idx):
         from ....recordio import unpack_img
         header, img = unpack_img(self._record[idx], self._flag)
-        img = img[..., ::-1] if img.ndim == 3 else img[..., None]
-        x = nd_array(np.ascontiguousarray(img), ctx=Context("cpu"))
-        label = header.label
-        if self._transform is not None:
-            return self._transform(x, label)
-        return x, label
+        if img is None:
+            raise IOError("cannot decode the image of record %d" % idx)
+        return _item(img, header.label, self._transform)
+
+
+def _item(img, label, transform):
+    """(RGB HWC uint8 host NDArray, label) of a BGR or gray image."""
+    img = img[..., ::-1] if img.ndim == 3 else img[..., None]
+    x = nd_array(np.ascontiguousarray(img), ctx=Context("cpu"))
+    if transform is not None:
+        return transform(x, label)
+    return x, label
 
 
 class ImageFolderDataset(Dataset):
-    """root/<class>/<image> files: not ported yet (the module
-    docstring)."""
+    """The images of ``root/<class>/<file>``, classes numbered in sorted
+    folder order (``synsets``), files in sorted order, those ending in one
+    of ``exts`` (``items``: (path, label))."""
 
     def __init__(self, root, flag=1, transform=None,
                  exts=(".jpg", ".jpeg", ".png")):
-        raise NotImplementedError(
-            "ImageFolderDataset(%r) decodes JPEG/PNG files; the port has no "
-            "image decoder yet (ROADMAP M7: JPEG/PNG decoding)" % (root,))
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(self._root)):
+            path = os.path.join(self._root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for fn in sorted(os.listdir(path)):
+                if fn.lower().endswith(exts):
+                    self.items.append((os.path.join(path, fn), label))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        cv2 = _cv2()
+        fn, label = self.items[idx]
+        img = cv2.imread(fn, cv2.IMREAD_COLOR if self._flag else
+                         cv2.IMREAD_GRAYSCALE)
+        if img is None:
+            raise IOError("cannot read image %s" % fn)
+        return _item(img, label, self._transform)

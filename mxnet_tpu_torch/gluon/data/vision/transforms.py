@@ -10,15 +10,10 @@ Every copy is numpy's, and an output wraps its numpy array without a
 further copy (``_nd``): DataLoader worker threads then never enter
 torch's CPU thread pool, which several threads at once oversubscribe.
 
-The JAX package resizes with OpenCV's ``cv2.resize``; this port does not
-use OpenCV. ``_resize`` computes the same maps in numpy for the two
-interpolation codes it reproduces, 0 (``INTER_NEAREST``) and 1
-(``INTER_LINEAR``, the default): OpenCV's source coordinates, its border
-clamping and, for float images, its horizontal-then-vertical order in
-float32 (float64 for float64 images). uint8 results are rounded from the
-float ones, where OpenCV uses 11-bit fixed-point weights, so a pixel may
-differ from OpenCV's by one; float results agree to float32 rounding.
-Any other interpolation code raises NotImplementedError.
+Resizes are OpenCV's ``cv2.resize``, as in the JAX package, through the
+port's one lazy import of ``cv2`` (``base.cv2``): every interpolation code
+(0 nearest, 1 linear, 2 cubic, 3 area, 4 Lanczos) gives the JAX package's
+bytes, uint8 and float alike. A resize without OpenCV raises ImportError.
 
 The random transforms draw from Python's ``random`` and numpy's global
 generator, as the JAX package's do, so the same seeds give the same
@@ -32,19 +27,17 @@ import numpy as np
 import torch
 
 from ...block import Block
-from ....base import canonical_dtype
+from ....base import canonical_dtype, cv2 as _cv2
 from ....context import Context
 from ....ndarray.ndarray import NDArray, array as nd_array, \
     _from_numpy, _np_dtype
+from ....ops.image import contrast, saturation, hue_matrix, lighting_delta
 
 __all__ = ["Compose", "Cast", "ToTensor", "Normalize", "Resize",
            "CenterCrop", "RandomResizedCrop", "CropResize",
            "RandomFlipLeftRight", "RandomFlipTopBottom",
            "RandomBrightness", "RandomContrast", "RandomSaturation",
            "RandomHue", "RandomLighting", "RandomColorJitter"]
-
-_INTERPOLATIONS = (0, 1)       # INTER_NEAREST, INTER_LINEAR
-
 
 def _to_np(x):
     """The image as numpy, read only: a host tensor (or NDArray) is seen
@@ -75,55 +68,12 @@ def _nd(a, fresh=False):
     return NDArray(_from_numpy(a), ctx=Context("cpu"))
 
 
-def _linear_taps(dsize, ssize, dtype):
-    """OpenCV's INTER_LINEAR taps along one axis: for each output index the
-    two source indices and their weights."""
-    d = np.arange(dsize, dtype=np.float64)
-    f = ((d + 0.5) * (1.0 / (dsize / ssize)) - 0.5).astype(np.float32)
-    s = np.floor(f).astype(np.int64)
-    f = (f - s.astype(np.float32)).astype(dtype)
-    low = s < 0
-    f[low], s[low] = 0, 0
-    high = s >= ssize - 1
-    f[high], s[high] = 0, ssize - 1
-    one = np.asarray(1, dtype)
-    return s, np.minimum(s + 1, ssize - 1), one - f, f
-
-
-def _nearest_index(dsize, ssize):
-    """OpenCV's INTER_NEAREST source index along one axis."""
-    scale = 1.0 / (dsize / ssize)
-    return np.minimum(np.floor(np.arange(dsize) * scale).astype(np.int64),
-                      ssize - 1)
-
-
 def _resize(img, size, interpolation=1):
     """``cv2.resize(img, size, interpolation=...)`` for size = (width,
-    height), codes 0 and 1 (the module docstring). A 2-D image gives a 2-D
-    result, as OpenCV's does."""
-    if interpolation not in _INTERPOLATIONS:
-        raise NotImplementedError(
-            "interpolation=%r: the port reproduces OpenCV's INTER_NEAREST "
-            "(0) and INTER_LINEAR (1) only" % (interpolation,))
-    w, h = int(size[0]), int(size[1])
-    ih, iw = img.shape[:2]
-    if (w, h) == (iw, ih):
-        return img.copy()
-    if interpolation == 0:
-        return img[_nearest_index(h, ih)][:, _nearest_index(w, iw)]
-    dtype = np.float64 if img.dtype == np.float64 else np.float32
-    src = img.astype(dtype, copy=False)
-    x0, x1, ax0, ax1 = _linear_taps(w, iw, dtype)
-    y0, y1, ay0, ay1 = _linear_taps(h, ih, dtype)
-    extra = (None,) * (img.ndim - 2)
-    rows = src[:, x0] * ax0[(None, slice(None)) + extra] \
-        + src[:, x1] * ax1[(None, slice(None)) + extra]
-    out = rows[y0] * ay0[(slice(None), None) + extra] \
-        + rows[y1] * ay1[(slice(None), None) + extra]
-    if np.issubdtype(img.dtype, np.integer):
-        info = np.iinfo(img.dtype)
-        out = np.clip(np.rint(out), info.min, info.max)
-    return out.astype(img.dtype)
+    height). A 2-D image gives a 2-D result, as OpenCV's does."""
+    return _cv2().resize(np.ascontiguousarray(img),
+                         (int(size[0]), int(size[1])),
+                         interpolation=interpolation)
 
 
 class Compose(Block):
@@ -293,23 +243,16 @@ class RandomBrightness(_RandomJitter):
         return _nd(_to_np(x).astype(np.float32) * self._alpha(), fresh=True)
 
 
-_GRAY = np.array([0.299, 0.587, 0.114], np.float32)
-
-
 class RandomContrast(_RandomJitter):
     def forward(self, x):
         img = _to_np(x).astype(np.float32)
-        alpha = self._alpha()
-        gray = (img * _GRAY).sum(-1, keepdims=True)
-        return _nd(img * alpha + gray.mean() * (1 - alpha), fresh=True)
+        return _nd(contrast(img, self._alpha()), fresh=True)
 
 
 class RandomSaturation(_RandomJitter):
     def forward(self, x):
         img = _to_np(x).astype(np.float32)
-        alpha = self._alpha()
-        gray = (img * _GRAY).sum(-1, keepdims=True)
-        return _nd(img * alpha + gray * (1 - alpha), fresh=True)
+        return _nd(saturation(img, self._alpha()), fresh=True)
 
 
 class CropResize(Block):
@@ -336,31 +279,15 @@ class RandomHue(_RandomJitter):
     """Hue jitter as a rotation of the YIQ chroma (ref: transforms.py:502
     RandomHue, src/operator/image/image_random.cc)."""
 
-    _TYIQ = np.array([[0.299, 0.587, 0.114],
-                      [0.596, -0.274, -0.321],
-                      [0.211, -0.523, 0.311]], np.float32)
-    _ITYIQ = np.array([[1.0, 0.956, 0.621],
-                       [1.0, -0.272, -0.647],
-                       [1.0, -1.107, 1.705]], np.float32)
-
     def forward(self, x):
         img = _to_np(x).astype(np.float32)
         alpha = _pyrandom.uniform(-self._amount, self._amount)
-        u, w = np.cos(alpha * np.pi), np.sin(alpha * np.pi)
-        bt = np.array([[1.0, 0.0, 0.0],
-                       [0.0, u, -w],
-                       [0.0, w, u]], np.float32)
-        t = self._ITYIQ @ bt @ self._TYIQ
+        t = hue_matrix(np.cos(alpha * np.pi), np.sin(alpha * np.pi))
         return _nd(np.dot(img, t.T), fresh=True)
 
 
 class RandomLighting(Block):
     """AlexNet's PCA lighting noise, drawn from numpy's generator."""
-
-    _eigval = np.array([55.46, 4.794, 1.148], np.float32)
-    _eigvec = np.array([[-0.5675, 0.7192, 0.4009],
-                        [-0.5808, -0.0045, -0.8140],
-                        [-0.5836, -0.6948, 0.4203]], np.float32)
 
     def __init__(self, alpha):
         super().__init__()
@@ -368,9 +295,7 @@ class RandomLighting(Block):
 
     def forward(self, x):
         img = _to_np(x).astype(np.float32)
-        a = np.random.normal(0, self._alpha, 3).astype(np.float32)
-        rgb = (self._eigvec * a * self._eigval).sum(-1)
-        return _nd(img + rgb, fresh=True)
+        return _nd(img + lighting_delta(self._alpha), fresh=True)
 
 
 class RandomColorJitter(Block):

@@ -4,7 +4,7 @@ readers built on it (``CSVIter``, ``LibSVMIter``, ``MNISTIter``),
 ``ResizeIter``, ``PrefetchingIter``, which prepares batches on a
 background thread on the host and moves each to the caller's context on
 the caller's thread, ``ImageRecordIter`` (augmented images from a RecordIO
-file of raw-pixel records) and ``DevicePrefetchIter`` /
+file of raw-pixel, JPEG or PNG records) and ``DevicePrefetchIter`` /
 ``DevicePrefetcher``, which copy batch N+1 to the card through pinned
 memory on a side stream while batch N computes.
 

@@ -2,17 +2,18 @@
 (counterpart of mxnet_tpu/io/image_iter.py; ref: src/io/
 iter_image_recordio_2.cc and image_iter_common.h).
 
-Raw-pixel records (``recordio.pack_raw_img``) need no decoder. A
-``preprocess_threads`` pool cuts, flips and reorders each image with
-numpy views only (the crop a slice, the mirror ``img[:, ::-1]``, BGR to RGB
+Raw-pixel records (``recordio.pack_raw_img``) need no decoder; JPEG and
+PNG records are decoded by ``cv2.imdecode`` in the pool's threads (OpenCV
+releases the interpreter lock while it decodes and resizes). A
+``preprocess_threads`` pool decodes, cuts, flips and reorders each image,
+the last three with numpy views only (the crop a slice, the mirror ``img[:, ::-1]``, BGR to RGB
 ``img[..., ::-1]``), and a producer thread assembles the batch ahead of the
 consumer with one copy (``np.stack`` of the views, already NCHW) and, for a
 float dtype, one vectorised normalise per batch. No torch op runs in these
 threads: batches are host NDArrays over the numpy result, moved to a card
 by the consumer or by ``DevicePrefetchIter``. ``resize`` and the upscale of
-an image smaller than ``data_shape`` use the port's numpy form of OpenCV's
-``INTER_LINEAR`` (``gluon.data.vision.transforms``; uint8 within 1 of
-OpenCV). A JPEG or PNG record raises: the port has no decoder yet.
+an image smaller than ``data_shape`` are OpenCV's ``INTER_LINEAR``, so
+every batch is the JAX package's byte for byte.
 
 The sample order is the JAX package's exactly: epoch ``e`` shuffles with
 ``random.Random(seed + e)``, and sample ``i`` of the batch starting at
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from .io import DataIter, DataBatch, DataDesc
+from ..base import cv2 as _cv2
 from ..context import Context
 from ..gluon.data.vision.transforms import _resize
 from ..ndarray.ndarray import NDArray
@@ -44,10 +46,11 @@ def _augment(raw, data_shape, rand_crop, rand_mirror, resize, rng_seed):
     label = header.label
     img = decode_raw_img(img_bytes)
     if img is None:
-        raise NotImplementedError(
-            "ImageRecordIter: an encoded (JPEG/PNG) record; the port has no "
-            "image decoder yet (ROADMAP M7: JPEG/PNG decoding). Write "
-            "raw-pixel records with recordio.pack_raw_img.")
+        cv2 = _cv2()
+        img = cv2.imdecode(np.frombuffer(img_bytes, np.uint8),
+                           cv2.IMREAD_COLOR)
+        if img is None:
+            raise IOError("failed to decode image record")
     rng = _pyrandom.Random(rng_seed)
     if resize:
         h, w = img.shape[:2]

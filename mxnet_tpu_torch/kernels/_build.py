@@ -31,7 +31,7 @@ _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 
 SOURCES = ("conv_fused", "batchnorm_fused", "optimizer_apply",
-           "flash_attention", "quantized_matmul", "compression")
+           "flash_attention", "quantized_matmul", "compression", "box_nms")
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]

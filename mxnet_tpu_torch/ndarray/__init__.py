@@ -17,7 +17,8 @@ names sorted for a dict; no names for a list.
 
 ``nd.random`` (``ndarray/random.py``) draws on the current context's
 generator, ``nd.linalg`` (``ndarray/linalg.py``) wraps the ``linalg_*``
-ops. Not ported here: ``nd.image``, ``nd.sparse`` and ``Custom``.
+ops, ``nd.image`` (``ndarray/image.py``) the ``_image_*`` ops. Not ported
+here: ``nd.sparse`` and ``Custom``.
 """
 from __future__ import annotations
 
@@ -298,3 +299,4 @@ from .optimizer_ops import *  # noqa: E402,F401,F403
 
 from . import random  # noqa: E402,F401  (nd.random)
 from . import linalg  # noqa: E402,F401  (nd.linalg)
+from . import image  # noqa: E402,F401  (nd.image)

@@ -3,4 +3,4 @@ registry."""
 from . import registry  # noqa: F401
 from . import nn, tensor, elemwise, linalg, random_ops  # noqa: F401
 from . import quantized, optimizer_ops  # noqa: F401
-from . import ctc, extended  # noqa: F401
+from . import ctc, extended, image, detection  # noqa: F401

@@ -14,8 +14,9 @@ back between them.
 Images: ``pack_raw_img`` / ``decode_raw_img`` store and read pre-decoded
 uint8 HWC (BGR) pixels behind the ``RAWP`` magic, which needs no decoder.
 ``pack_img`` and ``unpack_img`` encode and decode JPEG and PNG through
-OpenCV in the JAX package; the port has no image decoder yet, so they
-raise ``NotImplementedError`` for those formats and work for raw pixels.
+OpenCV (``base.cv2``, imported at the first call), as the JAX package
+does, so a record's bytes and pixels are that package's on the same
+OpenCV build.
 ``ThreadedRecordReader`` (the JAX package's C++ reader thread behind its
 native library) is not ported.
 """
@@ -27,6 +28,8 @@ import struct
 
 import numpy as np
 
+from .base import cv2 as _cv2
+
 __all__ = ["MXRecordIO", "MXIndexedRecordIO", "IRHeader", "pack", "unpack",
            "pack_img", "unpack_img", "pack_raw_img", "decode_raw_img",
            "RAW_MAGIC"]
@@ -35,11 +38,6 @@ _kMagic = 0xced7230a
 _MAGIC_BYTES = struct.pack("<I", _kMagic)
 _LREC_KIND_BITS = 29
 _LREC_LEN_MASK = (1 << _LREC_KIND_BITS) - 1
-
-_NO_DECODER = ("the port has no JPEG/PNG decoder yet (ROADMAP M7: JPEG/PNG "
-               "decoding); write raw-pixel records with pack_raw_img or "
-               "pack_img(..., img_fmt='.raw')")
-
 
 def _split_points(buf):
     """Offsets of the magic word at 4-byte-aligned positions of ``buf``."""
@@ -286,32 +284,33 @@ def decode_raw_img(img_bytes):
                          offset=off + _RAW_DIMS.size).reshape(h, w, c)
 
 
-def _bgr_to_gray(img):
-    """OpenCV's BGR -> gray on uint8, bit for bit: fixed-point weights
-    (3735, 19235, 9798) / 2^15 with rounding."""
-    b, g, r = (img[..., i].astype(np.uint32) for i in range(3))
-    return ((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15) \
-        .astype(np.uint8)
-
-
 def pack_img(header, img, quality=95, img_fmt=".jpg"):
-    """Pack an image: ``img_fmt=".raw"`` stores its pixels; JPEG and PNG
-    raise until the port has an encoder."""
+    """Pack an image: ``img_fmt=".raw"`` stores its pixels, any other
+    format is ``cv2.imencode``'s (JPEG at ``quality``; PNG at compression
+    level ``quality``)."""
     if img_fmt == ".raw":
         return pack_raw_img(header, img)
-    raise NotImplementedError("pack_img(img_fmt=%r): %s"
-                              % (img_fmt, _NO_DECODER))
+    cv2 = _cv2()
+    if img_fmt in (".jpg", ".jpeg"):
+        params = [cv2.IMWRITE_JPEG_QUALITY, quality]
+    elif img_fmt == ".png":
+        params = [cv2.IMWRITE_PNG_COMPRESSION, quality]
+    else:
+        params = None
+    ok, buf = cv2.imencode(img_fmt, img, params)
+    if not ok:
+        raise IOError("cv2.imencode(%r) failed" % (img_fmt,))
+    return pack(header, buf.tobytes())
 
 
 def unpack_img(s, iscolor=1):
-    """(IRHeader, BGR uint8 image) of a raw-pixel record, a writable copy
-    (``iscolor=0``: 2-D gray). A JPEG or PNG payload raises until the port
-    has a decoder."""
+    """(IRHeader, BGR uint8 image) of a record, writable; ``iscolor`` is
+    ``cv2.imdecode``'s flag (1 colour, 0 2-D gray, -1 as stored). A
+    raw-pixel record needs OpenCV only for ``iscolor=0``."""
     header, s = unpack(s)
     raw = decode_raw_img(s)
-    if raw is None:
-        raise NotImplementedError("unpack_img of an encoded image: %s"
-                                  % _NO_DECODER)
-    if iscolor == 0:
-        return header, _bgr_to_gray(raw)
-    return header, raw.copy()
+    if raw is not None:
+        if iscolor == 0:
+            return header, _cv2().cvtColor(raw, _cv2().COLOR_BGR2GRAY)
+        return header, raw.copy()
+    return header, _cv2().imdecode(np.frombuffer(s, np.uint8), iscolor)

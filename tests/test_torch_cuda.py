@@ -1224,3 +1224,104 @@ def test_device_prefetch_batches_equal_the_host(tmp_path, depth):
     for (x, y), (wx, wy) in zip(got, want):
         np.testing.assert_array_equal(x, wx)
         np.testing.assert_array_equal(y, wy)
+
+
+def _sorted_boxes(rs, B, n, scale=1.0):
+    b = rs.uniform(0, 0.7, (B, n, 2)).astype("float32")
+    wh = rs.uniform(0.02, 0.3, (B, n, 2)).astype("float32")
+    return torch.from_numpy(np.concatenate([b, b + wh], -1) * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,classes,plus_one", [(1, 0, False), (63, 0, False),
+                                                (64, 3, False),
+                                                (130, 0, True),
+                                                (2000, 20, False)])
+def test_box_nms_kernel_matches_plain(n, classes, plus_one):
+    """The keep mask on the card against keep_reference, bit for bit:
+    prefixes ending inside, at and past a 64-bit word, class-aware and
+    not, the Proposal form; one launch pair a call, no host sync."""
+    _need_card()
+    from mxnet_tpu_torch.kernels import box_nms as NMS
+    rs = np.random.RandomState(n)
+    B = 3
+    boxes = _sorted_boxes(rs, B, n, 30.0 if plus_one else 1.0)
+    ids = torch.from_numpy(rs.randint(0, classes, (B, n)).astype(
+        "float32")) if classes else None
+    nvalid = torch.tensor([n, max(0, n - 1), n // 2])
+    want = NMS.keep_reference(boxes, ids, nvalid, 0.45, plus_one)
+    before = NMS.LAUNCHES
+    dev = [t.cuda() if t is not None else None for t in (boxes, ids,
+                                                         nvalid)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = NMS.keep(*dev, 0.45, plus_one)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert NMS.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_detection_ops_on_the_card_match_the_cpu():
+    """box_nms, MultiBoxPrior, MultiBoxTarget and MultiBoxDetection on the
+    card against the CPU: kept sets and targets exactly, coordinates
+    within 1e-5 of max."""
+    _need_card()
+    C = mx.nd.contrib
+    rs = np.random.RandomState(0)
+    B, L, K = 4, 6, 5
+    feat = np.zeros((1, 1, 10, 10), "float32")
+    labels = np.full((B, L, 5), -1.0, "float32")
+    for i in range(B - 1):
+        k = rs.randint(1, L + 1)
+        xy = rs.uniform(0, 0.6, (k, 2))
+        labels[i, :k, 0] = rs.randint(0, K - 1, k)
+        labels[i, :k, 1:3] = xy
+        labels[i, :k, 3:5] = xy + rs.uniform(0.1, 0.4, (k, 2))
+    A = 10 * 10 * 4
+    r = np.random.RandomState(1)
+    cls = torch.from_numpy(r.randn(B, K, A).astype("float32"))
+    prob = torch.softmax(cls, 1)        # one set of scores for both devices
+    loc = torch.from_numpy(r.randn(B, A * 4).astype("float32") * 0.3)
+    out = {}
+    for d in ("cuda", "cpu"):
+        anchors = C.MultiBoxPrior(torch.from_numpy(feat).to(d),
+                                  sizes=(0.2, 0.4), ratios=(1.0, 2.0, 0.5))
+        out[d] = (anchors,) + C.MultiBoxTarget(
+            anchors, torch.from_numpy(labels).to(d), cls.to(d),
+            negative_mining_ratio=3.0) + (C.MultiBoxDetection(
+                prob.to(d), loc.to(d), anchors, nms_threshold=0.45),)
+    for g, w in zip(out["cuda"], out["cpu"]):
+        g = g.cpu()
+        assert g.shape == w.shape
+        assert (g - w).abs().max() <= 1e-5 * max(1.0, float(w.abs().max()))
+    assert torch.equal(out["cuda"][2].cpu(), out["cpu"][2])
+    assert torch.equal(out["cuda"][3].cpu(), out["cpu"][3])
+    assert torch.equal(out["cuda"][4].cpu()[..., :2], out["cpu"][4][..., :2])
+
+
+@pytest.mark.cuda
+def test_image_ops_run_on_the_card():
+    """The nd.image ops on the card against the CPU; the random ones at a
+    degenerate range, drawn on the card's generator."""
+    _need_card()
+    from mxnet_tpu_torch.ops import registry
+    rs = np.random.RandomState(2)
+    img = torch.from_numpy(rs.randint(0, 256, (2, 6, 7, 3)).astype(
+        "float32"))
+    cases = [("_image_to_tensor", {}), ("_image_flip_left_right", {}),
+             ("_image_resize", dict(size=(9, 4))),
+             ("_image_random_brightness", dict(min_factor=0.5,
+                                               max_factor=0.5)),
+             ("_image_random_contrast", dict(min_factor=0.5,
+                                             max_factor=0.5)),
+             ("_image_random_hue", dict(min_factor=0.2, max_factor=0.2)),
+             ("_image_random_lighting", dict(alpha_std=0.0))]
+    for name, kw in cases:
+        fn = registry.get_op(name).fn
+        g, w = fn(img.cuda(), **kw), fn(img, **kw)
+        assert g.device.type == "cuda", name
+        assert (g.cpu() - w).abs().max() <= 1e-5 * float(w.abs().max()), \
+            name

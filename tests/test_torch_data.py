@@ -12,15 +12,15 @@
   land on the caller's context.
 - Transforms: the numpy ones bit for bit under the same Python and numpy
   seeds; the resizing ones (``Resize``, ``CenterCrop`` growing an image,
-  ``RandomResizedCrop``, ``CropResize``), which JAX computes with
-  OpenCV, within 1 for uint8 and 1e-5 of the largest magnitude for float32
-  (OpenCV rounds uint8 through 11-bit fixed-point weights); an
-  interpolation code the port does not reproduce raises.
+  ``RandomResizedCrop``, ``CropResize``) bit for bit too, uint8 and
+  float32, every interpolation code 0-4: both packages call OpenCV's
+  ``cv2.resize``; a code OpenCV does not have raises in both.
 - Vision datasets read from files the tests write (idx files plain and
-  gzipped, CIFAR's pickles) and the synthetic sets item for item; the
-  datasets raise NotImplementedError for encoded (JPEG/PNG) images, which
-  the port cannot decode yet, and a record file without its index raises
-  as in the JAX package (raw-pixel records: test_torch_recordio.py).
+  gzipped, CIFAR's pickles) and the synthetic sets item for item; a
+  record that does not decode raises IOError, and a record file without
+  its index raises as in the JAX package (raw-pixel records:
+  test_torch_recordio.py; JPEG and PNG records and image folders:
+  test_torch_image.py).
 """
 import gzip
 import os
@@ -39,8 +39,6 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.gluon import data as tdata
 from mxnet_tpu_torch.gluon.data.vision import transforms as tT
 
-UINT8_ATOL = 1
-FLOAT_RTOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
@@ -292,19 +290,20 @@ def test_compose_bit_for_bit():
 
 
 def _close(got, want):
+    """Bit for bit: both packages resize with OpenCV."""
     g, w = _np(got), _np(want)
     assert g.shape == w.shape and g.dtype == w.dtype, (g.shape, w.shape)
-    if g.dtype == np.uint8:
-        assert np.abs(g.astype(int) - w.astype(int)).max() <= UINT8_ATOL
-    else:
-        assert np.abs(g - w).max() <= FLOAT_RTOL * np.abs(w).max()
+    np.testing.assert_array_equal(g, w)
 
 
 RESIZES = [((8, 8), {}), ((20, 11), {}), ((17, 13), {}), ((5, 40), {}),
            ((34, 26), {}), ((9, 6), {}), ((16, 16), {"keep_ratio": True}),
            ((30, 7), {"keep_ratio": True}), ((8, 8), {"interpolation": 0}),
            ((33, 5), {"interpolation": 0}), (7, {}), ((1, 1), {}),
-           ((17, 13), {"interpolation": 0})]
+           ((17, 13), {"interpolation": 0}), ((20, 11), {"interpolation": 2}),
+           ((9, 6), {"interpolation": 3}), ((34, 26), {"interpolation": 3}),
+           ((20, 11), {"interpolation": 4}),
+           ((16, 16), {"keep_ratio": True, "interpolation": 2})]
 
 
 @pytest.mark.parametrize("size,kw", RESIZES,
@@ -336,12 +335,17 @@ def test_resizing_crops_as_opencv(dtype):
 
 
 def test_unported_interpolation_raises():
+    """Codes 2-4 (cubic, area, Lanczos), which the port once lacked, give
+    JAX's bytes; a code OpenCV does not have raises in both packages."""
     img = _img()
     for code in (2, 3, 4):
-        with pytest.raises(NotImplementedError, match="interpolation"):
-            tT.Resize(8, interpolation=code)(img)
-        with pytest.raises(NotImplementedError):
-            tT.CropResize(0, 0, 4, 4, size=8, interpolation=code)(img)
+        _close(tT.Resize(8, interpolation=code)(img),
+               jT.Resize(8, interpolation=code)(img))
+        _close(tT.CropResize(0, 0, 4, 4, size=8, interpolation=code)(img),
+               jT.CropResize(0, 0, 4, 4, size=8, interpolation=code)(img))
+    for T in (tT, jT):
+        with pytest.raises(Exception, match="nterpolation|resize"):
+            T.Resize(8, interpolation=99)(img)
 
 
 def test_transforms_module_exports_jax_names():
@@ -446,8 +450,9 @@ def test_synthetic_sets_and_missing_files(tmp_path, monkeypatch):
 
 
 def test_decoding_datasets_raise(tmp_path):
-    """A JPEG record and a folder of image files need a decoder the port
-    does not have yet: both raise, naming it."""
+    """A record that holds no decodable image raises IOError, as does a
+    folder's file that is not an image (JPEG/PNG decoding against JAX:
+    test_torch_image.py)."""
     from mxnet_tpu_torch import recordio as trec
     rec, idx = str(tmp_path / "x.rec"), str(tmp_path / "x.idx")
     w = trec.MXIndexedRecordIO(idx, rec, "w")
@@ -455,15 +460,20 @@ def test_decoding_datasets_raise(tmp_path):
                              b"\xff\xd8\xff\xe0" + bytes(60)))
     w.close()
     ds = tdata.vision.ImageRecordDataset(rec)
-    with pytest.raises(NotImplementedError, match="decoder"):
+    with pytest.raises(IOError, match="decod"):
         ds[0]
-    with pytest.raises(NotImplementedError, match="decod"):
-        tdata.vision.ImageFolderDataset(str(tmp_path))
+    (tmp_path / "cls").mkdir()
+    (tmp_path / "cls" / "a.jpg").write_bytes(b"not a jpeg")
+    folder = tdata.vision.ImageFolderDataset(str(tmp_path))
+    assert folder.synsets == ["cls"] and len(folder) == 1
+    with pytest.raises(IOError, match="cannot read"):
+        folder[0]
 
 
 def test_port_runs_without_cv2():
-    """The card's machine has no OpenCV: with ``cv2`` unimportable the
-    package imports and the resizing transforms run."""
+    """Without OpenCV the package imports and the transforms that need no
+    resize run; a resize raises ImportError naming cv2 (no numpy stand-in
+    takes over)."""
     import subprocess
     import sys
     code = ("import sys; sys.modules['cv2'] = None\n"
@@ -471,9 +481,14 @@ def test_port_runs_without_cv2():
             "from mxnet_tpu_torch.gluon.data.vision import transforms as T\n"
             "img = np.arange(60, dtype=np.uint8).reshape(4, 5, 3)\n"
             "with mx.cpu():\n"
-            "    out = T.Compose([T.Resize((7, 3)), T.CenterCrop(2)])(img)\n"
-            "assert out.shape == (2, 2, 3), out.shape\n"
-            "assert 'cv2' not in [m for m in sys.modules if sys.modules[m]]\n"
+            "    out = T.Compose([T.CenterCrop(2), T.ToTensor()])(img)\n"
+            "    assert out.shape == (3, 2, 2), out.shape\n"
+            "    try:\n"
+            "        T.Resize((7, 3))(img)\n"
+            "    except ImportError as e:\n"
+            "        assert 'cv2' in str(e), e\n"
+            "    else:\n"
+            "        raise AssertionError('a resize ran without cv2')\n"
             "print('ok')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -7,8 +7,11 @@ the JAX package's, on the CPU.
   divide (``pad``, and the short batch dropped without it), uint8 and
   float32 with mean and std, ``label_width``, with and without the .idx
   file and the producer thread. ``resize`` and the upscale of small images
-  go through the port's numpy linear map, within 1 of OpenCV on uint8.
-- The port never imports OpenCV (JAX's iterator does).
+  are OpenCV's in both packages: byte for byte too (JPEG and PNG records:
+  test_torch_image.py).
+- A record that does not decode raises, again on the next call; without
+  OpenCV raw records that need no resize still run, and a resize raises
+  ImportError naming cv2.
 - ``DevicePrefetchIter`` to the CPU passes batches through unchanged,
   restarts with ``reset()`` and hands a worker's exception over once.
 - ``DataLoaderIter`` against JAX's, padded last batch included.
@@ -123,11 +126,11 @@ def test_image_record_iter_label_width(tmp_path):
                                 {"resize": 9, "rand_crop": True,
                                  "rand_mirror": True}, {}])
 def test_image_record_iter_resize_within_one(tmp_path, kw):
-    """Resize and the upscale of images below the crop (records 2 and 7)
-    through the numpy linear map: within 1 of OpenCV on uint8."""
+    """Resize and the upscale of images below the crop (records 2 and 7):
+    OpenCV's INTER_LINEAR in both packages, so byte for byte."""
     rec, idx = _records(tmp_path, small=(2, 7))
     t, j = _both(rec, idx, dtype="uint8", shuffle=True, **kw)
-    _same(t, j, tol=1)
+    _same(t, j)
 
 
 def test_image_record_iter_reset_mid_epoch(tmp_path):
@@ -145,26 +148,32 @@ def test_image_record_iter_reset_mid_epoch(tmp_path):
 
 
 def test_encoded_record_raises(tmp_path):
+    """A JPEG record that does not decode raises IOError, and again on the
+    next call rather than hanging."""
     rec, idx = str(tmp_path / "e.rec"), str(tmp_path / "e.idx")
     w = trec.MXIndexedRecordIO(idx, rec, "w")
     w.write_idx(0, trec.pack(trec.IRHeader(0, 1.0, 0, 0),
                              b"\xff\xd8\xff\xe0" + bytes(32)))
     w.close()
     it = tio.ImageRecordIter(rec, (3, 8, 8), 1, path_imgidx=idx)
-    with pytest.raises(NotImplementedError, match="decoder"):
+    with pytest.raises(IOError, match="decode"):
         next(it)
-    with pytest.raises(NotImplementedError):    # raised again, not hung
+    with pytest.raises(IOError):    # raised again, not hung
         next(it)
 
 
 def test_port_never_imports_cv2(tmp_path, monkeypatch):
-    """With ``cv2`` unimportable the port's record path runs (JAX's needs
-    it); the port's modules name no cv2 import."""
-    rec, idx = _records(tmp_path, small=(1,))
+    """With ``cv2`` unimportable the raw-record path that needs no resize
+    runs (JAX's needs cv2 for every record), and a resize raises
+    ImportError naming cv2: OpenCV is imported only where it is used."""
+    rec, idx = _records(tmp_path)
     monkeypatch.setitem(sys.modules, "cv2", None)
     it = tio.ImageRecordIter(rec, (3, 8, 8), 4, path_imgidx=idx,
-                             resize=9, rand_crop=True, rand_mirror=True)
+                             rand_crop=True, rand_mirror=True)
     assert len(_epochs(it, 1)[0]) == 3
+    with pytest.raises(ImportError, match="cv2"):
+        next(tio.ImageRecordIter(rec, (3, 8, 8), 4, path_imgidx=idx,
+                                 resize=9))
     with pytest.raises(ImportError):
         jio.ImageRecordIter(rec, (3, 8, 8), 4, path_imgidx=idx).next()
 

@@ -9,6 +9,7 @@ does), and in Python otherwise (which writes every record whole, so only
 payloads without the magic word give the same bytes there).
 """
 import pickle
+import sys
 import struct
 
 import numpy as np
@@ -149,12 +150,21 @@ def test_raw_images_and_gray():
         assert timg.flags.writeable
 
 
-def test_encoded_images_raise_naming_the_decoder():
+def test_encoded_images_raise_naming_the_decoder(monkeypatch):
+    """JPEG and PNG go through OpenCV (bytes against JAX's:
+    test_torch_image.py); without cv2 they raise ImportError naming it,
+    while raw pixels need no decoder."""
     header = trec.IRHeader(0, 1.0, 0, 0)
-    with pytest.raises(NotImplementedError, match="decoder"):
-        trec.pack_img(header, np.zeros((4, 4, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="decoder"):
-        trec.unpack_img(trec.pack(header, b"\xff\xd8\xff\xe0" + bytes(12)))
+    img = np.zeros((4, 4, 3), np.uint8)
+    jpeg = trec.pack_img(header, img)
+    assert jpeg == jrec.pack_img(header, img)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="cv2"):
+        trec.pack_img(header, img)
+    with pytest.raises(ImportError, match="cv2"):
+        trec.unpack_img(jpeg)
+    raw = trec.pack_img(header, img, img_fmt=".raw")
+    np.testing.assert_array_equal(trec.unpack_img(raw)[1], img)
 
 
 def test_pickle_and_closed_file(tmp_path):
