@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases env,train_amp
     python3 chip_smoke.py --phases env,train_rec,api
     python3 chip_smoke.py --phases env,train_jpeg,train_det
+    python3 chip_smoke.py --phases env,train_module,train_symblock
     python3 chip_smoke.py --phases env,train_lm_deep
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
@@ -321,6 +322,39 @@ Phases, each printing JSON lines:
               a gluon.Constant left unchanged by Trainer.step;
               Context.empty_cache lowering torch.cuda.memory_reserved;
               nd.zeros(dtype=np.float16, ctx=mx.gpu(0)).
+5h. train_module -- the Module path of MXNet's classic train_imagenet:
+              resnet50_v1() (NCHW, f32) traced with mx.sym.var("data")
+              under SoftmaxOutput (163 arguments, 106 aux states),
+              Module(context=mx.gpu(0)).fit over an NDArrayIter of train's
+              batch (128 images, numpy seed 1), 8 epochs of that one
+              batch: SGD momentum 0.9 at lr 1e-3, Xavier(gaussian, in, 2),
+              kvstore "local" (one device: no store), eval_metric "acc",
+              do_checkpoint every 4 epochs. Every kernel counter is zeroed
+              just before fit and must read 0 after it: NCHW BatchNorm runs
+              the plain tree, as the JAX package's does. The loss per step
+              (-mean log p of the label, read off the outputs) must fall.
+              Then the first step's forward (the initial parameters, the
+              batch's first 8 images, training mode) card against the port
+              on the CPU, f32 with TF32 off (MODULE_FWD_RTOL); the last
+              checkpoint through model.load_checkpoint, Module.score, and
+              Predictor on the symbol JSON and the raw .params bytes at
+              batch 32 against Module.predict on the same images
+              (PREDICT_ATOL); device busy and wall ms per Module step.
+5i. train_symblock -- the deployment round trip, fine-tuned: train's net
+              (resnet50_v1 NHWC, numpy seed 0, bf16, fuse=False) traced
+              and saved with Symbol.save, its parameters exported,
+              gluon.SymbolBlock.imports(..., ctx=mx.gpu(0)), cast to bf16,
+              3 gluon.Trainer steps (train's SGD) with
+              SoftmaxCrossEntropyLoss under autograd.record on train's
+              batch. Counters are zeroed just before: each of rows 4-7
+              launches 53 times per step (each fold its finalize launch
+              too), conv_fused never; the loss finite and falling. The
+              first step's loss and updated parameters and running
+              statistics against the zoo net's own eager step from the
+              same parameters and batch, cuDNN deterministic, within
+              RTOL["bfloat16"] (the same bits printed); then device busy ms
+              per step of the SymbolBlock and of the zoo net's eager step
+              (phase train's), in turns.
 6. train_lm -- the transformer LM of bench.py's bench_transformer at its
               full width (dim 4096, 5 layers, 32 heads of 128, FFN 16384,
               vocab 32000, bf16, chunked CE over 8 chunks, full per-layer
@@ -404,7 +438,9 @@ The run ends with the nvidia-smi name/power line, then the
 on train_sharded's, per configuration; rows 4-8 also on zoo's ResNet-50 V2
 training, launches_zoo; rows 4-7 on train_amp's, launches_train_amp; rows
 1-7 on train_rec's, launches_train_rec, and on train_jpeg's,
-launches_train_jpeg; box_nms on train_det's; rows
+launches_train_jpeg; rows 1 and 4-7 on train_symblock's,
+launches_train_symblock; every kernel 0 on train_module's,
+launches_train_module; box_nms on train_det's; rows
 9-11 on train_lm_deep's, per remat_save, launches_train_lm_deep), max abs
 error at
 the ResNet-50 shapes in bf16 and its tolerance, and the times, bound,
@@ -432,7 +468,7 @@ import numpy as np
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_sharded", "ndarray", "zoo",
           "train_amp", "train_rec", "train_jpeg", "train_det", "api",
-          "train_lm", "train_lm_deep",
+          "train_module", "train_symblock", "train_lm", "train_lm_deep",
           "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
 # the BatchNorm kernels' checks and timing, the training steps' timing
@@ -6811,6 +6847,333 @@ def profile_busy_ms(torch, fn, iters, top=None, match=("conv_fused",)):
     return total / iters / 1e3, fused, tops
 
 
+# -- phases train_module and train_symblock (the symbolic and Module API) -----
+
+# Module.fit on the NCHW ResNet-50 symbol: batch 128, f32, SGD momentum 0.9
+# at lr 1e-3 (REC_SGD's: 0.01 diverges from this init on noise images),
+# MODULE_EPOCHS epochs of the one batch; a checkpoint every
+# MODULE_CKPT_PERIOD epochs.
+MODULE_BATCH = 128
+MODULE_EPOCHS = 8
+MODULE_CKPT_PERIOD = 4
+MODULE_SGD = dict(REC_SGD)
+# The card-vs-CPU check of the first step's forward takes the batch's first
+# MODULE_CPU_IMAGES images (training mode: batch statistics over them), f32
+# with TF32 off on both sides, within MODULE_FWD_RTOL of the largest output.
+MODULE_CPU_IMAGES = 8
+MODULE_FWD_RTOL = 1e-4
+# Predictor (symbol JSON + raw .params bytes) against Module.predict on the
+# same PREDICT_BATCH images: absolute error of the softmax outputs.
+PREDICT_BATCH = 32
+PREDICT_ATOL = 1e-6
+# train_symblock: SGD steps of the SymbolBlock (train's SGD), the first
+# against the zoo net's own eager step within one bf16 rounding step of
+# each tensor's largest value (RTOL["bfloat16"]).
+SYMBLOCK_STEPS = 3
+
+
+def _all_launch_counts():
+    """{module.counter: value} of every kernel wrapper's launch counter."""
+    import importlib
+    out = {}
+    for name in ("batchnorm_fused", "box_nms", "compression", "conv_fused",
+                 "flash_attention", "optimizer_apply", "quantized_matmul"):
+        mod = importlib.import_module("mxnet_tpu_torch.kernels." + name)
+        for attr in dir(mod):
+            if not attr.startswith("LAUNCHES"):
+                continue
+            v = getattr(mod, attr)
+            if isinstance(v, dict):
+                out.update({"%s.%s.%s" % (name, attr, k): n
+                            for k, n in v.items()})
+            else:
+                out["%s.%s" % (name, attr)] = v
+    return out
+
+
+def _zero_all_launch_counts():
+    import importlib
+    for key in _all_launch_counts():
+        parts = key.split(".")
+        mod = importlib.import_module("mxnet_tpu_torch.kernels." + parts[0])
+        if len(parts) == 3:
+            getattr(mod, parts[1])[parts[2]] = 0
+        else:
+            setattr(mod, parts[1], 0)
+
+
+def phase_train_module(torch, state):
+    """The Module path of MXNet's classic train_imagenet on the port:
+    resnet50_v1() (NCHW) traced with mx.sym.var("data") under a
+    SoftmaxOutput, Module.fit on the card (the module docstring), the
+    checkpoint loaded and scored, then served through Predictor. NCHW
+    BatchNorm runs the plain deterministic tree (as the JAX package's
+    does), so no kernel of the repository runs: every counter must read
+    0."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    with mx.name.NameManager():
+        sym = mx.sym.SoftmaxOutput(resnet50_v1()(mx.sym.var("data")),
+                                   name="softmax")
+    n_args = len(sym.list_arguments())
+    n_aux = len(sym.list_auxiliary_states())
+    x_np, y_np = _batch(state)
+    ctx = mx.gpu(0)
+    it = mx.io.NDArrayIter(x_np, y_np, batch_size=MODULE_BATCH)
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(initializer=mx.init.Xavier(
+        rnd_type="gaussian", factor_type="in", magnitude=2))
+    arg0, aux0 = mod.get_params()
+    arg0 = {k: v.asnumpy() for k, v in arg0.items()}
+    aux0 = {k: v.asnumpy() for k, v in aux0.items()}
+
+    losses = []
+
+    def record_loss(param):
+        # the step's forward (before its update): -mean log p[label]
+        p = mod.get_outputs()[0]._data
+        lbl = param.locals["data_batch"].label[0]._data.long()
+        pick = p.gather(1, lbl.view(-1, 1)).clamp_min(1e-30)
+        losses.append(-pick.log().mean().item())
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_module_")
+    prefix = os.path.join(tmp, "resnet50_v1")
+    try:
+        torch.cuda.synchronize()
+        _zero_all_launch_counts()
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=MODULE_EPOCHS, kvstore="local",
+                optimizer="sgd", optimizer_params=dict(MODULE_SGD),
+                eval_metric="acc", batch_end_callback=record_loss,
+                epoch_end_callback=mx.callback.do_checkpoint(
+                    prefix, period=MODULE_CKPT_PERIOD))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _all_launch_counts()
+        ok_counts = all(v == 0 for v in counts.values())
+        ok_loss = len(losses) == MODULE_EPOCHS and \
+            all(np.isfinite(losses)) and losses[-1] < losses[0]
+        files = sorted(os.listdir(tmp))
+        want_files = sorted(["resnet50_v1-symbol.json"] + [
+            "resnet50_v1-%04d.params" % e
+            for e in range(MODULE_CKPT_PERIOD, MODULE_EPOCHS + 1,
+                           MODULE_CKPT_PERIOD)])
+
+        # the first step's forward, card against CPU, from the initial
+        # parameters on the batch's first images (f32, TF32 off)
+        xs = x_np[:MODULE_CPU_IMAGES]
+        ys = y_np[:MODULE_CPU_IMAGES]
+        outs = []
+        with mx.precision.matmul_precision("float32"):
+            for c in (ctx, mx.cpu()):
+                m = mx.mod.Module(sym, context=c)
+                m.bind([("data", xs.shape)], [("softmax_label", ys.shape)])
+                m.set_params({k: mx.nd.array(v, ctx=mx.cpu())
+                              for k, v in arg0.items()},
+                             {k: mx.nd.array(v, ctx=mx.cpu())
+                              for k, v in aux0.items()})
+                m.forward(mx.io.DataBatch([mx.nd.array(xs, ctx=c)],
+                                          [mx.nd.array(ys, ctx=c)]),
+                          is_train=True)
+                outs.append(m.get_outputs()[0].asnumpy())
+        fwd_err = float(np.abs(outs[0] - outs[1]).max()
+                        / np.abs(outs[1]).max())
+
+        # the checkpoint: loaded, scored, and served through Predictor
+        last = MODULE_EPOCHS
+        sym2, arg2, aux2 = mx.model.load_checkpoint(prefix, last)
+        ok_ckpt = (len(arg2), len(aux2)) == (n_args - 2, n_aux)
+        mod2 = mx.mod.Module(sym2, context=ctx)
+        mod2.bind(it.provide_data, it.provide_label, for_training=False)
+        mod2.set_params(arg2, aux2)
+        score = dict(mod2.score(it, "acc"))
+        with open(prefix + "-symbol.json") as f:
+            sym_json = f.read()
+        with open(prefix + "-%04d.params" % last, "rb") as f:
+            param_bytes = f.read()
+        xp = x_np[:PREDICT_BATCH]
+        with mx.precision.matmul_precision("float32"):
+            pred = mx.Predictor(sym_json, param_bytes, dev_type=ctx,
+                                input_shapes={"data": xp.shape})
+            pred.set_input("data", xp)
+            pred.forward()
+            served = pred.get_output(0)
+            predicted = mod2.predict(mx.io.NDArrayIter(
+                xp, y_np[:PREDICT_BATCH], batch_size=PREDICT_BATCH)).asnumpy()
+        pred_err = float(np.abs(served - predicted).max())
+        ok_pred = served.shape == (PREDICT_BATCH, 1000) and \
+            np.isfinite(served).all() and pred_err <= PREDICT_ATOL
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # device time of one Module step (forward, backward, update)
+    batch = mx.io.DataBatch([mx.nd.array(x_np, ctx=ctx)],
+                            [mx.nd.array(y_np, ctx=ctx)])
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+    dev_ms = device_busy_ms(torch, step, 3)
+    host = host_ms(torch, step, 2)
+    fwd_ok = fwd_err <= MODULE_FWD_RTOL
+    emit({"phase": "train_module", "net": "resnet50_v1 NCHW symbol + "
+          "SoftmaxOutput", "arguments": n_args, "aux_states": n_aux,
+          "dtype": "float32", "batch": MODULE_BATCH,
+          "steps": MODULE_EPOCHS, "losses": losses,
+          "fit_wall_s": wall, "checkpoint_files": files,
+          "score": score, "kernel_launches": sum(counts.values()),
+          "kernel_launches_note": "0 wanted: NCHW BatchNorm runs the "
+          "plain tree (as the JAX package's does), no kernel of the "
+          "repository is on this path",
+          "first_forward_card_vs_cpu_max_rel": fwd_err,
+          "first_forward_images": MODULE_CPU_IMAGES,
+          "first_forward_rtol": MODULE_FWD_RTOL,
+          "predictor_vs_predict_max_abs": pred_err,
+          "predictor_atol": PREDICT_ATOL, "predictor_batch": PREDICT_BATCH,
+          "device_busy_ms_per_step": dev_ms, "wall_ms_per_step": host,
+          "ok": ok_counts and ok_loss and fwd_ok and ok_pred and ok_ckpt
+          and files == want_files})
+    state["launches_module"] = sum(counts.values())
+    state["module_ms"] = {"device_busy": dev_ms, "wall": host}
+    if not ok_counts:
+        raise AssertionError("train_module launched kernels: %s"
+                             % {k: v for k, v in counts.items() if v})
+    if not ok_loss:
+        raise AssertionError("train_module loss not finite and falling: %s"
+                             % losses)
+    if files != want_files or not ok_ckpt:
+        raise AssertionError("train_module checkpoints %s (args %d, aux %d)"
+                             % (files, len(arg2), len(aux2)))
+    if not fwd_ok:
+        raise AssertionError("train_module first forward card vs CPU %.3g "
+                             "over %g" % (fwd_err, MODULE_FWD_RTOL))
+    if not ok_pred:
+        raise AssertionError("Predictor against Module.predict: %.3g over "
+                             "%g" % (pred_err, PREDICT_ATOL))
+
+
+def phase_train_symblock(torch, state):
+    """The deployment round trip, fine-tuned: train's net (resnet50_v1
+    NHWC, numpy seed 0, bf16, fuse=False) traced and saved
+    (Symbol.save), its parameters exported, SymbolBlock.imports on the
+    card, cast to bf16 and trained with gluon.Trainer (train's SGD) under
+    autograd.record on train's batch. Every BatchNorm is channels-last, so
+    each of rows 4-7 launches BN_PER_STEP times per step (each fold its
+    finalize launch too), conv_fused never. The first step against the
+    zoo net's own eager step from the same parameters and batch."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+
+    arrays = _arrays(mx, state)
+    x_np, y_np = _batch(state)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    ctx = mx.gpu(0)
+    net = _build_net(mx, arrays, False, "bfloat16", ctx)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_symblock_")
+    try:
+        graph = os.path.join(tmp, "resnet50_v1-graph.json")
+        with mx.name.NameManager():
+            net(mx.sym.var("data")).save(graph)
+        net.export(os.path.join(tmp, "resnet50_v1"))
+        blk = mx.gluon.SymbolBlock.imports(
+            graph, ["data"], os.path.join(tmp, "resnet50_v1-0000.params"),
+            ctx=ctx)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    blk.cast("bfloat16")
+    ref = net.collect_params()
+    got = blk.collect_params()
+    if sorted(ref) != sorted(got):
+        raise AssertionError("SymbolBlock parameters %d, the net's %d"
+                             % (len(got), len(ref)))
+    x = torch.from_numpy(x_np).to(ctx.device, torch.bfloat16)
+    y = torch.from_numpy(y_np).to(ctx.device)
+    ref_trainer = mx.gluon.Trainer(ref, "sgd", dict(SGD))
+    trainer = mx.gluon.Trainer(got, "sgd", dict(SGD))
+
+    # the first step against the zoo net's own eager step
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref_loss = _train_step(mx, net, ref_trainer, loss_fn, x, y)
+        torch.cuda.synchronize()
+        _zero_counts(BNF, CF)
+        losses = []
+        per_step = []
+        for i in range(SYMBLOCK_STEPS):
+            before = _bn_counts(BNF)
+            loss = _train_step(mx, blk, trainer, loss_fn, x, y)
+            losses.append(loss.detach().float().mean().item())
+            after = _bn_counts(BNF)
+            per_step.append({k: after[k] - before[k]
+                             for k in BN_KERNELS + ("finalize",)})
+            if i == 0:
+                first_loss = loss.detach().float()
+                first = {n: got[n]._tensor().detach().float().clone()
+                         for n in got}
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    counts = _bn_counts(BNF)
+    conv = CF.LAUNCHES
+    want = {k: BN_PER_STEP for k in BN_KERNELS}
+    want["finalize"] = 2 * BN_PER_STEP
+    ok_counts = all(s == want for s in per_step) and conv == 0
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    loss_err = rel(first_loss, ref_loss.detach().float())
+    param_err = max(rel(first[n], ref[n]._tensor().detach().float())
+                    for n in ref)
+    same_bits = torch.equal(first_loss, ref_loss.detach().float()) and all(
+        torch.equal(first[n], ref[n]._tensor().detach().float())
+        for n in ref)
+    tol = RTOL["bfloat16"]
+    ok_match = loss_err <= tol and param_err <= tol
+    ok_loss = all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+    # device ms per step: the SymbolBlock's and the zoo net's eager step
+    # (phase train's), in turns
+    sym_step = lambda: _train_step(mx, blk, trainer, loss_fn, x, y)  # noqa
+    eager_step = lambda: _train_step(mx, net, ref_trainer, loss_fn, x,  # noqa
+                                     y)
+    ms = {"symblock": [], "eager": []}
+    for name, fn in (("symblock", sym_step), ("eager", eager_step),
+                     ("eager", eager_step), ("symblock", sym_step)):
+        ms[name].append(device_busy_ms(torch, fn, 3))
+    emit({"phase": "train_symblock", "net": "resnet50_v1 NHWC bf16 "
+          "through Symbol.save, export and SymbolBlock.imports",
+          "batch": len(x_np), "steps": SYMBLOCK_STEPS, "losses": losses,
+          "launches_per_step": per_step, "launches_wanted_per_step": want,
+          "conv_fused_launches": conv,
+          "first_step_vs_zoo_eager_max_rel": {"loss": loss_err,
+                                              "param": param_err},
+          "first_step_same_bits": same_bits, "tolerance_rel": tol,
+          "device_busy_ms_per_step": ms,
+          "ok": ok_counts and ok_match and ok_loss})
+    state["launches_symblock"] = {k: counts[k] for k in BN_KERNELS}
+    state["launches_symblock"]["conv_fused"] = conv
+    state["symblock_ms"] = ms
+    if not ok_counts:
+        raise AssertionError("SymbolBlock launches per step %s (conv_fused "
+                             "%d), want %s" % (per_step, conv, want))
+    if not ok_match:
+        raise AssertionError("SymbolBlock first step against the zoo net: "
+                             "loss %.3g, param %.3g over %g"
+                             % (loss_err, param_err, tol))
+    if not ok_loss:
+        raise AssertionError("SymbolBlock loss not finite and falling: %s"
+                             % losses)
+
+
 def kernel_summary(state):
     """The {"kernels": [...]} entries: each kernel's launches on its path,
     its error against its plain version and its times beside its bound,
@@ -6829,6 +7192,7 @@ def kernel_summary(state):
         "launches_train_sharded": sharded("conv_fused"),
         "launches_train_rec": state["launches_rec"]["conv_fused"],
         "launches_train_jpeg": state["launches_jpeg"]["conv_fused"],
+        "launches_train_symblock": state["launches_symblock"]["conv_fused"],
         "max_abs_err": state["kernel_err"]["bfloat16"][0],
         "max_rel_err": state["kernel_err"]["bfloat16"][1],
         "tolerance_rel": RTOL["bfloat16"],
@@ -6851,6 +7215,7 @@ def kernel_summary(state):
             "launches_train_amp": state["launches_amp"][k],
             "launches_train_rec": state["launches_rec"][k],
             "launches_train_jpeg": state["launches_jpeg"][k],
+            "launches_train_symblock": state["launches_symblock"][k],
             "max_abs_err": state["bn_err"][k][0],
             "max_rel_err": state["bn_err"][k][1],
             "tolerance_rel": 0.0 if k in ("stats", "apply") else BN_BWD_RTOL,
@@ -7018,6 +7383,10 @@ def kernel_summary(state):
                "sorted boxes, class-aware (one launch pair)"
                % (SSD300_BATCH, SSD300_ANCHORS),
     })
+    # phase train_module (NCHW ResNet-50 through Module.fit) launches no
+    # kernel of the repository: every counter read 0 there
+    for k in kernels:
+        k["launches_train_module"] = state["launches_module"]
     return kernels
 
 

@@ -58,6 +58,18 @@ resolve from ``image``), the ``nd.image`` ops, and the box, anchor, ROI
 and detection ops (``ops/extended.py``, ``ops/detection.py``; greedy NMS on
 the ``box_nms`` kernel). Encoded images are OpenCV's (``cv2``), imported at
 the first call that needs it and never by ``import mxnet_tpu_torch``.
+
+The symbolic and Module API: ``mx.sym`` (``symbol/``: graphs of the
+registry's ops, ``name.NameManager``/``Prefix`` and ``AttrScope`` scopes,
+shape inference on meta tensors, ``sym.contrib`` control flow, the
+reference's graph JSON), ``executor.Executor`` (the graph interpreted on
+tensors under torch autograd), ``mx.mod`` (``Module``,
+``BucketingModule``: ``fit``, ``score``, ``predict``), ``mx.model``
+(``prefix-symbol.json`` + ``prefix-%04d.params`` checkpoints,
+``FeedForward``), ``Predictor``, ``gluon.SymbolBlock`` (with
+``HybridBlock.export`` and tracing by a Symbol input) and ``mx.jit``
+(``CachedOp``). ``Module`` and ``Predictor`` run on ``gpu(0)`` unless
+given a context.
 """
 from . import base
 from .base import MXNetError
@@ -84,10 +96,22 @@ from . import io
 from . import recordio
 from . import image
 from .ndarray import contrib as _nd_contrib  # noqa: F401  (nd.contrib)
+from . import name
+from . import attribute
+from .attribute import AttrScope
+from . import symbol
+from . import executor
+from . import model
+from . import module
+from . import jit
+from . import predictor
+from .predictor import Predictor
 
 nd = ndarray
 init = initializer
 kv = kvstore
+sym = symbol
+mod = module
 
 
 def seed(seed_state, ctx="all"):
@@ -105,4 +129,6 @@ __all__ = ["base", "MXNetError", "context", "Context", "cpu", "gpu",
            "waitall", "random", "precision", "autograd",
            "initializer", "init", "ndarray", "nd", "kernels", "parallel",
            "optimizer", "lr_scheduler", "kvstore", "kv", "gluon", "convert",
-           "contrib", "metric", "callback", "io", "recordio", "image"]
+           "contrib", "metric", "callback", "io", "recordio", "image",
+           "name", "attribute", "AttrScope", "symbol", "sym", "executor",
+           "model", "module", "mod", "jit", "predictor", "Predictor"]

@@ -33,7 +33,8 @@ import torch
 
 __all__ = ["is_training", "set_training", "is_recording", "set_recording",
            "record", "pause", "train_mode", "predict_mode",
-           "mark_variables", "backward", "grad", "Head", "Function"]
+           "mark_variables", "backward", "grad", "Head", "Function",
+           "get_symbol"]
 
 
 class _State(threading.local):
@@ -280,6 +281,16 @@ class _FunctionNode(torch.autograd.Function):
         if isinstance(grads, NDArray):
             grads = [grads]
         return (None,) + tuple(_tensor(g) for g in grads)
+
+
+def get_symbol(x):
+    """The reference returns the recorded graph as a Symbol
+    (python/mxnet/autograd.py:304). The tape here is torch's and holds no
+    symbol graph, and the JAX package raises too: trace the block with a
+    Symbol input instead (``net(mx.sym.var("data"))``)."""
+    raise NotImplementedError(
+        "get_symbol: trace the block with a Symbol input "
+        "(net(mx.sym.var('data'))) instead")
 
 
 class Function:

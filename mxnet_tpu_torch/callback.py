@@ -9,9 +9,10 @@ A batch-end callback takes the fit loop's ``BatchEndParam`` (``epoch``,
 values come from ``metric.py``'s device accumulators, so a Speedometer
 with ``frequent=50`` reads the device once per 50 batches.
 
-``module_checkpoint`` and ``do_checkpoint`` save through the Module API
-and ``model.save_checkpoint``, which arrive with the symbolic and Module
-slice; until then they raise NotImplementedError.
+``module_checkpoint`` saves through ``Module.save_checkpoint``,
+``do_checkpoint`` through ``model.save_checkpoint``: the reference's
+``prefix-symbol.json`` and ``prefix-%04d.params`` (epoch numbers from 1),
+every ``period`` epochs.
 """
 from __future__ import annotations
 
@@ -26,22 +27,34 @@ __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
 _log = logging.getLogger(__name__)
 
 
-def _needs_module_api(what):
-    raise NotImplementedError(
-        "%s saves through the Module API and model.save_checkpoint, which "
-        "arrive with the symbolic and Module slice" % what)
+def _every(period):
+    """True on epochs 0-indexed period-1, 2*period-1, ... (the reference
+    checkpoints on (iter_no + 1) % period == 0)."""
+    period = max(1, int(period))
+    return lambda iter_no: (iter_no + 1) % period == 0
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
-    """Epoch-end callback saving ``mod`` every ``period`` epochs: not
-    ported yet (the module docstring)."""
-    _needs_module_api("module_checkpoint")
+    """Epoch-end callback saving ``mod`` every ``period`` epochs
+    (ref: callback.py:31)."""
+    due = _every(period)
+
+    def _on_epoch_end(iter_no, sym=None, arg=None, aux=None):
+        if due(iter_no):
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+    return _on_epoch_end
 
 
 def do_checkpoint(prefix, period=1):
-    """Epoch-end callback saving (sym, arg, aux) every ``period`` epochs:
-    not ported yet (the module docstring)."""
-    _needs_module_api("do_checkpoint")
+    """Epoch-end callback saving the (sym, arg, aux) triple every
+    ``period`` epochs (ref: callback.py:59)."""
+    from .model import save_checkpoint
+    due = _every(period)
+
+    def _on_epoch_end(iter_no, sym, arg, aux):
+        if due(iter_no):
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _on_epoch_end
 
 
 def log_train_metric(period, auto_reset=False):

@@ -1,7 +1,7 @@
 """Gluon on ``torch.nn.Module``."""
 from .parameter import Parameter, Constant, ParameterDict, \
     DeferredInitializationError  # noqa: F401
-from .block import Block, HybridBlock  # noqa: F401
+from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from . import nn  # noqa: F401
 from . import loss  # noqa: F401
 from .trainer import Trainer  # noqa: F401

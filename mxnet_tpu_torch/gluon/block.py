@@ -18,6 +18,14 @@ its outputs as NDArrays; called with tensors it returns tensors. The
 children it calls get tensors, so nothing is wrapped inside a forward.
 ``save_parameters``/``load_parameters`` write and read the reference's
 ``.params`` format (``nd.save``), keyed by structural name.
+
+Called with a ``Symbol`` (``net(mx.sym.var("data"))``), a HybridBlock
+traces itself: ``F`` is the symbol namespace and each parameter a
+``var`` of its full name, as in the JAX package, which gives the graph
+that ``Module``, ``Predictor`` and ``SymbolBlock`` take. ``export``
+writes the parameters in the ``arg:`` format ``SymbolBlock.imports``
+reads; ``SymbolBlock`` runs a graph as a block (``executor.py``'s
+interpreter under torch autograd).
 """
 from __future__ import annotations
 
@@ -28,11 +36,13 @@ import torch
 
 from .. import autograd
 from .. import ndarray as _F
+from .. import symbol as _sym
 from ..context import Context
 from ..ndarray.ndarray import NDArray, wrap as _wrap
+from ..symbol.symbol import Symbol
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
-__all__ = ["Block", "HybridBlock", "report_aux_update"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "report_aux_update"]
 
 
 class _AuxCollector(threading.local):
@@ -263,6 +273,9 @@ class Block(torch.nn.Module):
         return "%s: %d parameters" % (self.name, n)
 
     def __call__(self, *args, **kwargs):
+        if args and isinstance(args[0], Symbol):
+            # a symbolic trace: no hooks, no grad mode, no Head
+            return self.forward(*args, **kwargs)
         for a in args:
             if isinstance(a, NDArray):
                 return _nd_call(self, args, kwargs)
@@ -297,14 +310,51 @@ class HybridBlock(Block):
     """A block written as ``hybrid_forward(F, x, *args, **params)``."""
 
     def forward(self, x, *args):
+        if isinstance(x, Symbol):
+            params = {name: _sym.var(p.name)
+                      for name, p in self._reg_params.items()}
+            return self.hybrid_forward(_sym, x, *args, **params)
+        meta = isinstance(x, torch.Tensor) and x.is_meta
         params = {}
         for name, p in self._reg_params.items():
             try:
-                params[name] = p._tensor()
+                t = p._tensor()
             except DeferredInitializationError:
                 self._infer_param_shapes(x, *args)
-                params[name] = p._tensor()
+                t = p._tensor()
+            params[name] = t.to("meta") if meta else t
         return self.hybrid_forward(_F, x, *args, **params)
+
+    def infer_shape(self, *args):
+        """Finish the deferred initialization of the parameters from the
+        shapes of ``args`` (arrays), by a forward in predict mode on
+        ``meta`` tensors, which carry shapes and no data."""
+        metas = [torch.empty(tuple(a.shape), device="meta",
+                             dtype=(a._data if isinstance(a, NDArray)
+                                    else a).dtype) for a in args]
+        with autograd.pause():
+            self(*metas)
+
+    def export(self, path, epoch=0):
+        """Write ``path-%04d.params`` (every initialized parameter as
+        ``arg:<full name>``, ``nd.save``) and ``path-symbol.json`` (a
+        description: framework, block class, parameter names), as the JAX
+        package's export does. The graph for ``SymbolBlock.imports`` comes
+        from tracing: ``net(mx.sym.var("data")).save(...)``."""
+        import json
+        params = self.collect_params()
+        arg = {("arg:%s" % n): p.data() for n, p in params.items()
+               if p._data is not None}
+        _F.save("%s-%04d.params" % (path, epoch), arg)
+        graph = {"framework": "mxnet_tpu", "block": type(self).__name__,
+                 "params": sorted(params.keys())}
+        with open("%s-symbol.json" % path, "w") as f:
+            json.dump(graph, f, indent=2)
+
+    def optimize_for(self, x, backend=None, **kwargs):
+        """Hybridize and run ``x`` (no backend partitions the graph)."""
+        self.hybridize(True)
+        return self(x)
 
     def _infer_param_shapes(self, *args):
         """Finish deferred init from the shapes ``_shape_hint`` reads off
@@ -337,3 +387,94 @@ def report_aux_update(param, new_data):
         return
     with torch.no_grad():
         param._tensor().copy_(new_data)
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol graph as a block (ref: block.py:1129). ``inputs`` are the
+    graph's input variables; every other argument becomes a Parameter of
+    that name, every auxiliary state (BatchNorm moving statistics) a
+    Parameter with ``grad_req="null"``.
+
+    The forward runs the graph's ops on the inputs and the parameters'
+    tensors (``executor._GraphProgram``): under ``autograd.record()`` they
+    join torch's graph like any block's. In training mode it then writes
+    the moving statistics into the aux parameters (``report_aux_update``,
+    detached, in their dtype)."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        if isinstance(outputs, (list, tuple)):
+            outputs = _sym.Group(outputs)
+        self._outputs = outputs
+        self._inputs = list(inputs) if isinstance(inputs, (list, tuple)) \
+            else [inputs]
+        self._prog = None
+        input_names = {s.name for s in self._inputs}
+        for argname in outputs.list_arguments():
+            if argname not in input_names:
+                self._register(argname, Parameter(
+                    argname, allow_deferred_init=True))
+        for auxname in outputs.list_auxiliary_states():
+            if auxname not in input_names:
+                self._register(auxname, Parameter(
+                    auxname, grad_req="null", allow_deferred_init=True))
+
+    def _register(self, name, p):
+        """Register ``p`` under its graph name (no Python attribute)."""
+        self._reg_params[name] = p
+        self._params._params[name] = p
+        p._attach(self, name)
+
+    @classmethod
+    def imports(cls, symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock over the graph in ``symbol_file`` with inputs
+        ``input_names``, its parameters set from ``param_file`` (``arg:``
+        and ``aux:`` prefixes dropped) on ``ctx`` (default: the current
+        context, ``gpu(0)``)."""
+        sym = _sym.load(symbol_file)
+        names = input_names if isinstance(input_names, (list, tuple)) \
+            else [input_names]
+        ret = cls(sym, [_sym.var(n) for n in names])
+        if param_file:
+            loaded = _F.load(param_file, ctx=Context("cpu"))
+            cleaned = {k.split(":", 1)[-1]: v for k, v in loaded.items()}
+            ctx = ctx[0] if isinstance(ctx, (list, tuple)) else ctx
+            for name, p in ret._reg_params.items():
+                if name in cleaned:
+                    p.set_data(cleaned[name], ctx=ctx)
+        return ret
+
+    def _finish_deferred(self, tensors):
+        """Deferred parameters take the shapes the graph infers from the
+        inputs'."""
+        shapes = {s.name: tuple(t.shape)
+                  for s, t in zip(self._inputs, tensors)}
+        arg_shapes, _, aux_shapes = \
+            self._outputs.infer_shape_partial(**shapes)
+        for n, s in list(zip(self._outputs.list_arguments(), arg_shapes)) \
+                + list(zip(self._outputs.list_auxiliary_states(),
+                           aux_shapes)):
+            p = self._reg_params.get(n)
+            if p is not None and p._data is None and s is not None:
+                p._finish_deferred_init(tuple(s))
+
+    def forward(self, *args):
+        from ..executor import _GraphProgram
+        if isinstance(args[0], Symbol):
+            raise NotImplementedError(
+                "tracing a SymbolBlock: use its graph (._outputs) directly")
+        if self._prog is None:
+            self._prog = _GraphProgram(self._outputs)
+        if any(p._data is None for p in self._reg_params.values()):
+            self._finish_deferred(args)
+        values = {s.name: a for s, a in zip(self._inputs, args)}
+        values.update({n: p._tensor() for n, p in self._reg_params.items()})
+        outs, aux_up = self._prog.run(values, autograd.is_training())
+        for name, val in aux_up.items():
+            p = self._reg_params.get(name)
+            if p is not None and p._data is not None:
+                report_aux_update(p, val.to(p._tensor().dtype))
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+    def hybrid_forward(self, F, *args, **kwargs):
+        raise RuntimeError("SymbolBlock uses forward directly")

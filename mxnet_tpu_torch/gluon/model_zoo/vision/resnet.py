@@ -84,7 +84,8 @@ def _fused_producer_conv(bn, conv, y, F):
     """y -> conv3x3(relu(bn(y))) with the normalize/ReLU chain applied by
     the fused kernel. In training mode ``bn`` folds the batch statistics
     and moves its running statistics as the BatchNorm layer does;
-    otherwise it folds its running statistics."""
+    otherwise it folds its running statistics. On a ``meta`` y (shape
+    inference) the parameters enter as meta tensors too."""
     from .... import autograd
     from ...block import report_aux_update
     from ....base import weak_scalar
@@ -93,7 +94,10 @@ def _fused_producer_conv(bn, conv, y, F):
     fold_op, conv_op = _fused_opdefs()
     if bn.gamma._data is None:
         bn._infer_param_shapes(y)
-    gamma, beta = bn.gamma._tensor(), bn.beta._tensor()
+
+    def tensor(p):
+        return p._tensor().to("meta") if y.is_meta else p._tensor()
+    gamma, beta = tensor(bn.gamma), tensor(bn.beta)
     if not bn._scale:
         # BatchNorm's fix_gamma (= not scale) replaces gamma with ones
         gamma = F.ones_like(gamma)
@@ -107,11 +111,17 @@ def _fused_producer_conv(bn, conv, y, F):
                               + weak_scalar(1 - m, run.dtype)
                               * stat.detach().to(run.dtype))
     else:
-        rm = F.cast(bn.running_mean._tensor(), "float32")
-        rv = F.cast(bn.running_var._tensor(), "float32")
+        rm = F.cast(tensor(bn.running_mean), "float32")
+        rv = F.cast(tensor(bn.running_var), "float32")
         s = F.cast(gamma, "float32") * F.rsqrt(rv + bn._eps)
         b = F.cast(beta, "float32") - rm * s
-    return invoke(conv_op, (y, s, b, conv.weight._tensor()), {"relu": True})
+    return invoke(conv_op, (y, s, b, tensor(conv.weight)), {"relu": True})
+
+
+def _is_nd(F):
+    """Whether ``F`` is the tensor namespace (not a symbolic trace's): the
+    fused link has no symbol op."""
+    return getattr(F, "__name__", "").endswith("ndarray")
 
 
 class BasicBlockV1(HybridBlock):
@@ -141,7 +151,7 @@ class BasicBlockV1(HybridBlock):
 
     def hybrid_forward(self, F, x):
         residual = x
-        if self._fuse:
+        if self._fuse and _is_nd(F):
             y = self.body[0](x)
             y = _fused_producer_conv(self.body[1], self.body[3], y, F)
             x = self.body[4](y)
@@ -184,7 +194,7 @@ class BottleneckV1(HybridBlock):
 
     def hybrid_forward(self, F, x):
         residual = x
-        if self._fuse:
+        if self._fuse and _is_nd(F):
             y = self.body[0](x)                       # 1x1 (stride)
             y = _fused_producer_conv(self.body[1], self.body[3], y, F)
             for i in (4, 5, 6, 7):                    # bn, relu, 1x1, bn

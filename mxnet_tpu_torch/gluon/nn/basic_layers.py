@@ -182,10 +182,13 @@ class BatchNorm(HybridBlock):
                 self.running_mean: (c,), self.running_var: (c,)}
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
-        out, mean, var = F.BatchNorm(
+        bn = F.BatchNorm(
             x, gamma, beta, running_mean, running_var, eps=self._eps,
             momentum=self._momentum, fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis)
+        if not isinstance(bn, tuple):
+            return bn  # a symbolic trace: BatchNorm's one visible output
+        out, mean, var = bn
         if autograd.is_training() and not self._use_global_stats:
             m = self._momentum
             for param, run, stat in ((self.running_mean, running_mean, mean),

@@ -295,6 +295,11 @@ class Parameter:
             init, _, default_init = self._deferred_init
             self._deferred_init = (init, device, default_init)
 
+    def var(self):
+        """The parameter as a symbol Variable of its name and shape."""
+        from ..symbol import var
+        return var(self.name, shape=self.shape)
+
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (
             self.name, self.shape, str(self.dtype).replace("torch.", ""))

@@ -348,10 +348,12 @@ def fused_batch_norm(x, gamma, beta, eps=1e-3, act=None):
     belongs to the caller. Differentiable in x, gamma and beta, and through
     the statistics. A CPU tensor runs the plain versions; a CUDA tensor
     launches the kernels, or raises on a dtype other than bf16/f32, a
-    non-float operand, operands on two devices or a failed launch.
+    non-float operand, operands on two devices or a failed launch. A
+    ``meta`` tensor (shape inference) gives empty outputs of the right
+    shapes and dtypes.
     """
     _check(x, gamma, beta, act)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise MXNetError("fused_batch_norm: no kernel for device %s"
                          % x.device)
     return _FusedBatchNorm.apply(x, gamma, beta, float(eps), act)
@@ -362,7 +364,14 @@ def fused_batch_norm(x, gamma, beta, eps=1e-3, act=None):
 # Each takes (R, C) row-major tensors: x2 and dy2 in bf16 or f32, gamma and
 # beta of any float dtype, the statistics and sums (C,) float32. A CPU
 # tensor runs the plain version; a CUDA tensor launches the kernel (the
-# wrapper counts the launch) or raises.
+# wrapper counts the launch) or raises; a meta tensor (shape inference,
+# no data) gives empty outputs of the kernel's shapes and dtypes.
+
+def _meta_stats(x2):
+    C = x2.shape[1]
+    return (torch.empty(C, dtype=torch.float32, device="meta"),
+            torch.empty(C, dtype=torch.float32, device="meta"))
+
 
 def stats(x2):
     """(mean32, var32) of x2's columns: the stats kernel, then the finalize
@@ -370,6 +379,8 @@ def stats(x2):
     global LAUNCHES_STATS, LAUNCHES_FINALIZE
     if x2.device.type == "cpu":
         return stats_reference(x2)
+    if x2.device.type == "meta":
+        return _meta_stats(x2)
     R, C = _launchable("stats", x2)
     mean = torch.empty(C, dtype=torch.float32, device=x2.device)
     var = torch.empty_like(mean)
@@ -389,6 +400,8 @@ def apply(x2, gamma, beta, mean, var, eps=1e-3, act=None):
     global LAUNCHES_APPLY
     if x2.device.type == "cpu":
         return apply_reference(x2, gamma, beta, mean, var, eps, act)
+    if x2.device.type == "meta":
+        return torch.empty_like(x2)
     R, C = _launchable("apply", x2, mean, var)
     g32, b32 = _f32(gamma, beta, x2)
     out = torch.empty_like(x2)
@@ -407,6 +420,8 @@ def bwd_reduce(x2, dy2, gamma, beta, mean, var, eps=1e-3, act=None):
     if x2.device.type == "cpu":
         return bwd_reduce_reference(x2, dy2, gamma, beta, mean, var, eps,
                                     act)
+    if x2.device.type == "meta":
+        return _meta_stats(x2)
     R, C = _launchable("bwd_reduce", x2, mean, var, dy2)
     g32, b32 = _f32(gamma, beta, x2)
     db = torch.empty(C, dtype=torch.float32, device=x2.device)
@@ -431,6 +446,8 @@ def bwd_dx(x2, dy2, gamma, beta, mean, var, dbeta, dgamma, eps=1e-3,
     if x2.device.type == "cpu":
         return bwd_dx_reference(x2, dy2, gamma, beta, mean, var, dbeta,
                                 dgamma, eps, act)
+    if x2.device.type == "meta":
+        return torch.empty_like(x2)
     R, C = _launchable("bwd_dx", x2, mean, var, dbeta, dgamma, dy2)
     g32, b32 = _f32(gamma, beta, x2)
     dx = torch.empty_like(x2)

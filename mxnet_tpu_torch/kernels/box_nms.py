@@ -115,9 +115,15 @@ def keep(boxes, ids, nvalid, thresh, plus_one=False):
     """The greedy keep mask [B, n] (bool) of sorted boxes [B, n, 4] whose
     first ``nvalid[b]`` rows are valid (the module docstring). A CUDA
     tensor launches the kernel or raises; a CPU tensor runs
-    ``keep_reference``."""
-    if boxes.device.type != "cuda":
+    ``keep_reference``; a meta tensor (shape inference) gives an empty
+    mask of the right shape."""
+    if boxes.device.type == "cpu":
         return keep_reference(boxes, ids, nvalid, thresh, plus_one)
+    if boxes.device.type == "meta":
+        return torch.empty(tuple(boxes.shape[:2]), dtype=torch.bool,
+                           device="meta")
+    if boxes.device.type != "cuda":
+        raise MXNetError("box_nms: no kernel for device %s" % boxes.device)
     return _launch(boxes, ids, nvalid, thresh, plus_one)
 
 

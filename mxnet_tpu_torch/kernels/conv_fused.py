@@ -166,7 +166,7 @@ def _check(x, s, b, w):
             raise TypeError("fused_scale_relu_conv3x3: floating operands "
                             "required, got %s" % t.dtype)
     compute_dtype(x.dtype)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise MXNetError("fused_scale_relu_conv3x3: no kernel for device %s"
                          % x.device)
 
@@ -212,9 +212,12 @@ def fused_scale_relu_conv3x3(x, s, b, w, relu=True):
     A CPU tensor runs ``fused_conv_reference`` (and the plain backward). A
     CUDA tensor launches the kernels on the current stream, or raises:
     non-contiguous ``x``, an unsupported dtype, mismatched shapes or a
-    failed launch are errors.
+    failed launch are errors. A ``meta`` tensor (shape inference) gives an
+    empty output of the right shape and dtype.
     """
     _check(x, s, b, w)
+    if x.device.type == "meta":
+        return x.new_empty(tuple(x.shape[:3]) + (w.shape[-1],))
     if x.device.type == "cuda" and not x.is_contiguous():
         raise ValueError("fused_scale_relu_conv3x3: x must be contiguous "
                          "NHWC")
@@ -236,6 +239,9 @@ def fused_conv_backward(x, s, b, w, dy, relu=True):
                             tuple(x.shape[:3]) + (w.shape[-1],), x.device))
     if x.device.type == "cpu":
         return fused_conv_backward_reference(x, s, b, w, dy, relu)
+    if x.device.type == "meta":
+        return (torch.empty_like(x), torch.empty_like(s),
+                torch.empty_like(b), torch.empty_like(w))
     if not x.is_contiguous():
         raise ValueError("fused_conv_backward: x must be contiguous NHWC")
     if not dy.is_contiguous():

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..base import weak_scalar
-from .registry import register
+from .registry import VARIADIC, register
 
 __all__ = ["add_n", "reciprocal", "rsqrt", "rcbrt", "sigmoid",
            "hard_sigmoid", "relu", "softsign", "softrelu", "clip",
@@ -86,8 +86,14 @@ _BINARY = {
     "arctan2": torch.atan2,
 }
 
+# The symbol front end's input names of these ops, as the JAX package
+# reads them off jnp's functions: its ufuncs take *args (every positional
+# Symbol an input); divide, power, mod, hypot and arctan2 name theirs x1
+# and x2, which are no input names, so their nodes take no Symbol inputs.
+_JNP_UFUNCS = ("add", "subtract", "multiply", "maximum", "minimum")
+
 for _name, _fn in _BINARY.items():
-    register(_name,
+    register(_name, input_names=VARIADIC if _name in _JNP_UFUNCS else (),
              aliases=("broadcast_" + _name,
                       *(("elemwise_" + _name,) if _name in
                         ("add", "subtract", "multiply", "divide") else ()),
@@ -112,7 +118,7 @@ def _float_if_int(fn):
 
 
 for _name in ("hypot", "arctan2"):
-    register(_name, aliases=("broadcast_" + _name,))(
+    register(_name, aliases=("broadcast_" + _name,), input_names=())(
         _binary(_float_if_int(_BINARY[_name])))
 
 _COMPARE = {
@@ -129,8 +135,8 @@ _COMPARE = {
 
 
 def _mk_cmp(f):
-    def _cmp(lhs, rhs):
-        a, b = _operands(lhs, rhs)
+    def _cmp(a, b):
+        a, b = _operands(a, b)
         dt = torch.promote_types(a.dtype, b.dtype)
         return f(a, b).to(torch.float32 if dt == torch.bool else dt)
     return _cmp
@@ -193,9 +199,15 @@ _UNARY = {
     "logical_not": _logical_not,
 }
 
+# Input names where the op is a torch builtin (no signature to read): the
+# JAX package's, read off jnp's functions (x; round's a; negative, a
+# ufunc, variadic).
+_UNARY_INPUTS = {"round": ("a",), "negative": VARIADIC}
+
 for _name, _fn in _UNARY.items():
     # "gamma" is the JAX package's alias of gammaln, kept as it is
-    register(_name, aliases=(("gamma",) if _name == "gammaln" else ()))(_fn)
+    register(_name, aliases=(("gamma",) if _name == "gammaln" else ()),
+             input_names=_UNARY_INPUTS.get(_name, ("x",)))(_fn)
 
 
 @register("add_n", aliases=("ElementWiseSum", "elemwise_sum"))

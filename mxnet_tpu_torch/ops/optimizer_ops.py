@@ -39,7 +39,7 @@ def _clip(g, c):
     return g
 
 
-@register("sgd_update")
+@register("sgd_update", input_names=("weight", "grad"))
 def sgd_update(weight, grad, lr=None, wd=0.0, rescale_grad=1.0,
                clip_gradient=-1.0, lazy_update=True):
     """ref: optimizer_op-inl.h:382 SGDKernel."""
@@ -47,7 +47,8 @@ def sgd_update(weight, grad, lr=None, wd=0.0, rescale_grad=1.0,
     return _s(1.0 - lr * wd, weight) * weight - _s(lr, g) * g
 
 
-@register("sgd_mom_update")
+@register("sgd_mom_update",
+          input_names=("weight", "grad", "mom"), num_outputs=2)
 def sgd_mom_update(weight, grad, mom, lr=None, momentum=0.0, wd=0.0,
                    rescale_grad=1.0, clip_gradient=-1.0, lazy_update=True):
     """ref: optimizer_op-inl.h:600 SGDMomKernel -> (new_w, new_mom)."""
@@ -57,7 +58,8 @@ def sgd_mom_update(weight, grad, mom, lr=None, momentum=0.0, wd=0.0,
     return weight + new_m, new_m
 
 
-@register("mp_sgd_update")
+@register("mp_sgd_update",
+          input_names=("weight", "grad", "weight32"), num_outputs=2)
 def mp_sgd_update(weight, grad, weight32, lr=None, wd=0.0,
                   rescale_grad=1.0, clip_gradient=-1.0, lazy_update=True):
     """ref: optimizer_op-inl.h MP_SGDKernel -> (new_w, new_w32)."""
@@ -66,7 +68,8 @@ def mp_sgd_update(weight, grad, weight32, lr=None, wd=0.0,
     return new_w32.to(weight.dtype), new_w32
 
 
-@register("mp_sgd_mom_update")
+@register("mp_sgd_mom_update",
+          input_names=("weight", "grad", "mom", "weight32"), num_outputs=3)
 def mp_sgd_mom_update(weight, grad, mom, weight32, lr=None, momentum=0.0,
                       wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
                       lazy_update=True):
@@ -78,7 +81,8 @@ def mp_sgd_mom_update(weight, grad, mom, weight32, lr=None, momentum=0.0,
     return new_w32.to(weight.dtype), new_m, new_w32
 
 
-@register("nag_mom_update")
+@register("nag_mom_update",
+          input_names=("weight", "grad", "mom"), num_outputs=2)
 def nag_mom_update(weight, grad, mom, lr=None, momentum=0.0, wd=0.0,
                    rescale_grad=1.0, clip_gradient=-1.0):
     """Nesterov momentum (ref: optimizer_op-inl.h:1060 NAGMomKernel)
@@ -91,7 +95,8 @@ def nag_mom_update(weight, grad, mom, lr=None, momentum=0.0, wd=0.0,
     return new_w, new_m
 
 
-@register("mp_nag_mom_update")
+@register("mp_nag_mom_update",
+          input_names=("weight", "grad", "mom", "weight32"), num_outputs=3)
 def mp_nag_mom_update(weight, grad, mom, weight32, lr=None, momentum=0.0,
                       wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
     """ref: optimizer_op-inl.h MP_NAGMomKernel -> (new_w, new_mom,
@@ -104,7 +109,8 @@ def mp_nag_mom_update(weight, grad, mom, weight32, lr=None, momentum=0.0,
     return new_w32.to(weight.dtype), new_m, new_w32
 
 
-@register("adam_update")
+@register("adam_update",
+          input_names=("weight", "grad", "mean", "var"), num_outputs=3)
 def adam_update(weight, grad, mean, var, lr=None, beta1=0.9, beta2=0.999,
                 epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
                 lazy_update=True):
@@ -120,7 +126,7 @@ def adam_update(weight, grad, mean, var, lr=None, beta1=0.9, beta2=0.999,
     return new_w, new_m, new_v
 
 
-@register("rmsprop_update")
+@register("rmsprop_update", input_names=("weight", "grad", "n"), num_outputs=2)
 def rmsprop_update(weight, grad, n, lr=None, gamma1=0.95, epsilon=1e-8,
                    wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
                    clip_weights=-1.0):
@@ -134,7 +140,8 @@ def rmsprop_update(weight, grad, n, lr=None, gamma1=0.95, epsilon=1e-8,
     return new_w, new_n
 
 
-@register("rmspropalex_update")
+@register("rmspropalex_update",
+          input_names=("weight", "grad", "n", "g", "delta"), num_outputs=4)
 def rmspropalex_update(weight, grad, n, g, delta, lr=None, gamma1=0.95,
                        gamma2=0.9, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
                        clip_gradient=-1.0, clip_weights=-1.0):
@@ -150,7 +157,8 @@ def rmspropalex_update(weight, grad, n, g, delta, lr=None, gamma1=0.95,
     return new_w, new_n, new_g, new_d
 
 
-@register("ftrl_update")
+@register("ftrl_update",
+          input_names=("weight", "grad", "z", "n"), num_outputs=3)
 def ftrl_update(weight, grad, z, n, lr=None, lamda1=0.01, beta=1.0, wd=0.0,
                 rescale_grad=1.0, clip_gradient=-1.0):
     """ref: optimizer_op-inl.h:1797 FTRLKernel -> (new_w, new_z, new_n)."""
@@ -165,7 +173,8 @@ def ftrl_update(weight, grad, z, n, lr=None, lamda1=0.01, beta=1.0, wd=0.0,
     return new_w, new_z, new_n
 
 
-@register("ftml_update")
+@register("ftml_update",
+          input_names=("weight", "grad", "d", "v", "z"), num_outputs=4)
 def ftml_update(weight, grad, d, v, z, lr=None, t=1, beta1=0.6, beta2=0.999,
                 epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_grad=-1.0):
     """ref: optimizer_op-inl.h:1214 FTMLKernel -> (new_w, new_d, new_v,
@@ -181,7 +190,7 @@ def ftml_update(weight, grad, d, v, z, lr=None, t=1, beta1=0.6, beta2=0.999,
     return -new_z / d_t, d_t, new_v, new_z
 
 
-@register("signsgd_update")
+@register("signsgd_update", input_names=("weight", "grad"))
 def signsgd_update(weight, grad, lr=None, wd=0.0, rescale_grad=1.0,
                    clip_gradient=-1.0):
     """ref: optimizer_op-inl.h:1998 SignSGDKernel."""
@@ -189,7 +198,8 @@ def signsgd_update(weight, grad, lr=None, wd=0.0, rescale_grad=1.0,
         - _s(lr, grad) * torch.sign(grad)
 
 
-@register("signum_update")
+@register("signum_update",
+          input_names=("weight", "grad", "mom"), num_outputs=2)
 def signum_update(weight, grad, mom, lr=None, momentum=0.0, wd=0.0,
                   rescale_grad=1.0, clip_gradient=-1.0, wd_lh=0.0):
     """ref: optimizer_op-inl.h:2066 SignumKernel -> (new_w, new_mom)."""
@@ -201,7 +211,8 @@ def signum_update(weight, grad, mom, lr=None, momentum=0.0, wd=0.0,
         + _s(lr, new_m) * torch.sign(new_m), new_m
 
 
-@register("adamw_update")
+@register("adamw_update",
+          input_names=("weight", "grad", "mean", "var"), num_outputs=3)
 def adamw_update(weight, grad, mean, var, rescale_grad=1.0, lr=None,
                  eta=None, beta1=0.9, beta2=0.999, epsilon=1e-8, wd=0.0,
                  clip_gradient=-1.0):
@@ -223,7 +234,9 @@ def _rescale(r, ref):
     return _s(r, ref)
 
 
-@register("mp_adamw_update")
+@register("mp_adamw_update",
+          input_names=("weight", "grad", "mean", "var", "weight32"),
+          num_outputs=4)
 def mp_adamw_update(weight, grad, mean, var, weight32, rescale_grad=1.0,
                     lr=None, eta=None, beta1=0.9, beta2=0.999, epsilon=1e-8,
                     wd=0.0, clip_gradient=-1.0):
@@ -238,7 +251,8 @@ def mp_adamw_update(weight, grad, mean, var, weight32, rescale_grad=1.0,
     return new_w32.to(weight.dtype), new_m, new_v, new_w32
 
 
-@register("lamb_update_phase1")
+@register("lamb_update_phase1",
+          input_names=("weight", "grad", "mean", "var"), num_outputs=3)
 def lamb_update_phase1(weight, grad, mean, var, lr=None, beta1=0.9,
                        beta2=0.999, epsilon=1e-6, t=1,
                        bias_correction=True, wd=0.0, rescale_grad=1.0,
@@ -257,7 +271,7 @@ def lamb_update_phase1(weight, grad, mean, var, lr=None, beta1=0.9,
         new_m, new_v
 
 
-@register("lamb_update_phase2")
+@register("lamb_update_phase2", input_names=("weight", "g", "r1", "r2"))
 def lamb_update_phase2(weight, g, r1, r2, lr=None, lower_bound=-1.0,
                        upper_bound=-1.0):
     """ref: optimizer_op.cc lamb_update_phase2."""
@@ -271,7 +285,8 @@ def lamb_update_phase2(weight, g, r1, r2, lr=None, lower_bound=-1.0,
     return weight - _s(lr, weight) * ratio * g
 
 
-@register("sparse_adagrad_update", aliases=("group_adagrad_update",))
+@register("sparse_adagrad_update", aliases=("group_adagrad_update",),
+          input_names=("weight", "grad", "history"), num_outputs=2)
 def sparse_adagrad_update(weight, grad, history, lr=None, epsilon=1e-7,
                           wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
     """AdaGrad with accumulated history (ref: optimizer_op.cc
@@ -284,7 +299,8 @@ def sparse_adagrad_update(weight, grad, history, lr=None, epsilon=1e-7,
     return new_w, new_h
 
 
-@register("multi_lars")
+@register("multi_lars",
+          input_names=("lrs", "weights_sum_sq", "grads_sum_sq", "wds"))
 def multi_lars(lrs, weights_sum_sq, grads_sum_sq, wds, eta=0.001,
                eps=1e-8, rescale_grad=1.0):
     """LARS trust-ratio learning rates (ref: contrib/multi_lars.cc)."""
@@ -320,7 +336,15 @@ def _multi_pure(single, n_per, n_states, data, num_weights, lrs, wds,
     return tuple(new_ws) + tuple(new_states)
 
 
-@register("multi_sgd_update")
+def _multi_nout(states_per_weight):
+    """A multi-tensor op's output count in a graph: each weight and its
+    states."""
+    def count(attrs):
+        return int(attrs.get("num_weights", 1)) * (1 + states_per_weight)
+    return count
+
+
+@register("multi_sgd_update", num_outputs=_multi_nout(0))
 def multi_sgd_update(*data, lrs=None, wds=None, num_weights=1,
                      rescale_grad=1.0, clip_gradient=-1.0):
     """ref: optimizer_op.cc multi_sgd_update: (w, g) x N -> new weights."""
@@ -329,7 +353,7 @@ def multi_sgd_update(*data, lrs=None, wds=None, num_weights=1,
                             clip_gradient=clip_gradient))
 
 
-@register("multi_sgd_mom_update")
+@register("multi_sgd_mom_update", num_outputs=_multi_nout(1))
 def multi_sgd_mom_update(*data, lrs=None, wds=None, num_weights=1,
                          momentum=0.0, rescale_grad=1.0,
                          clip_gradient=-1.0):
@@ -340,7 +364,7 @@ def multi_sgd_mom_update(*data, lrs=None, wds=None, num_weights=1,
                             clip_gradient=clip_gradient))
 
 
-@register("multi_mp_sgd_update")
+@register("multi_mp_sgd_update", num_outputs=_multi_nout(1))
 def multi_mp_sgd_update(*data, lrs=None, wds=None, num_weights=1,
                         rescale_grad=1.0, clip_gradient=-1.0):
     """ref: optimizer_op.cc multi_mp_sgd_update: (w, g, w32) x N ->
@@ -350,7 +374,7 @@ def multi_mp_sgd_update(*data, lrs=None, wds=None, num_weights=1,
                             clip_gradient=clip_gradient))
 
 
-@register("multi_mp_sgd_mom_update")
+@register("multi_mp_sgd_mom_update", num_outputs=_multi_nout(2))
 def multi_mp_sgd_mom_update(*data, lrs=None, wds=None, num_weights=1,
                             momentum=0.0, rescale_grad=1.0,
                             clip_gradient=-1.0):
@@ -371,7 +395,7 @@ def _preloaded_pure(multi, data, num_weights, kwargs):
                  num_weights=num_weights, **kwargs)
 
 
-@register("preloaded_multi_sgd_update")
+@register("preloaded_multi_sgd_update", num_outputs=_multi_nout(0))
 def preloaded_multi_sgd_update(*data, num_weights=1, rescale_grad=1.0,
                                clip_gradient=-1.0):
     """ref: optimizer_op.cc preloaded_multi_sgd_update."""
@@ -380,7 +404,7 @@ def preloaded_multi_sgd_update(*data, num_weights=1, rescale_grad=1.0,
                                 clip_gradient=clip_gradient))
 
 
-@register("preloaded_multi_sgd_mom_update")
+@register("preloaded_multi_sgd_mom_update", num_outputs=_multi_nout(1))
 def preloaded_multi_sgd_mom_update(*data, num_weights=1, momentum=0.0,
                                    rescale_grad=1.0, clip_gradient=-1.0):
     """ref: optimizer_op.cc preloaded_multi_sgd_mom_update."""
@@ -390,7 +414,7 @@ def preloaded_multi_sgd_mom_update(*data, num_weights=1, momentum=0.0,
                                 clip_gradient=clip_gradient))
 
 
-@register("preloaded_multi_mp_sgd_update")
+@register("preloaded_multi_mp_sgd_update", num_outputs=_multi_nout(1))
 def preloaded_multi_mp_sgd_update(*data, num_weights=1, rescale_grad=1.0,
                                   clip_gradient=-1.0):
     """ref: optimizer_op.cc preloaded_multi_mp_sgd_update."""
@@ -399,7 +423,7 @@ def preloaded_multi_mp_sgd_update(*data, num_weights=1, rescale_grad=1.0,
                                 clip_gradient=clip_gradient))
 
 
-@register("preloaded_multi_mp_sgd_mom_update")
+@register("preloaded_multi_mp_sgd_mom_update", num_outputs=_multi_nout(2))
 def preloaded_multi_mp_sgd_mom_update(*data, num_weights=1, momentum=0.0,
                                       rescale_grad=1.0,
                                       clip_gradient=-1.0):

@@ -64,7 +64,8 @@ def seed(seed_state, ctx="all"):
 def generator(device=None):
     """The generator of ``device`` (None or the CPU: the host generator; a
     CUDA device or a GPU Context: that card's, made on first use and seeded
-    with the seed ``seed()`` set last for all)."""
+    with the seed ``seed()`` set last for all; ``meta``, where shape
+    inference draws nothing: None)."""
     from .context import Context
     if device is None:
         return _STATE.host
@@ -73,6 +74,8 @@ def generator(device=None):
     device = torch.device(device)
     if device.type == "cpu":
         return _STATE.host
+    if device.type == "meta":
+        return None
     if device.type != "cuda":
         raise ValueError("no generator for device %s" % device)
     idx = _card_index(device)

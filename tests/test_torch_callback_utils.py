@@ -5,8 +5,7 @@ package's on the CPU.
   epoch), ``log_train_metric``, ``LogValidationMetricsCallback`` and
   ``ProgressBar`` print JAX's lines for the same metric values and clock
   readings (``time.time`` is replaced by a counter); the metric windows are
-  reset as JAX's; the checkpoint callbacks, which need the Module API,
-  raise NotImplementedError.
+  reset as JAX's; the checkpoint callbacks save JAX's files.
 - ``gluon.utils``: ``split_data`` (even and uneven, the error),
   ``split_and_load`` (numpy, NDArray, one and three contexts),
   ``clip_global_norm`` (values within 1e-6 relative, the returned norm,
@@ -134,11 +133,34 @@ def test_validation_and_progress_bar(caplog, capsys, clock):
         assert capsys.readouterr().out == want
 
 
-def test_checkpoint_callbacks_raise():
-    with pytest.raises(NotImplementedError, match="Module"):
-        tcb.do_checkpoint("prefix")
-    with pytest.raises(NotImplementedError, match="Module"):
-        tcb.module_checkpoint(object(), "prefix", period=2)
+def test_checkpoint_callbacks_raise(tmp_path):
+    """The checkpoint callbacks, which raised until the Module API was
+    ported, now save as JAX's: do_checkpoint every ``period`` epochs (the
+    same file pair, byte for byte), module_checkpoint through the
+    module's save_checkpoint."""
+    arr = np.arange(6, dtype=np.float32).reshape(2, 3)
+    for pkg, cb, d in ((mxj, jcb, tmp_path / "j"), (mx, tcb, tmp_path / "t")):
+        d.mkdir()
+        net = pkg.sym.FullyConnected(pkg.sym.var("data"), num_hidden=2,
+                                     name="fc")
+        save = cb.do_checkpoint(str(d / "m"), period=2)
+        for epoch in range(4):
+            save(epoch, net, {"fc_weight": pkg.nd.array(arr + epoch)}, {})
+    assert sorted(p.name for p in (tmp_path / "t").iterdir()) == \
+        ["m-0002.params", "m-0004.params", "m-symbol.json"]
+    for name in ("m-0002.params", "m-0004.params", "m-symbol.json"):
+        assert (tmp_path / "t" / name).read_bytes() == \
+            (tmp_path / "j" / name).read_bytes()
+    saved = []
+
+    class _Mod:
+        def save_checkpoint(self, prefix, epoch, states):
+            saved.append((prefix, epoch, states))
+    cb = tcb.module_checkpoint(_Mod(), "prefix", period=2,
+                               save_optimizer_states=True)
+    for epoch in range(5):
+        cb(epoch)
+    assert saved == [("prefix", 2, True), ("prefix", 4, True)]
     assert sorted(tcb.__all__) == sorted(jcb.__all__)
 
 

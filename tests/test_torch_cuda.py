@@ -1325,3 +1325,94 @@ def test_image_ops_run_on_the_card():
         assert g.device.type == "cuda", name
         assert (g.cpu() - w).abs().max() <= 1e-5 * float(w.abs().max()), \
             name
+
+
+def _narrow_nchw_resnet(prefix):
+    return tres.ResNetV1(tres.BasicBlockV1, [1, 1, 1, 1], [8, 8, 16, 32, 64],
+                         classes=10, thumbnail=True, prefix=prefix)
+
+
+@pytest.mark.cuda
+def test_module_step_on_the_card_matches_the_cpu():
+    """A narrow NCHW ResNet traced into a symbol, one Module step on the
+    card and on the CPU from the same parameters and batch (f32, TF32
+    off): outputs, parameters and moving statistics within 1e-4."""
+    _need_card()
+    sym = mx.sym.SoftmaxOutput(_narrow_nchw_resnet("m_")(
+        mx.sym.var("data")), name="softmax")
+    rs = np.random.RandomState(0)
+    shapes = {"data": (8, 3, 32, 32), "softmax_label": (8,)}
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    arg = {n: rs.uniform(-0.2, 0.2, s).astype("float32")
+           for n, s in zip(sym.list_arguments(), arg_shapes)
+           if n not in shapes}
+    x = rs.uniform(-1, 1, shapes["data"]).astype("float32")
+    y = rs.randint(0, 10, 8).astype("float32")
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        mod = mx.mod.Module(sym, context=ctx)
+        mod.bind([("data", shapes["data"])], [("softmax_label", (8,))])
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in arg.items()},
+                        allow_missing=True)
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        mod.forward(mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                                    [mx.nd.array(y, ctx=ctx)]))
+        mod.backward()
+        mod.update()
+        a, aux = mod.get_params()
+        res.append((mod.get_outputs()[0].asnumpy(),
+                    {k: v.asnumpy() for k, v in a.items()},
+                    {k: v.asnumpy() for k, v in aux.items()}))
+    for got, want in ((res[0][0], res[1][0]),
+                      *((res[0][1][k], res[1][1][k]) for k in res[1][1]),
+                      *((res[0][2][k], res[1][2][k]) for k in res[1][2])):
+        err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+        assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+def test_symbolblock_step_on_the_card_launches_the_batchnorm_kernels():
+    """A channels-last ResNet-18 v1 as a SymbolBlock on the card: one
+    training step launches each BatchNorm kernel once per BatchNorm
+    (20), and its loss and gradients equal the zoo net's own eager step
+    from the same parameters (bf16, cuDNN deterministic)."""
+    _need_card()
+    import os
+    import tempfile
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    net = mx.gluon.model_zoo.vision.resnet18_v1(layout="NHWC", classes=10,
+                                                prefix="sb_")
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    x = torch.from_numpy(np.random.RandomState(1).uniform(
+        -1, 1, (8, 3, 32, 32)).astype("float32")).cuda()
+    net(x)
+    net.cast("bfloat16")
+    d = tempfile.mkdtemp()
+    net(mx.sym.var("data")).save(os.path.join(d, "g.json"))
+    net.export(os.path.join(d, "n"))
+    blk = mx.gluon.SymbolBlock.imports(os.path.join(d, "g.json"), ["data"],
+                                       os.path.join(d, "n-0000.params"),
+                                       ctx=mx.gpu(0))
+    blk.cast("bfloat16")
+    y = torch.arange(8, device="cuda")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    out = []
+    for block in (net, blk):
+        before = BNF.LAUNCHES_STATS, BNF.LAUNCHES_BWD_DX
+        with mx.autograd.record():
+            loss = loss_fn(block(x.to(torch.bfloat16)), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert (BNF.LAUNCHES_STATS - before[0],
+                BNF.LAUNCHES_BWD_DX - before[1]) == (20, 20)
+        ps = block.collect_params()
+        out.append((loss.float().cpu(),
+                    {n: p._grad_tensor().float().cpu()
+                     for n, p in ps.items() if p.grad_req != "null"}))
+    assert torch.equal(out[0][0], out[1][0])
+    assert sorted(out[0][1]) == sorted(out[1][1])
+    for n, g in out[0][1].items():
+        assert torch.equal(out[1][1][n], g), n
