@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases env,train_rec,api
     python3 chip_smoke.py --phases env,train_jpeg,train_det
     python3 chip_smoke.py --phases env,train_module,train_symblock
+    python3 chip_smoke.py --phases env,observe,custom
     python3 chip_smoke.py --phases env,train_lm_deep
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
@@ -355,6 +356,51 @@ Phases, each printing JSON lines:
               RTOL["bfloat16"] (the same bits printed); then device busy ms
               per step of the SymbolBlock and of the zoo net's eager step
               (phase train's), in turns.
+5j. observe -- the observability layer over train's eager recipe (3 steps,
+              fuse=False) then train_fused's (10 steps, FusedTrainStep,
+              MXTPU_FUSED_APPLY=1), fed by DevicePrefetchIter over an
+              NDArrayIter of seeded synthetic images, inside one profiling
+              window (profile_all, profile_memory, aggregate_stats,
+              continuous_dump, a torch.profiler device session), with the
+              allocation ledger on and a goodput run open. Checks: the host
+              trace parses and names every lane the path uses; 10
+              gluon.train_step spans and the fused_step.step percentiles in
+              dumps(); each kernel of rows 1-8 (and the second passes)
+              counted by its CUDA kernel name in the device trace equals
+              its launch counter over the window exactly, no launch without
+              a device event; storage.stats() on cuda:0 equals
+              torch.cuda.memory_allocated() at the same moment and the
+              ledger's param, opt_state and activation tags sum to no more;
+              the watchdog and goodput hold the 10 fused steps, warm-up as
+              last_mode says; goodput's categories sum to its wall within
+              1%. Then in turns the eager step's wall and device ms with
+              the profiler stopped (default hooks), under
+              set_profiler_hooks(False) and while profiling: the first two
+              within the spread of their steps. A 2 s fault-point delay at
+              io.prefetch.place shows as goodput input_wait and in
+              io.prefetch_wait's percentiles, not in the watchdog; a step
+              held open 2 s (1 s past the threshold, where 8 x the median
+              step reaches 1.5 s) under watchdog.configure(min_s=0.5) is
+              one stall and one shard; SIGUSR2 writes one shard; an nd.zeros
+              larger than free memory raises torch.cuda.OutOfMemoryError
+              with one OOM shard naming the top tags (larger than the
+              card: just above free memory the allocator frees its cache
+              and succeeds); a fused step trains
+              after each.
+5k. custom -- the softmax CustomOp of MXNet's documentation (forward
+              softmax(x), backward y - onehot(label)), registered with
+              mx.operator.register, as the loss head of train's eager
+              recipe under autograd.record for 3 steps: 53 launches of each
+              of rows 4-7 per step, the cross-entropy of its output
+              falling; its f32 first step card vs CPU at train's bounds;
+              mx.sym.Custom as an MLP's head through Module, 2 steps, card
+              vs CPU within 1e-5 (TF32 off); train's net traced to a symbol,
+              partitioned by a property selecting BatchNorm/Activation
+              chains (symbol.subgraph.partition) and run as a SymbolBlock
+              for one step: loss and gradients equal the unpartitioned
+              block's bit for bit (cuDNN deterministic), rows 4-7 at 53,
+              the fused regions' running statistics left as they were (the
+              JAX package's default compile drops them).
 6. train_lm -- the transformer LM of bench.py's bench_transformer at its
               full width (dim 4096, 5 layers, 32 heads of 128, FFN 16384,
               vocab 32000, bf16, chunked CE over 8 chunks, full per-layer
@@ -440,7 +486,8 @@ training, launches_zoo; rows 4-7 on train_amp's, launches_train_amp; rows
 1-7 on train_rec's, launches_train_rec, and on train_jpeg's,
 launches_train_jpeg; rows 1 and 4-7 on train_symblock's,
 launches_train_symblock; every kernel 0 on train_module's,
-launches_train_module; box_nms on train_det's; rows
+launches_train_module; rows 1-8 over observe's window, launches_observe;
+rows 4-7 on custom's loss-head steps, launches_custom; box_nms on train_det's; rows
 9-11 on train_lm_deep's, per remat_save, launches_train_lm_deep), max abs
 error at
 the ResNet-50 shapes in bf16 and its tolerance, and the times, bound,
@@ -468,8 +515,8 @@ import numpy as np
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_sharded", "ndarray", "zoo",
           "train_amp", "train_rec", "train_jpeg", "train_det", "api",
-          "train_module", "train_symblock", "train_lm", "train_lm_deep",
-          "time")
+          "train_module", "train_symblock", "observe", "custom", "train_lm",
+          "train_lm_deep", "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
 # the BatchNorm kernels' checks and timing, the training steps' timing
 # (after the train phases), the conv_fused forward's, the backward pair's,
@@ -7174,6 +7221,731 @@ def phase_train_symblock(torch, state):
                              % losses)
 
 
+# -- phase observe: the observability layer on the main path ---------------
+
+# The observe window: train's eager recipe, then train_fused's.
+OBSERVE_EAGER, OBSERVE_FUSED = 3, 10
+# The fed batches: train's batch size and image size, an NDArrayIter over 4
+# batches' worth of seeded images.
+OBSERVE_BATCH, OBSERVE_IMAGE = 128, 224
+# The fault-point delay at io.prefetch.place, the step held open under the
+# watchdog (watchdog.configure(min_s=OBSERVE_MIN_S)): OBSERVE_HOLD_S, or 1 s
+# past the armed threshold where 8 x the median step reaches it), and how
+# long to wait for a shard that a helper thread writes.
+OBSERVE_DELAY_S = 2.0
+OBSERVE_HOLD_S = 2.0
+OBSERVE_MIN_S = 0.5
+OBSERVE_SHARD_WAIT_S = 20.0
+# The hooks' price: rounds of the eager step in the three modes, steps per
+# turn.
+OBSERVE_ROUNDS = (("off", "hooks_off", "profiling"),
+                  ("profiling", "hooks_off", "off"),
+                  ("off", "hooks_off", "profiling"))
+OBSERVE_TURN_STEPS = 3
+# The launch counters of rows 1-8 (and of the second passes) and the CUDA
+# kernel names each counts: a device-trace kernel whose name holds every
+# part of one alternative belongs to the counter.
+DEVICE_KERNELS = {
+    "conv_fused": (("conv_fused_fwd_bf16_kernel",),
+                   ("conv_fused_f32_kernel",)),
+    "conv_fused.bwd_dx": (("conv_bwd_dx_bf16_kernel",),
+                          ("conv_bwd_dx_f32_kernel",)),
+    "conv_fused.bwd_dx.finalize": (("conv_bwd_finalize_kernel",),),
+    "conv_fused.bwd_dw": (("conv_bwd_dw_bf16_kernel",),
+                          ("conv_bwd_dw_f32_kernel",)),
+    "conv_fused.bwd_dw.reduce": (("conv_dw_reduce_kernel",),),
+    "stats": (("bn_fold_kernel", "StatsOp"),),
+    "apply": (("bn_apply_kernel",),),
+    "bwd_reduce": (("bn_fold_kernel", "BwdOp"),),
+    "bwd_dx": (("bn_bwd_dx_kernel",),),
+    "finalize": (("bn_finalize_kernel",),),
+    "optimizer_apply": (("sgd_apply_kernel",),),
+}
+
+
+def _observe_counts(BNF, CF, OA):
+    c = _conv_counts(CF)
+    b = _bn_counts(BNF)
+    out = {"conv_fused": c["fwd"], "conv_fused.bwd_dx": c["bwd_dx"],
+           "conv_fused.bwd_dx.finalize": c["finalize"],
+           "conv_fused.bwd_dw": c["bwd_dw"],
+           "conv_fused.bwd_dw.reduce": c["reduce"],
+           "optimizer_apply": OA.LAUNCHES}
+    out.update({k: b[k] for k in BN_KERNELS + ("finalize",)})
+    return out
+
+
+def _device_counts(kernels):
+    """{counter: device-trace launches} of DEVICE_KERNELS, from the
+    profiler's {kernel name: count}; raises where a name of ours matches
+    two counters."""
+    out = dict.fromkeys(DEVICE_KERNELS, 0)
+    for name, n in kernels.items():
+        hits = [k for k, alts in DEVICE_KERNELS.items()
+                if any(all(part in name for part in alt) for alt in alts)]
+        if len(hits) > 1:
+            raise AssertionError("device kernel %r matches %s" % (name, hits))
+        if hits:
+            out[hits[0]] += n
+    return out
+
+
+def _shards(d, trigger):
+    return sorted(n for n in os.listdir(d)
+                  if n.startswith("flightrec_") and "_%s_" % trigger in n)
+
+
+def _wait_shards(d, trigger, n):
+    deadline = time.perf_counter() + OBSERVE_SHARD_WAIT_S
+    while len(_shards(d, trigger)) < n and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    return _shards(d, trigger)
+
+
+def _observe_feed(mx, batches, seed):
+    """``batches`` batches of OBSERVE_BATCH seeded synthetic images (f32,
+    NCHW) and labels, through an NDArrayIter on the host, as a generator
+    the prefetcher's thread runs."""
+    rs = np.random.RandomState(seed)
+    n = 4 * OBSERVE_BATCH
+    data = rs.rand(n, 3, OBSERVE_IMAGE, OBSERVE_IMAGE).astype("float32")
+    label = rs.randint(0, 1000, (n,)).astype("float32")
+
+    def feed():
+        with mx.cpu():
+            it = mx.io.NDArrayIter(data, label, batch_size=OBSERVE_BATCH)
+            n = 0
+            while n < batches:
+                it.reset()
+                for b in it:
+                    yield b
+                    n += 1
+                    if n == batches:
+                        return
+    return feed()
+
+
+def phase_observe(torch, state):
+    """The observability layer over the main path (the module docstring,
+    5j)."""
+    import shutil
+    import signal
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler as prof
+    from mxnet_tpu_torch import storage
+    from mxnet_tpu_torch._debug import faultpoint, flightrec, goodput
+    from mxnet_tpu_torch._debug import memwatch, watchdog
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+    from mxnet_tpu_torch.ndarray import register as reg
+
+    arrays = _arrays(mx, state)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    ctx = mx.gpu(0)
+    # the first-use kernel builds the profiler recorded (phase env's)
+    compile_before = sorted(prof.compile_stats())
+    # a clean slate first (the ledger too), so that the nets' parameters
+    # registered below are the ledger's
+    prof._reset()
+    watchdog.reset()
+    goodput.reset()
+    storage.set_ledger_enabled(True)
+    eager_net = _build_net(mx, arrays, False, "bfloat16", ctx)
+    eager_tr = mx.gluon.Trainer(eager_net.collect_params(), "sgd", dict(SGD))
+    fused_net = _build_net(mx, arrays, True, "bfloat16", ctx)
+    fused_net.hybridize()
+    fused_tr = mx.gluon.Trainer(fused_net.collect_params(), "sgd", dict(SGD))
+    step = mx.gluon.train_step(fused_net, loss_fn, fused_tr)
+    all_params, train_pos, _ = step._param_split()
+    buckets = len(OA.bucketize([all_params[p]._tensor() for p in train_pos]))
+
+    def xy(b):
+        return (b.data[0]._data.to(torch.bfloat16), b.label[0]._data)
+
+    def eager(x, y):
+        return _train_step(mx, eager_net, eager_tr, loss_fn, x, y)
+
+    def fused(x, y):
+        prev = _set_fused_apply("1")
+        try:
+            return step(x, y)
+        finally:
+            _set_fused_apply(prev)
+
+    # the fused step's wall unprofiled, before the window (each step ends
+    # in a synchronize): the cadence the watchdog's median will see
+    x0, y0 = xy(mx.io.DataBatch(
+        [mx.nd.array(np.random.RandomState(5).rand(
+            OBSERVE_BATCH, 3, OBSERVE_IMAGE, OBSERVE_IMAGE), ctx=ctx)],
+        [mx.nd.array(np.zeros(OBSERVE_BATCH), ctx=ctx)]))
+    plain_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        fused(x0, y0)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - s0) * 1e3)
+    del x0, y0
+    watchdog.reset()        # those steps are not the window's
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_observe_")
+    env_prev = {k: os.environ.get(k) for k in ("MXTPU_FLIGHTREC_DIR",
+                                               "MXTPU_RUNS_DIR")}
+    os.environ["MXTPU_FLIGHTREC_DIR"] = os.path.join(tmp, "flightrec")
+    os.environ["MXTPU_RUNS_DIR"] = os.path.join(tmp, "runs")
+    os.makedirs(os.environ["MXTPU_FLIGHTREC_DIR"])
+    frdir = os.environ["MXTPU_FLIGHTREC_DIR"]
+    failures = []
+    out = {"phase": "observe", "steps": {"eager": OBSERVE_EAGER,
+                                         "fused": OBSERVE_FUSED}}
+    try:
+        # -- the profiling window over the main path ----------------------
+        prof.set_config(profile_all=True, profile_memory=True,
+                        aggregate_stats=True, continuous_dump=True,
+                        filename=os.path.join(tmp, "profile.json"),
+                        xprof=True, xprof_dir=os.path.join(tmp, "xprof"))
+        feed = mx.io.DevicePrefetchIter(
+            _observe_feed(mx, OBSERVE_EAGER + OBSERVE_FUSED, 2),
+            sharding=ctx)
+        torch.cuda.synchronize()
+        goodput.open_run(run_id="chip_smoke_observe")
+        _zero_counts(BNF, CF, OA)
+        prof.set_state("run")
+        modes, losses = [], []
+        t0 = time.perf_counter()
+        for i, b in enumerate(feed):
+            x, y = xy(b)
+            if i < OBSERVE_EAGER:
+                loss = eager(x, y)
+            else:
+                loss = fused(x, y)
+                modes.append(step.last_mode)
+            losses.append(loss.detach().float().mean())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _observe_counts(BNF, CF, OA)
+        # the same moment: no thread allocates now (the feed is spent)
+        dev_stats = storage.stats()[0]
+        allocated = torch.cuda.memory_allocated(0)
+        ledger = storage.ledger_metrics()
+        s0 = time.perf_counter()
+        prof.set_state("stop")
+        stop_s = time.perf_counter() - s0
+        manifest = goodput.close_run()
+        wd = watchdog.stats()
+        losses = [float(v) for v in losses]
+        prof.dump()
+        dev = prof.metrics()["profiler"]
+        text = prof.dumps()
+        lat = prof.metrics()["latency"]
+
+        with open(prof._state["filename"]) as f:
+            host = json.load(f)
+        events = host["traceEvents"]
+        lanes = {e["tid"]: e["args"]["name"] for e in events
+                 if e.get("name") == "thread_name"}
+        used = sorted({lanes.get(e.get("tid")) for e in events
+                       if e.get("ph") in ("X", "C")})
+        want_lanes = ["autograd", "gluon", "imperative", "io", "memory"]
+        train_spans = [e for e in events if e.get("ph") == "X"
+                       and e.get("name") == "gluon.train_step"]
+        fsl = lat.get("fused_step.step", {})
+        table = [ln for ln in text.splitlines()
+                 if ln.startswith("fused_step.step")]
+        device = _device_counts(dev["kernels"]) if dev["kernels"] else {}
+        dev_trace_events = 0
+        if dev["trace"] and os.path.exists(dev["trace"]):
+            with open(dev["trace"]) as f:
+                dev_trace_events = sum(
+                    1 for e in json.load(f).get("traceEvents", ())
+                    if e.get("cat") == "kernel")
+        want_counts = {
+            "conv_fused": OBSERVE_FUSED * FUSED_PER_STEP,
+            "conv_fused.bwd_dx": OBSERVE_FUSED * FUSED_PER_STEP,
+            "conv_fused.bwd_dx.finalize": OBSERVE_FUSED * FUSED_PER_STEP,
+            "conv_fused.bwd_dw": OBSERVE_FUSED * FUSED_PER_STEP,
+            "conv_fused.bwd_dw.reduce": OBSERVE_FUSED * FUSED_PER_STEP,
+            "optimizer_apply": OBSERVE_FUSED * buckets}
+        bn_n = OBSERVE_EAGER * BN_PER_STEP \
+            + OBSERVE_FUSED * BN_FUSED_NET_PER_STEP
+        want_counts.update({k: bn_n for k in BN_KERNELS})
+        want_counts["finalize"] = 2 * bn_n
+        tags = sum(ledger["by_tag"][t] for t in
+                   ("param", "opt_state", "activation"))
+        cats = manifest["categories_s"]
+        warm = sum(m != "fused" for m in modes)
+        checks = {
+            "host_trace_lanes": all(l in used for l in want_lanes),
+            "train_step_spans": len(train_spans) == OBSERVE_FUSED,
+            "fused_step_percentiles": fsl.get("count") == OBSERVE_FUSED
+            and len(table) == 1,
+            "device_trace": dev["error"] is None and dev["lost"] == 0
+            and dev_trace_events > 0,
+            "device_equals_counters": device == counts,
+            "counters_as_wanted": counts == want_counts,
+            "stats_equal_memory_allocated":
+                dev_stats.bytes_in_use == allocated,
+            "ledger_within_allocated": 0 < tags <= allocated
+            and ledger["by_device"].get("cuda:0", 0) <= allocated,
+            "watchdog_steps": wd["steps"] == OBSERVE_FUSED - warm
+            and wd["warmup_steps"] == warm,
+            "goodput_steps": manifest["steps"]["count"] == OBSERVE_FUSED
+            - warm and manifest["steps"]["warmup"] == warm,
+            "goodput_sums_to_wall": abs(sum(cats.values())
+                                        - manifest["wall_s"])
+            <= 0.01 * manifest["wall_s"],
+            "losses_finite": all(np.isfinite(losses)),
+        }
+        failures += [k for k, ok in checks.items() if not ok]
+        out.update({
+            "window_wall_s": wall, "stop_s": stop_s,
+            "compile_records_before": compile_before,
+            "fused_step_wall_ms_unprofiled": plain_ms,
+            "losses": losses, "fused_modes": modes,
+            "launch_counters": counts, "launches_wanted": want_counts,
+            "device_trace_counts": device, "device_trace_lost":
+            dev["lost"], "device_trace_launches": dev["launches"],
+            "device_trace_error": dev["error"], "device_primer":
+            dev["primer"], "device_trace_kernel_events": dev_trace_events,
+            "host_lanes_used": used,
+            "gluon_train_step_spans": len(train_spans),
+            "fused_step_latency_us": fsl,
+            "storage_bytes_in_use": dev_stats.bytes_in_use,
+            "memory_allocated": allocated,
+            "ledger_by_tag": ledger["by_tag"],
+            "ledger_by_device": ledger["by_device"],
+            "watchdog": wd, "goodput_categories_s": cats,
+            "goodput_wall_s": manifest["wall_s"],
+            "goodput_steps": manifest["steps"],
+            "compile_records": sorted(prof.compile_stats()),
+            "checks": checks})
+        state["launches_observe"] = counts
+
+        # -- the hooks' price on the eager step, in turns -----------------
+        x, y = xy(b)
+        for _ in range(2):
+            eager(x, y)
+        torch.cuda.synchronize()
+        prof.metrics(reset=True)
+        walls = {m: [] for m in OBSERVE_ROUNDS[0]}
+        device = {m: [] for m in OBSERVE_ROUNDS[0]}
+        for rnd in OBSERVE_ROUNDS:
+            for mode in rnd:
+                prev = reg.set_profiler_hooks(mode != "hooks_off")
+                if mode == "profiling":
+                    prof.set_state("run")
+                try:
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(OBSERVE_TURN_STEPS):
+                        s0 = time.perf_counter()
+                        eager(x, y)
+                        torch.cuda.synchronize()
+                        walls[mode].append(
+                            (time.perf_counter() - s0) * 1e3)
+                    end.record()
+                    torch.cuda.synchronize()
+                    device[mode].append(start.elapsed_time(end)
+                                        / OBSERVE_TURN_STEPS)
+                finally:
+                    if mode == "profiling":
+                        prof.set_state("stop")
+                    reg.set_profiler_hooks(prev)
+        med = {m: float(np.median(v)) for m, v in walls.items()}
+        # the spread of a mode: its turns' medians, max - min (one slow
+        # step, such as the first after a device session, moves a turn's
+        # median less than its range)
+        turn = OBSERVE_TURN_STEPS
+        spread = {m: float(np.ptp([np.median(v[i:i + turn])
+                                   for i in range(0, len(v), turn)]))
+                  for m, v in walls.items()}
+        hooks_ok = abs(med["off"] - med["hooks_off"]) \
+            <= max(spread["off"], spread["hooks_off"])
+        if not hooks_ok:
+            failures.append("hooks_cost")
+        out["hooks"] = {"wall_ms_per_step": walls, "median_wall_ms": med,
+                        "spread_wall_ms": spread,
+                        "device_ms_per_step": device,
+                        "off_minus_hooks_off_ms":
+                        med["off"] - med["hooks_off"],
+                        "profiling_minus_off_ms":
+                        med["profiling"] - med["off"],
+                        "within_spread": hooks_ok}
+
+        # -- a fault-point delay shows as input_wait, not as a stall -------
+        prof.metrics(reset=True)
+        prof.set_config(xprof=False, profile_memory=False,
+                        continuous_dump=False,
+                        filename=os.path.join(tmp, "delay.json"))
+        stalls0 = watchdog.stats()["stalls"]
+        faultpoint.configure("io.prefetch.place=delay:%gs@n=1"
+                             % OBSERVE_DELAY_S)
+        goodput.open_run(run_id="chip_smoke_observe_delay")
+        prof.set_state("run")
+        for b in mx.io.DevicePrefetchIter(_observe_feed(mx, 2, 3),
+                                          sharding=ctx):
+            fused(*xy(b))
+        torch.cuda.synchronize()
+        prof.set_state("stop")
+        m2 = goodput.close_run()
+        waits = prof.metrics()["latency"].get("io.prefetch_wait", {})
+        delay_ok = faultpoint.triggers("io.prefetch.place") == 1 \
+            and m2["categories_s"]["input_wait"] >= 0.9 * OBSERVE_DELAY_S \
+            and waits.get("max_us", 0) >= 0.9 * OBSERVE_DELAY_S * 1e6 \
+            and waits.get("p99_us", 0) >= 0.9 * OBSERVE_DELAY_S * 1e6 \
+            and watchdog.stats()["stalls"] == stalls0
+        faultpoint.reset()
+        if not delay_ok:
+            failures.append("fault_delay")
+        out["fault_delay"] = {
+            "delay_s": OBSERVE_DELAY_S,
+            "goodput_input_wait_s": m2["categories_s"]["input_wait"],
+            "goodput_wall_s": m2["wall_s"], "io_prefetch_wait_us": waits,
+            "watchdog_stalls_added": watchdog.stats()["stalls"] - stalls0,
+            "ok": delay_ok}
+
+        # -- a step held open is one stall and one shard -------------------
+        # the window's profiled steps out of the median: it re-arms on
+        # min_samples plain fused steps
+        watchdog.configure(min_s=OBSERVE_MIN_S)
+        watchdog.reset_window()
+        for _ in range(watchdog._cfg["min_samples"]):
+            fused(x, y)
+        thr = watchdog.threshold_s()
+        hold = OBSERVE_HOLD_S if thr is None or thr < OBSERVE_HOLD_S - 0.5 \
+            else thr + 1.0
+        before = _shards(frdir, "watchdog")
+        stalls0 = watchdog.stats()["stalls"]
+        watchdog.step_begin()
+        time.sleep(hold)
+        loss = fused(x, y)
+        watchdog.step_end()
+        torch.cuda.synchronize()
+        after = _wait_shards(frdir, "watchdog", len(before) + 1)
+        new = [n for n in after if n not in before]
+        named = None
+        if len(new) == 1:
+            with open(os.path.join(frdir, new[0])) as f:
+                named = json.load(f)["metadata"]["trigger_info"]
+        hold_ok = thr is not None and thr < hold \
+            and watchdog.stats()["stalls"] == stalls0 + 1 \
+            and len(new) == 1 and named is not None \
+            and named.get("step") == watchdog.stats()["last_stall_step"] \
+            and bool(torch.isfinite(loss.float()).all())
+        if not hold_ok:
+            failures.append("watchdog_stall")
+        out["watchdog_stall"] = {"threshold_s": thr, "hold_s": hold,
+                                 "median_s": watchdog.stats()["median_s"],
+                                 "new_shards": new,
+                                 "trigger_info": named, "ok": hold_ok}
+
+        # -- SIGUSR2 writes a shard and the run goes on ---------------------
+        before = _shards(frdir, "sigusr2")
+        os.kill(os.getpid(), signal.SIGUSR2)
+        after = _wait_shards(frdir, "sigusr2", len(before) + 1)
+        loss = fused(x, y)
+        torch.cuda.synchronize()
+        sig_ok = len(after) == len(before) + 1 \
+            and bool(torch.isfinite(loss.float()).all())
+        if not sig_ok:
+            failures.append("sigusr2")
+        out["sigusr2"] = {"new_shards": len(after) - len(before),
+                          "ok": sig_ok}
+
+        # -- an OOM: one post-mortem shard, the error unchanged ------------
+        # larger than the card: the caching allocator frees its cache and
+        # retries before it raises, so a request just above free memory
+        # can succeed
+        before = _shards(frdir, "oom")
+        free, total = torch.cuda.mem_get_info(0)
+        n = (total + (1 << 30)) // 4
+        raised = None
+        try:
+            mx.nd.zeros((n,), ctx=ctx)
+        except torch.cuda.OutOfMemoryError as e:
+            raised = "%s: %s" % (type(e).__name__, str(e)[:200])
+        after = _shards(frdir, "oom")
+        info = None
+        if len(after) == len(before) + 1:
+            with open(os.path.join(frdir, after[-1])) as f:
+                info = json.load(f)["metadata"]["trigger_info"]
+        loss = fused(x, y)
+        torch.cuda.synchronize()
+        by_tag = (info or {}).get("ledger_by_tag") or {}
+        top = sorted(by_tag, key=lambda t: -by_tag[t])[:3]
+        oom_ok = raised is not None and info is not None \
+            and info.get("requested_bytes") == 4 * n and by_tag.get(
+                "param", 0) > 0 and bool(torch.isfinite(loss.float()).all())
+        if not oom_ok:
+            failures.append("oom")
+        out["oom"] = {"requested_bytes": 4 * n, "free_bytes": free,
+                      "raised": raised, "new_shards": len(after)
+                      - len(before), "top_tags": top,
+                      "ledger_total_bytes":
+                      (info or {}).get("ledger_total_bytes"), "ok": oom_ok}
+        out["flightrec"] = flightrec.stats()
+    finally:
+        prof._reset()
+        prof.set_config(xprof=True, profile_memory=False,
+                        continuous_dump=False, aggregate_stats=False,
+                        filename="profile.json")
+        prof._state["xprof_dir"] = None
+        faultpoint.reset()
+        goodput.reset()
+        watchdog.reset()
+        memwatch.reset()
+        for k, v in env_prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["ok"] = not failures
+    out["failures"] = failures
+    emit(out)
+    if failures:
+        raise AssertionError("observe: %s failed" % failures)
+
+
+# -- phase custom: a custom-op loss head and subgraph partitioning ----------
+
+CUSTOM_STEPS = 3
+CUSTOM_MLP = (784, 256, 10)
+CUSTOM_MLP_BATCH = 64
+CUSTOM_MLP_RTOL = 1e-5
+
+
+def _register_softmax_op(mx):
+    """The softmax CustomOp of MXNet's documentation, on the device's
+    arrays (nd ops, no host copy): forward softmax(x), backward
+    y - onehot(label), the top gradient not needed."""
+    name = "chip_smoke_softmax"
+
+    class Softmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], mx.nd.softmax(in_data[0]))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0]
+            onehot = mx.nd.one_hot(in_data[1], y.shape[1], dtype=y.dtype)
+            self.assign(in_grad[0], req[0], y - onehot)
+
+    @mx.operator.register(name)
+    class SoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+    return name
+
+
+def _custom_mlp_run(torch, mx, op_type, ctx, arrays, batches):
+    """2 Module steps of an MLP whose head is sym.Custom(op_type): the
+    parameters and the last outputs, on the host."""
+    sym = mx.sym
+    with mx.name.NameManager():
+        h = sym.Activation(sym.FullyConnected(
+            sym.var("data"), num_hidden=CUSTOM_MLP[1], name="fc1"),
+            act_type="relu")
+        out = sym.Custom(sym.FullyConnected(h, num_hidden=CUSTOM_MLP[2],
+                                            name="fc2"),
+                         sym.var("softmax_label"), op_type=op_type,
+                         name="softmax")
+    mod = mx.mod.Module(out, context=ctx)
+    mod.bind(data_shapes=[("data", (CUSTOM_MLP_BATCH, CUSTOM_MLP[0]))],
+             label_shapes=[("softmax_label", (CUSTOM_MLP_BATCH,))])
+    mod.set_params({k: mx.nd.array(v, ctx=ctx) for k, v in arrays.items()},
+                   {})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(SGD))
+    for xb, yb in batches:
+        mod.forward(mx.io.DataBatch([mx.nd.array(xb, ctx=ctx)],
+                                    [mx.nd.array(yb, ctx=ctx)]),
+                    is_train=True)
+        mod.backward()
+        mod.update()
+    args, _ = mod.get_params()
+    return ({k: v.asnumpy() for k, v in args.items()},
+            mod.get_outputs()[0].asnumpy())
+
+
+def _bn_relu_property(mx):
+    from mxnet_tpu_torch.symbol import subgraph
+
+    class BNRelu(subgraph.SubgraphProperty):
+        name = "bnrelu"
+
+        def select(self, node):
+            return node.op in ("BatchNorm", "Activation")
+    return BNRelu()
+
+
+def phase_custom(torch, state):
+    """A custom-op loss head and subgraph partitioning on the main path
+    (the module docstring, 5k)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+    from mxnet_tpu_torch.symbol import subgraph
+
+    op_type = _register_softmax_op(mx)
+    arrays = _arrays(mx, state)
+    x_np, y_np = _batch(state)
+    ctx = mx.gpu(0)
+
+    def head(out, label):
+        return mx.nd.Custom(out, label, op_type=op_type)
+
+    failures = []
+    out = {"phase": "custom"}
+    # -- the custom op as train's loss head: 3 eager steps -----------------
+    net = _build_net(mx, arrays, False, "bfloat16", ctx)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD))
+    x = torch.from_numpy(x_np).to(ctx.device, torch.bfloat16)
+    y = torch.from_numpy(y_np).to(ctx.device)
+    torch.cuda.synchronize()
+    _zero_counts(BNF, CF)
+    per_step, ce = [], []
+    for _ in range(CUSTOM_STEPS):
+        before = _bn_counts(BNF)
+        probs = _train_step(mx, net, trainer, head, x, y)
+        after = _bn_counts(BNF)
+        per_step.append({k: after[k] - before[k]
+                         for k in BN_KERNELS + ("finalize",)})
+        p = probs.detach().float().gather(1, y.long()[:, None])
+        ce.append(float(-torch.log(p.clamp_min(1e-30)).mean()))
+    torch.cuda.synchronize()
+    counts = _bn_counts(BNF)
+    want = {k: BN_PER_STEP for k in BN_KERNELS}
+    want["finalize"] = 2 * BN_PER_STEP
+    ok_counts = all(s == want for s in per_step) and CF.LAUNCHES == 0
+    ok_loss = all(np.isfinite(ce)) and ce[-1] < ce[0]
+    if not ok_counts:
+        failures.append("head_launches")
+    if not ok_loss:
+        failures.append("head_loss")
+    state["launches_custom"] = {k: counts[k] for k in BN_KERNELS}
+    out["loss_head"] = {"steps": CUSTOM_STEPS, "cross_entropy": ce,
+                        "launches_per_step": per_step,
+                        "launches_wanted_per_step": want,
+                        "conv_fused_launches": CF.LAUNCHES,
+                        "ok": ok_counts and ok_loss}
+    emit({"phase": "custom", "part": "loss_head",
+          "result": out["loss_head"]})
+
+    # -- its f32 first step, card vs CPU at train's bounds -----------------
+    _f32_card_vs_cpu(torch, mx, arrays, x_np[:4], y_np[:4], head, False,
+                     phase="custom")
+
+    # -- sym.Custom through Module, card vs CPU ----------------------------
+    rs = np.random.RandomState(7)
+    mlp_arrays = {
+        "fc1_weight": rs.uniform(-0.05, 0.05, CUSTOM_MLP[1::-1]),
+        "fc1_bias": np.zeros(CUSTOM_MLP[1]),
+        "fc2_weight": rs.uniform(-0.05, 0.05, CUSTOM_MLP[:0:-1]),
+        "fc2_bias": np.zeros(CUSTOM_MLP[2])}
+    mlp_arrays = {k: v.astype("float32") for k, v in mlp_arrays.items()}
+    batches = [(rs.rand(CUSTOM_MLP_BATCH, CUSTOM_MLP[0]).astype("float32"),
+                rs.randint(0, CUSTOM_MLP[2], CUSTOM_MLP_BATCH)
+                .astype("float32")) for _ in range(2)]
+    with mx.precision.matmul_precision("float32"):
+        card = _custom_mlp_run(torch, mx, op_type, ctx, mlp_arrays, batches)
+        with mx.cpu():
+            cpu = _custom_mlp_run(torch, mx, op_type, mx.cpu(), mlp_arrays,
+                                  batches)
+    mlp_err = max([float(np.abs(card[0][k] - cpu[0][k]).max()
+                         / max(np.abs(cpu[0][k]).max(), 1e-30))
+                   for k in cpu[0]]
+                  + [float(np.abs(card[1] - cpu[1]).max()
+                           / max(np.abs(cpu[1]).max(), 1e-30))])
+    ok_mlp = mlp_err <= CUSTOM_MLP_RTOL
+    if not ok_mlp:
+        failures.append("module_card_vs_cpu")
+    out["module"] = {"mlp": list(CUSTOM_MLP), "batch": CUSTOM_MLP_BATCH,
+                     "steps": 2, "card_vs_cpu_max_rel": mlp_err,
+                     "tolerance_rel": CUSTOM_MLP_RTOL, "ok": ok_mlp}
+    emit({"phase": "custom", "part": "module", "result": out["module"]})
+
+    # -- the partitioned SymbolBlock against the unpartitioned one ---------
+    with mx.name.NameManager():
+        sym = net(mx.sym.var("data"))
+    fused = subgraph.partition(sym, _bn_relu_property(mx))
+    regions = sum(n.op.startswith("_subgraph_bnrelu_")
+                  for n in fused._topo() if not n.is_variable())
+    src = net.collect_params()
+    loss_fn = SoftmaxCrossEntropyLoss()
+    runs = []
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for s in (sym, fused):
+            blk = mx.gluon.SymbolBlock(s, mx.sym.var("data"))
+            for name, p in blk.collect_params().items():
+                p.set_data(src[name]._tensor().detach(), ctx=ctx)
+            blk.cast("bfloat16")
+            params = blk.collect_params()
+            stats0 = {n: p._tensor().detach().clone()
+                      for n, p in params.items() if p.grad_req == "null"}
+            torch.cuda.synchronize()
+            before = _bn_counts(BNF)
+            with mx.autograd.record():
+                loss = loss_fn(blk(x), y)
+            loss.backward()
+            torch.cuda.synchronize()
+            after = _bn_counts(BNF)
+            runs.append({
+                "loss": loss.detach().clone(),
+                "grads": {n: p._tensor().grad.detach().clone()
+                          for n, p in params.items()
+                          if p.grad_req != "null"},
+                "stats_changed": sum(
+                    not torch.equal(stats0[n], params[n]._tensor())
+                    for n in stats0),
+                "stats": len(stats0),
+                "launches": {k: after[k] - before[k]
+                             for k in BN_KERNELS + ("finalize",)}})
+            del blk
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    base, part = runs
+    same = torch.equal(part["loss"], base["loss"]) \
+        and sorted(part["grads"]) == sorted(base["grads"]) \
+        and all(torch.equal(part["grads"][n], base["grads"][n])
+                for n in base["grads"])
+    ok_part = same and part["launches"] == want \
+        and base["launches"] == want and regions > 0 \
+        and part["stats_changed"] == 0 and base["stats_changed"] > 0
+    if not ok_part:
+        failures.append("partition")
+    out["partition"] = {
+        "fused_regions": regions, "same_bits": same,
+        "launches": {"unpartitioned": base["launches"],
+                     "partitioned": part["launches"]},
+        "running_stats_changed": {"unpartitioned": base["stats_changed"],
+                                  "partitioned": part["stats_changed"],
+                                  "of": base["stats"]},
+        "ok": ok_part}
+    out["ok"] = not failures
+    out["failures"] = failures
+    emit(out)
+    if failures:
+        raise AssertionError("custom: %s failed" % failures)
+
+
 def kernel_summary(state):
     """The {"kernels": [...]} entries: each kernel's launches on its path,
     its error against its plain version and its times beside its bound,
@@ -7193,6 +7965,7 @@ def kernel_summary(state):
         "launches_train_rec": state["launches_rec"]["conv_fused"],
         "launches_train_jpeg": state["launches_jpeg"]["conv_fused"],
         "launches_train_symblock": state["launches_symblock"]["conv_fused"],
+        "launches_observe": state["launches_observe"]["conv_fused"],
         "max_abs_err": state["kernel_err"]["bfloat16"][0],
         "max_rel_err": state["kernel_err"]["bfloat16"][1],
         "tolerance_rel": RTOL["bfloat16"],
@@ -7216,6 +7989,8 @@ def kernel_summary(state):
             "launches_train_rec": state["launches_rec"][k],
             "launches_train_jpeg": state["launches_jpeg"][k],
             "launches_train_symblock": state["launches_symblock"][k],
+            "launches_observe": state["launches_observe"][k],
+            "launches_custom": state["launches_custom"][k],
             "max_abs_err": state["bn_err"][k][0],
             "max_rel_err": state["bn_err"][k][1],
             "tolerance_rel": 0.0 if k in ("stats", "apply") else BN_BWD_RTOL,
@@ -7240,6 +8015,7 @@ def kernel_summary(state):
             "launches_train_sharded": sharded("conv_fused." + k),
             "launches_train_rec": state["launches_rec"]["conv_fused." + k],
             "launches_train_jpeg": state["launches_jpeg"]["conv_fused." + k],
+            "launches_observe": state["launches_observe"]["conv_fused." + k],
             "max_abs_err": state["conv_bwd_err"][k][0],
             "max_rel_err": state["conv_bwd_err"][k][1],
             "tolerance_rel": BWD_RTOL["bfloat16"]["dx"],
@@ -7317,6 +8093,7 @@ def kernel_summary(state):
         "replaces": "mxnet_tpu/pallas_kernels/optimizer_apply.py:80",
         "launches": state["launches"]["optimizer_apply"],
         "launches_zoo": state["launches_zoo"]["optimizer_apply"],
+        "launches_observe": state["launches_observe"]["optimizer_apply"],
         # the phase failed unless the apply matched bit for bit
         "max_abs_err": state["apply_err"], "max_rel_err": 0.0,
         "tolerance_rel": 0.0,

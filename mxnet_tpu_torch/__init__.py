@@ -69,10 +69,23 @@ tensors under torch autograd), ``mx.mod`` (``Module``,
 ``FeedForward``), ``Predictor``, ``gluon.SymbolBlock`` (with
 ``HybridBlock.export`` and tracing by a Symbol input) and ``mx.jit``
 (``CachedOp``). ``Module`` and ``Predictor`` run on ``gpu(0)`` unless
-given a context.
+given a context. ``mx.operator`` (``CustomOp``, ``nd.Custom``,
+``sym.Custom``) and ``symbol.subgraph`` (``partition``).
+
+Observability: ``mx.profiler`` (trace lanes, the aggregate table,
+latency histograms, ``/metrics``, a ``torch.profiler`` device session),
+``mx.storage`` (device memory stats and the tagged allocation ledger) and
+``_debug`` (the always-on flight recorder, the step and memory watchdogs,
+goodput, fault points, the lock-order tracer). Importing the package
+starts no thread and no server; the flight recorder's crash hooks
+(``sys.excepthook``, ``threading.excepthook``, SIGUSR2, ``faulthandler``)
+are installed at import, as in the JAX package (``MXTPU_FLIGHTREC_HOOKS=0``
+leaves them out).
 """
 from . import base
 from .base import MXNetError
+from . import profiler
+from . import storage
 from . import context
 from .context import Context, cpu, gpu, cpu_pinned, current_context
 from .context import num_gpus
@@ -106,6 +119,7 @@ from . import module
 from . import jit
 from . import predictor
 from .predictor import Predictor
+from . import operator
 
 nd = ndarray
 init = initializer
@@ -131,4 +145,5 @@ __all__ = ["base", "MXNetError", "context", "Context", "cpu", "gpu",
            "optimizer", "lr_scheduler", "kvstore", "kv", "gluon", "convert",
            "contrib", "metric", "callback", "io", "recordio", "image",
            "name", "attribute", "AttrScope", "symbol", "sym", "executor",
-           "model", "module", "mod", "jit", "predictor", "Predictor"]
+           "model", "module", "mod", "jit", "predictor", "Predictor",
+           "profiler", "storage", "operator"]

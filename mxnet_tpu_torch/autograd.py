@@ -27,9 +27,12 @@ gradient conventions on top of it:
 from __future__ import annotations
 
 import threading
+import time as _time
 import weakref
 
 import torch
+
+from . import profiler as _profiler
 
 __all__ = ["is_training", "set_training", "is_recording", "set_recording",
            "record", "pause", "train_mode", "predict_mode",
@@ -218,7 +221,15 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     reach, honouring each leaf's grad_req. A head without a head gradient
     is seeded with ones, whatever its shape."""
     heads, seeds = _seeds(heads, head_grads)
+    t0 = _time.perf_counter() if _profiler._LIVE else None
     torch.autograd.backward(heads, seeds, retain_graph=retain_graph)
+    if t0 is not None:
+        # the host span of the backward call: on the card the sweep's
+        # kernels are queued, not finished, when it returns
+        _profiler.record_op("autograd.backward",
+                            (_time.perf_counter() - t0) * 1e6,
+                            category="autograd", lane="autograd",
+                            args={"heads": len(heads)})
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -233,6 +244,7 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     as_nd = [isinstance(v, NDArray) for v in variables]
     variables = [_tensor(v) for v in variables]
     heads, seeds = _seeds(heads, head_grads)
+    t0 = _time.perf_counter() if _profiler._LIVE else None
     _IN_GRAD[0] += 1         # the leaves' .grad stay as they are
     try:
         out = torch.autograd.grad(heads, variables, seeds,
@@ -241,6 +253,12 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                                   allow_unused=True)
     finally:
         _IN_GRAD[0] -= 1
+    if t0 is not None:
+        _profiler.record_op("autograd.grad",
+                            (_time.perf_counter() - t0) * 1e6,
+                            category="autograd", lane="autograd",
+                            args={"heads": len(heads),
+                                  "variables": len(variables)})
     out = [torch.zeros_like(v) if g is None else g
            for g, v in zip(out, variables)]
     out = [wrap(g) if nd else g for g, nd in zip(out, as_nd)]

@@ -101,11 +101,16 @@ def weak_scalar(v, dtype):
 def atomic_write(fname, mode="wb"):
     """Yields a file open on a sibling temp path and renames it onto
     ``fname`` only once the body completed, so an interrupted save never
-    leaves a half-written file where the previous one was."""
+    leaves a half-written file where the previous one was. The
+    ``checkpoint.save`` fault point fires between the temp write and the
+    rename, the worst instant for a crash."""
+    from ._debug import faultpoint as _faultpoint
     tmp = "%s.tmp.%d" % (fname, _os.getpid())
     try:
         with open(tmp, mode) as f:
             yield f
+        if _faultpoint.ACTIVE:
+            _faultpoint.check("checkpoint.save")
         _os.replace(tmp, fname)
     except BaseException:
         try:

@@ -38,15 +38,35 @@ hybridized (``non-hybridized``), a parameter with ``grad_req="add"``
 parameter whose shape is not known yet (``deferred-init``: the eager step's
 forward finishes it, later steps fuse).
 
+Telemetry, as in the JAX step: every call is one watchdog beacon
+(``_debug.watchdog``; a step whose mode is not ``"fused"`` is warm-up, and
+the beacon's tag is the input signature, ``fused_step:<crc32>`` of the
+arguments' shapes, dtypes and devices), which feeds the goodput ledger;
+while the profiler or the flight recorder is live, a ``gluon.train_step``
+span in the ``gluon`` lane and a ``fused_step.step`` latency sample; the
+optimizer states in the allocation ledger as ``opt_state`` and the
+gradients as ``grad``; the counters as ``metrics()['fused_step']``. The
+first call with a new signature is where the JAX step traces its program:
+the ``fused_step.trace`` fault point fires there, and a failure there runs
+the eager triple (``fallback:trace-failed``), for that signature from then
+on.
+
 ``mesh``, ``rules`` and a ``bucket_bytes`` other than the default arrive
-with the multi-GPU slice; the profiler, health-monitor, watchdog and
-compile-cache hooks of the JAX step arrive with the observability slice.
+with the multi-GPU slice; the health-monitor and compile-cache hooks of the
+JAX step arrive with their modules.
 """
 from __future__ import annotations
+
+import time as _time
+import zlib
 
 import torch
 
 from .. import autograd
+from .. import profiler as _profiler
+from .. import storage as _storage
+from .._debug import faultpoint as _faultpoint
+from .._debug import watchdog as _watchdog
 from ..base import getenv
 from ..kernels import optimizer_apply
 from ..parallel.overlap import default_bucket_bytes
@@ -83,6 +103,24 @@ def stats():
 def reset_stats():
     for k in _STATS:
         _STATS[k] = 0
+
+
+# surfaces as metrics()['fused_step'] and a dumps() line
+_profiler.register_stats_provider("fused_step", stats, reset_stats)
+
+
+def _signature(args):
+    """The beacon's tag of one call's inputs: their shapes, dtypes and
+    devices (a value that is not a tensor by its type)."""
+    parts = []
+    for a in args:
+        t = getattr(a, "_data", a)
+        if isinstance(t, torch.Tensor):
+            parts.append("%s:%s:%s" % (tuple(t.shape), t.dtype, t.device))
+        else:
+            parts.append(type(a).__name__)
+    return "fused_step:%08x" % (zlib.crc32("|".join(parts).encode())
+                                & 0xffffffff)
 
 
 def train_step(block, loss_fn, trainer, mesh=None, bucket_bytes=None,
@@ -147,20 +185,41 @@ class FusedTrainStep:
         self._loss_fn = loss_fn
         self._block = block
         self.last_mode = None   # how the previous call executed
+        self._signatures = set()  # input signatures set up so far
+        self._failed = set()      # signatures whose set-up failed
 
     def __call__(self, *args, batch_size=None, ignore_stale_grad=False):
         if batch_size is None:
             batch_size = int(args[0].shape[0]) \
                 if args and args[0].dim() else 1
+        # watchdog beacon: the outermost in-flight step the stall
+        # detector watches; non-"fused" completions are warm-up/fallback
+        # steps and stay out of the rolling median
+        _watchdog.step_begin()
+        t0 = _time.perf_counter() if _profiler._LIVE else None
+        sig = _signature(args)
         mode = "error"
         try:
-            loss, mode = self._dispatch(args, batch_size, ignore_stale_grad)
+            loss, mode = self._dispatch(args, batch_size, ignore_stale_grad,
+                                        sig)
         finally:
             self.last_mode = mode
+            _watchdog.step_end(warmup=mode != "fused", mode=mode,
+                               sig=sig if mode == "fused" else None)
+            if t0 is not None:
+                dur_us = (_time.perf_counter() - t0) * 1e6
+                _profiler.record_op(
+                    "gluon.train_step", dur_us,
+                    category="gluon", lane="gluon",
+                    args={"mode": mode, "batch_size": batch_size,
+                          "params": len(self._trainer._params)})
+                # the step's host latency (on the card its kernels may
+                # still be queued when it returns)
+                _profiler.record_latency("fused_step.step", dur_us)
         return loss
 
     # -- dispatch ----------------------------------------------------------
-    def _dispatch(self, args, batch_size, ignore_stale_grad):
+    def _dispatch(self, args, batch_size, ignore_stale_grad, sig):
         reason = self._fallback_reason()
         if reason is None:
             all_params, train_pos, indices = self._param_split()
@@ -168,6 +227,8 @@ class FusedTrainStep:
                 reason = "no-trainable-params"
             elif any(p._data is None for p in all_params):
                 reason = "deferred-init"
+            elif not self._set_up(sig):
+                reason = "trace-failed"
         if reason is not None:
             _STATS["fallbacks"] += 1
             return self._eager_step(args, batch_size, ignore_stale_grad), \
@@ -177,10 +238,28 @@ class FusedTrainStep:
         tr = self._trainer
         states = [tr._updater.ensure_state(i, tr._params[i]._tensor())
                   for i in indices]
+        if sig not in self._signatures:
+            self._signatures.add(sig)
+            _storage.ledger_register_tree(states, "opt_state",
+                                          site="fused_step")
         loss = self._run(all_params, train_pos, indices, states, args,
                          batch_size)
         _STATS["hits"] += 1
         return loss, "fused"
+
+    def _set_up(self, sig):
+        """Whether the step may run fused for input signature ``sig``:
+        False for one whose set-up failed (the ``fused_step.trace`` fault
+        point fires at a new signature's, where the JAX step traces)."""
+        if sig in self._failed:
+            return False
+        if sig not in self._signatures and _faultpoint.ACTIVE:
+            try:
+                _faultpoint.check("fused_step.trace")
+            except Exception:
+                self._failed.add(sig)
+                return False
+        return True
 
     def _fallback_reason(self):
         if not _ENABLED:
@@ -262,6 +341,8 @@ class FusedTrainStep:
         for w, g in zip(ws, grads):
             w.grad = g
             w._fresh_grad = False   # consumed by this step's update
+        if _profiler._LIVE and _storage._LEDGER_ON:
+            _storage.ledger_register_tree(grads, "grad", site="fused_step")
         return loss.detach()
 
     def _update(self, opt, ws, gs, states, lrs, wds, rescale):

@@ -27,6 +27,7 @@ import torch
 from .. import autograd
 from .. import initializer as _initializer
 from .. import ndarray as nd
+from .. import storage as _storage
 from ..base import MXNetError, canonical_dtype
 from ..context import Context, as_device
 from ..ndarray.ndarray import NDArray
@@ -146,6 +147,9 @@ class Parameter:
         else:
             self._registry()[self._owner[1]] = t
         self.shape = tuple(t.shape)
+        # the allocation ledger's 'param' tag (on the storage, which the
+        # tensor's views share)
+        _storage.ledger_register(t, "param", site=self.name)
 
     def _attach(self, block, attr):
         """Make ``block.<attr>`` this parameter's home in torch's
@@ -214,6 +218,7 @@ class Parameter:
                              % self.name)
         if t.grad is None:
             t.grad = torch.zeros_like(t)
+            _storage.ledger_register(t.grad, "grad", site=self.name)
         return t.grad
 
     def _view(self, i):

@@ -18,7 +18,10 @@ gradient whole. The ``dist*`` strings arrive with the multi-GPU slice.
 """
 from __future__ import annotations
 
+import time as _time
+
 from .. import optimizer as opt
+from .. import profiler as _profiler
 from ..base import atomic_write
 from .parameter import Parameter
 
@@ -137,11 +140,19 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """One parameter update: rescale by 1/batch_size, reduce, apply
-        (ref: trainer.py:305)."""
+        (ref: trainer.py:305). A span in the profiler's ``gluon`` lane
+        while the profiler or the flight recorder is live."""
+        t0 = _time.perf_counter() if _profiler._LIVE else None
         self._check_and_rescale_grad(self._scale / batch_size)
         self._prepare()
         self._allreduce_grads()
         self._update(ignore_stale_grad)
+        if t0 is not None:
+            _profiler.record_op(
+                "gluon.Trainer.step", (_time.perf_counter() - t0) * 1e6,
+                category="gluon", lane="gluon",
+                args={"batch_size": batch_size,
+                      "params": len(self._params)})
 
     def fuse_step(self, loss_fn, block=None, mesh=None, bucket_bytes=None,
                   rules=None):

@@ -8,10 +8,14 @@ file of raw-pixel, JPEG or PNG records) and ``DevicePrefetchIter`` /
 ``DevicePrefetcher``, which copy batch N+1 to the card through pinned
 memory on a side stream while batch N computes.
 
+``PrefetchingIter`` and ``DevicePrefetchIter`` carry the JAX package's
+profiler spans, ``io.prefetch_wait`` latencies and goodput input-wait
+accounting; ``io/_stats.py`` owns the counters and gauges of
+``profiler.metrics()['io']``.
+
 Not ported yet: the RecordIO range reader, the decode pool and the shard
 service (``RecordIORangeReader``, ``DecodePool``, ``ShardService``, ...),
-and the profiler and goodput accounting of the JAX package's iterators
-(``io/_stats.py``), all of the observability slice (ROADMAP M9).
+which stand on ``_retry`` and the fault points (ROADMAP M9).
 """
 from .io import (DataDesc, DataBatch, DataIter, NDArrayIter, CSVIter,
                  LibSVMIter, ResizeIter, PrefetchingIter, MNISTIter)

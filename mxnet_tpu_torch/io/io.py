@@ -13,11 +13,15 @@ from __future__ import annotations
 import collections
 import queue as _queue
 import threading
+import time as _time
 
 import numpy as np
 
+from .. import profiler as _profiler
+from .._debug import goodput as _goodput
 from ..context import Context, current_context
 from ..ndarray.ndarray import NDArray, array as nd_array
+from . import _stats
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
            "LibSVMIter", "ResizeIter", "PrefetchingIter", "MNISTIter"]
@@ -390,12 +394,33 @@ class PrefetchingIter(DataIter):
             self._thread.join()
         while not self._queue.empty():
             self._queue.get_nowait()
+        # the gauge re-seeded from the LIVE (drained) queue
+        _stats.set_gauge("prefetch_queue_depth", self._queue.qsize())
         self._stop.clear()
         self._epoch += 1
         self.iter.reset()
         self._start()
 
     def next(self):
+        # the consumer's wait: a span, the io.prefetch_wait latency and
+        # goodput's input_wait (the JAX package's accounting)
+        t0 = _time.perf_counter() \
+            if _profiler._LIVE or _goodput.OPEN else None
+        batch = self._next_impl()
+        _stats.set_gauge("prefetch_queue_depth", self._queue.qsize())
+        if t0 is not None:
+            wait_us = (_time.perf_counter() - t0) * 1e6
+            _profiler.record_op(
+                "io.prefetch_next", wait_us, category="io", lane="io",
+                args={"queue_depth": self._queue.qsize()})
+            _profiler.record_latency("io.prefetch_wait", wait_us)
+            _profiler.record_counter("io.prefetch_queue_depth",
+                                     self._queue.qsize(), lane="io")
+            if _goodput.OPEN:
+                _goodput.note_input_wait(wait_us)
+        return batch
+
+    def _next_impl(self):
         ctx = current_context()
         while True:
             epoch, batch = self._queue.get()

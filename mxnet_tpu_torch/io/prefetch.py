@@ -20,20 +20,35 @@ caching allocator keeps the memory until the consumer's work on it is
 done. For a CPU target the batch's arrays pass through as host arrays.
 
 A ``place_fn`` replaces the default placement, as in the JAX package; it
-runs on the background thread. The JAX module's profiler spans, goodput
-input-wait accounting and fault points belong to the observability slice
-(ROADMAP M9) and are not ported here.
+runs on the background thread.
+
+Telemetry, as in the JAX module: the ``io.prefetch.place`` fault point
+fires in the worker before each placement; placed arrays are registered
+``io`` in the allocation ledger; while the profiler or the flight recorder
+is live, each placement is an ``io.batch_place`` span and each ``next()``
+an ``io.batch_fetch`` span (the consumer's wait) with an
+``io.prefetch_wait`` latency sample and the queue depth as an
+``io.prefetch_queue_depth`` counter; the wait also books as goodput's
+``input_wait`` while a goodput run is open. The live queue depth is the
+``prefetch_queue_depth`` gauge of ``metrics()['io']``, and worker deaths
+are counted there.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time as _time
 
 import numpy as np
 import torch
 
+from .. import profiler as _profiler
+from .. import storage as _storage
+from .._debug import faultpoint as _faultpoint
+from .._debug import goodput as _goodput
 from ..context import Context, as_device
 from ..ndarray.ndarray import NDArray
+from . import _stats
 from .io import DataBatch
 
 __all__ = ["DevicePrefetchIter", "DevicePrefetcher"]
@@ -123,6 +138,7 @@ class _PinnedPlacer:
                 out = torch.empty(t.shape, dtype=t.dtype, device=self.device)
                 out.copy_(buf, non_blocking=True)
             placed.append(out)
+            _storage.ledger_register(out, "io", site="io.prefetch")
             return NDArray(out, ctx=Context("gpu", self.device.index)) \
                 if isinstance(a, NDArray) else out
 
@@ -183,6 +199,9 @@ class DevicePrefetchIter:
         # a worker's exception reaches the consumer once; the iterator then
         # reads exhausted until reset() starts a new worker
         self._worker_failed = False
+        # the gauge comes from the LIVE queue: a restart discards what sat
+        # in the old one
+        _stats.set_gauge("prefetch_queue_depth", self._q.qsize())
         q, stop = self._q, self._stop
 
         def put(item):
@@ -197,13 +216,29 @@ class DevicePrefetchIter:
         def worker():
             try:
                 for batch in self._it:
+                    t0 = _time.perf_counter() if _profiler._LIVE else None
+                    if _faultpoint.ACTIVE:
+                        _faultpoint.check("io.prefetch.place")
                     if self._placer is not None:
                         placed = self._placer(batch)
                     else:
                         placed = (self._place(batch), None, ())
+                    if t0 is not None:
+                        _profiler.record_op(
+                            "io.batch_place",
+                            (_time.perf_counter() - t0) * 1e6,
+                            category="io", lane="io",
+                            args={"queue_depth": q.qsize()})
                     if stop.is_set() or not put(placed):
                         return
+                    _stats.set_gauge("prefetch_queue_depth", q.qsize())
+                    if t0 is not None:
+                        _profiler.record_counter(
+                            "io.prefetch_queue_depth", q.qsize(),
+                            lane="io")
             except Exception as e:  # handed to the consumer, raised once
+                # a counted event: how often reset() had to recover
+                _stats.bump("prefetch_worker_deaths")
                 put(e)
                 return
             put(_SENTINEL)
@@ -233,7 +268,22 @@ class DevicePrefetchIter:
     def __next__(self):
         if self._worker_failed:
             raise StopIteration
+        # how long the consumer waited on the producer; goodput.OPEN
+        # joins the guard so that input_wait books with the recorder off
+        t0 = _time.perf_counter() \
+            if _profiler._LIVE or _goodput.OPEN else None
         item = self._q.get()
+        _stats.set_gauge("prefetch_queue_depth", self._q.qsize())
+        if t0 is not None:
+            wait_us = (_time.perf_counter() - t0) * 1e6
+            _profiler.record_op(
+                "io.batch_fetch", wait_us, category="io", lane="io",
+                args={"queue_depth": self._q.qsize()})
+            _profiler.record_latency("io.prefetch_wait", wait_us)
+            _profiler.record_counter("io.prefetch_queue_depth",
+                                     self._q.qsize(), lane="io")
+            if _goodput.OPEN:
+                _goodput.note_input_wait(wait_us)
         if item is _SENTINEL:
             raise StopIteration
         if isinstance(item, Exception):

@@ -6,7 +6,10 @@ at first use, into ``mxnet_tpu_torch/_build/`` (listed in .gitignore), under
 a file name keyed by the hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
 and an unchanged one is reused. ``build_all()`` starts one ``nvcc`` per
-source, all at once.
+source, all at once. Each build is recorded in the profiler's compile
+registry (``metrics()['compile']``, a span in the ``compile`` lane) as
+``kernel:<name>``, with its seconds and its source: the port's counterpart
+of the JAX package's XLA compiles.
 
 Nothing here runs at import time: the CPU tests import every module on a
 host that has no ``nvcc``.
@@ -92,6 +95,13 @@ def build_all(names=SOURCES):
             failed.append("%s (exit %d):\n%s" % (name, proc.returncode, out))
             continue
         os.replace(tmp, lib)
+    from .. import profiler as _profiler
+    for name, (proc, _tmp, lib) in procs.items():
+        if proc.returncode == 0:
+            _profiler.record_compile(
+                "kernel:%s" % name, key=os.path.basename(lib),
+                dur_us=times[name] * 1e6,
+                args={"source": "mxnet_tpu_torch/csrc/%s.cu" % name})
     if failed:
         raise MXNetError("nvcc failed for " + "\n".join(failed))
     return times

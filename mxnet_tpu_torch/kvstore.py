@@ -34,17 +34,22 @@ Values and outputs are tensors or NDArrays. A pull into an NDArray
 rebinds it to a copy of the key's value (into a Parameter's view: written
 in place), as the JAX store's pull writes its NDArray outputs.
 
-``bytes_pushed`` and ``bytes_pulled`` count the bytes each call would move
-(plain counters: the port has no profiler yet). ``row_sparse_pull`` waits
-for sparse arrays (Slice I).
+``bytes_pushed`` and ``bytes_pulled`` count the bytes each call would move,
+and so do the profiler's ``kvstore.bytes_pushed`` and
+``kvstore.bytes_pulled`` counters (``profiler.account``: counted with
+profiling off too); while the profiler or the flight recorder is live,
+``init``, ``push`` and ``pull`` are spans in the ``kvstore`` lane.
+``row_sparse_pull`` waits for sparse arrays (Slice I).
 """
 from __future__ import annotations
 
 import pickle
+import time as _time
 
 import torch
 
 from . import optimizer as opt
+from . import profiler as _profiler
 from .base import atomic_write, getenv
 from .kernels.compression import (dequantize_2bit_group,
                                   quantize_2bit_group)
@@ -109,10 +114,19 @@ class KVStore:
     def init(self, key, value):
         """Initialize each key with a copy of its (first) value; a key
         already present keeps its value."""
+        t0 = _time.perf_counter() if _profiler._LIVE else None
         keys, vals = _ctype_key_value(key, value)
+        nbytes = 0
         for k, vlist in zip(keys, vals):
             if k not in self._store:
+                nbytes += _nbytes(vlist[0])
                 self._store[k] = vlist[0].detach().clone()
+        if t0 is not None:
+            _profiler.record_op(
+                "kvstore.init", (_time.perf_counter() - t0) * 1e6,
+                category="kvstore", lane="kvstore",
+                args={"keys": len(keys), "bytes": nbytes,
+                      "type": self._kind})
 
     def push(self, key, value, priority=0):
         """Push values: several for one key are summed (``add_n``), the sum
@@ -126,6 +140,8 @@ class KVStore:
         appears again starts a run that sees the residual the first one
         left, and the result equals pushing the keys one by one. Keys up to
         the first one not initialized are pushed before it raises."""
+        t0 = _time.perf_counter() if _profiler._LIVE else None
+        b0 = self.bytes_pushed
         keys, vals = _ctype_key_value(key, value)
         bad = next((i for i, k in enumerate(keys) if k not in self._store),
                    len(keys))
@@ -139,6 +155,14 @@ class KVStore:
             merged = vlist[0] if len(vlist) == 1 else _add_n(vlist)
             run.append((k, vlist, merged))
         self._push_run(run)
+        # accounted with profiling off too (account gates only the trace)
+        _profiler.account("kvstore.bytes_pushed", self.bytes_pushed - b0)
+        if t0 is not None:
+            _profiler.record_op(
+                "kvstore.push", (_time.perf_counter() - t0) * 1e6,
+                category="kvstore", lane="kvstore",
+                args={"keys": len(keys), "bytes": self.bytes_pushed - b0,
+                      "type": self._kind})
         if bad < len(keys):
             raise ValueError("key %r has not been initialized"
                              % (keys[bad],))
@@ -161,6 +185,8 @@ class KVStore:
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """Copy each key's value into its output(s)."""
         assert out is not None
+        t0 = _time.perf_counter() if _profiler._LIVE else None
+        b0 = self.bytes_pulled
         keys, outs = _ctype_key_value(key, out)
         for k, olist in zip(keys, outs):
             if k not in self._store:
@@ -170,6 +196,13 @@ class KVStore:
                 for o in olist:
                     self.bytes_pulled += _nbytes(src)
                     o.copy_(src)
+        _profiler.account("kvstore.bytes_pulled", self.bytes_pulled - b0)
+        if t0 is not None:
+            _profiler.record_op(
+                "kvstore.pull", (_time.perf_counter() - t0) * 1e6,
+                category="kvstore", lane="kvstore",
+                args={"keys": len(keys), "bytes": self.bytes_pulled - b0,
+                      "type": self._kind})
         return out
 
     def pushpull(self, key, value, out=None, priority=0):

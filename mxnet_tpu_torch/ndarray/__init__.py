@@ -17,8 +17,9 @@ names sorted for a dict; no names for a list.
 
 ``nd.random`` (``ndarray/random.py``) draws on the current context's
 generator, ``nd.linalg`` (``ndarray/linalg.py``) wraps the ``linalg_*``
-ops, ``nd.image`` (``ndarray/image.py``) the ``_image_*`` ops. Not ported
-here: ``nd.sparse`` and ``Custom``.
+ops, ``nd.image`` (``ndarray/image.py``) the ``_image_*`` ops. ``nd.Custom`` runs a
+registered Python custom op (``operator.py``). Not ported here:
+``nd.sparse``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ import struct
 import numpy as _np
 import torch
 
+from .. import storage as _storage
+from .._debug import faultpoint as _faultpoint
 from ..base import atomic_write as _atomic_write
 from ..base import canonical_dtype
 from ..context import current_context
@@ -48,27 +51,61 @@ def _shape(shape):
     return (shape,) if isinstance(shape, int) else tuple(shape)
 
 
-def _make(t, ctx):
-    """``t`` (built on the host) as an NDArray on ``ctx`` (default: the
-    current context). Placement raises where it fails: nothing falls back
-    to the host."""
+def _ctx_place(build, ctx, nbytes=None):
+    """The creation factories' placement: ``build(device)`` makes the
+    values on ``ctx``'s device (the host for a pinned context), then they
+    are placed on ``ctx`` (default: the current context). A placement that
+    fails raises: nothing falls back to the host. The failure is counted
+    (``metrics()['memory']['alloc_fallbacks']``) and, for an out-of-memory
+    error or an injected ``storage.alloc`` fault, written up first as an
+    OOM post-mortem shard naming the request (``nbytes``) and what was
+    resident (``_debug.memwatch.oom_report``); the error then propagates
+    unchanged. The result is registered in the allocation ledger."""
     ctx = ctx if ctx is not None else current_context()
-    return _wrap(_place(t, ctx), ctx=ctx)
+    try:
+        if _faultpoint.ACTIVE:
+            _faultpoint.check("storage.alloc")
+        dev = "cpu" if ctx.device_type == "cpu_pinned" else ctx.device
+        t = _place(build(dev), ctx)
+    except Exception as e:
+        _storage.bump("alloc_fallbacks")
+        from .._debug import memwatch as _memwatch
+        if _memwatch.is_oom(e) or "storage.alloc" in str(e):
+            _memwatch.oom_report(e, requested_bytes=nbytes,
+                                 where="storage.alloc")
+        raise
+    out = _wrap(t, ctx=ctx)
+    _storage.ledger_register(out, "other")
+    return out
+
+
+def _make(t, ctx):
+    """``t`` (built on the host) as an NDArray on ``ctx``."""
+    return _ctx_place(lambda dev: t, ctx, t.nbytes)
+
+
+def _filled(shape, fill, dtype, ctx):
+    """An NDArray of ``shape`` filled with ``fill``, made on ``ctx``'s
+    device."""
+    shape = _shape(shape)
+    dt = canonical_dtype(dtype)
+    nbytes = torch.empty((), dtype=dt).element_size()
+    for d in shape:
+        nbytes *= d
+    return _ctx_place(lambda dev: torch.full(shape, fill, dtype=dt,
+                                             device=dev), ctx, nbytes)
 
 
 def zeros(shape, ctx=None, dtype=None, stype=None, **kwargs):
-    return _make(torch.zeros(_shape(shape), dtype=canonical_dtype(dtype)),
-                 ctx)
+    return _filled(shape, 0, dtype, ctx)
 
 
 def ones(shape, ctx=None, dtype=None, **kwargs):
-    return _make(torch.ones(_shape(shape), dtype=canonical_dtype(dtype)),
-                 ctx)
+    return _filled(shape, 1, dtype, ctx)
 
 
 def full(shape, val, ctx=None, dtype=None, **kwargs):
-    return _make(torch.full(_shape(shape), val,
-                            dtype=canonical_dtype(dtype)), ctx)
+    return _filled(shape, val, dtype, ctx)
 
 
 def empty(shape, ctx=None, dtype=None):
@@ -300,3 +337,10 @@ from .optimizer_ops import *  # noqa: E402,F401,F403
 from . import random  # noqa: E402,F401  (nd.random)
 from . import linalg  # noqa: E402,F401  (nd.linalg)
 from . import image  # noqa: E402,F401  (nd.image)
+
+
+def Custom(*args, **kwargs):
+    """Run a registered Python custom op
+    (ref: python/mxnet/operator.py register + nd.Custom)."""
+    from ..operator import invoke as _custom_invoke
+    return _custom_invoke(*args, **kwargs)

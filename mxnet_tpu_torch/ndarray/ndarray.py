@@ -717,7 +717,10 @@ def array(source_array, ctx=None, dtype=None):
     t = place(t, ctx)
     if t is src_t and not own:
         t = t.clone()     # the caller's buffer stays the caller's
-    return wrap(t, ctx=ctx)
+    out = wrap(t, ctx=ctx)
+    from .. import storage as _storage
+    _storage.ledger_register(out, "other")
+    return out
 
 
 def has_ndarray(obj):

@@ -15,21 +15,78 @@ the JAX package records nothing there) and wraps the outputs as NDArrays;
 with no NDArray among them it adds one type check and nothing else, so
 tensors in give tensors out. Private OpDefs that stay out of the registry
 (the fused ResNet link) are invoked through it too.
+
+Telemetry (the JAX package's weld at this choke point): one shared guard,
+``_HOOKS and profiler._LIVE``, is true while a profile run is active or the
+always-on flight recorder is on (the default). With the flight recorder
+alone, each op appends its bare name to the recorder's ring (no clock
+read); while profiling, each op is a span in the ``imperative`` lane. Under
+the same guard each output's storage is registered ``activation`` in the
+allocation ledger (one deque append). ``set_profiler_hooks(False)`` (or
+``MXNET_PROFILER_HOOKS=0``) removes even that guard's work.
 """
 from __future__ import annotations
 
 import inspect
+import time as _time
+import weakref as _weakref
 
 import torch
 
 from .. import autograd
+from .. import profiler as _profiler
+from .. import storage as _storage
+from .._debug import flightrec as _flightrec
+from ..base import getenv as _getenv
 from .. import ops as _ops  # noqa: F401  (fills the registry)
 from ..ops import registry as _registry
 from .ndarray import NDArray, getitem as _getitem, wrap as _wrap
 from .ndarray import _clean_index
 
 __all__ = ["invoke", "invoke_by_name", "invoke_getitem", "populate",
-           "make_op", "set_amp_cast_hook"]
+           "make_op", "set_amp_cast_hook", "set_profiler_hooks",
+           "dispatch_stats", "reset_dispatch_stats"]
+
+# The telemetry guard's first half: MXNET_PROFILER_HOOKS=0 (or
+# set_profiler_hooks(False)) takes every op off the profiler, the flight
+# recorder and the ledger.
+_HOOKS = _getenv("MXNET_PROFILER_HOOKS", "1") not in ("0", "false", "off")
+
+# What the guard yields when ONLY the flight recorder is on (_LIVE true,
+# _ACTIVE false): the return site then appends a bare op name, with no
+# clock read; a float is a profiling span's start.
+_FREC = object()
+
+# The bound deque.append of the ledger's 'activation' tag: one
+# (weakref to the output tensor, op name) pair per output; the drain finds
+# its storage.
+_LEDGER_ACT = _storage.pending_append("activation")
+
+# The JAX package's dispatch-cache counters. The port runs every op
+# eagerly, with no cache and no bulk segments: they stay 0, and
+# profiler.imperative_stats() keeps the JAX package's shape.
+_STATS = {"hits": 0, "misses": 0, "retraces": 0, "fallbacks": 0,
+          "bulk_flushes": 0, "bulk_ops": 0, "bulk_fallbacks": 0}
+
+
+def set_profiler_hooks(enabled):
+    """Toggle the telemetry guard at run time (the env var
+    ``MXNET_PROFILER_HOOKS`` sets the process default). Returns the
+    previous value."""
+    global _HOOKS
+    prev = _HOOKS
+    _HOOKS = bool(enabled)
+    return prev
+
+
+def dispatch_stats():
+    """Snapshot of the dispatch-cache counters (all 0: see _STATS)."""
+    return dict(_STATS)
+
+
+def reset_dispatch_stats():
+    for k in _STATS:
+        _STATS[k] = 0
 
 # The AMP input-cast hook, ``hook(op_name, args, kwargs) -> (args,
 # kwargs)``, or None.
@@ -56,6 +113,23 @@ def _takes_training(opdef):
 
 def invoke(opdef, args, kwargs):
     """Run ``opdef`` on tensors, or on NDArrays (the module docstring)."""
+    _prof_t0 = (_time.perf_counter() if _profiler._ACTIVE else _FREC) \
+        if (_HOOKS and _profiler._LIVE) else None
+    out = _dispatch(opdef, args, kwargs)
+    if _prof_t0 is not None:
+        if _prof_t0 is _FREC:
+            # flight-recorder-only path: one bare-name ring append
+            _flightrec.RING.append(opdef.name)
+        else:
+            _profiler.record_op(opdef.name,
+                                (_time.perf_counter() - _prof_t0) * 1e6,
+                                category="operator", lane="imperative")
+        if _storage._LEDGER_ON:
+            _ledger_activation(out, opdef.name)
+    return out
+
+
+def _dispatch(opdef, args, kwargs):
     if _amp_cast_hook is not None:
         args, kwargs = _amp_cast_hook(opdef.name, args, kwargs)
     for a in args:
@@ -68,6 +142,15 @@ def invoke(opdef, args, kwargs):
     if _takes_training(opdef) and "_training" not in kwargs:
         kwargs = dict(kwargs, _training=autograd.is_training())
     return opdef.fn(*args, **kwargs)
+
+
+def _ledger_activation(out, name):
+    """Register each output's storage as 'activation' (the module
+    docstring)."""
+    for o in (out if isinstance(out, (tuple, list)) else (out,)):
+        t = o._data if isinstance(o, NDArray) else o
+        if isinstance(t, torch.Tensor):
+            _LEDGER_ACT((_weakref.ref(t), name))
 
 
 def _unwrap(v):

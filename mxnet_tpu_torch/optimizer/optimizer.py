@@ -1119,6 +1119,10 @@ class Updater:
             self.states[index] = \
                 self.optimizer.create_state_multi_precision(index, weight)
             self.states_synced[index] = True
+            # the allocation ledger's 'opt_state' tag, at creation
+            from .. import storage as _storage
+            _storage.ledger_register_tree(self.states[index], "opt_state",
+                                          site="opt_state[%s]" % (index,))
         elif not self.states_synced.get(index, True):
             self.states[index] = _to_device(self.states[index],
                                             weight.device)

@@ -22,18 +22,24 @@ place), and ``lower()`` has no counterpart in eager PyTorch.
 recomputes everything else (``remat.py``); any other string is a
 comma-separated list of tag names.
 
+The JAX step records its first call (trace, XLA compile and first run)
+in the profiler's compile registry; here the first ``step()`` is recorded
+the same way, as ``sharded_step:<remat policy or none>``: its wall time
+holds the first-use kernel builds and cuDNN's plans.
+
 One device: a mesh over several devices, and ``overlap_grads``, raise and
-wait for the multi-process slice (M10 in ROADMAP.md); so does the JAX
-step's compile-attribution probe for the observability slice (M9).
+wait for the multi-process slice (M10 in ROADMAP.md).
 """
 from __future__ import annotations
 
 import contextlib
+import time as _time
 
 import numpy as _np
 import torch
 
 from .. import autograd
+from .. import profiler as _profiler
 from .. import remat
 from ..gluon.block import _AUX
 from ..gluon.nn import HybridSequential
@@ -205,6 +211,7 @@ class ShardedTrainStep:
             for i, path in enumerate(self._param_paths)}
         self._segmented = any(isinstance(m, HybridSequential)
                               for m in block.modules())
+        self._first = True      # the next step() is the first
 
     # -- the step ----------------------------------------------------------
     def _loss(self, x, y):
@@ -222,6 +229,16 @@ class ShardedTrainStep:
     def step(self, x, y):
         """One update; returns the loss as a device scalar (no host
         sync)."""
+        if self._first:
+            self._first = False
+            t0 = _time.perf_counter()
+            loss = self.step(x, y)
+            _profiler.record_compile(
+                "sharded_step:%s" % ("none" if self._remat_names is None
+                                     else ",".join(self._remat_names)),
+                key="%d params" % len(self._param_paths),
+                dur_us=(_time.perf_counter() - t0) * 1e6)
+            return loss
         x, y = self._placed(x, y)
         plist = [self.params[p] for p in self._param_paths]
         with _bound(self.block, self.params) as pmap:

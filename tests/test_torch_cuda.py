@@ -1416,3 +1416,72 @@ def test_symbolblock_step_on_the_card_launches_the_batchnorm_kernels():
     assert sorted(out[0][1]) == sorted(out[1][1])
     for n, g in out[0][1].items():
         assert torch.equal(out[1][1][n], g), n
+
+
+# CUDA kernel names of the BatchNorm and conv_fused launch counters: a
+# device-trace kernel whose name holds every part of one alternative
+# belongs to the counter.
+_DEVICE_NAMES = {
+    "LAUNCHES_STATS": (("bn_fold_kernel", "StatsOp"),),
+    "LAUNCHES_APPLY": (("bn_apply_kernel",),),
+    "LAUNCHES_BWD_REDUCE": (("bn_fold_kernel", "BwdOp"),),
+    "LAUNCHES_BWD_DX": (("bn_bwd_dx_kernel",),),
+    "LAUNCHES_FINALIZE": (("bn_finalize_kernel",),),
+    "CF.LAUNCHES": (("conv_fused_fwd_bf16_kernel",),
+                    ("conv_fused_f32_kernel",)),
+    "CF.LAUNCHES_BWD_DX": (("conv_bwd_dx_bf16_kernel",),
+                           ("conv_bwd_dx_f32_kernel",)),
+    "CF.LAUNCHES_BWD_DW": (("conv_bwd_dw_bf16_kernel",),
+                           ("conv_bwd_dw_f32_kernel",)),
+}
+
+
+@pytest.mark.cuda
+def test_profiler_device_trace_counts_equal_launch_counters(tmp_path):
+    """Two fused steps of a narrow NHWC ResNet in bf16 under the port's
+    profiler: its torch.profiler session loses no launch (matched by
+    correlation id), and each kernel counted by its CUDA name in the
+    device trace equals its launch counter over the window."""
+    _need_card()
+    from mxnet_tpu_torch import profiler as prof
+    net = tres.ResNetV1(tres.BottleneckV1, [1, 1, 1, 1],
+                        [16, 32, 64, 128, 256], classes=10, thumbnail=True,
+                        layout="NHWC", fuse=True)
+    net.initialize(ctx=mx.gpu(0))
+    net(torch.zeros(1, 3, 32, 32, device="cuda"))
+    net.cast("bfloat16")
+    net.hybridize()
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.01, "momentum": 0.9})
+    step = mx.gluon.train_step(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                               tr)
+    x = torch.randn(8, 3, 32, 32, device="cuda", dtype=torch.bfloat16)
+    y = torch.arange(8, device="cuda").float()
+    step(x, y)
+    torch.cuda.synchronize()
+    prof._reset()
+    prof.set_config(filename=str(tmp_path / "p.json"), xprof=True,
+                    xprof_dir=str(tmp_path / "x"))
+    for name in [n for n in _DEVICE_NAMES if not n.startswith("CF.")]:
+        setattr(BNF, name, 0)
+    CF.LAUNCHES = CF.LAUNCHES_BWD_DX = CF.LAUNCHES_BWD_DW = 0
+    try:
+        prof.set_state("run")
+        for _ in range(2):
+            step(x, y)
+        prof.set_state("stop")
+        dev = prof.metrics()["profiler"]
+    finally:
+        prof._reset()
+        prof.set_config(xprof=True, filename="profile.json")
+        prof._state["xprof_dir"] = None
+    assert dev["error"] is None and dev["lost"] == 0, dev
+    device = dict.fromkeys(_DEVICE_NAMES, 0)
+    for kname, n in dev["kernels"].items():
+        for key, alts in _DEVICE_NAMES.items():
+            if any(all(p in kname for p in alt) for alt in alts):
+                device[key] += n
+    counters = {k: (getattr(CF, k[3:]) if k.startswith("CF.")
+                    else getattr(BNF, k)) for k in _DEVICE_NAMES}
+    assert device == counters
+    assert counters["CF.LAUNCHES"] > 0 and counters["LAUNCHES_STATS"] > 0

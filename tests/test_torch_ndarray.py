@@ -24,7 +24,10 @@ GRAD = 1e-5
 
 @pytest.fixture(autouse=True)
 def _on_cpu():
-    with mx.cpu():
+    # JAX's current context pinned to cpu(0) as well: a test file run
+    # earlier in the same process can leave it elsewhere
+    # (test_runtime_shims.py leaves cpu(1))
+    with mx.cpu(), mxj.cpu():
         yield
 
 

@@ -191,12 +191,22 @@ def test_entry_points_default_to_the_card():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys; sys.path.insert(0, %r); import mxnet_tpu_torch, "
+    code = ("import sys, threading; sys.path.insert(0, %r); "
+            "import mxnet_tpu_torch, "
             "chip_smoke, chip_f32_witness, chip_flash_probe, chip_conv_probe, "
             "chip_bn_probe, chip_qmm_probe, chip_codec_probe, "
             "chip_profile_probe, chip_rec_probe; "
+            "import mxnet_tpu_torch.symbol.subgraph, mxnet_tpu_torch._retry, "
+            "mxnet_tpu_torch._debug.memwatch, mxnet_tpu_torch.io._stats; "
+            "from mxnet_tpu_torch import profiler; "
             "bad = [m for m in sys.modules if m.split('.')[0] "
-            "in ('jax', 'jaxlib', 'mxnet_tpu', 'cv2')]; print(bad); "
+            "in ('jax', 'jaxlib', 'mxnet_tpu', 'cv2')]; "
+            "bad += [t.name for t in threading.enumerate() "
+            "if t is not threading.main_thread()]; "
+            "bad += ['server'] if profiler._http_server else []; "
+            "from mxnet_tpu_torch._debug import flightrec as fr; "
+            "bad += [] if fr._installed and sys.excepthook is "
+            "fr._sys_excepthook else ['no crash hooks']; print(bad); "
             "sys.exit(1 if bad else 0)" % REPO)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 import mxnet_tpu as mxj
+import mxnet_tpu.operator  # noqa: F401  (registers "Custom", as the port does)
 from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu.symbol import register as jsreg
 import mxnet_tpu_torch as mx
@@ -289,8 +290,10 @@ def test_sub_namespaces_match_jax():
             pkg.sym.linalg.gemm2(pkg.sym.var("x"), pkg.sym.var("y")),
             pkg.sym.contrib.quantize_v2(pkg.sym.var("x"))]))
         assert tn.tojson() == jn.tojson()
-    with pytest.raises(NotImplementedError, match="operator.py"):
-        mx.sym.Custom(mx.sym.var("x"), op_type="sq")
+    # sym.Custom (operator.py): the same node and JSON as JAX's
+    jn, tn = both(lambda pkg: pkg.sym.Custom(pkg.sym.var("x"),
+                                             op_type="sq", name="c"))
+    assert tn.tojson() == jn.tojson()
 
 
 # -- control flow -----------------------------------------------------------

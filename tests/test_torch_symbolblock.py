@@ -33,7 +33,10 @@ GRAD_TOL = 1e-4
 
 @pytest.fixture(autouse=True)
 def _on_cpu():
-    with mx.cpu():
+    # JAX's current context pinned to cpu(0) as well: a test file run
+    # earlier in the same process can leave it elsewhere
+    # (test_runtime_shims.py leaves cpu(1))
+    with mx.cpu(), mxj.cpu():
         yield
 
 
@@ -58,19 +61,20 @@ def jax_saved(tmp_path_factory):
     """A channels-last ResNet-18 v1 (10 classes), initialized, traced and
     exported by the JAX package; moving statistics made non-trivial."""
     d = tmp_path_factory.mktemp("rn")
-    net = _zoo_net(mxj, "NHWC")
-    x = mxj.nd.array(np.random.RandomState(0).uniform(
-        -1, 1, (2, 3, 32, 32)).astype(np.float32))
-    net(x)                                      # finishes deferred init
-    rs = np.random.RandomState(1)
-    for name, p in net.collect_params().items():
-        if name.endswith("running_mean"):
-            p.set_data(mxj.nd.array(rs.uniform(-0.1, 0.1, p.shape)))
-        elif name.endswith("running_var"):
-            p.set_data(mxj.nd.array(rs.uniform(0.5, 1.5, p.shape)))
-    with mxj.name.NameManager():
-        net(mxj.sym.var("data")).save(str(d / "rn-symbol-graph.json"))
-    net.export(str(d / "rn"))
+    with mxj.cpu():         # as _on_cpu, which runs after this fixture
+        net = _zoo_net(mxj, "NHWC")
+        x = mxj.nd.array(np.random.RandomState(0).uniform(
+            -1, 1, (2, 3, 32, 32)).astype(np.float32))
+        net(x)                                  # finishes deferred init
+        rs = np.random.RandomState(1)
+        for name, p in net.collect_params().items():
+            if name.endswith("running_mean"):
+                p.set_data(mxj.nd.array(rs.uniform(-0.1, 0.1, p.shape)))
+            elif name.endswith("running_var"):
+                p.set_data(mxj.nd.array(rs.uniform(0.5, 1.5, p.shape)))
+        with mxj.name.NameManager():
+            net(mxj.sym.var("data")).save(str(d / "rn-symbol-graph.json"))
+        net.export(str(d / "rn"))
     return d
 
 
