@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases env,train_jpeg,train_det
     python3 chip_smoke.py --phases env,train_module,train_symblock
     python3 chip_smoke.py --phases env,observe,custom
+    python3 chip_smoke.py --phases env,health
     python3 chip_smoke.py --phases env,train_lm_deep
     python3 chip_smoke.py --phases env,kernel,train_lm
     python3 chip_smoke.py --phases env,kernel,serve_int8
@@ -401,6 +402,30 @@ Phases, each printing JSON lines:
               block's bit for bit (cuDNN deterministic), rows 4-7 at 53,
               the fused regions' running statistics left as they were (the
               JAX package's default compile drops them).
+5l. health -- the rest of M9 on train_fused's step: train_jpeg's 2048
+              JPEG q90 records (a CRC sidecar) streamed by io.ShardService
+              (world (0,), shards of 64, a committed cursor in a temporary
+              cursor_dir) over io.RecordIORangeReader and a 4-worker
+              io.DecodePool (cv2, centre crop), then DevicePrefetchIter:
+              the epoch once on the host, again with 10% of ranged reads
+              and 5% of decodes failing (the same records, order and
+              bytes); 6 steps with MXTPU_HEALTH=1 fed from the stream (16
+              launches of rows 1-3, 37 of rows 4-7 per step, one packed
+              apply per bucket), the same batches through a second net
+              with MXTPU_HEALTH=0: weights, momenta, running statistics
+              and update counts bit for bit; health.grad.corrupt under
+              skip_step leaves all of them as they were with one numerics
+              dump, the next clean step trains, under halt
+              HealthHaltError with the weights kept; a new service resumes
+              at the committed cursor; the step off and on in turns (wall
+              ms, the beacons' sum within 5% of the synchronized wall of a
+              sentinel window) and the sentinels' device ms; the
+              metrics()["perf"] row of the step's signature: flops equal to
+              resnet_v1_step_flops, mfu and membw_util in (0, 1.05]; a child
+              process with MXTPU_COMPILE_CACHE_DIR on this run's builds
+              loads every source from the cache with no build, and with
+              one entry truncated counts it, rebuilds it and its kernel
+              matches its plain version.
 6. train_lm -- the transformer LM of bench.py's bench_transformer at its
               full width (dim 4096, 5 layers, 32 heads of 128, FFN 16384,
               vocab 32000, bf16, chunked CE over 8 chunks, full per-layer
@@ -515,8 +540,8 @@ import numpy as np
 PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_sharded", "ndarray", "zoo",
           "train_amp", "train_rec", "train_jpeg", "train_det", "api",
-          "train_module", "train_symblock", "observe", "custom", "train_lm",
-          "train_lm_deep", "time")
+          "train_module", "train_symblock", "observe", "custom", "health",
+          "train_lm", "train_lm_deep", "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
 # the BatchNorm kernels' checks and timing, the training steps' timing
 # (after the train phases), the conv_fused forward's, the backward pair's,
@@ -577,10 +602,6 @@ BN_BWD_RTOL = 2e-4
 BN_KERNELS = ("stats", "apply", "bwd_reduce", "bwd_dx")
 # Line of each TPU kernel body in mxnet_tpu/pallas_kernels/batchnorm_fused.py.
 BN_REPLACES = {"stats": 208, "apply": 219, "bwd_reduce": 230, "bwd_dx": 250}
-# f32 operations per element of each BatchNorm kernel (sum and
-# exact_sq's split; exact_mul's split; xhat and dy'*xhat; xhat and the dx
-# chain): all far below the bytes they move.
-BN_OPS = {"stats": 9, "apply": 11, "bwd_reduce": 5, "bwd_dx": 6}
 # Training-step checks, f32 with TF32 off, card against the port on the CPU
 # (relative to the largest magnitude of the compared tensor). The gradient
 # and weight bounds widen to twice the spread between two other correct f32
@@ -636,15 +657,12 @@ CONV_BWD_DESIGN = {
               "items, a TMA ring of halo and dy rows, wgmma"}
 # The training steps: SGD as bench.py's bench_resnet sets it.
 SGD = {"learning_rate": 0.01, "momentum": 0.9}
-# f32 operations per element of the packed SGD step (rescale, wd*w, +g,
-# *lr, momentum*m, -, +w): far below the bytes it moves.
-APPLY_OPS = 7
+# (optimizer_apply.OPS: 7 f32 operations per element of the packed SGD
+# step, far below the bytes it moves.)
 # Adam in the fused step (phase train_adam): the JAX default learning rate
-# with weight decay. f32 operations per element of its packed step
-# (rescale, wd*w, +, b1*m, (1-b1)*g, +, (1-b2)*g, *g, b2*v, +, sqrt, +eps,
-# lr*m, /, -): far below the 14 bytes (bf16) it moves.
+# with weight decay (optimizer_apply.OPS: 15 f32 operations per element of
+# its packed step, far below the 14 bytes (bf16) it moves).
 ADAM = {"learning_rate": 1e-3, "wd": 1e-4}
-ADAM_OPS = 15
 
 # The sharded training step (phase train_sharded): bench.py's bench_resnet
 # through parallel.ShardedTrainStep on a one-device mesh, in the two
@@ -832,17 +850,8 @@ QMM_WGMMA_EDGE = [(130, 4608, 72), (1605, 4624, 520), (257, 1040, 260),
 # persistent block walks several items (split tiles among them).
 QMM_FEW_SMS = [(1568, 4608, 512), (130, 4608, 72), (1605, 4624, 520),
                (100352, 64, 64), (257, 4608, 200), (257, 9216, 72)]
-# Dense int8 tensor-core operations/s from NVIDIA's data sheets (twice the
-# bf16 rate), keyed like PEAKS.
-INT8_PEAKS = {"H100 PCIe": 1513e12, "H100 NVL": 1671e12, "H200": 1979e12,
-              "H100": 1979e12}
-
-# Dense peaks from NVIDIA's data sheets: (bf16 tensor FLOP/s, f32 FLOP/s
-# on the CUDA cores, memory bytes/s), matched on the name nvidia-smi gives.
-PEAKS = [("H100 PCIe", (756e12, 51e12, 2.0e12)),
-         ("H100 NVL", (835e12, 60e12, 3.9e12)),
-         ("H200", (989e12, 67e12, 4.8e12)),
-         ("H100", (989e12, 67e12, 3.35e12))]
+# The card table (dense data-sheet peaks by device name) is the roofline
+# join's: mxnet_tpu_torch/_debug/perfmodel.py (PEAKS, INT8_PEAKS).
 
 
 def emit(obj):
@@ -858,24 +867,33 @@ def smi():
 
 
 def peaks(name):
-    for key, vals in PEAKS:
-        if key in name:
-            return key, vals
-    raise SystemExit("chip_smoke: no peak table entry for %r" % name)
+    """``(key, (bf16 FLOP/s, f32 FLOP/s, bytes/s))``: the card table's row
+    (perfmodel.PEAKS) for the name nvidia-smi gives."""
+    from mxnet_tpu_torch._debug.perfmodel import card
+    row = card(name)
+    if row is None:
+        raise SystemExit("chip_smoke: no peak table entry for %r" % name)
+    return row
+
+
+def _roofline(ops, nbytes, peak, bw):
+    """Least time (s) of ``ops`` at ``peak`` and ``nbytes`` at ``bw``, the
+    larger of the two, and which side bounds it."""
+    t_ops = ops / peak
+    t_bytes = nbytes / bw
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
 
 
 def bound(shape, dtype_bytes, card):
     """Least time (s) for one fused launch, and which side bounds it:
-    ops over the peak for the dtype, bytes (x, w, s, b read once, out
-    written once) over the memory rate."""
-    N, H, W, Ci, Co = shape
+    ``conv_fused.cost`` (ops over the peak for the dtype, bytes -- x, w, s,
+    b read once, out written once -- over the memory rate)."""
+    from mxnet_tpu_torch.kernels.conv_fused import cost
     _, (bf16_peak, f32_peak, bw) = card
-    ops = 2.0 * N * H * W * 9 * Ci * Co
-    nbytes = dtype_bytes * (N * H * W * (Ci + Co) + 9 * Ci * Co) + 8 * Ci
-    t_ops = ops / (bf16_peak if dtype_bytes == 2 else f32_peak)
-    t_bytes = nbytes / bw
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    ops, nbytes = cost(shape, dtype_bytes)
+    return _roofline(ops, nbytes, bf16_peak if dtype_bytes == 2
+                     else f32_peak, bw)
 
 
 def device_ms(torch, fn, iters, warmup=3):
@@ -939,19 +957,15 @@ def make_case(torch, shape, dtype, seed):
 
 def bn_bound(shape, kernel, dtype_bytes, card):
     """Least time (s) for one launch of a BatchNorm kernel at (N, H, W, C),
-    and which side bounds it: its (R, C) tensors read or written once
-    (stats reads x; apply reads x, writes out; bwd_reduce reads x, dy;
-    bwd_dx reads x, dy, writes dx) plus its (C,) vectors, over the memory
-    rate; BN_OPS f32 operations per element over the f32 peak."""
+    and which side bounds it: ``batchnorm_fused.cost`` (its (R, C) tensors
+    read or written once -- stats reads x; apply reads x, writes out;
+    bwd_reduce reads x, dy; bwd_dx reads x, dy, writes dx -- plus its (C,)
+    vectors, over the memory rate; ``batchnorm_fused.OPS`` f32 operations
+    per element over the f32 peak)."""
+    from mxnet_tpu_torch.kernels.batchnorm_fused import cost
     _, (_, f32_peak, bw) = card
-    C = shape[-1]
-    n = int(np.prod(shape))
-    big = {"stats": 1, "apply": 2, "bwd_reduce": 2, "bwd_dx": 3}[kernel]
-    small = {"stats": 2, "apply": 4, "bwd_reduce": 6, "bwd_dx": 6}[kernel]
-    t_bytes = (dtype_bytes * n * big + 4 * C * small) / bw
-    t_ops = BN_OPS[kernel] * n / f32_peak
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    ops, nbytes = cost(shape, kernel, dtype_bytes)
+    return _roofline(ops, nbytes, f32_peak, bw)
 
 
 def bn_case(torch, R, C, dtype, seed, special=False):
@@ -2169,15 +2183,14 @@ def phase_serve(torch, state):
 #    nd.contrib op family ------------------------------------------------
 
 def qmm_bound(M, K, N, scaled, card):
-    """Least time (s) of one int8 product, and which side bounds it: x
-    (M*K) and w (K*N) int8 read once and the (M, N) int32 or f32 output
-    written once (the f32 scales read too), over the memory rate; 2*M*N*K
-    operations over the int8 peak."""
-    nbytes = M * K + K * N + 4.0 * M * N + (4.0 * N if scaled else 0.0)
-    t_ops = 2.0 * M * N * K / INT8_PEAKS[card[0]]
-    t_bytes = nbytes / card[1][2]
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    """Least time (s) of one int8 product, and which side bounds it:
+    ``quantized_matmul.cost`` (x (M*K) and w (K*N) int8 read once and the
+    (M, N) int32 or f32 output written once, the f32 scales read too, over
+    the memory rate; 2*M*N*K operations over the int8 peak)."""
+    from mxnet_tpu_torch._debug.perfmodel import INT8_PEAKS
+    from mxnet_tpu_torch.kernels.quantized_matmul import cost
+    ops, nbytes = cost(M, K, N, scaled)
+    return _roofline(ops, nbytes, INT8_PEAKS[card[0]], card[1][2])
 
 
 def _build_nchw(mx, arrays, ctx):
@@ -4978,10 +4991,6 @@ SSD300_NMS = 0.45
 # MultiBoxTarget's and MultiBoxDetection's coordinates, card against CPU
 # (exp and log differ by an ulp between the two)
 SSD300_RTOL = 1e-5
-# the least fp32 work of one IoU test with both areas known: 4 min/max,
-# 2 differences, 2 clamps, 1 product (the intersection), 2 for the union,
-# 1 quotient and 1 comparison
-NMS_IOU_OPS = 13
 
 
 def ssd_make_batch(rng, batch=8, size=32):
@@ -5271,18 +5280,14 @@ def _ssd300_ops(torch, mx, state, card="cuda"):
     NMS.keep_reference(boxes, ids, nvalid, thr, **kw)
     plain_ms = (time.perf_counter() - t0) * 1e3
     NMS.LAUNCHES = before
-    # the pairs this run's data needs an IoU for: those of one class
-    # within an image's valid prefix
-    pairs = 0.0
-    for b, nv in enumerate(nvalid.cpu().tolist()):
-        k = torch.bincount(ids[b, :nv].long().cpu()).double()
-        pairs += float((k * (k - 1) / 2).sum())
-    # bytes: boxes and ids read once, keep written once; operations:
-    # NMS_IOU_OPS fp32 operations per pair, on the CUDA cores
-    nbytes = boxes.numel() * 4 + ids.numel() * 4 + got.numel()
+    # NMS.cost: IOU_OPS fp32 operations (on the CUDA cores) per pair this
+    # run's data needs an IoU for -- those of one class within an image's
+    # valid prefix; bytes: boxes and ids read once, keep written once
+    ops, nbytes = NMS.cost(boxes, ids, nvalid)
+    pairs = ops / NMS.IOU_OPS
     card = state["card"][1]
     t_bytes = nbytes / card[2] * 1e3
-    t_ops = pairs * NMS_IOU_OPS / card[1] * 1e3
+    t_ops = ops / card[1] * 1e3
     state["nms_timing"] = {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -5997,22 +6002,15 @@ def phase_time_bn(torch, state):
 
 def conv_bwd_bound(shape, kernel, dtype_bytes, card):
     """Least time (s) for one launch of a conv_fused backward kernel, and
-    which side bounds it: 2*N*H*W*9*Ci*Co operations over the peak for the
-    dtype; bytes over the memory rate: the d-input kernel reads x, dy, W,
-    s, b and writes dx, ds, db; the d-weight kernel reads x, dy, s, b and
-    writes dW."""
-    N, H, W, Ci, Co = shape
+    which side bounds it: ``conv_fused.cost`` (2*N*H*W*9*Ci*Co operations
+    over the peak for the dtype; bytes over the memory rate: the d-input
+    kernel reads x, dy, W, s, b and writes dx, ds, db; the d-weight kernel
+    reads x, dy, s, b and writes dW)."""
+    from mxnet_tpu_torch.kernels.conv_fused import cost
     _, (bf16_peak, f32_peak, bw) = card
-    ops = 2.0 * N * H * W * 9 * Ci * Co
-    px = N * H * W
-    if kernel == "bwd_dx":
-        nbytes = dtype_bytes * (px * (2 * Ci + Co) + 9 * Ci * Co) + 16 * Ci
-    else:
-        nbytes = dtype_bytes * (px * (Ci + Co) + 9 * Ci * Co) + 8 * Ci
-    t_ops = ops / (bf16_peak if dtype_bytes == 2 else f32_peak)
-    t_bytes = nbytes / bw
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    ops, nbytes = cost(shape, dtype_bytes, kernel)
+    return _roofline(ops, nbytes, bf16_peak if dtype_bytes == 2
+                     else f32_peak, bw)
 
 
 def phase_time_conv_bwd(torch, state):
@@ -6137,8 +6135,9 @@ def phase_time_apply(torch, state):
 
     n = sum(w.numel() for w in ws)
     _, (_, f32_peak, bw) = card
-    t_bytes = (2 * 5 * n + 8 * len(ws)) / bw
-    t_ops = APPLY_OPS * n / f32_peak
+    ops, nbytes = OA.cost("sgd_momentum", n, len(ws), 2)
+    t_bytes = nbytes / bw
+    t_ops = ops / f32_peak
     # device times from the profiler (kernels and copies summed), since
     # these calls make tens to thousands of launches and an event pair
     # would also count the host's gaps between them; host times beside
@@ -6222,10 +6221,9 @@ def phase_time_codec(torch, state):
         fn()
         launches, segments = [getattr(C, c, 0) - b
                               for c, b in zip(counters[row], before)]
-        nbytes = (3 * 2 * n + 4 * nw) if row == "quantize" \
-            else (4 * nw + 4 * n)
+        ops, nbytes = C.cost(row, n, nw, 2)
         t_bytes = nbytes / bw
-        t_ops = 6 * n / f32_peak
+        t_ops = ops / f32_peak
         r = {"ms": kernel_ms(torch, fn, 10, {"k": (name,)})["k"],
              "call_ms": device_busy_ms(torch, fn, 10),
              "call_host_ms": host_ms(torch, fn, 10),
@@ -6320,8 +6318,9 @@ def phase_time_adam(torch, state):
                            maximize=False, grad_scale=scale, found_inf=None)
 
     n = sum(w.numel() for w in ws)
-    t_bytes = (2 * 7 * n + 8 * 6 * len(ws)) / bw
-    t_ops = ADAM_OPS * n / f32_peak
+    ops, nbytes = OA.cost("adam", n, len(ws), 2)
+    t_bytes = nbytes / bw
+    t_ops = ops / f32_peak
     res = {"ms": kernel_ms(torch, run, 10, {"k": ("adam_apply",)})["k"],
            "call_ms": device_busy_ms(torch, run, 10),
            "call_host_ms": host_ms(torch, run, 10),
@@ -6435,23 +6434,18 @@ def _time_sharded(torch, state, key):
 def flash_bound(kernel, card, D=128):
     """Least time (s) of one launch of a flash kernel at the LM's attention
     (B 12, H 32, S 2048, head dim D (the LM's is 128), causal, bf16), and
-    which side bounds it.
+    which side bounds it, by ``flash_attention.cost``.
     Operations: one causal S x S x D product is B*H*S^2*D (half of
     2*B*H*S^2*D); the forward does 2 (QK^T, PV), dQ 3 (QK^T, dO V^T, dS K),
     dK/dV 4 (and P^T dO, dS^T Q). Bytes: each [B, H, S, D] input read once
     and output written once (forward: q, k, v in, o out; dQ: q, k, v, dO
     in, dQ out; dK/dV: q, k, v, dO in, dK, dV out), plus the f32 row
     vectors (lse; lse and delta)."""
+    from mxnet_tpu_torch.kernels.flash_attention import cost
     _, (bf16_peak, _, bw) = card
     B, H, S = LM_BATCH, LM_CFG["n_heads"], LM_SEQ
-    product = float(B * H * S * S * D)
-    ops = {"fwd": 2, "dq": 3, "dkv": 4}[kernel] * product
-    tensors = {"fwd": 4, "dq": 5, "dkv": 6}[kernel]
-    rows = {"fwd": 1, "dq": 2, "dkv": 2}[kernel]
-    nbytes = 2.0 * tensors * B * H * S * D + 4.0 * rows * B * H * S
-    t_ops, t_bytes = ops / bf16_peak, nbytes / bw
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    ops, nbytes = cost(kernel, B, H, S, S, D, True, 2)
+    return _roofline(ops, nbytes, bf16_peak, bw)
 
 
 def phase_time_flash(torch, state):
@@ -7946,6 +7940,509 @@ def phase_custom(torch, state):
         raise AssertionError("custom: %s failed" % failures)
 
 
+# -- phase health: the rest of M9 on the main path ----------------------------
+# train_jpeg's 2048 JPEG q90 records streamed by io.ShardService (world (0,),
+# a committed cursor) over io.RecordIORangeReader (a CRC sidecar) and a
+# 4-worker io.DecodePool, then DevicePrefetchIter, into train_fused's step
+# (ResNet-50 v1 NHWC bf16 b128, gluon.train_step, MXTPU_FUSED_APPLY=1, SGD
+# momentum 0.9), with the health sentinels and the roofline join.
+HEALTH_STEPS = 6            # MXTPU_HEALTH=1 against =0, bit for bit
+HEALTH_SHARD = 64           # ShardService's shard: 32 shards an epoch
+HEALTH_WORKERS = 4          # DecodePool workers, one record an item
+# decode attempts per record before the pool calls it poison: at 5% a
+# record fails 8 times once in 4e10
+HEALTH_ITEM_RETRIES = 8
+# the stream's chaos: 10% of ranged reads and 5% of decodes fail, retried
+# (reads, with a millisecond backoff so the run stays short) or requeued
+# (decodes) -- the stream must not change
+HEALTH_FAULTS = {"io.shard.read": "raise:ConnectionError@p=0.1",
+                 "io.worker.decode": "raise:RuntimeError@p=0.05"}
+HEALTH_TURNS = 2            # timed rounds, sentinels off then on
+HEALTH_TURN_STEPS = 6
+# the beacons' sum over a window against its synchronized wall clock
+HEALTH_BEACON_SLACK = 0.05
+HEALTH_UTIL_MAX = 1.05      # mfu and membw_util of the joined row
+HEALTH_CACHE_KERNEL = "optimizer_apply"   # the cache entry torn and rebuilt
+
+
+def resnet_v1_step_flops(layers, channels, batch, size, classes,
+                         thumbnail=False):
+    """2 x the multiply-adds of every convolution and of the dense layer of
+    one training step of a bottleneck ResNet V1 (the model zoo's): each
+    layer's forward product and its two backward products (the input's and
+    the weight's) -- the stem's input needs no gradient, so the stem has
+    two. What the fused step's cost count must report (kernels/_cost.py);
+    tests/test_torch_perfmodel.py pins it on the CPU on a narrow net."""
+    total = [0.0]
+
+    def conv(h, ci, co, k, stride, products=3):
+        ho = (h + 2 * (k // 2) - k) // stride + 1
+        total[0] += products * 2.0 * batch * ho * ho * co * ci * k * k
+        return ho
+
+    if thumbnail:
+        h = conv(size, 3, channels[0], 3, 1, products=2)
+    else:
+        h = conv(size, 3, channels[0], 7, 2, products=2)
+        h = (h + 2 - 3) // 2 + 1            # max pool 3, stride 2, pad 1
+    cin = channels[0]
+    for i, n in enumerate(layers):
+        cout = channels[i + 1]
+        for j in range(n):
+            stride = 2 if i and not j else 1
+            if cout != cin:
+                conv(h, cin, cout, 1, stride)       # the downsample
+            h1 = conv(h, cin, cout // 4, 1, stride)
+            conv(h1, cout // 4, cout // 4, 3, 1)
+            conv(h1, cout // 4, cout, 1, 1)
+            h, cin = h1, cout
+    total[0] += 3 * 2.0 * batch * channels[-1] * classes
+    return total[0]
+
+
+def _health_decode(payload):
+    """One JPEG record -> (the centre 224x224 crop, CHW uint8; label),
+    decoded by cv2 on a pool worker."""
+    from mxnet_tpu_torch import recordio
+    header, img = recordio.unpack_img(payload)
+    o = (REC_SIDE - REC_SHAPE[1]) // 2
+    crop = img[o:o + REC_SHAPE[1], o:o + REC_SHAPE[2]]
+    return np.ascontiguousarray(crop.transpose(2, 0, 1)), float(header.label)
+
+
+def _health_service(mx, rec, cursor_dir=None, retry=None):
+    reader = mx.io.RecordIORangeReader(rec, index=rec[:-4] + ".idx",
+                                       retry_policy=retry)
+    return mx.io.ShardService(REC_IMAGES, shard_size=HEALTH_SHARD, seed=0,
+                              world=(0,), rank=0, reader=reader,
+                              decode_fn=_health_decode,
+                              cursor_dir=cursor_dir)
+
+
+def _health_batches(mx, svc):
+    """The service's stream as host batches (x uint8 NCHW, y float32,
+    record ids): each record fetched through the service
+    (``fetch_batch``: the reader, then the decode) on a DecodePool worker,
+    in stream order."""
+    def fetch(pos_id):
+        return svc.fetch_batch([pos_id[1]])[0] + (pos_id[1],)
+
+    pool = mx.io.DecodePool(svc.iter_samples(), fetch,
+                            workers=HEALTH_WORKERS,
+                            item_retries=HEALTH_ITEM_RETRIES, name="health")
+    try:
+        buf = []
+        for sample in pool:
+            buf.append(sample)
+            if len(buf) == REC_BATCH:
+                yield (np.stack([b[0] for b in buf]),
+                       np.array([b[1] for b in buf], np.float32),
+                       [b[2] for b in buf])
+                buf = []
+    finally:
+        pool.close()
+
+
+def _health_epoch(mx, rec, faults=None):
+    """One epoch streamed on the host: each batch's record ids and CRC32,
+    the first batch in full, images/s, and the io counters it moved."""
+    import zlib
+    from mxnet_tpu_torch._debug import faultpoint
+    from mxnet_tpu_torch._retry import RetryPolicy
+    from mxnet_tpu_torch.io import _stats as io_stats
+    io_stats.reset()
+    if faults:
+        faultpoint.configure(faults, seed=0)
+    try:
+        t0 = time.perf_counter()
+        ids, crcs, first = [], [], None
+        for x, y, rid in _health_batches(mx, _health_service(
+                mx, rec, retry=RetryPolicy(base=0.001, cap=0.01))):
+            ids.append(rid)
+            crcs.append(zlib.crc32(x.tobytes()) ^ zlib.crc32(y.tobytes()))
+            if first is None:
+                first = (x, y)
+        wall = time.perf_counter() - t0
+    finally:
+        faultpoint.reset()
+    return {"ids": ids, "crcs": crcs, "first": first,
+            "images_per_sec": sum(len(i) for i in ids) / wall,
+            "io": io_stats.snapshot()}
+
+
+def _health_state(net, trainer):
+    """Every weight, running statistic, optimizer state and update count of
+    a net and its trainer, copied; parameters in structural order (two
+    nets' names differ in their prefixes)."""
+    opt = trainer._optimizer
+    params = dict(enumerate(p._tensor().detach().clone()
+                            for p in net.collect_params().values()))
+    states = {i: s.detach().clone()
+              for i, s in trainer._updater.states.items()}
+    return params, states, opt.num_update, dict(opt._index_update_count)
+
+
+def _health_equal(torch, a, b):
+    return a[2:] == b[2:] and a[0].keys() == b[0].keys() \
+        and a[1].keys() == b[1].keys() \
+        and all(same_bits(torch, a[0][k], b[0][k]) for k in a[0]) \
+        and all(same_bits(torch, a[1][k], b[1][k]) for k in a[1])
+
+
+def _set_env(name, value):
+    prev = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    return prev
+
+
+HEALTH_CACHE_PROBE = r"""
+import json, sys, torch
+from mxnet_tpu_torch import optimizer, profiler
+from mxnet_tpu_torch.gluon import compile_cache
+from mxnet_tpu_torch.kernels import _build, optimizer_apply as OA
+_build.build_all()
+for name in _build.SOURCES:
+    _build.load(name)
+g = torch.Generator().manual_seed(0)
+shapes = [(1000,), (64, 65), (33,)]
+ws = [torch.randn(s, generator=g).to(torch.bfloat16) for s in shapes]
+gs = [torch.randn(s, generator=g).to(torch.bfloat16) for s in shapes]
+ms = [torch.randn(s, generator=g).to(torch.bfloat16) for s in shapes]
+lrs, wds = [0.01] * 3, [1e-4] * 3
+opt = optimizer.SGD(learning_rate=0.01, momentum=0.9)
+card = [[t.cuda() for t in ts] for ts in (ws, gs, ms)]
+OA.packed_apply(opt, card[0], card[1], card[2], lrs, wds, 1.0 / 128)
+OA.packed_apply(opt, ws, gs, ms, lrs, wds, 1.0 / 128)
+torch.cuda.synchronize()
+equal = all(torch.equal(a.cpu().view(torch.int16), b.view(torch.int16))
+            for a, b in zip(card[0] + card[2], ws + ms))
+print(json.dumps({"stats": compile_cache.stats(),
+                  "builds": sorted(k for k in profiler.compile_stats()
+                                   if k.startswith("kernel:")),
+                  "apply_launches": OA.LAUNCHES, "apply_equal": equal}))
+"""
+
+
+def _health_cache(torch, folder):
+    """The persistent compile cache over the kernels' libraries: this
+    process's builds published into a fresh directory; a process with
+    MXTPU_COMPILE_CACHE_DIR on it loads every source from there (no
+    build); with one entry torn, it counts the entry, rebuilds it from the
+    same source, and the rebuilt kernel matches its plain version."""
+    from mxnet_tpu_torch.gluon import compile_cache
+    from mxnet_tpu_torch.kernels import _build
+    cache = os.path.join(folder, "compile_cache")
+    prev = _set_env("MXTPU_COMPILE_CACHE_DIR", cache)
+    try:
+        entries = {n: compile_cache.store(_build.cache_key(n),
+                                          _build._target(n)[1])
+                   for n in _build.SOURCES}
+    finally:
+        _set_env("MXTPU_COMPILE_CACHE_DIR", prev)
+    env = dict(os.environ, MXTPU_COMPILE_CACHE_DIR=cache)
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def probe():
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", HEALTH_CACHE_PROBE],
+                             env=env, cwd=root, capture_output=True,
+                             text=True, timeout=900)
+        if out.returncode != 0:
+            raise AssertionError("health: the cache probe failed:\n%s"
+                                 % out.stderr[-4000:])
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        res["wall_s"] = time.perf_counter() - t0
+        return res
+
+    warm = probe()
+    torn = entries[HEALTH_CACHE_KERNEL]
+    with open(torn, "r+b") as f:
+        f.truncate(os.path.getsize(torn) // 2)
+    rebuilt = probe()
+    n = len(_build.SOURCES)
+    ok_warm = warm["stats"]["hits"] == n and not warm["builds"] \
+        and warm["stats"]["deserialize_errors"] == 0 and warm["apply_equal"]
+    ok_torn = rebuilt["stats"]["hits"] == n - 1 \
+        and rebuilt["stats"]["deserialize_errors"] == 1 \
+        and rebuilt["stats"]["stores"] == 1 \
+        and rebuilt["builds"] == ["kernel:" + HEALTH_CACHE_KERNEL] \
+        and rebuilt["apply_equal"] and rebuilt["apply_launches"] >= 1
+    return {"warm": warm, "torn_entry": HEALTH_CACHE_KERNEL,
+            "rebuilt": rebuilt, "ok": ok_warm and ok_torn}
+
+
+def phase_health(torch, state):
+    """Path health: the stream, the sentinels, the roofline join and the
+    compile cache on the main path (the module comment above)."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    folder = tempfile.mkdtemp(prefix="chip_smoke_health_")
+    prev = {k: _set_env(k, v) for k, v in (
+        ("MXTPU_FUSED_APPLY", "1"), ("MXTPU_HEALTH", "0"),
+        ("MXTPU_HEALTH_ACTION", "record"),
+        ("MXTPU_FLIGHTREC_DIR", os.path.join(folder, "flightrec")))}
+    try:
+        _health(torch, state, mx, folder)
+    finally:
+        for k, v in prev.items():
+            _set_env(k, v)
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def _health(torch, state, mx, folder):
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch._debug import faultpoint, healthmon, watchdog
+    from mxnet_tpu_torch.gluon.fused_step import _signature
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+
+    # -- the stream on the host: unfaulted, then under chaos ----------------
+    t0 = time.perf_counter()
+    rec, _ = _write_rec(mx, folder, jpeg=True)
+    mx.io.build_crc_sidecar(rec)
+    write_s = time.perf_counter() - t0
+    clean = _health_epoch(mx, rec)
+    chaos = _health_epoch(mx, rec, HEALTH_FAULTS)
+    all_ids = [i for b in clean["ids"] for i in b]
+    ok_stream = sorted(all_ids) == list(range(REC_IMAGES)) \
+        and chaos["ids"] == clean["ids"] and chaos["crcs"] == clean["crcs"] \
+        and chaos["io"].get("read_retries", 0) > 0 \
+        and sum(v for k, v in chaos["io"].items()
+                if k.startswith("worker_deaths.")) > 0
+
+    # -- the nets: health on (the main path, stream-fed) and off ------------
+    healthmon.reset()
+    profiler._reset()
+    arrays = _arrays(mx, state)
+    gpu = mx.gpu(0)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    mean = torch.tensor(REC_MEAN, dtype=torch.bfloat16,
+                        device="cuda").view(1, 3, 1, 1)
+    scale = torch.tensor(REC_SCALE, dtype=torch.bfloat16, device="cuda")
+
+    def build():
+        net = _build_net(mx, arrays, True, "bfloat16", gpu)
+        net.hybridize()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD))
+        return net, trainer, mx.gluon.train_step(net, loss_fn, trainer)
+
+    net_on, tr_on, step_on = build()
+    net_off, tr_off, step_off = build()
+    all_params, train_pos, _ = step_on._param_split()
+    buckets = len(OA.bucketize([all_params[p]._tensor() for p in train_pos]))
+    cursor_dir = os.path.join(folder, "cursor")
+    svc = _health_service(mx, rec, cursor_dir)
+    pf = mx.io.DevicePrefetchIter(
+        ((x, y) for x, y, _ in _health_batches(mx, svc)), depth=2,
+        sharding=gpu)
+    fed, losses_on, modes, first = [], [], [], []
+    committed = None
+
+    def take():
+        nonlocal committed
+        x, y = next(pf)
+        if not first:
+            first.extend((x.cpu().numpy(), y.cpu().numpy()))
+        svc.advance(REC_BATCH)
+        svc.commit(len(fed))
+        committed = svc.cursor()
+        fed.append(((x.to(torch.bfloat16) - mean) * scale, y))
+        return fed[-1]
+
+    prev = _deterministic_cudnn(torch)
+    try:
+        _set_env("MXTPU_HEALTH", "1")
+        torch.cuda.synchronize()
+        _zero_counts(BNF, CF, OA)
+        for _ in range(HEALTH_STEPS):
+            x, y = take()
+            losses_on.append(step_on(x, y))
+            modes.append(step_on.last_mode)
+        torch.cuda.synchronize()
+        conv, bn, apply_n = _conv_counts(CF), _bn_counts(BNF), OA.LAUNCHES
+        checked = healthmon.stats()["steps"]
+        _set_env("MXTPU_HEALTH", "0")
+        losses_off = [step_off(x, y) for x, y in fed]
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    ok_free = _health_equal(torch, _health_state(net_on, tr_on),
+                            _health_state(net_off, tr_off)) \
+        and all(same_bits(torch, a, b) for a, b in zip(losses_on, losses_off))
+    want_conv = {k: HEALTH_STEPS * FUSED_PER_STEP
+                 for k in ("fwd", "bwd_dx", "bwd_dw", "finalize", "reduce")}
+    want_bn = {k: HEALTH_STEPS * BN_FUSED_NET_PER_STEP for k in BN_KERNELS}
+    want_bn["finalize"] = 2 * HEALTH_STEPS * BN_FUSED_NET_PER_STEP
+    ok_counts = all(conv[k] == n for k, n in want_conv.items()) \
+        and all(bn[k] == n for k, n in want_bn.items()) \
+        and apply_n == HEALTH_STEPS * buckets \
+        and all(m == "fused" for m in modes) and checked == HEALTH_STEPS
+    state["launches_health"] = {
+        "conv_fused": conv["fwd"], "conv_fused.bwd_dx": conv["bwd_dx"],
+        "conv_fused.bwd_dw": conv["bwd_dw"], "optimizer_apply": apply_n,
+        **{k: bn[k] for k in BN_KERNELS}}
+    # the first card batch: the unfaulted host stream's first batch
+    ok_first = all(np.array_equal(a, b)
+                   for a, b in zip(first, clean["first"]))
+
+    # -- skip_step and halt: the poisoned step never happened ---------------
+    def dumps():
+        d = os.environ["MXTPU_FLIGHTREC_DIR"]
+        return sorted(f for f in os.listdir(d) if "_numerics_" in f) \
+            if os.path.isdir(d) else []
+
+    _set_env("MXTPU_HEALTH", "1")
+    _set_env("MXTPU_HEALTH_ACTION", "skip_step")
+    x, y = take()
+    before = _health_state(net_on, tr_on)
+    faultpoint.configure({"health.grad.corrupt": "raise:ArithmeticError@n=1"})
+    step_on(x, y)
+    faultpoint.reset()
+    torch.cuda.synchronize()
+    ok_skip = _health_equal(torch, before, _health_state(net_on, tr_on)) \
+        and healthmon.stats()["skipped_steps"] == 1 and len(dumps()) == 1
+    x, y = take()
+    loss_clean = step_on(x, y)
+    torch.cuda.synchronize()
+    ok_after = not _health_equal(torch, before, _health_state(net_on, tr_on)) \
+        and bool(torch.isfinite(loss_clean.float()).all()) \
+        and step_on.last_mode == "fused"
+    _set_env("MXTPU_HEALTH_ACTION", "halt")
+    x, y = take()
+    before = _health_state(net_on, tr_on)
+    faultpoint.configure({"health.grad.corrupt": "raise:ArithmeticError@n=1"})
+    try:
+        step_on(x, y)
+        halted = False
+    except healthmon.HealthHaltError:
+        halted = True
+    finally:
+        faultpoint.reset()
+    torch.cuda.synchronize()
+    ok_halt = halted and _health_equal(torch, before,
+                                       _health_state(net_on, tr_on))
+    _set_env("MXTPU_HEALTH_ACTION", "record")
+
+    # -- the committed cursor: a new service resumes at it ------------------
+    resumed = _health_service(mx, rec, cursor_dir).seek()
+    ok_cursor = resumed["epoch"] == committed["epoch"] \
+        and resumed["offset"] == committed["offset"] == len(fed) * REC_BATCH
+    # the rest of the epoch, so that the pool and the prefetcher finish
+    rest = sum(1 for _ in pf)
+    ok_cursor = ok_cursor and len(fed) + rest == REC_IMAGES // REC_BATCH
+
+    # -- timing: the step off and on in turns; the beacons against the wall
+    resident = fed[:HEALTH_STEPS]
+    turns = {"0": [], "1": []}
+    beacon_ratio = {"0": [], "1": []}
+    for _ in range(HEALTH_TURNS):
+        for health in ("0", "1"):
+            _set_env("MXTPU_HEALTH", health)
+            torch.cuda.synchronize()
+            durs = []
+            t0 = time.perf_counter()
+            for i in range(HEALTH_TURN_STEPS):
+                step_on(*resident[i % len(resident)])
+                durs.append(watchdog.last_step()[1])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            turns[health].append(wall * 1e3 / HEALTH_TURN_STEPS)
+            beacon_ratio[health].append(sum(durs) / wall)
+    _set_env("MXTPU_HEALTH", "0")
+    ok_beacon = all(abs(1.0 - r) <= HEALTH_BEACON_SLACK
+                    for r in beacon_ratio["1"])
+    # the sentinels' device ms alone, on the last step's tensors
+    ws = [all_params[p]._tensor() for p in train_pos]
+    gs = [w.grad for w in ws]
+    plan = [list(b) for b in OA.bucketize(ws)]
+    lvec = losses_on[-1]
+    sentinel_ms = device_busy_ms(torch, lambda: healthmon.graph_summary(
+        plan, gs, ws, lvec), 10)
+
+    # -- the roofline join --------------------------------------------------
+    sig = _signature(resident[0])
+    perf = profiler.metrics()["perf"]
+    row = perf["per_signature"].get(sig, {})
+    want_flops = resnet_v1_step_flops((3, 4, 6, 3),
+                                      (64, 256, 512, 1024, 2048),
+                                      REC_BATCH, REC_SHAPE[1], 1000)
+    ok_perf = row.get("flops") == want_flops \
+        and row.get("mfu") is not None \
+        and 0.0 < row["mfu"] <= HEALTH_UTIL_MAX \
+        and row.get("membw_util") is not None \
+        and 0.0 < row["membw_util"] <= HEALTH_UTIL_MAX
+    compile_rec = profiler.compile_stats().get("fused_step", {})
+
+    # -- the compile cache ----------------------------------------------------
+    cache = _health_cache(torch, folder)
+
+    emit({"phase": "health", "card": state["smi"], "records": REC_IMAGES,
+          "write_s": write_s, "batch": REC_BATCH, "workers": HEALTH_WORKERS,
+          "shard_size": HEALTH_SHARD,
+          "stream": {"pool_images_per_sec": clean["images_per_sec"],
+                     "pool_images_per_sec_chaos": chaos["images_per_sec"],
+                     "faults": HEALTH_FAULTS, "io_chaos": chaos["io"],
+                     "every_record_once_same_order": ok_stream,
+                     "first_card_batch_equal": ok_first,
+                     "cursor_committed": committed, "cursor_resumed": resumed,
+                     "ok_cursor": ok_cursor},
+          "launches": {"conv_fused": conv, "batchnorm_fused": bn,
+                       "optimizer_apply": apply_n},
+          "launches_wanted": {"conv_fused": want_conv,
+                              "batchnorm_fused": want_bn,
+                              "optimizer_apply": HEALTH_STEPS * buckets},
+          "losses_health_on": [float(v.float().mean()) for v in losses_on],
+          "health_1_vs_0_bit_for_bit": ok_free,
+          "skip_step_never_happened": ok_skip,
+          "clean_step_after_trains": ok_after,
+          "halt_raised_weights_kept": ok_halt,
+          "health_stats": healthmon.stats(),
+          "numerics_dumps": dumps(),
+          "sentinel_device_ms": sentinel_ms,
+          "wall_ms_per_step_in_turns": {"off": turns["0"], "on": turns["1"]},
+          "beacon_sum_over_wall": {"off": beacon_ratio["0"],
+                                   "on": beacon_ratio["1"]},
+          "perf_row": {"sig": sig, **row},
+          "flops_analytic": want_flops,
+          "counted_step_record": compile_rec,
+          "compile_cache": cache,
+          "ok": ok_stream and ok_first and ok_cursor and ok_counts
+          and ok_free and ok_skip and ok_after and ok_halt and ok_beacon
+          and ok_perf and cache["ok"]})
+    checks = [(ok_stream, "the stream under chaos is not the unfaulted one"),
+              (ok_first, "the first card batch is not the stream's first"),
+              (ok_cursor, "the cursor restored from cursor_dir is not the "
+                          "committed one"),
+              (ok_counts, "launches conv %s, bn %s, apply %d over %d steps; "
+                          "want %s, %s, %d" % (conv, bn, apply_n,
+                                               HEALTH_STEPS, want_conv,
+                                               want_bn,
+                                               HEALTH_STEPS * buckets)),
+              (ok_free, "MXTPU_HEALTH=1 training is not MXTPU_HEALTH=0's bit "
+                        "for bit"),
+              (ok_skip, "the skipped step changed the state or did not dump "
+                        "once"),
+              (ok_after, "the clean step after the skip did not train"),
+              (ok_halt, "halt did not raise with the weights kept"),
+              (ok_beacon, "the beacons' sum over a sentinel window is %s of "
+                          "its wall" % beacon_ratio["1"]),
+              (ok_perf, "the perf row %s: flops want %r, mfu and membw_util "
+                        "in (0, %g]" % (row, want_flops, HEALTH_UTIL_MAX)),
+              (cache["ok"], "the compile cache: %s" % cache)]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError("health: " + what)
+    del net_on, net_off, step_on, step_off, fed, resident, pf, gs, ws
+    torch.cuda.empty_cache()
+
+
 def kernel_summary(state):
     """The {"kernels": [...]} entries: each kernel's launches on its path,
     its error against its plain version and its times beside its bound,
@@ -7966,6 +8463,7 @@ def kernel_summary(state):
         "launches_train_jpeg": state["launches_jpeg"]["conv_fused"],
         "launches_train_symblock": state["launches_symblock"]["conv_fused"],
         "launches_observe": state["launches_observe"]["conv_fused"],
+        "launches_health": state["launches_health"]["conv_fused"],
         "max_abs_err": state["kernel_err"]["bfloat16"][0],
         "max_rel_err": state["kernel_err"]["bfloat16"][1],
         "tolerance_rel": RTOL["bfloat16"],
@@ -7991,6 +8489,7 @@ def kernel_summary(state):
             "launches_train_symblock": state["launches_symblock"][k],
             "launches_observe": state["launches_observe"][k],
             "launches_custom": state["launches_custom"][k],
+            "launches_health": state["launches_health"][k],
             "max_abs_err": state["bn_err"][k][0],
             "max_rel_err": state["bn_err"][k][1],
             "tolerance_rel": 0.0 if k in ("stats", "apply") else BN_BWD_RTOL,
@@ -8016,6 +8515,7 @@ def kernel_summary(state):
             "launches_train_rec": state["launches_rec"]["conv_fused." + k],
             "launches_train_jpeg": state["launches_jpeg"]["conv_fused." + k],
             "launches_observe": state["launches_observe"]["conv_fused." + k],
+            "launches_health": state["launches_health"]["conv_fused." + k],
             "max_abs_err": state["conv_bwd_err"][k][0],
             "max_rel_err": state["conv_bwd_err"][k][1],
             "tolerance_rel": BWD_RTOL["bfloat16"]["dx"],
@@ -8094,6 +8594,7 @@ def kernel_summary(state):
         "launches": state["launches"]["optimizer_apply"],
         "launches_zoo": state["launches_zoo"]["optimizer_apply"],
         "launches_observe": state["launches_observe"]["optimizer_apply"],
+        "launches_health": state["launches_health"]["optimizer_apply"],
         # the phase failed unless the apply matched bit for bit
         "max_abs_err": state["apply_err"], "max_rel_err": 0.0,
         "tolerance_rel": 0.0,

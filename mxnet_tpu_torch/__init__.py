@@ -74,9 +74,12 @@ given a context. ``mx.operator`` (``CustomOp``, ``nd.Custom``,
 
 Observability: ``mx.profiler`` (trace lanes, the aggregate table,
 latency histograms, ``/metrics``, a ``torch.profiler`` device session),
-``mx.storage`` (device memory stats and the tagged allocation ledger) and
+``mx.storage`` (device memory stats and the tagged allocation ledger),
 ``_debug`` (the always-on flight recorder, the step and memory watchdogs,
-goodput, fault points, the lock-order tracer). Importing the package
+goodput, fault points, the lock-order tracer, the roofline join
+``perfmodel`` and the training-health plane ``healthmon``), ``mx.monitor``
+and ``mx.tensor_inspector``; ``gluon.compile_cache`` keeps the kernels'
+builds in a persistent directory. Importing the package
 starts no thread and no server; the flight recorder's crash hooks
 (``sys.excepthook``, ``threading.excepthook``, SIGUSR2, ``faulthandler``)
 are installed at import, as in the JAX package (``MXTPU_FLIGHTREC_HOOKS=0``
@@ -120,6 +123,8 @@ from . import jit
 from . import predictor
 from .predictor import Predictor
 from . import operator
+from . import monitor
+from . import tensor_inspector
 
 nd = ndarray
 init = initializer
@@ -146,4 +151,5 @@ __all__ = ["base", "MXNetError", "context", "Context", "cpu", "gpu",
            "contrib", "metric", "callback", "io", "recordio", "image",
            "name", "attribute", "AttrScope", "symbol", "sym", "executor",
            "model", "module", "mod", "jit", "predictor", "Predictor",
-           "profiler", "storage", "operator"]
+           "profiler", "storage", "operator", "monitor",
+           "tensor_inspector"]

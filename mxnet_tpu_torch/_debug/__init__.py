@@ -12,7 +12,7 @@ from . import flightrec
 
 __all__ = ["locktrace", "faultpoint", "flightrec"]
 
-# watchdog/goodput/memwatch are imported lazily by their weld sites
-# (fused_step, io, storage) and by the profiler's bottom import: importing
-# them here would cycle through the profiler, which loads this package
-# first.
+# watchdog/goodput/memwatch/perfmodel/healthmon are imported lazily by
+# their weld sites (fused_step, io, storage, the loss scaler) and by the
+# profiler's and the watchdog's bottom imports: importing them here would
+# cycle through the profiler, which loads this package first.

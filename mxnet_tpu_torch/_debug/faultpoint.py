@@ -80,11 +80,16 @@ The points that fire in the port: ``io.prefetch.place`` (the
 ``DevicePrefetchIter`` worker, before the placement), ``checkpoint.save``
 (``base.atomic_write``, between the temp write and the rename),
 ``storage.alloc`` (the creation factories' placement,
-``ndarray._ctx_place``) and ``fused_step.trace`` (where a
-``FusedTrainStep`` first sets up an input signature).
+``ndarray._ctx_place``), ``fused_step.trace`` (where a
+``FusedTrainStep`` first sets up an input signature),
+``health.grad.corrupt`` (the fused step, ``MXTPU_HEALTH=1``),
+``checkpoint.persist`` and ``elastic.restore``
+(``parallel.elastic.CheckpointManager``), ``io.shard.read`` and
+``io.record.corrupt`` (``io.RecordIORangeReader``), ``io.worker.decode``
+(``io.DecodePool``) and ``io.service.fetch`` (``io.ShardService``).
 ``imperative.jit.compile`` and ``engine.bulk.compile`` never fire: the
 port has no dispatch cache and no bulk segments. The kvstore, collective,
-elastic, io-reader and network points arrive with their modules.
+reshard and network points arrive with their modules (ROADMAP M10).
 
 Configuration — env var (parsed at import) or programmatic::
 

@@ -352,6 +352,13 @@ def _dump(trigger, extra, path):
         goodput_block = goodput.snapshot()
     except Exception:
         goodput_block = None
+    # the roofline join: a post-mortem names which signature was binding
+    # on what when the run died (same lazy-import discipline)
+    try:
+        from . import perfmodel
+        perf_block = perfmodel.snapshot()
+    except Exception:
+        perf_block = None
     data = {
         "traceEvents": events,
         "displayTimeUnit": "ms",
@@ -365,6 +372,7 @@ def _dump(trigger, extra, path):
             "metrics": metrics,
             "faults": faultpoint.metrics(),
             "goodput": goodput_block,
+            "perf": perf_block,
             "context": context,
             "ring": {"buffered": len(entries), "capacity": _CAP},
         },

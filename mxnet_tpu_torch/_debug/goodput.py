@@ -47,8 +47,9 @@ categories always sum to the run's wall clock.
 Each closed run publishes an atomic temp + rename manifest
 ``$MXTPU_RUNS_DIR/<run_id>/manifest.json`` (schema
 ``mxtpu.goodput.run/1``, the JAX package's: env snapshot, per-category
-seconds, goodput ratio, step-time summary, event annotations), so that the
-JAX package's ``tools/goodput_report.py`` reads the port's manifests too.
+seconds, goodput ratio, step-time summary, event annotations, and the roofline join's
+``perf`` block from ``perfmodel.manifest_block()``), so that the JAX
+package's ``tools/goodput_report.py`` reads the port's manifests too.
 
 Live surfaces: ``profiler.metrics()['goodput']`` (registered provider),
 a Goodput block in ``profiler.dumps()``, ``mxtpu_goodput_*`` gauges on
@@ -542,6 +543,7 @@ def close_run(outcome="completed"):
         manifest = _derive_locked(r, time.monotonic(), closing=True)
         _run = None
         OPEN = False
+    _attach_perf(manifest)
     manifest["outcome"] = str(outcome)
     manifest["closed_unix"] = time.time()
     try:
@@ -552,6 +554,20 @@ def close_run(outcome="completed"):
     with _lock:
         _last = manifest
     return manifest
+
+
+def _attach_perf(manifest):
+    """Attach the roofline join's ``perf`` block, called OUTSIDE ``_lock``
+    (perfmodel owns its own named lock; the drain-time lock discipline
+    forbids nesting them). Lazy import: perfmodel bottom-imports the
+    profiler like this module does."""
+    try:
+        from . import perfmodel
+        blk = perfmodel.manifest_block()
+    except Exception:
+        blk = None
+    if blk:
+        manifest["perf"] = blk
 
 
 def _write_manifest(manifest):
@@ -698,6 +714,7 @@ def write_bench_manifest(model, result, run_id=None):
         "meta": {"bench_model": str(model)},
         "bench": {"model": str(model), "result": result},
     }
+    _attach_perf(manifest)
     _write_manifest(manifest)
     return manifest_path(manifest["run_id"])
 

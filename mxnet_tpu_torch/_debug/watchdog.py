@@ -28,9 +28,10 @@ Warm-up discipline: the first steps of a run are slow by construction
 excluded from the median (the beacon flags them ``warmup=True``) and the
 watchdog is not armed until enough representative steps completed.
 
-Each completed step feeds ``goodput.note_step``. The JAX module also
-feeds the roofline join (``perfmodel.note_step``, ``fold_pending``),
-which arrives with that module.
+Each completed step feeds ``goodput.note_step`` and, when it is tagged
+and not warm-up, the roofline join's measured side
+(``perfmodel.note_step``); the poller drains both mailboxes
+(``goodput.fold_pending``, ``perfmodel.fold_pending``) each pass.
 
 Env knobs, the JAX package's: ``MXTPU_WATCHDOG`` (default 1),
 ``MXTPU_WATCHDOG_FACTOR`` (default 8), ``MXTPU_WATCHDOG_MIN_S``
@@ -327,6 +328,10 @@ def step_end(warmup=False, mode=None, sig=None):
         # per op
         _goodput.note_step(done[0], done[1], warmup=done[2],
                            mode=done[3], sig=done[4])
+    if done[4] is not None and not done[2] and _perfmodel.ENABLED:
+        # the roofline join's measured side: same discipline, the tagged
+        # duration this beacon already computed, one append
+        _perfmodel.note_step(done[4], done[1])
 
 
 def check_now():
@@ -373,9 +378,11 @@ def _loop(stop):
     while not stop.wait(_poll_interval()):
         try:
             _check(time.monotonic())
-            # drain the goodput hot-path mailboxes off the training
-            # thread (drain on whoever asks)
+            # drain the goodput/perfmodel hot-path mailboxes off the
+            # training thread (drain on whoever asks); collapse dumps
+            # fire here, never on the step path
             _goodput.fold_pending()
+            _perfmodel.fold_pending()
         except Exception:
             pass  # the watchdog must never take the training loop down
 
@@ -401,3 +408,7 @@ def _ensure_thread():
 from .. import profiler as _profiler  # noqa: E402
 
 _profiler.register_stats_provider("watchdog", stats)
+
+# the roofline join's measured-side feed (step_end) and poller drain;
+# perfmodel bottom-imports the profiler like this module does
+from . import perfmodel as _perfmodel  # noqa: E402

@@ -4,9 +4,10 @@ python/mxnet/contrib/amp/loss_scaler.py).
 
 bfloat16, the default target, shares float32's exponent range, so an
 overflow is rare there; the scaler still guards the step against inf and
-NaN gradients, and float16 needs it. The JAX package also reports each
-update to its health monitor (``_debug.healthmon.note_amp``); that monitor
-is not ported yet."""
+NaN gradients, and float16 needs it. Every ``update_scale`` reports to the
+training-health plane (``_debug.healthmon.note_amp``), the single owner of
+the overflow and skip counts in ``metrics()['health']``, with or without
+profiling."""
 from __future__ import annotations
 
 import torch
@@ -47,3 +48,5 @@ class LossScaler:
             if self._unskipped == self._scale_window:
                 self.loss_scale *= self._scale_factor
                 self._unskipped = 0
+        from ..._debug import healthmon as _healthmon
+        _healthmon.note_amp(overflow, self.loss_scale)

@@ -51,9 +51,39 @@ the ``fused_step.trace`` fault point fires there, and a failure there runs
 the eager triple (``fallback:trace-failed``), for that signature from then
 on.
 
+The roofline join (``_debug/perfmodel``): the first call of each input
+signature runs under ``kernels._cost.counting()`` and records the step's
+modeled work as ``fused_step:<crc32>`` through
+``profiler.record_compile`` -- its flops (matmuls, convolutions and the
+tensor-core kernels), its bytes (an upper estimate, without fusion), the
+dominant dtype of the trainable weights and the card's peak for it -- the
+tag its beacon carries, so ``metrics()['perf']`` joins the two. That step
+computes the same numbers; its host dispatch is slower (the dispatch
+mode), and the beacon times it like any fused step, the first of its
+signature (the rolling medians absorb it). ``MXTPU_PERF=0`` records
+nothing.
+
+The health sentinels (``_debug/healthmon``, ``MXTPU_HEALTH=1``): after the
+backward, the ``health.grad.corrupt`` fault point may corrupt the first
+gradient; ``healthmon.graph_summary`` reduces the gradients, the
+pre-update weights and the loss on the device to one packed vector, which
+is the step's one host transfer, read BEFORE the update phase. Under
+``MXTPU_HEALTH_ACTION`` ``skip_step`` or ``halt`` a step that is not clean
+runs no update: the update counts roll back and the BatchNorm moving
+statistics its forward wrote are restored (they were copied before the
+forward), so the step bitwise never happened; ``halt`` then raises
+``HealthHaltError``. ``healthmon.note_step`` takes the verdict, the
+digest, the interval and Monitor per-layer rows and the ``numerics``
+dump; an error there is counted in ``stats()['health_errors']`` and never
+fails the step. With the fault point disarmed the sentinels only read:
+training is bit for bit that with ``MXTPU_HEALTH=0``.
+
+The compile cache of the JAX step keeps XLA executables; the port's
+compiled artifacts are the kernels' shared libraries, which
+``kernels/_build.py`` keeps through ``gluon.compile_cache``.
+
 ``mesh``, ``rules`` and a ``bucket_bytes`` other than the default arrive
-with the multi-GPU slice; the health-monitor and compile-cache hooks of the
-JAX step arrive with their modules.
+with the multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -66,10 +96,13 @@ from .. import autograd
 from .. import profiler as _profiler
 from .. import storage as _storage
 from .._debug import faultpoint as _faultpoint
+from .._debug import healthmon as _healthmon
+from .._debug import perfmodel as _perfmodel
 from .._debug import watchdog as _watchdog
 from ..base import getenv
+from ..kernels import _cost
 from ..kernels import optimizer_apply
-from ..parallel.overlap import default_bucket_bytes
+from ..parallel.overlap import bucket_plan, default_bucket_bytes
 
 __all__ = ["FusedTrainStep", "train_step", "fused_step_enabled",
            "set_fused_step", "stats", "reset_stats"]
@@ -78,6 +111,7 @@ _ENABLED = getenv("MXNET_GLUON_FUSED_STEP", "1") not in ("0", "false", "off")
 _STATS = {
     "hits": 0,       # steps that ran fused
     "fallbacks": 0,  # steps that ran the eager triple (see last_mode)
+    "health_errors": 0,  # healthmon.note_step raised after the update
 }
 
 
@@ -96,7 +130,8 @@ def set_fused_step(enabled):
 
 
 def stats():
-    """Snapshot of the fused-step counters (hits, fallbacks)."""
+    """Snapshot of the fused-step counters (hits, fallbacks,
+    health_errors)."""
     return dict(_STATS)
 
 
@@ -121,6 +156,20 @@ def _signature(args):
             parts.append(type(a).__name__)
     return "fused_step:%08x" % (zlib.crc32("|".join(parts).encode())
                                 & 0xffffffff)
+
+
+def _dominant_dtype(ws):
+    """Short dtype key (``bf16``/``f32``/...) of the dtype holding most of
+    the trainable weights' bytes: which peak the modeled compute time is
+    priced against."""
+    by = {}
+    for w in ws:
+        by[w.dtype] = by.get(w.dtype, 0) + w.numel() * w.element_size()
+    if not by:
+        return "bf16"
+    return {torch.float32: "f32", torch.bfloat16: "bf16",
+            torch.float16: "f16", torch.int8: "int8",
+            torch.float64: "f32"}.get(max(by, key=by.get), "bf16")
 
 
 def train_step(block, loss_fn, trainer, mesh=None, bucket_bytes=None,
@@ -238,14 +287,42 @@ class FusedTrainStep:
         tr = self._trainer
         states = [tr._updater.ensure_state(i, tr._params[i]._tensor())
                   for i in indices]
-        if sig not in self._signatures:
+        first = sig not in self._signatures
+        if first:
             self._signatures.add(sig)
             _storage.ledger_register_tree(states, "opt_state",
                                           site="fused_step")
-        loss = self._run(all_params, train_pos, indices, states, args,
-                         batch_size)
+        if first and _perfmodel.ENABLED and _cost._ACTIVE is None:
+            loss = self._counted_run(sig, all_params, train_pos, indices,
+                                     states, args, batch_size)
+        else:
+            loss = self._run(all_params, train_pos, indices, states, args,
+                             batch_size)
         _STATS["hits"] += 1
         return loss, "fused"
+
+    def _counted_run(self, sig, all_params, train_pos, indices, states,
+                     args, batch_size):
+        """The first step of a signature, under the cost count: its
+        modeled work recorded as ``fused_step:<crc32>`` (the module
+        docstring)."""
+        t0 = _time.perf_counter()
+        with _cost.counting() as counts:
+            loss = self._run(all_params, train_pos, indices, states, args,
+                             batch_size)
+        ws = [all_params[pos]._tensor() for pos in train_pos]
+        dtype = _dominant_dtype(ws)
+        peak = None
+        if ws and ws[0].device.type == "cuda":
+            peak = _perfmodel.peak_tflops(dtype, _perfmodel._assumptions())
+        _profiler.record_compile(
+            "fused_step", key=sig.split(":", 1)[1],
+            dur_us=(_time.perf_counter() - t0) * 1e6,
+            flops=counts.flops or None, bytes_accessed=counts.bytes or None,
+            args={"params": len(train_pos), "dp": 1, "dtype": dtype,
+                  "peak_tflops": peak, "vector_ops": counts.vector_ops,
+                  "kernels": counts.kernels})
+        return loss
 
     def _set_up(self, sig):
         """Whether the step may run fused for input signature ``sig``:
@@ -311,15 +388,35 @@ class FusedTrainStep:
              batch_size):
         """One fused step: the update counts and hyperparameters exactly as
         the eager ``update()`` takes them (the counts roll back if the
-        step fails), forward and backward, the update phase, then the
-        gradients adopted into the parameters."""
+        step fails or the health plane discards it), forward and backward,
+        the health sentinels when on, the update phase, then the gradients
+        adopted into the parameters."""
         tr = self._trainer
         opt = tr._optimizer
         rescale = tr._scale / batch_size
         opt.rescale_grad = rescale
         prev_num = opt.num_update
         prev_counts = {i: opt._index_update_count.get(i) for i in indices}
+
+        def rollback_counts():
+            opt.num_update = prev_num
+            for i, c in prev_counts.items():
+                if c is None:
+                    opt._index_update_count.pop(i, None)
+                else:
+                    opt._index_update_count[i] = c
+
+        hmeta = self._health_meta(all_params, train_pos) \
+            if _healthmon.enabled() else None
+        # skip_step/halt discard a poisoned update: the moving statistics
+        # the forward writes in place are copied first, to be restored
+        aux = None
+        if hmeta is not None and hmeta["select"]:
+            trained = set(train_pos)
+            aux = [(p, p._tensor().clone()) for pos, p in
+                   enumerate(all_params) if pos not in trained]
         opt._update_count(list(indices))
+        discard = False
         try:
             lrs = [opt.step_lr(i) for i in indices]
             wds = opt._get_wds(list(indices))
@@ -329,21 +426,57 @@ class FusedTrainStep:
             # the gradient of sum(loss): backward's all-ones head seed;
             # contiguous, as the eager backward stores .grad
             grads = [g.contiguous() for g in autograd.grad([loss], ws)]
-            self._update(opt, ws, grads, states, lrs, wds, rescale)
+            if hmeta is not None:
+                corrupt = _healthmon.corruption_operand()
+                if corrupt != 0.0:
+                    grads = list(_healthmon.apply_corruption(grads, corrupt))
+                packed, _ = _healthmon.graph_summary(hmeta["plan"], grads, ws,
+                                                     loss)
+                summary = packed.cpu().numpy()   # the step's one transfer
+                discard = hmeta["select"] and not _healthmon.unpack_summary(
+                    summary, len(hmeta["plan"]))["ok"]
+            if not discard:
+                self._update(opt, ws, grads, states, lrs, wds, rescale)
         except BaseException:
-            opt.num_update = prev_num
-            for i, c in prev_counts.items():
-                if c is None:
-                    opt._index_update_count.pop(i, None)
-                else:
-                    opt._index_update_count[i] = c
+            rollback_counts()
             raise
+        verdict = None
+        if hmeta is not None:
+            # after the update: a raising telemetry path (a Monitor's
+            # stat_func, say) must neither undo the step nor fail it
+            try:
+                verdict = _healthmon.note_step(summary, hmeta, grads, ws,
+                                               batch_size)
+            except Exception:
+                _STATS["health_errors"] += 1
+        if discard:
+            rollback_counts()
+            with torch.no_grad():
+                for p, old in aux:
+                    p._tensor().copy_(old)
         for w, g in zip(ws, grads):
             w.grad = g
             w._fresh_grad = False   # consumed by this step's update
         if _profiler._LIVE and _storage._LEDGER_ON:
             _storage.ledger_register_tree(grads, "grad", site="fused_step")
+        if discard and hmeta["action"] == "halt":
+            halt = verdict.get("halt") if verdict else None
+            raise halt if halt is not None else _healthmon.HealthHaltError(
+                "non-finite training step: MXTPU_HEALTH_ACTION=halt")
         return loss.detach()
+
+    def _health_meta(self, all_params, train_pos):
+        """The health plane's view of the trainable parameters: the
+        bucket plan (``overlap.bucket_plan``, dtype-homogeneous), the
+        names per bucket and the action."""
+        ws = [all_params[pos]._tensor() for pos in train_pos]
+        plan = [list(b) for b in bucket_plan(ws)]
+        names = [all_params[pos].name for pos in train_pos]
+        act = _healthmon.action()
+        return {"plan": plan, "names": names,
+                "bucket_names": [[names[i] for i in b] for b in plan],
+                "action": act, "select": act in ("skip_step", "halt"),
+                "replicated": False}
 
     def _update(self, opt, ws, gs, states, lrs, wds, rescale):
         """The update phase: packed where ``_packed_apply_fn`` selects,

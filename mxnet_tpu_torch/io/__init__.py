@@ -8,20 +8,35 @@ file of raw-pixel, JPEG or PNG records) and ``DevicePrefetchIter`` /
 ``DevicePrefetcher``, which copy batch N+1 to the card through pinned
 memory on a side stream while batch N computes.
 
-``PrefetchingIter`` and ``DevicePrefetchIter`` carry the JAX package's
-profiler spans, ``io.prefetch_wait`` latencies and goodput input-wait
-accounting; ``io/_stats.py`` owns the counters and gauges of
-``profiler.metrics()['io']``.
+The scale-out half is the fault-tolerant sharded streaming service: a
+deterministic global shard assignment with a committed sample cursor
+(``shard_service``: ``ShardService``, ``epoch_order``,
+``assign_shards``, ...), an N-worker restart-or-die decode pool
+(``worker_pool.DecodePool``) and a range-read RecordIO reader with retry
+and corrupt-record budgets (``range_reader.RecordIORangeReader``), which
+stand on ``_retry``, the fault points and ``parallel.elastic``'s
+checkpoint store.
 
-Not ported yet: the RecordIO range reader, the decode pool and the shard
-service (``RecordIORangeReader``, ``DecodePool``, ``ShardService``, ...),
-which stand on ``_retry`` and the fault points (ROADMAP M9).
+``PrefetchingIter``, ``DevicePrefetchIter`` and ``DecodePool`` carry the
+JAX package's profiler spans, ``io.prefetch_wait`` latencies and goodput
+input-wait accounting; ``io/_stats.py`` owns the counters and gauges of
+``profiler.metrics()['io']``.
 """
 from .io import (DataDesc, DataBatch, DataIter, NDArrayIter, CSVIter,
                  LibSVMIter, ResizeIter, PrefetchingIter, MNISTIter)
 from .image_iter import ImageRecordIter
 from .prefetch import DevicePrefetchIter, DevicePrefetcher
+from .range_reader import (RecordIORangeReader, CorruptRecordError,
+                           build_crc_sidecar)
+from .worker_pool import DecodePool
+from .shard_service import (ShardService, epoch_order, assign_shards,
+                            reassign_shards, unconsumed_shards,
+                            batch_slices)
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
            "LibSVMIter", "ResizeIter", "PrefetchingIter", "MNISTIter",
-           "ImageRecordIter", "DevicePrefetchIter", "DevicePrefetcher"]
+           "ImageRecordIter", "DevicePrefetchIter", "DevicePrefetcher",
+           "RecordIORangeReader", "CorruptRecordError",
+           "build_crc_sidecar", "DecodePool", "ShardService",
+           "epoch_order", "assign_shards", "reassign_shards",
+           "unconsumed_shards", "batch_slices"]

@@ -11,6 +11,13 @@ registry (``metrics()['compile']``, a span in the ``compile`` lane) as
 ``kernel:<name>``, with its seconds and its source: the port's counterpart
 of the JAX package's XLA compiles.
 
+With ``MXTPU_COMPILE_CACHE_DIR`` set, the libraries live in that
+persistent directory (``gluon/compile_cache.py``) instead: a library is
+loaded from there when its entry (keyed by the source digest, the ``nvcc``
+version, torch's CUDA version and the device's compute capability) is
+there and intact, and built and published there when it is not. A torn
+entry is counted and rebuilt from the same source.
+
 Nothing here runs at import time: the CPU tests import every module on a
 host that has no ``nvcc``.
 """
@@ -42,6 +49,8 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LOCK = threading.Lock()
 _LIBS = {}
 _LOG = {}
+_CACHED = {}      # name -> CDLL loaded from the persistent cache
+_NVCC_VERSION = []
 
 
 def _nvcc():
@@ -70,18 +79,40 @@ def _target(name):
                              % (name, digest.hexdigest()[:16]))
 
 
+def cache_key(name):
+    """The persistent cache's key of ``csrc/<name>.cu``: the library name
+    (which carries the source digest), the ``nvcc`` version, torch's CUDA
+    version and the current device's compute capability."""
+    import torch
+    if not _NVCC_VERSION:
+        _NVCC_VERSION.append(subprocess.run(
+            [_nvcc(), "--version"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[-1])
+    return (os.path.basename(_target(name)[1]), _NVCC_VERSION[0],
+            torch.version.cuda, tuple(torch.cuda.get_device_capability()))
+
+
 def build_all(names=SOURCES):
     """Compile every source in ``names`` that is not built yet, one
     ``nvcc`` process each, all started together. Returns
-    ``{name: seconds}`` (0.0 where the library was already built)."""
+    ``{name: seconds}`` (0.0 where the library was already built or came
+    from the persistent cache)."""
+    from ..gluon import compile_cache
     os.makedirs(_BUILD_DIR, exist_ok=True)
     procs, times = {}, {}
     t0 = time.perf_counter()
+    cached = compile_cache.enabled()
     for name in names:
         src, lib = _target(name)
-        if os.path.exists(lib):
+        if name in _CACHED or (not cached and os.path.exists(lib)):
             times[name] = 0.0
             continue
+        if cached:
+            hit = compile_cache.load(cache_key(name))
+            if hit is not None:
+                _CACHED[name] = hit
+                times[name] = 0.0
+                continue
         tmp = "%s.%d.tmp" % (lib, os.getpid())
         procs[name] = (subprocess.Popen(
             [_nvcc()] + _FLAGS + ["-o", tmp, src], stdout=subprocess.PIPE,
@@ -95,6 +126,9 @@ def build_all(names=SOURCES):
             failed.append("%s (exit %d):\n%s" % (name, proc.returncode, out))
             continue
         os.replace(tmp, lib)
+        if cached:
+            compile_cache.store(cache_key(name), lib)
+            _CACHED[name] = ctypes.CDLL(lib)
     from .. import profiler as _profiler
     for name, (proc, _tmp, lib) in procs.items():
         if proc.returncode == 0:
@@ -121,5 +155,5 @@ def load(name):
     with _LOCK:
         if name not in _LIBS:
             build_all((name,))
-            _LIBS[name] = ctypes.CDLL(_target(name)[1])
+            _LIBS[name] = _CACHED.get(name) or ctypes.CDLL(_target(name)[1])
     return _LIBS[name]

@@ -26,6 +26,10 @@ squares and products use exact-product splitting (``exact_sq``,
 ``exact_mul``), so every op is correctly rounded and the statistics and the
 output have the same bits on the CPU and on the card. The inverse standard
 deviation is taken as two IEEE ops (sqrt, then divide).
+
+``cost`` gives one launch's element-wise operations and bytes: each
+kernel's roofline bound and its share of the step's roofline join
+(``kernels/_cost.py``).
 """
 from __future__ import annotations
 
@@ -35,8 +39,9 @@ import ctypes
 import torch
 
 from ..base import MXNetError
+from . import _cost
 
-__all__ = ["FOLD_BLOCK", "fold_blocks", "fold_partials", "tree_fold_rows",
+__all__ = ["cost", "OPS", "FOLD_BLOCK", "fold_blocks", "fold_partials", "tree_fold_rows",
            "FOLD_WARPS", "MAX_LOG_K", "SLAB_BYTES", "FoldPlan", "fold_plan",
            "exact_sq", "exact_mul", "inv_std", "max0", "div_count",
            "stats_reference", "apply_reference", "bwd_reduce_reference",
@@ -58,6 +63,34 @@ LAUNCHES_FINALIZE = 0
 COPIES = 0
 
 FOLD_BLOCK = 64
+
+# f32 operations per element of each kernel (sum and exact_sq's split;
+# exact_mul's split; xhat and dy'*xhat; xhat and the dx chain), on the CUDA
+# cores: all far below the bytes they move.
+OPS = {"stats": 9, "apply": 11, "bwd_reduce": 5, "bwd_dx": 6}
+# (R, C) tensors each kernel reads or writes once (stats reads x; apply
+# reads x, writes out; bwd_reduce reads x, dy; bwd_dx reads x, dy, writes
+# dx) and its f32 (C,) vectors.
+_BIG = {"stats": 1, "apply": 2, "bwd_reduce": 2, "bwd_dx": 3}
+_SMALL = {"stats": 2, "apply": 4, "bwd_reduce": 6, "bwd_dx": 6}
+
+
+def cost(shape, kernel, dtype_bytes):
+    """``(operations, bytes)`` of one launch of ``kernel`` over a tensor of
+    ``shape`` (its last axis the channels) with ``dtype_bytes``-byte
+    elements: ``OPS[kernel]`` f32 operations per element; its (R, C)
+    tensors read or written once plus its (C,) f32 vectors."""
+    C = shape[-1]
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return (OPS[kernel] * n,
+            dtype_bytes * n * _BIG[kernel] + 4 * C * _SMALL[kernel])
+
+
+def _launch_scope(kernel, x2):
+    return _cost.launch("batchnorm_fused." + kernel, cost, tuple(x2.shape),
+                        kernel, x2.element_size(), tensor_core=False)
 
 
 # -- the deterministic reduction ---------------------------------------------
@@ -376,11 +409,16 @@ def _meta_stats(x2):
 def stats(x2):
     """(mean32, var32) of x2's columns: the stats kernel, then the finalize
     launch that folds its partial sums."""
-    global LAUNCHES_STATS, LAUNCHES_FINALIZE
-    if x2.device.type == "cpu":
-        return stats_reference(x2)
     if x2.device.type == "meta":
         return _meta_stats(x2)
+    with _launch_scope("stats", x2):
+        if x2.device.type == "cpu":
+            return stats_reference(x2)
+        return _launch_stats(x2)
+
+
+def _launch_stats(x2):
+    global LAUNCHES_STATS, LAUNCHES_FINALIZE
     R, C = _launchable("stats", x2)
     mean = torch.empty(C, dtype=torch.float32, device=x2.device)
     var = torch.empty_like(mean)
@@ -397,11 +435,16 @@ def stats(x2):
 
 def apply(x2, gamma, beta, mean, var, eps=1e-3, act=None):
     """act(exact_mul(x - mean, inv * gamma) + beta) in x2.dtype."""
-    global LAUNCHES_APPLY
-    if x2.device.type == "cpu":
-        return apply_reference(x2, gamma, beta, mean, var, eps, act)
     if x2.device.type == "meta":
         return torch.empty_like(x2)
+    with _launch_scope("apply", x2):
+        if x2.device.type == "cpu":
+            return apply_reference(x2, gamma, beta, mean, var, eps, act)
+        return _launch_apply(x2, gamma, beta, mean, var, eps, act)
+
+
+def _launch_apply(x2, gamma, beta, mean, var, eps, act):
+    global LAUNCHES_APPLY
     R, C = _launchable("apply", x2, mean, var)
     g32, b32 = _f32(gamma, beta, x2)
     out = torch.empty_like(x2)
@@ -416,12 +459,17 @@ def apply(x2, gamma, beta, mean, var, eps=1e-3, act=None):
 def bwd_reduce(x2, dy2, gamma, beta, mean, var, eps=1e-3, act=None):
     """(dbeta, dgamma) in f32: the backward reduce kernel, then the
     finalize launch."""
-    global LAUNCHES_BWD_REDUCE, LAUNCHES_FINALIZE
-    if x2.device.type == "cpu":
-        return bwd_reduce_reference(x2, dy2, gamma, beta, mean, var, eps,
-                                    act)
     if x2.device.type == "meta":
         return _meta_stats(x2)
+    with _launch_scope("bwd_reduce", x2):
+        if x2.device.type == "cpu":
+            return bwd_reduce_reference(x2, dy2, gamma, beta, mean, var, eps,
+                                        act)
+        return _launch_bwd_reduce(x2, dy2, gamma, beta, mean, var, eps, act)
+
+
+def _launch_bwd_reduce(x2, dy2, gamma, beta, mean, var, eps, act):
+    global LAUNCHES_BWD_REDUCE, LAUNCHES_FINALIZE
     R, C = _launchable("bwd_reduce", x2, mean, var, dy2)
     g32, b32 = _f32(gamma, beta, x2)
     db = torch.empty(C, dtype=torch.float32, device=x2.device)
@@ -442,12 +490,19 @@ def bwd_reduce(x2, dy2, gamma, beta, mean, var, eps=1e-3, act=None):
 def bwd_dx(x2, dy2, gamma, beta, mean, var, dbeta, dgamma, eps=1e-3,
            act=None):
     """dx in x2.dtype from the sums of ``bwd_reduce``."""
-    global LAUNCHES_BWD_DX
-    if x2.device.type == "cpu":
-        return bwd_dx_reference(x2, dy2, gamma, beta, mean, var, dbeta,
-                                dgamma, eps, act)
     if x2.device.type == "meta":
         return torch.empty_like(x2)
+    with _launch_scope("bwd_dx", x2):
+        if x2.device.type == "cpu":
+            return bwd_dx_reference(x2, dy2, gamma, beta, mean, var, dbeta,
+                                    dgamma, eps, act)
+        return _launch_bwd_dx(x2, dy2, gamma, beta, mean, var, dbeta,
+                              dgamma, eps, act)
+
+
+def _launch_bwd_dx(x2, dy2, gamma, beta, mean, var, dbeta, dgamma, eps,
+                   act):
+    global LAUNCHES_BWD_DX
     R, C = _launchable("bwd_dx", x2, mean, var, dbeta, dgamma, dy2)
     g32, b32 = _f32(gamma, beta, x2)
     dx = torch.empty_like(x2)

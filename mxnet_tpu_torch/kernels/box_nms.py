@@ -25,8 +25,9 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from . import _cost
 
-__all__ = ["keep", "keep_reference", "LAUNCHES"]
+__all__ = ["cost", "IOU_OPS", "keep", "keep_reference", "LAUNCHES"]
 
 LAUNCHES = 0
 
@@ -117,14 +118,41 @@ def keep(boxes, ids, nvalid, thresh, plus_one=False):
     tensor launches the kernel or raises; a CPU tensor runs
     ``keep_reference``; a meta tensor (shape inference) gives an empty
     mask of the right shape."""
-    if boxes.device.type == "cpu":
-        return keep_reference(boxes, ids, nvalid, thresh, plus_one)
     if boxes.device.type == "meta":
         return torch.empty(tuple(boxes.shape[:2]), dtype=torch.bool,
                            device="meta")
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise MXNetError("box_nms: no kernel for device %s" % boxes.device)
-    return _launch(boxes, ids, nvalid, thresh, plus_one)
+    with _cost.launch("box_nms", cost, boxes, ids, nvalid,
+                      tensor_core=False):
+        if boxes.device.type == "cpu":
+            return keep_reference(boxes, ids, nvalid, thresh, plus_one)
+        return _launch(boxes, ids, nvalid, thresh, plus_one)
+
+
+# the least fp32 work of one IoU test with both areas known, on the CUDA
+# cores: 4 min/max, 2 differences, 2 clamps, 1 product (the intersection),
+# 2 for the union, 1 quotient and 1 comparison
+IOU_OPS = 13
+
+
+def cost(boxes, ids, nvalid):
+    """``(operations, bytes)`` of one launch on this data: ``IOU_OPS`` per
+    pair it needs an IoU for (those of one class within an image's valid
+    prefix: the count depends on the data, read on the host); boxes and
+    ids read once, the keep mask written once."""
+    pairs = 0.0
+    for b, nv in enumerate(nvalid.cpu().tolist()):
+        nv = int(nv)
+        if ids is None:
+            k = torch.tensor([float(nv)], dtype=torch.float64)
+        else:
+            k = torch.unique(ids[b, :nv].cpu(),
+                             return_counts=True)[1].double()
+        pairs += float((k * (k - 1) / 2).sum())
+    B, n = boxes.shape[:2]
+    id_bytes = 0 if ids is None else ids.numel() * 4
+    return pairs * IOU_OPS, boxes.numel() * 4 + id_bytes + B * n
 
 
 def _launch(boxes, ids, nvalid, thresh, plus_one):

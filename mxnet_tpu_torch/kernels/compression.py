@@ -58,8 +58,9 @@ from typing import NamedTuple
 import torch
 
 from ..base import MXNetError, weak_scalar
+from . import _cost
 
-__all__ = ["quantize_2bit", "dequantize_2bit", "quantize_2bit_group",
+__all__ = ["cost", "quantize_2bit", "dequantize_2bit", "quantize_2bit_group",
            "dequantize_2bit_group", "quantize_2bit_reference",
            "dequantize_2bit_reference", "quantize_2bit_group_reference",
            "dequantize_2bit_group_reference", "num_words", "chunk_words",
@@ -236,6 +237,31 @@ def _check_words(name, words_list, ns):
                                         tuple(w.shape), w.dtype))
 
 
+# f32 operations per value of either kernel (compare with +-threshold,
+# select the code, shift it into its word; or unpack, map to a value)
+OPS = 6
+
+
+def cost(kernel, n, words, dtype_bytes):
+    """``(operations, bytes)`` of ``kernel`` (``"quantize"``,
+    ``"dequantize"``) over ``n`` values packed in ``words`` int32 words:
+    the quantize kernel reads the gradient and the residual and writes the
+    residual and the words; the dequantize kernel reads the words and
+    writes f32 values."""
+    if kernel == "quantize":
+        nbytes = 3 * dtype_bytes * n + 4 * words
+    else:
+        nbytes = 4 * words + 4 * n
+    return OPS * n, nbytes
+
+
+def _scope(kernel, ns, dtype_bytes):
+    n = sum(int(k) for k in ns)
+    return _cost.launch("compression." + kernel, cost, kernel, n,
+                        sum(num_words(int(k)) for k in ns), dtype_bytes,
+                        tensor_core=False)
+
+
 def _device_kind(name, device):
     if device.type not in ("cpu", "cuda"):
         raise MXNetError("%s: no kernel for device %s" % (name, device))
@@ -249,9 +275,10 @@ def quantize_2bit(grad, residual, threshold=0.5):
     segment on the current stream (bf16 or float32, contiguous) or
     raises."""
     _check_pairs("quantize_2bit", [grad], [residual])
-    if _device_kind("quantize_2bit", grad.device) == "cpu":
-        return quantize_2bit_reference(grad, residual, threshold)
-    words, new_res = _launch_quantize([grad], [residual], threshold)
+    with _scope("quantize", [grad.numel()], grad.element_size()):
+        if _device_kind("quantize_2bit", grad.device) == "cpu":
+            return quantize_2bit_reference(grad, residual, threshold)
+        words, new_res = _launch_quantize([grad], [residual], threshold)
     return words[0], new_res[0]
 
 
@@ -261,9 +288,10 @@ def dequantize_2bit(words, n, threshold=0.5):
     launches the kernel with one segment on the current stream or
     raises."""
     _check_words("dequantize_2bit", [words], [n])
-    if _device_kind("dequantize_2bit", words.device) == "cpu":
-        return dequantize_2bit_reference(words, n, threshold)
-    return _launch_dequantize([words], [int(n)], threshold)
+    with _scope("dequantize", [n], 4):
+        if _device_kind("dequantize_2bit", words.device) == "cpu":
+            return dequantize_2bit_reference(words, n, threshold)
+        return _launch_dequantize([words], [int(n)], threshold)
 
 
 def quantize_2bit_group(grads, residuals, threshold=0.5):
@@ -275,9 +303,11 @@ def quantize_2bit_group(grads, residuals, threshold=0.5):
     if not grads and not residuals:
         return [], []
     _check_pairs("quantize_2bit_group", grads, residuals)
-    if _device_kind("quantize_2bit_group", grads[0].device) == "cpu":
-        return quantize_2bit_group_reference(grads, residuals, threshold)
-    return _launch_quantize(grads, residuals, threshold)
+    with _scope("quantize", [g.numel() for g in grads],
+                grads[0].element_size()):
+        if _device_kind("quantize_2bit_group", grads[0].device) == "cpu":
+            return quantize_2bit_group_reference(grads, residuals, threshold)
+        return _launch_quantize(grads, residuals, threshold)
 
 
 def dequantize_2bit_group(words_list, ns, threshold=0.5):
@@ -290,10 +320,12 @@ def dequantize_2bit_group(words_list, ns, threshold=0.5):
     if not words_list:
         flat = torch.zeros(0)
         return flat, []
-    if _device_kind("dequantize_2bit_group", words_list[0].device) == "cpu":
-        return dequantize_2bit_group_reference(words_list, ns, threshold)
-    flat = _launch_dequantize(words_list, ns, threshold)
-    return flat, list(flat.split(ns))
+    with _scope("dequantize", ns, 4):
+        if _device_kind("dequantize_2bit_group",
+                        words_list[0].device) == "cpu":
+            return dequantize_2bit_group_reference(words_list, ns, threshold)
+        flat = _launch_dequantize(words_list, ns, threshold)
+        return flat, list(flat.split(ns))
 
 
 _P = ctypes.c_void_p

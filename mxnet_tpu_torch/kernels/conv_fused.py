@@ -17,6 +17,10 @@ their source.
 
 Layouts are the JAX package's: x (N, H, W, Ci) NHWC, s and b (Ci,) float32
 (the folded BatchNorm scale and bias), w (3, 3, Ci, Co) HWIO.
+
+``cost`` gives one launch's floating-point operations and bytes: the
+roofline bound of each kernel and the modeled side of the step's roofline
+join (``kernels/_cost.py``, ``_debug/perfmodel.py``).
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ import torch
 import torch.nn.functional as tF
 
 from ..base import MXNetError
+from . import _cost
 
-__all__ = ["fused_scale_relu_conv3x3", "fused_conv_reference",
+__all__ = ["cost", "fused_scale_relu_conv3x3", "fused_conv_reference",
            "fused_conv_backward_reference", "backward_input_reference",
            "backward_weight_reference", "fused_conv_backward",
            "compute_dtype", "fwd_plan", "dx_plan", "dw_plan", "LAUNCHES",
@@ -69,6 +74,37 @@ DxPlan = collections.namedtuple("DxPlan",
                                 "nb cblocks pairs items grid resident")
 FwdPlan = collections.namedtuple("FwdPlan",
                                  "nb cblocks pairs items grid resident")
+
+
+def cost(shape, dtype_bytes, kernel="fwd"):
+    """``(flops, bytes)`` of one launch at ``shape = (N, H, W, Ci, Co)``
+    with ``dtype_bytes``-byte x, w and dy: 2*N*H*W*9*Ci*Co operations for
+    each of the three kernels; bytes with each input read once and each
+    output written once: the forward (``"fwd"``) reads x, w, s, b and
+    writes y; the d-input kernel (``"bwd_dx"``) reads x, dy, w, s, b and
+    writes dx, ds, db; the d-weight kernel (``"bwd_dw"``) reads x, dy, s, b
+    and writes dW."""
+    N, H, W, Ci, Co = shape
+    flops = 2.0 * N * H * W * 9 * Ci * Co
+    px = N * H * W
+    if kernel == "bwd_dx":
+        nbytes = dtype_bytes * (px * (2 * Ci + Co) + 9 * Ci * Co) + 16 * Ci
+    elif kernel in ("fwd", "bwd_dw"):
+        nbytes = dtype_bytes * (px * (Ci + Co) + 9 * Ci * Co) + 8 * Ci
+    else:
+        raise ValueError("conv_fused.cost: unknown kernel %r" % (kernel,))
+    return flops, nbytes
+
+
+def _backward_cost(shape, dtype_bytes):
+    """The d-input and d-weight kernels of one backward, together."""
+    fx, bx = cost(shape, dtype_bytes, "bwd_dx")
+    fw, bw = cost(shape, dtype_bytes, "bwd_dw")
+    return fx + fw, bx + bw
+
+
+def _shape(x, w):
+    return tuple(x.shape) + (w.shape[-1],)
 
 
 def compute_dtype(dtype):
@@ -221,7 +257,8 @@ def fused_scale_relu_conv3x3(x, s, b, w, relu=True):
     if x.device.type == "cuda" and not x.is_contiguous():
         raise ValueError("fused_scale_relu_conv3x3: x must be contiguous "
                          "NHWC")
-    return _fused_conv(x, s, b, w, bool(relu))
+    with _cost.launch("conv_fused.fwd", cost, _shape(x, w), x.element_size()):
+        return _fused_conv(x, s, b, w, bool(relu))
 
 
 def fused_conv_backward(x, s, b, w, dy, relu=True):
@@ -237,17 +274,19 @@ def fused_conv_backward(x, s, b, w, dy, relu=True):
         raise ValueError("fused_conv_backward: dy %s on %s, want %s on %s"
                          % (tuple(dy.shape), dy.device,
                             tuple(x.shape[:3]) + (w.shape[-1],), x.device))
-    if x.device.type == "cpu":
-        return fused_conv_backward_reference(x, s, b, w, dy, relu)
     if x.device.type == "meta":
         return (torch.empty_like(x), torch.empty_like(s),
                 torch.empty_like(b), torch.empty_like(w))
-    if not x.is_contiguous():
-        raise ValueError("fused_conv_backward: x must be contiguous NHWC")
-    if not dy.is_contiguous():
-        dy = dy.contiguous()
-        COPIES += 1
-    return _launch_backward(x, s, b, w, dy, bool(relu))
+    with _cost.launch("conv_fused.bwd", _backward_cost, _shape(x, w),
+                      x.element_size()):
+        if x.device.type == "cpu":
+            return fused_conv_backward_reference(x, s, b, w, dy, relu)
+        if not x.is_contiguous():
+            raise ValueError("fused_conv_backward: x must be contiguous NHWC")
+        if not dy.is_contiguous():
+            dy = dy.contiguous()
+            COPIES += 1
+        return _launch_backward(x, s, b, w, dy, bool(relu))
 
 
 # -- launch plumbing ----------------------------------------------------------

@@ -16,7 +16,8 @@ design note is in their source.
 
 ``_flash_forward`` and ``_flash_backward`` are the entry points that return
 or take the logsumexp, as the JAX package's ``_pallas_forward`` and
-``_pallas_backward`` are for its ring-flash attention.
+``_pallas_backward`` are for its ring-flash attention. ``cost`` gives one
+launch's operations and bytes (``kernels/_cost.py``).
 """
 from __future__ import annotations
 
@@ -26,8 +27,9 @@ from typing import Tuple
 import torch
 
 from ..base import MXNetError
+from . import _cost
 
-__all__ = ["flash_attention", "attention_reference", "flash_forward_reference",
+__all__ = ["cost", "flash_attention", "attention_reference", "flash_forward_reference",
            "flash_backward_reference", "backward_dq_reference",
            "backward_dkv_reference", "LAUNCHES", "COPIES"]
 
@@ -39,6 +41,34 @@ COPIES = 0
 
 _HEAD_DIMS = (64, 128)
 _DTYPES = (torch.bfloat16, torch.float32)
+
+
+def cost(kernel, B, H, Sq, Sk, D, causal, dtype_bytes):
+    """``(flops, bytes)`` of one launch of ``kernel`` (``"fwd"``, ``"dq"``,
+    ``"dkv"``) at q [B, H, Sq, D] and k, v [B, H, Sk, D].
+    Operations: one Sq x Sk x D product is 2*B*H*Sq*Sk*D, half of that
+    causal; the forward does 2 (QK^T, PV), dQ 3 (QK^T, dO V^T, dS K),
+    dK/dV 4 (and P^T dO, dS^T Q). Bytes: each input read once and output
+    written once (forward: q, k, v in, o out; dQ: q, k, v, dO in, dQ out;
+    dK/dV: q, k, v, dO in, dK, dV out), plus the f32 row vectors of the
+    queries (lse; lse and delta)."""
+    product = float(B * H * Sq * Sk * D) * (1 if causal else 2)
+    ops = {"fwd": 2, "dq": 3, "dkv": 4}[kernel] * product
+    q_side, k_side = {"fwd": (2, 2), "dq": (3, 2), "dkv": (2, 4)}[kernel]
+    rows = {"fwd": 1, "dq": 2, "dkv": 2}[kernel]
+    nbytes = float(dtype_bytes) * B * H * D * (q_side * Sq + k_side * Sk) \
+        + 4.0 * rows * B * H * Sq
+    return ops, nbytes
+
+
+def _op_cost(q, k, causal, kernels):
+    B, H, Sq, D = q.shape
+    total = [0.0, 0.0]
+    for kern in kernels:
+        f, b = cost(kern, B, H, Sq, k.shape[2], D, causal, q.element_size())
+        total[0] += f
+        total[1] += b
+    return tuple(total)
 
 
 def _f32_matmul(a, b):
@@ -251,7 +281,10 @@ def _flash_op_setup(ctx, inputs, output):
 
 def _flash_op_backward(ctx, do, dlse):
     q, k, v, o, lse = ctx.saved_tensors
-    dq, dk, dv = _flash_backward(q, k, v, o, lse, do, ctx.causal, ctx.scale)
+    with _cost.launch("flash_attention.bwd", _op_cost, q, k, ctx.causal,
+                      ("dq", "dkv")):
+        dq, dk, dv = _flash_backward(q, k, v, o, lse, do, ctx.causal,
+                                     ctx.scale)
     return dq, dk, dv, None, None
 
 
@@ -288,7 +321,9 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
             % (q.shape[2], k.shape[2]))
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _flash_op(q, k, v, bool(causal), float(scale))[0]
+    with _cost.launch("flash_attention.fwd", _op_cost, q, k, bool(causal),
+                      ("fwd",)):
+        return _flash_op(q, k, v, bool(causal), float(scale))[0]
 
 
 # -- launch plumbing ----------------------------------------------------------

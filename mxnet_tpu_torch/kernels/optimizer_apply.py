@@ -21,7 +21,8 @@ then float32, then the weight's dtype). The results equal looping
 ``packed_apply`` updates the weights and states IN PLACE (on the card the
 kernel writes them where they live) and returns the same tensors. A CPU
 tensor runs ``packed_apply_reference`` per bucket; a CUDA tensor launches
-the kernel or raises.
+the kernel or raises. ``cost`` gives one launch's operations and bytes
+(``kernels/_cost.py``).
 """
 from __future__ import annotations
 
@@ -31,8 +32,9 @@ import torch
 
 from ..base import MXNetError, getenv, weak_scalar
 from ..parallel.overlap import bucket_plan
+from . import _cost
 
-__all__ = ["enabled", "bucketize", "packed_apply", "packed_apply_reference",
+__all__ = ["cost", "OPS", "enabled", "bucketize", "packed_apply", "packed_apply_reference",
            "LAUNCHES"]
 
 # Kernel launches made by packed_apply in this process (one per bucket).
@@ -48,6 +50,29 @@ def enabled():
 
 # The JAX module's name for the packing plan: the same function.
 bucketize = bucket_plan
+
+
+# f32 operations per element of each packed step, on the CUDA cores: SGD
+# with momentum (rescale, wd*w, +g, *lr, momentum*m, -, +w), SGD without
+# (rescale, wd*w, +g, *lr, -) and Adam (rescale, wd*w, +, b1*m, (1-b1)*g,
+# +, (1-b2)*g, *g, b2*v, +, sqrt, +eps, lr*m, /, -).
+OPS = {"sgd_momentum": 7, "sgd": 5, "adam": 15}
+# element arrays read or written once (w, g, the states read; w and the
+# states written) and bytes of per-tensor table entries
+_ARRAYS = {"sgd_momentum": 5, "sgd": 3, "adam": 7}
+_PER_TENSOR = {"sgd_momentum": 8, "sgd": 8, "adam": 48}
+
+
+def cost(kind, n, tensors, dtype_bytes):
+    """``(operations, bytes)`` of one launch of the ``kind`` step
+    (``"sgd_momentum"``, ``"sgd"``, ``"adam"``) over ``n`` elements of
+    ``tensors`` weights of ``dtype_bytes`` bytes."""
+    return (OPS[kind] * n,
+            dtype_bytes * _ARRAYS[kind] * n + _PER_TENSOR[kind] * tensors)
+
+
+def _kind(opt):
+    return ("sgd", "sgd_momentum", "adam")[_arity(opt)]
 
 
 def packed_apply_reference(opt, w, g, state, lrv, wdv, rescale):
@@ -131,12 +156,15 @@ def packed_apply(opt, ws, gs, states, lrs, wds, rescale):
     _check(opt, ws, gs, states, lrs, wds)
     for bucket in bucket_plan(ws):
         dev = ws[bucket[0]].device
-        if dev.type == "cpu":
-            _apply_plain(opt, bucket, ws, gs, states, lrs, wds, rescale)
-        elif dev.type == "cuda":
-            _launch(opt, bucket, ws, gs, states, lrs, wds, rescale)
-        else:
+        if dev.type not in ("cpu", "cuda"):
             raise MXNetError("packed_apply: no kernel for device %s" % dev)
+        with _cost.launch("optimizer_apply", cost, _kind(opt),
+                          sum(ws[i].numel() for i in bucket), len(bucket),
+                          ws[bucket[0]].element_size(), tensor_core=False):
+            if dev.type == "cpu":
+                _apply_plain(opt, bucket, ws, gs, states, lrs, wds, rescale)
+            else:
+                _launch(opt, bucket, ws, gs, states, lrs, wds, rescale)
     return ws, states
 
 

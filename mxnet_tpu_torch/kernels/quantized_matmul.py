@@ -52,8 +52,9 @@ import functools
 import torch
 
 from ..base import MXNetError
+from . import _cost
 
-__all__ = ["quantized_matmul", "quantized_matmul_reference", "engaged",
+__all__ = ["cost", "quantized_matmul", "quantized_matmul_reference", "engaged",
            "route", "qmm_plan", "qmm_blocks", "QmmPlan", "LAUNCHES_MM",
            "LAUNCHES_MM_SCALED", "LAUNCHES_MM_BYTES",
            "LAUNCHES_MM_SCALED_BYTES", "COPIES"]
@@ -143,12 +144,22 @@ def quantized_matmul(x, w, scales=None):
     launches the kernel on the current stream or raises (see the module
     docstring for what it takes)."""
     _check(x, w, scales)
-    if x.device.type == "cpu":
-        return quantized_matmul_reference(x, w, scales)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise MXNetError("quantized_matmul: no kernel for device %s"
                          % x.device)
-    return _launch(x, w, scales)
+    with _cost.launch("quantized_matmul", cost, x.shape[0], x.shape[1],
+                      w.shape[1], scales is not None):
+        if x.device.type == "cpu":
+            return quantized_matmul_reference(x, w, scales)
+        return _launch(x, w, scales)
+
+
+def cost(M, K, N, scaled):
+    """``(int8 operations, bytes)`` of one product: 2*M*N*K; x (M*K) and w
+    (K*N) int8 read once and the (M, N) int32 or f32 output written once,
+    the (N,) f32 scales read too."""
+    return (2.0 * M * N * K,
+            M * K + K * N + 4.0 * M * N + (4.0 * N if scaled else 0.0))
 
 
 def route(M, K, N, lda, ldb, x_ptr, w_ptr):

@@ -4,9 +4,14 @@ device so far: the device mesh and its partition rules (``mesh``,
 sharded training step (``train.ShardedTrainStep``, the path of
 ``bench.py``'s ResNet-50 training number), the bucket plan that the packed
 optimizer apply shares with the gradient reduction of the multi-GPU slice
-(``overlap``), and the transformer LM's single-device training step
-(``transformer``)."""
+(``overlap``), the transformer LM's single-device training step
+(``transformer``), and the single-process part of elastic training
+(``elastic``: ``CheckpointManager``, ``shard_for_rank``,
+``ReshardRequired``)."""
 from . import overlap  # noqa: F401
+from . import elastic  # noqa: F401
+from .elastic import (CheckpointManager, ReshardRequired,  # noqa: F401
+                      shard_for_rank)
 from . import transformer  # noqa: F401
 from .mesh import (PartitionSpec, NamedSharding, DeviceMesh,  # noqa: F401
                    create_mesh, current_mesh, default_mesh_axes, mesh_scope,

@@ -756,6 +756,18 @@ def record_compile(name, key=None, dur_us=0.0, flops=None,
         if memory is not None:
             st["memory"] = {k: int(v) for k, v in dict(memory).items()
                             if v is not None}
+    # the modeled side of the roofline join: every compile record feeds
+    # perfmodel keyed "name:key", the tag the fused step threads through
+    # the watchdog beacon. Lazy import (perfmodel bottom-imports this
+    # module); a perf-plane error must never fail a build.
+    try:
+        from ._debug import perfmodel as _perfmodel
+        _perfmodel.note_compile(
+            name, key, flops=flops, bytes_accessed=bytes_accessed,
+            comm_bytes=comm_bytes, modeled_comm_us=modeled_comm_us,
+            args=args)
+    except Exception:
+        pass
     ev_args = {"key": str(key)} if key is not None else {}
     if args:
         ev_args.update(args)
@@ -1312,6 +1324,34 @@ def dumps(reset=False, format="table", sort_by="total", ascending=False):
             s = g.get("%s_s" % c, 0.0)
             lines.append("%-16s %12.3f %7.1f%%" % (
                 c, s, 100.0 * s / wall if wall > 0 else 0.0))
+    # Roofline table: the modeled-vs-measured efficiency join, per hot
+    # step signature. Composed OUTSIDE _lock (perfmodel owns its own
+    # named lock).
+    try:
+        from ._debug import perfmodel as _perfmodel_mod
+        perf_rows = [r for r in _perfmodel_mod.table()
+                     if r.get("median_s")]
+    except Exception:
+        perf_rows = []
+    if perf_rows:
+        lines.append("")
+        lines.append("%-22s %6s %10s %6s %6s %8s %-9s %s" % (
+            "Roofline", "Steps", "Med(us)", "MFU", "MemBW", "AI",
+            "Bound", "comp/mem/comm/ovh(us)"))
+        for r in perf_rows:
+            t = r.get("terms_s") or {}
+            lines.append(
+                "%-22s %6d %10.1f %6s %6s %8s %-9s %s" % (
+                    r["sig"][:22], r["steps"], r["median_s"] * 1e6,
+                    "%.3f" % r["mfu"] if r["mfu"] is not None else "-",
+                    "%.3f" % r["membw_util"]
+                    if r["membw_util"] is not None else "-",
+                    "%.1f" % r["intensity"]
+                    if r["intensity"] is not None else "-",
+                    r["bound"] or "-",
+                    "/".join("%.1f" % (t.get(b, 0.0) * 1e6)
+                             for b in _perfmodel_mod.BOUNDS)
+                    if t else "-"))
     if reset:
         reset_imperative_stats()
     return "\n".join(lines)
@@ -1461,6 +1501,59 @@ def prometheus_text():
              [(['kind="steps"'], g.get("steps", 0)),
               (['kind="warmup"'], g.get("warmup_steps", 0)),
               (['kind="replayed"'], g.get("replayed_steps", 0))])
+    # roofline join: per-signature families (labels carry the tag) so a
+    # dashboard can plot each hot program's MFU and binding term
+    p = m.get("perf")
+    per_sig = p.get("per_signature") if isinstance(p, dict) else None
+    if per_sig:
+        mfu_samples = [
+            (['signature="%s"' % s], r["mfu"])
+            for s, r in sorted(per_sig.items())
+            if r.get("mfu") is not None]
+        if mfu_samples:
+            emit("mxtpu_mfu", "gauge",
+                 "Model flop utilization per compile signature "
+                 "(perfmodel: flops / (median step time x dtype "
+                 "peak)).", mfu_samples)
+        bw_samples = [
+            (['signature="%s"' % s], r["membw_util"])
+            for s, r in sorted(per_sig.items())
+            if r.get("membw_util") is not None]
+        if bw_samples:
+            emit("mxtpu_membw_util", "gauge",
+                 "HBM bandwidth utilization per compile signature "
+                 "(perfmodel).", bw_samples)
+        bound_samples = [
+            (['signature="%s"' % s, 'bound="%s"' % r["bound"]], 1)
+            for s, r in sorted(per_sig.items()) if r.get("bound")]
+        if bound_samples:
+            emit("mxtpu_roofline_bound", "gauge",
+                 "Roofline verdict per signature: 1 on the binding "
+                 "term (compute/memory/comm/overhead).", bound_samples)
+    # training-health sentinels: dedicated families beyond the generic
+    # mxtpu_stat{section="health"} gauges, so alerting rules key on
+    # stable names
+    h = m.get("health")
+    if isinstance(h, dict) and h.get("enabled"):
+        emit("mxtpu_health_steps_total", "counter",
+             "Fused steps checked by the health sentinels, by outcome "
+             "(healthmon).",
+             [(['kind="checked"'], h.get("steps", 0)),
+              (['kind="anomalous"'], h.get("anomalies", 0)),
+              (['kind="nonfinite"'], h.get("nonfinite_steps", 0)),
+              (['kind="loss_spike"'], h.get("loss_spikes", 0)),
+              (['kind="skipped"'], h.get("skipped_steps", 0)),
+              (['kind="amp_overflow_skip"'],
+               h.get("amp_overflow_skips", 0))])
+        emit("mxtpu_health_anomaly", "gauge",
+             "1 while inside an anomaly episode (latched until a "
+             "clean step).",
+             [([], h.get("in_episode", 0))])
+        emit("mxtpu_health_loss", "gauge",
+             "Newest observed mean loss and its rolling median "
+             "(the spike-envelope baseline).",
+             [(['stat="last"'], h.get("last_loss", 0.0)),
+              (['stat="median"'], h.get("loss_median", 0.0))])
     emit("mxtpu_profiler_events", "gauge",
          "Raw trace events currently buffered.",
          [([], m["num_events"])])
@@ -1647,6 +1740,11 @@ def _reset():
     try:
         from . import storage as _storage_mod
         _storage_mod.ledger_reset()
+    except Exception:
+        pass
+    try:
+        from ._debug import perfmodel as _perfmodel_mod
+        _perfmodel_mod.reset()
     except Exception:
         pass
 

@@ -1485,3 +1485,116 @@ def test_profiler_device_trace_counts_equal_launch_counters(tmp_path):
                     else getattr(BNF, k)) for k in _DEVICE_NAMES}
     assert device == counters
     assert counters["CF.LAUNCHES"] > 0 and counters["LAUNCHES_STATS"] > 0
+
+
+def _chip_smoke_module():
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_health_summary_on_the_card_matches_the_cpu():
+    """The sentinels' packed vector (_debug/healthmon.graph_summary) on the
+    card against its CPU value: sums within 1e-5, the same buckets
+    flagged."""
+    _need_card()
+    from mxnet_tpu_torch._debug import healthmon
+    from mxnet_tpu_torch.parallel.overlap import bucket_plan
+    rs = np.random.RandomState(0)
+    shapes = [(64, 3, 3, 3), (64,), (256, 64), (10, 256), (10,)]
+    dts = [torch.bfloat16, torch.bfloat16, torch.float32, torch.float32,
+           torch.float32]
+    for poison in (None, 2):
+        gs = [torch.from_numpy(rs.randn(*s).astype("float32")).to(d)
+              for s, d in zip(shapes, dts)]
+        ws = [torch.from_numpy(rs.randn(*s).astype("float32")).to(d)
+              for s, d in zip(shapes, dts)]
+        if poison is not None:
+            gs[poison].view(-1)[7] = float("nan")
+        loss = torch.from_numpy(rs.rand(32).astype("float32"))
+        plan = [list(b) for b in bucket_plan(gs, bucket_bytes=20000)]
+        cpu, _ = healthmon.graph_summary(plan, gs, ws, loss)
+        card, ok = healthmon.graph_summary(
+            plan, [g.cuda() for g in gs], [w.cuda() for w in ws],
+            loss.cuda())
+        card = card.cpu().numpy()
+        cpu = cpu.numpy()
+        assert bool(ok) == (poison is None)
+        np.testing.assert_array_equal(np.isfinite(card), np.isfinite(cpu))
+        fin = np.isfinite(cpu)
+        np.testing.assert_allclose(card[fin], cpu[fin], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_costs_give_chip_smoke_bounds():
+    """One cost() per kernel against chip_smoke.py's bound for the same
+    shapes on this card: the bound is max(operations / peak, bytes / rate)
+    of the kernel's own count."""
+    _need_card()
+    from mxnet_tpu_torch._debug import perfmodel
+    from mxnet_tpu_torch.kernels import compression as CMP
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+    cs = _chip_smoke_module()
+    card = cs.peaks(torch.cuda.get_device_name(0))
+    _, (bf16, f32, bw) = card
+    shape = (128, 28, 28, 128, 128)
+    f, b = CF.cost(shape, 2)
+    assert cs.bound(shape, 2, card)[0] == max(f / bf16, b / bw)
+    f, b = CF.cost(shape, 2, "bwd_dx")
+    assert cs.conv_bwd_bound(shape, "bwd_dx", 2, card)[0] \
+        == max(f / bf16, b / bw)
+    f, b = BNF.cost((128, 56, 56, 256), "bwd_dx", 2)
+    assert cs.bn_bound((128, 56, 56, 256), "bwd_dx", 2, card)[0] \
+        == max(f / f32, b / bw)
+    f, b = QM.cost(1568, 4608, 512, True)
+    assert cs.qmm_bound(1568, 4608, 512, True, card)[0] \
+        == max(f / perfmodel.INT8_PEAKS[card[0]], b / bw)
+    f, b = FA.cost("dkv", cs.LM_BATCH, 32, cs.LM_SEQ, cs.LM_SEQ, 128, True, 2)
+    assert cs.flash_bound("dkv", card)[0] == max(f / bf16, b / bw)
+    f, b = OA.cost("sgd_momentum", 25557032, 161, 2)
+    assert (f, b) == (7 * 25557032, 2 * 5 * 25557032 + 8 * 161)
+    f, b = CMP.cost("quantize", 1000, CMP.num_words(1000), 2)
+    assert (f, b) == (6 * 1000, 3 * 2 * 1000 + 4 * CMP.num_words(1000))
+
+
+@pytest.mark.cuda
+def test_step_cost_count_on_the_card_equals_the_cpu():
+    """The fused step's cost count of a narrow NHWC ResNet: flops and
+    bytes the same on the card as on the CPU, flops the analytic count;
+    the card's row carries the card table's peak."""
+    _need_card()
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch._debug import perfmodel
+    cs = _chip_smoke_module()
+    rs = np.random.RandomState(1)
+    x = rs.rand(4, 3, 32, 32).astype("float32")
+    y = rs.randint(0, 10, (4,)).astype("float32")
+    recs = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        net = tres.ResNetV1(tres.BottleneckV1, [1, 1, 1, 1],
+                            [16, 32, 64, 128, 256], classes=10,
+                            thumbnail=True, layout="NHWC", fuse=True)
+        net.initialize(ctx=ctx)
+        net(torch.zeros(1, 3, 32, 32, device=ctx.device))
+        net.hybridize()
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": 0.01, "momentum": 0.9})
+        step = mx.gluon.train_step(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), tr)
+        profiler._reset()
+        with ctx:
+            step(torch.from_numpy(x).to(ctx.device),
+                 torch.from_numpy(y).to(ctx.device))
+        recs[ctx.device_type] = dict(profiler.compile_stats()["fused_step"])
+    profiler._reset()
+    want = cs.resnet_v1_step_flops([1, 1, 1, 1], [16, 32, 64, 128, 256], 4,
+                                   32, 10, thumbnail=True)
+    assert recs["gpu"]["flops"] == recs["cpu"]["flops"] == want
+    assert recs["gpu"]["bytes_accessed"] == recs["cpu"]["bytes_accessed"]
+    assert perfmodel._assumptions()["chip"] in torch.cuda.get_device_name(0)

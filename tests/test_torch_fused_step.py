@@ -264,6 +264,8 @@ def test_failed_step_rolls_back_update_counts():
 def test_stats_count_fused_steps():
     fused_step.reset_stats()
     _run("fused", "float32", steps=2)
-    assert fused_step.stats() == {"hits": 2, "fallbacks": 0}
+    assert fused_step.stats() == {"hits": 2, "fallbacks": 0,
+                                  "health_errors": 0}
     fused_step.reset_stats()
-    assert fused_step.stats() == {"hits": 0, "fallbacks": 0}
+    assert fused_step.stats() == {"hits": 0, "fallbacks": 0,
+                                  "health_errors": 0}

@@ -239,8 +239,5 @@ def test_data_desc_and_batch():
                        pad=1)
     assert str(tb) == str(jb)
     assert isinstance(tb.data, list) and tb.pad == 1
-    assert sorted(tio.__all__) == sorted(
-        ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
-         "LibSVMIter", "ResizeIter", "PrefetchingIter", "MNISTIter",
-         "ImageRecordIter", "DevicePrefetchIter", "DevicePrefetcher"])
+    assert sorted(tio.__all__) == sorted(jio.__all__)
     assert set(tio.__all__) <= set(jio.__all__)
