@@ -541,7 +541,7 @@ PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_sharded", "ndarray", "zoo",
           "train_amp", "train_rec", "train_jpeg", "train_det", "api",
           "train_module", "train_symblock", "observe", "custom", "health",
-          "train_lm", "train_lm_deep", "time")
+          "train_rnn", "train_lm", "train_lm_deep", "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
 # the BatchNorm kernels' checks and timing, the training steps' timing
 # (after the train phases), the conv_fused forward's, the backward pair's,
@@ -8443,6 +8443,592 @@ def _health(torch, state, mx, folder):
     torch.cuda.empty_cache()
 
 
+# -- phase train_rnn: recurrent networks on the card --------------------------
+# (a) Apache MXNet's example/gluon/word_language_model at its train.py
+# defaults (model.py RNNModel): a tied 2-layer LSTM LM at WikiText-2's
+# vocabulary on synthetic token ids (no corpus is in the repository), one
+# f32 step card vs CPU, then 20 training steps; (b) cuDNN's LSTM at the
+# same shapes, timed and compared, never on the path; (c) the fused op's
+# variants and a convolutional LSTM cell card vs CPU; (d) example/rnn/
+# lstm_bucketing.py at its own defaults through mx.rnn, BucketSentenceIter
+# and BucketingModule. No kernel of the repository runs in this phase.
+
+WLM_VOCAB = 33278           # WikiText-2's vocabulary
+WLM_EMBED = 650             # train.py --emsize
+WLM_HIDDEN = 650            # --nhid
+WLM_LAYERS = 2              # --nlayers
+WLM_DROPOUT = 0.5           # --dropout
+WLM_BPTT = 35               # --bptt
+WLM_BATCH = 32              # --batch_size
+WLM_LR = 20.0               # --lr (SGD, no momentum)
+WLM_CLIP = 0.25             # --clip, scaled by bptt * batch as train.py does
+WLM_STEPS = 20
+WLM_SEED = 11
+# card vs CPU, f32 with TF32 off: the loss relative, gradients and the
+# updated weights relative to each tensor's largest value
+WLM_LOSS_RTOL = 1e-5
+WLM_GRAD_RTOL = 1e-4
+WLM_WEIGHT_RTOL = 1e-5
+CUDNN_RTOL = 1e-4           # cuDNN's LSTM against the port's, f32
+RNN_VARIANT_RTOL = 1e-5     # (c), f32 with TF32 off
+BUCKET_EMBED = 200          # lstm_bucketing.py defaults
+BUCKET_HIDDEN = 200
+BUCKET_LAYERS = 2
+BUCKET_BATCH = 32
+BUCKET_LR = 0.01
+BUCKET_MOMENTUM = 0.9
+BUCKET_EPOCHS = 2
+BUCKET_LENS = (10, 20, 30, 40, 50, 60)
+BUCKET_FWD_RTOL = 1e-4      # the first forward card vs CPU
+BUCKET_FUSED_RTOL = 1e-5    # FusedRNNCell against its unfuse()
+TRAIN_RNN_MAX_S = 90.0
+
+
+def wlm_model(mx, dropout=WLM_DROPOUT, vocab=WLM_VOCAB, embed=WLM_EMBED,
+              hidden=WLM_HIDDEN, layers=WLM_LAYERS):
+    """model.py's RNNModel("lstm", tie_weights=True) on the port: an
+    embedding, dropout, a fused LSTM (TNC), dropout, and a decoder Dense
+    that shares the embedding's weight through ``params=``."""
+    nn, rnn = mx.gluon.nn, mx.gluon.rnn
+
+    class RNNModel(mx.gluon.Block):
+        def __init__(self):
+            super().__init__(prefix="rnnmodel_")
+            with self.name_scope():
+                self.drop = nn.Dropout(dropout)
+                self.encoder = nn.Embedding(
+                    vocab, embed, weight_initializer=mx.init.Uniform(0.1))
+                self.rnn = rnn.LSTM(hidden, layers, dropout=dropout,
+                                    input_size=embed, layout="TNC")
+                self.decoder = nn.Dense(vocab, in_units=hidden,
+                                        flatten=False,
+                                        params=self.encoder.params)
+
+        def forward(self, inputs, state):
+            emb = self.drop(self.encoder(inputs))
+            output, state = self.rnn(emb, state)
+            return self.decoder(self.drop(output)), state
+
+        def begin_state(self, **kwargs):
+            return self.rnn.begin_state(**kwargs)
+    return RNNModel()
+
+
+def wlm_stream(steps=WLM_STEPS, batch=WLM_BATCH, bptt=WLM_BPTT,
+               vocab=WLM_VOCAB, seed=WLM_SEED):
+    """(steps * bptt + 1, batch) float32 token ids, train.py's batchify of
+    a stream drawn from a Zipf law over the vocabulary (p(k) ~ 1/(k+1)),
+    so that the unigram part of a language is there to learn."""
+    rs = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    ids = rs.choice(vocab, size=(steps * bptt + 1) * batch, p=p / p.sum())
+    return ids.reshape(batch, -1).T.astype("float32")
+
+
+def wlm_forward_backward(mx, model, loss_fn, data, target, state):
+    """train.py's step up to the gradients: the state detached, the
+    per-token loss recorded and back-propagated. Returns (the mean loss
+    as a tensor, the new state)."""
+    state = [s.detach() for s in state]
+    with mx.autograd.record():
+        output, state = model(data, state)
+        loss = loss_fn(output.reshape(-1, output.shape[-1]),
+                       target.reshape(-1))
+        loss.backward()
+    return loss.detach().mean(), state
+
+
+def wlm_update(mx, model, trainer, batch=WLM_BATCH, bptt=WLM_BPTT):
+    """The gradients of the summed per-token loss clipped to clip * bptt *
+    batch in global norm, then trainer.step(bptt * batch): train.py's
+    update (the loss divided by bptt * batch, clipped to clip, step(1))
+    written with the summed loss's gradients."""
+    grads = [p.grad() for p in model.collect_params().values()]
+    mx.gluon.utils.clip_global_norm(grads, WLM_CLIP * bptt * batch)
+    trainer.step(bptt * batch)
+
+
+def wlm_setup(mx, ctx, dropout, arrays=None, **kw):
+    """The model on ``ctx`` (its parameters from ``arrays`` by name when
+    given), its SGD trainer and the loss."""
+    model = wlm_model(mx, dropout=dropout, **kw)
+    model.initialize(mx.init.Xavier(), ctx=ctx)
+    if arrays is not None:
+        for name, p in model.collect_params().items():
+            p.set_data(mx.nd.array(arrays[name], ctx=ctx))
+    trainer = mx.gluon.Trainer(model.collect_params(), "sgd",
+                               {"learning_rate": WLM_LR, "momentum": 0,
+                                "wd": 0})
+    return model, trainer, mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+
+def wlm_card_vs_cpu(mx, arrays, data, target, **kw):
+    """One f32 step (dropout 0, TF32 off) on the card and on the port's
+    CPU path from the same weights: (loss, {name: grad}, {name: weight})
+    of each, as host tensors."""
+    out = []
+    with mx.precision.matmul_precision("float32"):
+        for ctx in (mx.gpu(0), mx.cpu()):
+            model, trainer, loss_fn = wlm_setup(mx, ctx, 0.0, arrays, **kw)
+            dev = ctx.device
+            state = model.begin_state(batch_size=data.shape[1], ctx=ctx)
+            state = [s._data for s in state]
+            loss, _ = wlm_forward_backward(mx, model, loss_fn,
+                                           data.to(dev), target.to(dev),
+                                           state)
+            params = model.collect_params()
+            grads = {n: p._grad_tensor().detach().cpu().clone()
+                     for n, p in params.items()}
+            wlm_update(mx, model, trainer, batch=data.shape[1],
+                       bptt=data.shape[0])
+            weights = {n: p._tensor().detach().cpu().clone()
+                       for n, p in params.items()}
+            out.append((loss.cpu(), grads, weights))
+    return out
+
+
+def _rel(a, b):
+    return (a.float() - b.float()).abs().max().item() \
+        / max(b.float().abs().max().item(), 1e-30)
+
+
+def _worst(da, db):
+    return max(((_rel(da[k], db[k]), k) for k in db), key=lambda t: t[0])
+
+
+def _rnn_op_args(torch, mode, ndir, T, N, I, H, L, seed, device,
+                 lengths=None):
+    from mxnet_tpu_torch.ops import nn as tnn
+    rs = np.random.RandomState(seed)
+    n = tnn.rnn_packed_param_size(mode, I, H, L, ndir)
+    arrs = [rs.randn(T, N, I), rs.randn(n) * 0.1,
+            rs.randn(L * ndir, N, H) * 0.5]
+    if mode == "lstm":
+        arrs.append(rs.randn(L * ndir, N, H) * 0.5)
+    ts = [torch.tensor(a, dtype=torch.float32, device=device)
+          for a in arrs]
+    if lengths is not None:
+        ts.append(torch.tensor(lengths, dtype=torch.float32, device=device))
+    return ts
+
+
+def _rnn_variants(torch, mx):
+    """(c): each variant card vs CPU, f32, TF32 off: {name: max rel}."""
+    from mxnet_tpu_torch.ops import nn as tnn
+    T, N, I, H, L = 7, 4, 8, 16, 2
+    cases = {
+        "gru_bidirectional_lengths": (
+            "gru", 2, dict(bidirectional=True, use_sequence_length=True),
+            [7, 3, 5, 1]),
+        "rnn_tanh": ("rnn_tanh", 1, {}, None),
+        "rnn_relu": ("rnn_relu", 1, {}, None),
+        "lstm_state_clip": ("lstm", 1, dict(
+            lstm_state_clip_min=-0.2, lstm_state_clip_max=0.2,
+            lstm_state_clip_nan=True), None),
+    }
+    errs = {}
+    with mx.precision.matmul_precision("float32"):
+        for name, (mode, ndir, kw, lens) in cases.items():
+            outs = []
+            for dev in ("cuda", "cpu"):
+                args = _rnn_op_args(torch, mode, ndir, T, N, I, H, L, 5,
+                                    dev, lengths=lens)
+                outs.append(tnn.rnn_fused(*args, mode=mode, state_size=H,
+                                          num_layers=L, state_outputs=True,
+                                          **kw))
+            errs[name] = max(_rel(a.cpu(), b) for a, b in zip(*outs))
+        # gluon.contrib.rnn.Conv2DLSTMCell unrolled 4 steps
+        x = np.random.RandomState(6).randn(4, 4, 8, 12, 12).astype("f")
+        outs, arrays = [], None
+        for ctx in (mx.gpu(0), mx.cpu()):
+            cell = mx.gluon.contrib.rnn.Conv2DLSTMCell(
+                (8, 12, 12), 16, i2h_kernel=3, h2h_kernel=3, i2h_pad=1,
+                prefix="convlstm_")
+            cell.initialize(mx.init.Xavier(), ctx=ctx)
+            if arrays is None:
+                arrays = {k: p.data().asnumpy()
+                          for k, p in cell.collect_params().items()}
+            for k, p in cell.collect_params().items():
+                p.set_data(mx.nd.array(arrays[k], ctx=ctx))
+            o, st = cell.unroll(4, mx.nd.array(x, ctx=ctx),
+                                merge_outputs=True)
+            outs.append([o._data.cpu()] + [s._data.cpu() for s in st])
+        errs["conv2d_lstm_cell"] = max(_rel(a, b) for a, b in zip(*outs))
+    return errs
+
+
+def _cudnn_lstm(torch, model):
+    """torch.nn.LSTM (cuDNN) carrying the port's LSTM layer's weights
+    (PyTorch's gate order is also i, f, g, o)."""
+    layer = model.rnn
+    lstm = torch.nn.LSTM(layer._input_size, layer._hidden_size,
+                         layer._num_layers).cuda()
+    with torch.no_grad():
+        for i in range(layer._num_layers):
+            for ours, theirs in (("i2h_weight", "weight_ih"),
+                                 ("h2h_weight", "weight_hh"),
+                                 ("i2h_bias", "bias_ih"),
+                                 ("h2h_bias", "bias_hh")):
+                getattr(lstm, "%s_l%d" % (theirs, i)).copy_(
+                    getattr(layer, "l%d_%s" % (i, ours))._tensor())
+    return lstm
+
+
+def _recurrence_times(torch, mx, model):
+    """Device ms of the LSTM layer's recurrence at the LM's shapes: the
+    port's fused op (forward; forward and backward) and cuDNN's LSTM the
+    same, with their outputs compared in f32 (TF32 off)."""
+    from mxnet_tpu_torch.ops import nn as tnn
+    layer = model.rnn
+    T, N, H, L = WLM_BPTT, WLM_BATCH, WLM_HIDDEN, WLM_LAYERS
+    rs = np.random.RandomState(3)
+    x = torch.tensor(rs.randn(T, N, WLM_EMBED), dtype=torch.float32,
+                     device="cuda", requires_grad=True)
+    h0 = torch.zeros(L, N, H, device="cuda")
+    c0 = torch.zeros(L, N, H, device="cuda")
+    packed = layer._pack_params().detach().requires_grad_(True)
+    cot = torch.randn(T, N, H, device="cuda")
+    lstm = _cudnn_lstm(torch, model)
+
+    def port_fwd():
+        with torch.no_grad():
+            return tnn.rnn_fused(x, packed, h0, c0, mode="lstm",
+                                 state_size=H, num_layers=L)
+
+    def port_fwd_bwd():
+        out = tnn.rnn_fused(x, packed, h0, c0, mode="lstm", state_size=H,
+                            num_layers=L)
+        out.backward(cot)
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            return lstm(x, (h0, c0))[0]
+
+    def cudnn_fwd_bwd():
+        lstm(x, (h0, c0))[0].backward(cot)
+
+    # both in true f32, as the LM's products run (cuDNN's RNN would take
+    # TF32 under PyTorch's default)
+    with mx.precision.matmul_precision("float32"):
+        err = _rel(cudnn_fwd(), port_fwd())
+        times = {"port_fwd_ms": device_busy_ms(torch, port_fwd, 5),
+                 "port_fwd_bwd_ms": device_busy_ms(torch, port_fwd_bwd, 5),
+                 "cudnn_fwd_ms": device_busy_ms(torch, cudnn_fwd, 5),
+                 "cudnn_fwd_bwd_ms": device_busy_ms(torch, cudnn_fwd_bwd,
+                                                    5)}
+    for k in ("port", "cudnn"):
+        times[k + "_bwd_ms"] = times[k + "_fwd_bwd_ms"] - times[k + "_fwd_ms"]
+    return err, times
+
+
+def synthetic_corpus(n=400, seed=0):
+    """example/rnn/lstm_bucketing.py's synthetic corpus: sentences of 4-11
+    words drawn from 15."""
+    rs = np.random.RandomState(seed)
+    words = ["the", "a", "cat", "dog", "sat", "ran", "on", "mat", "log",
+             "fast", "slow", "big", "small", "and", "then"]
+    sents = []
+    for _ in range(n):
+        ln = rs.randint(4, 12)
+        sents.append([words[rs.randint(len(words))] for _ in range(ln)])
+    return [" ".join(s) for s in sents]
+
+
+def bucket_lm(mx, vocab_size, hidden=BUCKET_HIDDEN, embed=BUCKET_EMBED,
+              layers=BUCKET_LAYERS, fused=False):
+    """lstm_bucketing.py's stack of mx.rnn.LSTMCell (or one FusedRNNCell)
+    and its sym_gen."""
+    if fused:
+        stack = mx.rnn.FusedRNNCell(hidden, num_layers=layers, mode="lstm",
+                                    prefix="lstm_")
+    else:
+        stack = mx.rnn.SequentialRNNCell()
+        for i in range(layers):
+            stack.add(mx.rnn.LSTMCell(num_hidden=hidden,
+                                      prefix="lstm_l%d_" % i))
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        emb = mx.sym.Embedding(data=data, input_dim=vocab_size,
+                               output_dim=embed, name="embed")
+        stack.reset()
+        outputs, _ = stack.unroll(seq_len, inputs=emb, merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, hidden))
+        pred = mx.sym.FullyConnected(data=pred, num_hidden=vocab_size,
+                                     name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return stack, sym_gen
+
+
+def bucket_data(mx):
+    """lstm_bucketing.py's data: the encoded synthetic corpus and its
+    BucketSentenceIter (the Python and numpy seeds fixed first)."""
+    import random as _pyrandom
+    lines = [ln.split() for ln in synthetic_corpus()]
+    sentences, vocab = mx.rnn.encode_sentences(lines, invalid_label=0,
+                                               start_label=1)
+    buckets = [b for b in BUCKET_LENS
+               if any(len(s) <= b for s in sentences)]
+    _pyrandom.seed(0)
+    np.random.seed(0)
+    it = mx.rnn.BucketSentenceIter(sentences, BUCKET_BATCH, buckets=buckets,
+                                   invalid_label=0)
+    return it, max(vocab.values()) + 1
+
+
+def _bucketing(torch, mx, tmp):
+    """(d): lstm_bucketing.py on the card, its first forward against the
+    CPU, the checkpoint round trip and the fused cell against unfuse()."""
+    it, vocab_size = bucket_data(mx)
+    stack, sym_gen = bucket_lm(mx, vocab_size)
+    ctx = mx.gpu(0)
+    model = mx.mod.BucketingModule(
+        sym_gen, default_bucket_key=it.default_bucket_key, context=ctx)
+    model.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    model.init_params(initializer=mx.init.Xavier(factor_type="in",
+                                                 magnitude=2.34))
+    model.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": BUCKET_LR, "momentum": BUCKET_MOMENTUM})
+    arg0, aux0 = model.get_params()
+    arg0 = {k: v.asnumpy() for k, v in arg0.items()}
+    it.reset()
+    first = next(iter(it))
+    # the first forward, card against CPU, from the initial parameters
+    outs = []
+    with mx.precision.matmul_precision("float32"):
+        for c in (ctx, mx.cpu()):
+            m = mx.mod.BucketingModule(
+                sym_gen, default_bucket_key=it.default_bucket_key, context=c)
+            m.bind(data_shapes=it.provide_data,
+                   label_shapes=it.provide_label, for_training=False)
+            m.set_params({k: mx.nd.array(v, ctx=mx.cpu())
+                          for k, v in arg0.items()}, {})
+            m.forward(mx.io.DataBatch(
+                [mx.nd.array(first.data[0].asnumpy(), ctx=c)],
+                [mx.nd.array(first.label[0].asnumpy(), ctx=c)],
+                bucket_key=first.bucket_key,
+                provide_data=first.provide_data,
+                provide_label=first.provide_label), is_train=False)
+            outs.append(torch.from_numpy(m.get_outputs()[0].asnumpy()))
+    fwd_err = _rel(outs[0], outs[1])
+    # two epochs, the example's loop
+    metric = mx.metric.Perplexity(ignore_label=None)
+    ppl, batches, t0 = [], 0, time.perf_counter()
+    for _ in range(BUCKET_EPOCHS):
+        it.reset()
+        metric.reset()
+        for batch in it:
+            model.forward(batch, is_train=True)
+            model.update_metric(metric, batch.label)
+            model.backward()
+            model.update()
+            batches += 1
+        ppl.append(float(metric.get()[1]))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    # the checkpoint round trip, bit for bit
+    arg, aux = model.get_params()
+    prefix = os.path.join(tmp, "lstm_bucketing")
+    sym = sym_gen(it.default_bucket_key)[0]
+    mx.rnn.save_rnn_checkpoint(stack, prefix, BUCKET_EPOCHS, sym, arg, aux)
+    _, arg2, _ = mx.rnn.load_rnn_checkpoint(stack, prefix, BUCKET_EPOCHS)
+    ok_ckpt = sorted(arg2) == sorted(arg) and all(
+        np.array_equal(arg2[k].asnumpy(), arg[k].asnumpy()) for k in arg)
+    # the same stack as one FusedRNNCell, through Module, against unfuse()
+    fused, fused_gen = bucket_lm(mx, vocab_size, fused=True)
+    key = it.default_bucket_key
+    with mx.precision.matmul_precision("float32"):
+        mod = mx.mod.Module(fused_gen(key)[0], context=ctx)
+        mod.bind(data_shapes=it.provide_data,
+                 label_shapes=it.provide_label, for_training=False)
+        mod.init_params(initializer=mx.init.Xavier(factor_type="in",
+                                                   magnitude=2.34))
+        fargs = mod.get_params()[0]
+        ids = np.random.RandomState(8).randint(1, vocab_size,
+                                               (BUCKET_BATCH, key))
+        batch = mx.io.DataBatch([mx.nd.array(ids, ctx=ctx)],
+                                [mx.nd.zeros((BUCKET_BATCH, key), ctx=ctx)])
+        mod.forward(batch, is_train=False)
+        y_fused = torch.from_numpy(mod.get_outputs()[0].asnumpy())
+        unfused = fused.unfuse()
+
+        def unfused_gen(seq_len):
+            data = mx.sym.Variable("data")
+            emb = mx.sym.Embedding(data=data, input_dim=vocab_size,
+                                   output_dim=BUCKET_EMBED, name="embed")
+            outputs, _ = unfused.unroll(seq_len, inputs=emb,
+                                        merge_outputs=True)
+            pred = mx.sym.FullyConnected(
+                data=mx.sym.Reshape(outputs, shape=(-1, BUCKET_HIDDEN)),
+                num_hidden=vocab_size, name="pred")
+            return mx.sym.SoftmaxOutput(data=pred, label=mx.sym.Reshape(
+                mx.sym.Variable("softmax_label"), shape=(-1,)),
+                name="softmax")
+        uargs = unfused.pack_weights(fused.unpack_weights(fargs))
+        umod = mx.mod.Module(unfused_gen(key), context=ctx)
+        umod.bind(data_shapes=it.provide_data,
+                  label_shapes=it.provide_label, for_training=False)
+        umod.set_params(uargs, {})
+        umod.forward(batch, is_train=False)
+        y_unfused = torch.from_numpy(umod.get_outputs()[0].asnumpy())
+    fused_err = _rel(y_unfused, y_fused)
+    return {"vocab": vocab_size, "buckets": it.buckets,
+            "batches_per_epoch": batches // BUCKET_EPOCHS,
+            "perplexity": ppl, "fit_s": fit_s,
+            "first_forward_card_vs_cpu_max_rel": fwd_err,
+            "first_forward_bucket": first.bucket_key,
+            "checkpoint_bit_for_bit": ok_ckpt,
+            "fused_vs_unfused_max_rel": fused_err}
+
+
+def phase_train_rnn(torch, state):
+    """Recurrent networks on the card (the comment above): the word LM's
+    f32 step card vs CPU and 20 training steps with their speed, cuDNN's
+    LSTM as the yardstick, the fused op's variants, and the bucketing LM.
+    Every kernel counter of the repository must read 0."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+
+    t_phase = time.perf_counter()
+    _zero_all_launch_counts()
+    ctx = mx.gpu(0)
+    stream = wlm_stream()
+    stream_t = torch.from_numpy(stream)
+
+    def batch_of(i):
+        j = i * WLM_BPTT
+        return stream_t[j:j + WLM_BPTT], stream_t[j + 1:j + 1 + WLM_BPTT]
+
+    # (a) one f32 step card vs CPU from the same weights, dropout 0
+    model, trainer, loss_fn = wlm_setup(mx, ctx, WLM_DROPOUT)
+    arrays = {n: p.data().asnumpy()
+              for n, p in model.collect_params().items()}
+    tied = model.decoder.weight is model.encoder.weight
+    data, target = batch_of(0)
+    (l_gpu, g_gpu, w_gpu), (l_cpu, g_cpu, w_cpu) = wlm_card_vs_cpu(
+        mx, arrays, data, target)
+    loss_err = _rel(l_gpu, l_cpu)
+    grad_err = _worst(g_gpu, g_cpu)
+    weight_err = _worst(w_gpu, w_cpu)
+    del g_gpu, g_cpu, w_gpu, w_cpu
+
+    # (a) 20 steps with dropout 0.5, the state carried and detached
+    gpu_stream = stream_t.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state_h = [s._data for s in model.begin_state(batch_size=WLM_BATCH,
+                                                  ctx=ctx)]
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(WLM_STEPS):
+        j = i * WLM_BPTT
+        loss, state_h = wlm_forward_backward(
+            mx, model, loss_fn, gpu_stream[j:j + WLM_BPTT],
+            gpu_stream[j + 1:j + 1 + WLM_BPTT], state_h)
+        wlm_update(mx, model, trainer)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ok_train = all(np.isfinite(losses)) and \
+        np.mean(losses[-5:]) < np.mean(losses[:5])
+
+    box = {"state": state_h}
+
+    def step():
+        loss, box["state"] = wlm_forward_backward(
+            mx, model, loss_fn, gpu_stream[:WLM_BPTT],
+            gpu_stream[1:1 + WLM_BPTT], box["state"])
+        wlm_update(mx, model, trainer)
+    busy = device_busy_ms(torch, step, 3)
+    wall = host_ms(torch, step, 3)
+    tokens_s = WLM_BPTT * WLM_BATCH / (wall / 1e3)
+
+    # (b) cuDNN's LSTM at the same shapes (not on the path)
+    cudnn_err, rec = _recurrence_times(torch, mx, model)
+    del model, trainer
+    torch.cuda.empty_cache()
+
+    # (c) the fused op's variants and the convolutional LSTM cell
+    variants = _rnn_variants(torch, mx)
+
+    # (d) the bucketing LM
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rnn_")
+    try:
+        bucket = _bucketing(torch, mx, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    counts = _all_launch_counts()
+    launches = sum(counts.values())
+    phase_s = time.perf_counter() - t_phase
+    ok_card = loss_err <= WLM_LOSS_RTOL and grad_err[0] <= WLM_GRAD_RTOL \
+        and weight_err[0] <= WLM_WEIGHT_RTOL
+    ok_variants = all(v <= RNN_VARIANT_RTOL for v in variants.values())
+    ok_bucket = bucket["perplexity"][-1] < bucket["perplexity"][0] \
+        and bucket["first_forward_card_vs_cpu_max_rel"] <= BUCKET_FWD_RTOL \
+        and bucket["checkpoint_bit_for_bit"] \
+        and bucket["fused_vs_unfused_max_rel"] <= BUCKET_FUSED_RTOL
+    emit({"phase": "train_rnn",
+          "word_lm": {
+              "model": "example/gluon/word_language_model RNNModel lstm, "
+                       "tied, %d layers, embed %d, hidden %d, vocab %d "
+                       "(WikiText-2's; synthetic Zipf token ids)"
+                       % (WLM_LAYERS, WLM_EMBED, WLM_HIDDEN, WLM_VOCAB),
+              "bptt": WLM_BPTT, "batch": WLM_BATCH, "lr": WLM_LR,
+              "clip": WLM_CLIP * WLM_BPTT * WLM_BATCH,
+              "dropout": WLM_DROPOUT, "tied": tied,
+              "card_vs_cpu": {"loss_rel": loss_err,
+                              "grad_max_rel": grad_err[0],
+                              "grad_worst": grad_err[1],
+                              "weight_max_rel": weight_err[0],
+                              "weight_worst": weight_err[1],
+                              "rtol": [WLM_LOSS_RTOL, WLM_GRAD_RTOL,
+                                       WLM_WEIGHT_RTOL]},
+              "losses": losses, "train_s": train_s,
+              "tokens_per_s_wall": tokens_s,
+              "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+              "device_idle_share": max(0.0, 1.0 - busy / wall),
+              "peak_memory_gb": peak_gb},
+          "recurrence_lstm_2x650_t35_b32": dict(
+              rec, cudnn_vs_port_max_rel=cudnn_err,
+              cudnn_note="torch.nn.LSTM (cuDNN) with the layer's weights: "
+                         "a yardstick, no path of the port calls it"),
+          "variants_card_vs_cpu_max_rel": variants,
+          "variants_rtol": RNN_VARIANT_RTOL,
+          "bucketing_lm": bucket,
+          "kernel_launches": launches,
+          "kernel_launches_note": "0 wanted: the recurrent path runs no "
+                                  "kernel of the repository (the JAX "
+                                  "package's recurrence is a lax.scan, no "
+                                  "Pallas kernel)",
+          "phase_s": phase_s,
+          "ok": ok_card and ok_train and ok_variants and ok_bucket
+          and launches == 0 and tied and cudnn_err <= CUDNN_RTOL
+          and phase_s < TRAIN_RNN_MAX_S})
+    state["launches_rnn"] = launches
+    checks = [(tied, "the decoder does not share the embedding's weight"),
+              (ok_card, "the word LM's f32 step card vs CPU: loss %.3g, "
+                        "grad %s, weight %s" % (loss_err, grad_err,
+                                                weight_err)),
+              (ok_train, "the word LM's loss did not fall: %s" % losses),
+              (cudnn_err <= CUDNN_RTOL, "cuDNN's LSTM against the port's: "
+                                        "%.3g" % cudnn_err),
+              (ok_variants, "the variants card vs CPU: %s" % variants),
+              (ok_bucket, "the bucketing LM: %s" % bucket),
+              (launches == 0, "train_rnn launched kernels: %s"
+               % {k: v for k, v in counts.items() if v}),
+              (phase_s < TRAIN_RNN_MAX_S, "train_rnn took %.1f s" % phase_s)]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError("train_rnn: " + what)
+
+
 def kernel_summary(state):
     """The {"kernels": [...]} entries: each kernel's launches on its path,
     its error against its plain version and its times beside its bound,
@@ -8661,10 +9247,12 @@ def kernel_summary(state):
                "sorted boxes, class-aware (one launch pair)"
                % (SSD300_BATCH, SSD300_ANCHORS),
     })
-    # phase train_module (NCHW ResNet-50 through Module.fit) launches no
-    # kernel of the repository: every counter read 0 there
+    # phases train_module (NCHW ResNet-50 through Module.fit) and
+    # train_rnn (the recurrent networks) launch no kernel of the
+    # repository: every counter read 0 there
     for k in kernels:
         k["launches_train_module"] = state["launches_module"]
+        k["launches_train_rnn"] = state["launches_rnn"]
     return kernels
 
 

@@ -34,12 +34,21 @@ path (``nd.save``/``nd.load``, ``Block.save_parameters``/
 ``load_parameters``, ``ParameterDict.save``/``load``) in the reference's
 ``.params`` format.
 
-Layers and models: every op of the JAX package's ``ops/nn.py`` (but the
-fused ``RNN``), ``ops/linalg.py`` (``mx.nd.linalg``) and
+Layers and models: every op of the JAX package's ``ops/nn.py`` (the
+fused ``RNN`` included), ``ops/linalg.py`` (``mx.nd.linalg``),
 ``ops/random_ops.py`` (``mx.nd.random``, drawn from one generator per
-device, ``random.py``), every ``gluon.nn`` layer, and the vision model
-zoo's ``get_model`` names (ResNet V1 and V2, VGG, AlexNet, DenseNet,
-SqueezeNet, Inception V3, MobileNet V1 and V2).
+device, ``random.py``) and ``ops/misc_tail.py``, every ``gluon.nn``
+layer, and the vision model zoo's ``get_model`` names (ResNet V1 and V2,
+VGG, AlexNet, DenseNet, SqueezeNet, Inception V3, MobileNet V1 and V2).
+
+Recurrent networks: ``gluon.rnn`` (the cells, ``unroll`` with valid
+lengths, the modifier and bidirectional cells, the fused ``RNN``,
+``LSTM`` and ``GRU`` layers), ``gluon.contrib.rnn`` (variational
+dropout, LSTMP, the convolutional cells) and the legacy symbolic
+``mx.rnn`` (cells, ``FusedRNNCell``, ``BucketSentenceIter``, the
+checkpoint helpers), loaded at first use. No kernel of the repository
+runs on this path: the recurrence is a loop of products and gate math
+under autograd, as the JAX package's is a ``lax.scan``.
 
 Training scripts: automatic mixed precision (``contrib.amp``: a cast
 policy at the op dispatch point and a dynamic loss scaler), data loading
@@ -94,6 +103,8 @@ from .context import Context, cpu, gpu, cpu_pinned, current_context
 from .context import num_gpus
 from . import random
 from . import precision
+from .precision import (set_matmul_precision, get_matmul_precision,
+                        matmul_precision)
 from . import autograd
 from . import initializer
 from . import ndarray
@@ -143,9 +154,21 @@ def waitall():
     nd.waitall()
 
 
+def __getattr__(name):
+    # the legacy symbolic RNN package loads at first use, as in the JAX
+    # package
+    if name == "rnn":
+        import importlib
+        mod = importlib.import_module(".rnn", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))
+
+
 __all__ = ["base", "MXNetError", "context", "Context", "cpu", "gpu",
            "cpu_pinned", "num_gpus", "current_context", "NDArray", "seed",
-           "waitall", "random", "precision", "autograd",
+           "waitall", "random", "precision", "set_matmul_precision",
+           "get_matmul_precision", "matmul_precision", "autograd",
            "initializer", "init", "ndarray", "nd", "kernels", "parallel",
            "optimizer", "lr_scheduler", "kvstore", "kv", "gluon", "convert",
            "contrib", "metric", "callback", "io", "recordio", "image",

@@ -36,8 +36,8 @@ from . import profiler as _profiler
 
 __all__ = ["is_training", "set_training", "is_recording", "set_recording",
            "record", "pause", "train_mode", "predict_mode",
-           "mark_variables", "backward", "grad", "Head", "Function",
-           "get_symbol"]
+           "mark_variables", "backward", "grad", "deliver_grad", "Head",
+           "Function", "get_symbol"]
 
 
 class _State(threading.local):
@@ -154,6 +154,19 @@ def _bind_grad(arr):
     if not getattr(t, "_nd_hooked", False):
         t.register_post_accumulate_grad_hook(_deliver_nd_grad)
         t._nd_hooked = True
+
+
+def deliver_grad(var, g):
+    """Write gradient ``g`` into NDArray ``var``'s grad buffer as its
+    grad_req says: "add" accumulates, otherwise it is written in the
+    buffer's dtype. Without a buffer (grad_req "null") nothing happens."""
+    holder = var._grad
+    if holder is None:
+        return
+    g = _tensor(g)
+    holder._data = holder._data + g if var._grad_req == "add" \
+        else g.to(holder._data.dtype)
+    var._data.grad = holder._data
 
 
 def _tensor(x):

@@ -9,8 +9,9 @@ import os as _os
 import numpy as _np
 import torch
 
-__all__ = ["getenv", "MXNetError", "canonical_dtype", "is_low_precision",
-           "weak_scalar", "atomic_write", "cv2"]
+__all__ = ["getenv", "getenv_dynamic", "MXNetError", "string_types",
+           "numeric_types", "canonical_dtype", "DTYPE_NAMES",
+           "is_low_precision", "weak_scalar", "atomic_write", "cv2"]
 
 
 def getenv(name, default=None):
@@ -18,8 +19,19 @@ def getenv(name, default=None):
     return _os.environ.get(name, default)
 
 
+def getenv_dynamic(name, default=None, family=None):
+    """An env read whose name is computed (``family`` names the
+    documented base name, for the reader): ``os.environ.get``."""
+    del family
+    return _os.environ.get(name, default)
+
+
 class MXNetError(RuntimeError):
     """Framework-level error (name kept for API parity with MXNet)."""
+
+
+string_types = (str,)
+numeric_types = (float, int, _np.generic)
 
 
 def cv2():
@@ -48,6 +60,8 @@ _DTYPES = {
     "int64": torch.int64,
     "bool": torch.bool,
 }
+# The dtype names the port knows, each with its torch dtype.
+DTYPE_NAMES = _DTYPES
 
 
 # A type object names its numpy dtype; the JAX package (64-bit types off)

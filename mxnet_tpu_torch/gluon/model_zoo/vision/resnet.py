@@ -385,9 +385,13 @@ resnet_spec = {
     101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
     152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
 }
-_NETS = {1: ResNetV1, 2: ResNetV2}
-_BLOCKS = {1: {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
-           2: {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2}}
+resnet_net_versions = [ResNetV1, ResNetV2]
+resnet_block_versions = [
+    {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+    {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2},
+]
+_NETS = dict(enumerate(resnet_net_versions, 1))
+_BLOCKS = dict(enumerate(resnet_block_versions, 1))
 
 
 def no_pretrained():

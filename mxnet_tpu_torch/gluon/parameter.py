@@ -364,9 +364,16 @@ class ParameterDict:
         return self._params[name]
 
     def get(self, name, **kwargs):
-        """Create-or-retrieve ``prefix + name``."""
+        """Create-or-retrieve ``prefix + name``. A block given another's
+        parameters (``params=``) takes the one that dict holds under its
+        own prefix + ``name``, as MXNet ties them (an embedding's weight
+        as a decoder's); the others are the block's own."""
         full = self._prefix + name
         param = self._get_impl(full)
+        tied = getattr(self._shared, "prefix", None)
+        if param is None and tied is not None \
+                and tied + name in self._shared:
+            param = self._params[tied + name] = self._shared[tied + name]
         if param is None:
             param = Parameter(full, **kwargs)
             self._params[full] = param

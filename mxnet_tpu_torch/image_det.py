@@ -24,9 +24,9 @@ from math import sqrt
 import numpy as np
 
 from .image import (Augmenter, ImageIter, ResizeAug, ForceResizeAug,
-                    CastAug, ColorJitterAug, ColorNormalizeAug,
-                    RandomGrayAug, HueJitterAug, fixed_crop, _np_img, _nd,
-                    _pca_lighting)
+                    CastAug, ColorJitterAug, LightingAug, ColorNormalizeAug,
+                    RandomGrayAug, HueJitterAug, fixed_crop, imresize,
+                    _np_img, _nd, _pca_lighting)
 
 __all__ = ["DetAugmenter", "DetBorrowAug", "DetRandomSelectAug",
            "DetHorizontalFlipAug", "DetRandomCropAug", "DetRandomPadAug",

@@ -290,19 +290,6 @@ class LSTMBias(Initializer):
         arr[num_hidden:2 * num_hidden] = self.forget_bias
 
 
-# Gates per cell of the fused RNN op's modes, and the layer-0 input size
-# of a packed parameter vector (the JAX package's ops/nn.py; the RNN op
-# itself is not ported yet).
-_RNN_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "gru": 3, "lstm": 4}
-
-
-def _rnn_packed_input_size(total, mode, state_size, num_layers, ndir):
-    g = _RNN_GATES[mode]
-    h = state_size
-    return total // ndir // g // h - (num_layers - 1) * (h + ndir * h + 2) \
-        - h - 2
-
-
 @register
 class FusedRNN(Initializer):
     """A packed fused-RNN parameter vector: the inner initializer on each
@@ -323,12 +310,13 @@ class FusedRNN(Initializer):
         self._forget_bias = forget_bias
 
     def _init_weight(self, name, arr):
+        from .ops.nn import _RNN_GATES, rnn_packed_input_size
         g = _RNN_GATES[self._mode]
         h = self._num_hidden
         nd = self._ndir
         inner = self._init or Uniform(0.07)
-        li = _rnn_packed_input_size(arr.numel(), self._mode, h,
-                                    self._num_layers, nd)
+        li = rnn_packed_input_size(arr.numel(), self._mode, h,
+                                   self._num_layers, nd)
         off = 0
         for layer in range(self._num_layers):
             isz = li if layer == 0 else h * nd

@@ -41,7 +41,8 @@ from .ndarray import wrap as _wrap, _from_numpy, _to_numpy
 from .register import invoke, invoke_by_name, populate, _unwrap
 
 __all__ = ["NDArray", "array", "concatenate", "zeros", "ones", "full",
-           "empty", "arange", "eye", "linspace", "waitall", "save", "load",
+           "empty", "arange", "eye", "linspace", "hanning", "hamming",
+           "blackman", "waitall", "save", "load",
            "imperative_invoke", "boolean_mask", "unique", "dot", "invoke"]
 
 
@@ -122,6 +123,23 @@ def eye(N, M=0, k=0, ctx=None, dtype=None):
     rows = torch.arange(N).unsqueeze(1)
     cols = torch.arange(M).unsqueeze(0)
     return _make((cols - rows == k).to(canonical_dtype(dtype)), ctx)
+
+
+def _window_op(name):
+    """``nd.hanning``/``hamming``/``blackman``: the registry's window of M
+    points as an NDArray on ``ctx`` (default: the current context)."""
+    opdef = _registry.get_op(name)
+
+    def window(M=1, dtype="float32", ctx=None, **kwargs):
+        return _make(opdef.fn(M, dtype, "cpu"), ctx)
+    window.__name__ = name
+    window.__doc__ = opdef.fn.__doc__
+    return window
+
+
+hanning = _npi_hanning = _window_op("_npi_hanning")
+hamming = _npi_hamming = _window_op("_npi_hamming")
+blackman = _npi_blackman = _window_op("_npi_blackman")
 
 
 def linspace(start, stop, num, endpoint=True, ctx=None, dtype=None):

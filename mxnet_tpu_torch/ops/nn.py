@@ -5,8 +5,9 @@ softmax_cross_entropy, the loss heads (SoftmaxOutput and the three
 regression outputs, each a ``torch.autograd.Function`` with the
 reference's gradient), BatchNorm (batch statistics in training, running
 statistics otherwise), LayerNorm, InstanceNorm, GroupNorm,
-L2Normalization, LRN, Dropout, UpSampling, BilinearSampler and
-GridGenerator. The fused ``RNN`` op is left for the recurrent slice.
+L2Normalization, LRN, Dropout, UpSampling, BilinearSampler,
+GridGenerator and the fused ``RNN`` (layers of RNN, LSTM or GRU cells in
+one or both directions over a packed parameter vector).
 
 Layouts follow the JAX package: NCHW by default, the channels-last layouts
 (NWC/NHWC/NDHWC) where ``layout=`` says so, and OIHW weights in every
@@ -16,6 +17,13 @@ run through ``torch.nn.functional``; the JAX package leaves them to XLA.
 product under the port's ``precision.matmul_precision`` (None defers to
 the global policy). Dropout draws its mask from the port's generator of
 the input's device (``random.generator``).
+
+``RNN`` keeps the JAX package's structure: per layer and direction, one
+product of all steps' inputs with the input weights, then a Python loop
+over time of the recurrent product and the gate math, under autograd (the
+JAX package's ``lax.scan``). ``rnn_packed_param_size`` and
+``rnn_packed_input_size`` hold the packing arithmetic that
+``initializer.FusedRNN`` and ``symbol/infer.py`` read.
 
 The values a ``remat_policy`` may keep are tagged where they are made, as
 the JAX package tags them: convolution outputs "conv_out", max-pool
@@ -44,7 +52,8 @@ __all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
            "logistic_regression_output", "batch_moments", "batch_norm",
            "layer_norm", "instance_norm", "group_norm", "l2_normalization",
            "lrn", "dropout", "upsampling", "bilinear_sampler",
-           "grid_generator"]
+           "grid_generator", "rnn_packed_param_size",
+           "rnn_packed_input_size", "rnn_fused"]
 
 
 def _pair(v, n=2):
@@ -695,3 +704,178 @@ def grid_generator(data, transform_type="affine", target_shape=(0, 0)):
         fy = (data[:, 1] + gy) * 2 / max(hh - 1, 1) - 1
         return torch.stack([fx, fy], dim=1)
     raise ValueError(transform_type)
+
+
+# -- fused RNN -----------------------------------------------------------------
+
+_RNN_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "gru": 3, "lstm": 4}
+
+
+def rnn_packed_param_size(mode, input_size, state_size, num_layers, ndir):
+    """Length of the packed ``RNN`` parameter vector."""
+    g = _RNN_GATES[mode]
+    h = state_size
+    return ndir * g * h * (input_size + h + 2) \
+        + (num_layers - 1) * ndir * g * h * (h * ndir + h + 2)
+
+
+def rnn_packed_input_size(total, mode, state_size, num_layers, ndir):
+    """The layer-0 input size of a packed vector of ``total`` values (the
+    inverse of ``rnn_packed_param_size``)."""
+    g = _RNN_GATES[mode]
+    h = state_size
+    return total // ndir // g // h - (num_layers - 1) * (h + ndir * h + 2) \
+        - h - 2
+
+
+def _rnn_unpack_params(parameters, mode, input_size, state_size, num_layers,
+                       ndir):
+    """Views of the packed vector per (layer, direction): (w_i2h, w_h2h,
+    b_i2h, b_h2h). cuDNN's order: all weights layer-major with the
+    direction inner, then all biases."""
+    g = _RNN_GATES[mode]
+    h = state_size
+    shapes_w, shapes_b = [], []
+    for layer in range(num_layers):
+        isz = input_size if layer == 0 else h * ndir
+        for _ in range(ndir):
+            shapes_w += [(g * h, isz), (g * h, h)]
+            shapes_b += [(g * h,), (g * h,)]
+    out, off = [], 0
+    for shp in shapes_w + shapes_b:
+        n = math.prod(shp)
+        out.append(parameters[off:off + n].reshape(shp))
+        off += n
+    nw = len(shapes_w)
+    return [(out[i], out[i + 1], out[nw + i], out[nw + i + 1])
+            for i in range(0, nw, 2)]   # index: layer * ndir + direction
+
+
+def _rnn_cell_step(mode, h_prev, c_prev, i2h, h2h, clip=None):
+    """One step's gate math from its two projections. LSTM gates [i, f, g,
+    o]; GRU [r, z, n] with n = tanh(i2h_n + r * h2h_n). ``clip`` = (min,
+    max, nan) clips the LSTM cell state at every step as cuDNN's
+    CUDNN_RNN_CLIP does (NaN to the clipped 0 where ``nan``)."""
+    if mode in ("rnn_relu", "rnn_tanh"):
+        pre = i2h + h2h
+        return (torch.relu(pre) if mode == "rnn_relu" else torch.tanh(pre),
+                c_prev)
+    if mode == "gru":
+        ir, iz, inn = i2h.chunk(3, -1)
+        hr, hz, hn = h2h.chunk(3, -1)
+        r = torch.sigmoid(ir + hr)
+        z = torch.sigmoid(iz + hz)
+        n = torch.tanh(inn + r * hn)
+        return (1.0 - z) * n + z * h_prev, c_prev
+    if mode == "lstm":
+        gi, gf, gg, go = (i2h + h2h).chunk(4, -1)
+        c = torch.sigmoid(gf) * c_prev + torch.sigmoid(gi) * torch.tanh(gg)
+        if clip is not None:
+            cmin, cmax, cnan = clip
+            c = torch.clamp(c, cmin, cmax)
+            if cnan:
+                c = torch.where(torch.isnan(c),
+                                torch.clamp(torch.zeros_like(c), cmin, cmax),
+                                c)
+        return torch.sigmoid(go) * torch.tanh(c), c
+    raise ValueError("unknown RNN mode %r" % (mode,))
+
+
+def _sequence_reverse(x, lengths):
+    """Reverse (T, N, C) within each sample's valid prefix; the padding
+    stays in place."""
+    t = torch.arange(x.shape[0], device=x.device)[:, None]
+    lens = lengths.to(torch.int64)[None, :]
+    idx = torch.where(t < lens, lens - 1 - t, t)
+    return torch.gather(x, 0, idx[..., None].expand(x.shape))
+
+
+def _rnn_layer_scan(mode, x, h0, c0, w_i2h, w_h2h, b_i2h, b_h2h, reverse,
+                    lengths=None, clip=None):
+    """One direction of one layer over the sequence: the input projection
+    of every step in one (T*N, I) x (I, G*H) product, then per step the
+    (N, H) x (H, G*H) recurrent product and the gate math. With
+    ``lengths`` (N,), steps past a sample's length keep its state and
+    emit zeros, and the reverse direction reverses within the valid
+    prefix, so each final state is taken at its sample's own end."""
+    if reverse:
+        x = _sequence_reverse(x, lengths) if lengths is not None \
+            else torch.flip(x, (0,))
+    i2h_all = torch.matmul(x, w_i2h.t()) + b_i2h
+    lens = lengths.to(torch.int64) if lengths is not None else None
+    h, c = h0, c0
+    outs = []
+    for t in range(x.shape[0]):
+        h2h = torch.matmul(h, w_h2h.t()) + b_h2h
+        h_new, c_new = _rnn_cell_step(mode, h, c, i2h_all[t], h2h, clip=clip)
+        if lens is None:
+            h, c = h_new, c_new
+            outs.append(h)
+            continue
+        valid = (t < lens)[:, None]
+        h = torch.where(valid, h_new, h)
+        c = torch.where(valid, c_new, c)
+        outs.append(torch.where(valid, h, 0.0))
+    hs = torch.stack(outs, 0)
+    if reverse:
+        hs = _sequence_reverse(hs, lengths) if lengths is not None \
+            else torch.flip(hs, (0,))
+    return hs, h, c
+
+
+@register("RNN", aliases=("rnn",))
+def rnn_fused(data, parameters, state, state_cell=None, sequence_length=None,
+              key=None, *, mode="lstm", state_size=None, num_layers=1,
+              bidirectional=False, p=0.0, state_outputs=False,
+              projection_size=None, lstm_state_clip_min=None,
+              lstm_state_clip_max=None, lstm_state_clip_nan=False,
+              use_sequence_length=False, _training=True):
+    """Fused multi-layer RNN in one or both directions. Layout TNC: data
+    (T, N, I); state (L*D, N, H); a packed 1-D ``parameters``. Dropout
+    ``p`` applies to the inputs of layers after the first in training,
+    its mask drawn from ``key`` (a ``torch.Generator``) or the port's
+    generator of the data's device. With ``use_sequence_length`` the
+    input after the states is the per-sample valid length (N,); for
+    modes without a cell state it arrives in the ``state_cell`` slot, as
+    the op's inputs are positional."""
+    if projection_size:
+        raise NotImplementedError("LSTMP projection is not supported")
+    if state_size is None:
+        raise ValueError("state_size required")
+    if use_sequence_length:
+        if mode != "lstm" and sequence_length is None:
+            state_cell, sequence_length = None, state_cell
+        if sequence_length is None:
+            raise ValueError("use_sequence_length=True requires a "
+                             "sequence_length input")
+    else:
+        sequence_length = None
+    clip = None
+    if mode == "lstm" and lstm_state_clip_min is not None:
+        clip = (lstm_state_clip_min, lstm_state_clip_max,
+                lstm_state_clip_nan)
+    ndir = 2 if bidirectional else 1
+    per = _rnn_unpack_params(parameters, mode, data.shape[-1], state_size,
+                             num_layers, ndir)
+    x = data
+    h_lasts, c_lasts = [], []
+    for layer in range(num_layers):
+        if layer > 0 and p > 0.0 and _training and not x.is_meta:
+            x = dropout(x, key=key, p=p)
+        outs = []
+        for d in range(ndir):
+            idx = layer * ndir + d
+            h0 = state[idx]
+            c0 = state_cell[idx] if state_cell is not None \
+                else torch.zeros_like(h0)
+            hs, h_last, c_last = _rnn_layer_scan(
+                mode, x, h0, c0, *per[idx], reverse=(d == 1),
+                lengths=sequence_length, clip=clip)
+            outs.append(hs)
+            h_lasts.append(h_last)
+            c_lasts.append(c_last)
+        x = outs[0] if ndir == 1 else torch.cat(outs, dim=-1)
+    out_h = torch.stack(h_lasts, 0)
+    if mode == "lstm":
+        return (x, out_h, torch.stack(c_lasts, 0)) if state_outputs else x
+    return (x, out_h) if state_outputs else x

@@ -9,6 +9,8 @@ optimizer apply shares with the gradient reduction of the multi-GPU slice
 (``elastic``: ``CheckpointManager``, ``shard_for_rank``,
 ``ReshardRequired``)."""
 from . import overlap  # noqa: F401
+from .overlap import bucket_plan, default_bucket_bytes  # noqa: F401
+from .ring_attention import blockwise_attention  # noqa: F401
 from . import elastic  # noqa: F401
 from .elastic import (CheckpointManager, ReshardRequired,  # noqa: F401
                       shard_for_rank)

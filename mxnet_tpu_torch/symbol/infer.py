@@ -20,18 +20,6 @@ from ..ops import registry as _registry
 
 __all__ = ["infer_shape"]
 
-# Gates per cell of the fused RNN op's modes (the JAX package's
-# ops/nn.py), for the packed parameter length of an RNN node.
-_RNN_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "gru": 3, "lstm": 4}
-
-
-def _rnn_packed_param_size(mode, input_size, state_size, num_layers, ndir):
-    g = _RNN_GATES[mode]
-    h = state_size
-    return ndir * g * h * (input_size + h + 2) \
-        + (num_layers - 1) * ndir * g * h * (h * ndir + h + 2)
-
-
 def _pairify(v, n):
     if v is None:
         return (1,) * n
@@ -81,10 +69,11 @@ def _hint_param_shapes(node, in_shapes):
         out["weight"] = (int(a.get("input_dim")), int(a.get("output_dim")))
     elif op in ("RNN", "rnn"):
         # packed parameter length + state shapes
+        from ..ops.nn import rnn_packed_param_size
         h = int(a.get("state_size"))
         layers = int(a.get("num_layers", 1))
         nd = 2 if a.get("bidirectional") else 1
-        out["parameters"] = (_rnn_packed_param_size(
+        out["parameters"] = (rnn_packed_param_size(
             a.get("mode", "lstm"), data[-1], h, layers, nd),)
         out["state"] = (layers * nd, data[1], h)
         out["state_cell"] = (layers * nd, data[1], h)

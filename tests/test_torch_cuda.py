@@ -1598,3 +1598,76 @@ def test_step_cost_count_on_the_card_equals_the_cpu():
     assert recs["gpu"]["flops"] == recs["cpu"]["flops"] == want
     assert recs["gpu"]["bytes_accessed"] == recs["cpu"]["bytes_accessed"]
     assert perfmodel._assumptions()["chip"] in torch.cuda.get_device_name(0)
+
+
+@pytest.mark.cuda
+def test_word_lm_step_on_the_card_matches_the_cpu():
+    """chip_smoke.py's word LM (a tied 2-layer LSTM over the fused RNN op),
+    narrow: one f32 step (dropout 0, TF32 off) on the card against the
+    CPU from the same weights: the loss within 1e-5 relative, every
+    gradient within 1e-4 and every updated weight within 1e-5 of its
+    tensor's largest value."""
+    _need_card()
+    cs = _chip_smoke_module()
+    kw = dict(vocab=500, embed=32, hidden=32, layers=2)
+    model, _, _ = cs.wlm_setup(mx, mx.cpu(), 0.0, **kw)
+    arrays = {n: p.data().asnumpy()
+              for n, p in model.collect_params().items()}
+    stream = torch.from_numpy(cs.wlm_stream(steps=1, batch=8, bptt=12,
+                                            vocab=500))
+    (lg, gg, wg), (lc, gc, wc) = cs.wlm_card_vs_cpu(
+        mx, arrays, stream[:12], stream[1:13], **kw)
+    assert cs._rel(lg, lc) <= cs.WLM_LOSS_RTOL
+    assert cs._worst(gg, gc)[0] <= cs.WLM_GRAD_RTOL
+    assert cs._worst(wg, wc)[0] <= cs.WLM_WEIGHT_RTOL
+
+
+@pytest.mark.cuda
+def test_bucketing_module_step_on_the_card_matches_the_cpu():
+    """lstm_bucketing.py's model, narrow: one BucketingModule
+    forward/backward/update per bucket key on the card and on the CPU
+    from the same parameters (f32, TF32 off): outputs within 1e-4 and
+    parameters within 1e-5 of each tensor's largest value."""
+    _need_card()
+    cs = _chip_smoke_module()
+    it, vocab = cs.bucket_data(mx)
+    _, sym_gen = cs.bucket_lm(mx, vocab, hidden=24, embed=16)
+    batches = {}
+    for b in it:
+        batches.setdefault(b.bucket_key, b)
+    results = []
+    with mx.precision.matmul_precision("float32"):
+        for ctx in (mx.gpu(0), mx.cpu()):
+            mod = mx.mod.BucketingModule(
+                sym_gen, default_bucket_key=it.default_bucket_key,
+                context=ctx)
+            mod.bind(data_shapes=it.provide_data,
+                     label_shapes=it.provide_label)
+            mod.init_params(initializer=mx.init.Zero())
+            if not results:
+                rs = np.random.RandomState(0)
+                params = {k: (rs.rand(*v.shape) * 0.2 - 0.1).astype("f")
+                          for k, v in sorted(mod.get_params()[0].items())}
+            mod.set_params({k: mx.nd.array(v, ctx=mx.cpu())
+                            for k, v in params.items()}, {})
+            mod.init_optimizer(optimizer="sgd", optimizer_params={
+                "learning_rate": 0.01, "momentum": 0.9})
+            outs = []
+            for key in sorted(batches):
+                b = batches[key]
+                batch = mx.io.DataBatch(
+                    [mx.nd.array(b.data[0].asnumpy(), ctx=ctx)],
+                    [mx.nd.array(b.label[0].asnumpy(), ctx=ctx)],
+                    bucket_key=key, provide_data=b.provide_data,
+                    provide_label=b.provide_label)
+                mod.forward(batch, is_train=True)
+                outs.append(mod.get_outputs()[0].asnumpy())
+                mod.backward()
+                mod.update()
+            results.append((outs, {k: v.asnumpy() for k, v in
+                                   mod.get_params()[0].items()}))
+    (og, pg), (oc, pc) = results
+    for a, b in zip(og, oc):
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+    for k in pc:
+        assert np.abs(pg[k] - pc[k]).max() <= 1e-5 * np.abs(pc[k]).max(), k

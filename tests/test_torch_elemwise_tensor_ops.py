@@ -505,9 +505,9 @@ def test_port_op_matches_jax(module, name, canon, no_grad, jfn):
 def test_every_jax_name_has_a_case():
     """The table covers both JAX modules' names (a name added to either
     module fails here until it is ported and given a case), and so do the
-    tables of ``ops/nn.py`` (but ``RNN``, left for the recurrent slice),
-    ``ops/linalg.py`` and ``ops/random_ops.py`` in their own test files:
-    every name of theirs, aliases included, is in the port's registry."""
+    tables of ``ops/nn.py``, ``ops/linalg.py`` and ``ops/random_ops.py``
+    in their own test files: every name of theirs, aliases included, is
+    in the port's registry."""
     canon = {c for _, _, c, _, _ in NAMES}
     assert canon <= set(SPECS), sorted(canon - set(SPECS))
     assert len({n for _, n, *_ in NAMES}) >= 190
@@ -527,4 +527,4 @@ def test_every_jax_name_has_a_case():
             (modname, sorted(names - set(treg.list_ops())))
         jcanon = {name for name, *_ in got} - left
         assert jcanon <= cases, (modname, sorted(jcanon - cases))
-    assert set(nn_t.LEFT_OUT) == {"RNN"}
+    assert set(nn_t.LEFT_OUT) == set()

@@ -1,6 +1,7 @@
-"""Every op name that the JAX package's ``ops/nn.py`` registers (but the
-fused ``RNN``, left for the recurrent slice), held against the port's op of
-that name on the same numpy inputs, with the gradient against ``jax.vjp``.
+"""Every op name that the JAX package's ``ops/nn.py`` registers, held
+against the port's op of that name on the same numpy inputs, with the
+gradient against ``jax.vjp`` (the fused ``RNN`` here on one float32 case;
+its modes and gradients are in ``test_torch_rnn.py``).
 
 The names come from running the JAX module's source with a recording
 ``register`` (``test_torch_elemwise_tensor_ops._capture``), so the
@@ -37,7 +38,7 @@ F32 = 1e-5
 BF16 = 1.6e-2
 GRAD_F32 = 1e-5
 GRAD_NORM = 1e-4
-LEFT_OUT = {"RNN": "the fused RNN op goes with rnn/ and gluon/rnn/ (M11)"}
+LEFT_OUT = {}
 
 
 def _names(modname, short):
@@ -404,6 +405,14 @@ def _grid(rs):
             ((U(rs, (2, 2, 4, 5)),), {"transform_type": "warp"})]
 
 
+def _rnn(rs):
+    # one LSTM layer, T 3, N 2, I 2, H 3: the packed vector is 4 * 3 *
+    # (2 + 3 + 2) long
+    return [((U(rs, (3, 2, 2)), U(rs, (84,), -0.5, 0.5), U(rs, (1, 2, 3)),
+              U(rs, (1, 2, 3))),
+             {"mode": "lstm", "state_size": 3, "state_outputs": True})]
+
+
 SPECS = {
     "FullyConnected": Spec(_fc),
     "Convolution": Spec(_conv),
@@ -430,6 +439,7 @@ SPECS = {
     "UpSampling": Spec(_upsampling, exact=True),
     "BilinearSampler": Spec(_bilinear),
     "GridGenerator": Spec(_grid),
+    "RNN": Spec(_rnn, bf16=False, grad=False),
 }
 
 
