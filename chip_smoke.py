@@ -541,7 +541,7 @@ PHASES = ("env", "kernel", "serve", "serve_int8", "train", "train_kv",
           "train_fused", "train_adam", "train_sharded", "ndarray", "zoo",
           "train_amp", "train_rec", "train_jpeg", "train_det", "api",
           "train_module", "train_symblock", "observe", "custom", "health",
-          "train_rnn", "train_lm", "train_lm_deep", "time")
+          "train_rnn", "train_dist", "train_lm", "train_lm_deep", "time")
 # Parts of "kernel" and "time" that --phases can name alone (after env):
 # the BatchNorm kernels' checks and timing, the training steps' timing
 # (after the train phases), the conv_fused forward's, the backward pair's,
@@ -6095,7 +6095,8 @@ def phase_time_apply(torch, state):
     its segment-table uploads), the plain version over the packed
     segments, the concatenate-and-split copies that a packing
     implementation would add around it (this kernel has none), and the
-    per-parameter update phase that MXTPU_FUSED_APPLY=0 runs."""
+    per-parameter update phase that MXTPU_FUSED_APPLY=0 runs; and as a
+    yardstick torch._fused_sgd_ over the same tensors."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import optimizer as topt
     from mxnet_tpu_torch.kernels import optimizer_apply as OA
@@ -6133,6 +6134,19 @@ def phase_time_apply(torch, state):
                 w.copy_(nw)
                 m.copy_(nm)
 
+    scale = torch.full((), 1.0 / rescale, device="cuda")
+
+    def library():
+        # PyTorch's SGD (buf = 0.9 buf + g; w -= lr buf) is MXNet's
+        # (mom = 0.9 mom - lr g; w += mom) with buf = -mom / lr at a
+        # constant lr, up to rounding; grad_scale divides the gradients
+        torch._fused_sgd_(ws, gs, ms, weight_decay=0.0,
+                          momentum=SGD["momentum"],
+                          lr=SGD["learning_rate"], dampening=0.0,
+                          nesterov=False, maximize=False,
+                          is_first_step=False, grad_scale=scale,
+                          found_inf=None)
+
     n = sum(w.numel() for w in ws)
     _, (_, f32_peak, bw) = card
     ops, nbytes = OA.cost("sgd_momentum", n, len(ws), 2)
@@ -6151,9 +6165,11 @@ def phase_time_apply(torch, state):
            "per_param_update_phase_host_ms": host_ms(torch, per_param, 5),
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": None,
-           "library_note": "no single PyTorch call computes MXNet's SGD "
-                           "step (rescale, clip, wd, momentum as one op)",
+           "library_ms": device_busy_ms(torch, library, 10),
+           "library_note": "torch._fused_sgd_ over the same tensors "
+                           "(momentum 0.9, dampening 0, wd 0, grad_scale "
+                           "1/rescale): MXNet's SGD step up to rounding at "
+                           "a constant lr, not bit-equal",
            "tensors": len(ws), "elements": n, "buckets": len(segs)}
     res["roofline_share"] = roofline_share(res["bound_ms"], res["ms"],
                                            "optimizer_apply SGD")
@@ -9029,6 +9045,667 @@ def phase_train_rnn(torch, state):
             raise AssertionError("train_rnn: " + what)
 
 
+# -- phase train_dist (data parallelism across processes, M10a) ---------------
+
+# Three ShardedTrainStep steps per run; each child process of the phase has
+# DIST_CHILD_TIMEOUT_S to finish, and its process group DIST_PG_TIMEOUT_S
+# per collective.
+DIST_STEPS = 3
+DIST_CHILD_TIMEOUT_S = 300
+DIST_PG_TIMEOUT_S = 120
+# gloo's two ranks on the one card against the one-device b128 step, bf16:
+# the losses within DIST_LOSS_RTOL, every parameter and running statistic
+# within DIST_WEIGHT_TOL of its largest magnitude (two bf16 ulps at the
+# top; the ranks' convolutions see 64 rows, not 128, and the statistics
+# are combined from the ranks' instead of one tree: rounding only). Three
+# steps at lr 0.01 move the weights too little for that check to see a
+# wrong update, and bf16 gradients of the random-init net differ by tens
+# of percent between two orders of summation, so one more step of each
+# path runs in f32 (TF32 off, cuDNN deterministic) and its gradients
+# (after the sum over 'dp') are held against the one-device f32 step's,
+# each tensor's error over its own largest magnitude. Even in f32 these
+# differ by percents at the worst tensor between two orders of summation:
+# the worst and the median error over the tensors must be within
+# DIST_GRAD_SPREAD times those of the one-device step on the batch's rows
+# reversed (the same function, summed in another order), and the overlap
+# path's (local-batch BatchNorm statistics, a different function) must
+# exceed that: the check's power.
+DIST_LOSS_RTOL = 1e-2
+DIST_WEIGHT_TOL = 2.0 ** -6
+DIST_GRAD_SPREAD = 2.0
+DIST_FUSED_STEPS = 2
+DIST_DTYPES = ("float32", "bfloat16", "float16", "int32")
+DIST_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter",
+                    "all_to_all", "broadcast", "send_recv")
+
+
+def _dist_stage(rank, name):
+    """A child's progress, in its log (printed where the phase fails) and
+    in its result, with the seconds since the process started."""
+    at = time.perf_counter() - _T0
+    _STAGES.append((name, round(at, 2)))
+    print("train_dist child rank %d: %s at %.1f s" % (rank, name, at),
+          file=sys.stderr, flush=True)
+
+
+_T0 = time.perf_counter()
+_STAGES = []
+
+
+def _dist_inputs(folder):
+    """ResNet-50's weights (``_arrays``) and the batch (``_batch``), as the
+    phase wrote them for its children."""
+    with np.load(os.path.join(folder, "inputs.npz")) as z:
+        arrays = {k[2:]: z[k] for k in z.files if k.startswith("w:")}
+        return arrays, z["x"], z["y"]
+
+
+def _dist_join(backend, rank, world, folder, tag):
+    from mxnet_tpu_torch.parallel import initialize_distributed
+    initialize_distributed("file://" + os.path.join(folder, "store_" + tag),
+                           world, rank, backend=backend,
+                           timeout=DIST_PG_TIMEOUT_S)
+
+
+def _digest(torch, params):
+    """{path: sha256 of the tensor's bytes}: equal digests are equal
+    bits."""
+    import hashlib
+    return {k: hashlib.sha256(params[k].detach().contiguous().reshape(-1)
+                              .view(torch.uint8).cpu().numpy().tobytes())
+            .hexdigest()[:16] for k in sorted(params)}
+
+
+def _differ(a, b):
+    """The paths whose digests differ between two ranks."""
+    return sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+
+
+def _rows_counts(BNF, CF):
+    """Launches of rows 1-7 since the last zeroing."""
+    conv = _conv_counts(CF)
+    return {"conv_fused": conv["fwd"], "conv_fused.bwd_dx": conv["bwd_dx"],
+            "conv_fused.bwd_dw": conv["bwd_dw"],
+            **{k: v for k, v in _bn_counts(BNF).items() if k != "copies"}}
+
+
+def _rows_wanted(steps):
+    """Rows 1-7 per ShardedTrainStep step of the fuse=True net (the
+    sharded configuration of phase train_sharded), times ``steps``."""
+    conv, bn = _sharded_want(FUSED_PER_STEP, False)
+    out = {"conv_fused": conv["fwd"], "conv_fused.bwd_dx": conv["bwd_dx"],
+           "conv_fused.bwd_dw": conv["bwd_dw"], **bn}
+    return {k: steps * n for k, n in out.items()}
+
+
+def _collective_table(torch, backend, rank, world):
+    """Which collectives ``backend`` takes for CUDA tensors of each dtype:
+    "ok" or the error's first line. Each gloo probe runs on a group of its
+    own (every rank makes the same groups in the same order), so that a
+    probe that breaks its group's connections leaves the others whole."""
+    import datetime
+    import torch.distributed as dist
+    out = {}
+    for dt in DIST_DTYPES:
+        dtype = getattr(torch, dt)
+        x = (torch.arange(8, device="cuda") + rank).to(dtype)
+        calls = {
+            "all_reduce": lambda: dist.all_reduce(x.clone(), group=group),
+            "all_gather": lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(world)], x, group=group),
+            "reduce_scatter": lambda: dist.reduce_scatter_tensor(
+                torch.empty(8 // world, dtype=dtype, device="cuda"), x,
+                group=group),
+            "all_to_all": lambda: dist.all_to_all_single(
+                torch.empty_like(x), x, group=group),
+            "broadcast": lambda: dist.broadcast(x.clone(), 0, group=group),
+            "send_recv": lambda: [w.wait() for w in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, x, (rank + 1) % world, group),
+                 dist.P2POp(dist.irecv, torch.empty_like(x),
+                            (rank - 1) % world, group)])],
+        }
+        for name in DIST_COLLECTIVES:
+            if name == "send_recv" and (world == 1 or backend == "gloo"):
+                # gloo's send of a CUDA tensor ends the process (part
+                # "gloo_p2p" probes it in processes of its own)
+                out["%s/%s" % (name, dt)] = "n/a: one rank" if world == 1 \
+                    else "see gloo_p2p"
+                continue
+            group = dist.new_group(
+                backend=backend, timeout=datetime.timedelta(seconds=30)) \
+                if backend == "gloo" else None
+            try:
+                calls[name]()
+                torch.cuda.synchronize()
+                out["%s/%s" % (name, dt)] = "ok"
+            except Exception as e:      # recorded: the backend's answer
+                out["%s/%s" % (name, dt)] = str(e).strip().splitlines()[0][
+                    :160] if str(e).strip() else type(e).__name__
+    return out
+
+
+def _dist_profile(torch, fn, iters):
+    """``iters`` calls of fn() in one torch.profiler window of device
+    activity only (one window, no retry: every rank must run the same
+    steps; a window that records host ops too takes ~30 s to stop):
+    (device busy ms per call over every kernel and copy, {collective
+    kernel or copy: device ms, calls} per call: NCCL's kernels, gloo's
+    copies through pinned host memory)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy, coll = 0.0, {}
+    for ev in prof.key_averages():
+        us = _self_device_us(ev)
+        busy += us
+        key = ev.key.lower()
+        if any(s in key for s in ("nccl", "gloo", "memcpy")):
+            coll[ev.key] = {"device_ms": us / 1e3 / iters,
+                            "calls": ev.count / iters}
+    return busy / 1e3 / iters, coll
+
+
+def _dist_sharded(torch, mx, net, mesh, **kw):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import ShardedTrainStep
+    return ShardedTrainStep(net, SoftmaxCrossEntropyLoss(),
+                            mx.optimizer.create("sgd", **SGD), mesh=mesh,
+                            **kw)
+
+
+def _first_grads(step):
+    """{path: f32 host copy} of the gradients of ``step``'s next update,
+    as its update phase receives them (after the sum over 'dp')."""
+    kept, apply = {}, step._apply
+
+    def spy(grads, aux):
+        step._apply = apply
+        kept.update({path: g.detach().float().cpu() for path, g in
+                     zip(step._param_paths, grads) if g is not None})
+        return apply(grads, aux)
+    step._apply = spy
+    return kept
+
+
+def _grad_errors(got, ref):
+    """Each tensor's max |got - ref| over its own max |ref|: (the worst,
+    its path, the median over the tensors)."""
+    errs = sorted(((got[k] - v).abs().max().item()
+                   / max(v.abs().max().item(), 1e-30), k)
+                  for k, v in ref.items())
+    return {"worst": errs[-1][0], "worst_path": errs[-1][1],
+            "median": errs[len(errs) // 2][0], "tensors": len(errs)}
+
+
+def _dist_f32_grads(torch, mx, arrays, x_np, y_np, mesh, **kw):
+    """The first update's gradients of the step in f32 (TF32 off, cuDNN
+    deterministic) on ``mesh``, one step from the phase's weights."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prev = _deterministic_cudnn(torch)
+    try:
+        net = _build_net(mx, arrays, True, "float32", mx.gpu(0))
+        step = _dist_sharded(torch, mx, net, mesh, **kw)
+        xd, yd = step.place_batch(torch.from_numpy(x_np),
+                                  torch.from_numpy(y_np))
+        grads = _first_grads(step)
+        step.step(xd, yd)
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    del step, net
+    torch.cuda.empty_cache()
+    return grads
+
+
+def _dist_run(torch, step, xd, yd, BNF, CF):
+    """DIST_STEPS steps from zeroed counters: (losses, launches)."""
+    torch.cuda.synchronize()
+    _zero_counts(BNF, CF)
+    losses = [float(step.step(xd, yd)) for _ in range(DIST_STEPS)]
+    torch.cuda.synchronize()
+    return losses, _rows_counts(BNF, CF)
+
+
+def _dist_time(torch, step, xd, yd):
+    """Wall ms per step (3 steps after one) and, over 2 more, the device
+    busy ms and the collectives' share."""
+    wall = host_ms(torch, lambda: step.step(xd, yd), 3)
+    busy, coll = _dist_profile(torch, lambda: step.step(xd, yd), 2)
+    return {"wall_ms": wall, "device_busy_ms": busy, "collectives": coll}
+
+
+def _dist_child_nccl(torch, mx, folder):
+    """Part (a): one rank of an NCCL group. ShardedTrainStep on
+    create_mesh() (the group's mesh: global BatchNorm and the gradient
+    reduction through NCCL) against the same construction on a one-device
+    mesh, DIST_STEPS steps from the same weights, cuDNN deterministic."""
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+    from mxnet_tpu_torch.parallel import create_mesh
+    _dist_stage(0, "start")
+    _dist_join("nccl", 0, 1, folder, "a")
+    arrays, x_np, y_np = _dist_inputs(folder)
+    _dist_stage(0, "inputs")
+    x = torch.from_numpy(x_np).to(torch.bfloat16)
+    y = torch.from_numpy(y_np)
+    dev = torch.device("cuda", 0)
+    out, steps = {}, {}
+    prev = _deterministic_cudnn(torch)
+    try:
+        for name, mesh in (("one_device", create_mesh(devices=[dev])),
+                           ("nccl_world1", create_mesh())):
+            _dist_stage(0, name)
+            net = _build_net(mx, arrays, True, "bfloat16", mx.gpu(0))
+            step = _dist_sharded(torch, mx, net, mesh)
+            xd, yd = step.place_batch(x, y)
+            grads = _first_grads(step)
+            losses, counts = _dist_run(torch, step, xd, yd, BNF, CF)
+            out[name] = {"losses": losses, "launches": counts,
+                         "distributed": mesh.distributed}
+            steps[name] = (step, xd, yd, grads)
+        _dist_stage(0, "one_device_f32")
+        g32 = _dist_f32_grads(torch, mx, arrays, x_np, y_np,
+                              create_mesh(devices=[dev]))
+        # the same step on the batch's rows in reverse order: the same
+        # function, summed in another order
+        g32r = _dist_f32_grads(torch, mx, arrays, x_np[::-1].copy(),
+                               y_np[::-1].copy(), create_mesh(devices=[dev]))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    a, b = steps["one_device"][0], steps["nccl_world1"][0]
+    # the one-device steps, which part (b) is held against
+    torch.save({"losses": out["one_device"]["losses"],
+                "params": {k: v.detach().cpu() for k, v in a.params.items()},
+                "grads": steps["one_device"][3], "grads_f32": g32},
+               os.path.join(folder, "one_device.pt"))
+    # how far bf16 gradients are from f32's, on one device
+    out["bf16_vs_f32_first_grads"] = _grad_errors(steps["one_device"][3],
+                                                  g32)
+    out["f32_rows_reversed_first_grads"] = _grad_errors(g32r, g32)
+    del g32r
+    out["bitwise"] = out["one_device"]["losses"] == \
+        out["nccl_world1"]["losses"] and all(
+            same_bits(torch, a.params[k], b.params[k]) for k in a.params)
+    del steps["one_device"], a
+    torch.cuda.empty_cache()
+    _dist_stage(0, "timing")
+    out["timing_dp1"] = _dist_time(torch, *steps["nccl_world1"][:3])
+    import torch.distributed as dist
+    out["backend"] = dist.get_backend()
+    _dist_stage(0, "collectives")
+    out["collectives"] = _collective_table(torch, "nccl", 0, 1)
+    return out
+
+
+def _dist_child_gloo(torch, mx, rank, folder):
+    """Parts (b)-(d) on one of two gloo ranks sharing the card (NCCL
+    refuses two ranks on one device)."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.kernels import batchnorm_fused as BNF
+    from mxnet_tpu_torch.kernels import compression as C
+    from mxnet_tpu_torch.kernels import conv_fused as CF
+    from mxnet_tpu_torch.kernels import optimizer_apply as OA
+    from mxnet_tpu_torch.parallel import create_mesh
+    _dist_stage(rank, "start")
+    _dist_join("gloo", rank, 2, folder, "b")
+    dtype = "bfloat16"      # gloo sums bf16 CUDA tensors (part (d))
+    out = {"dtype": dtype}
+    arrays, x_np, y_np = _dist_inputs(folder)
+    _dist_stage(rank, "inputs")
+    x = torch.from_numpy(x_np).to(torch.bfloat16)
+    y = torch.from_numpy(y_np)
+    # part (a)'s one-device b128 steps from the same weights (bf16)
+    ref = torch.load(os.path.join(folder, "one_device.pt")) \
+        if rank == 0 else None
+    runs = {}
+    for name, kw in (("default", {}), ("overlap", {"overlap_grads": True})):
+        _dist_stage(rank, name)
+        net = _build_net(mx, arrays, True, dtype, mx.gpu(0))
+        step = _dist_sharded(torch, mx, net, create_mesh(), **kw)
+        xd, yd = step.place_batch(x, y)
+        grads = _first_grads(step)
+        losses, counts = _dist_run(torch, step, xd, yd, BNF, CF)
+        runs[name] = {"losses": losses, "launches": counts,
+                      "digest": _digest(torch, step.params)}
+        if ref is not None:
+            worst = max(
+                (step.params[k].float().cpu() - v.float()).abs().max()
+                .item() / max(v.float().abs().max().item(), 1e-30)
+                for k, v in ref["params"].items())
+            runs[name]["vs_one_device"] = {
+                "ref_losses": ref["losses"],
+                "loss_rel": max(abs(a - b) / abs(b) for a, b in
+                                zip(losses, ref["losses"])),
+                "weight_worst": worst,
+                "first_grads": _grad_errors(grads, ref["grads"])}
+        del grads
+        if name == "default":
+            _dist_stage(rank, "timing")
+            runs[name]["timing_dp2"] = _dist_time(torch, step, xd, yd)
+        del step, net
+        torch.cuda.empty_cache()
+    for name, kw in (("default", {}), ("overlap", {"overlap_grads": True})):
+        _dist_stage(rank, name + "_f32")
+        g32 = _dist_f32_grads(torch, mx, arrays, x_np, y_np, create_mesh(),
+                              **kw)
+        if ref is not None:
+            runs[name]["vs_one_device"]["first_grads_f32"] = _grad_errors(
+                g32, ref["grads_f32"])
+        del g32
+    ref = None
+    # the fused step's dp mode: packed SGD apply (row 8) after the reduce
+    _dist_stage(rank, "fused")
+    prev = _set_fused_apply("1")
+    try:
+        net = _build_net(mx, arrays, True, dtype, mx.gpu(0))
+        net.hybridize()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD))
+        step = mx.gluon.train_step(net, SoftmaxCrossEntropyLoss(), trainer,
+                                   mesh=create_mesh())
+        xd, yd = x.cuda(), y.cuda()
+        torch.cuda.synchronize()
+        _zero_counts(BNF, CF, OA)
+        modes, losses = [], []
+        for _ in range(DIST_FUSED_STEPS):
+            losses.append(step(xd, yd).float().mean().item())
+            modes.append(step.last_mode)
+        all_params, train_pos, _ = step._param_split()
+        runs["fused"] = {
+            "losses": losses, "modes": modes, "apply": OA.LAUNCHES,
+            "buckets": len(OA.bucketize(
+                [all_params[p]._tensor() for p in train_pos])),
+            # by structural path: the ranks made different numbers of
+            # nets, so their parameters' names differ
+            "digest": _digest(torch, {
+                k: p._tensor()
+                for k, p in net._collect_params_with_prefix().items()})}
+        del step, trainer, net
+        torch.cuda.empty_cache()
+    finally:
+        _set_fused_apply(prev)
+    out["runs"] = runs
+    _dist_stage(rank, "trainer")
+    out["trainer"] = _dist_trainer(torch, mx, rank, arrays, x_np, y_np, C)
+    _dist_stage(rank, "collectives")
+    out["collectives"] = _collective_table(torch, "gloo", rank, 2)
+    return out
+
+
+def _dist_trainer(torch, mx, rank, arrays, x_np, y_np, C):
+    """Part (c): gluon.Trainer(kvstore='dist_sync') with 2-bit compression
+    on the eager bf16 net, b64 a rank (rank r takes rows 64r..64r+63),
+    DIST_STEPS steps; then the first step's gradients pushed through a
+    fresh store against the plain codec of both ranks' gradients summed
+    in rank order, bit for bit."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    net = _build_net(mx, arrays, False, "bfloat16", mx.gpu(0))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SGD),
+                               kvstore="dist_sync",
+                               compression_params=dict(KV_COMPRESSION))
+    loss_fn = SoftmaxCrossEntropyLoss()
+    b = x_np.shape[0] // 2
+    x = torch.from_numpy(x_np[b * rank:b * (rank + 1)]).to("cuda",
+                                                          torch.bfloat16)
+    y = torch.from_numpy(y_np[b * rank:b * (rank + 1)]).cuda()
+    live = [p for p in trainer._params if p.grad_req != "null"]
+    torch.cuda.synchronize()
+    _zero_codec(C)
+    first, losses = None, []
+    for i in range(DIST_STEPS):
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        if i == 0:
+            first = [p._grad_tensor().detach().clone() for p in live]
+        trainer.step(b)
+        losses.append(loss.float().mean().item())
+    torch.cuda.synchronize()
+    codec = {"quantize": C.LAUNCHES_QUANTIZE,
+             "dequantize": C.LAUNCHES_DEQUANTIZE,
+             "quantize_segments": C.SEGMENTS_QUANTIZE,
+             "dequantize_segments": C.SEGMENTS_DEQUANTIZE}
+    # the weights by structural path (the running statistics are each
+    # rank's, as the reference's dist_sync leaves them: not pushed)
+    digest = _digest(torch, {
+        k: p._tensor() for k, p in net._collect_params_with_prefix().items()
+        if p.grad_req != "null"})
+    # the aggregate of the first step's gradients against the plain codec
+    thr = KV_COMPRESSION["threshold"]
+    kv = mx.kv.create("dist_sync")
+    kv.set_gradient_compression(dict(KV_COMPRESSION))
+    keys = list(range(len(live)))
+    kv.init(keys, [torch.zeros_like(g) for g in first])
+    kv.push(keys, first)
+    agg = [torch.zeros_like(g) for g in first]
+    kv.pull(keys, out=agg)
+    bound = kv._compression_params["size_lower_bound"]
+    bad, n = [], 0
+    for i, g in enumerate(first):
+        if g.numel() < bound:
+            continue
+        n += 1
+        flat = g.reshape(-1)
+        words, _ = C.quantize_2bit_reference(flat, torch.zeros_like(flat),
+                                             thr)
+        every = [torch.empty_like(words) for _ in range(2)]
+        dist.all_gather(every, words)
+        total = torch.zeros(flat.numel(), dtype=torch.float32,
+                            device=flat.device)
+        for w in every:
+            total = total + C.dequantize_2bit_reference(w, flat.numel(), thr)
+        if not same_bits(torch, agg[i], total.reshape(g.shape).to(g.dtype)):
+            bad.append(live[i].name)
+    return {"losses": losses, "launches": codec, "digest": digest,
+            "compressed_keys": n, "aggregate_bad": bad[:10],
+            "update_on_kvstore": trainer._update_on_kvstore,
+            "batch_per_rank": b}
+
+
+def _dist_child_p2p(torch, rank, folder):
+    """Part (d)'s send and receive of a CUDA tensor through gloo, in a
+    pair of processes of their own: where gloo cannot, the process may
+    end, and that is the answer."""
+    import torch.distributed as dist
+    _dist_join("gloo", rank, 2, folder, "p2p")
+    x = torch.arange(8, device="cuda", dtype=torch.float32)
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x, 1 - rank),
+        dist.P2POp(dist.irecv, torch.empty_like(x), 1 - rank)])
+    for w in works:
+        w.wait()
+    torch.cuda.synchronize()
+    return {"send_recv/float32": "ok"}
+
+
+def dist_child(torch, part, rank, world, folder):
+    """The body of a child process of phase train_dist: run ``part``, write
+    its result as JSON into ``folder``, leave the process group."""
+    import mxnet_tpu_torch as mx
+    if part == "nccl1":
+        res = _dist_child_nccl(torch, mx, folder)
+    elif part == "gloo_p2p":
+        res = _dist_child_p2p(torch, rank, folder)
+    else:
+        res = _dist_child_gloo(torch, mx, rank, folder)
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    res["child_wall_s"] = time.perf_counter() - _T0
+    res["stages_s"] = _STAGES
+    with open(os.path.join(folder, "%s.%d.json" % (part, rank)), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _dist_spawn(part, world, folder, may_fail=False):
+    """Run ``world`` child processes of ``part``; their results by rank.
+    Fails where a child fails or outlives DIST_CHILD_TIMEOUT_S (then all
+    are killed); with ``may_fail``, a failure is returned as the exit
+    codes and the last line of each child's log instead."""
+    return _dist_wait(_dist_start(part, world, folder), part, folder,
+                      may_fail)
+
+
+def _dist_start(part, world, folder):
+    procs = []
+    for rank in range(world):
+        log = open(os.path.join(folder, "%s.%d.log" % (part, rank)), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-child", part,
+             str(rank), str(world), folder], stdout=log,
+            stderr=subprocess.STDOUT), log))
+    return procs, time.perf_counter()
+
+
+def _dist_wait(started, part, folder, may_fail=False):
+    procs, t0 = started
+    world = len(procs)
+    codes = []
+    for p, log in procs:
+        try:
+            codes.append(p.wait(timeout=max(
+                1.0, DIST_CHILD_TIMEOUT_S - (time.perf_counter() - t0))))
+        except subprocess.TimeoutExpired:
+            for q, _ in procs:
+                q.kill()
+            codes.append(p.wait())
+        log.close()
+    if any(codes) and may_fail:
+        tails = []
+        for _, log in procs:
+            with open(log.name) as f:
+                lines = [ln.strip() for ln in f if ln.strip()]
+            tails.append(lines[-1][:200] if lines else "")
+        return [{"exit_codes": codes, "last_lines": tails}]
+    if any(codes):
+        for rank, (_, log) in enumerate(procs):
+            with open(log.name) as f:
+                print("chip_smoke: train_dist %s rank %d:\n%s"
+                      % (part, rank, f.read()[-6000:]), file=sys.stderr)
+        raise AssertionError("train_dist %s: child exit codes %s"
+                             % (part, codes))
+    out = []
+    for rank in range(world):
+        with open(os.path.join(folder, "%s.%d.json" % (part, rank))) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_train_dist(torch, state):
+    """Path M10a: data parallelism across processes, in child processes of
+    this script (each with its own timeout). (a) One NCCL rank:
+    ShardedTrainStep on create_mesh() against the one-device mesh, bit for
+    bit. (b) Two gloo ranks on the card, dp=2 at global b128: the default
+    path against the one-device step within tolerance (losses and weights
+    in bf16; the first update's gradients in f32 within twice the spread
+    of the one-device step on the rows reversed, which the overlap path's
+    local-batch statistics must exceed), overlap_grads with both ranks'
+    weights bit for bit, each rank's launches of rows 1-7, the
+    fused step's dp mode with the packed apply. (c) The two ranks'
+    Trainer(kvstore='dist_sync') with 2-bit compression. (d) Which
+    collectives and dtypes each backend takes for CUDA tensors, and the
+    step's wall and device ms at dp=1 and dp=2."""
+    import tempfile
+    t0 = time.perf_counter()
+    import mxnet_tpu_torch as mx
+    x_np, y_np = _batch(state)
+    with tempfile.TemporaryDirectory() as folder:
+        np.savez(os.path.join(folder, "inputs.npz"), x=x_np, y=y_np,
+                 **{"w:" + k: v for k, v in _arrays(mx, state).items()})
+        # the send/recv probe beside (a) (it puts 8 floats on the card);
+        # (b) after (a), whose one-device steps it is held against (side
+        # by side the two share the card and slow each other's steps)
+        p2p = _dist_start("gloo_p2p", 2, folder)
+        try:
+            (a,) = _dist_spawn("nccl1", 1, folder)
+        finally:
+            p2p = _dist_wait(p2p, "gloo_p2p", folder, may_fail=True)[0]
+        b = _dist_spawn("gloo2", 2, folder)
+    wall = time.perf_counter() - t0
+    want = _rows_wanted(DIST_STEPS)
+    fails = []
+    if not a["bitwise"]:
+        fails.append("(a) NCCL world 1 differs from the one-device step")
+    for name in ("one_device", "nccl_world1"):
+        if a[name]["launches"] != want:
+            fails.append("(a) %s launches %s, want %s"
+                         % (name, a[name]["launches"], want))
+    runs = [r["runs"] for r in b]
+    for name in ("default", "overlap"):
+        bad = _differ(runs[0][name]["digest"], runs[1][name]["digest"])
+        if bad:
+            fails.append("(b) %s: the ranks' %s differ" % (name, bad[:8]))
+        for rank, r in enumerate(runs):
+            if r[name]["launches"] != want:
+                fails.append("(b) %s rank %d launches %s, want %s"
+                             % (name, rank, r[name]["launches"], want))
+            if not all(np.isfinite(r[name]["losses"])):
+                fails.append("(b) %s rank %d losses %s"
+                             % (name, rank, r[name]["losses"]))
+    vs = runs[0]["default"]["vs_one_device"]
+    spread = a["f32_rows_reversed_first_grads"]
+    bar = {k: DIST_GRAD_SPREAD * spread[k] for k in ("worst", "median")}
+    if not (vs["loss_rel"] <= DIST_LOSS_RTOL
+            and vs["weight_worst"] <= DIST_WEIGHT_TOL
+            and all(vs["first_grads_f32"][k] <= bar[k] for k in bar)):
+        fails.append("(b) default path vs one device: %s, gradient bar %s"
+                     % (vs, bar))
+    local = runs[0]["overlap"]["vs_one_device"]["first_grads_f32"]
+    if not all(local[k] > bar[k] for k in bar):
+        fails.append("(b) the gradient check cannot tell local-batch "
+                     "statistics from the global batch's: %s, bar %s"
+                     % (local, bar))
+    fused = [r["fused"] for r in runs]
+    bad = _differ(fused[0]["digest"], fused[1]["digest"])
+    if bad or any(f["modes"] != ["fused"] * DIST_FUSED_STEPS
+                  or f["apply"] != DIST_FUSED_STEPS * f["buckets"]
+                  for f in fused):
+        fails.append("(b) fused dp mode: %s, differing %s" % ([
+            {k: f[k] for k in ("modes", "apply", "buckets")}
+            for f in fused], bad[:8]))
+    tr = [r["trainer"] for r in b]
+    bad = _differ(tr[0]["digest"], tr[1]["digest"])
+    if bad:
+        fails.append("(c) the ranks' weights %s differ" % bad[:8])
+    for rank, t in enumerate(tr):
+        if t["aggregate_bad"] or t["compressed_keys"] != KV_COMPRESSED:
+            fails.append("(c) rank %d aggregate vs the plain codec: %d keys, "
+                         "differing %s" % (rank, t["compressed_keys"],
+                                           t["aggregate_bad"]))
+        if t["launches"]["quantize"] != DIST_STEPS \
+                or t["launches"]["dequantize"] < DIST_STEPS:
+            fails.append("(c) rank %d codec launches %s"
+                         % (rank, t["launches"]))
+    per_step = {k: n // DIST_STEPS for k, n in
+                runs[0]["default"]["launches"].items()}
+    state["launches_dist"] = {
+        "rows_1_7_per_step_per_rank": per_step,
+        "optimizer_apply_per_step_per_rank":
+            fused[0]["apply"] // DIST_FUSED_STEPS,
+        "codec_per_step_per_rank": {
+            k: n // DIST_STEPS for k, n in tr[0]["launches"].items()}}
+    def bare(d):
+        return {k: bare(v) if isinstance(v, dict) else v
+                for k, v in d.items() if k != "digest"}
+    emit({"phase": "train_dist", "wall_s": wall,
+          "a_nccl_world1": a, "b_gloo_dp2": [
+              bare({k: v for k, v in r.items() if k != "trainer"})
+              for r in b],
+          "c_dist_sync_trainer": [bare(t) for t in tr],
+          "d_collectives": {"nccl": a["collectives"],
+                            "gloo": b[0]["collectives"],
+                            "gloo_p2p": p2p},
+          "launches_wanted_over_3_steps": want, "ok": not fails})
+    if fails:
+        raise AssertionError("train_dist: " + "; ".join(fails))
+
+
 def kernel_summary(state):
     """The {"kernels": [...]} entries: each kernel's launches on its path,
     its error against its plain version and its times beside its bound,
@@ -9039,6 +9716,8 @@ def kernel_summary(state):
         # launches over phase train_sharded's 5 timed steps, per
         # configuration
         return {cfg: n[key] for cfg, n in state["launches_sharded"].items()}
+    dist = state["launches_dist"]
+    rows = dist["rows_1_7_per_step_per_rank"]
     kernels = [{
         "name": "conv_fused", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/conv_fused.cu",
@@ -9050,6 +9729,7 @@ def kernel_summary(state):
         "launches_train_symblock": state["launches_symblock"]["conv_fused"],
         "launches_observe": state["launches_observe"]["conv_fused"],
         "launches_health": state["launches_health"]["conv_fused"],
+        "launches_train_dist_per_step_per_rank": rows["conv_fused"],
         "max_abs_err": state["kernel_err"]["bfloat16"][0],
         "max_rel_err": state["kernel_err"]["bfloat16"][1],
         "tolerance_rel": RTOL["bfloat16"],
@@ -9076,6 +9756,7 @@ def kernel_summary(state):
             "launches_observe": state["launches_observe"][k],
             "launches_custom": state["launches_custom"][k],
             "launches_health": state["launches_health"][k],
+            "launches_train_dist_per_step_per_rank": rows[k],
             "max_abs_err": state["bn_err"][k][0],
             "max_rel_err": state["bn_err"][k][1],
             "tolerance_rel": 0.0 if k in ("stats", "apply") else BN_BWD_RTOL,
@@ -9102,6 +9783,7 @@ def kernel_summary(state):
             "launches_train_jpeg": state["launches_jpeg"]["conv_fused." + k],
             "launches_observe": state["launches_observe"]["conv_fused." + k],
             "launches_health": state["launches_health"]["conv_fused." + k],
+            "launches_train_dist_per_step_per_rank": rows["conv_fused." + k],
             "max_abs_err": state["conv_bwd_err"][k][0],
             "max_rel_err": state["conv_bwd_err"][k][1],
             "tolerance_rel": BWD_RTOL["bfloat16"]["dx"],
@@ -9181,12 +9863,14 @@ def kernel_summary(state):
         "launches_zoo": state["launches_zoo"]["optimizer_apply"],
         "launches_observe": state["launches_observe"]["optimizer_apply"],
         "launches_health": state["launches_health"]["optimizer_apply"],
+        "launches_train_dist_per_step_per_rank":
+            dist["optimizer_apply_per_step_per_rank"],
         # the phase failed unless the apply matched bit for bit
         "max_abs_err": state["apply_err"], "max_rel_err": 0.0,
         "tolerance_rel": 0.0,
         "ms": a["ms"], "kernel_ms": a["ms"], "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
-        "library_ms": None, "library_note": a["library_note"],
+        "library_ms": a["library_ms"], "library_note": a["library_note"],
         "per_param_update_phase_ms": a["per_param_update_phase_ms"],
         "per_param_update_phase_host_ms":
             a["per_param_update_phase_host_ms"],
@@ -9217,6 +9901,8 @@ def kernel_summary(state):
             "replaces": "mxnet_tpu/pallas_kernels/compression.py:%d"
             % CODEC_REPLACES[k],
             "launches": state["launches"]["compression." + k],
+            "launches_train_dist_per_step_per_rank":
+                dist["codec_per_step_per_rank"][k],
             # the kernel phase failed unless every output matched bit for bit
             "max_abs_err": state["codec_err"], "max_rel_err": 0.0,
             "tolerance_rel": 0.0,
@@ -9259,6 +9945,9 @@ def kernel_summary(state):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--dist-child", nargs=4, default=None,
+                    metavar=("PART", "RANK", "WORLD", "FOLDER"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES) - set(SUB_PHASES)
@@ -9277,6 +9966,9 @@ def main(argv=None):
               file=sys.stderr)
         return 2
 
+    if args.dist_child:
+        part, rank, world, folder = args.dist_child
+        return dist_child(torch, part, int(rank), int(world), folder)
     line = smi()
     state = {"smi": line, "card": peaks(line.split(",")[0])}
     for p in PHASES + SUB_PHASES:

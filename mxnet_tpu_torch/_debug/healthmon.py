@@ -235,9 +235,10 @@ def shared_digest():
     gradients are BITWISE-SHARED across ranks qualify (a data-parallel
     step that reduces them before the summary): a single-device digest
     would diverge on every healthy step. The step marks eligibility in
-    ``hmeta['replicated']``; the port's one-device fused step never sets
-    it, and the heartbeat that reads this comes with the multi-GPU slice
-    (ROADMAP M10)."""
+    ``hmeta['replicated']``: the fused step's data-parallel mode sets it
+    (its gradients are summed over 'dp' before the summary); the
+    heartbeat that reads this comes with the asynchronous server (ROADMAP
+    M10b)."""
     return _state["digest"] if _state["digest_shared"] else None
 
 

@@ -164,7 +164,7 @@ class Executor:
         if group2ctx:
             raise MXNetError(
                 "group2ctx places node groups on several devices, which "
-                "arrives with the multi-device slice (ROADMAP M10)")
+                "arrives with Module over several contexts (ROADMAP M10d)")
         self._symbol = symbol
         self._ctx = ctx if ctx is not None else current_context()
         self._device = Context(self._ctx).device   # raises with no CUDA

@@ -82,18 +82,32 @@ The compile cache of the JAX step keeps XLA executables; the port's
 compiled artifacts are the kernels' shared libraries, which
 ``kernels/_build.py`` keeps through ``gluon.compile_cache``.
 
-``mesh``, ``rules`` and a ``bucket_bytes`` other than the default arrive
-with the multi-GPU slice.
+Data parallelism (``mesh=``, a mesh whose only axis of more than one
+device is ``dp``; the JAX step's ``shard_map`` form): every rank calls the
+step with the same global batch and runs it on its rows; the gradients of
+the local loss sums are summed over 'dp' after the backward, one
+collective per bucket (``parallel.overlap.bucketed_reduce``, buckets of
+``bucket_bytes``), and the update phase follows with the global batch
+size, so every rank applies the same update. BatchNorm normalizes with the
+rank's rows and the moving statistics the forward updates are averaged
+over 'dp' (as ``ShardedTrainStep``'s ``overlap_grads`` path does), Dropout draws from a generator folded with the dp index, and the
+per-sample loss returned is the global batch's. A batch 'dp' does not
+divide runs the eager triple on the whole batch (``fallback:mesh-batch-
+indivisible``, counted in ``stats()["mesh_fallbacks"]`` too, with one
+warning). ``rules=`` and a mesh with a model axis of more than one device
+(the JAX step's GSPMD form) belong to M10c and raise.
 """
 from __future__ import annotations
 
 import time as _time
+import warnings
 import zlib
 
 import torch
 
 from .. import autograd
 from .. import profiler as _profiler
+from .. import random as _random
 from .. import storage as _storage
 from .._debug import faultpoint as _faultpoint
 from .._debug import healthmon as _healthmon
@@ -102,7 +116,11 @@ from .._debug import watchdog as _watchdog
 from ..base import getenv
 from ..kernels import _cost
 from ..kernels import optimizer_apply
-from ..parallel.overlap import bucket_plan, default_bucket_bytes
+from ..parallel import overlap as _overlap
+from ..parallel.collectives import _block, all_gather, manual_axes
+from ..parallel.mesh import PartitionSpec
+from ..parallel.overlap import bucket_plan
+from .block import _AUX
 
 __all__ = ["FusedTrainStep", "train_step", "fused_step_enabled",
            "set_fused_step", "stats", "reset_stats"]
@@ -112,6 +130,8 @@ _STATS = {
     "hits": 0,       # steps that ran fused
     "fallbacks": 0,  # steps that ran the eager triple (see last_mode)
     "health_errors": 0,  # healthmon.note_step raised after the update
+    "mesh_fallbacks": 0,  # mesh steps run eagerly: 'dp' does not divide
+    #                       the batch
 }
 
 
@@ -131,7 +151,7 @@ def set_fused_step(enabled):
 
 def stats():
     """Snapshot of the fused-step counters (hits, fallbacks,
-    health_errors)."""
+    health_errors, mesh_fallbacks)."""
     return dict(_STATS)
 
 
@@ -224,12 +244,25 @@ class FusedTrainStep:
         if not callable(loss_fn):
             raise TypeError("loss_fn must be callable, got %r"
                             % type(loss_fn))
-        if mesh is not None or rules is not None or (
-                bucket_bytes is not None
-                and bucket_bytes != default_bucket_bytes()):
+        self._dp = 1
+        if mesh is not None:
+            model = {a: n for a, n in mesh.shape.items()
+                     if a != "dp" and n > 1}
+            if rules is not None or model:
+                raise NotImplementedError(
+                    "train_step: rules= and model axes %s (the GSPMD step "
+                    "over sharded parameters) belong to the LM's parallel "
+                    "modes (M10c); mesh= takes a data-parallel mesh"
+                    % (model,))
+            mesh.local_device()     # a mesh this process can run
+            self._dp = mesh.size("dp")
+        elif rules is not None:
             raise NotImplementedError(
-                "train_step: mesh=, rules= and a custom bucket_bytes are the "
-                "multi-GPU slice's (Slice E); the port trains on one device")
+                "train_step: rules= (the GSPMD step over sharded "
+                "parameters) belongs to the LM's parallel modes (M10c)")
+        self._mesh = mesh
+        self._bucket_bytes = bucket_bytes
+        self._warned_indivisible = False
         self._trainer = trainer
         self._loss_fn = loss_fn
         self._block = block
@@ -270,6 +303,18 @@ class FusedTrainStep:
     # -- dispatch ----------------------------------------------------------
     def _dispatch(self, args, batch_size, ignore_stale_grad, sig):
         reason = self._fallback_reason()
+        if reason is None and self._mesh is not None and args \
+                and args[0].dim() and args[0].shape[0] % self._dp:
+            reason = "mesh-batch-indivisible"
+            _STATS["mesh_fallbacks"] += 1
+            if not self._warned_indivisible:
+                self._warned_indivisible = True
+                warnings.warn(
+                    "fused step: batch dim %d does not divide mesh axis "
+                    "dp=%d; this step (and every step with such a batch) "
+                    "runs eagerly on the whole batch in every process "
+                    "(see fused_step.mesh_fallbacks in profiler.metrics())"
+                    % (args[0].shape[0], self._dp), stacklevel=3)
         if reason is None:
             all_params, train_pos, indices = self._param_split()
             if not train_pos:
@@ -319,7 +364,7 @@ class FusedTrainStep:
             "fused_step", key=sig.split(":", 1)[1],
             dur_us=(_time.perf_counter() - t0) * 1e6,
             flops=counts.flops or None, bytes_accessed=counts.bytes or None,
-            args={"params": len(train_pos), "dp": 1, "dtype": dtype,
+            args={"params": len(train_pos), "dp": self._dp, "dtype": dtype,
                   "peak_tflops": peak, "vector_ops": counts.vector_ops,
                   "kernels": counts.kernels})
         return loss
@@ -421,11 +466,15 @@ class FusedTrainStep:
             lrs = [opt.step_lr(i) for i in indices]
             wds = opt._get_wds(list(indices))
             ws = [all_params[pos]._tensor() for pos in train_pos]
-            with autograd.record():
-                loss = self._call(*args)
-            # the gradient of sum(loss): backward's all-ones head seed;
-            # contiguous, as the eager backward stores .grad
-            grads = [g.contiguous() for g in autograd.grad([loss], ws)]
+            if self._mesh is None:
+                with autograd.record():
+                    loss = self._call(*args)
+                # the gradient of sum(loss): backward's all-ones head
+                # seed; contiguous, as the eager backward stores .grad
+                grads = [g.contiguous() for g in autograd.grad([loss], ws)]
+            else:
+                with manual_axes(self._mesh):
+                    loss, grads = self._mesh_grads(ws, args)
             if hmeta is not None:
                 corrupt = _healthmon.corruption_operand()
                 if corrupt != 0.0:
@@ -465,6 +514,39 @@ class FusedTrainStep:
                 "non-finite training step: MXTPU_HEALTH_ACTION=halt")
         return loss.detach()
 
+    def _mesh_grads(self, ws, args):
+        """The data-parallel forward and backward on this rank's rows:
+        (the global batch's per-sample loss, the gradients of the global
+        loss sum). See the module docstring."""
+        mesh = self._mesh
+        rows = [_block(mesh, PartitionSpec("dp"), a) for a in args]
+        # the running-statistic updates the forward reports are collected,
+        # then written averaged over 'dp' (the last one of each parameter,
+        # as the eager write would leave it)
+        collected = []
+        _AUX.stack.append(collected)
+        try:
+            with _random.folded(ws[0].device, mesh.axis_index("dp")):
+                with autograd.record():
+                    loss = self._call(*rows)
+        finally:
+            _AUX.stack.pop()
+        grads = [g.contiguous() for g in autograd.grad([loss], ws)]
+        grads = _overlap.bucketed_reduce(grads, "dp",
+                                         bucket_bytes=self._bucket_bytes)
+        aux = {}
+        for p, new in collected:
+            aux[id(p)] = (p, new)
+        if aux:
+            aux = list(aux.values())
+            means = _overlap.bucketed_reduce(
+                [new for _, new in aux], "dp",
+                bucket_bytes=self._bucket_bytes, op="mean")
+            with torch.no_grad():
+                for (p, _), mean in zip(aux, means):
+                    p._tensor().copy_(mean)
+        return all_gather(loss.detach(), "dp"), grads
+
     def _health_meta(self, all_params, train_pos):
         """The health plane's view of the trainable parameters: the
         bucket plan (``overlap.bucket_plan``, dtype-homogeneous), the
@@ -476,7 +558,7 @@ class FusedTrainStep:
         return {"plan": plan, "names": names,
                 "bucket_names": [[names[i] for i in b] for b in plan],
                 "action": act, "select": act in ("skip_step", "halt"),
-                "replicated": False}
+                "replicated": self._dp > 1}
 
     def _update(self, opt, ws, gs, states, lrs, wds, rescale):
         """The update phase: packed where ``_packed_apply_fn`` selects,

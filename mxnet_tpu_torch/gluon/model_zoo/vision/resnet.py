@@ -54,13 +54,24 @@ def _fused_opdefs():
     if _FUSED_CONV_OP is None:
         import torch
         from ....ops.registry import OpDef
+        from ....ops import global_batch
         from ....ops.nn import batch_moments
         from ....kernels.conv_fused import fused_scale_relu_conv3x3
 
         def _bn_fold(y, gamma, beta, eps=1e-5):
             # batch_moments, the BatchNorm op's statistics, returned in y's
-            # dtype (so rounded to bf16 for a bf16 net) before the fold
-            mean, var = batch_moments(y, (0, 1, 2), axis=3)
+            # dtype (so rounded to bf16 for a bf16 net) before the fold;
+            # over the global batch inside a data-parallel step across
+            # processes (ops/global_batch.py)
+            dp = global_batch.active()
+            if dp is None:
+                mean, var = batch_moments(y, (0, 1, 2), axis=3)
+            else:
+                mean, var = global_batch.global_moments(
+                    *batch_moments(y, (0, 1, 2), axis=3, fp32_out=True),
+                    dp[0], dp[1])
+                with checkpoint_name("bn_stat"):
+                    mean, var = mean.to(y.dtype), var.to(y.dtype)
             s = gamma.float() * torch.rsqrt(var.float() + eps)
             b = beta.float() - mean.float() * s
             return s, b, mean, var

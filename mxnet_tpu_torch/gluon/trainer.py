@@ -6,15 +6,18 @@ gradients and updates every parameter whose gradient is fresh. A parameter
 whose gradient no backward has written since the last step raises, unless
 ``ignore_stale_grad``.
 
-The reduction goes through a kvstore only when the caller gives one, a
-``KVStore`` object (``mx.kv.create(...)``): then every gradient is pushed
-and pulled back into ``param.grad()`` (through the store's 2-bit
-compression, where it is set), or with ``update_on_kvstore=True`` the
-store's copy of the optimizer updates its weights and the pull writes them
-into the parameters. A kvstore string ``None``, "local", "device" or
-"nccl" attaches no store and ignores ``compression_params`` and
-``update_on_kvstore``, as the JAX package does: one device holds every
-gradient whole. The ``dist*`` strings arrive with the multi-GPU slice.
+The reduction goes through a kvstore when the caller gives one, a
+``KVStore`` object (``mx.kv.create(...)``), or a ``dist*`` string: then
+every gradient is pushed and pulled back into ``param.grad()`` (through
+the store's 2-bit compression, where it is set), or with
+``update_on_kvstore=True`` the store's copy of the optimizer updates its
+weights and the pull writes them into the parameters. A ``dist*`` string
+creates that store, sets ``compression_params`` on it and updates on the
+kvstore unless ``update_on_kvstore=False``, as the JAX package does: the
+workers' gradients are summed across processes in the push. A kvstore
+string ``None``, "local", "device" or "nccl" attaches no store and ignores
+``compression_params`` and ``update_on_kvstore``: one device holds every
+gradient whole.
 """
 from __future__ import annotations
 
@@ -38,10 +41,6 @@ class Trainer:
             raise ValueError(
                 "First argument must be a list or dict of Parameters, "
                 "got %s." % (type(params)))
-        if isinstance(kvstore, str) and kvstore.startswith("dist"):
-            raise NotImplementedError(
-                "kvstore %r: the multi-process kvstores arrive with the "
-                "multi-GPU slice (Slice E)" % kvstore)
         self._params = []
         self._param2idx = {}
         for i, param in enumerate(params):
@@ -51,6 +50,7 @@ class Trainer:
                     "got list of %s." % (type(param)))
             self._param2idx[param.name] = i
             self._params.append(param)
+        self._compression_params = compression_params
         optimizer_params = optimizer_params if optimizer_params else {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
@@ -79,12 +79,22 @@ class Trainer:
         self._params_to_init = list(self._params)
 
     def _init_kvstore(self):
-        """Attach the caller's KVStore object, if any (ref: trainer.py:169);
-        a string attaches none (the module docstring)."""
+        """Attach the caller's KVStore object or a ``dist*`` string's new
+        store, if any (ref: trainer.py:169); another string attaches none
+        (the module docstring)."""
         kvstore = self._kvstore_params["kvstore"]
         update_on_kvstore = self._kvstore_params["update_on_kvstore"]
         kv = None
-        if kvstore is not None and not isinstance(kvstore, str):
+        if isinstance(kvstore, str) and kvstore.startswith("dist"):
+            from .. import kvstore as kvs
+            kv = kvs.create(kvstore)
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
+            if update_on_kvstore is None:
+                update_on_kvstore = True
+            if update_on_kvstore:
+                kv.set_optimizer(self._optimizer)
+        elif kvstore is not None and not isinstance(kvstore, str):
             kv = kvstore
             if update_on_kvstore is None:
                 update_on_kvstore = False
@@ -160,9 +170,10 @@ class Trainer:
         forward, the backward and this trainer's optimizer update as one
         step (see ``gluon.train_step``). ``loss_fn(*batch)`` returns the
         per-sample loss, usually a closure over the net; ``block`` names
-        the net so that the step can check it. ``mesh``, ``rules`` and a
-        ``bucket_bytes`` other than the default arrive with the multi-GPU
-        slice."""
+        the net so that the step can check it. ``mesh`` (a data-parallel
+        mesh across processes) runs it on each rank's rows with the
+        gradients summed over 'dp' in buckets of ``bucket_bytes``;
+        ``rules`` belongs to M10c."""
         from .fused_step import FusedTrainStep
         return FusedTrainStep(self, loss_fn, block=block, mesh=mesh,
                               bucket_bytes=bucket_bytes, rules=rules)
@@ -185,7 +196,8 @@ class Trainer:
         of the step with one codec call. The reference pushes key by key
         with a priority each; the in-process store has no queue to order,
         so the port ignores priority, and the values equal the per-key
-        loop's."""
+        loop's (across processes too: each key's sum over the workers is
+        formed alone)."""
         if self._kvstore is None:
             return
         live = [p for p in self._params if p.grad_req != "null"]

@@ -46,7 +46,8 @@ __all__ = ["cost", "OPS", "FOLD_BLOCK", "fold_blocks", "fold_partials", "tree_fo
            "exact_sq", "exact_mul", "inv_std", "max0", "div_count",
            "stats_reference", "apply_reference", "bwd_reduce_reference",
            "bwd_dx_reference", "batchnorm_reference",
-           "batchnorm_backward_reference", "fused_batch_norm", "stats",
+           "batchnorm_backward_reference", "fused_batch_norm",
+           "combine_moments", "stats",
            "apply", "bwd_reduce", "bwd_dx",
            "LAUNCHES_STATS", "LAUNCHES_APPLY", "LAUNCHES_BWD_REDUCE",
            "LAUNCHES_BWD_DX", "LAUNCHES_FINALIZE", "COPIES"]
@@ -334,34 +335,62 @@ def _rows(t, C):
     return t2
 
 
+def combine_moments(mean, var, across):
+    """The moments of a batch whose rows lie on several ranks, each holding
+    as many: ``across(t)`` is the mean of t over the ranks. Chan's
+    combination in two reductions: ``mean = across(mean_r)`` and ``var =
+    across(var_r + (mean_r - mean)^2)``. With one rank and ``across`` the
+    identity they are the rank's own, bit for bit."""
+    g = across(mean)
+    d = mean - g
+    return g, across(var + d * d)
+
+
 class _FusedBatchNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, act):
+    def forward(ctx, x, gamma, beta, eps, act, across):
         ctx.set_materialize_grads(False)
         x2 = _rows(x, x.shape[-1])
         mean, var = stats(x2)
+        if across is not None:
+            mean, var = combine_moments(mean, var, across)
         out = apply(x2, gamma, beta, mean, var, eps, act)
         ctx.save_for_backward(x2, gamma, beta, mean, var)
-        ctx.eps, ctx.act, ctx.shape = eps, act, x.shape
+        ctx.eps, ctx.act, ctx.across, ctx.shape = eps, act, across, x.shape
         return out.reshape(x.shape), mean, var
 
     @staticmethod
     def backward(ctx, dy, gmean, gvar):
         x2, gamma, beta, mean, var = ctx.saved_tensors
+        C = x2.shape[1]
         if dy is None:
             dx = torch.zeros_like(x2)
             dgamma, dbeta = torch.zeros_like(gamma), torch.zeros_like(beta)
         else:
-            dy2 = _rows(dy, x2.shape[1])
+            dy2 = _rows(dy, C)
             db, dg = bwd_reduce(x2, dy2, gamma, beta, mean, var, ctx.eps,
                                 ctx.act)
-            dx = bwd_dx(x2, dy2, gamma, beta, mean, var, db, dg, ctx.eps,
+            dbx, dgx = db, dg
+            if ctx.across is not None:
+                # the dx kernel divides the sums by its own rows: the
+                # global batch's sums, averaged over the ranks, stand in
+                both = ctx.across(torch.cat([db, dg]))
+                dbx, dgx = both[:C], both[C:]
+            dx = bwd_dx(x2, dy2, gamma, beta, mean, var, dbx, dgx, ctx.eps,
                         ctx.act)
+            # this rank's sums: the step's gradient reduction adds them up
             dgamma, dbeta = dg.to(gamma.dtype), db.to(beta.dtype)
         if gmean is not None or gvar is not None:
             # cotangents of the statistics (zero in a training loop, where
             # the running-statistic update stays outside the graph):
-            # d mean/dx = 1/R, d var/dx = 2(x - mean)/R
+            # d mean/dx = 1/R, d var/dx = 2(x - mean)/R; across ranks, every
+            # rank's cotangents reach the statistics they share
+            if ctx.across is not None:
+                zero = torch.zeros_like(mean)
+                cts = ctx.across(torch.cat([
+                    zero if gmean is None else gmean.float(),
+                    zero if gvar is None else gvar.float()]))
+                gmean, gvar = cts[:C], cts[C:]
             xf = x2.float()
             ct = torch.zeros_like(xf)
             if gmean is not None:
@@ -369,10 +398,10 @@ class _FusedBatchNorm(torch.autograd.Function):
             if gvar is not None:
                 ct = ct + 2.0 * (xf - mean) * gvar
             dx = dx + (ct / xf.shape[0]).to(x2.dtype)
-        return dx.reshape(ctx.shape), dgamma, dbeta, None, None
+        return dx.reshape(ctx.shape), dgamma, dbeta, None, None, None
 
 
-def fused_batch_norm(x, gamma, beta, eps=1e-3, act=None):
+def fused_batch_norm(x, gamma, beta, eps=1e-3, act=None, across=None):
     """Training-mode BatchNorm over the trailing axis with fused statistics,
     normalize and optional activation (``act=None|"relu"``).
 
@@ -384,12 +413,18 @@ def fused_batch_norm(x, gamma, beta, eps=1e-3, act=None):
     non-float operand, operands on two devices or a failed launch. A
     ``meta`` tensor (shape inference) gives empty outputs of the right
     shapes and dtypes.
+
+    ``across`` is for a batch whose rows lie on several ranks, x holding
+    this rank's: a function giving the mean over the ranks of an f32
+    tensor. The statistics become the whole batch's (``combine_moments``),
+    and the backward's dbeta and dgamma pass through it before the dx
+    kernel; the gamma and beta gradients returned stay this rank's sums.
     """
     _check(x, gamma, beta, act)
     if x.device.type not in ("cpu", "cuda", "meta"):
         raise MXNetError("fused_batch_norm: no kernel for device %s"
                          % x.device)
-    return _FusedBatchNorm.apply(x, gamma, beta, float(eps), act)
+    return _FusedBatchNorm.apply(x, gamma, beta, float(eps), act, across)
 
 
 # -- the four kernels, one wrapper each ---------------------------------------

@@ -12,8 +12,20 @@ tensor per key. ``push`` sums the values pushed for a key left to right
 set and the sum has at least ``size_lower_bound`` elements, and then
 either stores it or, once ``set_optimizer`` installed an updater, applies
 the optimizer to the stored weight (update on kvstore). ``pull`` copies a
-key's tensor into each output. The ``dist*`` kinds (one process per
-worker) arrive with the multi-GPU slice (Slice E) and raise here.
+key's tensor into each output.
+
+The ``dist_sync``, ``dist_device_sync`` and ``dist`` kinds run one worker
+per process, over the default ``torch.distributed`` group (``create``
+joins the job ``MXTPU_COORDINATOR`` describes, as ``tools/launch.py``
+sets it): ``rank`` and ``num_workers`` are the group's, every worker
+holds every key, and a push adds the workers' sums, so every worker pulls
+the same values and, updating on the kvstore, applies the same update.
+An uncompressed sum is added over the workers on its device
+(``parallel.host_allreduce``; one collective per (device, dtype) of a
+push's run). A compressed one crosses as its 2-bit words: every worker's
+words are gathered, and every worker dequantizes all of them and adds the
+values in rank order (the JAX package's ``_compress_reduce``). The
+asynchronous server (``dist_async``) belongs to M10b and raises.
 
 Compression (``_compress_run``) is the error-feedback 2-bit codec of
 ``kernels/compression.py``: a push of a key list encodes every large sum
@@ -51,6 +63,7 @@ import torch
 from . import optimizer as opt
 from . import profiler as _profiler
 from .base import atomic_write, getenv
+from .parallel import collectives as _coll
 from .kernels.compression import (dequantize_2bit_group,
                                   quantize_2bit_group)
 from .ndarray.ndarray import nd_io
@@ -104,11 +117,19 @@ class KVStore:
 
     @property
     def rank(self):
-        return 0
+        return _coll.host_rank() if self._dist else 0
 
     @property
     def num_workers(self):
-        return 1
+        return _coll.num_hosts() if self._dist else 1
+
+    @property
+    def _dist(self):
+        return self._kind.startswith("dist")
+
+    def _across(self):
+        """Whether pushes cross processes (a dist kind, several workers)."""
+        return self._dist and _coll.num_hosts() > 1
 
     # -- init/push/pull ----------------------------------------------------
     def init(self, key, value):
@@ -172,6 +193,9 @@ class KVStore:
         of distinct keys."""
         sums = self._compress_run([(k, merged) for k, _, merged in run
                                    if self._compression_active(merged)])
+        if self._across():
+            sums.update(self._sync_reduce([(k, merged) for k, _, merged in run
+                                        if k not in sums]))
         for k, vlist, merged in run:
             merged = sums.get(k, merged)
             if self._updater is not None:
@@ -282,12 +306,59 @@ class KVStore:
             thr = self._compression_params["threshold"]
             words, new_res = quantize_2bit_group(flats, residuals, thr)
             ns = [f.numel() for f in flats]
-            deq, _ = dequantize_2bit_group(words, ns, thr)
+            if self._across():
+                deq = self._gathered_sum(words, ns, thr)
+            else:
+                deq, _ = dequantize_2bit_group(words, ns, thr)
             for (k, merged), res, part in zip(group, new_res,
                                               deq.to(dtype).split(ns)):
                 self._compression_residuals[k] = res
                 out[k] = part.view(merged.shape)
         return out
+
+    def _gathered_sum(self, words, ns, thr):
+        """Every worker's 2-bit words of a group, gathered (one collective),
+        dequantized by one grouped call over all of them and added in rank
+        order from zero: the sum, flat, in float32."""
+        n = self.num_workers
+        sizes = [w.numel() for w in words]
+        mine = torch.cat(words) if len(words) > 1 else words[0]
+        parts = [torch.empty_like(mine) for _ in range(n)]
+        _coll._call("kvstore push (2-bit words)", mine, None,
+                    lambda: _coll._dist().all_gather(parts, mine))
+        every = [w for p in parts for w in p.split(sizes)]
+        flat, _ = dequantize_2bit_group(every, ns * n, thr)
+        total = flat.new_zeros(sum(ns))
+        for r in flat.split(sum(ns)):
+            total = total + r
+        return total
+
+    def _sync_reduce(self, items):
+        """The sum over the workers of each (key, sum): one collective per
+        (device, dtype) on the flat concatenation. Returns {key: sum}."""
+        groups = {}
+        for k, merged in items:
+            groups.setdefault((merged.device, merged.dtype), []).append(
+                (k, merged))
+        out = {}
+        for group in groups.values():
+            flat = torch.cat([m.detach().reshape(-1) for _, m in group])
+            total = _coll.host_allreduce(flat)
+            for (k, merged), part in zip(group, total.split(
+                    [m.numel() for _, m in group])):
+                out[k] = part.view(merged.shape)
+        return out
+
+    def _barrier(self):
+        """Every worker waits for the others (ref: ps::Postoffice::Barrier,
+        src/kvstore/kvstore_dist.h:106)."""
+        if self._across():
+            _coll.host_barrier()
+
+    def send_command_to_servers(self, head, body):
+        """ref: kvstore.py _send_command_to_servers. There are no server
+        processes: every worker holds the store, so nothing is sent."""
+        del head, body
 
     # -- optimizer-state checkpointing ------------------------------------
     def save_optimizer_states(self, fname, dump_optimizer=False):
@@ -308,8 +379,8 @@ class KVStore:
     broadcast = nd_io(broadcast)
 
     def set_barrier_before_exit(self, barrier_before_exit):
-        """ref: include/mxnet/kvstore.h:334 (one process: nothing to wait
-        for)."""
+        """ref: include/mxnet/kvstore.h:334 (recorded, as the JAX package
+        records it)."""
         self._barrier_before_exit = barrier_before_exit
 
 
@@ -326,17 +397,24 @@ def _str_key_int(k):
 
 def create(name="local"):
     """A KVStore of kind ``name`` (ref: python/mxnet/kvstore.py:716):
-    ``local``, ``device``, ``nccl`` or ``tpu``, all one in-process store
-    here. The ``dist*`` kinds arrive with Slice E."""
+    ``local``, ``device``, ``nccl`` or ``tpu``, one in-process store, or
+    ``dist_sync``, ``dist_device_sync`` or ``dist``, one per worker
+    process over the default process group, which a dist kind joins from
+    ``MXTPU_COORDINATOR`` where the process has none yet
+    (``parallel.initialize_distributed``). ``dist_async`` belongs to
+    M10b."""
     if not isinstance(name, str):
         raise TypeError("name must be a string")
     kind = name.lower()
-    if kind in _DIST_KINDS:
-        raise NotImplementedError(
-            "KVStore %r: the multi-process kinds arrive with the multi-GPU "
-            "slice (Slice E); the port has the in-process kinds %s"
-            % (name, ", ".join(_LOCAL_KINDS)))
-    if kind not in _LOCAL_KINDS:
+    if kind not in _LOCAL_KINDS + _DIST_KINDS:
         raise ValueError("Unknown KVStore type %r (supported: %s)"
                          % (name, ", ".join(_LOCAL_KINDS + _DIST_KINDS)))
+    if kind == "dist_async":
+        raise NotImplementedError(
+            "KVStore 'dist_async': the asynchronous parameter server "
+            "belongs to M10b; the port has %s"
+            % ", ".join(k for k in _LOCAL_KINDS + _DIST_KINDS
+                        if k != "dist_async"))
+    if kind.startswith("dist") and getenv("MXTPU_COORDINATOR"):
+        _coll.initialize_distributed()
     return KVStore(kind)

@@ -5,7 +5,7 @@ executor_group.py:144, decide_slices :282).
 The reference binds one executor per device and slices each batch across
 them; the JAX package binds one program sharded over the contexts' mesh.
 The port binds one executor on one device: a ``contexts`` list of several
-devices raises until the multi-device slice (ROADMAP M10).
+devices raises until Module over several contexts (ROADMAP M10d).
 ``decide_slices`` stays, as BucketingModule and user code read it.
 """
 from __future__ import annotations
@@ -40,8 +40,8 @@ class DataParallelExecutorGroup:
         self.contexts = [Context(c) for c in contexts]
         if len(set(self.contexts)) > 1:
             raise MXNetError(
-                "Module over several devices %s arrives with the "
-                "multi-device slice (ROADMAP M10); bind one context"
+                "Module over several devices %s arrives with ROADMAP "
+                "M10d; bind one context"
                 % self.contexts)
         self.param_names = list(param_names)
         self.for_training = for_training

@@ -43,6 +43,7 @@ from ..kernels import batchnorm_fused as _bnf
 from ..kernels.batchnorm_fused import exact_mul, exact_sq, tree_fold_rows
 from ..precision import matmul_precision
 from ..remat import checkpoint_name
+from . import global_batch as _gb
 from .registry import register
 
 __all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
@@ -535,13 +536,22 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-3,
     caller (the gluon layer). A channels-last input (channel axis last)
     goes through ``kernels.batchnorm_fused.fused_batch_norm`` on every
     device, as the JAX package routes it to its kernel; channels-first
-    takes ``batch_moments`` and the normalize chain in plain torch.
-    Otherwise it normalizes with the running statistics."""
+    takes ``batch_moments`` and the normalize chain in plain torch. Inside
+    a data-parallel step across processes (``ops.global_batch``) both
+    layouts take the fused op with the global batch's statistics
+    (its ``across`` hook). Otherwise it normalizes with the running
+    statistics."""
     cax = axis % x.dim()
     g = torch.ones_like(gamma) if fix_gamma else gamma
     if _training and not use_global_stats:
+        across = _gb.mean_fn()
         if x.dim() >= 2 and cax == x.dim() - 1:
-            out, mean32, var32 = _bnf.fused_batch_norm(x, g, beta, eps=eps)
+            out, mean32, var32 = _bnf.fused_batch_norm(x, g, beta, eps=eps,
+                                                       across=across)
+        elif x.dim() >= 2 and across is not None:
+            out, mean32, var32 = _bnf.fused_batch_norm(
+                torch.movedim(x, cax, -1), g, beta, eps=eps, across=across)
+            out = torch.movedim(out, -1, cax)
         else:
             axes = tuple(i for i in range(x.dim()) if i != cax)
             mean32, var32 = batch_moments(x, axes, axis, fp32_out=True)
@@ -629,7 +639,9 @@ def dropout(x, key=None, p=0.5, mode="training", axes=(), _training=True,
         if axes else tuple(x.shape)
     keep = 1.0 - p
     gen = key if key is not None else _random.generator(x.device)
-    mask = torch.rand(shape, generator=gen, device=x.device) < keep
+    mask = _gb.dropout_rows(
+        shape, lambda s: torch.rand(s, generator=gen, device=x.device),
+        shared=0 in axes) < keep
     return torch.where(mask, x / weak_scalar(keep, x.dtype),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 

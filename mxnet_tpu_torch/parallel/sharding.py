@@ -11,16 +11,21 @@ to its rank, and a mesh axis that does not divide its dimension is dropped
 (divide or replicate). Every function yields the JAX package's spec for
 the same path, shape and mesh axis sizes.
 
-On a one-device mesh placing a parameter under any spec is moving it to
-the mesh's device. ``named_shardings``, ``host_array`` and
-``relayout_params`` place arrays across several devices and come with the
-multi-process slice (M10 in ROADMAP.md).
+Parameters are replicated: each rank holds every parameter whole on its
+own device, and the data-parallel step reduces the gradients. So placing a
+parameter is moving it to this rank's device (``relayout_params``), and a
+spec that splits a parameter raises: sharded parameters (``fsdp``,
+``tensor_parallel`` rules over a model axis) need DTensor placements and
+cross-rank norms, which belong to the LM's parallel modes (M10c in
+ROADMAP.md). ``named_shardings`` gives each spec's DTensor placements over
+the mesh (``NamedSharding.placements``).
 """
 from __future__ import annotations
 
 import re
 
 import numpy as _np
+import torch
 
 from .mesh import NamedSharding, PartitionSpec as P
 
@@ -29,7 +34,9 @@ __all__ = ["PartitionRules", "ShardingStrategy", "data_parallel", "fsdp",
            "host_array", "relayout_params", "match_partition_rules",
            "named_shardings"]
 
-_MULTI = "the multi-process slice (M10): arrays placed across devices"
+_SHARDED = ("parameters split across ranks (fsdp, tensor_parallel rules) "
+            "belong to the LM's parallel modes (M10c); the port replicates "
+            "every parameter")
 
 
 class PartitionRules:
@@ -153,8 +160,22 @@ def _as_rules(rules):
 
 
 def named_shardings(mesh, spec_tree):
-    """PartitionSpec tree -> sharding tree: waits for M10."""
-    raise NotImplementedError("named_shardings: " + _MULTI)
+    """PartitionSpec tree -> NamedSharding tree over ``mesh`` (each with
+    its DTensor ``placements``)."""
+    if isinstance(spec_tree, P):
+        return NamedSharding(mesh, spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: named_shardings(mesh, v) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, (list, tuple)):
+        return type(spec_tree)(named_shardings(mesh, v) for v in spec_tree)
+    return spec_tree
+
+
+def splits(spec, mesh):
+    """Whether a PartitionSpec splits any dimension over mesh axes of more
+    than one device."""
+    sizes = _mesh_sizes(mesh)
+    return any(_axis_size(sizes, p) > 1 for p in spec)
 
 
 class ShardingStrategy:
@@ -194,13 +215,31 @@ def make_param_sharding(mesh, params, rules):
 
 
 def host_array(a):
-    """One array staged to host numpy across devices: waits for M10."""
-    raise NotImplementedError("host_array: " + _MULTI)
+    """One array staged to host numpy: a tensor (or NDArray) whole, as
+    every rank holds a replicated one."""
+    t = getattr(a, "_data", a)
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy() if t.dtype != torch.bfloat16 \
+            else t.detach().float().cpu().numpy()
+    return _np.asarray(a)
 
 
 def relayout_params(params, strategy):
-    """Re-place a parameter tree on a rebuilt mesh: waits for M10."""
-    raise NotImplementedError("relayout_params: " + _MULTI)
+    """A ``{path: tensor}`` tree placed by ``strategy`` on its mesh: each
+    leaf staged through the host (its old device may be gone) and moved
+    to this rank's device. A spec that splits a leaf raises (M10c)."""
+    shardings = strategy.param_sharding(params)
+    for k, sh in shardings.items():
+        if splits(sh.spec, strategy.mesh):
+            raise NotImplementedError("relayout_params: %r has spec %s: %s"
+                                      % (k, tuple(sh.spec), _SHARDED))
+    dev = strategy.mesh.local_device()
+    out = {}
+    for k, v in params.items():
+        t = getattr(v, "_data", v)
+        t = t if isinstance(t, torch.Tensor) else torch.as_tensor(v)
+        out[k] = t.detach().to("cpu").to(dev, copy=True)
+    return out
 
 
 def data_parallel(mesh):

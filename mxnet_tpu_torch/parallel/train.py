@@ -1,6 +1,6 @@
-"""Sharded training step on a one-device mesh (counterpart of
-mxnet_tpu/parallel/train.py): gluon Block + loss + any registered
-optimizer -> one training step.
+"""Sharded training step (counterpart of mxnet_tpu/parallel/train.py):
+gluon Block + loss + any registered optimizer -> one training step, on one
+device or data-parallel across the ranks of a process group.
 
     step = ShardedTrainStep(net, loss_fn, optimizer, strategy)
     loss = step(x, y)          # float; step.step(x, y) returns a tensor
@@ -13,9 +13,35 @@ each path ``i`` in that order, and then writes the running-statistic
 updates the forward reported (``functional_call`` collects them) over
 those paths: the JAX package's step semantics, so that update counts and
 per-index optimizer state match its. The parameters are the step's own
-tensors on the mesh's device, updated in place; ``sync_to_block`` writes
+tensors on this rank's device, updated in place; ``sync_to_block`` writes
 them back into the block. ``donate`` has no effect (the update is in
 place), and ``lower()`` has no counterpart in eager PyTorch.
+
+Data parallelism (a mesh that spans a process group, ``create_mesh()``
+after ``initialize_distributed()``): every rank calls ``step(x, y)`` with
+the same global batch, takes its rows (the strategy's batch spec over the
+mesh) and holds every parameter whole. The two semantics of the JAX step
+are kept:
+
+- default (the JAX step's GSPMD program): BatchNorm normalizes with the
+  global batch's statistics and Dropout draws the global batch's mask
+  (``ops/global_batch.py``), so the moving statistics are the same on
+  every rank; the loss and the gradients are the global batch's mean
+  (each rank's mean scaled by its share, then summed over 'dp' by one
+  collective per bucket, ``overlap.bucketed_reduce``);
+- ``overlap_grads=True`` (the JAX step's ``shard_map`` program): the
+  parameters pass through ``overlap.tag_gradient_buckets``, whose
+  reductions (a mean over 'dp') start inside the backward; BatchNorm uses
+  this rank's rows, the moving statistics are averaged over 'dp', and
+  Dropout draws from a generator folded with the dp index
+  (``random.folded``). It requires a pure data-parallel strategy
+  (replicated parameters, the batch on 'dp'), with JAX's ``ValueError``
+  otherwise.
+
+Either way every rank applies the same update to the same parameters, so
+they stay equal. A strategy whose rules split a parameter raises
+(M10c); a mesh of several devices in one process raises, naming the
+launcher.
 
 ``remat_policy="conv_outs"`` keeps only the values tagged "conv_out",
 "pool_out" and "bn_stat" between the forward and the backward and
@@ -26,9 +52,6 @@ The JAX step records its first call (trace, XLA compile and first run)
 in the profiler's compile registry; here the first ``step()`` is recorded
 the same way, as ``sharded_step:<remat policy or none>``: its wall time
 holds the first-use kernel builds and cuDNN's plans.
-
-One device: a mesh over several devices, and ``overlap_grads``, raise and
-wait for the multi-process slice (M10 in ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -40,10 +63,14 @@ import torch
 
 from .. import autograd
 from .. import profiler as _profiler
+from .. import random as _random
 from .. import remat
 from ..gluon.block import _AUX
 from ..gluon.nn import HybridSequential
-from .sharding import data_parallel
+from ..ops import global_batch
+from . import overlap as _overlap
+from .collectives import _block, all_reduce, manual_axes
+from .sharding import _SHARDED, data_parallel, splits
 
 __all__ = ["functional_call", "extract_params", "attach_params",
            "ShardedTrainStep"]
@@ -149,28 +176,23 @@ def _random_replay(rng):
     return _random.replay(rng)
 
 
-def _device_of(mesh):
-    if mesh.size() != 1:
-        raise NotImplementedError(
-            "ShardedTrainStep: a mesh of %d devices; the port trains on one "
-            "device so far, meshes over several wait for the multi-process "
-            "slice (M10)" % mesh.size())
-    return mesh.devices.flat[0]
-
-
-def _to_tensor(a, device):
-    if isinstance(a, torch.Tensor):
-        return a.to(device)
-    return torch.from_numpy(_np.ascontiguousarray(a)).to(device)
+def _to_tensor(a, device, rows=None):
+    """``a`` on ``device``; with ``rows`` (a mesh and a batch spec) only
+    this rank's rows, cut before the copy where ``a`` is elsewhere."""
+    t = a if isinstance(a, torch.Tensor) \
+        else torch.from_numpy(_np.ascontiguousarray(a))
+    if rows is not None:
+        t = _block(rows[0], rows[1], t)
+    return t.to(device)
 
 
 class ShardedTrainStep:
-    """Training step of a (block, loss, optimizer) triple on a one-device
-    mesh (see the module docstring).
+    """Training step of a (block, loss, optimizer) triple on one device or
+    data-parallel across processes (see the module docstring).
 
-    - the parameters are the step's own copies on the mesh's device
-      (``strategy.param_sharding`` gives each its spec, which on one
-      device places it whole);
+    - the parameters are the step's own copies on this rank's device
+      (``strategy.param_sharding`` gives each its spec, which must not
+      split it);
     - optimizer state is created per path by
       ``create_state_multi_precision``, on that device;
     - running-statistic updates are applied after the optimizer's, over
@@ -184,24 +206,33 @@ class ShardedTrainStep:
             if mesh is None:
                 raise ValueError("need strategy or mesh")
             strategy = data_parallel(mesh)
-        if overlap_grads:
-            raise NotImplementedError(
-                "ShardedTrainStep(overlap_grads=True): bucketed gradient "
-                "collectives inside the backward need a mesh over several "
-                "devices, which waits for the multi-process slice (M10)")
         self.block = block
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.strategy = strategy
         self.mesh = strategy.mesh
-        self.device = _device_of(self.mesh)
+        params = extract_params(block)
+        self._param_paths = sorted(params)
+        self._shardings = strategy.param_sharding(params)
+        split = [k for k, sh in self._shardings.items()
+                 if splits(sh.spec, self.mesh)]
+        self._overlap = bool(overlap_grads)
+        if self._overlap and (strategy.batch_axes != ("dp",) or split):
+            raise ValueError(
+                "overlap_grads needs a pure data-parallel strategy "
+                "(replicated params, batch on 'dp'); got %r" % (strategy,))
+        if split:
+            raise NotImplementedError(
+                "ShardedTrainStep: %r splits %s: %s"
+                % (strategy, split[0], _SHARDED))
+        self.device = self.mesh.local_device()
+        self._spans = self.mesh.distributed
+        self._dp = self.mesh.size("dp") if "dp" in self.mesh.axis_names \
+            else 1
         self._remat_names = None
         if remat_policy:
             self._remat_names = _CONV_OUTS if remat_policy == "conv_outs" \
                 else tuple(remat_policy.split(","))
-        params = extract_params(block)
-        self._param_paths = sorted(params)
-        self._shardings = strategy.param_sharding(params)
         self.params = {}
         for k, v in params.items():
             t = v.detach().to(self.device, copy=True)
@@ -209,16 +240,27 @@ class ShardedTrainStep:
         self.opt_states = {
             path: optimizer.create_state_multi_precision(i, self.params[path])
             for i, path in enumerate(self._param_paths)}
+        # the paths with a gradient, and their reduction buckets
+        self._grad_idx = [i for i, p in enumerate(self._param_paths)
+                          if self.params[p].requires_grad]
+        self._plan = _overlap.bucket_plan(
+            [self.params[self._param_paths[i]] for i in self._grad_idx],
+            bucket_bytes) if self._spans or self._overlap else None
         self._segmented = any(isinstance(m, HybridSequential)
                               for m in block.modules())
         self._first = True      # the next step() is the first
 
     # -- the step ----------------------------------------------------------
     def _loss(self, x, y):
+        share = 1.0 / self._dp if self._spans and not self._overlap \
+            else None
+
         def loss_of(x, y):
             out = _plain(self.block(x))
             out = out[0] if isinstance(out, tuple) else out
-            return self.loss_fn(out, y).mean()
+            loss = self.loss_fn(out, y).mean()
+            # the default path: this rank's part of the global mean
+            return loss if share is None else loss * share
         if self._remat_names is None:
             return loss_of(x, y)
         with remat.scope(self._remat_names, segmented=self._segmented):
@@ -239,17 +281,65 @@ class ShardedTrainStep:
                 key="%d params" % len(self._param_paths),
                 dur_us=(_time.perf_counter() - t0) * 1e6)
             return loss
-        x, y = self._placed(x, y)
+        x, y = self._local(x, y)
+        with manual_axes(self.mesh):
+            return self._step(x, y)
+
+    def _step(self, x, y):
         plist = [self.params[p] for p in self._param_paths]
-        with _bound(self.block, self.params) as pmap:
-            with torch.enable_grad(), _collecting(True) as collected:
+        bound = self.params
+        if self._overlap:
+            tagged = _overlap.tag_gradient_buckets(
+                [plist[i] for i in self._grad_idx], "dp", plan=self._plan,
+                op="mean")
+            bound = dict(self.params)
+            for i, t in zip(self._grad_idx, tagged):
+                bound[self._param_paths[i]] = t
+        with _bound(self.block, bound) as pmap:
+            with torch.enable_grad(), _collecting(True) as collected, \
+                    self._batch_scope():
                 loss = self._loss(x, y)
             grads = iter(torch.autograd.grad(
                 loss, [p for p in plist if p.requires_grad],
                 allow_unused=True))
         grads = [next(grads) if p.requires_grad else None for p in plist]
-        self._apply(grads, _aux_by_path(pmap, collected))
+        aux = _aux_by_path(pmap, collected)
+        if self._overlap:
+            _overlap.wait_pending()
+            loss = all_reduce(loss.detach(), "dp", "mean")
+            if aux:
+                paths = sorted(aux)
+                aux = dict(zip(paths, _overlap.bucketed_reduce(
+                    [aux[p] for p in paths], "dp", op="mean")))
+        elif self._spans:
+            grads = self._reduce(grads)
+            loss = all_reduce(loss.detach(), "dp")
+        self._apply(grads, aux)
         return loss.detach()
+
+    def _reduce(self, grads):
+        """The default path's gradient sum over 'dp': one collective per
+        bucket of the parameter plan (a parameter without a gradient
+        takes zeros, as its update does)."""
+        full = [grads[i] if grads[i] is not None
+                else torch.zeros_like(self.params[self._param_paths[i]])
+                for i in self._grad_idx]
+        out = list(grads)
+        for i, g in zip(self._grad_idx, _overlap.bucketed_reduce(
+                full, "dp", plan=self._plan)):
+            out[i] = g
+        return out
+
+    def _batch_scope(self):
+        """The forward's view of the batch: the global batch on the default
+        path across processes, a generator folded with the dp index on the
+        overlap path, else this rank's (and only) batch."""
+        if not self._spans:
+            return contextlib.nullcontext()
+        index = self.mesh.axis_index("dp")
+        if self._overlap:
+            return _random.folded(self.device, index)
+        return global_batch.scope(self.mesh.group("dp"), self._dp, index)
 
     def _apply(self, grads, aux):
         """The update phase: the optimizer over every path in order (a
@@ -264,12 +354,17 @@ class ShardedTrainStep:
             for path, new in aux.items():
                 self.params[path].copy_(new)
 
-    def _placed(self, x, y):
-        return _to_tensor(x, self.device), _to_tensor(y, self.device)
+    def _local(self, x, y):
+        """This rank's rows of the global batch, on its device."""
+        rows = (self.mesh, self.strategy.batch_spec()) if self._spans \
+            else None
+        return (_to_tensor(x, self.device, rows),
+                _to_tensor(y, self.device, rows))
 
     def place_batch(self, x, y):
-        """The batch on the mesh's device (call once, then step on it)."""
-        return self._placed(x, y)
+        """The global batch on this rank's device (call once, then step on
+        it: each step takes its rows)."""
+        return _to_tensor(x, self.device), _to_tensor(y, self.device)
 
     def __call__(self, x, y):
         return float(self.step(x, y))

@@ -25,7 +25,7 @@ import threading
 
 import torch
 
-__all__ = ["seed", "generator", "get_state", "replay"]
+__all__ = ["seed", "generator", "get_state", "replay", "folded"]
 
 _MASK = 0xFFFFFFFFFFFFFFFF
 
@@ -113,3 +113,28 @@ def replay(state):
         yield host
     finally:
         _STATE.seed, _STATE.host, _STATE.cards = prev
+
+
+@contextlib.contextmanager
+def folded(device, index):
+    """Draw, inside the block, from a fresh generator of ``device`` seeded
+    by one draw of the host generator folded with ``index`` (the JAX
+    package's ``fold_in`` of a key with a data-parallel index): ranks that
+    share their generators' state draw different streams inside the block
+    and the same ones after it, since each has made the same one host
+    draw."""
+    base = int(torch.randint(0, 1 << 62, (1,), generator=_STATE.host)[0])
+    s = (base ^ ((int(index) + 1) * 0x9E3779B97F4A7C15)) & _MASK
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(s)
+    prev_host, prev_cards = _STATE.host, _STATE.cards
+    if device.type == "cuda":
+        _STATE.cards = dict(prev_cards)
+        _STATE.cards[_card_index(device)] = gen
+    else:
+        _STATE.host = gen
+    try:
+        yield gen
+    finally:
+        _STATE.host, _STATE.cards = prev_host, prev_cards

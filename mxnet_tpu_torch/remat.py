@@ -96,9 +96,11 @@ def region(fn, *args):
     from . import autograd
     from . import random as _random
     from .gluon.block import _AUX
+    from .ops import global_batch
     names = _STATE.names
     training = autograd.is_training()
     rng = _random.get_state()
+    batch = global_batch.active()
     runs = [0]
 
     def body(*a):
@@ -109,12 +111,15 @@ def region(fn, *args):
             if runs[0] == 1:
                 return fn(*a)
             # the backward's recompute, maybe on another thread: the first
-            # run's modes and random state, its aux updates dropped
+            # run's modes, random state and global batch (a data-parallel
+            # step's), its aux updates dropped
             prev_rec = autograd.set_recording(True)
             prev_train = autograd.set_training(training)
             _AUX.stack.append(None)
             try:
-                with _random.replay(rng):
+                with _random.replay(rng), (
+                        global_batch.scope(*batch) if batch is not None
+                        else contextlib.nullcontext()):
                     return fn(*a)
             finally:
                 _AUX.stack.pop()

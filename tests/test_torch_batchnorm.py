@@ -370,6 +370,72 @@ def test_stat_output_cotangents():
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("act", [None, "relu"])
+def test_across_identity_is_one_device_bit_for_bit(act):
+    """``across`` over one rank (the identity) leaves the op's outputs,
+    its gradients and the statistics' cotangent terms bit for bit as
+    without it."""
+    x, g, b = _mats(2, 5, 5, 8, seed=11)
+    dy = np.random.RandomState(12).randn(*x.shape).astype("float32")
+    res = []
+    for across in (None, lambda t: t):
+        tx, tg, tb = (torch.from_numpy(a).requires_grad_() for a in (x, g, b))
+        out, m, v = BN.fused_batch_norm(tx, tg, tb, act=act, across=across)
+        ((out * torch.from_numpy(dy)).sum() + (m * 3.0).sum()
+         + (v * 0.5).sum()).backward()
+        res.append([out, m, v, tx.grad, tg.grad, tb.grad])
+    for a, b_ in zip(*res):
+        assert np.array_equal(_bits(a.detach()), _bits(b_.detach()))
+
+
+def test_across_two_ranks_is_the_whole_batch():
+    """Two ranks (threads), each with half of the rows and ``across`` the
+    mean over both: the outputs, statistics and x gradients are the whole
+    batch's, and the ranks' gamma and beta gradients add up to it."""
+    import threading
+    x, g, b = _mats(4, 4, 4, 8, seed=13)
+    dy = np.random.RandomState(14).randn(*x.shape).astype("float32")
+    bar, slots = threading.Barrier(2), [None, None]
+
+    def across(rank):
+        def mean(t):
+            slots[rank] = t
+            bar.wait()
+            out = (slots[0] + slots[1]) / 2
+            bar.wait()
+            return out
+        return mean
+
+    res = [None, None]
+
+    def run(rank):
+        rows = slice(2 * rank, 2 * rank + 2)
+        tx, tg, tb = (torch.from_numpy(np.ascontiguousarray(a))
+                      .requires_grad_() for a in (x[rows], g, b))
+        out, m, v = BN.fused_batch_norm(tx, tg, tb, act="relu",
+                                        across=across(rank))
+        (out * torch.from_numpy(dy[rows])).sum().backward()
+        res[rank] = [t.detach() for t in (out, m, v, tx.grad, tg.grad,
+                                          tb.grad)]
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    tx, tg, tb = (torch.from_numpy(a).requires_grad_() for a in (x, g, b))
+    out, m, v = BN.fused_batch_norm(tx, tg, tb, act="relu")
+    (out * torch.from_numpy(dy)).sum().backward()
+    got = [torch.cat([res[0][0], res[1][0]]), res[0][1], res[0][2],
+           torch.cat([res[0][3], res[1][3]]), res[0][4] + res[1][4],
+           res[0][5] + res[1][5]]
+    assert torch.equal(res[0][1], res[1][1])
+    assert torch.equal(res[0][2], res[1][2])
+    for a, want in zip(got, (out, m, v, tx.grad, tg.grad, tb.grad)):
+        np.testing.assert_allclose(a.numpy(), want.detach().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
 def test_bf16_grads_keep_dtypes():
     x, g, b = _mats(2, 4, 4, 8, dtype="bfloat16")
     tx = torch.from_numpy(x).bfloat16().requires_grad_()

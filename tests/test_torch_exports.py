@@ -30,22 +30,17 @@ NON_GOALS = {
                "pop_trace_key"},
 }
 
-# Names of slices still to port: M10 (several devices and processes),
-# M11-S (sparse and NumPy arrays), M11-O (registry names), M11-X (the
-# native runtime).
+# Names of slices still to port: M10b (the asynchronous parameter server
+# and elastic training), M10c (the LM's parallel modes), M11-S (sparse and
+# NumPy arrays), M11-O (registry names), M11-X (the native runtime).
 NOT_YET = {
-    "parallel": {"shard_map", "all_reduce", "all_gather", "reduce_scatter",
-                 "all_to_all", "ppermute", "ring_exchange",
-                 "host_allreduce", "host_barrier", "num_hosts", "host_rank",
-                 "initialize_distributed", "tag_gradient_buckets",
-                 "bucketed_reduce", "ring_self_attention",
+    "parallel": {"ring_self_attention",
                  "ulysses_attention", "pipeline_stages", "PipelineStage",
                  "MoELayer", "top_k_routing", "elastic_train_loop",
                  "PreemptionGuard", "ElasticController", "HostGradReducer"},
     "parallel.elastic": {"elastic_train_loop", "PreemptionGuard",
                          "ElasticController", "HostGradReducer",
                          "publish_peer_snapshot", "restore_from_peer"},
-    "parallel.overlap": {"tag_gradient_buckets", "bucketed_reduce"},
     "parallel.ring_attention": {"ring_attention", "ring_self_attention"},
     "parallel.transformer": {"param_specs"},
     "ndarray.contrib": {"arange_like"},

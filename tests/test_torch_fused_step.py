@@ -209,12 +209,21 @@ def test_fallback_reasons_still_train(reason):
         assert not torch.equal(w, torch.from_numpy(_weights()["0.weight"]))
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()},
+@pytest.mark.parametrize("kw", [{"mesh": dict(dp=1, tp=2)},
                                 {"rules": [("w", None)]},
-                                {"bucket_bytes": 1 << 10}])
+                                {"mesh": dict(dp=1, fsdp=2),
+                                 "bucket_bytes": 1 << 10}])
 def test_multi_gpu_arguments_raise(kw):
+    """rules= and a mesh with a model axis (the GSPMD step over sharded
+    parameters) raise, naming M10c; a data-parallel mesh runs
+    (tests/test_torch_dist_train.py)."""
+    from mxnet_tpu_torch.parallel import create_mesh
     net = _net()
-    with pytest.raises(NotImplementedError):
+    kw = dict(kw)
+    if "mesh" in kw:
+        kw["mesh"] = create_mesh(devices=[torch.device("cpu")] * 2,
+                                 **kw["mesh"])
+    with pytest.raises(NotImplementedError, match="M10c"):
         mx.gluon.train_step(net, SoftmaxCrossEntropyLoss(), _trainer(net),
                             **kw)
 
@@ -265,7 +274,7 @@ def test_stats_count_fused_steps():
     fused_step.reset_stats()
     _run("fused", "float32", steps=2)
     assert fused_step.stats() == {"hits": 2, "fallbacks": 0,
-                                  "health_errors": 0}
+                                  "health_errors": 0, "mesh_fallbacks": 0}
     fused_step.reset_stats()
     assert fused_step.stats() == {"hits": 0, "fallbacks": 0,
-                                  "health_errors": 0}
+                                  "health_errors": 0, "mesh_fallbacks": 0}

@@ -345,12 +345,24 @@ def test_store_never_aliases_callers(compress):
 
 @pytest.mark.parametrize("kind", ["dist_sync", "dist_device_sync",
                                   "dist_async", "dist"])
-def test_dist_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        mx.kv.create(kind)
+def test_dist_kinds_raise(kind, monkeypatch):
+    """In one process a dist kind is a store of one worker, and a Trainer
+    given its name attaches it (updating on it); dist_async, the
+    asynchronous server, raises, naming M10b
+    (tests/test_torch_dist_kvstore.py runs two workers)."""
+    monkeypatch.delenv("MXTPU_COORDINATOR", raising=False)
     net = _net("float32")
-    with pytest.raises(NotImplementedError):
-        mx.gluon.Trainer(net.collect_params(), "sgd", kvstore=kind)
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd", kvstore=kind)
+    if kind == "dist_async":
+        with pytest.raises(NotImplementedError, match="M10b"):
+            mx.kv.create(kind)
+        with pytest.raises(NotImplementedError, match="M10b"):
+            tr._prepare()
+        return
+    kv = mx.kv.create(kind)
+    assert (kv.type, kv.rank, kv.num_workers) == (kind, 0, 1)
+    tr._prepare()
+    assert tr._kvstore.type == kind and tr._update_on_kvstore
 
 
 def test_create_kinds():

@@ -103,10 +103,17 @@ def test_mesh_scope_and_defaults():
     if not torch.cuda.is_available():
         with pytest.raises(mx.MXNetError):
             tmesh.create_mesh(dp=1)
-    for fn, args in ((tmesh.surviving_devices, ([0],)),
-                     (tmesh.shrink_mesh, (t, [0]))):
-        with pytest.raises(NotImplementedError, match="M10"):
-            fn(*args)
+    # every device of a one-process mesh is owned by rank 0 (JAX's
+    # process_index 0): with rank 0 dead none survives, in both packages
+    assert tmesh.surviving_devices([0], devices=CPU8) == [] == \
+        jmesh.surviving_devices([0])
+    assert tmesh.surviving_devices([1], devices=CPU8) == CPU8
+    assert len(jmesh.surviving_devices([1])) == 8
+    for shrink, mesh in ((tmesh.shrink_mesh, t),
+                         (jmesh.shrink_mesh, jmesh.create_mesh(dp=8))):
+        with pytest.raises(ValueError, match="no surviving devices"):
+            shrink(mesh, [0])
+        assert dict(shrink(mesh, [1]).shape)["dp"] == 8
 
 
 def _strategies(t, j):
@@ -200,10 +207,27 @@ def test_infer_rules_for_block_matches_jax(sizes):
 
 
 def test_multi_device_placement_waits_for_m10():
-    t, _ = _meshes(dict(dp=8))
-    for fn, args in ((tsh.named_shardings, (t, {})),
-                     (tsh.host_array, (np.zeros(2),)),
-                     (tsh.relayout_params, ({}, tsh.data_parallel(t)))):
-        with pytest.raises(NotImplementedError, match="M10"):
-            fn(*args)
+    """Placement over several devices: the specs of named_shardings equal
+    JAX's and read as DTensor placements; host_array stages a replicated
+    array whole; relayout_params places replicated trees on this
+    process's device, and on a mesh of eight devices in one process (the
+    port runs one device per process) raises, naming the launcher."""
+    t, j = _meshes(dict(dp=8))
+    specs = {"w": (), "x": ("dp", None)}
+    tn = tsh.named_shardings(t, {k: tmesh.PartitionSpec(*v)
+                                 for k, v in specs.items()})
+    jn = jsh.named_shardings(j, {k: jsh.P(*v) for k, v in specs.items()})
+    for k in specs:
+        assert tuple(tn[k].spec) == tuple(jn[k].spec)
+    assert [repr(p) for p in tn["x"].placements][0] == "Shard(dim=0)"
+    a = np.arange(6.0).reshape(2, 3)
+    np.testing.assert_array_equal(tsh.host_array(torch.from_numpy(a)),
+                                  jsh.host_array(jax.numpy.asarray(a)))
+    with pytest.raises(mx.MXNetError, match="launch.py"):
+        tsh.relayout_params({"w": torch.zeros(2)}, tsh.data_parallel(t))
+    one = tmesh.create_mesh(devices=CPU8[:1])
+    placed = tsh.relayout_params({"w": torch.from_numpy(a)},
+                                 tsh.data_parallel(one))
+    assert placed["w"].device.type == "cpu"
+    np.testing.assert_array_equal(placed["w"].numpy(), a)
     assert jax.device_count() == 8     # the JAX side saw eight devices

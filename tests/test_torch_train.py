@@ -319,10 +319,19 @@ def test_trainer_stale_gradient():
     assert torch.equal(net.weight._tensor(), w1)
 
 
-def test_trainer_rejects_distributed_kvstore():
+def test_trainer_rejects_distributed_kvstore(monkeypatch):
+    """A dist_sync string attaches that store, updating on it by default
+    (one process: one worker); dist_async, the asynchronous server, is
+    rejected, naming M10b."""
+    monkeypatch.delenv("MXTPU_COORDINATOR", raising=False)
     net = _dense()
-    with pytest.raises(NotImplementedError):
-        mx.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    tr._prepare()
+    assert tr._kvstore.type == "dist_sync" and tr._update_on_kvstore
+    assert tr._kvstore.num_workers == 1
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_async")
+    with pytest.raises(NotImplementedError, match="M10b"):
+        tr._prepare()
 
 
 def test_precision_policy_sets_both_tf32_switches():
